@@ -1,0 +1,80 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card (``cuda`` marker). Each test decides inside itself
+whether a card is there and skips with a reason where there is none.
+
+This file imports no JAX, so it also runs on a machine with a card and
+no JAX, without the JAX test harness::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Its numpy cases are shared with tests/test_torch_paged_attention.py,
+which holds the plain versions against trlx_tpu's Pallas kernels."""
+
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu_torch import ops
+from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
+from trlx_tpu_torch.models.transformer import NEG_INF, quantize_kv
+from trlx_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_reference,
+)
+
+
+def _kernel_case(seed=0):
+    """tests/test_paged_kernel.py's geometry (GQA, sentinel pages, ragged
+    lengths), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    S, H, Hkv, hd = 3, 4, 2, 16
+    num_pages, page_size, max_pages = 10, 4, 3
+    T = max_pages * page_size
+    q = rng.standard_normal((S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((num_pages, page_size, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((num_pages, page_size, Hkv, hd)).astype(np.float32)
+    pt = np.asarray([[1, 3, SENT], [0, SENT, SENT], [5, 6, 7]], np.int32)
+    lengths = np.asarray([6, 3, 12])
+    bias = np.where(np.arange(T)[None, :] < lengths[:, None], 0.0,
+                    NEG_INF).astype(np.float32)
+    return q, k, v, pt, bias
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    """The hand-written kernel against its plain version on the card:
+    fp32 (GQA + sentinels), the int8 tier, and bf16 with a fully masked
+    row. Runs on a machine with a CUDA card; skips elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, pt, bias = _kernel_case()
+    args = [_t(x).to(dev) for x in (q, k, v, pt, bias)]
+    before = ops.LAUNCHES["paged_decode"]
+    out = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_decode"] == before + 1
+    ref = paged_decode_attention_reference(*args)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+    kc, ks = quantize_kv(args[1])
+    vc, vs = quantize_kv(args[2])
+    out8 = paged_decode_attention(args[0], (kc, ks), (vc, vs), *args[3:])
+    ref8 = paged_decode_attention_reference(args[0], (kc, ks), (vc, vs),
+                                            *args[3:])
+    torch.testing.assert_close(out8, ref8, atol=1e-5, rtol=0)
+
+    qb = args[0].to(torch.bfloat16)
+    kb, vb = args[1].to(torch.bfloat16), args[2].to(torch.bfloat16)
+    pt_free, bias_free = args[3].clone(), args[4].clone()
+    pt_free[1] = SENT
+    bias_free[1] = NEG_INF
+    outb = paged_decode_attention(qb, kb, vb, pt_free, bias_free)
+    refb = paged_decode_attention_reference(qb.float(), kb, vb, pt_free,
+                                            bias_free)
+    assert torch.isfinite(outb.float()).all()
+    torch.testing.assert_close(outb.float(), refb, atol=1e-2, rtol=1e-2)

@@ -1,0 +1,52 @@
+"""The port stands alone: importing every ``trlx_tpu_torch`` module, and
+``chip_smoke.py``, in a fresh interpreter leaves ``jax`` and every
+``trlx_tpu`` module out of ``sys.modules`` (``trlx_tpu_torch`` itself
+shares that prefix, so the check compares package names, not string
+prefixes), starts no thread and builds no kernel."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, importlib.util, json, pkgutil, sys, threading
+import trlx_tpu_torch
+names = ["trlx_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(trlx_tpu_torch.__path__,
+                                          "trlx_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from trlx_tpu_torch.ops import _build
+print(json.dumps({
+    "imported": names,
+    "modules": sorted(sys.modules),
+    "threads": threading.active_count(),
+    "built": sorted(_build.BUILD_INFO),
+}))
+"""
+
+
+def test_port_imports_no_jax_and_no_trlx_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "trlx_tpu_torch.serve.slots" in report["imported"]
+    assert "trlx_tpu_torch.ops.paged_attention" in report["imported"]
+    leaked = [
+        m for m in report["modules"]
+        if m.split(".")[0] in ("jax", "jaxlib", "trlx_tpu", "flax", "optax")
+    ]
+    assert leaked == []
+    assert report["threads"] == 1
+    assert report["built"] == []

@@ -1,0 +1,18 @@
+"""trlx_tpu_torch: the PyTorch/CUDA port of trlx_tpu, slice by slice.
+
+The package mirrors ``trlx_tpu``'s module layout and public names so a
+reader finds each counterpart, but imports ``torch`` and never ``jax``
+or anything of ``trlx_tpu`` (it keeps its own copies of what it needs).
+Every Pallas kernel on a ported path is a hand-written Hopper kernel
+under ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).
+
+Ported so far: the serving path — config, byte tokenizer, telemetry,
+the functional transformer (dense, dense-with-cache and paged modes),
+paged slot-pool prefill/decode, the paged-decode attention kernel, the
+page allocator + radix prefix cache, the continuous-batching slot
+scheduler, the inference engine, its HTTP server and CLI
+(``python -m trlx_tpu_torch.serve``).
+
+Importing the package does nothing else: no CUDA initialisation, no
+kernel build, no thread.
+"""

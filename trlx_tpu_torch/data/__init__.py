@@ -1,0 +1,15 @@
+"""Typed configuration (port of trlx_tpu.data; configs only in this slice)."""
+
+from trlx_tpu_torch.data.configs import (  # noqa: F401
+    ModelConfig,
+    ModelSpec,
+    TrainConfig,
+    TRLConfig,
+)
+from trlx_tpu_torch.data.method_configs import (  # noqa: F401
+    ILQLConfig,
+    MethodConfig,
+    PPOConfig,
+    filter_known_fields,
+    get_method,
+)

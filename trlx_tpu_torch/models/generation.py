@@ -1,0 +1,391 @@
+"""Slot-pool serving primitives over a PAGED KV pool (port of
+trlx_tpu.models.generation ``:588-925`` and ``:1136-1244``).
+
+- :func:`prefill_into_slots` writes a prompt bucket's KV into the page
+  pool through per-row page tables and leaves each slot's first-step
+  logits in its lanes; with ``prefix_context=True`` the (unmatched)
+  suffix attends to committed prefix pages — the radix-cache path.
+- :func:`decode_step` emits ONE token for every slot: free and finished
+  slots ride along (static shapes) but emit nothing and their writes go
+  to the pool's drop page.
+
+Under greedy decode a row's tokens are identical to decoding it alone:
+masked positions contribute exactly zero probability. The contiguous
+per-slot pool, ``generate()`` and ``verify_step`` are not ported in
+this slice.
+
+Torch vs JAX, made explicit here: JAX's ``mode="drop"`` scatters become
+host-side filtering (filler rows at ``slot_id == num_slots``), masked
+writes (``offset == T`` on finished slots) and the pool's drop page
+(sentinel page ids); the pool is updated IN PLACE; the per-slot lanes
+(:class:`SlotState`) are returned as new tensors, as in JAX.
+"""
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.data.configs import ModelSpec
+from trlx_tpu_torch.models.transformer import (
+    NEG_INF,
+    ArchFlags,
+    apply_blocks_with_cache,
+    attention_scores,
+    block_apply,
+    causal_mask_bias,
+    embed_tokens,
+    init_kv_cache,
+    init_paged_kv_cache,
+    layer_norm,
+    layer_params,
+    num_layers,
+    project_logits,
+    quantize_kv,
+    tree_map,
+)
+from trlx_tpu_torch.ops.sampling import SamplingParams, sample_token
+
+
+class GenerationConfig(NamedTuple):
+    """Decode settings the slot primitives read (``gen_size`` is kept for
+    signature parity; slots cap per request through ``max_new``)."""
+
+    gen_size: int
+    sampling: SamplingParams = SamplingParams()
+    eos_token_id: int = -1  # -1 disables eos termination
+    pad_token_id: int = 0
+    min_new_tokens: int = 0  # eos suppressed before this many tokens
+
+
+class SlotState(NamedTuple):
+    """Per-slot decode lanes riding next to the KV pool (all leading-S).
+
+    ``valid`` [S, T] int32 marks pool positions holding real keys;
+    ``offset`` the next write position, ``pos`` the next logical
+    position, ``generated`` the emitted count against ``max_new``;
+    ``active`` host occupancy, ``finished`` terminal-for-decode;
+    ``logits`` [S, V] float32 each slot's next-token distribution;
+    ``pages`` [S, max_pages] int32 the per-slot page table
+    (unallocated entries at :data:`PAGE_SENTINEL`).
+    """
+
+    valid: torch.Tensor
+    offset: torch.Tensor
+    pos: torch.Tensor
+    generated: torch.Tensor
+    max_new: torch.Tensor
+    active: torch.Tensor
+    finished: torch.Tensor
+    logits: torch.Tensor
+    pages: torch.Tensor
+
+
+#: page-table entry meaning "no page here": past any real pool's page
+#: count, so writes through it go to the drop page and reads clamp into
+#: masked garbage
+PAGE_SENTINEL = 2**30
+
+
+def init_slot_state(num_slots: int, buffer_len: int, vocab_size: int,
+                    max_pages: int, device=None) -> SlotState:
+    """An all-free pool state: nothing active, everything finished."""
+    S = num_slots
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return SlotState(
+        valid=zeros(S, buffer_len),
+        offset=zeros(S),
+        pos=zeros(S),
+        generated=zeros(S),
+        max_new=zeros(S),
+        active=zeros(S, dtype=torch.bool),
+        finished=torch.ones((S,), dtype=torch.bool, device=device),
+        logits=zeros(S, vocab_size, dtype=torch.float32),
+        pages=torch.full((S, max_pages), PAGE_SENTINEL, dtype=torch.int32,
+                         device=device),
+    )
+
+
+def init_page_pool(spec: ModelSpec, seg_sizes, num_pages: int,
+                   page_size: int, cache_dtype=torch.bfloat16, device=None):
+    """Per-segment (k, v) page pools [L_seg, num_pages + 1, page_size,
+    Hkv, hd] (the last page is the drop page)."""
+    return tuple(
+        init_paged_kv_cache(spec, size, num_pages, page_size, cache_dtype,
+                            device)
+        for size in seg_sizes
+    )
+
+
+def _segments_of(blocks):
+    segments = tuple(blocks) if isinstance(blocks, (list, tuple)) \
+        else (blocks,)
+    return segments, [num_layers(s) for s in segments]
+
+
+def _kv_layer(entry, i):
+    """Layer ``i`` of one side of a pool entry (tensor or (codes,
+    scales)) — views, so writes land in the pool."""
+    return tree_map(lambda x: x[i], entry)
+
+
+def _pool_page_geometry(pool):
+    """(num_pages, page_size) of a page pool in either KV tier."""
+    k0 = pool[0][0]
+    k0 = k0[0] if isinstance(k0, (tuple, list)) else k0
+    return k0.shape[1] - 1, k0.shape[2]
+
+
+def _as(x, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                           device=device).to(dtype)
+
+
+def _set_rows(t: torch.Tensor, rows: torch.Tensor, vals) -> torch.Tensor:
+    out = t.clone()
+    out[rows] = torch.as_tensor(vals, device=t.device).to(t.dtype)
+    return out
+
+
+def prefill_into_slots(
+    spec: ModelSpec,
+    blocks,
+    embed,
+    ln_f,
+    pool,
+    state: SlotState,
+    prompt_tokens,  # [Bp, P] right-padded
+    prompt_mask,  # [Bp, P]
+    slot_ids,  # [Bp] host ints; == num_slots -> dropped filler row
+    max_new,  # [Bp] per-request cap
+    compute_dtype=torch.bfloat16,
+    attention_fn=attention_scores,
+    page_tables=None,  # [Bp, max_pages] int32
+    page_size: Optional[int] = None,
+    start=None,  # [Bp] page-aligned committed prefix length
+    prefix_context: bool = False,
+):
+    """Write a prompt bucket's KV + first-step logits into pool slots.
+
+    Tokens are RIGHT-padded: a slot's buffer position equals its logical
+    position, so requests sharing a token prefix share identical page
+    content (what makes radix prefix caching content-addressable).
+    ``start`` is each row's committed prefix length; the tokens passed
+    are only the unmatched suffix, written at logical positions
+    ``start + j``. ``prefix_context=True`` makes the suffix attend to the
+    committed prefix pages gathered from the pool; ``False`` (all-zero
+    ``start``) keeps attention local to the prompt — a local causal
+    prefill whose cache takes the POOL's dtype, then one block-scatter.
+    First-step logits come from each row's last REAL suffix token.
+
+    Returns ``(pool, state)``: the pool updated in place, new lanes.
+    """
+    if page_tables is None:
+        raise NotImplementedError(
+            "the contiguous slot pool is not ported; pass page_tables "
+            "(the paged layout)"
+        )
+    dev = state.valid.device
+    tokens = _as(prompt_tokens, dev, torch.long)
+    mask = _as(prompt_mask, dev, torch.int32)
+    B, P = tokens.shape
+    S, T = state.valid.shape
+    if P > T:
+        raise ValueError(
+            f"prefill prompt_len {P} exceeds the slot buffer length {T}"
+        )
+    if page_size is None or page_size <= 0:
+        raise ValueError(f"paged prefill needs page_size, got {page_size}")
+    pt = _as(page_tables, dev, torch.int32)
+    max_pages = pt.shape[1]
+    if max_pages * page_size != T:
+        raise ValueError(
+            f"page table extent {max_pages} x {page_size} != slot buffer "
+            f"length {T}"
+        )
+    segments, seg_sizes = _segments_of(blocks)
+    flags = ArchFlags.for_spec(spec)
+    suffix_len = mask.long().sum(-1)
+    start = torch.zeros(B, dtype=torch.long, device=dev) if start is None \
+        else _as(start, dev, torch.long)
+    real_len = start + suffix_len
+    positions = start[:, None] + torch.arange(P, device=dev)[None, :]
+    h = embed_tokens(embed, spec, tokens, positions, compute_dtype)
+
+    num_pages, _ = _pool_page_geometry(pool)
+    quantized = isinstance(pool[0][0], (tuple, list))
+    if not prefix_context:
+        # local causal prefill, then one block-scatter into the pages;
+        # the int8 tier quantizes once at the scatter from the compute
+        # dtype, as decode does (page content stays a function of tokens)
+        cache_dtype = compute_dtype if quantized else pool[0][0].dtype
+        bias = causal_mask_bias(mask)
+        pos_buf = torch.arange(P, device=dev)
+        pids = pt.long()[:, pos_buf // page_size]  # [Bp, P]
+        pids = torch.where((pids >= 0) & (pids < num_pages), pids,
+                           torch.full_like(pids, num_pages))
+        ioff = pos_buf % page_size
+        for seg, size, (k_pool, v_pool) in zip(segments, seg_sizes, pool):
+            if size == 0:
+                continue
+            cache = init_kv_cache(spec, size, B, P, cache_dtype, dev)
+            h, (k_new, v_new) = apply_blocks_with_cache(
+                seg, cache, spec, h, bias, positions, 0, attention_fn,
+            )
+            if quantized:
+                (k_codes, k_sc), (v_codes, v_sc) = k_pool, v_pool
+                kq, ks = quantize_kv(k_new)
+                vq, vs = quantize_kv(v_new)
+                k_codes[:, pids, ioff] = kq
+                k_sc[:, pids, ioff] = ks
+                v_codes[:, pids, ioff] = vq
+                v_sc[:, pids, ioff] = vs
+            else:
+                k_pool[:, pids, ioff] = k_new
+                v_pool[:, pids, ioff] = v_new
+    else:
+        # key position p is visible to suffix token j of row b iff
+        # p <= start[b] + j (causality over LOGICAL positions)
+        allowed = torch.arange(T, device=dev)[None, None, :] \
+            <= positions[:, :, None]
+        bias = torch.where(
+            allowed, torch.tensor(0.0, device=dev),
+            torch.tensor(NEG_INF, device=dev),
+        ).float()[:, None]  # [Bp, 1, P, T]
+        for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
+            for i in range(size):
+                h, _ = block_apply(
+                    spec, flags, layer_params(seg, i), h, bias, positions,
+                    kv_cache=(_kv_layer(k_c, i), _kv_layer(v_c, i)),
+                    cache_row_offsets=start, page_table=pt,
+                    page_size=page_size, attention_fn=attention_fn,
+                )
+
+    last_idx = (suffix_len - 1).clamp(min=0)
+    h_last = h[torch.arange(B, device=dev), last_idx]  # [Bp, D]
+    logits0 = project_logits(
+        embed, spec, layer_norm(ln_f, h_last, spec.layer_norm_epsilon)
+    )
+
+    # filler rows (slot_id outside [0, S)) are dropped on the host
+    slot_ids = np.asarray(
+        slot_ids.cpu() if torch.is_tensor(slot_ids) else slot_ids
+    ).astype(np.int64)
+    keep = np.nonzero((slot_ids >= 0) & (slot_ids < S))[0]
+    if keep.size == 0:
+        return pool, state
+    sel = torch.as_tensor(keep, device=dev)
+    rows = torch.as_tensor(slot_ids[keep], device=dev)
+    real = real_len[sel]
+    valid_rows = (torch.arange(T, device=dev)[None, :] < real[:, None])
+    caps = torch.minimum(_as(max_new, dev, torch.long)[sel].clamp(min=0),
+                         T - real)
+    new_state = SlotState(
+        valid=_set_rows(state.valid, rows, valid_rows),
+        offset=_set_rows(state.offset, rows, real),
+        pos=_set_rows(state.pos, rows, real),
+        generated=_set_rows(state.generated, rows, 0),
+        max_new=_set_rows(state.max_new, rows, caps),
+        active=_set_rows(state.active, rows, True),
+        finished=_set_rows(state.finished, rows, False),
+        logits=_set_rows(state.logits, rows, logits0[sel]),
+        pages=_set_rows(state.pages, rows, pt[sel]),
+    )
+    return pool, new_state
+
+
+def decode_step(
+    spec: ModelSpec,
+    blocks,
+    embed,
+    ln_f,
+    pool,
+    state: SlotState,
+    generator: Optional[torch.Generator],
+    config: GenerationConfig,
+    compute_dtype=torch.bfloat16,
+    attention_fn=attention_scores,
+    paged_decode_fn=None,
+):
+    """One decode step for every pool slot: sample from each slot's
+    carried logits, forward the sampled tokens against the pool at
+    per-slot offsets/positions, advance the lanes.
+
+    Non-emitting slots (free, finished, harvested-awaiting-reuse) aim
+    their page table at the sentinel so their writes vanish — a
+    harvested slot's pages may already belong to another slot.
+    ``paged_decode_fn`` (``serve.attention: pallas``) is handed to every
+    layer's ``block_apply``; ``None`` keeps the plain gather path.
+
+    Returns ``(pool, state, tokens [S] int32, emitted [S], finished
+    [S])`` with the pool updated in place.
+    """
+    S, T = state.valid.shape
+    dev = state.valid.device
+    segments, seg_sizes = _segments_of(blocks)
+    flags = ArchFlags.for_spec(spec)
+
+    step_logits = state.logits
+    if config.eos_token_id >= 0 and config.min_new_tokens > 0:
+        suppress = state.generated < config.min_new_tokens
+        step_logits = step_logits.clone()
+        eos_col = step_logits[:, config.eos_token_id]
+        step_logits[:, config.eos_token_id] = torch.where(
+            suppress, torch.full_like(eos_col, NEG_INF), eos_col
+        )
+    tok = sample_token(generator, step_logits, config.sampling)
+    emitted = state.active & ~state.finished
+    tok = torch.where(emitted, tok, torch.full_like(tok, config.pad_token_id))
+    finished = state.finished
+    if config.eos_token_id >= 0:
+        finished = finished | (emitted & (tok == config.eos_token_id))
+    generated = state.generated + emitted.int()
+    finished = finished | (state.active & (generated >= state.max_new))
+
+    # mark the fresh token's position valid BEFORE attention (it attends
+    # to itself); a finished slot's offset may equal T — that write drops
+    rows = torch.arange(S, device=dev)
+    off = state.offset.long()
+    off_c = off.clamp(max=T - 1)
+    valid = state.valid.clone()
+    valid[rows, off_c] = torch.where(off < T, emitted.int(),
+                                     valid[rows, off_c])
+    bias = torch.where(
+        valid > 0, torch.tensor(0.0, device=dev),
+        torch.tensor(NEG_INF, device=dev),
+    ).float()[:, None, None, :]
+    pos = state.pos.long()[:, None]
+    h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
+    num_pages, page_size = _pool_page_geometry(pool)
+    pt_step = torch.where(
+        emitted[:, None], state.pages,
+        torch.full_like(state.pages, num_pages),
+    ).contiguous()
+    for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
+        for i in range(size):
+            h, _ = block_apply(
+                spec, flags, layer_params(seg, i), h, bias, pos,
+                kv_cache=(_kv_layer(k_c, i), _kv_layer(v_c, i)),
+                cache_row_offsets=state.offset, page_table=pt_step,
+                page_size=page_size, attention_fn=attention_fn,
+                paged_decode_fn=paged_decode_fn,
+            )
+    h_normed = layer_norm(ln_f, h, spec.layer_norm_epsilon)
+    next_logits = project_logits(embed, spec, h_normed)[:, 0]
+
+    adv = emitted.int()
+    new_state = SlotState(
+        valid=valid,
+        offset=state.offset + adv,
+        pos=state.pos + adv,
+        generated=generated,
+        max_new=state.max_new,
+        active=state.active,
+        finished=finished,
+        logits=next_logits,
+        pages=state.pages,
+    )
+    return pool, new_state, tok.int(), emitted, finished

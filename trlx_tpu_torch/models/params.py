@@ -1,0 +1,169 @@
+"""Weights carried across: trlx_tpu param trees -> the port's decode views.
+
+The port serves from DECODE VIEWS: ``DecodeViews(blocks, embed, ln_f)``
+where ``blocks`` is the (trunk, trainable-top) pair of stacked block
+segments, ``embed`` holds wte (+ wpe, + lm_head when untied) and
+``ln_f`` the final norm — the same split trlx_tpu's engine strips a
+hydra tree to (``policy.py:261-282``), leaf for leaf.
+
+- :func:`decode_views_from_numpy` maps a trlx_tpu hydra tree given as
+  nested dicts of numpy arrays (what ``jax.device_get`` returns);
+- :func:`init_decode_views` makes a numpy-seeded random policy in the
+  same structure (for card runs, where no JAX exists);
+- :func:`views_to` places views on a device for serving;
+- :func:`save_decode_views` / :func:`load_decode_views` are the
+  ``torch.save`` file the serve CLI's ``--weights`` reads.
+"""
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.data.configs import ModelSpec
+from trlx_tpu_torch.models.policy import (
+    all_blocks,
+    head_params_for_decode,
+    resolve_num_unfrozen,
+)
+from trlx_tpu_torch.models.transformer import ArchFlags, num_layers, tree_map
+
+Params = Dict[str, Any]
+
+#: norm subtrees keep their own (float32) dtype at any compute dtype —
+#: layer_norm reads them in float32, so casting them would change numerics
+_NORM_KEYS = ("ln_1", "ln_2")
+
+
+class DecodeViews(NamedTuple):
+    blocks: Tuple[Params, Params]  # (trunk, trainable top) stacked segments
+    embed: Params
+    ln_f: Params
+
+
+def _to_torch(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True, order="C"))
+
+
+def decode_views_from_numpy(hydra_tree: Params, spec: ModelSpec,
+                            num_layers_unfrozen: int) -> DecodeViews:
+    """A trlx_tpu hydra param tree (nested dicts of numpy arrays) -> CPU
+    torch decode views. Checks the trunk/top split against
+    ``num_layers_unfrozen``."""
+    bottom, top = all_blocks(hydra_tree)
+    embed, ln_f = head_params_for_decode(hydra_tree)
+    k = resolve_num_unfrozen(spec, num_layers_unfrozen)
+    n_bottom, n_top = num_layers(bottom), num_layers(top)
+    if n_top != k or n_bottom + n_top != spec.n_layer:
+        raise ValueError(
+            f"param tree splits {n_bottom} + {n_top} layers but the spec "
+            f"has {spec.n_layer} with num_layers_unfrozen="
+            f"{num_layers_unfrozen}"
+        )
+    return DecodeViews(
+        blocks=(tree_map(_to_torch, bottom), tree_map(_to_torch, top)),
+        embed=tree_map(_to_torch, embed),
+        ln_f=tree_map(_to_torch, ln_f),
+    )
+
+
+def init_hydra_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
+                     seed: int = 0) -> Params:
+    """A random hydra tree (the decode half: frozen_base + trainable, no
+    reference branch or value head) with trlx_tpu's init scheme —
+    N(0, 0.02) matrices, residual projections scaled by
+    1/sqrt(2 * n_layer), zero biases, unit norm scales — drawn from a
+    numpy generator seeded with ``seed``. float32 throughout."""
+    rng = np.random.default_rng(seed)
+    flags = ArchFlags.for_spec(spec)
+    L, d, f, V = spec.n_layer, spec.d_model, spec.d_ff, spec.vocab_size
+    d_kv = spec.kv_heads * spec.head_dim
+    resid = 0.02 / max(2 * L, 1) ** 0.5
+
+    def normal(shape, scale=0.02):
+        return (rng.standard_normal(shape, dtype=np.float32) * scale)
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    def norm():
+        p = {"scale": np.ones((L, d), np.float32)}
+        if not flags.rmsnorm:
+            p["bias"] = zeros(L, d)
+        return p
+
+    blocks = {
+        "ln_1": norm(),
+        "attn": {
+            "wq": normal((L, d, d)), "wk": normal((L, d, d_kv)),
+            "wv": normal((L, d, d_kv)), "wo": normal((L, d, d), resid),
+        },
+        "mlp": {"w_in": normal((L, d, f)), "w_out": normal((L, f, d), resid)},
+    }
+    if flags.swiglu:
+        blocks["mlp"]["w_gate"] = normal((L, d, f))
+    else:
+        blocks["mlp"]["b_in"] = zeros(L, f)
+        blocks["mlp"]["b_out"] = zeros(L, d)
+    if flags.attn_bias:
+        blocks["attn"].update(bq=zeros(L, d), bk=zeros(L, d_kv),
+                              bv=zeros(L, d_kv), bo=zeros(L, d))
+    if flags.separate_mlp_ln:
+        blocks["ln_2"] = norm()
+    embed = {"wte": normal((V, d))}
+    if not flags.use_rotary:
+        embed["wpe"] = normal((spec.n_positions, d), 0.01)
+    ln_f = {"scale": np.ones((d,), np.float32)}
+    if not flags.rmsnorm:
+        ln_f["bias"] = zeros(d)
+    k = resolve_num_unfrozen(spec, num_layers_unfrozen)
+    trainable = {
+        "blocks": tree_map(lambda x: x[L - k:], blocks), "ln_f": ln_f,
+    }
+    if not spec.tie_lm_head:
+        trainable["lm_head"] = {"w": normal((d, V)), "b": zeros(V)}
+    return {
+        "frozen_base": {"embed": embed,
+                        "blocks": tree_map(lambda x: x[:L - k], blocks)},
+        "trainable": trainable,
+    }
+
+
+def init_decode_views(spec: ModelSpec, seed: int = 0,
+                      num_layers_unfrozen: int = -1) -> DecodeViews:
+    """Seeded random decode views (CPU, float32)."""
+    return decode_views_from_numpy(
+        init_hydra_numpy(spec, num_layers_unfrozen, seed), spec,
+        num_layers_unfrozen,
+    )
+
+
+def views_to(views: DecodeViews, device, compute_dtype) -> DecodeViews:
+    """Views on ``device`` for serving: matmul weights, biases and
+    embeddings stored in ``compute_dtype`` (every use casts them to it
+    anyway, so pre-casting changes no result and halves bf16 memory);
+    norm parameters keep float32."""
+
+    def place(tree, keep):
+        if isinstance(tree, dict):
+            return {k: place(v, keep or k in _NORM_KEYS)
+                    for k, v in tree.items()}
+        dtype = tree.dtype if keep or not tree.is_floating_point() \
+            else compute_dtype
+        return tree.to(device=device, dtype=dtype)
+
+    return DecodeViews(
+        blocks=tuple(place(seg, False) for seg in views.blocks),
+        embed=place(views.embed, False),
+        ln_f=place(views.ln_f, True),
+    )
+
+
+def save_decode_views(views: DecodeViews, path: str) -> None:
+    torch.save({"blocks": list(views.blocks), "embed": views.embed,
+                "ln_f": views.ln_f}, path)
+
+
+def load_decode_views(path: str) -> DecodeViews:
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    return DecodeViews(tuple(data["blocks"]), data["embed"], data["ln_f"])

@@ -1,0 +1,114 @@
+"""``python -m trlx_tpu_torch.serve`` — a config and weights in, an HTTP
+endpoint out.
+
+The config file is a trlx_tpu training config (YAML, or the same
+three-section layout as JSON); its ``serve:`` section sizes the bucket
+lattice and the slot pool, and the flags below win over it. Weights are
+a ``torch.save`` file of the port's decode views (``--weights``, see
+trlx_tpu_torch.models.params) or, without it, a random policy made from
+``--seed``. The server runs on the card unless ``--device cpu``.
+
+Example::
+
+    python -m trlx_tpu_torch.serve --config configs/test_config.yml \\
+        --buckets 4x16x16,8x16x16 --slots 8 --page-size 8 \\
+        --attention pallas --port 8080
+"""
+
+import argparse
+import json
+import sys
+
+from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.models.params import load_decode_views
+from trlx_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+from trlx_tpu_torch.serve.server import InferenceServer
+
+
+def parse_buckets(spec: str):
+    """"8x32x16,16x64x32" -> [[8, 32, 16], [16, 64, 32]] (BxPxG)."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        dims = part.lower().split("x")
+        if len(dims) != 3:
+            raise ValueError(
+                f"bucket '{part}' is not BATCHxPROMPTxGEN (e.g. 8x32x16)"
+            )
+        out.append([int(d) for d in dims])
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m trlx_tpu_torch.serve",
+        description="Serve a policy over HTTP with the PyTorch/CUDA port.",
+    )
+    p.add_argument("--config", required=True,
+                   help="training config, YAML (needs pyyaml) or JSON")
+    p.add_argument("--weights", default=None,
+                   help="torch.save file of decode views; default: a "
+                        "random policy made from --seed")
+    p.add_argument("--seed", type=int, default=None,
+                   help="random-init and sampling seed (serve.seed)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="default: cuda (raises without a card)")
+    p.add_argument("--buckets", default=None,
+                   help="comma-separated BATCHxPROMPTxGEN lattice, e.g. "
+                        "'8x16x48,16x16x48' (overrides the serve: section)")
+    p.add_argument("--slots", type=int, default=None,
+                   help="slot-pool size (0 = largest batch extent)")
+    p.add_argument("--page-size", type=int, default=None,
+                   help="tokens per KV page (also the prefix-cache "
+                        "sharing granularity)")
+    p.add_argument("--attention", choices=("jnp", "pallas"), default=None,
+                   help="decode attention: 'jnp' (default) = plain torch "
+                        "gather + attention; 'pallas' = the hand-written "
+                        "paged-decode kernel")
+    p.add_argument("--host", default=None)
+    p.add_argument("--port", type=int, default=None)
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the warmup pass over every admission bucket")
+    return p
+
+
+def load_config_file(path: str) -> dict:
+    with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml  # only YAML configs need pyyaml
+
+        return yaml.safe_load(f)
+
+
+def serve_config_from_args(args, raw: dict) -> ServeConfig:
+    """The config's serve: section with CLI flags layered on top."""
+    cfg = ServeConfig.from_dict(raw.get("serve") or {})
+    if args.buckets is not None:
+        cfg.buckets = parse_buckets(args.buckets)
+    for flag, attr in (("seed", "seed"), ("slots", "slots"),
+                       ("page_size", "page_size"),
+                       ("attention", "attention"), ("host", "host"),
+                       ("port", "port")):
+        value = getattr(args, flag)
+        if value is not None:
+            setattr(cfg, attr, value)
+    return cfg
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    raw = load_config_file(args.config)
+    serve_cfg = serve_config_from_args(args, raw)
+    views = load_decode_views(args.weights) if args.weights else None
+    engine = InferenceEngine(TRLConfig.from_dict(raw), serve=serve_cfg,
+                             views=views, device=args.device)
+    server = InferenceServer(engine).start(warmup=not args.no_warmup)
+    server.serve_forever()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

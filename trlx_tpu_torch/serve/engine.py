@@ -1,0 +1,302 @@
+"""Inference engine: a policy's decode views + the serving lattice (port of
+trlx_tpu.serve.engine).
+
+:class:`InferenceEngine` holds what decode reads — the (trunk,
+trainable-top) block segments, embed (+ lm_head), ln_f — on one device,
+plus the bucket lattice and the paged-pool geometry the slot scheduler
+(trlx_tpu_torch.serve.slots) sizes itself from. Weights come in as
+:class:`~trlx_tpu_torch.models.params.DecodeViews` (carried across from
+a trlx_tpu tree, loaded from a ``torch.save`` file, or a seeded random
+init). The engine runs on CUDA unless the caller passes
+``device="cpu"``; with no card it raises.
+
+Knob names and defaults are trlx_tpu's, so a YAML ``serve:`` section
+means the same thing to both packages: ``attention: pallas`` names the
+hand-written Hopper decode kernel, ``attention: jnp`` (default) the
+plain torch gather path. Knobs of features not ported yet are accepted
+at their defaults and refused otherwise (:data:`DEFERRED_KNOBS`).
+"""
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from trlx_tpu_torch import telemetry
+from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.data.method_configs import PPOConfig, filter_known_fields
+from trlx_tpu_torch.models.generation import GenerationConfig
+from trlx_tpu_torch.models.params import (
+    DecodeViews,
+    init_decode_views,
+    views_to,
+)
+from trlx_tpu_torch.models.transformer import tree_map
+from trlx_tpu_torch.ops.sampling import SamplingParams
+from trlx_tpu_torch.utils import DTYPES, resolve_device
+from trlx_tpu_torch.utils.tokenizer import load_tokenizer
+
+Bucket = Tuple[int, int, int]  # (batch, prompt_len, gen_len)
+
+_DEFAULT_BUCKETS = ((4, 32, 32), (8, 64, 64))
+
+#: trlx_tpu serve knobs whose features later slices port: a config may
+#: carry them at their defaults; any other value is refused rather than
+#: silently ignored (``scheduler`` and ``kv_layout`` are fields, which
+#: ``InferenceEngine._validate`` holds to ``slots`` and ``paged``)
+DEFERRED_KNOBS: Dict[str, Any] = {
+    "kv_dtype": "bf16",  # the engine's int8 KV tier
+    "weights_dtype": "bf16",  # int8 serve weights
+    "speculation": "off",  # speculation and verify_step
+    "tenants": None,  # tenants, quotas and brownout
+    "brownout_max_new": 0,
+    "mesh": None,  # tp meshes
+    "watch_checkpoints": 0.0,  # hot-swap
+}
+
+
+@dataclass
+class ServeConfig:
+    """The ``serve:`` YAML section / CLI knobs of this slice (trlx_tpu's
+    names and defaults).
+
+    :param buckets: the (batch, prompt_len, gen_len) lattice; requests
+        round UP to the smallest (prompt_len, gen_len) class that fits,
+        and prefill batches come in the class's batch extents.
+    :param max_queue: ``submit`` rejects past this many queued requests
+        (HTTP 429).
+    :param request_timeout: bound on one request's queue + decode time
+        at the HTTP edge (503 past it).
+    :param host / port: bind address of the HTTP endpoint.
+    :param seed: base sampling seed (each decode step uses seed + step).
+    :param slots: slot-pool size; 0 = the largest batch extent.
+    :param page_size: tokens per KV page (clamped to the slot buffer);
+        also the prefix-cache sharing granularity.
+    :param pages: page-pool size; 0 = slots x pages-per-slot.
+    :param attention: decode attention: ``"jnp"`` gathers each slot's
+        pages into logical order and runs plain attention (the oracle);
+        ``"pallas"`` runs the hand-written paged-decode kernel on the
+        card (its plain version on the CPU).
+    """
+
+    buckets: List[List[int]] = field(
+        default_factory=lambda: [list(b) for b in _DEFAULT_BUCKETS]
+    )
+    max_queue: int = 256
+    request_timeout: float = 120.0
+    host: str = "127.0.0.1"
+    port: int = 8080
+    seed: int = 0
+    scheduler: str = "slots"
+    slots: int = 0
+    kv_layout: str = "paged"
+    page_size: int = 64
+    pages: int = 0
+    attention: str = "jnp"
+
+    @classmethod
+    def from_dict(cls, config: Optional[Dict[str, Any]]) -> "ServeConfig":
+        config = dict(config or {})
+        for knob, default in DEFERRED_KNOBS.items():
+            if knob in config and config[knob] != default:
+                raise NotImplementedError(
+                    f"serve.{knob}={config[knob]!r} is not ported to "
+                    f"trlx_tpu_torch yet (only {default!r}); see ROADMAP.md"
+                )
+        return cls(**filter_known_fields(cls, config))
+
+
+def _normalize_buckets(buckets) -> Tuple[Bucket, ...]:
+    out = []
+    for b in buckets:
+        t = tuple(int(x) for x in b)
+        if len(t) != 3 or any(x <= 0 for x in t):
+            raise ValueError(
+                f"serve bucket {b!r} is not a positive "
+                f"(batch, prompt_len, gen_len) triple"
+            )
+        out.append(t)
+    if not out:
+        raise ValueError("serve.buckets must name at least one bucket")
+    return tuple(sorted(set(out), key=lambda t: (t[1], t[2], t[0])))
+
+
+class InferenceEngine:
+    """A policy's decode views on one device + its serving lattice."""
+
+    def __init__(self, config: TRLConfig, serve: Optional[ServeConfig] = None,
+                 views: Optional[DecodeViews] = None,
+                 device: Optional[str] = None):
+        """``views`` defaults to a seeded random policy (``serve.seed``);
+        ``device`` defaults to CUDA (``"cpu"`` runs the plain path)."""
+        if not isinstance(config.method, PPOConfig):
+            raise NotImplementedError(
+                f"the inference engine serves hydra (PPO) policies; this "
+                f"config's method is '{config.method.name}'"
+            )
+        if telemetry.current() is None:
+            telemetry.start()
+        self.config = config
+        self.serve = serve or ServeConfig()
+        self._validate()
+        self.device = resolve_device(device)
+        self.buckets = _normalize_buckets(self.serve.buckets)
+        self.tokenizer = load_tokenizer(config.model.tokenizer_path)
+        if config.model.model_spec is None:
+            raise NotImplementedError(
+                "serving a pretrained HF checkpoint is not ported; give "
+                "the config a model.model_spec"
+            )
+        spec = config.model.resolve_spec()
+        for b, p, g in self.buckets:
+            if p + g > spec.n_positions:
+                raise ValueError(
+                    f"serve bucket (batch={b}, prompt={p}, gen={g}) needs "
+                    f"{p + g} positions but the model has n_positions="
+                    f"{spec.n_positions}"
+                )
+        self.spec = spec
+        self.compute_dtype = DTYPES[config.model.compute_dtype]
+        if views is None:
+            views = init_decode_views(spec, self.serve.seed,
+                                      config.model.num_layers_unfrozen)
+        views = views_to(views, self.device, self.compute_dtype)
+        self.blocks, self.embed, self.ln_f = views
+
+        eos = getattr(self.tokenizer, "eos_token_id", -1)
+        pad = getattr(self.tokenizer, "pad_token_id", 0) or 0
+        gk = dict(config.method.gen_kwargs or {})
+        # serving semantics: stop at eos (min_new_tokens=0)
+        self.gen_config = GenerationConfig(
+            gen_size=1,
+            sampling=SamplingParams(
+                temperature=float(gk.get("temperature", 1.0)),
+                top_k=int(gk.get("top_k", 0) or 0),
+                top_p=float(gk.get("top_p", 1.0)),
+                do_sample=bool(gk.get("do_sample", True)),
+            ),
+            eos_token_id=eos if eos is not None else -1,
+            pad_token_id=pad,
+            min_new_tokens=0,
+        )
+        self.pad_token_id = pad
+        n_bytes = sum(
+            t.numel() * t.element_size()
+            for part in (self.blocks, self.embed, self.ln_f)
+            for t in _leaves(part)
+        )
+        telemetry.set_gauge("serve/model_gb", n_bytes / 2**30)
+
+    def _validate(self) -> None:
+        s = self.serve
+        if s.scheduler != "slots":
+            raise NotImplementedError(
+                f"serve.scheduler '{s.scheduler}' is not ported (slots only)"
+            )
+        if s.kv_layout != "paged":
+            raise NotImplementedError(
+                f"serve.kv_layout '{s.kv_layout}' is not ported (paged only)"
+            )
+        if s.attention not in ("jnp", "pallas"):
+            raise ValueError(
+                f"serve.attention '{s.attention}' is not one of: jnp, pallas"
+            )
+        if s.slots < 0:
+            raise ValueError(f"serve.slots={s.slots} must be >= 0 (0 = auto)")
+        if s.page_size < 1:
+            raise ValueError(f"serve.page_size={s.page_size} must be >= 1")
+        if s.pages < 0:
+            raise ValueError(f"serve.pages={s.pages} must be >= 0 (0 = auto)")
+
+    # -- bucket lattice ------------------------------------------------- #
+
+    def shape_classes(self) -> Tuple[Tuple[int, int], ...]:
+        """Distinct (prompt_len, gen_len) classes, smallest first."""
+        seen = []
+        for _, p, g in self.buckets:
+            if (p, g) not in seen:
+                seen.append((p, g))
+        return tuple(seen)
+
+    def pick_shape(self, prompt_len: int,
+                   max_new_tokens: int) -> Tuple[int, int]:
+        """Smallest (prompt_len, gen_len) class fitting the request;
+        ValueError (HTTP 400) when nothing fits."""
+        for p, g in self.shape_classes():
+            if prompt_len <= p and max_new_tokens <= g:
+                return (p, g)
+        raise ValueError(
+            f"request (prompt_len={prompt_len}, max_new_tokens="
+            f"{max_new_tokens}) fits no serve bucket; lattice shape "
+            f"classes (prompt, gen): {list(self.shape_classes())}"
+        )
+
+    def default_max_new_tokens(self) -> int:
+        return min(g for _, _, g in self.buckets)
+
+    def prompt_classes(self) -> Tuple[Tuple[int, Tuple[int, ...]], ...]:
+        """Distinct prompt lengths with their admission batch extents."""
+        classes: Dict[int, set] = {}
+        for b, p, _ in self.buckets:
+            classes.setdefault(p, set()).add(b)
+        return tuple((p, tuple(sorted(classes[p]))) for p in sorted(classes))
+
+    def prefill_batch_sizes(self, prompt_len: int) -> Tuple[int, ...]:
+        for p, extents in self.prompt_classes():
+            if p == prompt_len:
+                return extents
+        raise ValueError(
+            f"prompt_len {prompt_len} is not a prompt class "
+            f"(have {[p for p, _ in self.prompt_classes()]})"
+        )
+
+    def slot_count(self) -> int:
+        return self.serve.slots or max(b for b, _, _ in self.buckets)
+
+    def slot_buffer_len(self) -> int:
+        """Per-slot KV extent: the largest prompt+gen any bucket needs."""
+        return max(p + g for _, p, g in self.buckets)
+
+    # -- paged-pool geometry -------------------------------------------- #
+
+    def page_size_tokens(self) -> int:
+        """``serve.page_size`` clamped to the slot buffer length."""
+        return min(self.serve.page_size, self.slot_buffer_len())
+
+    def pages_per_slot(self) -> int:
+        ps = self.page_size_tokens()
+        return -(-self.slot_buffer_len() // ps)
+
+    def page_count(self) -> int:
+        return self.serve.pages or self.slot_count() * self.pages_per_slot()
+
+    def request_page_need(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Worst-case pages one request reserves at admission."""
+        ps = self.page_size_tokens()
+        return -(-(prompt_len + max_new_tokens) // ps)
+
+    # -- request shaping ------------------------------------------------ #
+
+    def encode_prompt(self, prompt: str) -> List[int]:
+        return [int(t) for t in self.tokenizer.encode(prompt)]
+
+    def pad_batch(self, rows: Sequence[Sequence[int]], bucket: Bucket
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Left-pad token rows into the bucket's [B, P] shape; rows short
+        of B are filled by repeating the first row."""
+        B, P, _ = bucket
+        if len(rows) > B or not rows:
+            raise ValueError(f"{len(rows)} rows for a batch-{B} bucket")
+        tokens = np.full((B, P), self.pad_token_id, np.int32)
+        mask = np.zeros((B, P), np.int32)
+        for i in range(B):
+            row = list(rows[i] if i < len(rows) else rows[0])[-P:]
+            tokens[i, P - len(row):] = row
+            mask[i, P - len(row):] = 1
+        return tokens, mask
+
+
+def _leaves(tree):
+    out = []
+    tree_map(out.append, tree)
+    return out
