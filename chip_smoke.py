@@ -8,24 +8,47 @@ Phases, each printing its own line; any failure exits non-zero:
 1. device — a CUDA card must be present (no CPU fallback); prints the
    card's name and power limit as nvidia-smi reports them.
 2. build — compiles every kernel source under trlx_tpu_torch/csrc with
-   nvcc for sm_90a (ptxas registers / shared memory / spills printed).
-3. kernel — each kernel against its plain PyTorch version on the card:
-   the paged-decode kernel at fp32 (GQA + sentinel pages, atol 1e-5),
-   in the int8 tier (atol 1e-5), and at the serving shape in bf16 with
-   a fully masked free row that must come out finite (atol 1e-2 + rtol
-   1e-2 against the plain version in fp32 on the same bf16 inputs); then
-   CUDA-event timings of kernel, plain version and the gather + SDPA
-   yardstick at the serving shape and at a 1024-token context, each
-   beside its bound: device time from CUDA-graph replay (the numbers in
-   the kernels line) and the eager loop's time, which includes the
-   host's launch cost.
-4. serve — the port's serving path at gpt2-124M width (12 layers, seeded
+   nvcc for sm_90a, all at once (ptxas registers / shared memory /
+   spills printed).
+3. kernel — the paged-decode kernel against its plain PyTorch version on
+   the card: fp32 (GQA + sentinel pages, atol 1e-5), the int8 tier (atol
+   1e-5), and the serving shape in bf16 with a fully masked free row that
+   must come out finite (atol 1e-2 + rtol 1e-2 against the plain version
+   in fp32 on the same bf16 inputs); then CUDA-event timings of kernel,
+   plain version and the gather + SDPA yardstick at the serving shape and
+   at a 1024-token context, each beside its bound: device time from
+   CUDA-graph replay (the numbers in the kernels line) and the eager
+   loop's time, which includes the host's launch cost.
+4. flash — the three flash-attention kernels against the dense oracle
+   and its autograd: fp32 causal with left padding at T 52 and 576 and
+   the non-causal form (O and lse on real rows atol 1e-5, dq / dk / dv
+   atol 2e-4), and bf16 at the training shape, each kernel against its
+   plain version in fp32 math on the same inputs (atol 1e-2 + rtol 1e-2,
+   every row finite); then kernel, plain-version and SDPA-yardstick
+   times (CUDA-graph replay and eager)
+   at the training shape (B 32, T 576, H 12, hd 64, bf16, causal) and at
+   B 8, T 2048, each beside its bound.
+5. serve — the port's serving path at gpt2-124M width (12 layers, seeded
    random weights, bf16) behind its HTTP server: concurrent
    ``/generate`` requests with mixed ``max_new_tokens`` and a shared
    system prompt, ``/healthz``, kernel launches == layers x decode
    steps, radix prefix hits > 0; prints tok/s and latency.
-5. parity — the same requests through fp32 engines on the kernel path
+6. parity — the same requests through fp32 engines on the kernel path
    and on the plain path, with the same weights: identical greedy tokens.
+7. train — the PPO main path at gpt2-124M width (configs/ppo_tldr.yml's
+   geometry: 12 layers, 2 unfrozen, prompts of up to 512 bytes + 64
+   generated tokens, batch 32, 4 PPO epochs, fused_attention, bf16,
+   seeded random weights, byte tokenizer, a host reward) through the
+   registry, the pipeline, the orchestrator's make_experience and
+   learn(): flash launches equal chunks x (L + k) + passes x L forwards
+   and passes x k of each backward kernel, and every logged loss, grad
+   norm and KL is finite; prints rollout and update time, samples/s.
+8. train parity — one train_step and one 2-pass train_multi at fp32 on
+   the kernel path and on the dense path, from the same weights and one
+   rollout batch: loss and grad norm at rtol 1e-5, and the first step's
+   per-leaf gradients by tests/test_golden_step.py's relative-L2 rule at
+   2e-3; the same rule on the updated parameters is printed, with the
+   dense gradient at the elements whose Adam steps differ in sign.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -46,7 +69,11 @@ import torch.nn.functional as F
 from trlx_tpu_torch import ops, telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
-from trlx_tpu_torch.models.params import init_decode_views
+from trlx_tpu_torch.models.params import (
+    hydra_to_numpy,
+    init_decode_views,
+    init_hydra_numpy,
+)
 from trlx_tpu_torch.models.transformer import (
     NEG_INF,
     apply_blocks,
@@ -56,6 +83,7 @@ from trlx_tpu_torch.models.transformer import (
     quantize_kv,
 )
 from trlx_tpu_torch.ops import _build
+from trlx_tpu_torch.ops import flash_attention as fa
 from trlx_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
@@ -66,6 +94,12 @@ from trlx_tpu_torch.serve import (
     InferenceServer,
     ServeConfig,
     SlotScheduler,
+)
+from trlx_tpu_torch.trainers.ppo_trainer import build_optimizer
+from trlx_tpu_torch.utils.loading import (
+    get_model,
+    get_orchestrator,
+    get_pipeline,
 )
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 FLOP/s
@@ -348,7 +382,232 @@ def time_kernel(dev, label, max_pages, iters):
 
 
 # --------------------------------------------------------------------- #
-# 4. serve over HTTP
+# 4. flash attention: checks and timings
+# --------------------------------------------------------------------- #
+
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_REPLACES = {
+    "flash_fwd": "trlx_tpu/ops/pallas_attention.py:42",
+    "flash_bwd_dq": "trlx_tpu/ops/pallas_attention.py:204",
+    "flash_bwd_dkv": "trlx_tpu/ops/pallas_attention.py:265",
+}
+
+
+def flash_case(dev, B, T, H, hd, pads=(), dtype=torch.float32, seed=0):
+    """q, k, v, dO [B, T, H, hd] and the [B, T] int32 mask with ``pads``
+    left-pad tokens per row; dO is 0 on pad rows, as the trainer's
+    losses (which never read pad rows) make it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn((B, T, H, hd), generator=gen, device=dev)
+                  for _ in range(4))
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    for i, p in enumerate(pads):
+        mask[i, :p] = 0
+    g = g * mask[:, :, None, None]
+    return tuple(x.to(dtype) for x in (q, k, v, g)) + (mask,)
+
+
+def flash_errors(q, k, v, g, mask, causal):
+    """The kernels (through the autograd seam) against the dense oracle
+    and its autograd in fp32 on the same inputs: (out, reference out,
+    {kernel: max abs error}, kernel leaves, reference leaves); O and lse
+    compare on real rows."""
+    real = mask.bool()
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, mask, causal)
+    out.backward(g)
+    _, lse = fa.flash_fwd(q, k, v, mask, causal)
+    refs = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = fa.flash_attention_reference(*refs, mask, causal)
+    ref.backward(g.float())
+    _, lse_ref = fa.flash_fwd_reference(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all(), "non-finite flash output"
+    for x in leaves:
+        assert torch.isfinite(x.grad.float()).all(), "non-finite gradient"
+    errs = {
+        "flash_fwd": max(
+            max_err(out.detach()[real], ref.detach()[real]),
+            max_err(lse.permute(0, 2, 1)[real],
+                    lse_ref.permute(0, 2, 1)[real])),
+        "flash_bwd_dq": max_err(leaves[0].grad, refs[0].grad),
+        "flash_bwd_dkv": max(max_err(leaves[1].grad, refs[1].grad),
+                             max_err(leaves[2].grad, refs[2].grad)),
+    }
+    return out.detach(), ref.detach(), errs, leaves, refs
+
+
+def check_flash(dev):
+    """fp32 (causal with left padding at T 52, 576 and 130, non-causal)
+    at atol 1e-5 (O, lse) / 2e-4 (gradients); bf16 at the training shape
+    at atol 1e-2 + rtol 1e-2 (O on real rows, dq, dk, dv), each kernel
+    against its plain version on the same inputs. Returns the largest
+    error seen per kernel."""
+    worst = dict.fromkeys(FLASH_NAMES, 0.0)
+    for B, T, H, hd, pads, causal in (
+            (4, 52, 2, 16, (0, 5, 11, 17), True),
+            (4, 576, 2, 64, (0, 5, 11, 17), True),
+            (2, 130, 3, 128, (0, 70), True),
+            (2, 48, 2, 32, (0, 9), False)):
+        case = flash_case(dev, B, T, H, hd, pads, seed=T)
+        _, _, errs, _, _ = flash_errors(*case, causal)
+        log("flash", f"fp32 B{B} T{T} H{H} hd{hd} pads {list(pads)} "
+                     f"causal={causal}: " + ", ".join(
+                         f"{n} {e:.3e}" for n, e in errs.items())
+            + " (atol 1e-5 fwd, 2e-4 grads)")
+        assert errs["flash_fwd"] <= 1e-5, "flash forward disagrees (fp32)"
+        assert errs["flash_bwd_dq"] <= 2e-4, "flash dq disagrees (fp32)"
+        assert errs["flash_bwd_dkv"] <= 2e-4, "flash dk/dv disagrees (fp32)"
+        worst = {n: max(worst[n], errs[n]) for n in worst}
+    B, T = 32, 576
+    pads = list(range(0, 512, 16))  # 0 ... 496 left-pad tokens
+    case = flash_case(dev, B, T, 12, 64, pads, torch.bfloat16, seed=9)
+    out, ref, seam_errs, leaves, refs = flash_errors(*case, True)
+    q, k, v, g, mask = case
+    real = mask.bool()
+
+    def ratio(a, b):  # largest |a - b| / (atol + rtol |b|); <= 1 passes
+        return ((a.float() - b).abs() / (1e-2 + 1e-2 * b.abs())).max().item()
+
+    # each kernel against its plain version on the same inputs (the bf16
+    # q, k, v, dO and the forward's lse and D), outputs in q's dtype as
+    # the seam returns them
+    _, lse = fa.flash_fwd(q, k, v, mask)
+    dD = fa.softmax_jacobian_diag(g, out)
+    got = {"O": out[real],
+           "dq": fa.flash_bwd_dq(q, k, v, g, lse, dD, mask),
+           **dict(zip(("dk", "dv"),
+                      fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask)))}
+    want = {"O": ref[real],
+            "dq": fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask),
+            **dict(zip(("dk", "dv"), fa.flash_bwd_dkv_reference(
+                q, k, v, g, lse, dD, mask)))}
+    torch.cuda.synchronize()
+    ratios = {n: ratio(got[n].to(q.dtype), want[n]) for n in got}
+    errs = {"flash_fwd": seam_errs["flash_fwd"],
+            "flash_bwd_dq": max_err(got["dq"].to(q.dtype), want["dq"]),
+            "flash_bwd_dkv": max(max_err(got[n].to(q.dtype), want[n])
+                                 for n in ("dk", "dv"))}
+    # the seam against float32 autograd also carries D = rowsum(dO O)
+    # over the bf16-rounded O, as trlx_tpu/ops/pallas_attention.py:356
+    # computes it: printed, not held to the kernels' tolerance
+    seam = {f"d{x}": ratio(a.grad, b.grad)
+            for x, a, b in zip("qkv", leaves, refs)}
+    log("flash", f"bf16 B{B} T{T} H12 hd64 causal, left pads 0..496, each "
+                 f"kernel vs its plain version on the same inputs: "
+                 + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                 + "; largest |err| / (1e-2 + 1e-2 |ref|): "
+                 + ", ".join(f"{n} {r:.3f}" for n, r in ratios.items())
+                 + " (<= 1 passes; every row finite). Seam vs float32 "
+                 "autograd: " + ", ".join(
+                     f"{n} {e:.3e}" for n, e in seam_errs.items()
+                     if n != "flash_fwd")
+                 + ", ratio " + ", ".join(f"{n} {r:.3f}"
+                                          for n, r in seam.items()))
+    for name, r in ratios.items():
+        assert r <= 1.0, f"bf16 flash {name} disagrees"
+    return {n: max(worst[n], errs[n]) for n in worst}
+
+
+def flash_bounds(B, T, H, hd, elem, causal=True):
+    """Least time (ms) and what bounds it, per kernel, for full-length
+    rows: the bytes the function must move (its inputs q, k, v, dO once
+    each in ``elem`` bytes, the int32 mask and the float32 lse / D rows;
+    its outputs once in the inputs' dtype, as the seam returns them:
+    O, dq, or dk and dv) over HBM bandwidth, vs the multiply-adds of the
+    (query, key) pairs causality leaves, T (T + 1) / 2 per head, over the
+    bf16 peak: QK^T and PV in the forward, QK^T, dO V^T and dS K for dq,
+    and those two plus P^T dO and dS^T Q for dk/dv."""
+    n = B * T * H * hd
+    row, mask = 4 * B * H * T, 4 * B * T
+    pairs = T * (T + 1) // 2 if causal else T * T
+    macs = B * H * pairs * hd
+    work = {
+        "flash_fwd": (4 * n * elem + mask + row, 2 * 2 * macs),
+        "flash_bwd_dq": (5 * n * elem + mask + 2 * row, 2 * 3 * macs),
+        "flash_bwd_dkv": (6 * n * elem + mask + 2 * row, 2 * 4 * macs),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / BF16_FLOPS * 1e3
+        out[name] = (max(by_bytes, by_ops),
+                     "bytes" if by_bytes >= by_ops else "operations",
+                     nbytes, flops)
+    return out
+
+
+def time_flash(dev, label, B, T, H=12, hd=64, iters=10):
+    """Kernel / plain version / SDPA yardstick at a full-length causal bf16
+    shape: device time from CUDA-graph replay and the eager loop's time.
+    The yardstick is one scaled_dot_product_attention call with the same
+    additive [B, 1, T, T] mask for the forward, and its backward (dq, dk
+    and dv together) for both backward kernels; the port never calls it.
+    Autograd's backward alone cannot be captured (its graph was recorded
+    outside the capture), so the backward's time is SDPA forward +
+    backward captured together less the forward's, both measured here."""
+    q, k, v, g, mask = flash_case(dev, B, T, H, hd, (), torch.bfloat16,
+                                  seed=T + 1)
+    out, lse = fa.flash_fwd(q, k, v, mask)
+    dD = fa.softmax_jacobian_diag(g, out)
+    bias = causal_mask_bias(mask).to(torch.bfloat16)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gs = g.transpose(1, 2)
+    fns = {
+        "flash_fwd": (
+            lambda: fa.flash_fwd(q, k, v, mask),
+            lambda: fa.flash_fwd_reference(q, k, v, mask),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=bias)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, g, lse, dD, mask),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask),
+            None),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask),
+            lambda: fa.flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask),
+            lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias),
+                (qs, ks, vs), gs)),
+    }
+    bounds = flash_bounds(B, T, H, hd, 2)
+    out = {}
+    for name, (kernel, plain, lib) in fns.items():
+        timed = [f for f in (kernel, plain, lib) if f is not None]
+        eager = [time_ms(f, [()], iters) for f in timed]
+        graph = graph_ms(timed, [()], iters)
+        if lib is None:  # the SDPA backward covers dq and dk/dv together
+            eager.append(None)
+            graph.append(None)
+        b_ms, b_by, nbytes, flops = bounds[name]
+        out[name] = {"ms": graph[0], "plain_ms": graph[1],
+                     "library_ms": graph[2], "bound_ms": b_ms,
+                     "bound_by": b_by, "eager_ms": eager[0],
+                     "eager_plain_ms": eager[1],
+                     "eager_library_ms": eager[2], "bytes": nbytes,
+                     "flops": flops}
+    for key in ("library_ms", "eager_library_ms"):
+        bwd = out["flash_bwd_dkv"][key] - out["flash_fwd"][key]
+        out["flash_bwd_dkv"][key] = out["flash_bwd_dq"][key] = bwd
+    for name, t in out.items():
+        lib = "fwd" if name == "flash_fwd" else "bwd (dq+dk+dv)"
+        log("flash", f"{label} B{B} T{T} H{H} hd{hd} bf16 causal {name}: "
+                     f"{t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} "
+                     f"GFLOP; device (CUDA graph): kernel "
+                     f"{t['ms'] * 1e3:.1f} us, plain "
+                     f"{t['plain_ms'] * 1e3:.1f} us, SDPA {lib} "
+                     f"{t['library_ms'] * 1e3:.1f} us; eager: kernel "
+                     f"{t['eager_ms'] * 1e3:.1f} us, plain "
+                     f"{t['eager_plain_ms'] * 1e3:.1f} us, SDPA {lib} "
+                     f"{t['eager_library_ms'] * 1e3:.1f} us; bound "
+                     f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 5. serve over HTTP
 # --------------------------------------------------------------------- #
 
 
@@ -439,7 +698,7 @@ def serve_phase(views, device, requests=USER_PROMPTS):
 
 
 # --------------------------------------------------------------------- #
-# 5. greedy parity: kernel path vs plain path at fp32
+# 6. greedy parity: kernel path vs plain path at fp32
 # --------------------------------------------------------------------- #
 
 
@@ -489,6 +748,224 @@ def parity_phase(views, device, requests=USER_PROMPTS):
 
 
 # --------------------------------------------------------------------- #
+# 7. train: the PPO main path at gpt2-124M width
+# --------------------------------------------------------------------- #
+
+
+def train_config_dict(compute_dtype="bfloat16", fused=True, ppo_epochs=4):
+    """configs/ppo_tldr.yml's geometry with fused_attention, from a dict
+    (no pyyaml on the card machine): gpt2-124M, 2 unfrozen layers, 512
+    prompt + 64 generated tokens, batch 32, 64 rollouts in chunks of 32,
+    8 steps of 4 PPO epochs, one epoch; eval and checkpoints beyond the
+    run; the byte tokenizer; seeded random weights."""
+    return {
+        "model": {
+            "model_path": "from-config", "tokenizer_path": "byte",
+            "model_type": "JaxPPOTrainer", "num_layers_unfrozen": 2,
+            "model_spec": dict(GPT2_SPEC), "compute_dtype": compute_dtype,
+            "fused_attention": fused,
+        },
+        "train": {
+            "n_ctx": 1024, "epochs": 1, "total_steps": 8, "batch_size": 32,
+            "grad_clip": 1.0, "lr_ramp_steps": 100, "lr_decay_steps": 79000,
+            "weight_decay": 1e-6, "learning_rate_init": 1.412e-4,
+            "learning_rate_target": 1.412e-4, "log_interval": 4,
+            "checkpoint_interval": 10**9, "eval_interval": 10**9,
+            "pipeline": "PPOPipeline", "orchestrator": "PPOOrchestrator",
+            "input_size": 512, "gen_size": 64, "seed": 0,
+        },
+        "method": {
+            "name": "ppoconfig", "num_rollouts": 64, "chunk_size": 32,
+            "ppo_epochs": ppo_epochs, "init_kl_coef": 0.2, "target": 6,
+            "horizon": 10000, "gamma": 1, "lam": 0.95, "cliprange": 0.2,
+            "cliprange_value": 0.2, "vf_coef": 0.2,
+            "gen_kwargs": {"max_length": 64, "min_length": 48, "top_k": 0,
+                           "top_p": 1.0, "do_sample": True,
+                           "temperature": 0.7},
+        },
+    }
+
+
+def train_prompts(n=64, seed=0, max_len=512):
+    """Synthetic printable prompts of ragged length (16 to 512 bytes), so
+    the left padding is real."""
+    rng = np.random.default_rng(seed)
+    return ["".join(chr(c) for c in rng.integers(32, 127, size=int(size)))
+            for size in rng.integers(16, max_len + 1, size=n)]
+
+
+def lowercase_reward(samples):
+    """examples/ppo_sentiments.py's offline reward: the lowercase ratio."""
+    return [float(np.mean([c.islower() for c in s] or [0.0]))
+            for s in samples]
+
+
+def train_phase(tree, device):
+    """registry -> pipeline -> orchestrator.make_experience -> learn(),
+    with every launch counter at 0 just before and read just after."""
+    cfg = TRLConfig.from_dict(train_config_dict())
+    spec, m = cfg.model.resolve_spec(), cfg.method
+    trainer = get_model(cfg.model.model_type)(cfg, device=device,
+                                              params=tree)
+    pipeline = get_pipeline(cfg.train.pipeline)(train_prompts(),
+                                                trainer.tokenizer, cfg)
+    orch = get_orchestrator(cfg.train.orchestrator)(
+        trainer, pipeline, reward_fn=lowercase_reward,
+        chunk_size=m.chunk_size)
+    logs = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    info = orch.make_experience(m.num_rollouts)
+    trainer.learn(log_fn=logs.append)
+    torch.cuda.synchronize() if device == "cuda" else None
+    wall = time.perf_counter() - t0
+    launches = {n: ops.LAUNCHES[n] for n in FLASH_NAMES}
+    L, k = spec.n_layer, trainer.policy.k
+    chunks = m.num_rollouts // m.chunk_size
+    passes = trainer.iter_count
+    want = {"flash_fwd": chunks * (L + k) + passes * L,
+            "flash_bwd_dq": passes * k, "flash_bwd_dkv": passes * k}
+    if device == "cuda":
+        assert launches == want, f"flash launches {launches} != {want}"
+    train_logs = [entry for entry in logs if "loss" in entry]
+    assert len(train_logs) == passes // m.ppo_epochs, logs
+    assert np.isfinite(info["mean_kl"]), info
+    for entry in train_logs:
+        for key in ("loss", "pg_loss", "vf_loss", "grad_norm", "approx_kl"):
+            assert np.isfinite(entry[key]), (key, entry)
+    hists = telemetry.current().registry.hists
+    batch = trainer.store._stacked().map(lambda x: x[:cfg.train.batch_size])
+    return {
+        "launches": launches, "want": want, "chunks": chunks,
+        "passes": passes, "wall_s": wall, "info": info, "logs": train_logs,
+        "rollout_s": hists["time/rollout"].total,
+        "update_s": hists["time/ppo_update"].total,
+        "samples_per_sec": train_logs[-1]["samples_per_sec"],
+        "batch": batch,
+    }
+
+
+# --------------------------------------------------------------------- #
+# 8. train parity: kernel path vs dense path at fp32
+# --------------------------------------------------------------------- #
+
+
+def named_leaves(tree, prefix=""):
+    """[(dotted name, leaf)] in the order ``tree_map`` visits ``tree``,
+    which is the order of the optimizer's parameter and gradient lists."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def leaf_norms(ours, theirs):
+    """[(name, |ours - theirs|, |theirs|)] per leaf of two [(name, array)]
+    lists, L2 norms in float64."""
+    rows = []
+    for (name, o), (_, t) in zip(ours, theirs):
+        o, t = np.asarray(o, np.float64), np.asarray(t, np.float64)
+        rows.append((name, np.linalg.norm(o - t), np.linalg.norm(t)))
+    return rows
+
+
+def train_parity_phase(tree, batch, device):
+    """One train_step, then one 2-pass train_multi, at fp32 on the kernel
+    path and on the dense path from the same weights and batch: loss and
+    grad norm at rtol 1e-5, and the first step's per-leaf gradients (as
+    they reach the optimizer) at relative L2 2e-3. The same
+    rule on the updated parameters is printed, not asserted: Adam divides
+    each gradient element by its own magnitude, so an element whose
+    gradient lies within the two paths' float32 rounding steps +-lr with
+    a sign neither pins down; the dense gradient at the elements whose
+    updates differ by more than lr / 2 is printed beside its leaf's."""
+    runs = {}
+    for fused in (True, False):
+        cfg = TRLConfig.from_dict(train_config_dict("float32", fused, 2))
+        trainer = get_model(cfg.model.model_type)(cfg, device=device,
+                                                  params=tree)
+        grads, opt_step = [], trainer.opt.step
+
+        def capture(params, g, state, opt_step=opt_step, grads=grads):
+            grads.append([x.detach().float().cpu().numpy() for x in g])
+            return opt_step(params, g, state)
+
+        trainer.opt.step = capture
+        names = [n for n, _ in named_leaves(trainer.params["trainable"])]
+        step = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        after_step = hydra_to_numpy(trainer.params["trainable"])
+        multi = {k: float(v) for k, v in trainer.train_multi(batch).items()}
+        runs[fused] = (step, multi, list(zip(names, grads[0])),
+                       named_leaves(after_step),
+                       named_leaves(hydra_to_numpy(
+                           trainer.params["trainable"])))
+        del trainer
+        torch.cuda.empty_cache() if device == "cuda" else None
+    worst = 0.0
+    for i, label in enumerate(("train_step", "train_multi")):
+        for key in ("loss", "grad_norm"):
+            a, b = runs[True][i][key], runs[False][i][key]
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            log("train-parity", f"{label} {key}: kernel {a!r} dense {b!r} "
+                                f"(relative {rel:.2e}, rtol 1e-5)")
+            assert rel <= 1e-5, f"{label} {key} differs"
+            worst = max(worst, rel)
+    # a leaf whose gradient is analytically zero (the key bias: softmax
+    # is shift-invariant) holds float32 rounding on both paths; below
+    # 1e-5 of the global norm it is held absolutely at that level
+    g_kernel, g_dense = runs[True][2], runs[False][2]
+    floor = 1e-5 * runs[False][0]["grad_norm"]
+    rows = leaf_norms(g_kernel, g_dense)
+    rel = [(d / t, n) for n, d, t in rows if t >= floor]
+    zero = {n: f"|grad| {t:.2e} |diff| {d:.2e}" for n, d, t in rows
+            if t < floor}
+    grad_rel, name = max(rel)
+    log("train-parity", f"train_step gradients: largest relative L2 "
+                        f"{grad_rel:.2e} ({name}) over {len(rel)} leaves "
+                        f"(rtol 2e-3); below the floor {floor:.2e} (1e-5 "
+                        f"of the global norm), held to it: {zero}")
+    for name, d, t in rows:
+        assert (d < 2e-3 * t) if t >= floor else (d < floor), \
+            f"{name}: gradients differ by {d} of {t}"
+
+    start = named_leaves(tree["trainable"])
+    lr = float(build_optimizer(cfg.train).schedule(0))  # the first step's
+    updates = {}
+    for i, label in ((3, "train_step"), (4, "train_multi")):
+        ours, theirs = ([(n, p - s) for (n, p), (_, s) in
+                         zip(runs[fused][i], start)] for fused in (True, False))
+        # tests/test_golden_step.py's rule: updates agreeing absolutely
+        # to 1e-5 pass, else relative L2 < 2e-3
+        updates[label] = {n: 0.0 if d < 1e-5 else d / max(t, 1e-12)
+                          for n, d, t in leaf_norms(ours, theirs)}
+        over = {n: f"{r:.2e}" for n, r in updates[label].items() if r >= 2e-3}
+        log("train-parity", f"{label} updated params by tests/test_golden_"
+                            f"step.py's rule at 2e-3 (printed, not "
+                            f"asserted): {len(over)} leaves at or over: "
+                            f"{over}")
+        if label != "train_step":
+            continue
+        flipped, total, top = 0, 0, (0.0, "")
+        for (n, u_k), (_, u_d), (_, g_d) in zip(ours, theirs, g_dense):
+            flip = np.abs(u_k - u_d) > 0.5 * lr
+            flipped, total = flipped + int(flip.sum()), total + flip.size
+            if flip.any():
+                rms = float(np.sqrt(np.mean(np.square(g_d, dtype=np.float64))))
+                share = float(np.abs(g_d[flip]).max()) / max(rms, 1e-30)
+                top = max(top, (share, n))
+        log("train-parity", f"train_step: {flipped} of {total} elements "
+                            f"have updates differing by > lr/2; the dense "
+                            f"|grad| there is at most {top[0]:.2e} of its "
+                            f"leaf's RMS gradient ({top[1] or 'none'})")
+    return {"worst_rel": worst, "grads_rel_l2": grad_rel,
+            "updates_rel_l2": {k: max(v.values())
+                               for k, v in updates.items()}}
+
+
+# --------------------------------------------------------------------- #
 # main
 # --------------------------------------------------------------------- #
 
@@ -515,12 +992,17 @@ def main() -> int:
     log("build", "paged_decode dynamic shared memory per block: "
                  f"{shared_memory_bytes(12, 12, 64, 4)} B at the serving "
                  f"shape, {shared_memory_bytes(12, 12, 64, 64)} B at a "
-                 f"1024-token context")
+                 f"1024-token context; flash kernels at hd 64: "
+                 f"{fa.shared_memory_bytes(64)} B")
 
     err = check_kernel("cuda")
     serving = time_kernel("cuda", "serving shape", max_pages=4, iters=500)
     long_ctx = time_kernel("cuda", "1024-token context", max_pages=64,
                            iters=200)
+
+    flash_err = check_flash("cuda")
+    flash_slice = time_flash("cuda", "training shape", 32, 576, iters=10)
+    flash_long = time_flash("cuda", "2048-token", 8, 2048, iters=5)
 
     views = init_decode_views(TRLConfig.from_dict(config_dict()).model
                               .resolve_spec(), seed=0,
@@ -541,9 +1023,36 @@ def main() -> int:
     parity = parity_phase(views, "cuda")
     log("parity", f"fp32 greedy tokens identical on {len(parity['jnp'])} "
                   f"requests (kernel path vs plain path)")
-    print(json.dumps({"timing": {"serving_shape": serving,
-                                 "ctx1024": long_ctx}}))
-    print(json.dumps({"kernels": [{
+    del views
+
+    tree = init_hydra_numpy(
+        TRLConfig.from_dict(train_config_dict()).model.resolve_spec(), 2,
+        seed=0)
+    train = train_phase(tree, "cuda")
+    last = train["logs"][-1]
+    log("train", f"PPO at gpt2-124M width: {train['chunks']} rollout chunks "
+                 f"+ {train['passes']} update passes in "
+                 f"{train['wall_s']:.2f}s (rollout "
+                 f"{train['rollout_s']:.2f}s, update "
+                 f"{train['update_s']:.2f}s, {train['samples_per_sec']:.1f}"
+                 f" samples/s in updates); flash launches "
+                 f"{train['launches']} == chunks x (L + k) + passes x L / "
+                 f"passes x k = {train['want']}; last loss "
+                 f"{last['loss']:.4f} grad_norm {last['grad_norm']:.4f} "
+                 f"approx_kl {last['approx_kl']:.3e}, rollout mean_kl "
+                 f"{train['info']['mean_kl']:.3e} mean_score "
+                 f"{train['info']['mean_score']:.3f} ({card}; for "
+                 f"information, not a metric)")
+    train_parity = train_parity_phase(tree, train["batch"], "cuda")
+
+    print(json.dumps({"timing": {
+        "serving_shape": serving, "ctx1024": long_ctx,
+        "flash_training_shape": flash_slice, "flash_2048": flash_long,
+        "train": {k: train[k] for k in ("wall_s", "rollout_s", "update_s",
+                                        "samples_per_sec", "launches")},
+        "train_parity": train_parity,
+    }}))
+    kernels = [{
         "name": "paged_decode",
         "route": "cuda",
         "source": "trlx_tpu_torch/csrc/paged_decode.cu",
@@ -555,7 +1064,23 @@ def main() -> int:
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
         "library_ms": serving["library_ms"],
-    }]}))
+    }]
+    for name in FLASH_NAMES:
+        t = flash_slice[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "trlx_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": train["launches"][name],
+            "max_abs_err": flash_err[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,3 +78,60 @@ def test_cuda_kernel_matches_plain_version():
                                             bias_free)
     assert torch.isfinite(outb.float()).all()
     torch.testing.assert_close(outb.float(), refb, atol=1e-2, rtol=1e-2)
+
+
+def _flash_case(B, T, H, hd, pads, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((B, T, H, hd)).astype(np.float32)
+                  for _ in range(4))
+    mask = np.ones((B, T), np.int32)
+    for i, p in enumerate(pads):
+        mask[i, :p] = 0
+    return q, k, v, g, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,causal,pads", [
+    (52, True, (0, 5, 11, 17)), (130, True, (0, 64)), (48, False, (0, 9)),
+])
+def test_cuda_flash_kernels_match_plain_version(dtype, T, causal, pads):
+    """The three flash kernels against the dense oracle and its autograd
+    on the card, left padding included (real rows for the forward; dO is
+    0 on pad rows, as the trainer's losses make it, so every gradient
+    compares). float32: outputs 1e-5, gradients 2e-4; bfloat16 (against
+    float32 math on the same bf16 inputs): outputs and gradients
+    1e-2 + rtol 1e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    q, k, v, g, mask = (_t(x).to(dev) for x in _flash_case(len(pads), T, 2,
+                                                            64, pads))
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    g = (g * mask[:, :, None, None]).to(dt)
+    real = mask.bool()
+    tol = (dict(atol=1e-5, rtol=0), dict(atol=2e-4, rtol=0)) \
+        if dt == torch.float32 else (dict(atol=1e-2, rtol=1e-2),) * 2
+    before = {n: ops.LAUNCHES[n] for n in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, mask, causal)
+    out.backward(g)
+    torch.cuda.synchronize()
+    for n in before:
+        assert ops.LAUNCHES[n] == before[n] + 1, n
+    assert torch.isfinite(out.float()).all()
+    ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = fa.flash_attention_reference(*ref_leaves, mask, causal)
+    ref.backward(g.float())
+    torch.testing.assert_close(out.float()[real], ref.detach()[real],
+                               **tol[0])
+    _, lse = fa.flash_fwd(q, k, v, mask, causal)
+    _, lse_ref = fa.flash_fwd_reference(q, k, v, mask, causal)
+    torch.testing.assert_close(lse.permute(0, 2, 1)[real],
+                               lse_ref.permute(0, 2, 1)[real], atol=1e-4,
+                               rtol=1e-5)
+    for a, b in zip(leaves, ref_leaves):
+        torch.testing.assert_close(a.grad.float(), b.grad, **tol[1])

@@ -1,0 +1,138 @@
+"""The port's flash attention on the CPU — the kernels' plain versions
+behind the autograd seam — against trlx_tpu's Pallas flash attention in
+interpret mode, on tests/test_pallas_attention.py's cases (inputs drawn
+with numpy and fed to both): T = 32 / 48 / 52 / 64, unequal JAX blocks,
+left padding (real rows only: tile skipping changes pad rows), the
+non-causal form, gradients; and the seam's dense fallback below
+``min_fused_t``. Outputs at atol 1e-5, gradients at atol 2e-4, float32.
+The hand-written kernels themselves run in
+tests/test_torch_cuda_kernels.py on a card."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu.ops.pallas_attention import flash_attention as jax_flash
+from trlx_tpu_torch import ops
+from trlx_tpu_torch.ops import flash_attention as fa
+
+
+def _case(seed, B, T, H, hd, pads=()):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, T, H, hd)).astype(np.float32)
+               for _ in range(3))
+    mask = np.ones((B, T), np.int32)
+    for i, p in enumerate(pads):
+        mask[i, :p] = 0
+    return q, k, v, mask
+
+
+def _torch(*xs, grad=False):
+    return [torch.from_numpy(x.copy()).requires_grad_(grad) for x in xs]
+
+
+@pytest.mark.parametrize("T,block,pads", [
+    (32, 16, ()), (64, 32, ()), (48, 16, ()),
+    (52, 16, ()),  # T not a block multiple
+    (32, 16, (0, 5, 11, 17)),  # left padding
+])
+def test_forward_matches_jax_flash(T, block, pads):
+    B = max(2, len(pads))
+    q, k, v, mask = _case(T, B, T, 2, 16, pads)
+    ref = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v, mask)),
+                               block, block))
+    real = mask.astype(bool)
+    fn = fa.make_flash_attention_fn(min_fused_t=0)
+    out = fn(*_torch(q, k, v, mask)).numpy()
+    np.testing.assert_allclose(out[real], ref[real], atol=1e-5, rtol=0)
+    plain, lse = fa.flash_fwd_reference(*_torch(q, k, v, mask))
+    np.testing.assert_allclose(plain.numpy()[real], ref[real], atol=1e-5,
+                               rtol=0)
+    assert np.isfinite(lse.numpy()).all()
+    dense = fa.flash_attention_reference(*_torch(q, k, v, mask)).numpy()
+    np.testing.assert_allclose(dense[real], ref[real], atol=1e-5, rtol=0)
+    assert ops.LAUNCHES["flash_fwd"] == 0  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("T,bq,bk", [
+    (32, 16, 16), (52, 16, 16), (32, 16, 8), (32, 8, 16),
+])
+def test_gradients_match_jax_flash(T, bq, bk):
+    q, k, v, mask = _case(100 + T, 2, T, 2, 16)
+    mask[1, :7] = 0
+    jm = jnp.asarray(mask)
+
+    def loss_jax(q, k, v):
+        out = jax_flash(q, k, v, jm, bq, bk)
+        return ((out * jm[:, :, None, None]) ** 2).sum()
+
+    gj = jax.grad(loss_jax, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    tm = torch.from_numpy(mask)
+    out = fa.flash_attention(tq, tk, tv, tm)
+    ((out * tm[:, :, None, None]) ** 2).sum().backward()
+    for t, j in zip((tq, tk, tv), gj):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=2e-4,
+                                   rtol=0)
+
+
+def test_non_causal_matches_jax_flash():
+    q, k, v, mask = _case(4, 2, 32, 2, 16, (0, 9))
+    ref = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v, mask)), 16, 16,
+                               False))
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    tm = torch.from_numpy(mask)
+    out = fa.flash_attention(tq, tk, tv, tm, False)
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-5, rtol=0)
+    out.square().sum().backward()
+    dq, dk, dv = (t.grad.clone() for t in (tq, tk, tv))
+    for t in (tq, tk, tv):
+        t.grad = None
+    fa.flash_attention_reference(tq, tk, tv, tm, False).square().sum() \
+        .backward()
+    for a, t in zip((dq, dk, dv), (tq, tk, tv)):
+        np.testing.assert_allclose(a.numpy(), t.grad.numpy(), atol=2e-4,
+                                   rtol=0)
+
+
+def test_seam_dense_fallback_gqa_and_no_grad():
+    """Below min_fused_t the seam is the dense path; above it a GQA K/V is
+    repeated to H heads (gradients summed back over each group); under
+    no_grad nothing is recorded."""
+    q, _, _, mask = _case(5, 2, 24, 4, 16, (0, 3))
+    rng = np.random.default_rng(6)
+    k, v = (rng.standard_normal((2, 24, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    tq, tk, tv, tm = _torch(q, k, v, mask)
+    dense = fa.flash_attention_reference(tq, tk, tv, tm)
+    out = fa.make_flash_attention_fn()(tq, tk, tv, tm)  # 24 < 128
+    np.testing.assert_array_equal(out.numpy(), dense.numpy())
+
+    real = mask.astype(bool)
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    out = fa.make_flash_attention_fn(min_fused_t=0)(tq, tk, tv, tm)
+    np.testing.assert_allclose(out.detach().numpy()[real],
+                               dense.numpy()[real], atol=1e-5, rtol=0)
+    (out * tm[:, :, None, None]).square().sum().backward()
+    grads = [t.grad.clone() for t in (tq, tk, tv)]
+    for t in (tq, tk, tv):
+        t.grad = None
+    (fa.flash_attention_reference(tq, tk, tv, tm) * tm[:, :, None, None]) \
+        .square().sum().backward()
+    for a, t in zip(grads, (tq, tk, tv)):
+        np.testing.assert_allclose(a.numpy(), t.grad.numpy(), atol=2e-4,
+                                   rtol=0)
+    with torch.no_grad():
+        out = fa.make_flash_attention_fn(min_fused_t=0)(tq, tk, tv, tm)
+    assert out.grad_fn is None
+
+
+def test_wrappers_refuse_bad_inputs():
+    q, k, v, mask = _torch(*_case(7, 1, 8, 1, 16)[:3], np.ones((1, 8),
+                                                               np.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_fwd(q.to("meta"), k, v, mask)
+    sm = fa.shared_memory_bytes(128)
+    assert max(sm.values()) <= 232448  # one Hopper block's ceiling

@@ -43,6 +43,10 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "trlx_tpu_torch.serve.slots" in report["imported"]
     assert "trlx_tpu_torch.ops.paged_attention" in report["imported"]
+    for name in ("ops.flash_attention", "ops.losses", "models.policy",
+                 "trainers.ppo_trainer", "orchestrator.ppo_orchestrator",
+                 "pipeline.ppo_pipeline", "examples.ppo_sentiments"):
+        assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]
         if m.split(".")[0] in ("jax", "jaxlib", "trlx_tpu", "flax", "optax")

@@ -1,0 +1,142 @@
+"""The port's rollout decoder (trlx_tpu_torch.models.generation.generate)
+against trlx_tpu's ``generate``, from the same weights and left-padded
+prompts at float32: greedy decode gives identical tokens, sequences,
+``gen_mask`` and ``attention_mask``, and logprobs at atol 2e-4 — with
+fixed-length decode, with eos termination and ``min_new_tokens``, and
+with the early exit on or off. Sampled decode cannot agree token for
+token (Philox vs threefry); its warped logits are held equal in
+tests/test_torch_sampling.py, and here a sampled run keeps the output
+contract. ``GenerationConfig.from_gen_kwargs`` translates like JAX's."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu.data.configs import ModelSpec as JaxSpec
+from trlx_tpu.models import generation as jg
+from trlx_tpu_torch.data.configs import ModelSpec
+from trlx_tpu_torch.models import generation as tg
+from trlx_tpu_torch.models.params import init_hydra_numpy
+
+# an untied head: with gpt2's tied head a random model's greedy decode
+# just repeats each row's last prompt token
+SPEC = dict(arch="gpt2", vocab_size=257, n_layer=3, n_head=4, d_model=32,
+            n_positions=64, tie_lm_head=False)
+P, G = 7, 12
+
+
+def _inputs(seed=0):
+    spec = ModelSpec(**SPEC)
+    tree = init_hydra_numpy(spec, num_layers_unfrozen=1, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    tokens = rng.integers(0, 256, (4, P)).astype(np.int32)
+    mask = np.ones((4, P), np.int32)
+    for i, pad in enumerate((0, 2, 5, 6)):
+        mask[i, :pad] = 0
+        tokens[i, :pad] = 256
+    return tree, tokens, mask
+
+
+def _views(tree, to):
+    embed = dict(tree["frozen_base"]["embed"],
+                 lm_head=tree["trainable"]["lm_head"])
+    blocks = (tree["frozen_base"]["blocks"], tree["trainable"]["blocks"])
+    conv = lambda t: jax.tree_util.tree_map(to, t)  # noqa: E731
+    return conv(blocks), conv(embed), conv(tree["trainable"]["ln_f"])
+
+
+def _run_both(gen_kwargs, eos, early_exit=True, monkeypatch=None):
+    tree, tokens, mask = _inputs()
+    jcfg = jg.GenerationConfig.from_gen_kwargs(G, gen_kwargs, eos, 256, P)
+    tcfg = tg.GenerationConfig.from_gen_kwargs(G, gen_kwargs, eos, 256, P)
+    assert tuple(tcfg.sampling) == tuple(jcfg.sampling)
+    assert (tcfg.gen_size, tcfg.eos_token_id, tcfg.pad_token_id,
+            tcfg.min_new_tokens) == (jcfg.gen_size, jcfg.eos_token_id,
+                                     jcfg.pad_token_id, jcfg.min_new_tokens)
+    if monkeypatch is not None:
+        monkeypatch.setattr(tg, "_EOS_EARLY_EXIT", early_exit)
+        monkeypatch.setattr(jg, "_EOS_EARLY_EXIT", early_exit)
+    jout = jg.generate(JaxSpec(**SPEC), *_views(tree, jnp.asarray),
+                       jnp.asarray(tokens), jnp.asarray(mask),
+                       jax.random.PRNGKey(0), jcfg,
+                       compute_dtype=jnp.float32, cache_dtype=jnp.float32)
+    tout = tg.generate(ModelSpec(**SPEC),
+                       *_views(tree, lambda x: torch.from_numpy(x.copy())),
+                       torch.from_numpy(tokens), torch.from_numpy(mask),
+                       None, tcfg, compute_dtype=torch.float32,
+                       cache_dtype=torch.float32)
+    return jout, tout
+
+
+def _assert_same(jout, tout):
+    for name in ("sequences", "gen_tokens", "gen_mask", "attention_mask"):
+        np.testing.assert_array_equal(
+            getattr(tout, name).numpy(), np.asarray(getattr(jout, name)),
+            err_msg=name)
+    np.testing.assert_allclose(tout.gen_logprobs.numpy(),
+                               np.asarray(jout.gen_logprobs), atol=2e-4,
+                               rtol=0)
+
+
+GREEDY = {"max_length": G, "min_length": G, "top_k": 0, "top_p": 1.0,
+          "do_sample": False}
+
+
+def test_greedy_fixed_length_matches_jax():
+    jout, tout = _run_both(GREEDY, eos=256)
+    _assert_same(jout, tout)
+    assert int(tout.gen_mask.sum()) == 4 * G
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_greedy_eos_and_min_new_tokens_match_jax(early_exit, monkeypatch):
+    """eos = a token greedy decode emits once the suppression is over, so
+    some rows end early; min_length P + 2 keeps eos suppressed for the
+    first 2 steps."""
+    kwargs = dict(GREEDY, min_length=P + 2)
+    _, tfree = _run_both(GREEDY, eos=-1)
+    for eos in sorted(set(tfree.gen_tokens.numpy().ravel().tolist())):
+        jout, tout = _run_both(kwargs, eos, early_exit, monkeypatch)
+        if not tout.gen_mask.numpy().all():
+            break
+    _assert_same(jout, tout)
+    gm = tout.gen_mask.numpy()
+    assert gm[:, :3].all() and not gm.all()  # eos ended some rows
+    ended = tout.gen_tokens.numpy()[gm == 0]
+    assert (ended == 256).all()  # pads after eos
+
+
+def test_sampled_decode_keeps_the_output_contract():
+    tree, tokens, mask = _inputs()
+    cfg = tg.GenerationConfig.from_gen_kwargs(
+        G, {"max_length": 64, "min_length": 0, "temperature": 0.7,
+            "do_sample": True}, 256, 256, P)
+    gen = torch.Generator().manual_seed(0)
+    run = lambda g: tg.generate(  # noqa: E731
+        ModelSpec(**SPEC), *_views(tree, lambda x: torch.from_numpy(x.copy())),
+        torch.from_numpy(tokens), torch.from_numpy(mask), g, cfg,
+        compute_dtype=torch.float32, cache_dtype=torch.float32)
+    out = run(gen)
+    again = run(torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(out.gen_tokens.numpy(),
+                                  again.gen_tokens.numpy())
+    assert out.sequences.shape == (4, P + G)
+    np.testing.assert_array_equal(out.sequences[:, :P].numpy(), tokens)
+    lp = out.gen_logprobs.numpy()
+    assert (lp <= 0).all() and np.isfinite(lp).all()
+    assert (lp[out.gen_mask.numpy() == 0] == 0).all()
+
+
+def test_from_gen_kwargs_matches_jax():
+    for kwargs in ({"max_length": 48, "min_length": 48},
+                   {"max_length": 64, "min_length": 48, "top_k": 0,
+                    "top_p": 1.0, "do_sample": True, "temperature": 0.7},
+                   {"max_new_tokens": 5, "top_k": 3}):
+        j = jg.GenerationConfig.from_gen_kwargs(64, kwargs, 256, 256, 4)
+        t = tg.GenerationConfig.from_gen_kwargs(64, kwargs, 256, 256, 4)
+        assert (t.gen_size, tuple(t.sampling), t.min_new_tokens) == (
+            j.gen_size, tuple(j.sampling), j.min_new_tokens)
+    with pytest.raises(ValueError, match="exceeds"):
+        tg.GenerationConfig.from_gen_kwargs(4, {"max_new_tokens": 5})

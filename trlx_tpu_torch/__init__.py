@@ -11,7 +11,11 @@ the functional transformer (dense, dense-with-cache and paged modes),
 paged slot-pool prefill/decode, the paged-decode attention kernel, the
 page allocator + radix prefix cache, the continuous-batching slot
 scheduler, the inference engine, its HTTP server and CLI
-(``python -m trlx_tpu_torch.serve``).
+(``python -m trlx_tpu_torch.serve``); and PPO training — the hydra
+policy, the rollout decoder, the loss math, the pipeline, orchestrator
+and trainer (``trlx_tpu_torch.utils.loading.get_model``), with the
+flash-attention forward and backward kernels on train-time forwards
+(``python -m trlx_tpu_torch.examples.ppo_sentiments``).
 
 Importing the package does nothing else: no CUDA initialisation, no
 kernel build, no thread.

@@ -1,4 +1,5 @@
-"""Typed configuration (port of trlx_tpu.data; configs only in this slice)."""
+"""Typed configuration and the PPO rollout containers (port of
+trlx_tpu.data; ``ppo_types`` is imported from its own module)."""
 
 from trlx_tpu_torch.data.configs import (  # noqa: F401
     ModelConfig,

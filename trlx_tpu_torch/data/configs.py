@@ -112,8 +112,9 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """Train section (field parity with trlx_tpu's TrainConfig; the
-    training path is not ported yet, so the fields are only parsed)."""
+    """Train section (field parity with trlx_tpu's TrainConfig; the PPO
+    trainer refuses the knobs it does not run yet —
+    ``trlx_tpu_torch.trainers.check_ported``)."""
 
     n_ctx: int
     epochs: int

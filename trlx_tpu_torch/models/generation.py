@@ -11,8 +11,11 @@ trlx_tpu.models.generation ``:588-925`` and ``:1136-1244``).
 
 Under greedy decode a row's tokens are identical to decoding it alone:
 masked positions contribute exactly zero probability. The contiguous
-per-slot pool, ``generate()`` and ``verify_step`` are not ported in
-this slice.
+per-slot pool and ``verify_step`` are not ported yet.
+
+:func:`generate` is the trainer's rollout decoder (``:196-587``): a
+static-shape dense KV cache over left-padded prompts, request to
+completion.
 
 Torch vs JAX, made explicit here: JAX's ``mode="drop"`` scatters become
 host-side filtering (filler rows at ``slot_id == num_slots``), masked
@@ -40,6 +43,7 @@ from trlx_tpu_torch.models.transformer import (
     layer_norm,
     layer_params,
     num_layers,
+    positions_from_mask,
     project_logits,
     quantize_kv,
     tree_map,
@@ -48,14 +52,192 @@ from trlx_tpu_torch.ops.sampling import SamplingParams, sample_token
 
 
 class GenerationConfig(NamedTuple):
-    """Decode settings the slot primitives read (``gen_size`` is kept for
-    signature parity; slots cap per request through ``max_new``)."""
+    """Decode settings: ``gen_size`` new tokens for :func:`generate` (the
+    slot primitives cap per request through ``max_new`` instead),
+    sampling, eos handling."""
 
     gen_size: int
     sampling: SamplingParams = SamplingParams()
     eos_token_id: int = -1  # -1 disables eos termination
     pad_token_id: int = 0
     min_new_tokens: int = 0  # eos suppressed before this many tokens
+
+    @classmethod
+    def from_gen_kwargs(cls, gen_size: int, gen_kwargs: dict,
+                        eos_token_id=-1, pad_token_id=0,
+                        prompt_len: int = 0) -> "GenerationConfig":
+        """Translate HF-style gen_kwargs (max_length / min_length /
+        top_k / top_p / do_sample / temperature / max_new_tokens), as
+        trlx_tpu does: ``min_length`` counts prompt + generated tokens,
+        and ``min_length >= max_length`` means fixed-length generation
+        (eos fully suppressed); an explicit ``max_new_tokens`` overrides
+        ``gen_size``, which is then a ceiling it may not exceed."""
+        max_new = gen_kwargs.get("max_new_tokens")
+        if max_new is not None:
+            max_new = int(max_new)
+            if max_new <= 0:
+                raise ValueError(
+                    f"gen_kwargs max_new_tokens={max_new} must be >= 1")
+            if max_new > gen_size:
+                raise ValueError(
+                    f"gen_kwargs max_new_tokens={max_new} exceeds the "
+                    f"generation length ceiling (gen_size) of {gen_size}")
+            gen_size = max_new
+        min_len = int(gen_kwargs.get("min_length", 0) or 0)
+        max_len = int(gen_kwargs.get("max_length", 0) or 0)
+        if min_len and min_len >= max_len:
+            min_new = gen_size
+        else:
+            min_new = max(0, min(min_len - prompt_len, gen_size))
+        return cls(
+            gen_size=gen_size,
+            sampling=SamplingParams(
+                temperature=float(gen_kwargs.get("temperature", 1.0)),
+                top_k=int(gen_kwargs.get("top_k", 0) or 0),
+                top_p=float(gen_kwargs.get("top_p", 1.0)),
+                do_sample=bool(gen_kwargs.get("do_sample", True)),
+            ),
+            eos_token_id=eos_token_id,
+            pad_token_id=pad_token_id,
+            min_new_tokens=min_new,
+        )
+
+
+class GenerationOutput(NamedTuple):
+    sequences: torch.Tensor  # [B, P+G] prompt ++ generated (pads after eos)
+    gen_tokens: torch.Tensor  # [B, G]
+    gen_logprobs: torch.Tensor  # [B, G] logprob of the emitted token
+    gen_mask: torch.Tensor  # [B, G] 1 while not finished (eos included)
+    attention_mask: torch.Tensor  # [B, P+G] prompt mask ++ ones
+
+
+#: stop decoding once every row has finished (tests A/B it)
+_EOS_EARLY_EXIT = True
+
+
+@torch.no_grad()
+def generate(
+    spec: ModelSpec,
+    blocks,
+    embed,
+    ln_f,
+    prompt_tokens: torch.Tensor,
+    prompt_mask: torch.Tensor,
+    generator: Optional[torch.Generator],
+    config: GenerationConfig,
+    compute_dtype=torch.bfloat16,
+    cache_dtype=torch.bfloat16,
+    attention_fn=attention_scores,
+    logit_mask: Optional[torch.Tensor] = None,
+) -> GenerationOutput:
+    """Decode ``config.gen_size`` tokens per row from LEFT-padded prompts
+    (the rollout decoder; port of trlx_tpu.models.generation.generate).
+
+    One prefill over the prompt fills a static-shape dense KV cache
+    [B, P + G] per layer (``blocks`` is one stacked tree or the (frozen
+    bottom, trainable top) segments, run in order), then one token per
+    step against the cache. Each step's distribution is the previous
+    logits with ``logit_mask`` applied and eos suppressed for the first
+    ``min_new_tokens`` steps; the recorded logprob is that distribution's
+    (unwarped) logprob of the drawn token. After a row emits eos it emits
+    ``pad_token_id`` with ``gen_mask`` 0 and logprob 0. When eos can end
+    rows early, decoding stops once every row has finished (the
+    remaining steps would emit only pads).
+    """
+    B, P = prompt_tokens.shape
+    G = config.gen_size
+    S = P + G
+    if S > spec.n_positions:
+        raise ValueError(
+            f"prompt ({P}) + gen_size ({G}) = {S} exceeds the model's "
+            f"n_positions ({spec.n_positions})"
+        )
+    dev = prompt_tokens.device
+    segments, seg_sizes = _segments_of(blocks)
+    flags = ArchFlags.for_spec(spec)
+    prompt_tokens = prompt_tokens.long()
+    prompt_mask = prompt_mask.to(torch.int32)
+    real_len = prompt_mask.long().sum(-1)  # [B]
+
+    caches = [init_kv_cache(spec, size, B, S, cache_dtype, dev)
+              for size in seg_sizes]
+    positions = positions_from_mask(prompt_mask)
+    h = embed_tokens(embed, spec, prompt_tokens, positions, compute_dtype)
+    prefill_bias = torch.cat([
+        causal_mask_bias(prompt_mask),
+        torch.full((B, 1, P, G), NEG_INF, dtype=torch.float32, device=dev),
+    ], dim=-1)
+    for seg, cache in zip(segments, caches):
+        h, _ = apply_blocks_with_cache(seg, cache, spec, h, prefill_bias,
+                                       positions, 0, attention_fn)
+    logits = project_logits(
+        embed, spec, layer_norm(ln_f, h[:, -1], spec.layer_norm_epsilon))
+
+    buffer_mask = torch.cat(
+        [prompt_mask, torch.ones((B, G), dtype=torch.int32, device=dev)],
+        dim=-1)
+    slot_idx = torch.arange(S, device=dev)
+    early_exit = (_EOS_EARLY_EXIT and config.eos_token_id >= 0
+                  and config.min_new_tokens < G)
+    pad = torch.full((B,), config.pad_token_id, dtype=torch.long,
+                     device=dev)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    toks, logprobs, emitted = [], [], []
+    for step in range(G):
+        if early_exit and step > config.min_new_tokens and bool(
+                finished.all()):
+            break  # every later step emits pads only
+        step_logits = logits
+        if logit_mask is not None:
+            step_logits = torch.where(logit_mask, step_logits,
+                                      torch.full_like(step_logits, NEG_INF))
+        if config.eos_token_id >= 0 and step < config.min_new_tokens:
+            step_logits = step_logits.clone()
+            step_logits[:, config.eos_token_id] = NEG_INF
+        logz = torch.logsumexp(step_logits, dim=-1)
+        tok = sample_token(generator, step_logits, config.sampling)
+        logprob = torch.gather(step_logits, 1, tok[:, None])[:, 0] - logz
+        tok = torch.where(finished, pad, tok)
+        logprob = torch.where(finished, torch.zeros_like(logprob), logprob)
+        emitted.append(~finished)
+        if config.eos_token_id >= 0:
+            finished = finished | (tok == config.eos_token_id)
+        toks.append(tok)
+        logprobs.append(logprob)
+        if step == G - 1:
+            break  # the last token's forward feeds nothing
+
+        offset = P + step
+        pos = (real_len + step)[:, None]
+        h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
+        key_valid = (slot_idx[None, :] <= offset) & (buffer_mask > 0)
+        bias = torch.where(
+            key_valid, torch.tensor(0.0, device=dev),
+            torch.tensor(NEG_INF, device=dev),
+        ).float()[:, None, None, :]
+        for seg, size, (k_c, v_c) in zip(segments, seg_sizes, caches):
+            for i in range(size):
+                h, _ = block_apply(
+                    spec, flags, layer_params(seg, i), h, bias, pos,
+                    kv_cache=(k_c[i], v_c[i]), cache_offset=offset,
+                    attention_fn=attention_fn,
+                )
+        logits = project_logits(
+            embed, spec, layer_norm(ln_f, h[:, 0], spec.layer_norm_epsilon))
+
+    n = len(toks)
+    gen_tokens = torch.stack(toks + [pad] * (G - n), dim=1)
+    zeros = torch.zeros((B,), dtype=torch.float32, device=dev)
+    gen_logprobs = torch.stack(logprobs + [zeros] * (G - n), dim=1)
+    gen_mask = torch.stack(emitted + [torch.zeros_like(finished)] * (G - n),
+                           dim=1).to(torch.int32)
+    return GenerationOutput(
+        sequences=torch.cat([prompt_tokens, gen_tokens], dim=1),
+        gen_tokens=gen_tokens,
+        gen_logprobs=gen_logprobs,
+        gen_mask=gen_mask,
+        attention_mask=buffer_mask,
+    )
 
 
 class SlotState(NamedTuple):

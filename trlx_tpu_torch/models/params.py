@@ -1,4 +1,11 @@
-"""Weights carried across: trlx_tpu param trees -> the port's decode views.
+"""Weights carried across: trlx_tpu param trees -> the port's trainer
+tree and decode views.
+
+The trainer holds the WHOLE hydra tree (frozen_base, trainable with its
+value head, ref): :func:`hydra_to_torch` places a numpy tree (what
+``jax.device_get`` returns, or :func:`init_hydra_numpy`'s seeded
+random one) on a device, and :func:`hydra_to_numpy` brings (updated)
+parameters back for comparison.
 
 The port serves from DECODE VIEWS: ``DecodeViews(blocks, embed, ln_f)``
 where ``blocks`` is the (trunk, trainable-top) pair of stacked block
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.data.configs import ModelSpec
+from trlx_tpu_torch.models.heads import init_head_params
 from trlx_tpu_torch.models.policy import (
     all_blocks,
     head_params_for_decode,
@@ -69,11 +77,12 @@ def decode_views_from_numpy(hydra_tree: Params, spec: ModelSpec,
 
 def init_hydra_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
                      seed: int = 0) -> Params:
-    """A random hydra tree (the decode half: frozen_base + trainable, no
-    reference branch or value head) with trlx_tpu's init scheme —
-    N(0, 0.02) matrices, residual projections scaled by
-    1/sqrt(2 * n_layer), zero biases, unit norm scales — drawn from a
-    numpy generator seeded with ``seed``. float32 throughout."""
+    """A random hydra tree — frozen_base, trainable (with its value head)
+    and the reference branch, an exact copy of the trainable transformer
+    part — with trlx_tpu's init scheme: N(0, 0.02) matrices, residual
+    projections scaled by 1/sqrt(2 * n_layer), zero biases, unit norm
+    scales, a uniform-init value head, drawn from a numpy generator
+    seeded with ``seed``. float32 throughout."""
     rng = np.random.default_rng(seed)
     flags = ArchFlags.for_spec(spec)
     L, d, f, V = spec.n_layer, spec.d_model, spec.d_ff, spec.vocab_size
@@ -122,11 +131,46 @@ def init_hydra_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
     }
     if not spec.tie_lm_head:
         trainable["lm_head"] = {"w": normal((d, V)), "b": zeros(V)}
+    trainable["v_head"] = init_head_params(rng, d, 1)
+    ref = {key: tree_map(np.copy, trainable[key])
+           for key in ("blocks", "ln_f", "lm_head") if key in trainable}
     return {
         "frozen_base": {"embed": embed,
                         "blocks": tree_map(lambda x: x[:L - k], blocks)},
         "trainable": trainable,
+        "ref": ref,
     }
+
+
+def hydra_to_torch(tree: Params, device=None,
+                   frozen_dtype=torch.float32) -> Params:
+    """A hydra tree of numpy (or torch) leaves as torch tensors on
+    ``device``: ``frozen_base`` and ``ref`` stored in ``frozen_dtype``
+    (every leaf, as trlx_tpu casts them), ``trainable`` float32 leaves
+    that require grad — the trainer's parameter tree."""
+
+    def place(x, dtype):
+        t = torch.as_tensor(np.array(x, copy=True, order="C")) \
+            if not torch.is_tensor(x) else x.detach().clone()
+        return t.to(device=device, dtype=dtype if t.is_floating_point()
+                    else t.dtype)
+
+    def frozen(sub):
+        return tree_map(lambda x: place(x, frozen_dtype), sub)
+
+    trainable = tree_map(
+        lambda x: place(x, torch.float32).requires_grad_(True),
+        tree["trainable"],
+    )
+    return {"frozen_base": frozen(tree["frozen_base"]),
+            "trainable": trainable, "ref": frozen(tree["ref"])}
+
+
+def hydra_to_numpy(tree: Params) -> Params:
+    """torch -> numpy for a (sub)tree, float32 for floating leaves."""
+    return tree_map(
+        lambda x: x.detach().float().cpu().numpy() if x.is_floating_point()
+        else x.detach().cpu().numpy(), tree)
 
 
 def init_decode_views(spec: ModelSpec, seed: int = 0,

@@ -1,18 +1,41 @@
-"""Hydra-policy decode helpers (port of the decode half of
-trlx_tpu.models.policy, ``policy.py:261-282``).
+"""Hydra policy: shared frozen trunk, trainable top, frozen reference top,
+value head (port of trlx_tpu.models.policy).
 
 A hydra param tree is ``{"frozen_base": {"embed", "blocks"},
-"trainable": {"blocks", "ln_f", "v_head"[, "lm_head"]}, "ref": ...}``
-with stacked [L, ...] blocks. Serving runs the live policy branch only:
-the frozen bottom blocks then the trainable top (kept as two segments,
-never concatenated), embed (+ the trainable lm_head when untied) and
-the trainable ln_f. The helpers accept numpy or torch leaves.
+"trainable": {"blocks", "ln_f", "v_head"[, "lm_head"]}, "ref":
+{"blocks", "ln_f"[, "lm_head"]}}`` with stacked [L, ...] blocks: the
+bottom ``L - k`` blocks and the embeddings are frozen, the top ``k``
+blocks train, and ``ref`` is the init-time copy of the trainable
+transformer part. One forward runs the trunk once and branches twice.
+
+Gradients are taken only w.r.t. ``trainable`` in the JAX package, and
+the reference branch sits under ``stop_gradient``; here the trunk and
+the reference branch run under ``torch.no_grad()``, which is the same
+thing and keeps no activations for them. ``remat`` recomputes each
+trainable block in the backward (``torch.utils.checkpoint``).
+
+The decode helpers (:func:`all_blocks`, :func:`head_params_for_decode`)
+serve the live policy branch: the frozen bottom then the trainable top,
+kept as two segments; they accept numpy or torch leaves.
 """
 
-from typing import Any, Dict, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from trlx_tpu_torch.data.configs import ModelSpec
-from trlx_tpu_torch.models.transformer import tree_map
+from trlx_tpu_torch.models.heads import head_apply
+from trlx_tpu_torch.models.transformer import (
+    apply_blocks,
+    attention_scores,
+    embed_tokens,
+    layer_norm,
+    mask_arg_for,
+    positions_from_mask,
+    project_logits,
+    tree_map,
+)
 
 Params = Dict[str, Any]
 
@@ -50,3 +73,78 @@ def head_params_for_decode(params: Params) -> Tuple[Params, Params]:
     if "lm_head" in params["trainable"]:
         embed["lm_head"] = params["trainable"]["lm_head"]
     return embed, params["trainable"]["ln_f"]
+
+
+@dataclass(frozen=True)
+class HydraPolicy:
+    """Static description of a hydra policy; the methods are functions of
+    the param tree."""
+
+    spec: ModelSpec
+    num_layers_unfrozen: int = -1
+    compute_dtype: Any = torch.bfloat16
+    remat: bool = False
+    attention_fn: Any = None  # None => plain attention
+
+    @property
+    def k(self) -> int:
+        return resolve_num_unfrozen(self.spec, self.num_layers_unfrozen)
+
+    def _attn(self):
+        return self.attention_fn or attention_scores
+
+    def _trunk(self, params: Params, tokens, attention_mask):
+        """Embeddings + the frozen bottom blocks, without gradient."""
+        with torch.no_grad():
+            positions = positions_from_mask(attention_mask)
+            mask_arg = mask_arg_for(self._attn(), attention_mask)
+            h = embed_tokens(params["frozen_base"]["embed"], self.spec,
+                             tokens, positions, self.compute_dtype)
+            h = apply_blocks(params["frozen_base"]["blocks"], self.spec, h,
+                             mask_arg, positions, attention_fn=self._attn())
+        return h, mask_arg, positions
+
+    def _branch_hidden(self, branch: Params, h, mask_arg, positions):
+        """A top branch's blocks + final norm: the post-ln_f hidden that
+        both the lm head and the value head read."""
+        h = apply_blocks(branch["blocks"], self.spec, h, mask_arg, positions,
+                         attention_fn=self._attn(), remat=self.remat)
+        return layer_norm(branch["ln_f"], h, self.spec.layer_norm_epsilon)
+
+    def branch_head_fn(self, branch: Params, embed: Params):
+        """h_normed [B, T, D] -> float32 logits [B, T, V] for a branch."""
+        head_params = dict(embed)
+        if "lm_head" in branch:
+            head_params["lm_head"] = branch["lm_head"]
+        return lambda h_normed: project_logits(head_params, self.spec,
+                                               h_normed)
+
+    def forward(self, params: Params, tokens, attention_mask,
+                with_ref: bool = True,
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+        """(logits [B, T, V] float32, ref_logits | None, values [B, T]
+        float32); the trunk runs once."""
+        h_top, h_ref, values = self.forward_hidden(params, tokens,
+                                                   attention_mask, with_ref)
+        embed = params["frozen_base"]["embed"]
+        logits = self.branch_head_fn(params["trainable"], embed)(h_top)
+        ref_logits = None
+        if with_ref:
+            with torch.no_grad():
+                ref_logits = self.branch_head_fn(params["ref"], embed)(h_ref)
+        return logits, ref_logits, values
+
+    def forward_hidden(self, params: Params, tokens, attention_mask,
+                       with_ref: bool = True):
+        """Trunk + both top branches without the lm-head projection:
+        (h_policy_normed [B, T, D], h_ref_normed | None, values [B, T])."""
+        h, mask_arg, positions = self._trunk(params, tokens, attention_mask)
+        h_top = self._branch_hidden(params["trainable"], h, mask_arg,
+                                    positions)
+        values = head_apply(params["trainable"]["v_head"], h_top)[..., 0]
+        h_ref = None
+        if with_ref:
+            with torch.no_grad():
+                h_ref = self._branch_hidden(params["ref"], h, mask_arg,
+                                            positions)
+        return h_top, h_ref, values

@@ -394,13 +394,35 @@ def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     return pos.clamp(min=0)
 
 
+def mask_arg_for(attention_fn, attention_mask: torch.Tensor) -> torch.Tensor:
+    """The mask argument an attention_fn expects: the raw [B, T] mask for
+    one that declares ``takes_raw_mask`` (the flash kernels build their
+    bias per tile), else the additive causal + padding bias."""
+    if getattr(attention_fn, "takes_raw_mask", False):
+        return attention_mask
+    return causal_mask_bias(attention_mask)
+
+
 def apply_blocks(blocks, spec, h, mask_bias, positions,
-                 attention_fn=attention_scores):
-    """Run stacked blocks over `h` (dense, no cache)."""
+                 attention_fn=attention_scores, remat: bool = False):
+    """Run stacked blocks over `h` (dense, no cache). ``remat``
+    recomputes each block in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``; only while grad is on)."""
     flags = ArchFlags.for_spec(spec)
     for i in range(num_layers(blocks)):
-        h, _ = block_apply(spec, flags, layer_params(blocks, i), h,
-                           mask_bias, positions, attention_fn=attention_fn)
+        p_i = layer_params(blocks, i)
+        if remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            h = checkpoint(
+                lambda x, p=p_i: block_apply(spec, flags, p, x, mask_bias,
+                                             positions,
+                                             attention_fn=attention_fn)[0],
+                h, use_reentrant=False,
+            )
+        else:
+            h, _ = block_apply(spec, flags, p_i, h, mask_bias, positions,
+                               attention_fn=attention_fn)
     return h
 
 

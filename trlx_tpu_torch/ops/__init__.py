@@ -10,7 +10,9 @@ import threading
 from typing import Dict
 
 #: kernel name -> launches on the card since import or the last reset
-LAUNCHES: Dict[str, int] = {"paged_decode": 0}
+LAUNCHES: Dict[str, int] = {
+    "paged_decode": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+}
 
 _launch_lock = threading.Lock()
 

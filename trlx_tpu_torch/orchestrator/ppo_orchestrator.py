@@ -1,0 +1,155 @@
+"""PPO orchestrator — the online rollout engine (port of
+trlx_tpu.orchestrator.ppo_orchestrator).
+
+Per chunk of ``chunk_size`` prompts: the trainer's ``rollout`` selects
+the prompts from the device-resident bank, generates, and scores them in
+one shared-trunk forward (policy and reference logprobs, values, the
+KL-penalty rewards); the host decodes the sequences and calls the user's
+``reward_fn(List[str]) -> scores``; the score lands on each row's last
+real response token; the chunk goes into the store. Then the adaptive KL
+controller updates from the measured mean KL. The prompt iteration is
+the JAX package's (``batch_iterator`` with a seed that advances each
+pass over the prompts).
+
+``start_experience`` dispatches every chunk against one policy snapshot
+and ``finish_experience`` harvests them. The host reward is called
+plainly: retries, seam timeouts and a device reward model are not
+ported.
+"""
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch import telemetry
+from trlx_tpu_torch.data.ppo_types import PPORLBatch
+from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
+from trlx_tpu_torch.pipeline import batch_iterator
+from trlx_tpu_torch.utils import Clock
+
+
+@register_orchestrator("PPOOrchestrator")
+class PPOOrchestrator(Orchestrator):
+    def __init__(self, model, pipeline, reward_fn: Callable,
+                 metric_fn: Callable = None, chunk_size: int = 512):
+        super().__init__(pipeline, model)
+        if getattr(reward_fn, "is_device_reward", False):
+            raise NotImplementedError(
+                "a device reward model is not ported yet; pass a host "
+                "reward_fn(List[str]) -> scores"
+            )
+        self.chunk_size = chunk_size
+        self.reward_fn = reward_fn
+        self.metric_fn = metric_fn
+        self._idx_loader = None
+        self._loader_seed = 0
+        self._bank = None  # device-resident (tokens, masks) prompt bank
+        self.rl_model.set_orchestrator(self, reward_fn)
+        self.clock = Clock()
+
+    def _prompt_bank(self):
+        """The tokenized prompt set, moved to the trainer's device once."""
+        if self._bank is None:
+            self._bank = self.rl_model._put(
+                (torch.as_tensor(np.asarray(self.pipeline.tokens, np.int32)),
+                 torch.as_tensor(np.asarray(self.pipeline.masks, np.int32)))
+            )
+        return self._bank
+
+    def _next_idx(self) -> np.ndarray:
+        """Next chunk of prompt indices: shuffled without replacement, a
+        fresh seed for each pass over the prompts."""
+        if len(self.pipeline) < self.chunk_size:
+            raise ValueError(
+                f"prompt pipeline has {len(self.pipeline)} prompts but "
+                f"chunk_size is {self.chunk_size}; provide at least "
+                f"chunk_size prompts (or lower chunk_size)"
+            )
+        if self._idx_loader is None:
+            self._idx_loader = batch_iterator(
+                len(self.pipeline), self.chunk_size, True,
+                self._loader_seed, lambda idx: idx,
+            )
+        try:
+            return next(self._idx_loader)
+        except StopIteration:
+            self._loader_seed += 1
+            self._idx_loader = None
+            return self._next_idx()
+
+    def score(self, texts) -> np.ndarray:
+        """The user reward callback on decoded query + response texts."""
+        return np.asarray(self.reward_fn(texts), np.float32)
+
+    def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
+        """Fill the trainer's store with ``num_rollouts`` scored rollouts,
+        rounded up to whole chunks (with a warning)."""
+        with telemetry.span("rollout"):
+            return self._finish_experience(
+                self.start_experience(num_rollouts, iter_count))
+
+    def start_experience(self, num_rollouts: int, iter_count: int = 0):
+        import warnings
+
+        if num_rollouts <= 0:
+            raise ValueError(f"make_experience: num_rollouts must be "
+                             f"positive, got {num_rollouts}")
+        n_chunks = -(-num_rollouts // self.chunk_size)
+        if n_chunks * self.chunk_size != num_rollouts:
+            warnings.warn(
+                f"make_experience: num_rollouts={num_rollouts} is not a "
+                f"multiple of chunk_size={self.chunk_size}; producing "
+                f"{n_chunks * self.chunk_size} rollouts", stacklevel=2,
+            )
+        bank_tokens, bank_mask = self._prompt_bank()
+        pendings = [
+            self.rl_model.rollout(bank_tokens, bank_mask, self._next_idx())
+            for _ in range(n_chunks)
+        ]
+        return {"pendings": pendings, "n_chunks": n_chunks}
+
+    def finish_experience(self, handle):
+        """Score, finalize and store every dispatched chunk inside a
+        ``rollout`` span (each reward call in a nested ``reward_fn``
+        span), then update the KL controller. (``make_experience`` puts
+        generation and scoring inside the span too: eager PyTorch runs
+        them in ``start_experience``.)"""
+        with telemetry.span("rollout"):
+            return self._finish_experience(handle)
+
+    def _finish_experience(self, handle):
+        trainer = self.rl_model
+        all_kls, all_scores = [], []
+        for pending in handle["pendings"]:
+            out, query, qmask, logprobs, values, kl_rewards, seq_kl = pending
+            sequences = out.sequences.cpu().numpy()
+            seq_kl_host = seq_kl.cpu().numpy()
+            texts = trainer.tokenizer.batch_decode(sequences,
+                                                   skip_special_tokens=True)
+            with telemetry.span("reward_fn"):
+                scores = self.score(texts)
+            all_scores.append(scores)
+            rewards = trainer.finalize_rewards(kl_rewards, out.gen_mask,
+                                               scores)
+            all_kls.append(float(seq_kl_host.mean()))
+            trainer.push_to_store(PPORLBatch(
+                query_tensors=query,
+                response_tensors=out.gen_tokens,
+                logprobs=logprobs,
+                values=values,
+                rewards=rewards,
+                response_masks=out.gen_mask,
+                query_masks=qmask,
+            ))
+            self.clock.tick(len(sequences))
+        n_chunks = handle["n_chunks"]
+        trainer.post_rollout_kl_update(float(np.mean(all_kls)),
+                                       n_chunks * self.chunk_size)
+        return {
+            "rollouts": n_chunks * self.chunk_size,
+            "mean_score": float(np.concatenate(all_scores).mean()),
+            "mean_kl": float(np.mean(all_kls)),
+            "exp_time": self.clock.get_stat(self.chunk_size),
+            "samples_per_sec": self.clock.samples_per_second(),
+        }

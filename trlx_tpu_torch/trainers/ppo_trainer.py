@@ -1,0 +1,400 @@
+"""PPO trainer: rollout scoring, the train step and the learn loop (port of
+trlx_tpu.trainers.ppo_trainer).
+
+- ``rollout`` selects a chunk of prompts from the device-resident bank,
+  generates (dense KV-cache decode) and scores the sequences in one
+  shared-trunk forward: policy and reference logprobs (chunked over the
+  vocabulary head), values and the KL-penalty rewards.
+- ``train_step`` runs GAE, advantage whitening, the policy forward, the
+  clipped losses and the optimizer update; ``train_multi`` runs
+  ``ppo_epochs`` such passes over one minibatch and returns the last
+  pass's stats.
+- :func:`build_optimizer` is optax's ``chain(clip_by_global_norm,
+  adamw)`` with a cosine schedule, written out.
+
+Registered as ``JaxPPOTrainer`` and ``AcceleratePPOModel`` so a YAML
+resolves to it as it does to trlx_tpu's trainer. Not ported yet (each
+raises): ``optimizer: adafactor``, pretrained import (set
+``model.model_spec``), checkpoints, and the knobs
+:func:`trlx_tpu_torch.trainers.check_ported` lists.
+"""
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch import telemetry
+from trlx_tpu_torch.data.ppo_types import PPORLBatch
+from trlx_tpu_torch.models.generation import GenerationConfig, generate
+from trlx_tpu_torch.models.params import hydra_to_torch, init_hydra_numpy
+from trlx_tpu_torch.models.policy import (
+    HydraPolicy,
+    all_blocks,
+    head_params_for_decode,
+)
+from trlx_tpu_torch.models.transformer import tree_map
+from trlx_tpu_torch.ops.losses import (
+    chunked_label_logprobs,
+    gae_advantages,
+    kl_penalty_rewards,
+    logprobs_from_logits,
+    ppo_losses,
+    whiten,
+)
+from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.trainers import BaseRLTrainer, register_trainer
+from trlx_tpu_torch.trainers.kl_controllers import make_kl_controller
+from trlx_tpu_torch.utils import DTYPES, Clock, cosine_schedule
+from trlx_tpu_torch.utils.tokenizer import load_tokenizer
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+class AdamW:
+    """``optax.chain(optax.clip_by_global_norm(max_norm),
+    optax.adamw(schedule, weight_decay=..., mu_dtype=...))`` on a list of
+    parameter tensors, updated in place:
+
+    1. clip: with g_norm the global norm, gradients are kept when
+       g_norm < max_norm, else scaled by max_norm / g_norm;
+    2. Adam moments (mu stored in ``mu_dtype``, nu float32) with bias
+       correction at the incremented count, update m / (sqrt(v) + eps);
+    3. decoupled weight decay: + weight_decay * param;
+    4. the step: param -= schedule(count) * update, the schedule read at
+       the count BEFORE this step's increment.
+    """
+
+    def __init__(self, schedule: Callable[[int], float], max_norm: float,
+                 weight_decay: float, mu_dtype=torch.float32, b1=0.9,
+                 b2=0.999, eps=1e-8):
+        self.schedule = schedule
+        self.max_norm = float(max_norm)
+        self.weight_decay = float(weight_decay)
+        self.mu_dtype = mu_dtype
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params) -> Dict:
+        leaves = _leaves(params)
+        return {
+            "count": 0,
+            "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in leaves],
+            "nu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
+        }
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             state: Dict) -> torch.Tensor:
+        """One update of ``params`` in place; returns the pre-clip global
+        gradient norm."""
+        g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        keep = g_norm < self.max_norm
+        count = state["count"] + 1
+        dev = g_norm.device
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+        bc1 = 1 - f32(self.b1) ** count
+        bc2 = 1 - f32(self.b2) ** count
+        lr = f32(self.schedule(state["count"]))
+        for i, (p, g) in enumerate(zip(params, grads)):
+            g = g.float()
+            g = torch.where(keep, g, (g / g_norm) * self.max_norm)
+            # b1 * mu in the moment's own dtype, b1 rounded to it first,
+            # as optax's weak-typed scalar times a bfloat16 moment is
+            mu_prev = state["mu"][i]
+            mu = (1 - self.b1) * g + mu_prev * torch.tensor(
+                self.b1, dtype=mu_prev.dtype, device=dev)
+            nu = (1 - self.b2) * g * g + self.b2 * state["nu"][i]
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            update = update + self.weight_decay * p
+            p.add_(-lr * update)
+            state["mu"][i] = mu.to(self.mu_dtype)
+            state["nu"][i] = nu
+        state["count"] = count
+        return g_norm
+
+
+def build_optimizer(train_config, sched=None) -> AdamW:
+    """Grad clip + AdamW + LR schedule (default: cosine anneal from
+    ``learning_rate_init`` to ``learning_rate_target`` over
+    ``total_steps``), as trlx_tpu builds it with optax."""
+    if sched is None:
+        sched = cosine_schedule(train_config.learning_rate_init,
+                                train_config.total_steps,
+                                lr_min=train_config.learning_rate_target)
+    name = getattr(train_config, "optimizer", "adamw").lower()
+    if name == "adafactor":
+        raise NotImplementedError(
+            "train.optimizer 'adafactor' is not ported to trlx_tpu_torch yet")
+    if name != "adamw":
+        raise ValueError(
+            f"train.optimizer '{name}' is not one of: adamw, adafactor")
+    return AdamW(sched, train_config.grad_clip, train_config.weight_decay,
+                 mu_dtype=DTYPES[getattr(train_config, "adam_moment_dtype",
+                                         "float32")])
+
+
+@register_trainer("JaxPPOTrainer")
+@register_trainer("AcceleratePPOModel")
+class JaxPPOTrainer(BaseRLTrainer):
+    """PPO with a KL penalty against the frozen reference branch.
+
+    ``params`` (optional) is a numpy hydra tree to start from (e.g. the
+    JAX trainer's ``jax.device_get(trainer.params)``); by default a
+    random tree is drawn from ``train.seed`` with numpy. The orchestrator
+    binds itself and the reward through :meth:`set_orchestrator`."""
+
+    def __init__(self, config, train_mode: bool = True, mesh=None,
+                 device=None, params=None):
+        super().__init__(config, train_mode, mesh=mesh, device=device)
+        self.iter_count = 0
+        self.epoch = 0
+        self.tokenizer = load_tokenizer(config.model.tokenizer_path)
+        if config.model.model_spec is None:
+            raise NotImplementedError(
+                "pretrained import (models/hf_import.py) is not ported to "
+                "trlx_tpu_torch yet; set model.model_spec for a "
+                "from-config model")
+        spec = config.model.resolve_spec()
+        self.policy = HydraPolicy(
+            spec=spec,
+            num_layers_unfrozen=config.model.num_layers_unfrozen,
+            compute_dtype=DTYPES[config.model.compute_dtype],
+            remat=config.train.remat,
+            attention_fn=self._train_attention_fn(),
+        )
+        if params is None:
+            params = init_hydra_numpy(spec, config.model.num_layers_unfrozen,
+                                      seed=config.train.seed)
+        self.params = hydra_to_torch(params, self.device,
+                                     DTYPES[config.model.param_dtype])
+        self.opt = build_optimizer(config.train)
+        self.opt_state = self.opt.init(self.params["trainable"])
+
+        self.store = PPORolloutStorage()
+        m = config.method
+        self.kl_ctl = make_kl_controller(m.init_kl_coef, m.target, m.horizon)
+        eos = getattr(self.tokenizer, "eos_token_id", -1)
+        self.gen_config = GenerationConfig.from_gen_kwargs(
+            config.train.gen_size, m.gen_kwargs or {},
+            eos_token_id=eos if eos is not None else -1,
+            pad_token_id=getattr(self.tokenizer, "pad_token_id", 0) or 0,
+            prompt_len=config.train.input_size,
+        )
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.train.seed)
+        self.orch = None
+        self.reward_fn: Optional[Callable] = None
+
+    def set_orchestrator(self, orch, reward_fn: Callable) -> None:
+        self.orch = orch
+        self.reward_fn = reward_fn
+
+    # -- rollout ---------------------------------------------------------- #
+
+    def generate(self, query_tokens, query_mask):
+        query, mask = self._put((query_tokens, query_mask))
+        embed, ln_f = head_params_for_decode(self.params)
+        return generate(
+            self.policy.spec, all_blocks(self.params), embed, ln_f, query,
+            mask, self.generator, self.gen_config,
+            compute_dtype=self.policy.compute_dtype,
+        )
+
+    @torch.no_grad()
+    def score(self, sequences, attention_mask, response_mask, kl_coef,
+              input_size: int):
+        """One shared-trunk forward -> (logprobs, values, KL-penalty
+        rewards without the task score, per-sequence KL) over the
+        response window, logprobs chunked through each branch's head so
+        the [B, T, V] logits are never materialized."""
+        policy = self.policy
+        h_top, h_ref, values = policy.forward_hidden(
+            self.params, sequences, attention_mask, with_ref=True)
+        P = input_size
+        response = sequences[:, P:]
+        window = slice(P - 1, sequences.shape[1] - 1)
+        embed = self.params["frozen_base"]["embed"]
+        logprobs = chunked_label_logprobs(
+            policy.branch_head_fn(self.params["trainable"], embed),
+            h_top[:, window], response)
+        ref_logprobs = chunked_label_logprobs(
+            policy.branch_head_fn(self.params["ref"], embed),
+            h_ref[:, window], response)
+        rewards, seq_kl = kl_penalty_rewards(
+            logprobs, ref_logprobs,
+            torch.zeros(sequences.shape[0], device=sequences.device),
+            kl_coef, mask=response_mask)
+        return logprobs, values[:, window], rewards, seq_kl
+
+    def rollout(self, bank_tokens, bank_mask, idx):
+        """One rollout chunk: prompts ``idx`` of the bank -> generation ->
+        scoring. Returns (out, query, query_mask, logprobs, values,
+        kl_rewards, seq_kl) on the device."""
+        idx = torch.as_tensor(np.asarray(idx), device=bank_tokens.device)
+        query, query_mask = bank_tokens[idx], bank_mask[idx]
+        out = self.generate(query, query_mask)
+        logprobs, values, kl_rewards, seq_kl = self.score(
+            out.sequences, out.attention_mask, out.gen_mask,
+            float(self.kl_ctl.value), query.shape[1])
+        return out, query, query_mask, logprobs, values, kl_rewards, seq_kl
+
+    def finalize_rewards(self, kl_rewards, gen_mask, scores):
+        """kl_rewards + the task score on each row's last real token."""
+        rows = torch.arange(kl_rewards.shape[0], device=kl_rewards.device)
+        last = (gen_mask.sum(dim=-1).long() - 1).clamp(min=0)
+        scores = torch.as_tensor(np.asarray(scores, np.float32),
+                                 device=kl_rewards.device)
+        return kl_rewards.index_put((rows, last), scores, accumulate=True)
+
+    def act(self, batch):
+        """Generate for a prompt batch: (query, response tokens, texts)."""
+        query, mask = batch
+        out = self.generate(query, mask)
+        texts = self.tokenizer.batch_decode(out.sequences.cpu().numpy(),
+                                            skip_special_tokens=True)
+        return np.asarray(query), out.gen_tokens.cpu().numpy(), texts
+
+    def sample(self, prompts, length: int, n_samples: int):
+        enc = self.tokenizer(prompts, max_length=self.config.train.input_size,
+                             padding="max_length", truncation=True)
+        out = self.generate(np.asarray(enc["input_ids"]),
+                            np.asarray(enc["attention_mask"]))
+        return self.tokenizer.batch_decode(out.sequences.cpu().numpy())
+
+    # -- update ----------------------------------------------------------- #
+
+    def train_step(self, batch: PPORLBatch) -> Dict[str, torch.Tensor]:
+        """One PPO update on ``batch`` (on the trainer's device): GAE and
+        whitened advantages, the policy forward over query + response
+        (attending what generation attended: the rollout's prompt mask,
+        response pads included; only the losses exclude pads), the
+        clipped losses, the optimizer step. Returns the stats, with the
+        pre-clip ``grad_norm``."""
+        m = self.config.method
+        query, response = batch.query_tensors, batch.response_tensors
+        P, G = query.shape[1], response.shape[1]
+        old_values, resp_mask = batch.values, batch.response_masks
+        with torch.no_grad():
+            advantages, returns = gae_advantages(
+                old_values, batch.rewards, m.gamma, m.lam, mask=resp_mask)
+            advantages = whiten(advantages, mask=resp_mask)
+        tokens = torch.cat([query, response], dim=1)
+        mask = torch.cat([batch.query_masks,
+                          torch.ones_like(response, dtype=torch.int32)], dim=1)
+        trainable = self.params["trainable"]
+        h_top, _, values = self.policy.forward_hidden(self.params, tokens,
+                                                      mask, with_ref=False)
+        window = slice(P - 1, P + G - 1)
+        head = self.policy.branch_head_fn(
+            trainable, self.params["frozen_base"]["embed"])
+        logprobs = logprobs_from_logits(head(h_top[:, window]), response)
+        loss, stats = ppo_losses(
+            logprobs, values[:, window], batch.logprobs, old_values,
+            advantages, returns, m.cliprange, m.cliprange_value, m.vf_coef,
+            mask=resp_mask)
+        leaves = _leaves(trainable)
+        grads = torch.autograd.grad(loss, leaves)
+        stats["grad_norm"] = self.opt.step(leaves, grads, self.opt_state)
+        return {k: v.detach() for k, v in stats.items()}
+
+    def train_multi(self, batch: PPORLBatch) -> Dict[str, torch.Tensor]:
+        """``ppo_epochs`` passes over one minibatch; the last pass's
+        stats."""
+        for _ in range(self.config.method.ppo_epochs):
+            stats = self.train_step(batch)
+        return stats
+
+    # -- loop ------------------------------------------------------------- #
+
+    def evaluate(self, eval_prompts=None, n: int = 16):
+        """Generate from eval prompts (by default a rotating shuffled batch
+        of the pipeline's) and score them with ``reward_fn``."""
+        if self.reward_fn is None:
+            return {}
+        if eval_prompts is None:
+            if self.orch is None:
+                return {}
+            self._eval_round = getattr(self, "_eval_round", -1) + 1
+            loader = self.orch.pipeline.create_loader(
+                n, shuffle=True, seed=self._eval_round)
+            try:
+                eval_prompts = next(iter(loader))
+            except StopIteration:
+                return {}
+        query, mask = eval_prompts
+        with telemetry.span("eval"):
+            out = self.generate(query, mask)
+            texts = self.tokenizer.batch_decode(out.sequences.cpu().numpy(),
+                                                skip_special_tokens=True)
+            with telemetry.span("reward_fn"):
+                scores = np.asarray(self.reward_fn(texts), np.float32)
+        return {"mean_score": float(scores.mean()), "samples": texts[:4]}
+
+    def _telemetry_stats(self) -> Dict[str, float]:
+        """Seconds spent so far in each span (``time/<name>``)."""
+        session = telemetry.current()
+        if session is None:
+            return {}
+        return {name: h.total for name, h in session.registry.hists.items()}
+
+    def learn(self, log_fn: Callable = None, save_fn=None, eval_fn=None):
+        """The PPO loop: minibatches over the rollout store (shuffled with
+        the epoch as seed), ``ppo_epochs`` passes per batch in a
+        ``ppo_update`` span, logging / eval between batches, fresh
+        experience after each epoch. Stops when EITHER ``total_steps`` or
+        ``epochs`` is reached, as trlx_tpu does. Logged stats carry
+        ``samples_per_sec`` and the ``time/*`` span totals."""
+        cfg, m = self.config.train, self.config.method
+        log_fn = log_fn or print
+        clock = Clock()
+        while self.iter_count < cfg.total_steps and self.epoch < cfg.epochs:
+            loader = self.store.create_loader(cfg.batch_size, shuffle=True,
+                                              seed=self.epoch)
+            for batch in loader:
+                with telemetry.span("ppo_update"):
+                    stats = self.train_multi(batch)
+                    self.iter_count += m.ppo_epochs
+                    self._sync()
+                clock.tick(len(batch) * m.ppo_epochs)
+                intervals = self.intervals(self.iter_count)
+                if intervals["do_log"]:
+                    host_stats = {k: float(v) for k, v in stats.items()}
+                    host_stats.update(
+                        iter=self.iter_count, epoch=self.epoch,
+                        kl_coef=float(self.kl_ctl.value),
+                        samples_per_sec=clock.samples_per_second(),
+                    )
+                    host_stats.update(self._telemetry_stats())
+                    log_fn(host_stats)
+                if intervals["do_eval"]:
+                    ev = self.evaluate()
+                    if ev:
+                        log_fn({"iter": self.iter_count, **ev})
+                if intervals["do_save"]:
+                    self.save()
+                if self.iter_count >= cfg.total_steps:
+                    break
+            self.epoch += 1
+            if self.orch is not None and self.iter_count < cfg.total_steps \
+                    and self.epoch < cfg.epochs:
+                self.store.clear_history()
+                info = self.orch.make_experience(m.num_rollouts,
+                                                 self.iter_count)
+                log_fn({"iter": self.iter_count, "epoch": self.epoch, **info,
+                        **self._telemetry_stats()})
+
+    def post_rollout_kl_update(self, mean_kl: float, n_samples: int) -> None:
+        self.kl_ctl.update(mean_kl, n_samples)
+
+    def get_components(self) -> Dict:
+        return {
+            "params": self.params,
+            "opt_state": self.opt_state,
+            "state": {"iter_count": self.iter_count, "epoch": self.epoch,
+                      "kl_coef": self.kl_ctl.value},
+            "config": self.config.to_nested_dict(),
+        }

@@ -1,6 +1,10 @@
-"""Host utilities shared by the port."""
+"""Host utilities shared by the port (``resolve_device``, ``DTYPES``)
+and the copies of trlx_tpu.utils the trainer needs: ``flatten``,
+``chunk``, ``cosine_schedule`` and ``Clock``."""
 
-from typing import Optional
+import math
+import time
+from typing import Any, Callable, Iterable, List, Optional
 
 import torch
 
@@ -25,3 +29,62 @@ DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
+
+
+def flatten(xs: Iterable[Iterable[Any]]) -> List[Any]:
+    """Flatten one level of nesting."""
+    return [item for sub in xs for item in sub]
+
+
+def chunk(xs: List[Any], chunk_size: int) -> List[List[Any]]:
+    """Split a list into chunks of at most ``chunk_size``."""
+    return [xs[i:i + chunk_size] for i in range(0, len(xs), chunk_size)]
+
+
+def cosine_schedule(lr_init: float, total_steps: int,
+                    lr_min: float = 1e-9) -> Callable[[int], float]:
+    """``step -> lr`` cosine annealing from ``lr_init`` to ``lr_min`` over
+    ``total_steps``, with optax's ``cosine_decay_schedule`` semantics:
+    the step is clamped to the decay length, and the multiplier is
+    ``(1 - alpha) * 0.5 * (1 + cos(pi * t / T)) + alpha`` with
+    ``alpha = lr_min / lr_init``."""
+    decay_steps = float(max(total_steps, 1))
+    alpha = lr_min / max(lr_init, 1e-30)
+
+    def schedule(step: int) -> float:
+        t = min(float(step), decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
+        return lr_init * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+class Clock:
+    """Wall time and throughput: ``tick(samples)`` records a mark;
+    elapsed time counts toward throughput only when samples were
+    processed, so a bare ``tick()`` excludes idle or set-up time."""
+
+    def __init__(self):
+        self.start = time.time()
+        self.total_seconds = 0.0
+        self.total_samples = 0
+
+    def tick(self, samples: int = 0) -> float:
+        now = time.time()
+        delta = now - self.start
+        self.start = now
+        if samples:
+            self.total_seconds += delta
+            self.total_samples += samples
+        return delta
+
+    def get_stat(self, n_samp: int = 1000, reset: bool = False) -> float:
+        """Average seconds per ``n_samp`` samples."""
+        sec_per_samp = self.total_seconds / max(self.total_samples, 1)
+        if reset:
+            self.total_seconds = 0.0
+            self.total_samples = 0
+        return sec_per_samp * n_samp
+
+    def samples_per_second(self) -> float:
+        return self.total_samples / max(self.total_seconds, 1e-9)
