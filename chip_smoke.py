@@ -22,12 +22,15 @@ Phases, each printing its own line; any failure exits non-zero:
 4. flash — the three flash-attention kernels against the dense oracle
    and its autograd: fp32 causal with left padding at T 52 and 576 and
    the non-causal form (O and lse on real rows atol 1e-5, dq / dk / dv
-   atol 2e-4), and bf16 at the training shape, each kernel against its
-   plain version in fp32 math on the same inputs (atol 1e-2 + rtol 1e-2,
-   every row finite); then kernel, plain-version and SDPA-yardstick
-   times (CUDA-graph replay and eager)
+   atol 2e-4); the bf16 backward kernels (tensor cores) at hd 16, 32, 64
+   and 128, T 130 causal with a fully left-padded row and T 96
+   non-causal; and bf16 at the training shape; each bf16 kernel against
+   its plain version in fp32 math on the same inputs (atol 1e-2 +
+   rtol 1e-2, outputs in q's dtype, every row finite); then kernel,
+   plain-version and SDPA-yardstick times (CUDA-graph replay and eager)
    at the training shape (B 32, T 576, H 12, hd 64, bf16, causal) and at
-   B 8, T 2048, each beside its bound.
+   B 8, T 2048, each beside its bound, and the whole backward seam
+   (D + dq + dk/dv in one graph) beside SDPA's backward.
 5. serve — the port's serving path at gpt2-124M width (12 layers, seeded
    random weights, bf16) behind its HTTP server: concurrent
    ``/generate`` requests with mixed ``max_new_tokens`` and a shared
@@ -386,6 +389,8 @@ def time_kernel(dev, label, max_pages, iters):
 # --------------------------------------------------------------------- #
 
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: the whole backward seam (D, dq, dk/dv) timed beside SDPA's backward
+SEAM = "flash_bwd (seam)"
 FLASH_REPLACES = {
     "flash_fwd": "trlx_tpu/ops/pallas_attention.py:42",
     "flash_bwd_dq": "trlx_tpu/ops/pallas_attention.py:204",
@@ -437,10 +442,41 @@ def flash_errors(q, k, v, g, mask, causal):
     return out.detach(), ref.detach(), errs, leaves, refs
 
 
+def ratio(a, b):
+    """Largest |a - b| / (1e-2 + 1e-2 |b|), in float32; <= 1 passes."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs() / (1e-2 + 1e-2 * b.abs())).max().item()
+
+
+def bf16_backward_check(q, k, v, g, mask, causal):
+    """The bf16 backward kernels against their plain versions on the same
+    bf16 q, k, v, dO and the same lse and D (from the forward kernel's
+    O): ({dq, dk, dv: ratio}, {kernel: max abs error}). Every output must
+    be finite and in q's dtype."""
+    out, lse = fa.flash_fwd(q, k, v, mask, causal)
+    dD = fa.softmax_jacobian_diag(g, out)
+    got = dict(zip(("dq", "dk", "dv"), (
+        fa.flash_bwd_dq(q, k, v, g, lse, dD, mask, causal),
+        *fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal))))
+    want = dict(zip(("dq", "dk", "dv"), (
+        fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal),
+        *fa.flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal))))
+    torch.cuda.synchronize()
+    for n, x in got.items():
+        assert x.dtype == q.dtype, f"{n} in {x.dtype}, not {q.dtype}"
+        assert torch.isfinite(x.float()).all(), f"non-finite bf16 {n}"
+    errs = {"flash_bwd_dq": max_err(got["dq"], want["dq"]),
+            "flash_bwd_dkv": max(max_err(got[n], want[n])
+                                 for n in ("dk", "dv"))}
+    return {n: ratio(got[n], want[n]) for n in got}, errs
+
+
 def check_flash(dev):
     """fp32 (causal with left padding at T 52, 576 and 130, non-causal)
-    at atol 1e-5 (O, lse) / 2e-4 (gradients); bf16 at the training shape
-    at atol 1e-2 + rtol 1e-2 (O on real rows, dq, dk, dv), each kernel
+    at atol 1e-5 (O, lse) / 2e-4 (gradients); bf16 backward kernels at hd
+    16 / 32 / 64 / 128, T 130 causal with a fully left-padded row and T 96
+    non-causal, and the whole bf16 path at the training shape, at
+    atol 1e-2 + rtol 1e-2 (O on real rows, dq, dk, dv), each kernel
     against its plain version on the same inputs. Returns the largest
     error seen per kernel."""
     worst = dict.fromkeys(FLASH_NAMES, 0.0)
@@ -459,35 +495,36 @@ def check_flash(dev):
         assert errs["flash_bwd_dq"] <= 2e-4, "flash dq disagrees (fp32)"
         assert errs["flash_bwd_dkv"] <= 2e-4, "flash dk/dv disagrees (fp32)"
         worst = {n: max(worst[n], errs[n]) for n in worst}
+    # the bf16 backward kernels (tensor cores) at every head dim the
+    # wrappers take: the kernels round P and dS to bf16 before the second
+    # product (2^-9 relative each) and every output once to bf16
+    for hd in fa.HEAD_DIMS:
+        for B, T, H, pads, causal in ((3, 130, 2, (0, 130, 17), True),
+                                      (2, 96, 2, (0, 9), False)):
+            case = flash_case(dev, B, T, H, hd, pads, torch.bfloat16,
+                              seed=T + hd)
+            ratios, errs = bf16_backward_check(*case, causal)
+            log("flash", f"bf16 backward B{B} T{T} H{H} hd{hd} pads "
+                         f"{list(pads)} causal={causal}, each kernel vs "
+                         f"its plain version: " + ", ".join(
+                             f"{n} {e:.3e}" for n, e in errs.items())
+                + "; largest |err| / (1e-2 + 1e-2 |ref|): " + ", ".join(
+                    f"{n} {r:.3f}" for n, r in ratios.items())
+                + " (<= 1 passes; every row finite)")
+            for name, r in ratios.items():
+                assert r <= 1.0, f"bf16 flash {name} disagrees (hd {hd})"
+            worst = {n: max(worst[n], errs.get(n, 0.0)) for n in worst}
     B, T = 32, 576
     pads = list(range(0, 512, 16))  # 0 ... 496 left-pad tokens
     case = flash_case(dev, B, T, 12, 64, pads, torch.bfloat16, seed=9)
     out, ref, seam_errs, leaves, refs = flash_errors(*case, True)
-    q, k, v, g, mask = case
-    real = mask.bool()
-
-    def ratio(a, b):  # largest |a - b| / (atol + rtol |b|); <= 1 passes
-        return ((a.float() - b).abs() / (1e-2 + 1e-2 * b.abs())).max().item()
-
+    real = case[-1].bool()
     # each kernel against its plain version on the same inputs (the bf16
     # q, k, v, dO and the forward's lse and D), outputs in q's dtype as
     # the seam returns them
-    _, lse = fa.flash_fwd(q, k, v, mask)
-    dD = fa.softmax_jacobian_diag(g, out)
-    got = {"O": out[real],
-           "dq": fa.flash_bwd_dq(q, k, v, g, lse, dD, mask),
-           **dict(zip(("dk", "dv"),
-                      fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask)))}
-    want = {"O": ref[real],
-            "dq": fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask),
-            **dict(zip(("dk", "dv"), fa.flash_bwd_dkv_reference(
-                q, k, v, g, lse, dD, mask)))}
-    torch.cuda.synchronize()
-    ratios = {n: ratio(got[n].to(q.dtype), want[n]) for n in got}
-    errs = {"flash_fwd": seam_errs["flash_fwd"],
-            "flash_bwd_dq": max_err(got["dq"].to(q.dtype), want["dq"]),
-            "flash_bwd_dkv": max(max_err(got[n].to(q.dtype), want[n])
-                                 for n in ("dk", "dv"))}
+    ratios, errs = bf16_backward_check(*case, True)
+    ratios = {"O": ratio(out[real], ref[real]), **ratios}
+    errs = {"flash_fwd": seam_errs["flash_fwd"], **errs}
     # the seam against float32 autograd also carries D = rowsum(dO O)
     # over the bf16-rounded O, as trlx_tpu/ops/pallas_attention.py:356
     # computes it: printed, not held to the kernels' tolerance
@@ -517,7 +554,9 @@ def flash_bounds(B, T, H, hd, elem, causal=True):
     O, dq, or dk and dv) over HBM bandwidth, vs the multiply-adds of the
     (query, key) pairs causality leaves, T (T + 1) / 2 per head, over the
     bf16 peak: QK^T and PV in the forward, QK^T, dO V^T and dS K for dq,
-    and those two plus P^T dO and dS^T Q for dk/dv."""
+    and those two plus P^T dO and dS^T Q for dk/dv; for the whole
+    backward seam (D, dq and dk/dv) the five products once each and D
+    kept out of memory."""
     n = B * T * H * hd
     row, mask = 4 * B * H * T, 4 * B * T
     pairs = T * (T + 1) // 2 if causal else T * T
@@ -526,6 +565,9 @@ def flash_bounds(B, T, H, hd, elem, causal=True):
         "flash_fwd": (4 * n * elem + mask + row, 2 * 2 * macs),
         "flash_bwd_dq": (5 * n * elem + mask + 2 * row, 2 * 3 * macs),
         "flash_bwd_dkv": (6 * n * elem + mask + 2 * row, 2 * 4 * macs),
+        # the whole backward: q, k, v, dO, O and lse in, dq, dk, dv out;
+        # QK^T, dO V^T, dS K, P^T dO and dS^T Q once each
+        SEAM: (8 * n * elem + mask + row, 2 * 5 * macs),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -545,11 +587,18 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10):
     and dv together) for both backward kernels; the port never calls it.
     Autograd's backward alone cannot be captured (its graph was recorded
     outside the capture), so the backward's time is SDPA forward +
-    backward captured together less the forward's, both measured here."""
+    backward captured together less the forward's, both measured here.
+    The seam line times what ``FlashAttention.backward`` launches, D =
+    rowsum(dO * O) then dq then dk/dv, in one graph beside the same SDPA
+    backward."""
     q, k, v, g, mask = flash_case(dev, B, T, H, hd, (), torch.bfloat16,
                                   seed=T + 1)
-    out, lse = fa.flash_fwd(q, k, v, mask)
-    dD = fa.softmax_jacobian_diag(g, out)
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    dD = fa.softmax_jacobian_diag(g, o)
+
+    def seam(dq, dkv):
+        d = fa.softmax_jacobian_diag(g, o)
+        return dq(q, k, v, g, lse, d, mask), dkv(q, k, v, g, lse, d, mask)
     bias = causal_mask_bias(mask).to(torch.bfloat16)
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -571,6 +620,11 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10):
             lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias),
                 (qs, ks, vs), gs)),
+        SEAM: (
+            lambda: seam(fa.flash_bwd_dq, fa.flash_bwd_dkv),
+            lambda: seam(fa.flash_bwd_dq_reference,
+                         fa.flash_bwd_dkv_reference),
+            None),
     }
     bounds = flash_bounds(B, T, H, hd, 2)
     out = {}
@@ -590,7 +644,8 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10):
                      "flops": flops}
     for key in ("library_ms", "eager_library_ms"):
         bwd = out["flash_bwd_dkv"][key] - out["flash_fwd"][key]
-        out["flash_bwd_dkv"][key] = out["flash_bwd_dq"][key] = bwd
+        for name in ("flash_bwd_dq", "flash_bwd_dkv", SEAM):
+            out[name][key] = bwd
     for name, t in out.items():
         lib = "fwd" if name == "flash_fwd" else "bwd (dq+dk+dv)"
         log("flash", f"{label} B{B} T{T} H{H} hd{hd} bf16 causal {name}: "
@@ -992,8 +1047,9 @@ def main() -> int:
     log("build", "paged_decode dynamic shared memory per block: "
                  f"{shared_memory_bytes(12, 12, 64, 4)} B at the serving "
                  f"shape, {shared_memory_bytes(12, 12, 64, 64)} B at a "
-                 f"1024-token context; flash kernels at hd 64: "
-                 f"{fa.shared_memory_bytes(64)} B")
+                 f"1024-token context; flash kernels at hd 64: bf16 "
+                 f"{fa.shared_memory_bytes(64)} B, fp32 "
+                 f"{fa.shared_memory_bytes(64, torch.float32)} B")
 
     err = check_kernel("cuda")
     serving = time_kernel("cuda", "serving shape", max_pages=4, iters=500)

@@ -135,3 +135,63 @@ def test_cuda_flash_kernels_match_plain_version(dtype, T, causal, pads):
                                rtol=1e-5)
     for a, b in zip(leaves, ref_leaves):
         torch.testing.assert_close(a.grad.float(), b.grad, **tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("T,causal,pads", [
+    (130, True, (0, 130, 17)),  # ragged T, one fully left-padded row
+    (96, False, (0, 9)),
+])
+def test_cuda_bf16_backward_kernels_match_plain_version(hd, T, causal, pads):
+    """The bf16 backward kernels (tensor cores) against their plain
+    versions on the same bf16 q, k, v, dO and the same lse and D, at
+    atol 1e-2 + rtol 1e-2: the kernels round P and dS to bf16 before the
+    second product (2^-9 relative each) and round each output once to
+    bf16, as the plain version does from its float32 sums. dO is 0 on pad
+    rows, as the trainer's losses make it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q, k, v, g, mask = (_t(x).to(dev) for x in _flash_case(len(pads), T, 2,
+                                                            hd, pads, hd))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    g = (g * mask[:, :, None, None]).to(torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, mask, causal)
+    dD = fa.softmax_jacobian_diag(g, out)
+    before = {n: ops.LAUNCHES[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    got = (fa.flash_bwd_dq(q, k, v, g, lse, dD, mask, causal),
+           *fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal))
+    torch.cuda.synchronize()
+    for n in before:
+        assert ops.LAUNCHES[n] == before[n] + 1, n
+    want = (fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal),
+            *fa.flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_refuses_misaligned_rows():
+    """The bf16 backward kernels copy 16-byte rows, so the wrappers raise
+    on a tensor that does not start 16-byte aligned rather than launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q, k, v, g, mask = (_t(x).to(dev) for x in _flash_case(1, 64, 1, 16,
+                                                            (0,)))
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:]
+    shifted = shifted.view(q.shape).copy_(q)  # contiguous, 2 bytes off
+    out, lse = fa.flash_fwd(q, k, v, mask)
+    dD = fa.softmax_jacobian_diag(g, out)
+    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(shifted, k, v, g, lse, dD, mask)

@@ -4,9 +4,9 @@ interpret mode, on tests/test_pallas_attention.py's cases (inputs drawn
 with numpy and fed to both): T = 32 / 48 / 52 / 64, unequal JAX blocks,
 left padding (real rows only: tile skipping changes pad rows), the
 non-causal form, gradients; and the seam's dense fallback below
-``min_fused_t``. Outputs at atol 1e-5, gradients at atol 2e-4, float32.
-The hand-written kernels themselves run in
-tests/test_torch_cuda_kernels.py on a card."""
+``min_fused_t``. Outputs at atol 1e-5, gradients at atol 2e-4, float32;
+bfloat16 gradients at atol 1e-2 + rtol 1e-2. The hand-written kernels
+themselves run in tests/test_torch_cuda_kernels.py on a card."""
 
 import jax
 import jax.numpy as jnp
@@ -78,6 +78,63 @@ def test_gradients_match_jax_flash(T, bq, bk):
                                    rtol=0)
 
 
+@pytest.mark.parametrize("T,block,causal", [
+    (32, 16, True), (52, 16, True), (48, 16, False),
+])
+def test_bf16_gradients_match_jax_flash(T, block, causal):
+    """The same numpy inputs cast to bfloat16 on both sides; the port's
+    seam returns bf16 dq, dk, dv matching JAX's interpret-mode flash at
+    atol 1e-2 + rtol 1e-2: both sides round float32 sums once to bf16
+    and both take D = rowsum(dO * O) over the bf16-rounded O, so they
+    differ by the order of float32 sums and, where that moves an
+    element across a rounding boundary, one bf16 step (2^-8 relative)."""
+    q, k, v, mask = _case(200 + T, 2, T, 2, 16)
+    mask[1, :7] = 0
+    q, k, v = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jm = jnp.asarray(mask)
+
+    def loss_jax(q, k, v):
+        out = jax_flash(q, k, v, jm, block, block, causal)
+        return ((out.astype(jnp.float32) * jm[:, :, None, None]) ** 2).sum()
+
+    gj = jax.grad(loss_jax, argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+              .requires_grad_() for x in (q, k, v)]
+    tm = torch.from_numpy(mask)
+    fn = fa.make_flash_attention_fn(min_fused_t=0, causal=causal)
+    out = fn(*leaves, tm)
+    ((out.float() * tm[:, :, None, None]) ** 2).sum().backward()
+    for t, j in zip(leaves, gj):
+        assert t.grad.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   np.asarray(j, np.float32), atol=1e-2,
+                                   rtol=1e-2)
+    assert ops.LAUNCHES["flash_bwd_dq"] == ops.LAUNCHES["flash_bwd_dkv"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_versions_return_q_dtype(dtype):
+    """On CPU tensors the wrappers run the plain versions, which return
+    O, dq, dk and dv in q's dtype (float32 math inside) and lse float32,
+    the kernels' contract."""
+    q, k, v, mask = _case(8, 2, 24, 2, 16, (0, 5))
+    g = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tg = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
+    tm = torch.from_numpy(mask)
+    out, lse = fa.flash_fwd(tq, tk, tv, tm)
+    dD = fa.softmax_jacobian_diag(tg, out)
+    dq = fa.flash_bwd_dq(tq, tk, tv, tg, lse, dD, tm)
+    dk, dv = fa.flash_bwd_dkv(tq, tk, tv, tg, lse, dD, tm)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    assert lse.dtype == dD.dtype == torch.float32
+    for x in (out, dq, dk, dv):
+        assert x.shape == tq.shape and torch.isfinite(x.float()).all()
+    dq32 = fa.flash_bwd_dq_reference(*(x.float() for x in (tq, tk, tv, tg)),
+                                     lse, dD, tm)
+    torch.testing.assert_close(dq.float(), dq32.to(dtype).float(), atol=0,
+                               rtol=0)
+
+
 def test_non_causal_matches_jax_flash():
     q, k, v, mask = _case(4, 2, 32, 2, 16, (0, 9))
     ref = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v, mask)), 16, 16,
@@ -134,5 +191,12 @@ def test_wrappers_refuse_bad_inputs():
                                                                np.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_fwd(q.to("meta"), k, v, mask)
-    sm = fa.shared_memory_bytes(128)
-    assert max(sm.values()) <= 232448  # one Hopper block's ceiling
+    for dtype in (torch.float32, torch.bfloat16):
+        sm = fa.shared_memory_bytes(128, dtype)
+        assert max(sm.values()) <= 232448  # one Hopper block's ceiling
+    # the bf16 backward: six [64][hd + 8] bf16 tiles plus two stages of
+    # the key mask (dq) or of the lse and D rows (dk/dv)
+    sm = fa.shared_memory_bytes(64, torch.bfloat16)
+    assert (sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == (55808, 56320)
+    assert fa.shared_memory_bytes(64, torch.float32)["flash_bwd_dkv"] \
+        == 100352

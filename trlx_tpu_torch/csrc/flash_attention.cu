@@ -13,29 +13,21 @@
 // Layout. q, k, v, dO and O are read and written in the trunk's own
 // [B, T, H, hd] layout (one head's row is hd contiguous elements), so
 // the wrapper makes no transposed copy; lse and D = rowsum(dO * O) are
-// float32 [B, H, T]; dq, dk, dv come out float32 [B, T, H, hd]. Inputs
-// are float32 or bfloat16; all arithmetic is float32, as on the TPU.
+// float32 [B, H, T]; dq, dk, dv come out in the inputs' dtype, rounded
+// once from float32 sums. Inputs are float32 or bfloat16.
 //
-// What bounds them: bytes. At the training slice (B 32, T 576, H 12,
-// hd 64, bf16) the forward must move about 114 MB (~34 us at 3.35 TB/s)
-// against about 18 GFLOP of live causal tiles (~18 us at 989 TF/s); the
-// backward pair reads the same inputs twice more and writes float32
-// gradients. These first kernels are far from either bound: they run
-// the products as float32 FMA on the CUDA cores (67 TF/s peak), not on
-// the tensor cores.
+// What bounds them: bytes at the training slice (B 32, T 576, H 12,
+// hd 64, bf16): the forward must move about 114 MB (~34 us at 3.35 TB/s)
+// against about 18 GFLOP of live causal tiles (~18 us at 989 TF/s); dq
+// about 143 MB against 24 GFLOP, dk/dv about 172 MB against 33 GFLOP.
+// At T 2048 operations bound all three.
 //
-// Design. The TPU kernels stage a whole head's K/V (or Q/dO) in VMEM and
-// walk a sequential grid axis; here a loop inside the block walks tiles:
+// Common to all kernels:
 //   - forward and dq: one block per (batch * head, 64-row query tile),
 //     looping over 64-key tiles staged in shared memory; tiles wholly
-//     above the diagonal are never visited;
-//   - dk/dv: one block per (batch * head, 64-key tile), looping over
-//     query tiles from the first that can see the tile;
-//   - 256 threads as a 16 x 16 grid; each thread owns 4 x 4 scores
-//     (rows ty + 16 i, columns tx + 16 j) and 4 rows x hd/16 columns of
-//     the accumulator; row max and sum reduce over the 16 lanes of a
-//     half warp by shuffles; shared rows are padded to hd + 1 floats so
-//     the column walks hit distinct banks;
+//     above the diagonal are never visited; dk/dv: one block per
+//     (batch * head, 64-key tile), looping over query tiles from the
+//     first that can see the tile;
 //   - no atomics: every output element is written by one thread of one
 //     block, so results are deterministic;
 //   - the ragged edge (T not a tile multiple) loads zeros with mask 0,
@@ -43,13 +35,48 @@
 //   - a pad query row (left padding) sees only -1e9 keys: its max stays
 //     finite and l is floored at 1e-30, so it is the finite near-uniform
 //     average, never NaN.
-// Not done yet (later work): tensor-core products (mma / wgmma), TMA
-// and double buffering of the tiles.
+//
+// The forward, and the backward for float32 inputs, run their products
+// as float32 FMA on the CUDA cores (67 TF/s peak; 256 threads as a
+// 16 x 16 grid, each owning 4 x 4 scores, [64][hd + 1] float tiles).
+// The float32 backward stays there on purpose: the tensor cores would
+// round its operands to TF32, which misses the float32 gradient parity
+// (2e-4 against the dense oracle, and the fp32 train step). The
+// forward's tensor-core redesign is later work.
+//
+// The backward for bfloat16 inputs (the training path) runs on the
+// tensor cores:
+//   - 128 threads, 4 warps; each warp owns 16 rows of the block's tile
+//     (query rows in dq, key rows in dk/dv);
+//   - every product is mma.sync m16n8k16 with bf16 operands fetched by
+//     ldmatrix (.trans for an operand stored [k][n]) and float32
+//     accumulators in registers: S = Q K^T, dP = dO V^T, dq += dS K in
+//     dq; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q in
+//     dk/dv, so P^T and dS^T come out with key rows and never touch
+//     shared memory: the accumulator pair of n-tiles 2 j, 2 j + 1 is the
+//     A fragment of k-step j once rounded to bf16 (2^-9 relative);
+//   - bf16 tiles [64][hd + 8] (the pad keeps ldmatrix free of bank
+//     conflicts) filled by 16-byte cp.async; the block's own tile (Q, dO
+//     or K, V) is loaded once, the streamed tiles (K, V and the key mask,
+//     or Q, dO, lse and D) are double-buffered: tile n + 1 loads while
+//     tile n is computed;
+//   - scale is applied to S in float32 and to dq and dk at the end, so
+//     q is rounded once; lse, D and the key-mask bias sit in registers
+//     and the causal test runs on the diagonal tile only;
+//   - dq, dk, dv are rounded once to bf16, staged in the warp's own rows
+//     of a finished tile and written with 16-byte stores.
+// What bounds them on this card: shared-memory reads. Each warp reads
+// the whole streamed tile twice (plain and transposed ldmatrix), about
+// 72 ldmatrix.x4 against 128 mma per warp and tile in dk/dv, and the
+// mma.sync rate is below wgmma's. Not done yet: wgmma, TMA and
+// warp-specialised producers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -253,13 +280,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ //
-// backward: dq
+// backward, float32 inputs: dq on the CUDA cores
 // ------------------------------------------------------------------ //
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dq_fma_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ dD,
                     const int32_t* __restrict__ mask, float* __restrict__ dq,
@@ -282,8 +311,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, HD>(q_s, q, b, q0, Tlen, H, h, scale);
-  load_tile<T, HD>(g_s, g, b, q0, Tlen, H, h, 1.f);
+  load_tile<float, HD>(q_s, q, b, q0, Tlen, H, h, scale);
+  load_tile<float, HD>(g_s, g, b, q0, Tlen, H, h, 1.f);
   float lse_r[4], d_r[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -300,8 +329,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int jt = 0; jt < n_live; ++jt) {
     const int k0 = jt * kBK;
     __syncthreads();
-    load_tile<T, HD>(k_s, k, b, k0, Tlen, H, h, 1.f);
-    load_tile<T, HD>(v_s, v, b, k0, Tlen, H, h, 1.f);
+    load_tile<float, HD>(k_s, k, b, k0, Tlen, H, h, 1.f);
+    load_tile<float, HD>(v_s, v, b, k0, Tlen, H, h, 1.f);
     load_key_bias(kb_s, mask, b, k0, Tlen);
     __syncthreads();
 
@@ -371,13 +400,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ //
-// backward: dk, dv
+// backward, float32 inputs: dk, dv on the CUDA cores
 // ------------------------------------------------------------------ //
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ dD,
                      const int32_t* __restrict__ mask,
@@ -403,8 +434,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, HD>(k_s, k, b, k0, Tlen, H, h, 1.f);
-  load_tile<T, HD>(v_s, v, b, k0, Tlen, H, h, 1.f);
+  load_tile<float, HD>(k_s, k, b, k0, Tlen, H, h, 1.f);
+  load_tile<float, HD>(v_s, v, b, k0, Tlen, H, h, 1.f);
   float kbias[4], dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -421,8 +452,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = first; it < n_q; ++it) {
     const int q0 = it * kBQ;
     __syncthreads();
-    load_tile<T, HD>(q_s, q, b, q0, Tlen, H, h, scale);
-    load_tile<T, HD>(g_s, g, b, q0, Tlen, H, h, 1.f);
+    load_tile<float, HD>(q_s, q, b, q0, Tlen, H, h, scale);
+    load_tile<float, HD>(g_s, g, b, q0, Tlen, H, h, 1.f);
     for (int r = threadIdx.x; r < kBQ; r += kThreads) {
       const int row = q0 + r;
       const bool in = row < Tlen;
@@ -509,6 +540,449 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ //
+// backward, bfloat16 inputs: tensor-core tiles
+// ------------------------------------------------------------------ //
+
+constexpr int kTcThreads = 128;  // 4 warps; each owns 16 rows of a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+// padded row of a bf16 shared tile: HD + 8 elements, so the eight 16-byte
+// rows one ldmatrix reads fall in distinct banks
+template <int HD>
+__host__ __device__ constexpr int tc_ld() { return HD + 8; }
+
+template <int HD>
+__host__ __device__ constexpr int tc_tile() { return kBQ * tc_ld<HD>(); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte (cg) and 4-byte (ca) async copies; a source of 0 bytes fills
+// the destination with zeros (the ragged edge)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded once to bf16, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment offsets (elements) into a [64][HD + 8] tile, for lane l:
+//  - A operand, rows m0 .. m0 + 15 by columns k0 .. k0 + 15 of a
+//    row-major tile (also B through ldmatrix.trans when the tile is
+//    stored [k][n]): r0..r3 = a0..a3, or b0, b1 of n-tiles n0, n0 + 8;
+//  - B operand stored [n][k] (a K or Q tile for S = Q K^T): rows
+//    n0 .. n0 + 15, columns k0 .. k0 + 15; r0, r1 = b0, b1 of n-tile n0
+//    and r2, r3 of n-tile n0 + 8.
+template <int HD>
+__device__ __forceinline__ int frag_a(int lane, int m0, int k0) {
+  return (m0 + (lane & 15)) * tc_ld<HD>() + k0 + ((lane >> 4) << 3);
+}
+
+template <int HD>
+__device__ __forceinline__ int frag_b(int lane, int n0, int k0) {
+  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * tc_ld<HD>() + k0 +
+         (((lane >> 3) & 1) << 3);
+}
+
+// rows [t0, t0 + 64) of head (b, h) into a bf16 [64][HD + 8] tile by
+// 16-byte async copies from all threads; rows past T are zeros
+template <int HD>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                int b, int t0, int Tlen,
+                                                int H, int h) {
+  constexpr int CH = HD / 8;
+  for (int idx = threadIdx.x; idx < kBQ * CH; idx += kTcThreads) {
+    const int r = idx / CH;
+    const int c = idx - r * CH;
+    const int t = t0 + r;
+    const bool ok = t < Tlen;
+    cp_async16(smem_u32(dst + r * tc_ld<HD>() + c * 8),
+               src + row_at<HD>(b, ok ? t : Tlen - 1, Tlen, H, h) + c * 8,
+               ok);
+  }
+}
+
+// 64 consecutive 4-byte values src[t0 .. t0 + 64) (zeros past T) by
+// threads [first, first + 64)
+__device__ __forceinline__ void load_row_async(void* dst, const void* src,
+                                               int t0, int Tlen, int first) {
+  const int c = static_cast<int>(threadIdx.x) - first;
+  if (c < 0 || c >= kBK) return;
+  const int t = t0 + c;
+  const bool ok = t < Tlen;
+  cp_async4(smem_u32(static_cast<uint32_t*>(dst) + c),
+            static_cast<const uint32_t*>(src) + (ok ? t : 0), ok);
+}
+
+// a warp's 16 rows of float32 accumulators [HD / 8][4], times `mul`,
+// rounded once to bf16, staged in the warp's own 16 rows of `stage` and
+// stored to rows t0 .. t0 + 15 (those below T) with 16-byte stores
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* out, bf16* stage,
+                                           const float (&acc)[HD / 8][4],
+                                           float mul, int lane, int b, int t0,
+                                           int Tlen, int H, int h) {
+  constexpr int LD = tc_ld<HD>();
+  constexpr int CH = HD / 8;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    const int c = nt * 8 + tq * 2;
+    *reinterpret_cast<uint32_t*>(stage + gq * LD + c) =
+        pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + (gq + 8) * LD + c) =
+        pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH;
+    const int c = idx - r * CH;
+    if (t0 + r < Tlen)
+      *reinterpret_cast<uint4*>(out + row_at<HD>(b, t0 + r, Tlen, H, h) +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+  }
+}
+
+// dq: one block per (batch * head, 64-row query tile), heaviest tiles
+// first; warp w owns query rows 16 w .. 16 w + 15. Q and dO are loaded
+// once; K, V and the key mask stream through two stages.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dD,
+                        const int32_t* __restrict__ mask,
+                        bf16* __restrict__ dq, int Tlen, int H, int causal,
+                        float scale) {
+  constexpr int TILE = tc_tile<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);      // [64][HD + 8]
+  bf16* g_s = q_s + TILE;                              // [64][HD + 8]
+  bf16* k_s = g_s + TILE;                              // [2][64][HD + 8]
+  bf16* v_s = k_s + 2 * TILE;                          // [2][64][HD + 8]
+  int32_t* m_s = reinterpret_cast<int32_t*>(v_s + 2 * TILE);  // [2][64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int iq = gridDim.y - 1 - blockIdx.y;
+  const int q0 = iq * kBQ;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t mrow = static_cast<size_t>(b) * Tlen;
+
+  const int n_k = (Tlen + kBK - 1) / kBK;
+  const int n_live = causal ? min(n_k, iq + 1) : n_k;
+
+  load_tile_async<HD>(q_s, q, b, q0, Tlen, H, h);
+  load_tile_async<HD>(g_s, g, b, q0, Tlen, H, h);
+  load_tile_async<HD>(k_s, k, b, 0, Tlen, H, h);
+  load_tile_async<HD>(v_s, v, b, 0, Tlen, H, h);
+  load_row_async(m_s, mask + mrow, 0, Tlen, 0);
+  cp_async_commit();
+
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + gq + 8 * i;
+    const bool in = row < Tlen;
+    lse_r[i] = in ? lse[static_cast<size_t>(bh) * Tlen + row] : 0.f;
+    d_r[i] = in ? dD[static_cast<size_t>(bh) * Tlen + row] : 0.f;
+  }
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int jt = 0; jt < n_live; ++jt) {
+    const int st = jt & 1;
+    if (jt + 1 < n_live) {
+      const int k1 = (jt + 1) * kBK;
+      load_tile_async<HD>(k_s + (st ^ 1) * TILE, k, b, k1, Tlen, H, h);
+      load_tile_async<HD>(v_s + (st ^ 1) * TILE, v, b, k1, Tlen, H, h);
+      load_row_async(m_s + (st ^ 1) * kBK, mask + mrow, k1, Tlen, 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = k_s + st * TILE;
+    const bf16* vs = v_s + st * TILE;
+    const int32_t* ms = m_s + st * kBK;
+
+    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4], ga[4];
+      ldsm_x4(smem_u32(q_s + frag_a<HD>(lane, r0, kk * 16)), qa);
+      ldsm_x4(smem_u32(g_s + frag_a<HD>(lane, r0, kk * 16)), ga);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        uint32_t kb[4], vb[4];
+        const int off = frag_b<HD>(lane, nn * 16, kk * 16);
+        ldsm_x4(smem_u32(ks + off), kb);
+        ldsm_x4(smem_u32(vs + off), vb);
+        mma_bf16(s[2 * nn], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * nn + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * nn], ga, vb[0], vb[1]);
+        mma_bf16(dp[2 * nn + 1], ga, vb[2], vb[3]);
+      }
+    }
+
+    // dS = P (dP - D) in registers, rounded to bf16 A fragments: the
+    // accumulators of n-tiles 2 kk, 2 kk + 1 are A's k-step kk
+    const bool diag = causal && jt == iq;  // q0 == k0 on the diagonal
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + tq * 2 + (e & 1);
+        const int i = e >> 1;
+        float bias = ms[c] > 0 ? 0.f : kNegInf;
+        if (diag && r0 + gq + 8 * i < c) bias += kNegInf;
+        const float p = exp2f(fmaf(s[j][e], scale, bias - lse_r[i]) * kLog2e);
+        ds[e] = p * (dp[j][e] - d_r[i]);
+      }
+      dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dq += dS K: K is stored [key][d], so B comes by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t kb[4];
+        ldsm_x4_t(smem_u32(ks + frag_a<HD>(lane, kk * 16, nd * 16)), kb);
+        mma_bf16(acc[2 * nd], dsa[kk], kb[0], kb[1]);
+        mma_bf16(acc[2 * nd + 1], dsa[kk], kb[2], kb[3]);
+      }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // the warp's own rows of the Q tile are free now: stage dq there
+  store_rows<HD>(dq, q_s + r0 * tc_ld<HD>(), acc, scale, lane, b, q0 + r0,
+                 Tlen, H, h);
+}
+
+// dk, dv: one block per (batch * head, 64-key tile); warp w owns key rows
+// 16 w .. 16 w + 15. K and V are loaded once; Q, dO, lse and D stream
+// through two stages. The transposed scores S^T = K Q^T and
+// dP^T = V dO^T come out as accumulators whose rows are keys, so P^T and
+// dS^T become the A operands of dV += P^T dO and dK += dS^T Q in
+// registers.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dD,
+                         const int32_t* __restrict__ mask,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int Tlen, int H, int causal, float scale) {
+  constexpr int TILE = tc_tile<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // [64][HD + 8]
+  bf16* v_s = k_s + TILE;                             // [64][HD + 8]
+  bf16* q_s = v_s + TILE;                             // [2][64][HD + 8]
+  bf16* g_s = q_s + 2 * TILE;                         // [2][64][HD + 8]
+  float* l_s = reinterpret_cast<float*>(g_s + 2 * TILE);  // [2][64] lse
+  float* d_s = l_s + 2 * kBQ;                              // [2][64] D
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int jk = blockIdx.y;
+  const int k0 = jk * kBK;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int gq = lane >> 2, tq = lane & 3;
+  const float* lse_row = lse + static_cast<size_t>(bh) * Tlen;
+  const float* d_row = dD + static_cast<size_t>(bh) * Tlen;
+
+  const int n_q = (Tlen + kBQ - 1) / kBQ;
+  const int first = causal ? jk : 0;
+
+  load_tile_async<HD>(k_s, k, b, k0, Tlen, H, h);
+  load_tile_async<HD>(v_s, v, b, k0, Tlen, H, h);
+  load_tile_async<HD>(q_s, q, b, first * kBQ, Tlen, H, h);
+  load_tile_async<HD>(g_s, g, b, first * kBQ, Tlen, H, h);
+  load_row_async(l_s, lse_row, first * kBQ, Tlen, 0);
+  load_row_async(d_s, d_row, first * kBQ, Tlen, kBQ);
+  cp_async_commit();
+
+  float kbias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + r0 + gq + 8 * i;
+    kbias[i] = (t < Tlen && mask[static_cast<size_t>(b) * Tlen + t] > 0)
+                   ? 0.f
+                   : kNegInf;
+  }
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+
+  for (int it = first; it < n_q; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < n_q) {
+      const int q1 = (it + 1) * kBQ;
+      load_tile_async<HD>(q_s + (st ^ 1) * TILE, q, b, q1, Tlen, H, h);
+      load_tile_async<HD>(g_s + (st ^ 1) * TILE, g, b, q1, Tlen, H, h);
+      load_row_async(l_s + (st ^ 1) * kBQ, lse_row, q1, Tlen, 0);
+      load_row_async(d_s + (st ^ 1) * kBQ, d_row, q1, Tlen, kBQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qs = q_s + st * TILE;
+    const bf16* gs = g_s + st * TILE;
+    const float* ls = l_s + st * kBQ;
+    const float* dsr = d_s + st * kBQ;
+
+    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 64 queries per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(smem_u32(k_s + frag_a<HD>(lane, r0, kk * 16)), ka);
+      ldsm_x4(smem_u32(v_s + frag_a<HD>(lane, r0, kk * 16)), va);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        uint32_t qb[4], gb[4];
+        const int off = frag_b<HD>(lane, nn * 16, kk * 16);
+        ldsm_x4(smem_u32(qs + off), qb);
+        ldsm_x4(smem_u32(gs + off), gb);
+        mma_bf16(s[2 * nn], ka, qb[0], qb[1]);
+        mma_bf16(s[2 * nn + 1], ka, qb[2], qb[3]);
+        mma_bf16(dp[2 * nn], va, gb[0], gb[1]);
+        mma_bf16(dp[2 * nn + 1], va, gb[2], gb[3]);
+      }
+    }
+
+    // P^T and dS^T in registers, rounded to bf16 A fragments (k = queries)
+    const bool diag = causal && it == jk;  // q0 == k0 on the diagonal
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + tq * 2 + (e & 1);  // query of the tile
+        const int i = e >> 1;
+        float bias = kbias[i];
+        if (diag && c < r0 + gq + 8 * i) bias += kNegInf;
+        p[e] = exp2f(fmaf(s[j][e], scale, bias - ls[c]) * kLog2e);
+        ds[e] = p[e] * (dp[j][e] - dsr[c]);
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: dO and Q are stored [query][d], so
+    // B comes by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t gb[4], qb[4];
+        const int off = frag_a<HD>(lane, kk * 16, nd * 16);
+        ldsm_x4_t(smem_u32(gs + off), gb);
+        ldsm_x4_t(smem_u32(qs + off), qb);
+        mma_bf16(dv_acc[2 * nd], pa[kk], gb[0], gb[1]);
+        mma_bf16(dv_acc[2 * nd + 1], pa[kk], gb[2], gb[3]);
+        mma_bf16(dk_acc[2 * nd], dsa[kk], qb[0], qb[1]);
+        mma_bf16(dk_acc[2 * nd + 1], dsa[kk], qb[2], qb[3]);
+      }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // the warp's own rows of the K and V tiles are free now: stage there
+  store_rows<HD>(dk, k_s + r0 * tc_ld<HD>(), dk_acc, scale, lane, b,
+                 k0 + r0, Tlen, H, h);
+  store_rows<HD>(dv, v_s + r0 * tc_ld<HD>(), dv_acc, 1.f, lane, b, k0 + r0,
+                 Tlen, H, h);
+}
+
+// ------------------------------------------------------------------ //
 // launch helpers
 // ------------------------------------------------------------------ //
 
@@ -519,18 +993,34 @@ constexpr size_t fwd_smem() {
           static_cast<size_t>(kBQ) * (kBK + 1) + kBK);
 }
 
+// float32 backward: [64][HD + 1] float tiles, score tiles, row vectors
 template <int HD>
-constexpr size_t dq_smem() {
+constexpr size_t dq_fma_smem() {
   return sizeof(float) *
          (static_cast<size_t>(2 * kBQ + 2 * kBK) * (HD + 1) +
           static_cast<size_t>(kBQ) * (kBK + 1) + kBK);
 }
 
 template <int HD>
-constexpr size_t dkv_smem() {
+constexpr size_t dkv_fma_smem() {
   return sizeof(float) *
          (static_cast<size_t>(2 * kBK + 2 * kBQ) * (HD + 1) +
           2 * static_cast<size_t>(kBK) * (kBQ + 1) + 2 * kBQ);
+}
+
+// bf16 backward: six [64][HD + 8] bf16 tiles (the block's own two, two
+// streamed tiles x two stages), plus two stages of the key mask (dq) or
+// of the lse and D rows (dk/dv)
+template <int HD>
+constexpr size_t dq_mma_smem() {
+  return sizeof(bf16) * 6 * static_cast<size_t>(tc_tile<HD>()) +
+         sizeof(int32_t) * 2 * kBK;
+}
+
+template <int HD>
+constexpr size_t dkv_mma_smem() {
+  return sizeof(bf16) * 6 * static_cast<size_t>(tc_tile<HD>()) +
+         sizeof(float) * 4 * kBQ;
 }
 
 // raise a kernel's dynamic shared-memory ceiling once (not on every
@@ -562,23 +1052,29 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the float32 instantiation runs the CUDA-core body, bf16 the tensor cores
 template <typename T, int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* g, const void* lse, const void* dD,
                       const void* mask, void* dq, int B, int Tlen, int H,
                       int causal, float scale, cudaStream_t st) {
-  auto kernel = flash_bwd_dq_kernel<T, HD>;
-  const size_t smem = dq_smem<HD>();
+  constexpr bool f32 = std::is_same<T, float>::value;
+  auto kernel = [] {
+    if constexpr (std::is_same<T, float>::value)
+      return flash_bwd_dq_fma_kernel<HD>;
+    else return flash_bwd_dq_mma_kernel<HD>;
+  }();
+  const size_t smem = f32 ? dq_fma_smem<HD>() : dq_mma_smem<HD>();
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Tlen + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, st>>>(
+  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(dD),
-      static_cast<const int32_t*>(mask), static_cast<float*>(dq), Tlen,
-      H, causal, scale);
+      static_cast<const int32_t*>(mask), static_cast<T*>(dq), Tlen, H,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -587,18 +1083,23 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* dD,
                        const void* mask, void* dk, void* dv, int B, int Tlen,
                        int H, int causal, float scale, cudaStream_t st) {
-  auto kernel = flash_bwd_dkv_kernel<T, HD>;
-  const size_t smem = dkv_smem<HD>();
+  constexpr bool f32 = std::is_same<T, float>::value;
+  auto kernel = [] {
+    if constexpr (std::is_same<T, float>::value)
+      return flash_bwd_dkv_fma_kernel<HD>;
+    else return flash_bwd_dkv_mma_kernel<HD>;
+  }();
+  const size_t smem = f32 ? dkv_fma_smem<HD>() : dkv_mma_smem<HD>();
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Tlen + kBK - 1) / kBK);
-  kernel<<<grid, kThreads, smem, st>>>(
+  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(dD),
-      static_cast<const int32_t*>(mask), static_cast<float*>(dk),
-      static_cast<float*>(dv), Tlen, H, causal, scale);
+      static_cast<const int32_t*>(mask), static_cast<T*>(dk),
+      static_cast<T*>(dv), Tlen, H, causal, scale);
   return cudaGetLastError();
 }
 
@@ -629,8 +1130,9 @@ bool shape_ok(int B, int T, int H, int hd, int dtype) {
 }  // namespace
 
 // Plain C entry points (bound with ctypes). dtype: 0 float32, 1 bfloat16
-// (q, k, v, dO and O share it); hd one of 16, 32, 64, 128; mask int32
-// [B, T]; lse and D float32 [B, H, T]; dq, dk, dv float32 [B, T, H, hd].
+// (q, k, v, dO, O, dq, dk and dv share it); hd one of 16, 32, 64, 128;
+// mask int32 [B, T]; lse and D float32 [B, H, T]; the bf16 backward
+// reads and writes 16-byte rows, so its tensors start 16-byte aligned.
 // Each returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* mask, void* out, void* lse, int B, int T,

@@ -11,9 +11,12 @@ Three kernels live in ``csrc/flash_attention.cu`` (built at first use):
 
 Each takes q, k, v (and dO) as [B, T, H, hd] in float32 or bfloat16, the
 raw key mask [B, T] int32 (1 = real), ``causal``; lse and
-D = rowsum(dO * O) are float32 [B, H, T]; the gradients come back
-float32. The bias is the TPU kernels': 0 / ``NEG_INF`` from the mask plus
-``NEG_INF`` above the diagonal, scale 1 / sqrt(hd).
+D = rowsum(dO * O) are float32 [B, H, T]; the gradients come back in q's
+dtype, rounded once from float32 sums. The bias is the TPU kernels': 0 /
+``NEG_INF`` from the mask plus ``NEG_INF`` above the diagonal, scale
+1 / sqrt(hd). For bfloat16 the backward kernels run on the tensor cores
+(bf16 operands, float32 sums); for float32 they stay on the CUDA cores in
+full float32.
 
 A CUDA tensor goes to the kernel, or the call raises; only a CPU tensor
 goes to the plain version beside it (``*_reference``), which repeats the
@@ -57,16 +60,23 @@ def flash_scale(hd: int) -> float:
     return 1.0 / (hd ** 0.5)
 
 
-def shared_memory_bytes(hd: int) -> dict:
-    """Dynamic shared memory per block of each kernel (``*_smem`` in
-    csrc/flash_attention.cu): [64][hd + 1] float tiles plus one
-    [64][65] score tile (two in dk/dv) and the row vectors."""
+def shared_memory_bytes(hd: int, dtype=torch.bfloat16) -> dict:
+    """Dynamic shared memory per block of each kernel for inputs of
+    ``dtype`` (``*_smem`` in csrc/flash_attention.cu). The forward, and
+    the float32 backward, hold [64][hd + 1] float tiles plus one [64][65]
+    score tile (two in dk/dv) and the row vectors; the bfloat16 backward
+    holds six [64][hd + 8] bf16 tiles (its own two, two streamed tiles x
+    two stages) and two stages of the key mask (dq) or of the lse and D
+    rows (dk/dv)."""
     tile, scores = TILE * (hd + 1), TILE * (TILE + 1)
-    return {
-        "flash_fwd": 4 * (3 * tile + scores + TILE),
-        "flash_bwd_dq": 4 * (4 * tile + scores + TILE),
-        "flash_bwd_dkv": 4 * (4 * tile + 2 * scores + 2 * TILE),
-    }
+    if dtype == torch.float32:
+        dq, dkv = (4 * (4 * tile + scores + TILE),
+                   4 * (4 * tile + 2 * scores + 2 * TILE))
+    else:
+        bf16_tiles = 2 * 6 * TILE * (hd + 8)
+        dq, dkv = bf16_tiles + 4 * 2 * TILE, bf16_tiles + 4 * 4 * TILE
+    return {"flash_fwd": 4 * (3 * tile + scores + TILE),
+            "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
 
 
 # --------------------------------------------------------------------- #
@@ -105,23 +115,26 @@ def flash_fwd_reference(q, k, v, mask, causal=True):
 
 
 def flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal=True):
-    """Plain version of the dq kernel (float32 [B, T, H, hd])."""
+    """Plain version of the dq kernel: float32 math, [B, T, H, hd] in q's
+    dtype."""
     p, _ = _probs(q.float(), k.float(), mask, causal, lse)
     dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
     ds = p * (dp - dD[..., None])
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) \
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) \
         * flash_scale(q.shape[-1])
+    return dq.to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal=True):
-    """Plain version of the dk/dv kernel (float32 [B, T, H, hd] each)."""
+    """Plain version of the dk/dv kernel: float32 math, [B, T, H, hd]
+    each in q's dtype."""
     qs = q.float() * flash_scale(q.shape[-1])
     p, _ = _probs(q.float(), k.float(), mask, causal, lse)
     dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
     ds = p * (dp - dD[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", p, g.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
-    return dk, dv
+    return dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_attention_reference(q, k, v, mask, causal=True):
@@ -168,8 +181,9 @@ def _check(name, t, shape, dtype, device):
 
 
 def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None):
-    """Shapes, dtypes, device and contiguity the kernels take; returns
-    (B, T, H, hd)."""
+    """Shapes, dtypes, device and contiguity the kernels take, and for
+    the backward (``g`` given) in bfloat16 the 16-byte alignment its
+    row copies need; returns (B, T, H, hd)."""
     if q.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, hd]")
     B, T, H, hd = q.shape
@@ -190,6 +204,10 @@ def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None):
     for name, t in (("lse", lse), ("D", dD)):
         if t is not None:
             _check(name, t, (B, H, T), torch.float32, dev)
+    if g is not None and q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("dO", g)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start 16-byte aligned")
     return B, T, H, hd
 
 
@@ -223,14 +241,14 @@ def flash_fwd(q, k, v, mask, causal=True):
 
 
 def flash_bwd_dq(q, k, v, g, lse, dD, mask, causal=True):
-    """dq (float32 [B, T, H, hd]) from dO ``g``, the forward's lse and
-    D = rowsum(dO * O). CUDA -> kernel; CPU -> plain version."""
+    """dq ([B, T, H, hd] in q's dtype) from dO ``g``, the forward's lse
+    and D = rowsum(dO * O). CUDA -> kernel; CPU -> plain version."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
     B, T, H, hd = _check_inputs(q, k, v, mask, g, lse, dD)
-    dq = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
     rc = _kernel("flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dD.data_ptr(), mask.data_ptr(), dq.data_ptr(),
@@ -242,15 +260,14 @@ def flash_bwd_dq(q, k, v, g, lse, dD, mask, causal=True):
 
 
 def flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal=True):
-    """(dk, dv), float32 [B, T, H, hd] each. CUDA -> kernel; CPU ->
+    """(dk, dv), [B, T, H, hd] each in q's dtype. CUDA -> kernel; CPU ->
     plain version."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
     B, T, H, hd = _check_inputs(q, k, v, mask, g, lse, dD)
-    dk = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
     rc = _kernel("flash_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dD.data_ptr(), mask.data_ptr(), dk.data_ptr(),
@@ -285,7 +302,7 @@ class FlashAttention(torch.autograd.Function):
         dD = softmax_jacobian_diag(g, out)
         dq = flash_bwd_dq(q, k, v, g, lse, dD, mask, ctx.causal)
         dk, dv = flash_bwd_dkv(q, k, v, g, lse, dD, mask, ctx.causal)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, mask, causal=True):
