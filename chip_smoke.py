@@ -14,22 +14,29 @@ Phases, each printing its own line; any failure exits non-zero:
    the card: fp32 (GQA + sentinel pages, atol 1e-5), the int8 tier (atol
    1e-5), and the serving shape in bf16 with a fully masked free row that
    must come out finite (atol 1e-2 + rtol 1e-2 against the plain version
-   in fp32 on the same bf16 inputs); then CUDA-event timings of kernel,
-   plain version and the gather + SDPA yardstick at the serving shape and
-   at a 1024-token context, each beside its bound: device time from
-   CUDA-graph replay (the numbers in the kernels line) and the eager
-   loop's time, which includes the host's launch cost.
+   in fp32 on the same bf16 inputs); then split-K at a 1024-token context
+   (the planner's P > 1 partitions and the combine kernel; ragged lengths
+   at and beside partition edges, dead partitions, a free row): bf16 MHA
+   and bf16 GQA (H 8, Hkv 2) at atol 1e-2 + rtol 1e-2, fp32 GQA and the
+   int8 tier at atol 1e-5, every row finite, P printed; then CUDA-event
+   timings of kernel, plain version and the gather + SDPA yardstick at
+   the serving shape and at a 1024-token context, each beside its bound:
+   device time from CUDA-graph replay (the numbers in the kernels line)
+   and the eager loop's time, which includes the host's launch cost; and
+   the 1024-token time for each partition count beside the planner's.
 4. flash — the three flash-attention kernels against the dense oracle
    and its autograd: fp32 causal with left padding at T 52 and 576 and
    the non-causal form (O and lse on real rows atol 1e-5, dq / dk / dv
-   atol 2e-4); the bf16 backward kernels (tensor cores) at hd 16, 32, 64
-   and 128, T 130 causal with a fully left-padded row and T 96
-   non-causal; and bf16 at the training shape; each bf16 kernel against
-   its plain version in fp32 math on the same inputs (atol 1e-2 +
-   rtol 1e-2, outputs in q's dtype, every row finite); then kernel,
-   plain-version and SDPA-yardstick times (CUDA-graph replay and eager)
-   at the training shape (B 32, T 576, H 12, hd 64, bf16, causal) and at
-   B 8, T 2048, each beside its bound, and the whole backward seam
+   atol 2e-4); the bf16 kernels (tensor cores) at hd 16, 32, 64 and 128,
+   T 130 causal with a fully left-padded row and T 96 non-causal: the
+   forward against its plain version (O on real rows at atol 1e-2 +
+   rtol 1e-2, lse on real rows at atol 1e-3, every row finite), the
+   backward pair against theirs; and bf16 at the training shape; each
+   bf16 kernel against its plain version in fp32 math on the same inputs
+   (atol 1e-2 + rtol 1e-2, outputs in q's dtype, every row finite); then
+   kernel, plain-version and SDPA-yardstick times (CUDA-graph replay and
+   eager) at the training shape (B 32, T 576, H 12, hd 64, bf16, causal)
+   and at B 8, T 2048, each beside its bound, and the whole backward seam
    (D + dq + dk/dv in one graph) beside SDPA's backward.
 5. serve — the port's serving path at gpt2-124M width (12 layers, seeded
    random weights, bf16) behind its HTTP server: concurrent
@@ -47,11 +54,12 @@ Phases, each printing its own line; any failure exits non-zero:
    and passes x k of each backward kernel, and every logged loss, grad
    norm and KL is finite; prints rollout and update time, samples/s.
 8. train parity — one train_step and one 2-pass train_multi at fp32 on
-   the kernel path and on the dense path, from the same weights and one
-   rollout batch: loss and grad norm at rtol 1e-5, and the first step's
-   per-leaf gradients by tests/test_golden_step.py's relative-L2 rule at
-   2e-3; the same rule on the updated parameters is printed, with the
-   dense gradient at the elements whose Adam steps differ in sign.
+   the kernel path, each pass against the dense path's pass at the same
+   parameters and on one rollout batch: loss and grad norm at rtol 1e-5,
+   and the first step's per-leaf gradients by
+   tests/test_golden_step.py's relative-L2 rule at 2e-3; the same rule on
+   each pass's update is printed, with the dense gradient at the
+   elements whose first Adam steps differ in sign.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -87,7 +95,9 @@ from trlx_tpu_torch.models.transformer import (
 )
 from trlx_tpu_torch.ops import _build
 from trlx_tpu_torch.ops import flash_attention as fa
+from trlx_tpu_torch.ops import paged_attention as pa
 from trlx_tpu_torch.ops.paged_attention import (
+    decode_partitions,
     paged_decode_attention,
     paged_decode_attention_reference,
     shared_memory_bytes,
@@ -196,11 +206,13 @@ def kernel_case(dev, seed=0):
 
 
 def serving_case(dev, seed, S=16, H=12, Hkv=12, hd=64, page_size=16,
-                 max_pages=4, lengths=None, free_row=None, copies=1):
-    """bf16 decode inputs at a serving geometry: each slot owns its own
-    pages (shuffled), ragged lengths, sentinels past each slot's pages,
-    and optionally one free row (all sentinel, all masked). ``copies``
-    distinct K/V pools (to time with a cold L2)."""
+                 max_pages=4, lengths=None, free_row=None, copies=1,
+                 dtype=torch.bfloat16):
+    """Decode inputs (q and pools in ``dtype``, bf16 by default) at a
+    serving geometry: each slot owns its own pages (shuffled), ragged
+    lengths, sentinels past each slot's pages, and optionally one free
+    row (all sentinel, all masked). ``copies`` distinct K/V pools (to
+    time with a cold L2)."""
     rng = np.random.default_rng(seed)
     T = max_pages * page_size
     if lengths is None:
@@ -219,8 +231,7 @@ def serving_case(dev, seed, S=16, H=12, Hkv=12, hd=64, page_size=16,
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     q = randn(S, H, hd)
     pools = [(randn(num_pages, page_size, Hkv, hd),
@@ -263,7 +274,65 @@ def check_kernel(dev):
     log("kernel", f"bf16 serving shape (free row 5 finite) "
                   f"max_abs_err={errb:.3e} (atol 1e-2 + rtol 1e-2)")
     assert not bad.any(), "bf16 kernel disagrees with its plain version"
-    return max(err32, err8, errb)
+    return max(err32, err8, errb, check_split(dev))
+
+
+#: ragged lengths at a 1024-token context (pages of 16) for 16 and 8
+#: slots: ending inside partitions, at their edges (352 and 704 for the
+#: 16-slot planner's P = 3, multiples of 128 for the 8-slot P = 8) and
+#: one token either side, short rows whose later partitions are dead,
+#: and full rows; the slot at FREE_ROW[S] is a free row instead
+SPLIT_LENGTHS = {
+    16: [1, 16, 17, 127, 351, 352, 353, 500, 703, 704, 705, 1000, 1023,
+         1024, 0, 1024],
+    8: [1, 127, 128, 129, 640, 1023, 0, 1024],
+}
+FREE_ROW = {16: 14, 8: 6}
+
+
+def check_split(dev):
+    """Split-K paged decode at a 1024-token context against the plain
+    version on the same inputs: bf16 MHA at the timed geometry and bf16
+    GQA (H 8, Hkv 2), each with a free row, at atol 1e-2 + rtol 1e-2
+    against float32 math; float32 (GQA, hd 128) and the int8 tier (float32
+    q) at atol 1e-5. Every row must be finite. Returns the largest error
+    seen."""
+    worst = 0.0
+    cases = (
+        ("bf16 MHA", dict(S=16, H=12, Hkv=12, hd=64), torch.bfloat16, None),
+        ("bf16 GQA", dict(S=8, H=8, Hkv=2, hd=64), torch.bfloat16, None),
+        ("fp32 GQA", dict(S=8, H=8, Hkv=2, hd=128), torch.float32, None),
+        ("int8 tier", dict(S=8, H=4, Hkv=2, hd=64), torch.float32, "int8"),
+    )
+    for i, (label, geo, dtype, tier) in enumerate(cases):
+        S = geo["S"]
+        lengths = SPLIT_LENGTHS[S]
+        q, ((k, v),), pt, bias = serving_case(
+            dev, seed=20 + i, max_pages=64, lengths=lengths,
+            free_row=FREE_ROW[S], dtype=dtype, **geo)
+        if tier == "int8":
+            k, v = quantize_kv(k), quantize_kv(v)
+        P, per = decode_partitions(S, geo["Hkv"], 64, 16)
+        out = paged_decode_attention(q, k, v, pt, bias)
+        ref = paged_decode_attention_reference(q.float(), k, v, pt, bias)
+        torch.cuda.synchronize()
+        assert out.dtype == q.dtype
+        assert torch.isfinite(out.float()).all(), f"non-finite {label}"
+        err = max_err(out, ref)
+        worst = max(worst, err)
+        if dtype == torch.bfloat16:
+            ok = not ((out.float() - ref).abs()
+                      > 1e-2 + 1e-2 * ref.abs()).any()
+            tol = "atol 1e-2 + rtol 1e-2"
+        else:
+            ok, tol = err <= 1e-5, "atol 1e-5"
+        log("kernel", f"split-K {label} S={S} H={geo['H']} Hkv={geo['Hkv']} "
+                      f"hd={geo['hd']} 1024-token context, lengths "
+                      f"{lengths} (row {FREE_ROW[S]} free): P={P} x {per} "
+                      f"pages, max_abs_err={err:.3e} ({tol}; every row "
+                      f"finite)")
+        assert ok, f"split-K {label} disagrees with its plain version"
+    return worst
 
 
 def time_ms(fn, args_list, iters):
@@ -384,6 +453,25 @@ def time_kernel(dev, label, max_pages, iters):
             "eager_plain_ms": eager[1], "eager_library_ms": eager[2]}
 
 
+def sweep_partitions(dev, iters=200, counts=(1, 2, 3, 4, 6, 8, 16)):
+    """Device time of paged decode at a full 1024-token context (the
+    time_kernel geometry) for each partition count, in one call, so the
+    planner's choice stands beside the others."""
+    pool_bytes = 2 * 16 * 64 * 16 * 12 * 64 * 2
+    q, pools, pt, bias = serving_case(
+        dev, seed=3, max_pages=64, lengths=[1024] * 16,
+        copies=max(1, math.ceil(120e6 / pool_bytes)))
+    args = [(q, k, v, pt, bias) for k, v in pools]
+    fns = [lambda *a, P=P: pa._launch(*a, partitions=P) for P in counts]
+    times = graph_ms(fns, args, iters)
+    chosen = decode_partitions(16, 12, 64, 16)[0]
+    log("kernel", "1024-token context by partition count P (device, CUDA "
+                  "graph): " + ", ".join(f"P={P} {t * 1e3:.2f} us"
+                                         for P, t in zip(counts, times))
+        + f"; the planner picks P={chosen}")
+    return dict(zip(counts, times))
+
+
 # --------------------------------------------------------------------- #
 # 4. flash attention: checks and timings
 # --------------------------------------------------------------------- #
@@ -471,6 +559,21 @@ def bf16_backward_check(q, k, v, g, mask, causal):
     return {n: ratio(got[n], want[n]) for n in got}, errs
 
 
+def bf16_forward_check(q, k, v, mask, causal):
+    """The bf16 forward kernel against its plain version on the same bf16
+    inputs: (O ratio on real rows, lse max abs error on real rows, O max
+    abs error on real rows). Every row of O and lse must be finite."""
+    real = mask.bool()
+    out, lse = fa.flash_fwd(q, k, v, mask, causal)
+    ref, lse_ref = fa.flash_fwd_reference(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype, f"O in {out.dtype}, not {q.dtype}"
+    assert torch.isfinite(out.float()).all(), "non-finite bf16 O"
+    assert torch.isfinite(lse).all(), "non-finite bf16 lse"
+    lse_err = max_err(lse.permute(0, 2, 1)[real], lse_ref.permute(0, 2, 1)[real])
+    return ratio(out[real], ref[real]), lse_err, max_err(out[real], ref[real])
+
+
 def check_flash(dev):
     """fp32 (causal with left padding at T 52, 576 and 130, non-causal)
     at atol 1e-5 (O, lse) / 2e-4 (gradients); bf16 backward kernels at hd
@@ -495,14 +598,25 @@ def check_flash(dev):
         assert errs["flash_bwd_dq"] <= 2e-4, "flash dq disagrees (fp32)"
         assert errs["flash_bwd_dkv"] <= 2e-4, "flash dk/dv disagrees (fp32)"
         worst = {n: max(worst[n], errs[n]) for n in worst}
-    # the bf16 backward kernels (tensor cores) at every head dim the
-    # wrappers take: the kernels round P and dS to bf16 before the second
-    # product (2^-9 relative each) and every output once to bf16
+    # the bf16 kernels (tensor cores) at every head dim the wrappers
+    # take: they round P (and dS) to bf16 before the second product (2^-9
+    # relative each) and every output once to bf16
     for hd in fa.HEAD_DIMS:
         for B, T, H, pads, causal in ((3, 130, 2, (0, 130, 17), True),
                                       (2, 96, 2, (0, 9), False)):
             case = flash_case(dev, B, T, H, hd, pads, torch.bfloat16,
                               seed=T + hd)
+            o_ratio, lse_err, o_err = bf16_forward_check(
+                *case[:3], case[4], causal)
+            log("flash", f"bf16 forward B{B} T{T} H{H} hd{hd} pads "
+                         f"{list(pads)} causal={causal} vs its plain "
+                         f"version: O max_abs_err {o_err:.3e}, largest "
+                         f"|err| / (1e-2 + 1e-2 |ref|) {o_ratio:.3f} (<= 1 "
+                         f"passes), lse max_abs_err {lse_err:.3e} (atol "
+                         f"1e-3); every row finite")
+            assert o_ratio <= 1.0, f"bf16 flash forward O disagrees (hd {hd})"
+            assert lse_err <= 1e-3, f"bf16 flash forward lse disagrees (hd {hd})"
+            worst["flash_fwd"] = max(worst["flash_fwd"], o_err)
             ratios, errs = bf16_backward_check(*case, causal)
             log("flash", f"bf16 backward B{B} T{T} H{H} hd{hd} pads "
                          f"{list(pads)} causal={causal}, each kernel vs "
@@ -929,50 +1043,74 @@ def leaf_norms(ours, theirs):
 
 def train_parity_phase(tree, batch, device):
     """One train_step, then one 2-pass train_multi, at fp32 on the kernel
-    path and on the dense path from the same weights and batch: loss and
-    grad norm at rtol 1e-5, and the first step's per-leaf gradients (as
-    they reach the optimizer) at relative L2 2e-3. The same
-    rule on the updated parameters is printed, not asserted: Adam divides
-    each gradient element by its own magnitude, so an element whose
-    gradient lies within the two paths' float32 rounding steps +-lr with
-    a sign neither pins down; the dense gradient at the elements whose
-    updates differ by more than lr / 2 is printed beside its leaf's."""
-    runs = {}
+    path, every pass held against the dense path's pass at the same
+    parameters (the kernel path's, copied into the dense trainer before
+    each pass) and the same batch: loss and grad norm at rtol 1e-5, and
+    the first step's per-leaf gradients (as they reach the optimizer) at
+    relative L2 2e-3. The two paths' own Adam trajectories are not held
+    to each other past a step: Adam moves each element by about +-lr, so
+    an element whose gradient lies within the paths' float32 rounding
+    steps +-lr with a sign neither pins down, and the trajectories part
+    far beyond float32 rounding within a pass or two (PERF.md).
+    For the same reason tests/test_golden_step.py's rule on each pass's
+    update is printed, not asserted, with the dense gradient at the
+    elements whose first updates differ by more than lr / 2."""
+    trainers, grads = {}, {}
     for fused in (True, False):
         cfg = TRLConfig.from_dict(train_config_dict("float32", fused, 2))
         trainer = get_model(cfg.model.model_type)(cfg, device=device,
                                                   params=tree)
-        grads, opt_step = [], trainer.opt.step
+        grads[fused], opt_step = [], trainer.opt.step
 
-        def capture(params, g, state, opt_step=opt_step, grads=grads):
-            grads.append([x.detach().float().cpu().numpy() for x in g])
+        def capture(params, g, state, opt_step=opt_step, out=grads[fused]):
+            if not out:  # the first step's gradients
+                out.append([x.detach().float().cpu().numpy() for x in g])
             return opt_step(params, g, state)
 
         trainer.opt.step = capture
-        names = [n for n, _ in named_leaves(trainer.params["trainable"])]
-        step = {k: float(v) for k, v in trainer.train_step(batch).items()}
-        after_step = hydra_to_numpy(trainer.params["trainable"])
-        multi = {k: float(v) for k, v in trainer.train_multi(batch).items()}
-        runs[fused] = (step, multi, list(zip(names, grads[0])),
-                       named_leaves(after_step),
-                       named_leaves(hydra_to_numpy(
-                           trainer.params["trainable"])))
-        del trainer
-        torch.cuda.empty_cache() if device == "cuda" else None
+        trainers[fused] = trainer
+    kernel, dense = trainers[True], trainers[False]
+    kernel_step = kernel.train_step
+    passes = []  # per pass: (kernel stats, dense stats, params before,
+    #              kernel params after, dense params after)
+
+    def paired(batch):
+        with torch.no_grad():
+            for (_, d), (_, k) in zip(named_leaves(dense.params["trainable"]),
+                                      named_leaves(kernel.params["trainable"])):
+                d.copy_(k)
+        before = named_leaves(hydra_to_numpy(kernel.params["trainable"]))
+        stats = kernel_step(batch)
+        dense_stats = dense.train_step(batch)
+        passes.append(({k: float(v) for k, v in stats.items()},
+                       {k: float(v) for k, v in dense_stats.items()}, before,
+                       *(named_leaves(hydra_to_numpy(t.params["trainable"]))
+                         for t in (kernel, dense))))
+        return stats
+
+    kernel.train_step = paired
+    kernel.train_step(batch)
+    kernel.train_multi(batch)
+    del kernel, dense, trainers
+    torch.cuda.empty_cache() if device == "cuda" else None
+
+    labels = ("train_step", "train_multi pass 1", "train_multi pass 2")
     worst = 0.0
-    for i, label in enumerate(("train_step", "train_multi")):
+    for label, (ours, theirs, *_) in zip(labels, passes):
         for key in ("loss", "grad_norm"):
-            a, b = runs[True][i][key], runs[False][i][key]
+            a, b = ours[key], theirs[key]
             rel = abs(a - b) / max(abs(b), 1e-30)
             log("train-parity", f"{label} {key}: kernel {a!r} dense {b!r} "
-                                f"(relative {rel:.2e}, rtol 1e-5)")
-            assert rel <= 1e-5, f"{label} {key} differs"
+                                f"at the same parameters (relative "
+                                f"{rel:.2e}, rtol 1e-5)")
             worst = max(worst, rel)
+    assert worst <= 1e-5, f"loss or grad norm differs by {worst:.2e}"
     # a leaf whose gradient is analytically zero (the key bias: softmax
     # is shift-invariant) holds float32 rounding on both paths; below
     # 1e-5 of the global norm it is held absolutely at that level
-    g_kernel, g_dense = runs[True][2], runs[False][2]
-    floor = 1e-5 * runs[False][0]["grad_norm"]
+    names = [n for n, _ in passes[0][2]]
+    g_kernel, g_dense = (list(zip(names, grads[f][0])) for f in (True, False))
+    floor = 1e-5 * passes[0][1]["grad_norm"]
     rows = leaf_norms(g_kernel, g_dense)
     rel = [(d / t, n) for n, d, t in rows if t >= floor]
     zero = {n: f"|grad| {t:.2e} |diff| {d:.2e}" for n, d, t in rows
@@ -986,21 +1124,20 @@ def train_parity_phase(tree, batch, device):
         assert (d < 2e-3 * t) if t >= floor else (d < floor), \
             f"{name}: gradients differ by {d} of {t}"
 
-    start = named_leaves(tree["trainable"])
     lr = float(build_optimizer(cfg.train).schedule(0))  # the first step's
     updates = {}
-    for i, label in ((3, "train_step"), (4, "train_multi")):
-        ours, theirs = ([(n, p - s) for (n, p), (_, s) in
-                         zip(runs[fused][i], start)] for fused in (True, False))
+    for label, (_, _, before, k_after, d_after) in zip(labels, passes):
+        ours, theirs = ([(n, p - s) for (n, p), (_, s) in zip(after, before)]
+                        for after in (k_after, d_after))
         # tests/test_golden_step.py's rule: updates agreeing absolutely
         # to 1e-5 pass, else relative L2 < 2e-3
         updates[label] = {n: 0.0 if d < 1e-5 else d / max(t, 1e-12)
                           for n, d, t in leaf_norms(ours, theirs)}
         over = {n: f"{r:.2e}" for n, r in updates[label].items() if r >= 2e-3}
-        log("train-parity", f"{label} updated params by tests/test_golden_"
-                            f"step.py's rule at 2e-3 (printed, not "
-                            f"asserted): {len(over)} leaves at or over: "
-                            f"{over}")
+        log("train-parity", f"{label} update from the same parameters by "
+                            f"tests/test_golden_step.py's rule at 2e-3 "
+                            f"(printed, not asserted): {len(over)} leaves "
+                            f"at or over: {over}")
         if label != "train_step":
             continue
         flipped, total, top = 0, 0, (0.0, "")
@@ -1044,10 +1181,11 @@ def main() -> int:
         log("build", f"{name}: {entry['seconds']:.2f}s nvcc")
         for ln in ptxas:
             log("build", f"  {ln}")
+    per_1024 = decode_partitions(16, 12, 64, 16)[1]
     log("build", "paged_decode dynamic shared memory per block: "
                  f"{shared_memory_bytes(12, 12, 64, 4)} B at the serving "
-                 f"shape, {shared_memory_bytes(12, 12, 64, 64)} B at a "
-                 f"1024-token context; flash kernels at hd 64: bf16 "
+                 f"shape, {shared_memory_bytes(12, 12, 64, per_1024)} B at "
+                 f"a 1024-token context; flash kernels at hd 64: bf16 "
                  f"{fa.shared_memory_bytes(64)} B, fp32 "
                  f"{fa.shared_memory_bytes(64, torch.float32)} B")
 
@@ -1055,6 +1193,7 @@ def main() -> int:
     serving = time_kernel("cuda", "serving shape", max_pages=4, iters=500)
     long_ctx = time_kernel("cuda", "1024-token context", max_pages=64,
                            iters=200)
+    by_partitions = sweep_partitions("cuda")
 
     flash_err = check_flash("cuda")
     flash_slice = time_flash("cuda", "training shape", 32, 576, iters=10)
@@ -1103,6 +1242,7 @@ def main() -> int:
 
     print(json.dumps({"timing": {
         "serving_shape": serving, "ctx1024": long_ctx,
+        "ctx1024_by_partitions": by_partitions,
         "flash_training_shape": flash_slice, "flash_2048": flash_long,
         "train": {k: train[k] for k in ("wall_s", "rollout_s", "update_s",
                                         "samples_per_sec", "launches")},

@@ -18,6 +18,7 @@ from trlx_tpu_torch import ops
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
 from trlx_tpu_torch.models.transformer import NEG_INF, quantize_kv
 from trlx_tpu_torch.ops.paged_attention import (
+    decode_partitions,
     paged_decode_attention,
     paged_decode_attention_reference,
 )
@@ -42,6 +43,30 @@ def _kernel_case(seed=0):
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _split_case(seed=0, S=5, H=8, Hkv=2, hd=64, page_size=16, max_pages=64,
+                lengths=(1, 128, 129, 700, 0), free_row=4):
+    """A long-context decode case the planner splits (P > 1): each slot
+    owns shuffled pages, sentinels past its length, ragged lengths that
+    end at and beside partition edges, and one free row (all sentinel,
+    all masked); float32, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    T = max_pages * page_size
+    num_pages = S * max_pages
+    perm = rng.permutation(num_pages).astype(np.int32)
+    pt = np.full((S, max_pages), SENT, np.int32)
+    for s, n in enumerate(lengths):
+        used = -(-n // page_size)
+        pt[s, :used] = perm[s * max_pages:s * max_pages + used]
+    bias = np.where(np.arange(T)[None, :] < np.asarray(lengths)[:, None],
+                    0.0, NEG_INF).astype(np.float32)
+    pt[free_row] = SENT
+    bias[free_row] = NEG_INF
+    q = rng.standard_normal((S, H, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((num_pages, page_size, Hkv, hd))
+            .astype(np.float32) for _ in range(2))
+    return q, k, v, pt, bias
 
 
 @pytest.mark.cuda
@@ -78,6 +103,53 @@ def test_cuda_kernel_matches_plain_version():
                                             bias_free)
     assert torch.isfinite(outb.float()).all()
     torch.testing.assert_close(outb.float(), refb, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+def test_cuda_split_paged_decode_matches_plain_version(pool):
+    """Split-K paged decode (P > 1 partitions and the combine kernel)
+    against the plain version on the card, for each pool dtype: a float32
+    pool and the int8 tier with float32 q at atol 1e-5; a bf16 pool with
+    bf16 q at atol 1e-2 + rtol 1e-2 against float32 math on the same
+    inputs. GQA, lengths at partition edges, a dead partition and a free
+    row that must come out finite; one launch is counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, pt, bias = (_t(x).to(dev) for x in _split_case())
+    assert decode_partitions(5, 2, 64, 16)[0] > 1
+    if pool == "int8":
+        k, v = quantize_kv(k), quantize_kv(v)
+    elif pool == "bfloat16":
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = ops.LAUNCHES["paged_decode"]
+    out = paged_decode_attention(q, k, v, pt, bias)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_decode"] == before + 1
+    ref = paged_decode_attention_reference(q.float(), k, v, pt, bias)
+    assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
+    tol = dict(atol=1e-2, rtol=1e-2) if pool == "bfloat16" else \
+        dict(atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.float(), ref, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_refuses_misaligned_rows():
+    """The kernel reads 16-byte vectors, so the wrapper raises on a q or
+    a pool that does not start 16-byte aligned rather than launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, pt, bias = (_t(x).to(dev) for x in _kernel_case())
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+
+    def shifted(x):  # contiguous, 2 bytes off
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+        return buf.view(x.shape).copy_(x)
+    for args in ((shifted(q), k, v), (q, shifted(k), v), (q, k, shifted(v))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            paged_decode_attention(*args, pt, bias)
 
 
 def _flash_case(B, T, H, hd, pads, seed=0):
@@ -177,9 +249,45 @@ def test_cuda_bf16_backward_kernels_match_plain_version(hd, T, causal, pads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("T,causal,pads", [
+    (130, True, (0, 130, 17)),  # ragged T, one fully left-padded row
+    (96, False, (0, 9)),
+])
+def test_cuda_bf16_forward_kernel_matches_plain_version(hd, T, causal, pads):
+    """The bf16 forward kernel (tensor cores) against its plain version on
+    the same bf16 q, k, v: O on real rows at atol 1e-2 + rtol 1e-2 (the
+    kernel rounds P to bf16 before P V, 2^-9 relative, and O once), lse
+    on real rows at atol 1e-3 (float32 sums in another order), every row
+    of O and lse finite, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q, k, v, _, mask = (_t(x).to(dev) for x in _flash_case(len(pads), T, 2,
+                                                            hd, pads, hd + 1))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    real = mask.bool()
+    before = ops.LAUNCHES["flash_fwd"]
+    out, lse = fa.flash_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_fwd"] == before + 1
+    ref, lse_ref = fa.flash_fwd_reference(q, k, v, mask, causal)
+    assert out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float()[real], ref.float()[real],
+                               atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse.permute(0, 2, 1)[real],
+                               lse_ref.permute(0, 2, 1)[real], atol=1e-3,
+                               rtol=0)
+
+
+@pytest.mark.cuda
 def test_cuda_bf16_backward_refuses_misaligned_rows():
-    """The bf16 backward kernels copy 16-byte rows, so the wrappers raise
-    on a tensor that does not start 16-byte aligned rather than launch."""
+    """The bf16 kernels copy 16-byte rows, so the wrappers of the forward
+    and of both backward kernels raise on a tensor that does not start
+    16-byte aligned rather than launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -190,6 +298,9 @@ def test_cuda_bf16_backward_refuses_misaligned_rows():
     q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:]
     shifted = shifted.view(q.shape).copy_(q)  # contiguous, 2 bytes off
+    for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_fwd(*args, mask)
     out, lse = fa.flash_fwd(q, k, v, mask)
     dD = fa.softmax_jacobian_diag(g, out)
     for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):

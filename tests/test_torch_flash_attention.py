@@ -5,7 +5,10 @@ with numpy and fed to both): T = 32 / 48 / 52 / 64, unequal JAX blocks,
 left padding (real rows only: tile skipping changes pad rows), the
 non-causal form, gradients; and the seam's dense fallback below
 ``min_fused_t``. Outputs at atol 1e-5, gradients at atol 2e-4, float32;
-bfloat16 gradients at atol 1e-2 + rtol 1e-2. The hand-written kernels
+bfloat16 gradients at atol 1e-2 + rtol 1e-2. A torch model of the bf16
+forward kernel's rounding (P rounded to bf16 per 64-key tile, online
+rescaling) is held to the same bound against the plain version, so the
+card's tolerance is known before the card runs. The hand-written kernels
 themselves run in tests/test_torch_cuda_kernels.py on a card."""
 
 import jax
@@ -194,9 +197,76 @@ def test_wrappers_refuse_bad_inputs():
     for dtype in (torch.float32, torch.bfloat16):
         sm = fa.shared_memory_bytes(128, dtype)
         assert max(sm.values()) <= 232448  # one Hopper block's ceiling
-    # the bf16 backward: six [64][hd + 8] bf16 tiles plus two stages of
-    # the key mask (dq) or of the lse and D rows (dk/dv)
+    # bf16: five [64][hd + 8] bf16 tiles in the forward, six in the
+    # backward, plus two stages of the key mask (forward, dq) or of the
+    # lse and D rows (dk/dv)
     sm = fa.shared_memory_bytes(64, torch.bfloat16)
-    assert (sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == (55808, 56320)
-    assert fa.shared_memory_bytes(64, torch.float32)["flash_bwd_dkv"] \
-        == 100352
+    assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
+        (46592, 55808, 56320)
+    # float32: [64][65] float tiles, score tiles and row vectors
+    sm = fa.shared_memory_bytes(64, torch.float32)
+    assert (sm["flash_fwd"], sm["flash_bwd_dkv"]) == (66816, 100352)
+
+
+def _bf16_forward_model(q, k, v, mask, causal):
+    """The bf16 forward kernel's rounding in float32 torch: per 64-row
+    query tile, 64-key tiles in order (those wholly above the diagonal
+    skipped), S = Q K^T over the bf16 inputs times scale plus the bias,
+    the running max from -1e30, P = exp(S - m) rounded to bf16 before
+    P V while the row sum takes P unrounded, O = acc / max(l, 1e-30)
+    rounded once to bf16, lse = m + log(l)."""
+    B, T, H, hd = q.shape
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    key_bias = torch.where(mask > 0, 0.0, fa.NEG_INF).float()  # [B, T]
+    out = torch.empty(B, T, H, hd)
+    lse = torch.empty(B, H, T)
+    n = -(-T // fa.TILE)
+    for iq in range(n):
+        rows = slice(iq * fa.TILE, min(T, (iq + 1) * fa.TILE))
+        m = torch.full((B, H, rows.stop - rows.start), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, rows.stop - rows.start, hd)
+        for jt in range(min(n, iq + 1) if causal else n):
+            keys = slice(jt * fa.TILE, min(T, (jt + 1) * fa.TILE))
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows], kf[:, keys]) \
+                * fa.flash_scale(hd) + key_bias[:, None, None, keys]
+            if causal and jt == iq:
+                qpos = torch.arange(rows.start, rows.stop)[:, None]
+                kpos = torch.arange(keys.start, keys.stop)[None, :]
+                s = s + torch.where(qpos < kpos, fa.NEG_INF, 0.0)
+            m_new = torch.maximum(m, s.max(-1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vf[:, keys])
+            m = m_new
+        l = l.clamp(min=1e-30)
+        out[:, rows] = (acc / l[..., None]).permute(0, 2, 1, 3)
+        lse[..., rows] = m + torch.log(l)
+    return out.to(torch.bfloat16), lse
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("T,causal,pads", [
+    (130, True, (0, 130, 17)),  # ragged T, one fully left-padded row
+    (96, False, (0, 9)),
+])
+def test_bf16_forward_rounding_model_within_tolerance(hd, T, causal, pads):
+    """The bf16 forward kernel's rounding, modelled in torch, stays inside
+    the bound the card checks it to against the plain version on the same
+    bf16 inputs: O on real rows at largest |err| / (1e-2 + 1e-2 |ref|)
+    <= 1 (here below 0.6), lse on real rows at atol 1e-3, every row
+    finite (the fully left-padded row too)."""
+    q, k, v, mask = _case(300 + hd + T, len(pads), T, 2, hd, pads)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    tm = torch.from_numpy(mask)
+    out, lse = _bf16_forward_model(q, k, v, tm, causal)
+    ref, lse_ref = fa.flash_fwd_reference(q, k, v, tm, causal)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    real = tm.bool()
+    err = (out.float() - ref.float())[real].abs()
+    assert (err / (1e-2 + 1e-2 * ref.float()[real].abs())).max() < 0.6
+    torch.testing.assert_close(lse.permute(0, 2, 1)[real],
+                               lse_ref.permute(0, 2, 1)[real], atol=1e-3,
+                               rtol=0)

@@ -36,40 +36,47 @@
 //     finite and l is floored at 1e-30, so it is the finite near-uniform
 //     average, never NaN.
 //
-// The forward, and the backward for float32 inputs, run their products
-// as float32 FMA on the CUDA cores (67 TF/s peak; 256 threads as a
-// 16 x 16 grid, each owning 4 x 4 scores, [64][hd + 1] float tiles).
-// The float32 backward stays there on purpose: the tensor cores would
-// round its operands to TF32, which misses the float32 gradient parity
-// (2e-4 against the dense oracle, and the fp32 train step). The
-// forward's tensor-core redesign is later work.
+// For float32 inputs all three kernels run their products as float32
+// FMA on the CUDA cores (67 TF/s peak; 256 threads as a 16 x 16 grid,
+// each owning 4 x 4 scores, [64][hd + 1] float tiles). They stay there
+// on purpose: the tensor cores would round their operands to TF32, which
+// misses the float32 parity (1e-5 on O and lse, 2e-4 on the gradients
+// against the dense oracle, and the fp32 train step).
 //
-// The backward for bfloat16 inputs (the training path) runs on the
-// tensor cores:
+// For bfloat16 inputs (the training path) all three run on the tensor
+// cores:
 //   - 128 threads, 4 warps; each warp owns 16 rows of the block's tile
-//     (query rows in dq, key rows in dk/dv);
+//     (query rows in the forward and dq, key rows in dk/dv);
 //   - every product is mma.sync m16n8k16 with bf16 operands fetched by
 //     ldmatrix (.trans for an operand stored [k][n]) and float32
-//     accumulators in registers: S = Q K^T, dP = dO V^T, dq += dS K in
-//     dq; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q in
-//     dk/dv, so P^T and dS^T come out with key rows and never touch
-//     shared memory: the accumulator pair of n-tiles 2 j, 2 j + 1 is the
-//     A fragment of k-step j once rounded to bf16 (2^-9 relative);
+//     accumulators in registers: S = Q K^T, O += P V in the forward;
+//     S = Q K^T, dP = dO V^T, dq += dS K in dq; S^T = K Q^T,
+//     dP^T = V dO^T, dV += P^T dO, dK += dS^T Q in dk/dv. P, dS, P^T and
+//     dS^T never touch shared memory: the accumulator pair of n-tiles
+//     2 j, 2 j + 1 is the A fragment of k-step j once rounded to bf16
+//     (2^-9 relative);
 //   - bf16 tiles [64][hd + 8] (the pad keeps ldmatrix free of bank
-//     conflicts) filled by 16-byte cp.async; the block's own tile (Q, dO
-//     or K, V) is loaded once, the streamed tiles (K, V and the key mask,
-//     or Q, dO, lse and D) are double-buffered: tile n + 1 loads while
-//     tile n is computed;
-//   - scale is applied to S in float32 and to dq and dk at the end, so
-//     q is rounded once; lse, D and the key-mask bias sit in registers
-//     and the causal test runs on the diagonal tile only;
-//   - dq, dk, dv are rounded once to bf16, staged in the warp's own rows
-//     of a finished tile and written with 16-byte stores.
-// What bounds them on this card: shared-memory reads. Each warp reads
-// the whole streamed tile twice (plain and transposed ldmatrix), about
-// 72 ldmatrix.x4 against 128 mma per warp and tile in dk/dv, and the
-// mma.sync rate is below wgmma's. Not done yet: wgmma, TMA and
-// warp-specialised producers.
+//     conflicts) filled by 16-byte cp.async; the block's own tiles (Q;
+//     Q, dO; or K, V) are loaded once, the streamed tiles (K, V and the
+//     key mask, or Q, dO, lse and D) are double-buffered: tile n + 1
+//     loads while tile n is computed; the forward keeps Q's A fragments
+//     in registers for the whole key loop;
+//   - scale multiplies S in float32 (and dq, dk at the end), so q is
+//     rounded once; the key-mask bias sits in shared memory, lse and D
+//     in registers, and the causal test runs on the diagonal tile only;
+//   - the forward's online softmax runs on the S accumulators: a row
+//     lives in the 4 lanes of a quad (max by two shuffles, the sum a
+//     per-lane partial reduced once at the end), exponentials are exp2f
+//     with log2(e), and the running max starts finite so a fully
+//     left-padded row stays a finite near-uniform average;
+//   - O (divided once by the row sum), dq, dk, dv are rounded once to
+//     bf16, staged in the warp's own rows of a finished tile and written
+//     with 16-byte stores; lse = m + log(l) is float32.
+// What bounds them on this card: shared-memory reads and the mma.sync
+// issue rate, not device memory. Per warp and 64 x 64 tile pair the
+// forward issues about 32 ldmatrix.x4 (16 for K, 16 for V at hd 64)
+// against 64 mma; dk/dv about 72 against 128. Not done yet: wgmma, TMA
+// and warp-specialised producers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -983,14 +990,201 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 }
 
 // ------------------------------------------------------------------ //
+// forward, bfloat16 inputs: tensor-core tiles
+// ------------------------------------------------------------------ //
+
+// one block per (batch * head, 64-row query tile), heaviest causal tiles
+// first; warp w owns query rows 16 w .. 16 w + 15. Q is loaded once and
+// kept as A fragments in registers; K, V and the key mask stream through
+// two stages. The online softmax runs on the S accumulators in
+// registers: each row lives in the 4 lanes of a quad, so its max takes
+// two shuffles, and its sum stays a per-lane partial until the end
+// (every lane rescales by the same row max). P, rounded once to bf16, is
+// the A operand of O += P V.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const int32_t* __restrict__ mask, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Tlen, int H, int causal,
+                     float scale) {
+  constexpr int TILE = tc_tile<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);      // [64][HD + 8]
+  bf16* k_s = q_s + TILE;                              // [2][64][HD + 8]
+  bf16* v_s = k_s + 2 * TILE;                          // [2][64][HD + 8]
+  int32_t* m_s = reinterpret_cast<int32_t*>(v_s + 2 * TILE);  // [2][64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int iq = gridDim.y - 1 - blockIdx.y;
+  const int q0 = iq * kBQ;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t mrow = static_cast<size_t>(b) * Tlen;
+
+  const int n_k = (Tlen + kBK - 1) / kBK;
+  const int n_live = causal ? min(n_k, iq + 1) : n_k;
+
+  load_tile_async<HD>(q_s, q, b, q0, Tlen, H, h);
+  load_tile_async<HD>(k_s, k, b, 0, Tlen, H, h);
+  load_tile_async<HD>(v_s, v, b, 0, Tlen, H, h);
+  load_row_async(m_s, mask + mrow, 0, Tlen, 0);
+  cp_async_commit();
+
+  // rows gq and gq + 8 of the warp: running max (finite from the start,
+  // below any biased score), per-lane partial sums, O accumulators
+  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  uint32_t qa[HD / 16][4];
+
+  for (int jt = 0; jt < n_live; ++jt) {
+    const int st = jt & 1;
+    if (jt + 1 < n_live) {
+      const int k1 = (jt + 1) * kBK;
+      load_tile_async<HD>(k_s + (st ^ 1) * TILE, k, b, k1, Tlen, H, h);
+      load_tile_async<HD>(v_s + (st ^ 1) * TILE, v, b, k1, Tlen, H, h);
+      load_row_async(m_s + (st ^ 1) * kBK, mask + mrow, k1, Tlen, 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (jt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ldsm_x4(smem_u32(q_s + frag_a<HD>(lane, r0, kk * 16)), qa[kk]);
+    }
+    const bf16* ks = k_s + st * TILE;
+    const bf16* vs = v_s + st * TILE;
+    const int32_t* ms = m_s + st * kBK;
+
+    // S = Q K^T, 16 rows x 64 keys per warp
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        uint32_t kb[4];
+        ldsm_x4(smem_u32(ks + frag_b<HD>(lane, nn * 16, kk * 16)), kb);
+        mma_bf16(s[2 * nn], qa[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * nn + 1], qa[kk], kb[2], kb[3]);
+      }
+
+    // scale and bias in float32, then the tile's row max
+    const bool diag = causal && jt == iq;  // q0 == k0 on the diagonal
+    float mt[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + tq * 2 + (e & 1);
+        const int i = e >> 1;
+        float bias = ms[c] > 0 ? 0.f : kNegInf;
+        if (diag && r0 + gq + 8 * i < c) bias += kNegInf;
+        s[j][e] = fmaf(s[j][e], scale, bias);
+        mt[i] = fmaxf(mt[i], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      alpha[i] = exp2f((m_r[i] - mt[i]) * kLog2e);
+      m_r[i] = mt[i];
+      l_r[i] *= alpha[i];
+    }
+
+    // P in registers, rounded to bf16 A fragments: the accumulators of
+    // n-tiles 2 kk, 2 kk + 1 are A's k-step kk
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        p[e] = exp2f((s[j][e] - m_r[i]) * kLog2e);
+        l_r[i] += p[e];
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+
+    // O += P V: V is stored [key][d], so B comes by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t vb[4];
+        ldsm_x4_t(smem_u32(vs + frag_a<HD>(lane, kk * 16, nd * 16)), vb);
+        mma_bf16(acc[2 * nd], pa[kk], vb[0], vb[1]);
+        mma_bf16(acc[2 * nd + 1], pa[kk], vb[2], vb[3]);
+      }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // the row sums of the quad, O divided once, lse = m + log(l)
+  float l_safe[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_safe[i] = fmaxf(l, 1e-30f);
+    const int row = q0 + r0 + gq + 8 * i;
+    if (tq == 0 && row < Tlen)
+      lse[static_cast<size_t>(bh) * Tlen + row] = m_r[i] + logf(l_safe[i]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    acc[nt][0] /= l_safe[0];
+    acc[nt][1] /= l_safe[0];
+    acc[nt][2] /= l_safe[1];
+    acc[nt][3] /= l_safe[1];
+  }
+  // the warp's own rows of the Q tile are free now: stage O there
+  store_rows<HD>(out, q_s + r0 * tc_ld<HD>(), acc, 1.f, lane, b, q0 + r0,
+                 Tlen, H, h);
+}
+
+// ------------------------------------------------------------------ //
 // launch helpers
 // ------------------------------------------------------------------ //
 
+// float32 forward: [64][HD + 1] float tiles of Q, K, V, the score tile
+// and the key-mask bias
 template <int HD>
-constexpr size_t fwd_smem() {
+constexpr size_t fwd_fma_smem() {
   return sizeof(float) *
          (static_cast<size_t>(kBQ + 2 * kBK) * (HD + 1) +
           static_cast<size_t>(kBQ) * (kBK + 1) + kBK);
+}
+
+// bf16 forward: five [64][HD + 8] bf16 tiles (Q, then K and V x two
+// stages) and two stages of the key mask
+template <int HD>
+constexpr size_t fwd_mma_smem() {
+  return sizeof(bf16) * 5 * static_cast<size_t>(tc_tile<HD>()) +
+         sizeof(int32_t) * 2 * kBK;
 }
 
 // float32 backward: [64][HD + 1] float tiles, score tiles, row vectors
@@ -1035,24 +1229,30 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, bool* done) {
   return err;
 }
 
+// the float32 instantiations run the CUDA-core bodies, bf16 the tensor
+// cores
 template <typename T, int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* mask, void* out, void* lse, int B, int Tlen,
                        int H, int causal, float scale, cudaStream_t st) {
-  auto kernel = flash_fwd_kernel<T, HD>;
-  const size_t smem = fwd_smem<HD>();
+  constexpr bool f32 = std::is_same<T, float>::value;
+  auto kernel = [] {
+    if constexpr (std::is_same<T, float>::value)
+      return flash_fwd_kernel<float, HD>;
+    else return flash_fwd_mma_kernel<HD>;
+  }();
+  const size_t smem = f32 ? fwd_fma_smem<HD>() : fwd_mma_smem<HD>();
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Tlen + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, st>>>(
+  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(mask),
       static_cast<T*>(out), static_cast<float*>(lse), Tlen, H, causal, scale);
   return cudaGetLastError();
 }
 
-// the float32 instantiation runs the CUDA-core body, bf16 the tensor cores
 template <typename T, int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* g, const void* lse, const void* dD,
@@ -1131,8 +1331,8 @@ bool shape_ok(int B, int T, int H, int hd, int dtype) {
 
 // Plain C entry points (bound with ctypes). dtype: 0 float32, 1 bfloat16
 // (q, k, v, dO, O, dq, dk and dv share it); hd one of 16, 32, 64, 128;
-// mask int32 [B, T]; lse and D float32 [B, H, T]; the bf16 backward
-// reads and writes 16-byte rows, so its tensors start 16-byte aligned.
+// mask int32 [B, T]; lse and D float32 [B, H, T]; the bf16 kernels read
+// and write 16-byte rows, so their tensors start 16-byte aligned.
 // Each returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* mask, void* out, void* lse, int B, int T,

@@ -4,19 +4,32 @@ trlx_tpu.ops.pallas_attention).
 
 Three kernels live in ``csrc/flash_attention.cu`` (built at first use):
 
-- :func:`flash_fwd` — O and the float32 logsumexp (``_flash_fwd_kernel``);
-- :func:`flash_bwd_dq` — dq from the saved logsumexp
-  (``_flash_bwd_dq_kernel``);
-- :func:`flash_bwd_dkv` — dk and dv (``_flash_bwd_dkv_kernel``).
+- :func:`flash_fwd` — O and the float32 logsumexp; replaces
+  ``_flash_fwd_kernel`` (launched by ``_flash_forward``);
+- :func:`flash_bwd_dq` — dq from the saved logsumexp; replaces
+  ``_flash_bwd_dq_kernel``;
+- :func:`flash_bwd_dkv` — dk and dv; replaces ``_flash_bwd_dkv_kernel``
+  (both launched by ``_flash_backward``).
 
 Each takes q, k, v (and dO) as [B, T, H, hd] in float32 or bfloat16, the
 raw key mask [B, T] int32 (1 = real), ``causal``; lse and
-D = rowsum(dO * O) are float32 [B, H, T]; the gradients come back in q's
-dtype, rounded once from float32 sums. The bias is the TPU kernels': 0 /
-``NEG_INF`` from the mask plus ``NEG_INF`` above the diagonal, scale
-1 / sqrt(hd). For bfloat16 the backward kernels run on the tensor cores
-(bf16 operands, float32 sums); for float32 they stay on the CUDA cores in
-full float32.
+D = rowsum(dO * O) are float32 [B, H, T]; O and the gradients come back
+in q's dtype, rounded once from float32 sums. The bias is the TPU
+kernels': 0 / ``NEG_INF`` from the mask plus ``NEG_INF`` above the
+diagonal, scale 1 / sqrt(hd).
+
+What bounds them on an H100: at the training shape (B 32, T 576, H 12,
+hd 64, bf16) device memory would allow each about 34-51 µs, but a
+kernel that stages 64 x 64 tiles and multiplies them is held by how fast
+it feeds its products. For bfloat16 all three therefore run on the
+tensor cores (``mma.sync`` m16n8k16, bf16 operands by ``ldmatrix``,
+float32 sums in registers), with tiles filled by double-buffered 16-byte
+``cp.async`` and P and dS kept in registers as the second product's A
+operand; the forward also runs its online softmax in registers and keeps
+Q's fragments there for the whole key loop. Their tensors must start
+16-byte aligned, which the wrappers check. For float32 the kernels stay
+on the CUDA cores in full float32: the tensor cores would round to TF32
+and miss the float32 parity.
 
 A CUDA tensor goes to the kernel, or the call raises; only a CPU tensor
 goes to the plain version beside it (``*_reference``), which repeats the
@@ -62,21 +75,22 @@ def flash_scale(hd: int) -> float:
 
 def shared_memory_bytes(hd: int, dtype=torch.bfloat16) -> dict:
     """Dynamic shared memory per block of each kernel for inputs of
-    ``dtype`` (``*_smem`` in csrc/flash_attention.cu). The forward, and
-    the float32 backward, hold [64][hd + 1] float tiles plus one [64][65]
-    score tile (two in dk/dv) and the row vectors; the bfloat16 backward
-    holds six [64][hd + 8] bf16 tiles (its own two, two streamed tiles x
-    two stages) and two stages of the key mask (dq) or of the lse and D
-    rows (dk/dv)."""
+    ``dtype`` (``*_smem`` in csrc/flash_attention.cu). For float32 each
+    kernel holds [64][hd + 1] float tiles plus one [64][65] score tile
+    (two in dk/dv) and the row vectors. For bfloat16 the forward holds
+    five [64][hd + 8] bf16 tiles (Q, then K and V x two stages) and two
+    stages of the key mask; the backward six (its own two, two streamed
+    tiles x two stages) and two stages of the key mask (dq) or of the lse
+    and D rows (dk/dv)."""
     tile, scores = TILE * (hd + 1), TILE * (TILE + 1)
     if dtype == torch.float32:
-        dq, dkv = (4 * (4 * tile + scores + TILE),
-                   4 * (4 * tile + 2 * scores + 2 * TILE))
-    else:
-        bf16_tiles = 2 * 6 * TILE * (hd + 8)
-        dq, dkv = bf16_tiles + 4 * 2 * TILE, bf16_tiles + 4 * 4 * TILE
-    return {"flash_fwd": 4 * (3 * tile + scores + TILE),
-            "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
+        return {"flash_fwd": 4 * (3 * tile + scores + TILE),
+                "flash_bwd_dq": 4 * (4 * tile + scores + TILE),
+                "flash_bwd_dkv": 4 * (4 * tile + 2 * scores + 2 * TILE)}
+    bf16_tile = 2 * TILE * (hd + 8)
+    return {"flash_fwd": 5 * bf16_tile + 4 * 2 * TILE,
+            "flash_bwd_dq": 6 * bf16_tile + 4 * 2 * TILE,
+            "flash_bwd_dkv": 6 * bf16_tile + 4 * 4 * TILE}
 
 
 # --------------------------------------------------------------------- #
@@ -181,9 +195,9 @@ def _check(name, t, shape, dtype, device):
 
 
 def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None):
-    """Shapes, dtypes, device and contiguity the kernels take, and for
-    the backward (``g`` given) in bfloat16 the 16-byte alignment its
-    row copies need; returns (B, T, H, hd)."""
+    """Shapes, dtypes, device and contiguity the kernels take, and in
+    bfloat16 the 16-byte alignment the kernels' row copies need; returns
+    (B, T, H, hd)."""
     if q.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, hd]")
     B, T, H, hd = q.shape
@@ -204,9 +218,9 @@ def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None):
     for name, t in (("lse", lse), ("D", dD)):
         if t is not None:
             _check(name, t, (B, H, T), torch.float32, dev)
-    if g is not None and q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v), ("dO", g)):
-            if t.data_ptr() % 16:
+            if t is not None and t.data_ptr() % 16:
                 raise ValueError(f"{name} must start 16-byte aligned")
     return B, T, H, hd
 

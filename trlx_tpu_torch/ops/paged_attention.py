@@ -11,11 +11,21 @@ entries >= num_pages are sentinels; ``bias`` [S, max_pages * page_size]
 float32, 0 (attend) or ``NEG_INF`` (masked). Returns [S, H, hd] in q's
 dtype. Query heads [h*G, (h+1)*G) share kv-head h (GQA).
 
-A CUDA tensor goes to the kernel (``csrc/paged_decode.cu``, built at
-first use), or the call raises; only a CPU tensor goes to the plain
-version :func:`paged_decode_attention_reference` — the clamp-gather to
-logical order plus ``attention_scores`` that block_apply's jnp path
-runs. There is no fallback between the two.
+It replaces ``trlx_tpu/ops/paged_attention.py::_decode_kernel``, which
+walks a slot's pages as a sequential grid axis. On an H100 the step is
+bound by the bytes of K/V it must read, and reaching that bound takes
+loads in flight on every SM. So the CUDA kernel (``csrc/paged_decode.cu``,
+built at first use) is split-K flash-decoding: the context is cut into
+:func:`decode_partitions` parts of whole pages, one block per (slot,
+kv-head, part), warps splitting a part's tokens and lanes reading K/V
+rows as 16-byte vectors; the parts' float32 (max, sum, accumulator)
+partials merge in a second small kernel in a fixed order. At the serving
+shape there is one part and one launch.
+
+A CUDA tensor goes to the kernel, or the call raises; only a CPU tensor
+goes to the plain version :func:`paged_decode_attention_reference` — the
+clamp-gather to logical order plus ``attention_scores`` that
+block_apply's jnp path runs. There is no fallback between the two.
 """
 
 import ctypes
@@ -38,15 +48,39 @@ _SUPPORTED = {
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.float32, torch.int8),
 }
+#: head dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128)
+#: streaming multiprocessors of an H100 SXM
+_SMS = 132
+#: blocks per SM the partition count aims for once the context is long
+_BLOCKS_PER_SM = 4
+#: fewest tokens a partition holds (below, one block reads the context)
+_MIN_PART_TOKENS = 128
 
 
-def shared_memory_bytes(H: int, Hkv: int, hd: int, max_pages: int) -> int:
+def decode_partitions(S: int, Hkv: int, max_pages: int,
+                      page_size: int) -> tuple:
+    """(P, pages per partition) of the split-K grid (slot, kv-head,
+    partition): enough partitions for about ``_BLOCKS_PER_SM`` blocks on
+    each of the card's SMs, none shorter than ``_MIN_PART_TOKENS`` tokens
+    and each a whole number of pages, with no empty one. P is 1 when the
+    slots and heads alone fill the card or the context is short."""
+    want = -(-_BLOCKS_PER_SM * _SMS // (S * Hkv))
+    longest = max(1, max_pages * page_size // _MIN_PART_TOKENS)
+    P = max(1, min(want, longest, max_pages))
+    per = -(-max_pages // P)
+    return -(-max_pages // per), per
+
+
+def shared_memory_bytes(H: int, Hkv: int, hd: int, pages_per: int) -> int:
     """Dynamic shared memory one kernel block takes (``launch`` in
-    csrc/paged_decode.cu): q and accumulator rows of the G = H / Hkv
-    group, a 32-token K and V tile (rows padded to hd + 1), the group's
-    scores, running max / denominator / rescale, one live flag a page."""
+    csrc/paged_decode.cu): q rows of its head group (4, 2 or 1 of the
+    G = H / Hkv query heads of a kv-head) in float32, each of the 4
+    warps' (max, sum, accumulator) per head for the merge, and a clamped
+    page id and a live flag for each of the partition's pages."""
     G = H // Hkv
-    return 4 * (2 * G * hd + 2 * 32 * (hd + 1) + 32 * G + 3 * G + max_pages)
+    gt = 4 if G % 4 == 0 else (2 if G % 2 == 0 else 1)
+    return 4 * (gt * hd + 4 * gt * (hd + 2)) + 4 * 2 * pages_per
 
 
 def _split(pages):
@@ -82,7 +116,7 @@ def paged_decode_attention_reference(q, k_pages, v_pages, page_table, bias):
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -113,7 +147,9 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(q, k_pages, v_pages, page_table, bias):
+def _launch(q, k_pages, v_pages, page_table, bias, partitions=None):
+    """Checks and launches; ``partitions`` overrides
+    :func:`decode_partitions` (the chip smoke's sweep)."""
     k_codes, k_scales = _split(k_pages)
     v_codes, v_scales = _split(v_pages)
     if q.dim() != 3 or k_codes.dim() != 4:
@@ -125,6 +161,9 @@ def _launch(q, k_pages, v_pages, page_table, bias):
     if hd_k != hd or Hkv <= 0 or H % Hkv:
         raise ValueError(f"pool heads/dims ({Hkv}, {hd_k}) do not fit q "
                          f"({H}, {hd})")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"no paged-decode kernel for head_dim {hd} (one "
+                         f"of {HEAD_DIMS})")
     if (q.dtype, k_codes.dtype) not in _SUPPORTED:
         raise TypeError(f"no kernel for q {q.dtype} with a {k_codes.dtype} "
                         f"pool")
@@ -144,17 +183,27 @@ def _launch(q, k_pages, v_pages, page_table, bias):
         _check("v_scales", v_scales, pool_shape[:3], torch.float32, dev)
     _check("page_table", page_table, (S, max_pages), torch.int32, dev)
     _check("bias", bias, (S, max_pages * page_size), torch.float32, dev)
-    smem = shared_memory_bytes(H, Hkv, hd, max_pages)
+    for name, t in (("q", q), ("k_pages", k_codes), ("v_pages", v_codes)):
+        if t.data_ptr() % 16:  # the kernel reads 16-byte vectors
+            raise ValueError(f"{name} must start 16-byte aligned")
+    if partitions is None:
+        partitions, per = decode_partitions(S, Hkv, max_pages, page_size)
+    else:
+        per = -(-max_pages // partitions)
+    smem = shared_memory_bytes(H, Hkv, hd, per)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"shape needs {smem} B of shared memory per block "
                          f"(limit {_SMEM_LIMIT})")
     out = torch.empty_like(q)
+    partials = (torch.empty((S, H, partitions, hd + 2), dtype=torch.float32,
+                            device=dev) if partitions > 1 else None)
     rc = _kernel()(
         q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
         k_scales.data_ptr() if k_scales is not None else None,
         v_scales.data_ptr() if v_scales is not None else None,
         page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        S, H, Hkv, hd, num_pages, page_size, max_pages,
+        partials.data_ptr() if partials is not None else None,
+        S, H, Hkv, hd, num_pages, page_size, max_pages, partitions,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_codes.dtype],
         _rsqrt_scale(hd), torch.cuda.current_stream(dev).cuda_stream,
     )
