@@ -60,8 +60,31 @@ Phases, each printing its own line; any failure exits non-zero:
    tests/test_golden_step.py's relative-L2 rule at 2e-3; the same rule on
    each pass's update is printed, with the dense gradient at the
    elements whose first Adam steps differ in sign.
+9. ilql — the ILQL main path at configs/ilql_config.yml's width
+   (gpt2-124M, full unfreeze, batch 80, bf16, fused_attention, seeded
+   random weights, byte tokenizer) through the registry, the offline
+   orchestrator and learn(): 320 pre-tokenized rows of 130-500 tokens
+   (T 500, right-padded, terminal slots masked), one epoch of 4 updates
+   with a target sync at step 2 and one eval of 64 bos prompts x 32
+   tokens; flash launches equal layers x updates for each kernel, every
+   loss finite; prints the update times, training tokens/s, the eval
+   time, the peak device memory and the split of steps 2-4 (trunk
+   forward, heads and loss, backward, optimizer) from the CUDA events
+   the trainer's ``step_events`` records.
+10. ilql parity — three fp32 train steps on the kernel path, each against
+   the dense path at the same parameters (B 8, T 200, right-padded,
+   terminal slots masked): loss and grad norm at rtol 1e-5, and every
+   step's per-leaf gradients by phase 8's relative-L2 rule at 2e-3. Then
+   the bf16 kernels at the shape the ILQL phase gave them (B 80, T 500,
+   H 12, hd 64, the first batch's mask), each against its plain version
+   (atol 1e-2 + rtol 1e-2, lse at atol 1e-3, every row finite), and
+   their times there, each beside its bound (the causal pairs with a
+   real key) and SDPA's.
 
-Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+The flash checks of phase 4 include ILQL's mask at T 500 (fp32 against
+the dense oracle, bf16 against the plain versions). Then one
+``{"kernels": [...]}`` line (launches summed over the phases that drive
+each kernel, and by phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,11 +102,13 @@ import torch.nn.functional as F
 
 from trlx_tpu_torch import ops, telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.examples import ilql_sentiments
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
 from trlx_tpu_torch.models.params import (
     hydra_to_numpy,
     init_decode_views,
     init_hydra_numpy,
+    init_ilql_numpy,
 )
 from trlx_tpu_torch.models.transformer import (
     NEG_INF,
@@ -108,7 +133,8 @@ from trlx_tpu_torch.serve import (
     ServeConfig,
     SlotScheduler,
 )
-from trlx_tpu_torch.trainers.ppo_trainer import build_optimizer
+from trlx_tpu_torch.trainers import build_optimizer
+from trlx_tpu_torch.trainers.ilql_trainer import STEP_PARTS
 from trlx_tpu_torch.utils.loading import (
     get_model,
     get_orchestrator,
@@ -486,9 +512,12 @@ FLASH_REPLACES = {
 }
 
 
-def flash_case(dev, B, T, H, hd, pads=(), dtype=torch.float32, seed=0):
+def flash_case(dev, B, T, H, hd, pads=(), dtype=torch.float32, seed=0,
+               lengths=None):
     """q, k, v, dO [B, T, H, hd] and the [B, T] int32 mask with ``pads``
-    left-pad tokens per row; dO is 0 on pad rows, as the trainer's
+    left-pad tokens per row, or with ``lengths`` the ILQL layout: row i
+    right-padded past ``lengths[i]`` tokens and its terminal slot
+    (``lengths[i] - 1``) zeroed. dO is 0 on pad rows, as the trainer's
     losses (which never read pad rows) make it."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, g = (torch.randn((B, T, H, hd), generator=gen, device=dev)
@@ -497,15 +526,27 @@ def flash_case(dev, B, T, H, hd, pads=(), dtype=torch.float32, seed=0):
     for i, p in enumerate(pads):
         mask[i, :p] = 0
     g = g * mask[:, :, None, None]
+    if lengths is not None:
+        mask.zero_()
+        g = torch.randn((B, T, H, hd), generator=gen, device=dev)
+        for i, n in enumerate(lengths):
+            mask[i, :n - 1] = 1
+            g[i, n:] = 0
     return tuple(x.to(dtype) for x in (q, k, v, g)) + (mask,)
+
+
+def live_rows(mask):
+    """[B, T] query rows that see at least one real key: all but a left
+    pad (which the kernels give a different finite average)."""
+    return mask.cumsum(1) > 0
 
 
 def flash_errors(q, k, v, g, mask, causal):
     """The kernels (through the autograd seam) against the dense oracle
     and its autograd in fp32 on the same inputs: (out, reference out,
     {kernel: max abs error}, kernel leaves, reference leaves); O and lse
-    compare on real rows."""
-    real = mask.bool()
+    compare on live rows."""
+    real = live_rows(mask)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention(*leaves, mask, causal)
     out.backward(g)
@@ -563,7 +604,7 @@ def bf16_forward_check(q, k, v, mask, causal):
     """The bf16 forward kernel against its plain version on the same bf16
     inputs: (O ratio on real rows, lse max abs error on real rows, O max
     abs error on real rows). Every row of O and lse must be finite."""
-    real = mask.bool()
+    real = live_rows(mask)
     out, lse = fa.flash_fwd(q, k, v, mask, causal)
     ref, lse_ref = fa.flash_fwd_reference(q, k, v, mask, causal)
     torch.cuda.synchronize()
@@ -574,11 +615,18 @@ def bf16_forward_check(q, k, v, mask, causal):
     return ratio(out[real], ref[real]), lse_err, max_err(out[real], ref[real])
 
 
+#: ILQL-layout rows for the flash checks at T 500 (the store-global
+#: longest row, then ragged ones ending inside and at 64-row tiles)
+ILQL_CHECK_LENGTHS = [500, 130, 257, 449]
+
+
 def check_flash(dev):
     """fp32 (causal with left padding at T 52, 576 and 130, non-causal)
     at atol 1e-5 (O, lse) / 2e-4 (gradients); bf16 backward kernels at hd
     16 / 32 / 64 / 128, T 130 causal with a fully left-padded row and T 96
-    non-causal, and the whole bf16 path at the training shape, at
+    non-causal; ILQL's right-padded, terminal-holed mask at T 500 in fp32
+    (against the dense oracle) and bf16; and the whole bf16 path at the
+    training shape, at
     atol 1e-2 + rtol 1e-2 (O on real rows, dq, dk, dv), each kernel
     against its plain version on the same inputs. Returns the largest
     error seen per kernel."""
@@ -599,8 +647,9 @@ def check_flash(dev):
         assert errs["flash_bwd_dkv"] <= 2e-4, "flash dk/dv disagrees (fp32)"
         worst = {n: max(worst[n], errs[n]) for n in worst}
     # the bf16 kernels (tensor cores) at every head dim the wrappers
-    # take: they round P (and dS) to bf16 before the second product (2^-9
-    # relative each) and every output once to bf16
+    # take: the forward rounds P to bf16 before P V (2^-9 relative), the
+    # backward splits P and dS into bf16 hi + lo pairs (2^-17), and every
+    # output is rounded once to bf16
     for hd in fa.HEAD_DIMS:
         for B, T, H, pads, causal in ((3, 130, 2, (0, 130, 17), True),
                                       (2, 96, 2, (0, 9), False)):
@@ -628,6 +677,38 @@ def check_flash(dev):
             for name, r in ratios.items():
                 assert r <= 1.0, f"bf16 flash {name} disagrees (hd {hd})"
             worst = {n: max(worst[n], errs.get(n, 0.0)) for n in worst}
+    # ILQL's layout: right padding and a masked terminal slot (a hole in
+    # the key mask, not a prefix), T 500 not a multiple of the 64-row tile
+    for dtype, B, H, lengths in ((torch.float32, 4, 2, ILQL_CHECK_LENGTHS),
+                                 (torch.bfloat16, 3, 2,
+                                  ILQL_CHECK_LENGTHS[1:])):
+        case = flash_case(dev, B, 500, H, 64, dtype=dtype, seed=77,
+                          lengths=lengths)
+        if dtype == torch.float32:
+            _, _, errs, _, _ = flash_errors(*case, True)
+            log("flash", f"fp32 ILQL mask B{B} T500 H{H} hd64, lengths "
+                         f"{lengths} (terminal slots masked): " + ", ".join(
+                             f"{n} {e:.3e}" for n, e in errs.items())
+                + " (atol 1e-5 fwd, 2e-4 grads)")
+            assert errs["flash_fwd"] <= 1e-5, "ILQL-mask forward (fp32)"
+            assert errs["flash_bwd_dq"] <= 2e-4, "ILQL-mask dq (fp32)"
+            assert errs["flash_bwd_dkv"] <= 2e-4, "ILQL-mask dk/dv (fp32)"
+        else:
+            o_ratio, lse_err, o_err = bf16_forward_check(
+                *case[:3], case[4], True)
+            ratios, errs = bf16_backward_check(*case, True)
+            errs["flash_fwd"] = o_err
+            log("flash", f"bf16 ILQL mask B{B} T500 H{H} hd64, lengths "
+                         f"{lengths}, each kernel vs its plain version: "
+                         + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                         + f"; ratio O {o_ratio:.3f}, " + ", ".join(
+                             f"{n} {r:.3f}" for n, r in ratios.items())
+                         + f" (<= 1 passes), lse max_abs_err {lse_err:.3e} "
+                           f"(atol 1e-3); every row finite")
+            assert o_ratio <= 1.0 and lse_err <= 1e-3, "ILQL-mask bf16 fwd"
+            for name, r in ratios.items():
+                assert r <= 1.0, f"ILQL-mask bf16 {name} disagrees"
+        worst = {n: max(worst[n], errs[n]) for n in worst}
     B, T = 32, 576
     pads = list(range(0, 512, 16))  # 0 ... 496 left-pad tokens
     case = flash_case(dev, B, T, 12, 64, pads, torch.bfloat16, seed=9)
@@ -660,21 +741,51 @@ def check_flash(dev):
     return {n: max(worst[n], errs[n]) for n in worst}
 
 
-def flash_bounds(B, T, H, hd, elem, causal=True):
-    """Least time (ms) and what bounds it, per kernel, for full-length
-    rows: the bytes the function must move (its inputs q, k, v, dO once
-    each in ``elem`` bytes, the int32 mask and the float32 lse / D rows;
-    its outputs once in the inputs' dtype, as the seam returns them:
-    O, dq, or dk and dv) over HBM bandwidth, vs the multiply-adds of the
-    (query, key) pairs causality leaves, T (T + 1) / 2 per head, over the
-    bf16 peak: QK^T and PV in the forward, QK^T, dO V^T and dS K for dq,
-    and those two plus P^T dO and dS^T Q for dk/dv; for the whole
+def check_flash_at(dev, label, B, T, lengths, H=12, hd=64):
+    """The bf16 kernels at a main-path shape with ILQL's layout (see
+    flash_case), each against its plain version on the same inputs: O
+    and dq / dk / dv at atol 1e-2 + rtol 1e-2, lse at atol 1e-3, every
+    row finite. Returns {kernel: max abs error}."""
+    case = flash_case(dev, B, T, H, hd, dtype=torch.bfloat16, seed=T + 3,
+                      lengths=lengths)
+    o_ratio, lse_err, o_err = bf16_forward_check(*case[:3], case[4], True)
+    ratios, errs = bf16_backward_check(*case, True)
+    errs = {"flash_fwd": o_err, **errs}
+    log("flash", f"bf16 {label} B{B} T{T} H{H} hd{hd} causal, each kernel "
+                 f"vs its plain version: " + ", ".join(
+                     f"{n} {e:.3e}" for n, e in errs.items())
+        + f"; largest |err| / (1e-2 + 1e-2 |ref|): O {o_ratio:.3f}, "
+        + ", ".join(f"{n} {r:.3f}" for n, r in ratios.items())
+        + f" (<= 1 passes), lse max_abs_err {lse_err:.3e} (atol 1e-3); "
+          f"every row finite")
+    assert o_ratio <= 1.0, f"bf16 flash forward O disagrees ({label})"
+    assert lse_err <= 1e-3, f"bf16 flash forward lse disagrees ({label})"
+    for name, r in ratios.items():
+        assert r <= 1.0, f"bf16 flash {name} disagrees ({label})"
+    del case
+    torch.cuda.empty_cache()
+    return errs
+
+
+def flash_bounds(B, T, H, hd, elem, causal=True, key_mask=None):
+    """Least time (ms) and what bounds it, per kernel: the bytes the
+    function must move (its inputs q, k, v, dO once each in ``elem``
+    bytes, the int32 mask and the float32 lse / D rows; its outputs once
+    in the inputs' dtype, as the seam returns them: O, dq, or dk and dv)
+    over HBM bandwidth, vs the multiply-adds of the (query, key) pairs
+    causality leaves — T (T + 1) / 2 per head for full-length rows; with
+    ``key_mask``, per row the real keys at or before each query — over
+    the bf16 peak: QK^T and PV in the forward, QK^T, dO V^T and dS K for
+    dq, and those two plus P^T dO and dS^T Q for dk/dv; for the whole
     backward seam (D, dq and dk/dv) the five products once each and D
     kept out of memory."""
     n = B * T * H * hd
     row, mask = 4 * B * H * T, 4 * B * T
-    pairs = T * (T + 1) // 2 if causal else T * T
-    macs = B * H * pairs * hd
+    if key_mask is not None:  # causal pairs with a real key
+        macs = H * int(key_mask.long().cumsum(1).sum()) * hd
+    else:
+        pairs = T * (T + 1) // 2 if causal else T * T
+        macs = B * H * pairs * hd
     work = {
         "flash_fwd": (4 * n * elem + mask + row, 2 * 2 * macs),
         "flash_bwd_dq": (5 * n * elem + mask + 2 * row, 2 * 3 * macs),
@@ -693,7 +804,7 @@ def flash_bounds(B, T, H, hd, elem, causal=True):
     return out
 
 
-def time_flash(dev, label, B, T, H=12, hd=64, iters=10):
+def time_flash(dev, label, B, T, H=12, hd=64, iters=10, lengths=None):
     """Kernel / plain version / SDPA yardstick at a full-length causal bf16
     shape: device time from CUDA-graph replay and the eager loop's time.
     The yardstick is one scaled_dot_product_attention call with the same
@@ -704,9 +815,10 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10):
     backward captured together less the forward's, both measured here.
     The seam line times what ``FlashAttention.backward`` launches, D =
     rowsum(dO * O) then dq then dk/dv, in one graph beside the same SDPA
-    backward."""
+    backward. ``lengths`` gives ILQL's layout (see flash_case), and the
+    bound counts the (query, key) pairs with a real key."""
     q, k, v, g, mask = flash_case(dev, B, T, H, hd, (), torch.bfloat16,
-                                  seed=T + 1)
+                                  seed=T + 1, lengths=lengths)
     o, lse = fa.flash_fwd(q, k, v, mask)
     dD = fa.softmax_jacobian_diag(g, o)
 
@@ -740,7 +852,8 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10):
                          fa.flash_bwd_dkv_reference),
             None),
     }
-    bounds = flash_bounds(B, T, H, hd, 2)
+    bounds = flash_bounds(B, T, H, hd, 2,
+                          key_mask=None if lengths is None else mask)
     out = {}
     for name, (kernel, plain, lib) in fns.items():
         timed = [f for f in (kernel, plain, lib) if f is not None]
@@ -988,7 +1101,8 @@ def train_phase(tree, device):
     trainer.learn(log_fn=logs.append)
     torch.cuda.synchronize() if device == "cuda" else None
     wall = time.perf_counter() - t0
-    launches = {n: ops.LAUNCHES[n] for n in FLASH_NAMES}
+    all_launches = dict(ops.LAUNCHES)
+    launches = {n: all_launches[n] for n in FLASH_NAMES}
     L, k = spec.n_layer, trainer.policy.k
     chunks = m.num_rollouts // m.chunk_size
     passes = trainer.iter_count
@@ -1005,7 +1119,8 @@ def train_phase(tree, device):
     hists = telemetry.current().registry.hists
     batch = trainer.store._stacked().map(lambda x: x[:cfg.train.batch_size])
     return {
-        "launches": launches, "want": want, "chunks": chunks,
+        "launches": launches, "all_launches": all_launches, "want": want,
+        "chunks": chunks,
         "passes": passes, "wall_s": wall, "info": info, "logs": train_logs,
         "rollout_s": hists["time/rollout"].total,
         "update_s": hists["time/ppo_update"].total,
@@ -1158,6 +1273,184 @@ def train_parity_phase(tree, batch, device):
 
 
 # --------------------------------------------------------------------- #
+# 9. ILQL: offline training at gpt2-124M width, full unfreeze
+# --------------------------------------------------------------------- #
+
+#: rows of the ILQL store (4 batches of 80) and their length range
+ILQL_ROWS, ILQL_MIN_LEN, ILQL_MAX_LEN = 320, 130, 500
+
+
+def ilql_config_dict(compute_dtype="bfloat16", fused=True):
+    """configs/ilql_config.yml (the port example's copy: full unfreeze,
+    batch 80, tau 0.7, gamma 0.99, cql 0.1, awac 1, alpha 1, beta 4, two
+    Q heads) at gpt2-124M width from config with fused_attention, the
+    byte tokenizer, a target sync every 2 steps, stats every step, one
+    eval at step 0 and checkpoints beyond the run."""
+    cfg = ilql_sentiments.ilql_config()
+    cfg["model"].update(model_path="from-config", tokenizer_path="byte",
+                        model_spec=dict(GPT2_SPEC),
+                        compute_dtype=compute_dtype, fused_attention=fused)
+    cfg["train"].update(log_interval=1, checkpoint_interval=10**9)
+    cfg["method"].update(steps_for_target_q_sync=2)
+    return cfg
+
+
+def ilql_rows(n=ILQL_ROWS, seed=0, lo=ILQL_MIN_LEN, hi=ILQL_MAX_LEN):
+    """Pre-tokenized rows of printable bytes, lengths drawn in [lo, hi]
+    (row 0 at hi, so the store-global T is hi), each holding one "good"
+    or "bad" for the reward to read."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, n)
+    lengths[0] = hi
+    rows = []
+    for size in lengths:
+        row = rng.integers(32, 127, int(size))
+        word = list(b"good" if rng.random() < 0.5 else b"bad")
+        at = int(rng.integers(0, size - len(word)))
+        row[at:at + len(word)] = word
+        rows.append(row.tolist())
+    return rows
+
+
+def ilql_phase(tree, device):
+    """registry -> OfflineOrchestrator -> learn(): one epoch (4 updates
+    of 80 rows, T 500) with an eval of 64 bos prompts x 32 tokens at step
+    0 and a target sync at step 2; every launch counter at 0 just before
+    and read just after. The flash kernels launch once per layer per
+    update (fwd, dq, dk/dv); every logged loss is finite. The trainer's
+    ``step_events`` split steps 2-4 into their parts (median ms)."""
+    cfg = TRLConfig.from_dict(ilql_config_dict())
+    trainer = get_model(cfg.model.model_type)(cfg, device=device,
+                                              params=tree)
+    get_orchestrator(cfg.train.orchestrator)(
+        trainer, ilql_rows(), [trainer.tokenizer.eos_token] * 64,
+        reward_fn=ilql_sentiments.reward_fn)
+    logs = []
+    if device == "cuda":
+        trainer.step_events = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    trainer.learn(log_fn=logs.append)
+    torch.cuda.synchronize() if device == "cuda" else None
+    wall = time.perf_counter() - t0
+    all_launches = dict(ops.LAUNCHES)
+    launches = {n: all_launches[n] for n in FLASH_NAMES}
+    steps, L = trainer.iter_count, trainer.net.spec.n_layer
+    want = dict.fromkeys(FLASH_NAMES, steps * L)
+    if device == "cuda":
+        assert launches == want and steps > 0, \
+            f"flash launches {launches} != {want}"
+    train_logs = [entry for entry in logs if "loss" in entry]
+    assert len(train_logs) == steps == ILQL_ROWS // cfg.train.batch_size
+    for entry in train_logs:
+        for key in ("loss", "loss_q", "loss_v", "loss_cql", "loss_awac",
+                    "grad_norm"):
+            assert np.isfinite(entry[key]), (key, entry)
+    evals = [entry for entry in logs if "reward" in entry]
+    assert len(evals) == 1 and np.isfinite(evals[0]["reward"]), evals
+    hists = telemetry.current().registry.hists
+    update = hists["time/ilql_update"]
+    T = trainer._tokens_per_sample
+    first = next(iter(trainer.train_store.create_loader(
+        cfg.train.batch_size)))
+    # the device time of each part of steps 2-4 (train_step's own events)
+    split = {part: float(np.median([
+        marks[i].elapsed_time(marks[i + 1])
+        for marks in (trainer.step_events or [])[1:]]))
+        for i, part in enumerate(STEP_PARTS)} if device == "cuda" else {}
+    step_s = update.quantile(0.5)  # steps 2-4: the window skips the first
+    return {
+        "launches": launches, "all_launches": all_launches, "want": want,
+        "steps": steps, "T": T,
+        "wall_s": wall, "step_p50_s": step_s,
+        "steps_s": [update.first] + list(update.window),
+        "tokens_per_s": cfg.train.batch_size * T / step_s,
+        "eval_s": hists["time/eval"].total,
+        "max_memory_gb": (torch.cuda.max_memory_allocated() / 2**30
+                          if device == "cuda" else 0.0),
+        "logs": train_logs, "eval_reward": evals[0]["reward"],
+        "first_mask": first.attention_mask, "split_ms": split,
+    }
+
+
+# --------------------------------------------------------------------- #
+# 10. ILQL parity: kernel path vs dense path at fp32
+# --------------------------------------------------------------------- #
+
+
+def ilql_parity_phase(tree, device, B=8, hi=200, steps=3):
+    """``steps`` train steps at fp32 on the kernel path, each held
+    against the dense path's step at the same parameters (the kernel
+    path's, copied into the dense trainer first) on one batch of B rows
+    (T ``hi``, right-padded, terminal slots masked): loss and pre-clip
+    grad norm at rtol 1e-5, and every leaf's gradient (as it reaches the
+    optimizer) by train_parity_phase's rule: relative L2 2e-3, a leaf
+    under 1e-5 of the global norm held absolutely to that floor. The ramp
+    makes the first step's lr 0, so the third step is the first at moved
+    parameters."""
+    trainers, grads = {}, {}
+    for fused in (True, False):
+        cfg = TRLConfig.from_dict(ilql_config_dict("float32", fused))
+        trainer = get_model(cfg.model.model_type)(cfg, device=device,
+                                                  params=tree)
+        opt_step = trainer.opt.step
+
+        def capture(params, g, state, opt_step=opt_step, fused=fused):
+            grads[fused] = [x.detach().clone() for x in g]
+            return opt_step(params, g, state)
+
+        trainer.opt.step = capture
+        trainers[fused] = trainer
+    kernel, dense = trainers[True], trainers[False]
+    get_orchestrator(cfg.train.orchestrator)(
+        kernel, ilql_rows(B, seed=1, hi=hi), [],
+        reward_fn=ilql_sentiments.reward_fn)
+    full, _ = kernel._collate_store()
+    batch = full.map(lambda x: torch.as_tensor(x).to(device))
+    names = [n for n, _ in named_leaves(kernel.params["trainable"])]
+    worst, worst_grad = 0.0, (0.0, "")
+    for step in range(steps):
+        with torch.no_grad():
+            for (_, d), (_, k) in zip(
+                    named_leaves(dense.params["trainable"]),
+                    named_leaves(kernel.params["trainable"])):
+                d.copy_(k)
+        ours = {k: float(v) for k, v in kernel.train_step(batch).items()}
+        theirs = {k: float(v) for k, v in dense.train_step(batch).items()}
+        for key in ("loss", "grad_norm"):
+            a, b = ours[key], theirs[key]
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            log("ilql-parity", f"step {step + 1} {key}: kernel {a!r} dense "
+                               f"{b!r} at the same parameters (relative "
+                               f"{rel:.2e}, rtol 1e-5; B{B} T{hi})")
+            worst = max(worst, rel)
+        floor = 1e-5 * theirs["grad_norm"]
+        rows = [(n, float((k.double() - d.double()).norm()),
+                 float(d.double().norm()))
+                for n, k, d in zip(names, grads[True], grads[False])]
+        rel = [(d / t, n) for n, d, t in rows if t >= floor]
+        zero = {n: f"|grad| {t:.2e} |diff| {d:.2e}" for n, d, t in rows
+                if t < floor}
+        step_worst = max(rel)
+        worst_grad = max(worst_grad, step_worst)
+        log("ilql-parity", f"step {step + 1} gradients: largest relative L2 "
+                           f"{step_worst[0]:.2e} ({step_worst[1]}) over "
+                           f"{len(rel)} leaves (rtol 2e-3); below the floor "
+                           f"{floor:.2e} (1e-5 of the global norm), held to "
+                           f"it: {zero}")
+        for name, d, t in rows:
+            assert (d < 2e-3 * t) if t >= floor else (d < floor), \
+                f"ILQL step {step + 1} {name}: gradients differ by {d} of {t}"
+    assert worst <= 1e-5, f"ILQL loss or grad norm differs by {worst:.2e}"
+    del kernel, dense, trainers, grads
+    torch.cuda.empty_cache() if device == "cuda" else None
+    return {"worst_rel": worst, "grads_rel_l2": worst_grad[0],
+            "T": int(batch.input_ids.shape[1])}
+
+
+# --------------------------------------------------------------------- #
 # main
 # --------------------------------------------------------------------- #
 
@@ -1239,6 +1532,39 @@ def main() -> int:
                  f"{train['info']['mean_score']:.3f} ({card}; for "
                  f"information, not a metric)")
     train_parity = train_parity_phase(tree, train["batch"], "cuda")
+    del tree, train["batch"]
+
+    ilql_tree = init_ilql_numpy(
+        TRLConfig.from_dict(ilql_config_dict()).model.resolve_spec(), -1,
+        True, seed=0)
+    ilql = ilql_phase(ilql_tree, "cuda")
+    last = ilql["logs"][-1]
+    log("ilql", f"ILQL at gpt2-124M width, full unfreeze, bf16, fused "
+                f"attention: {ilql['steps']} updates of B80 x T{ilql['T']} "
+                f"in {ilql['wall_s']:.2f}s with one eval; update times "
+                f"{[round(t, 4) for t in ilql['steps_s']]} s, median of "
+                f"steps 2-4 {ilql['step_p50_s'] * 1e3:.1f} ms = "
+                f"{ilql['tokens_per_s']:.0f} training tokens/s; eval (64 "
+                f"prompts x 32 tokens, host reward) {ilql['eval_s']:.3f}s; "
+                f"max_memory_allocated {ilql['max_memory_gb']:.2f} GiB; "
+                f"steps 2-4 split on the device timeline (median ms): "
+                f"{ {k: round(v, 2) for k, v in ilql['split_ms'].items()} }; "
+                f"flash launches {ilql['launches']} == L x steps "
+                f"{ilql['want']}; last loss {last['loss']:.4f} (q "
+                f"{last['loss_q']:.4f} v {last['loss_v']:.4f} cql "
+                f"{last['loss_cql']:.4f} awac {last['loss_awac']:.4f}) "
+                f"grad_norm {last['grad_norm']:.4f}; eval reward "
+                f"{ilql['eval_reward']:.3f} ({card}; for information, not "
+                f"a metric)")
+    ilql_parity = ilql_parity_phase(ilql_tree, "cuda")
+    del ilql_tree
+    torch.cuda.empty_cache()
+    ilql_lengths = (ilql.pop("first_mask").sum(1) + 1).tolist()
+    ilql_errs = check_flash_at("cuda", "ILQL shape (terminal-holed mask)",
+                               80, ilql["T"], ilql_lengths)
+    flash_err = {n: max(flash_err[n], ilql_errs[n]) for n in flash_err}
+    flash_ilql = time_flash("cuda", "ILQL shape (terminal-holed mask)", 80,
+                            ilql["T"], iters=10, lengths=ilql_lengths)
 
     print(json.dumps({"timing": {
         "serving_shape": serving, "ctx1024": long_ctx,
@@ -1247,6 +1573,11 @@ def main() -> int:
         "train": {k: train[k] for k in ("wall_s", "rollout_s", "update_s",
                                         "samples_per_sec", "launches")},
         "train_parity": train_parity,
+        "ilql": {k: ilql[k] for k in ("wall_s", "step_p50_s", "steps_s",
+                                      "tokens_per_s", "eval_s",
+                                      "max_memory_gb", "launches", "T",
+                                      "split_ms")},
+        "ilql_parity": ilql_parity, "flash_ilql_shape": flash_ilql,
     }}))
     kernels = [{
         "name": "paged_decode",
@@ -1254,6 +1585,10 @@ def main() -> int:
         "source": "trlx_tpu_torch/csrc/paged_decode.cu",
         "replaces": "trlx_tpu/ops/paged_attention.py:58",
         "launches": run["launches"],
+        "launches_by_phase": {
+            "serve": run["launches"],
+            "ppo": train["all_launches"]["paged_decode"],
+            "ilql": ilql["all_launches"]["paged_decode"]},
         "max_abs_err": err,
         "ms": serving["ms"],
         "plain_ms": serving["plain_ms"],
@@ -1268,7 +1603,9 @@ def main() -> int:
             "route": "cuda",
             "source": "trlx_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": train["launches"][name],
+            "launches": train["launches"][name] + ilql["launches"][name],
+            "launches_by_phase": {"ppo": train["launches"][name],
+                                  "ilql": ilql["launches"][name]},
             "max_abs_err": flash_err[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -218,9 +218,10 @@ def test_cuda_flash_kernels_match_plain_version(dtype, T, causal, pads):
 def test_cuda_bf16_backward_kernels_match_plain_version(hd, T, causal, pads):
     """The bf16 backward kernels (tensor cores) against their plain
     versions on the same bf16 q, k, v, dO and the same lse and D, at
-    atol 1e-2 + rtol 1e-2: the kernels round P and dS to bf16 before the
-    second product (2^-9 relative each) and round each output once to
-    bf16, as the plain version does from its float32 sums. dO is 0 on pad
+    atol 1e-2 + rtol 1e-2: the kernels split P and dS into bf16 hi + lo
+    pairs before the second product (2^-17 relative each) and round each
+    output once to bf16, as the plain version does from its float32
+    sums. dO is 0 on pad
     rows, as the trainer's losses make it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")

@@ -7,8 +7,10 @@ non-causal form, gradients; and the seam's dense fallback below
 ``min_fused_t``. Outputs at atol 1e-5, gradients at atol 2e-4, float32;
 bfloat16 gradients at atol 1e-2 + rtol 1e-2. A torch model of the bf16
 forward kernel's rounding (P rounded to bf16 per 64-key tile, online
-rescaling) is held to the same bound against the plain version, so the
-card's tolerance is known before the card runs. The hand-written kernels
+rescaling), and one of the backward kernels' (dS and P split into bf16
+hi + lo pairs for the second products) on ILQL's right-padded,
+terminal-holed layout, are held to the same bound against the plain
+versions, so the card's tolerance is known before the card runs. The hand-written kernels
 themselves run in tests/test_torch_cuda_kernels.py on a card."""
 
 import jax
@@ -270,3 +272,58 @@ def test_bf16_forward_rounding_model_within_tolerance(hd, T, causal, pads):
     torch.testing.assert_close(lse.permute(0, 2, 1)[real],
                                lse_ref.permute(0, 2, 1)[real], atol=1e-3,
                                rtol=0)
+
+
+def _bf16_backward_model(q, k, v, g, lse, dD, mask, causal, split):
+    """The bf16 backward kernels' rounding in float32 torch: S, dP, P and
+    dS as the plain versions form them, then the second products (dS K,
+    P^T dO, dS^T Q) over dS and P either split into a bf16 pair hi + lo,
+    as the kernels run them, or rounded once to bf16 (``split`` False);
+    outputs rounded once to bf16."""
+    def operand(x):
+        hi = x.to(torch.bfloat16).float()
+        return hi + (x - hi).to(torch.bfloat16).float() if split else hi
+
+    scale = fa.flash_scale(q.shape[-1])
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    p, _ = fa._probs(qf, kf, mask, causal, lse)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = operand(p * (dp - dD[..., None]))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", operand(p), gf)
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def test_bf16_backward_rounding_model_within_tolerance():
+    """The bf16 backward kernels' rounding, modelled in torch on ILQL's
+    layout (right-padded rows, the terminal key masked, T 500 not a tile
+    multiple; dO 0 past each row's end), against the plain versions on
+    the same bf16 inputs and the same lse and D: dq, dk, dv at largest
+    |err| / (1e-2 + 1e-2 |ref|) below 0.5 with dS and P split into bf16
+    hi + lo, and below what rounding them once gives, every value
+    finite."""
+    B, T, H, hd = 3, 500, 2, 64
+    rng = np.random.default_rng(11)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((B, T, H, hd))
+                                   .astype(np.float32)).to(torch.bfloat16)
+                  for _ in range(4))
+    mask = torch.zeros((B, T), dtype=torch.int32)
+    for i, n in enumerate((500, 257, 131)):
+        mask[i, :n - 1] = 1
+        g[i, n:] = 0
+    out, lse = fa.flash_fwd_reference(q, k, v, mask)
+    dD = fa.softmax_jacobian_diag(g, out)
+    ref = (fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask),
+           *fa.flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask))
+
+    def ratios(split):
+        got = _bf16_backward_model(q, k, v, g, lse, dD, mask, True, split)
+        assert all(torch.isfinite(x.float()).all() for x in got)
+        return [((a.float() - b.float()).abs()
+                 / (1e-2 + 1e-2 * b.float().abs())).max().item()
+                for a, b in zip(got, ref)]
+
+    split, once = ratios(True), ratios(False)
+    assert max(split) < 0.5, split
+    assert all(s < o for s, o in zip(split, once)), (split, once)

@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
     assert "trlx_tpu_torch.ops.paged_attention" in report["imported"]
     for name in ("ops.flash_attention", "ops.losses", "models.policy",
                  "trainers.ppo_trainer", "orchestrator.ppo_orchestrator",
-                 "pipeline.ppo_pipeline", "examples.ppo_sentiments"):
+                 "pipeline.ppo_pipeline", "examples.ppo_sentiments",
+                 "data.ilql_types", "models.ilql", "trainers.ilql_trainer",
+                 "orchestrator.offline_orchestrator",
+                 "pipeline.offline_pipeline", "examples.ilql_randomwalks",
+                 "examples.ilql_sentiments", "examples.randomwalks_data"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

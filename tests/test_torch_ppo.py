@@ -29,12 +29,24 @@ from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.ppo_types import PPORLBatch
 from trlx_tpu_torch.models.params import hydra_to_numpy
 from trlx_tpu_torch.ops import flash_attention as tfa
-from trlx_tpu_torch.trainers.ppo_trainer import build_optimizer
+from trlx_tpu_torch.trainers import build_optimizer
 from trlx_tpu_torch.utils.loading import (
     get_model,
     get_orchestrator,
     get_pipeline,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's small CPU models: tiny ops
+    spread over every core spend their time synchronising threads (the
+    offline example takes 16 s on one thread and 90 s on eight on an
+    8-core host), and worse while several test processes share it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _configs(ppo_epochs=1, fused=False):

@@ -15,7 +15,11 @@ scheduler, the inference engine, its HTTP server and CLI
 policy, the rollout decoder, the loss math, the pipeline, orchestrator
 and trainer (``trlx_tpu_torch.utils.loading.get_model``), with the
 flash-attention forward and backward kernels on train-time forwards
-(``python -m trlx_tpu_torch.examples.ppo_sentiments``).
+(``python -m trlx_tpu_torch.examples.ppo_sentiments``); and offline
+ILQL training — the ILQL network with its Q / target-Q / value heads,
+the chunked ILQL loss, the offline pipeline, orchestrator and trainer
+with advantage-shifted sampling, on the same kernels
+(``python -m trlx_tpu_torch.examples.ilql_randomwalks``).
 
 Importing the package does nothing else: no CUDA initialisation, no
 kernel build, no thread.

@@ -54,7 +54,11 @@
 //     dP^T = V dO^T, dV += P^T dO, dK += dS^T Q in dk/dv. P, dS, P^T and
 //     dS^T never touch shared memory: the accumulator pair of n-tiles
 //     2 j, 2 j + 1 is the A fragment of k-step j once rounded to bf16
-//     (2^-9 relative);
+//     (2^-9 relative) in the forward; the backward splits dS, P^T and
+//     dS^T into a bf16 pair hi + lo (2^-17 relative) and runs each of
+//     its second products twice, hi B + lo B: rounded once, dS put dq
+//     past the plain version's atol 1e-2 + rtol 1e-2 on unit-variance
+//     inputs at B 80, T 500, H 12;
 //   - bf16 tiles [64][hd + 8] (the pad keeps ldmatrix free of bank
 //     conflicts) filled by 16-byte cp.async; the block's own tiles (Q;
 //     Q, dO; or K, V) are loaded once, the streamed tiles (K, V and the
@@ -75,8 +79,9 @@
 // What bounds them on this card: shared-memory reads and the mma.sync
 // issue rate, not device memory. Per warp and 64 x 64 tile pair the
 // forward issues about 32 ldmatrix.x4 (16 for K, 16 for V at hd 64)
-// against 64 mma; dk/dv about 72 against 128. Not done yet: wgmma, TMA
-// and warp-specialised producers.
+// against 64 mma; dq about 48 against 128, dk/dv about 72 against 192
+// (the hi / lo second products are a third of each). Not done yet:
+// wgmma, TMA and warp-specialised producers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -627,6 +632,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two floats as the bf16 pair nearest them (hi) and the bf16 pair of
+// what hi leaves (lo), packed as pack_bf16 packs: hi + lo is within
+// 2^-17 of each value, so a product run as hi B + lo B rounds its A
+// operand 256x more finely than hi B alone
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
 // Fragment offsets (elements) into a [64][HD + 8] tile, for lane l:
 //  - A operand, rows m0 .. m0 + 15 by columns k0 .. k0 + 15 of a
 //    row-major tile (also B through ldmatrix.trans when the tile is
@@ -800,10 +818,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // dS = P (dP - D) in registers, rounded to bf16 A fragments: the
-    // accumulators of n-tiles 2 kk, 2 kk + 1 are A's k-step kk
+    // dS = P (dP - D) in registers, split into bf16 A fragments hi + lo:
+    // the accumulators of n-tiles 2 kk, 2 kk + 1 are A's k-step kk
     const bool diag = causal && jt == iq;  // q0 == k0 on the diagonal
-    uint32_t dsa[4][4];
+    uint32_t dsa[4][4], dsl[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float ds[4];
@@ -816,11 +834,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float p = exp2f(fmaf(s[j][e], scale, bias - lse_r[i]) * kLog2e);
         ds[e] = p * (dp[j][e] - d_r[i]);
       }
-      dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      const int f = (j & 1) * 2;
+      split_bf16(ds[0], ds[1], dsa[j >> 1][f], dsl[j >> 1][f]);
+      split_bf16(ds[2], ds[3], dsa[j >> 1][f + 1], dsl[j >> 1][f + 1]);
     }
 
-    // dq += dS K: K is stored [key][d], so B comes by ldmatrix.trans
+    // dq += dS K (hi, then lo): K is stored [key][d], so B comes by
+    // ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -829,6 +849,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ldsm_x4_t(smem_u32(ks + frag_a<HD>(lane, kk * 16, nd * 16)), kb);
         mma_bf16(acc[2 * nd], dsa[kk], kb[0], kb[1]);
         mma_bf16(acc[2 * nd + 1], dsa[kk], kb[2], kb[3]);
+        mma_bf16(acc[2 * nd], dsl[kk], kb[0], kb[1]);
+        mma_bf16(acc[2 * nd + 1], dsl[kk], kb[2], kb[3]);
       }
     __syncthreads();  // every warp is done with this stage
   }
@@ -943,9 +965,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       }
     }
 
-    // P^T and dS^T in registers, rounded to bf16 A fragments (k = queries)
+    // P^T and dS^T in registers, split into bf16 A fragments hi + lo
+    // (k = queries)
     const bool diag = causal && it == jk;  // q0 == k0 on the diagonal
-    uint32_t pa[4][4], dsa[4][4];
+    uint32_t pa[4][4], pl[4][4], dsa[4][4], dsl[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float p[4], ds[4];
@@ -958,14 +981,15 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
         p[e] = exp2f(fmaf(s[j][e], scale, bias - ls[c]) * kLog2e);
         ds[e] = p[e] * (dp[j][e] - dsr[c]);
       }
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-      dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      const int f = (j & 1) * 2;
+      split_bf16(p[0], p[1], pa[j >> 1][f], pl[j >> 1][f]);
+      split_bf16(p[2], p[3], pa[j >> 1][f + 1], pl[j >> 1][f + 1]);
+      split_bf16(ds[0], ds[1], dsa[j >> 1][f], dsl[j >> 1][f]);
+      split_bf16(ds[2], ds[3], dsa[j >> 1][f + 1], dsl[j >> 1][f + 1]);
     }
 
-    // dV += P^T dO and dK += dS^T Q: dO and Q are stored [query][d], so
-    // B comes by ldmatrix.trans
+    // dV += P^T dO and dK += dS^T Q (hi, then lo): dO and Q are stored
+    // [query][d], so B comes by ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -978,6 +1002,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
         mma_bf16(dv_acc[2 * nd + 1], pa[kk], gb[2], gb[3]);
         mma_bf16(dk_acc[2 * nd], dsa[kk], qb[0], qb[1]);
         mma_bf16(dk_acc[2 * nd + 1], dsa[kk], qb[2], qb[3]);
+        mma_bf16(dv_acc[2 * nd], pl[kk], gb[0], gb[1]);
+        mma_bf16(dv_acc[2 * nd + 1], pl[kk], gb[2], gb[3]);
+        mma_bf16(dk_acc[2 * nd], dsl[kk], qb[0], qb[1]);
+        mma_bf16(dk_acc[2 * nd + 1], dsl[kk], qb[2], qb[3]);
       }
     __syncthreads();  // every warp is done with this stage
   }

@@ -68,8 +68,8 @@ class PPOConfig(MethodConfig):
 @dataclass
 @register_method
 class ILQLConfig(MethodConfig):
-    """ILQL hyperparameters (field parity with trlx_tpu's ILQLConfig); only
-    parsed in this slice — the ILQL trainer is not ported yet."""
+    """ILQL hyperparameters (field parity with trlx_tpu's ILQLConfig), read
+    by trlx_tpu_torch.trainers.ilql_trainer."""
 
     tau: float = 0.7
     gamma: float = 0.99

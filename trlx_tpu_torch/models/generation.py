@@ -24,7 +24,7 @@ writes (``offset == T`` on finished slots) and the pool's drop page
 (:class:`SlotState`) are returned as new tensors, as in JAX.
 """
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -129,6 +129,7 @@ def generate(
     cache_dtype=torch.bfloat16,
     attention_fn=attention_scores,
     logit_mask: Optional[torch.Tensor] = None,
+    extras_fn: Optional[Callable] = None,
 ) -> GenerationOutput:
     """Decode ``config.gen_size`` tokens per row from LEFT-padded prompts
     (the rollout decoder; port of trlx_tpu.models.generation.generate).
@@ -170,8 +171,10 @@ def generate(
     for seg, cache in zip(segments, caches):
         h, _ = apply_blocks_with_cache(seg, cache, spec, h, prefill_bias,
                                        positions, 0, attention_fn)
-    logits = project_logits(
-        embed, spec, layer_norm(ln_f, h[:, -1], spec.layer_norm_epsilon))
+    h_normed = layer_norm(ln_f, h[:, -1], spec.layer_norm_epsilon)
+    logits = project_logits(embed, spec, h_normed)
+    prev_tok = torch.gather(prompt_tokens, 1,
+                            (real_len - 1).clamp(min=0)[:, None])[:, 0]
 
     buffer_mask = torch.cat(
         [prompt_mask, torch.ones((B, G), dtype=torch.int32, device=dev)],
@@ -188,6 +191,8 @@ def generate(
                 finished.all()):
             break  # every later step emits pads only
         step_logits = logits
+        if extras_fn is not None:
+            step_logits = extras_fn(h_normed, step_logits, prev_tok)
         if logit_mask is not None:
             step_logits = torch.where(logit_mask, step_logits,
                                       torch.full_like(step_logits, NEG_INF))
@@ -204,6 +209,7 @@ def generate(
             finished = finished | (tok == config.eos_token_id)
         toks.append(tok)
         logprobs.append(logprob)
+        prev_tok = tok
         if step == G - 1:
             break  # the last token's forward feeds nothing
 
@@ -222,8 +228,8 @@ def generate(
                     kv_cache=(k_c[i], v_c[i]), cache_offset=offset,
                     attention_fn=attention_fn,
                 )
-        logits = project_logits(
-            embed, spec, layer_norm(ln_f, h[:, 0], spec.layer_norm_epsilon))
+        h_normed = layer_norm(ln_f, h[:, 0], spec.layer_norm_epsilon)
+        logits = project_logits(embed, spec, h_normed)
 
     n = len(toks)
     gen_tokens = torch.stack(toks + [pad] * (G - n), dim=1)

@@ -5,7 +5,9 @@ The trainer holds the WHOLE hydra tree (frozen_base, trainable with its
 value head, ref): :func:`hydra_to_torch` places a numpy tree (what
 ``jax.device_get`` returns, or :func:`init_hydra_numpy`'s seeded
 random one) on a device, and :func:`hydra_to_numpy` brings (updated)
-parameters back for comparison.
+parameters back for comparison. The ILQL trainer's tree ({frozen_base,
+trainable, target}) crosses the same way: :func:`init_ilql_numpy`,
+:func:`ilql_to_torch`, :func:`ilql_to_numpy`.
 
 The port serves from DECODE VIEWS: ``DecodeViews(blocks, embed, ln_f)``
 where ``blocks`` is the (trunk, trainable-top) pair of stacked block
@@ -29,6 +31,7 @@ import torch
 
 from trlx_tpu_torch.data.configs import ModelSpec
 from trlx_tpu_torch.models.heads import init_head_params
+from trlx_tpu_torch.models.ilql import split_embed_for_unfreeze
 from trlx_tpu_torch.models.policy import (
     all_blocks,
     head_params_for_decode,
@@ -75,15 +78,11 @@ def decode_views_from_numpy(hydra_tree: Params, spec: ModelSpec,
     )
 
 
-def init_hydra_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
-                     seed: int = 0) -> Params:
-    """A random hydra tree — frozen_base, trainable (with its value head)
-    and the reference branch, an exact copy of the trainable transformer
-    part — with trlx_tpu's init scheme: N(0, 0.02) matrices, residual
-    projections scaled by 1/sqrt(2 * n_layer), zero biases, unit norm
-    scales, a uniform-init value head, drawn from a numpy generator
-    seeded with ``seed``. float32 throughout."""
-    rng = np.random.default_rng(seed)
+def _init_base_numpy(spec: ModelSpec, rng: np.random.Generator):
+    """(embed, stacked blocks [L, ...], ln_f) with trlx_tpu's init scheme:
+    N(0, 0.02) matrices, residual projections scaled by
+    1/sqrt(2 * n_layer), zero biases, unit norm scales; float32, drawn
+    from ``rng`` in a fixed order."""
     flags = ArchFlags.for_spec(spec)
     L, d, f, V = spec.n_layer, spec.d_model, spec.d_ff, spec.vocab_size
     d_kv = spec.kv_heads * spec.head_dim
@@ -125,13 +124,32 @@ def init_hydra_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
     ln_f = {"scale": np.ones((d,), np.float32)}
     if not flags.rmsnorm:
         ln_f["bias"] = zeros(d)
+    return embed, blocks, ln_f
+
+
+def _untied_lm_head(spec: ModelSpec, rng: np.random.Generator) -> Params:
+    d, V = spec.d_model, spec.vocab_size
+    return {"w": rng.standard_normal((d, V), dtype=np.float32) * 0.02,
+            "b": np.zeros((V,), np.float32)}
+
+
+def init_hydra_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
+                     seed: int = 0) -> Params:
+    """A random hydra tree — frozen_base, trainable (with its value head)
+    and the reference branch, an exact copy of the trainable transformer
+    part — with trlx_tpu's init scheme (:func:`_init_base_numpy`, a
+    uniform-init value head), drawn from a numpy generator seeded with
+    ``seed``. float32 throughout."""
+    rng = np.random.default_rng(seed)
+    embed, blocks, ln_f = _init_base_numpy(spec, rng)
+    L = spec.n_layer
     k = resolve_num_unfrozen(spec, num_layers_unfrozen)
     trainable = {
         "blocks": tree_map(lambda x: x[L - k:], blocks), "ln_f": ln_f,
     }
     if not spec.tie_lm_head:
-        trainable["lm_head"] = {"w": normal((d, V)), "b": zeros(V)}
-    trainable["v_head"] = init_head_params(rng, d, 1)
+        trainable["lm_head"] = _untied_lm_head(spec, rng)
+    trainable["v_head"] = init_head_params(rng, spec.d_model, 1)
     ref = {key: tree_map(np.copy, trainable[key])
            for key in ("blocks", "ln_f", "lm_head") if key in trainable}
     return {
@@ -142,6 +160,48 @@ def init_hydra_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
     }
 
 
+def init_ilql_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
+                    two_qs: bool = True, seed: int = 0) -> Params:
+    """A random ILQL tree in trlx_tpu's structure (``{frozen_base,
+    trainable, target}``, see trlx_tpu_torch.models.ilql): the trunk as
+    :func:`init_hydra_numpy` draws it, a uniform-init value head and Q
+    heads, the target heads exact copies of the Q heads. At full
+    unfreeze the embeddings sit in ``trainable`` and the frozen bottom
+    has zero-size [0, ...] leaves. float32 throughout."""
+    rng = np.random.default_rng(seed)
+    embed, blocks, ln_f = _init_base_numpy(spec, rng)
+    L, d, V = spec.n_layer, spec.d_model, spec.vocab_size
+    k = resolve_num_unfrozen(spec, num_layers_unfrozen)
+    trainable = {
+        "blocks": tree_map(lambda x: x[L - k:], blocks), "ln_f": ln_f,
+        "v_head": init_head_params(rng, d, 1),
+        "q1_head": init_head_params(rng, d, V),
+    }
+    names = ("q1_head", "q2_head") if two_qs else ("q1_head",)
+    if two_qs:
+        trainable["q2_head"] = init_head_params(rng, d, V)
+    if not spec.tie_lm_head:
+        trainable["lm_head"] = _untied_lm_head(spec, rng)
+    frozen_embed, train_embed = split_embed_for_unfreeze(embed, k, spec)
+    if train_embed is not None:
+        trainable["embed"] = train_embed
+    return {
+        "frozen_base": {"embed": frozen_embed,
+                        "blocks": tree_map(lambda x: x[:L - k], blocks)},
+        "trainable": trainable,
+        "target": {n: tree_map(np.copy, trainable[n]) for n in names},
+    }
+
+
+def _place(x, device, dtype) -> torch.Tensor:
+    """A numpy or torch leaf as a fresh torch tensor on ``device``,
+    floating leaves in ``dtype``."""
+    t = torch.as_tensor(np.array(x, copy=True, order="C")) \
+        if not torch.is_tensor(x) else x.detach().clone()
+    return t.to(device=device, dtype=dtype if t.is_floating_point()
+                else t.dtype)
+
+
 def hydra_to_torch(tree: Params, device=None,
                    frozen_dtype=torch.float32) -> Params:
     """A hydra tree of numpy (or torch) leaves as torch tensors on
@@ -149,21 +209,29 @@ def hydra_to_torch(tree: Params, device=None,
     (every leaf, as trlx_tpu casts them), ``trainable`` float32 leaves
     that require grad — the trainer's parameter tree."""
 
-    def place(x, dtype):
-        t = torch.as_tensor(np.array(x, copy=True, order="C")) \
-            if not torch.is_tensor(x) else x.detach().clone()
-        return t.to(device=device, dtype=dtype if t.is_floating_point()
-                    else t.dtype)
-
     def frozen(sub):
-        return tree_map(lambda x: place(x, frozen_dtype), sub)
+        return tree_map(lambda x: _place(x, device, frozen_dtype), sub)
 
     trainable = tree_map(
-        lambda x: place(x, torch.float32).requires_grad_(True),
+        lambda x: _place(x, device, torch.float32).requires_grad_(True),
         tree["trainable"],
     )
     return {"frozen_base": frozen(tree["frozen_base"]),
             "trainable": trainable, "ref": frozen(tree["ref"])}
+
+
+def ilql_to_torch(tree: Params, device=None) -> Params:
+    """An ILQL tree of numpy (or torch) leaves as float32 torch tensors on
+    ``device``, as trlx_tpu stores every ILQL leaf: ``trainable`` leaves
+    require grad, ``frozen_base`` and ``target`` do not. Zero-size leaves
+    and an empty frozen embed carry over as they are."""
+    frozen = {key: tree_map(lambda x: _place(x, device, torch.float32),
+                            tree[key]) for key in ("frozen_base", "target")}
+    trainable = tree_map(
+        lambda x: _place(x, device, torch.float32).requires_grad_(True),
+        tree["trainable"])
+    return {"frozen_base": frozen["frozen_base"], "trainable": trainable,
+            "target": frozen["target"]}
 
 
 def hydra_to_numpy(tree: Params) -> Params:
@@ -171,6 +239,10 @@ def hydra_to_numpy(tree: Params) -> Params:
     return tree_map(
         lambda x: x.detach().float().cpu().numpy() if x.is_floating_point()
         else x.detach().cpu().numpy(), tree)
+
+
+#: an ILQL tree comes back to numpy the same way
+ilql_to_numpy = hydra_to_numpy
 
 
 def init_decode_views(spec: ModelSpec, seed: int = 0,

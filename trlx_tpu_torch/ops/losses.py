@@ -1,7 +1,8 @@
-"""RL loss math (port of trlx_tpu.ops.losses: the PPO half): masked
-means, whitening, logprob gathering, GAE, the clipped PPO losses and the
-KL-penalty rewards. Every function takes an optional response mask; with
-none they reduce to the unmasked math.
+"""RL loss math (port of trlx_tpu.ops.losses): masked means, whitening,
+logprob gathering, GAE, the clipped PPO losses, the KL-penalty rewards
+and the ILQL composite loss (whole and T-chunked). The PPO functions
+take an optional response mask; with none they reduce to the unmasked
+math.
 """
 
 from typing import Callable, Dict, Optional, Tuple
@@ -43,14 +44,19 @@ def clip_by_value(x: torch.Tensor, low, high) -> torch.Tensor:
     return torch.clamp(x, low, high)
 
 
+def _gather(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """x [..., T, V] at ``labels`` [..., T] clamped into the vocabulary
+    (JAX's ``mode="clip"``)."""
+    idx = labels.long().clamp(0, x.shape[-1] - 1)
+    return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
 def logprobs_from_logits(logits: torch.Tensor,
                          labels: torch.Tensor) -> torch.Tensor:
     """Per-token logprobs of ``labels`` under ``logits`` [..., T, V];
     labels are clamped into the vocabulary (JAX's ``mode="clip"``), so an
     out-of-vocab pad id on a masked position cannot poison a sum."""
-    logp = torch.log_softmax(logits, dim=-1)
-    idx = labels.long().clamp(0, logits.shape[-1] - 1)
-    return torch.gather(logp, -1, idx[..., None])[..., 0]
+    return _gather(torch.log_softmax(logits, dim=-1), labels)
 
 
 def chunked_label_logprobs(head_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -167,3 +173,116 @@ def kl_penalty_rewards(logprobs, ref_logprobs, scores, kl_coef,
     rewards = rewards.index_put((rows, last), scores.to(rewards.dtype),
                                 accumulate=True)
     return rewards, kls.sum(dim=-1)
+
+
+def _ilql_terms(q_g, q_lse, tq_g, lm_g, lm_lse, vs, attention_mask, rewards,
+                gamma, tau, cql_scale, awac_scale):
+    """The ILQL loss from per-position statistics, each [B, T]: the
+    Q heads' gathered action values ``q_g`` and logsumexps ``q_lse``,
+    the target heads' gathered values ``tq_g``, the LM head's ``lm_g`` /
+    ``lm_lse`` and the value head ``vs``. The last position of each is a
+    dummy (sliced off). The non-terminal mask is ``attention_mask[:, :-1]``
+    (the terminal token's slot is zeroed upstream); sums are normalised
+    by its count. ``targetQ`` and the bootstrap target are detached."""
+    nonterminal = attention_mask[:, :-1].float()
+    n_nonterminal = torch.clamp(nonterminal.sum(), min=1.0)
+
+    Qs = [g[:, :-1] for g in q_g]
+    targetQ = tq_g[0][:, :-1]
+    if len(tq_g) > 1:
+        targetQ = torch.minimum(targetQ, tq_g[1][:, :-1])
+    targetQ = targetQ.detach()
+
+    V_next = vs[:, 1:] * nonterminal
+    Q_ = (rewards + gamma * V_next).detach()
+    loss_q = sum((((Q - Q_) * nonterminal) ** 2).sum() / n_nonterminal
+                 for Q in Qs)
+
+    V = vs[:, 1:] * nonterminal
+    diff = targetQ - V
+    weight = torch.where(targetQ >= V, tau, 1.0 - tau)
+    loss_v = (weight * diff ** 2 * nonterminal).sum() / n_nonterminal
+
+    def masked_ce(g, lse):
+        return (-((g - lse)[:, :-1]) * nonterminal).sum() / n_nonterminal
+
+    loss_cql = sum(masked_ce(g, lse) for g, lse in zip(q_g, q_lse))
+    loss_awac = masked_ce(lm_g, lm_lse)
+
+    loss = loss_q + loss_v + cql_scale * loss_cql + awac_scale * loss_awac
+    stats = {
+        "loss": loss,
+        "loss_q": loss_q,
+        "loss_v": loss_v,
+        "loss_cql": loss_cql,
+        "loss_awac": loss_awac,
+    }
+    return loss, stats
+
+
+def _gather_lse(x: torch.Tensor, labels: torch.Tensor):
+    """(:func:`_gather`, logsumexp over V), each [..., T]."""
+    return _gather(x, labels), torch.logsumexp(x, dim=-1)
+
+
+def _action_labels(tokens: torch.Tensor) -> torch.Tensor:
+    """labels[t] = the action taken at t (tokens[t + 1]); the last
+    position holds a dummy 0."""
+    return torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                     dim=1)
+
+
+def ilql_losses(logits, qs, target_qs, vs, tokens, attention_mask, rewards,
+                gamma: float, tau: float, cql_scale: float,
+                awac_scale: float) -> Tuple[torch.Tensor, Dict]:
+    """The ILQL composite loss — Q TD loss + expectile V loss + CQL
+    cross-entropy + AWAC LM cross-entropy — from whole head outputs:
+    logits / qs / target_qs [B, T, V], vs [B, T], tokens and
+    attention_mask [B, T], rewards [B, T - 1]. Actions are clamped into
+    the vocabulary (a pad id past it sits on masked positions)."""
+    labels = _action_labels(tokens)
+    lm_g, lm_lse = _gather_lse(logits, labels)
+    q_stats = [_gather_lse(q, labels) for q in qs]
+    tq_g = [_gather(q, labels) for q in target_qs]
+    return _ilql_terms([g for g, _ in q_stats], [lse for _, lse in q_stats],
+                       tq_g, lm_g, lm_lse, vs, attention_mask, rewards,
+                       gamma, tau, cql_scale, awac_scale)
+
+
+def ilql_losses_chunked(lm_head_fn, q_head_fns, tq_head_fns, vs, h_normed,
+                        tokens, attention_mask, rewards, gamma: float,
+                        tau: float, cql_scale: float, awac_scale: float,
+                        chunk: int = 16) -> Tuple[torch.Tensor, Dict]:
+    """:func:`ilql_losses` without ever holding the [B, T, V] head
+    outputs: each ``chunk`` positions of ``h_normed`` [B, T, D] go
+    through the heads (callables [B, c, D] -> float32 [B, c, V]) and
+    reduce at once to the gathered action value and the logsumexp. The
+    trainable heads' chunks run under ``torch.utils.checkpoint``, so the
+    backward recomputes each chunk's projections instead of storing
+    them; the target heads (no gradient) run outside it. Same math and
+    stats as :func:`ilql_losses`."""
+    from torch.utils.checkpoint import checkpoint
+
+    labels = _action_labels(tokens)
+    fns = (lm_head_fn,) + tuple(q_head_fns)
+
+    def trainable_stats(h_c, lab_c):
+        return tuple(x for f in fns for x in _gather_lse(f(h_c), lab_c))
+
+    cols, tq_cols = [], []
+    for s in range(0, h_normed.shape[1], chunk):
+        h_c, lab_c = h_normed[:, s:s + chunk], labels[:, s:s + chunk]
+        if torch.is_grad_enabled():
+            cols.append(checkpoint(trainable_stats, h_c, lab_c,
+                                   use_reentrant=False))
+        else:
+            cols.append(trainable_stats(h_c, lab_c))
+        with torch.no_grad():
+            tq_cols.append([_gather(f(h_c), lab_c)
+                            for f in tq_head_fns])
+    out = [torch.cat(c, dim=1) for c in zip(*cols)]
+    tq_g = [torch.cat(c, dim=1) for c in zip(*tq_cols)]
+    lm_g, lm_lse = out[0], out[1]
+    return _ilql_terms(out[2::2], out[3::2], tq_g, lm_g, lm_lse, vs,
+                       attention_mask, rewards, gamma, tau, cql_scale,
+                       awac_scale)

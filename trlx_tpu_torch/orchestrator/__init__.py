@@ -8,7 +8,10 @@ from typing import Dict
 from trlx_tpu_torch.utils.registry import BuiltinLoader, make_register
 
 _ORCH: Dict[str, type] = {}
-_load_builtins = BuiltinLoader(("trlx_tpu_torch.orchestrator.ppo_orchestrator",))
+_load_builtins = BuiltinLoader((
+    "trlx_tpu_torch.orchestrator.ppo_orchestrator",
+    "trlx_tpu_torch.orchestrator.offline_orchestrator",
+))
 
 #: Decorator registering an orchestrator class under a string name.
 register_orchestrator = make_register(_ORCH)

@@ -11,7 +11,8 @@ import numpy as np
 from trlx_tpu_torch.utils.registry import BuiltinLoader, make_register
 
 _DATAPIPELINE: Dict[str, type] = {}
-_load_builtins = BuiltinLoader(("trlx_tpu_torch.pipeline.ppo_pipeline",))
+_load_builtins = BuiltinLoader(("trlx_tpu_torch.pipeline.ppo_pipeline",
+                                "trlx_tpu_torch.pipeline.offline_pipeline"))
 
 #: Decorator registering a pipeline class under a string name.
 register_datapipeline = make_register(_DATAPIPELINE)

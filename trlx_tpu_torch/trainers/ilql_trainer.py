@@ -1,0 +1,334 @@
+"""ILQL trainer: the offline train step, the Polyak target sync and
+advantage-shifted sampling (port of trlx_tpu.trainers.ilql_trainer).
+
+- ``train_step``: one trunk forward to the post-ln_f hidden state, the
+  ILQL loss with every V-wide head chunked over T
+  (:func:`ilql_losses_chunked`), the backward and the optimizer
+  (``build_optimizer`` with the ramp-up / decay schedule: the lr is 0 at
+  step 0). With ``step_events`` a list, each update on the card also
+  records CUDA events around those four parts.
+- ``learn``: the whole offline dataset is collated once (rows padded to
+  the store-global longest) and, below 512 MiB (or
+  ``$TRLX_TPU_DATASET_HBM_BYTES``), held on the device, each step
+  gathering its rows by index; above it each batch is sliced on the host
+  and uploaded. Eval every ``eval_interval`` steps, a target sync every
+  ``steps_for_target_q_sync``, stats every ``log_interval``.
+- Sampling decodes with the ``extras_fn`` hook of ``generate``: the
+  trainer's ``logit_mask`` ([V] or [V, V] indexed by the previous token,
+  True = DISALLOWED) masks the logits before ``log_softmax``, then
+  ``warp_top_k(pi + beta * (min target Q - V), top_k) / temperature``,
+  then a plain categorical draw.
+
+Registered as ``JaxILQLTrainer`` and ``ILQLModel``. Not ported yet (each
+raises): pretrained import (set ``model.model_spec``), checkpoints and
+the knobs :func:`trlx_tpu_torch.trainers.check_ported` lists.
+"""
+
+import os
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch import telemetry
+from trlx_tpu_torch.data.ilql_types import ILQLBatch
+from trlx_tpu_torch.models.generation import GenerationConfig, generate
+from trlx_tpu_torch.models.ilql import ILQLModel as ILQLNet, sync_targets
+from trlx_tpu_torch.models.params import ilql_to_torch, init_ilql_numpy
+from trlx_tpu_torch.models.transformer import NEG_INF
+from trlx_tpu_torch.ops.losses import ilql_losses_chunked
+from trlx_tpu_torch.ops.sampling import SamplingParams, warp_top_k
+from trlx_tpu_torch.pipeline import batch_iterator
+from trlx_tpu_torch.trainers import (
+    BaseRLTrainer,
+    _leaves,
+    build_optimizer,
+    register_trainer,
+)
+from trlx_tpu_torch.utils import (
+    DTYPES,
+    Clock,
+    rampup_decay_schedule,
+    tree_bytes,
+)
+from trlx_tpu_torch.utils.tokenizer import load_tokenizer
+
+#: below this many bytes the collated dataset stays on the device
+DATASET_DEVICE_BYTES = 512 * 2**20
+
+#: the parts of an update that ``step_events`` bounds, in order
+STEP_PARTS = ("trunk_fwd", "heads_loss_fwd", "backward", "optimizer")
+
+
+def _mark(events) -> None:
+    """Record a timing CUDA event onto ``events`` (None: nothing)."""
+    if events is not None:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+
+def samples_table(samples: List[str], rewards, max_rows: int = 128):
+    """The eval table: sampled text and reward, first ``max_rows`` rows."""
+    rows = [[s, float(r)] for s, r in zip(samples[:max_rows], rewards)]
+    return {"columns": ["sample", "reward"], "rows": rows}
+
+
+@register_trainer("JaxILQLTrainer")
+@register_trainer("ILQLModel")
+class JaxILQLTrainer(BaseRLTrainer):
+    """Offline ILQL. ``params`` (optional) is a numpy ILQL tree to start
+    from (e.g. ``jax.device_get`` of the JAX trainer's); by default a
+    random tree is drawn from ``train.seed`` with numpy. The
+    :class:`OfflineOrchestrator` installs ``train_store``,
+    ``eval_pipeline``, ``reward_fn`` and ``stats_fn``."""
+
+    #: in-loop eval rows at most (``evaluate(n=0)`` takes them all)
+    EVAL_CAP = 128
+
+    #: a list to have ``train_step`` append, per update on the card, the
+    #: CUDA events that bound the :data:`STEP_PARTS` (read their times
+    #: after a device sync); None records nothing
+    step_events: Optional[list] = None
+
+    def __init__(self, config, train_mode: bool = True, logit_mask=None,
+                 mesh=None, device=None, params=None):
+        super().__init__(config, train_mode, mesh=mesh, device=device)
+        self.iter_count = 0
+        self.tokenizer = load_tokenizer(config.model.tokenizer_path)
+        self.max_length = config.train.gen_size
+        if config.model.model_spec is None:
+            raise NotImplementedError(
+                "pretrained import (models/hf_import.py) is not ported to "
+                "trlx_tpu_torch yet; set model.model_spec for a "
+                "from-config model")
+        spec = config.model.resolve_spec()
+        m, t = config.method, config.train
+        self.net = ILQLNet(
+            spec=spec,
+            num_layers_unfrozen=config.model.num_layers_unfrozen,
+            two_qs=m.two_qs,
+            compute_dtype=DTYPES[config.model.compute_dtype],
+            remat=t.remat,
+            attention_fn=self._train_attention_fn(),
+        )
+        if params is None:
+            params = init_ilql_numpy(spec, config.model.num_layers_unfrozen,
+                                     m.two_qs, seed=t.seed)
+        self.params = ilql_to_torch(params, self.device)
+        self.opt = build_optimizer(t, sched=rampup_decay_schedule(
+            t.lr_ramp_steps, t.lr_decay_steps, t.learning_rate_init,
+            t.learning_rate_target))
+        self.opt_state = self.opt.init(self.params["trainable"])
+        self.logit_mask = None if logit_mask is None else torch.as_tensor(
+            np.asarray(logit_mask), dtype=torch.bool, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(t.seed)
+
+        # installed by OfflineOrchestrator
+        self.train_store = None
+        self.eval_pipeline = None
+        self.reward_fn: Optional[Callable] = None
+        self.stats_fn: Optional[Callable] = None
+
+    def tokenize(self, texts):
+        """bos + text + eos per text, truncated to ``train.gen_size``
+        tokens (as trlx_tpu does; the byte tokenizer also left-pads every
+        row to that width with pad ids, which then count as tokens)."""
+        bos = getattr(self.tokenizer, "bos_token", None) or ""
+        eos = getattr(self.tokenizer, "eos_token", None) or ""
+        return self.tokenizer([bos + x + eos for x in texts],
+                              max_length=self.max_length, truncation=True,
+                              padding=False)
+
+    # -- update ----------------------------------------------------------- #
+
+    def train_step(self, batch: ILQLBatch) -> Dict[str, torch.Tensor]:
+        """One update on ``batch`` (tensors on the trainer's device): the
+        loss with the V-wide heads chunked over T, backward, optimizer
+        step. Returns the stats with the pre-clip ``grad_norm``."""
+        m, net = self.config.method, self.net
+        events = None if self.step_events is None else []
+        _mark(events)
+        h = net.forward_hidden(self.params, batch.input_ids,
+                               batch.attention_mask)
+        _mark(events)
+        lm_fn, q_fns, tq_fns, v_fn = net.head_fns(self.params)
+        loss, stats = ilql_losses_chunked(
+            lm_fn, q_fns, tq_fns, v_fn(h), h, batch.input_ids,
+            batch.attention_mask, batch.rewards, m.gamma, m.tau,
+            m.cql_scale, m.awac_scale)
+        _mark(events)
+        leaves = _leaves(self.params["trainable"])
+        grads = torch.autograd.grad(loss, leaves)
+        _mark(events)
+        stats["grad_norm"] = self.opt.step(leaves, grads, self.opt_state)
+        _mark(events)
+        if events is not None:
+            self.step_events.append(events)
+        return {k: v.detach() for k, v in stats.items()}
+
+    def sync_targets(self) -> None:
+        sync_targets(self.params, self.config.method.alpha)
+
+    # -- sampling --------------------------------------------------------- #
+
+    @torch.no_grad()
+    def _extras(self, h_normed, logits, prev_tok):
+        """The advantage-shifted step distribution: mask, log_softmax,
+        + beta * (min target Q - V), top-k, / temperature."""
+        m = self.config.method
+        if self.logit_mask is not None:
+            if self.logit_mask.dim() == 2:
+                rows = prev_tok.long().clamp(0, self.logit_mask.shape[0] - 1)
+                disallowed = self.logit_mask[rows]
+            else:
+                disallowed = self.logit_mask[None, :]
+            logits = torch.where(disallowed, NEG_INF, logits)
+        tq, v = self.net.heads_on_hidden(self.params, h_normed)
+        pi = torch.log_softmax(logits, dim=-1)
+        return warp_top_k(pi + m.beta * (tq - v), m.top_k) / m.temperature
+
+    def generate(self, query_tokens, query_mask,
+                 gen_size: Optional[int] = None):
+        eos = getattr(self.tokenizer, "eos_token_id", 0) or 0
+        config = GenerationConfig(
+            gen_size=gen_size or self.config.train.gen_size,
+            # the warping happens in _extras; the sampler draws plainly
+            sampling=SamplingParams(do_sample=True),
+            eos_token_id=eos, pad_token_id=eos)
+        query, mask = self._put((np.asarray(query_tokens),
+                                 np.asarray(query_mask)))
+        embed, ln_f = self.net.head_params_for_decode(self.params)
+        return generate(
+            self.net.spec, self.net.all_blocks(self.params), embed, ln_f,
+            query, mask, self.generator, config,
+            compute_dtype=self.net.compute_dtype, extras_fn=self._extras)
+
+    def act(self, batch):
+        query, mask = batch
+        out = self.generate(query, mask)
+        texts = self.tokenizer.batch_decode(out.sequences.cpu().numpy(),
+                                            skip_special_tokens=True)
+        return np.asarray(query), out.gen_tokens.cpu().numpy(), texts
+
+    def sample(self, prompts, length: int = None, n_samples: int = None):
+        query, mask = self._encode_prompts(prompts)
+        return self.generate(query, mask,
+                             gen_size=length).sequences.cpu().numpy()
+
+    def _encode_prompts(self, prompts):
+        """Strings through the tokenizer (``train.input_size`` or 8
+        wide); token-id rows left-padded with id 0, mask 0."""
+        if len(prompts) and isinstance(prompts[0], str):
+            enc = self.tokenizer(prompts,
+                                 max_length=self.config.train.input_size or 8,
+                                 padding="max_length", truncation=True)
+            return (np.asarray(enc["input_ids"]),
+                    np.asarray(enc["attention_mask"]))
+        rows = [np.atleast_1d(np.asarray(p, np.int32)) for p in prompts]
+        maxlen = max(len(r) for r in rows)
+        ids = np.zeros((len(rows), maxlen), np.int32)
+        mask = np.zeros((len(rows), maxlen), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, maxlen - len(r):] = r
+            mask[i, maxlen - len(r):] = 1
+        return ids, mask
+
+    # -- loop ------------------------------------------------------------- #
+
+    def evaluate(self, n: int = None):
+        """Sample from the eval prompts with the advantage-shifted sampler
+        and score them (``reward``, a samples table for text prompts, and
+        ``stats_fn``'s keys). ``n`` caps the rows: None applies
+        :data:`EVAL_CAP`, 0 takes them all."""
+        if self.eval_pipeline is None or len(self.eval_pipeline) == 0:
+            return {}
+        prompts = self.eval_pipeline.texts
+        if n is None:
+            n = self.EVAL_CAP
+        if n:
+            prompts = prompts[:n]
+        with telemetry.span("eval"):
+            samples = self.sample(prompts)
+            sample_lists = [list(map(int, row)) for row in samples]
+            logs = {}
+            decoded = None
+            if len(prompts) and isinstance(prompts[0], str):
+                decoded = self.tokenizer.batch_decode(samples)
+            if self.reward_fn is not None:
+                with telemetry.span("reward_fn"):
+                    rewards = np.asarray(self.reward_fn(
+                        decoded if decoded is not None else sample_lists),
+                        np.float32)
+                logs["reward"] = float(rewards.mean())
+                if decoded is not None:
+                    logs["samples_table"] = samples_table(decoded, rewards)
+            if self.stats_fn is not None:
+                logs.update(self.stats_fn(sample_lists))
+        return logs
+
+    def _collate_store(self):
+        """The whole store as one batch padded to its longest row with a
+        pad id kept inside the vocabulary, and whether it stays on the
+        device."""
+        eos = getattr(self.tokenizer, "eos_token_id", 0) or 0
+        pad_id = min(eos, self.net.spec.vocab_size - 1)
+        n = len(self.train_store)
+        full = next(iter(self.train_store.create_loader(
+            n, shuffle=False, eos_token_id=pad_id)))
+        limit = int(os.environ.get("TRLX_TPU_DATASET_HBM_BYTES",
+                                   DATASET_DEVICE_BYTES))
+        return full, tree_bytes(full) <= limit
+
+    def learn(self, log_fn: Callable = None, save_fn=None, eval_fn=None):
+        """The ILQL loop over ``epochs`` shuffled passes (the epoch is the
+        shuffle seed), stopping at ``total_steps``. Each update runs in an
+        ``ilql_update`` span that closes after a device sync; logged
+        stats carry ``samples_per_sec`` and the ``time/*`` span
+        totals."""
+        cfg, m = self.config.train, self.config.method
+        log_fn = log_fn or print
+        full, device_resident = self._collate_store()
+        self._tokens_per_sample = int(full.input_ids.shape[1])
+        if device_resident:
+            dataset = full.map(lambda x: torch.as_tensor(x).to(self.device))
+        clock = Clock()
+        n = len(self.train_store)
+        for epoch in range(cfg.epochs):
+            for idx in batch_iterator(n, cfg.batch_size, True, epoch,
+                                      lambda idx: idx, drop_last=False):
+                if self.iter_count % cfg.eval_interval == 0:
+                    ev = self.evaluate()
+                    if ev:
+                        log_fn({"iter": self.iter_count, **ev})
+                with telemetry.span("ilql_update"):
+                    if device_resident:
+                        rows = torch.as_tensor(idx, device=self.device)
+                        batch = dataset.map(lambda x: x[rows])
+                    else:
+                        batch = full.map(
+                            lambda x: torch.as_tensor(x[idx]).to(self.device))
+                    stats = self.train_step(batch)
+                    self._sync()
+                self.iter_count += 1
+                clock.tick(len(idx))
+                if self.iter_count % m.steps_for_target_q_sync == 0:
+                    self.sync_targets()
+                if self.iter_count % cfg.log_interval == 0:
+                    host = {k: float(v) for k, v in stats.items()}
+                    host.update(iter=self.iter_count, epoch=epoch,
+                                samples_per_sec=clock.samples_per_second())
+                    host.update(self._telemetry_stats())
+                    log_fn(host)
+                if self.intervals(self.iter_count)["do_save"]:
+                    self.save()
+                if self.iter_count >= cfg.total_steps:
+                    return
+
+    def get_components(self) -> Dict:
+        return {
+            "params": self.params,
+            "opt_state": self.opt_state,
+            "state": {"iter_count": self.iter_count},
+            "config": self.config.to_nested_dict(),
+        }

@@ -9,8 +9,8 @@ trlx_tpu.trainers.ppo_trainer).
   clipped losses and the optimizer update; ``train_multi`` runs
   ``ppo_epochs`` such passes over one minibatch and returns the last
   pass's stats.
-- :func:`build_optimizer` is optax's ``chain(clip_by_global_norm,
-  adamw)`` with a cosine schedule, written out.
+- the optimizer is :func:`trlx_tpu_torch.trainers.build_optimizer`
+  with its default cosine schedule.
 
 Registered as ``JaxPPOTrainer`` and ``AcceleratePPOModel`` so a YAML
 resolves to it as it does to trlx_tpu's trainer. Not ported yet (each
@@ -19,7 +19,7 @@ raises): ``optimizer: adafactor``, pretrained import (set
 :func:`trlx_tpu_torch.trainers.check_ported` lists.
 """
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,7 +33,6 @@ from trlx_tpu_torch.models.policy import (
     all_blocks,
     head_params_for_decode,
 )
-from trlx_tpu_torch.models.transformer import tree_map
 from trlx_tpu_torch.ops.losses import (
     chunked_label_logprobs,
     gae_advantages,
@@ -43,98 +42,15 @@ from trlx_tpu_torch.ops.losses import (
     whiten,
 )
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
-from trlx_tpu_torch.trainers import BaseRLTrainer, register_trainer
+from trlx_tpu_torch.trainers import (
+    BaseRLTrainer,
+    _leaves,
+    build_optimizer,
+    register_trainer,
+)
 from trlx_tpu_torch.trainers.kl_controllers import make_kl_controller
-from trlx_tpu_torch.utils import DTYPES, Clock, cosine_schedule
+from trlx_tpu_torch.utils import DTYPES, Clock
 from trlx_tpu_torch.utils.tokenizer import load_tokenizer
-
-
-def _leaves(tree) -> List[torch.Tensor]:
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
-class AdamW:
-    """``optax.chain(optax.clip_by_global_norm(max_norm),
-    optax.adamw(schedule, weight_decay=..., mu_dtype=...))`` on a list of
-    parameter tensors, updated in place:
-
-    1. clip: with g_norm the global norm, gradients are kept when
-       g_norm < max_norm, else scaled by max_norm / g_norm;
-    2. Adam moments (mu stored in ``mu_dtype``, nu float32) with bias
-       correction at the incremented count, update m / (sqrt(v) + eps);
-    3. decoupled weight decay: + weight_decay * param;
-    4. the step: param -= schedule(count) * update, the schedule read at
-       the count BEFORE this step's increment.
-    """
-
-    def __init__(self, schedule: Callable[[int], float], max_norm: float,
-                 weight_decay: float, mu_dtype=torch.float32, b1=0.9,
-                 b2=0.999, eps=1e-8):
-        self.schedule = schedule
-        self.max_norm = float(max_norm)
-        self.weight_decay = float(weight_decay)
-        self.mu_dtype = mu_dtype
-        self.b1, self.b2, self.eps = b1, b2, eps
-
-    def init(self, params) -> Dict:
-        leaves = _leaves(params)
-        return {
-            "count": 0,
-            "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in leaves],
-            "nu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
-        }
-
-    @torch.no_grad()
-    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-             state: Dict) -> torch.Tensor:
-        """One update of ``params`` in place; returns the pre-clip global
-        gradient norm."""
-        g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-        keep = g_norm < self.max_norm
-        count = state["count"] + 1
-        dev = g_norm.device
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
-        bc1 = 1 - f32(self.b1) ** count
-        bc2 = 1 - f32(self.b2) ** count
-        lr = f32(self.schedule(state["count"]))
-        for i, (p, g) in enumerate(zip(params, grads)):
-            g = g.float()
-            g = torch.where(keep, g, (g / g_norm) * self.max_norm)
-            # b1 * mu in the moment's own dtype, b1 rounded to it first,
-            # as optax's weak-typed scalar times a bfloat16 moment is
-            mu_prev = state["mu"][i]
-            mu = (1 - self.b1) * g + mu_prev * torch.tensor(
-                self.b1, dtype=mu_prev.dtype, device=dev)
-            nu = (1 - self.b2) * g * g + self.b2 * state["nu"][i]
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            update = update + self.weight_decay * p
-            p.add_(-lr * update)
-            state["mu"][i] = mu.to(self.mu_dtype)
-            state["nu"][i] = nu
-        state["count"] = count
-        return g_norm
-
-
-def build_optimizer(train_config, sched=None) -> AdamW:
-    """Grad clip + AdamW + LR schedule (default: cosine anneal from
-    ``learning_rate_init`` to ``learning_rate_target`` over
-    ``total_steps``), as trlx_tpu builds it with optax."""
-    if sched is None:
-        sched = cosine_schedule(train_config.learning_rate_init,
-                                train_config.total_steps,
-                                lr_min=train_config.learning_rate_target)
-    name = getattr(train_config, "optimizer", "adamw").lower()
-    if name == "adafactor":
-        raise NotImplementedError(
-            "train.optimizer 'adafactor' is not ported to trlx_tpu_torch yet")
-    if name != "adamw":
-        raise ValueError(
-            f"train.optimizer '{name}' is not one of: adamw, adafactor")
-    return AdamW(sched, train_config.grad_clip, train_config.weight_decay,
-                 mu_dtype=DTYPES[getattr(train_config, "adam_moment_dtype",
-                                         "float32")])
 
 
 @register_trainer("JaxPPOTrainer")
@@ -333,13 +249,6 @@ class JaxPPOTrainer(BaseRLTrainer):
             with telemetry.span("reward_fn"):
                 scores = np.asarray(self.reward_fn(texts), np.float32)
         return {"mean_score": float(scores.mean()), "samples": texts[:4]}
-
-    def _telemetry_stats(self) -> Dict[str, float]:
-        """Seconds spent so far in each span (``time/<name>``)."""
-        session = telemetry.current()
-        if session is None:
-            return {}
-        return {name: h.total for name, h in session.registry.hists.items()}
 
     def learn(self, log_fn: Callable = None, save_fn=None, eval_fn=None):
         """The PPO loop: minibatches over the rollout store (shuffled with

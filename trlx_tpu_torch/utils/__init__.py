@@ -1,11 +1,13 @@
 """Host utilities shared by the port (``resolve_device``, ``DTYPES``)
-and the copies of trlx_tpu.utils the trainer needs: ``flatten``,
-``chunk``, ``cosine_schedule`` and ``Clock``."""
+and the copies of trlx_tpu.utils the trainers need: ``flatten``,
+``chunk``, ``rampup_decay_schedule``, ``cosine_schedule``,
+``tree_bytes`` and ``Clock``."""
 
 import math
 import time
 from typing import Any, Callable, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 
@@ -39,6 +41,44 @@ def flatten(xs: Iterable[Iterable[Any]]) -> List[Any]:
 def chunk(xs: List[Any], chunk_size: int) -> List[List[Any]]:
     """Split a list into chunks of at most ``chunk_size``."""
     return [xs[i:i + chunk_size] for i in range(0, len(xs), chunk_size)]
+
+
+def _linear(init: float, end: float, steps: int, step: int) -> float:
+    """optax's ``linear_schedule(init, end, steps)`` at ``step``, in
+    float32 as optax computes it."""
+    f32 = np.float32
+    frac = f32(1) - f32(min(max(step, 0), steps)) / f32(steps)
+    return float(f32(init - end) * frac + f32(end))
+
+
+def rampup_decay_schedule(ramp_steps: int, decay_steps: int, lr_init: float,
+                          lr_target: float) -> Callable[[int], float]:
+    """``step -> lr``: linear warmup from 0 to ``lr_init`` over
+    ``ramp_steps``, then linear decay to ``lr_target`` over
+    ``decay_steps``, with optax's ``join_schedules`` semantics (each
+    length at least 1; the second piece reads ``step - ramp_steps``).
+    The lr is 0 at step 0."""
+    ramp, decay = max(ramp_steps, 1), max(decay_steps, 1)
+
+    def schedule(step: int) -> float:
+        if step < ramp:
+            return _linear(0.0, lr_init, ramp, step)
+        return _linear(lr_init, lr_target, decay, step - ramp)
+
+    return schedule
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of the numpy leaves of nested dicts, tuples, lists and
+    batch dataclasses."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_bytes(v) for v in tree)
+    if hasattr(tree, "__dataclass_fields__"):
+        return sum(tree_bytes(getattr(tree, k))
+                   for k in tree.__dataclass_fields__)
+    return int(np.asarray(tree).nbytes)
 
 
 def cosine_schedule(lr_init: float, total_steps: int,
