@@ -45,14 +45,33 @@ Phases, each printing its own line; any failure exits non-zero:
    steps, radix prefix hits > 0; prints tok/s and latency.
 6. parity — the same requests through fp32 engines on the kernel path
    and on the plain path, with the same weights: identical greedy tokens.
-7. train — the PPO main path at gpt2-124M width (configs/ppo_tldr.yml's
-   geometry: 12 layers, 2 unfrozen, prompts of up to 512 bytes + 64
-   generated tokens, batch 32, 4 PPO epochs, fused_attention, bf16,
-   seeded random weights, byte tokenizer, a host reward) through the
-   registry, the pipeline, the orchestrator's make_experience and
-   learn(): flash launches equal chunks x (L + k) + passes x L forwards
-   and passes x k of each backward kernel, and every logged loss, grad
-   norm and KL is finite; prints rollout and update time, samples/s.
+7. train — the PPO main path at gpt2-124M width with
+   examples/ppo_tldr.py's wiring (configs/ppo_tldr.yml's geometry: 12
+   layers, 2 unfrozen, synthetic TL;DR documents left-padded to 512
+   bytes + 64 generated tokens, batch 32, 4 PPO epochs, fused_attention,
+   bf16, seeded random weights, byte tokenizer; the reward model built
+   from the trainer's own trunk with a fresh head, scoring each rollout
+   chunk on the card; the commit gate on, max_bad_steps 2; a step
+   checkpoint every 4 passes, the newest 2 kept) through the registry,
+   the pipeline, the orchestrator's make_experience and learn(): flash
+   launches equal chunks x (L + k) + passes x L forwards and passes x k
+   of each backward kernel, every logged loss, grad norm and KL is
+   finite, every logged bad_step is 0, and step_4 and step_8 land with
+   LATEST naming step_8; prints rollout and update time, samples/s and
+   each save's time. Then, on that run directory:
+   - serve from a checkpoint: the serve CLI's ``--checkpoint`` loader
+     (newest step; the config from meta.json, made greedy by
+     ``--config``) and an engine on the trainer's in-memory params give
+     identical greedy tokens for two requests; paged decode launches
+     layers x decode steps;
+   - resume: a fresh trainer from seed 1 with ``resume_from: auto``
+     restores iter_count == LATEST's step at construction, every tensor
+     bit-identical; the next update of both trainers on the same batch
+     is bit-identical again (params, mu, nu, count, generator state);
+   - the commit gate: NaN rewards give bad_step 1 with params, moments
+     and count bit-identical, the guarded step running under
+     ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside it
+     fails the run); the next clean batch commits.
 8. train parity — one train_step and one 2-pass train_multi at fp32 on
    the kernel path, each pass against the dense path's pass at the same
    parameters and on one rollout batch: loss and grad norm at rtol 1e-5,
@@ -70,7 +89,11 @@ Phases, each printing its own line; any failure exits non-zero:
    loss finite; prints the update times, training tokens/s, the eval
    time, the peak device memory and the split of steps 2-4 (trunk
    forward, heads and loss, backward, optimizer) from the CUDA events
-   the trainer's ``step_events`` records.
+   the trainer's ``step_events`` records. Then the trainer is saved,
+   restored into a fresh trainer from seed 1 (every tensor
+   bit-identical, the zero-size frozen leaves included) and both take
+   one more update on the same batch, bit-identical again; save and
+   restore times and bytes are printed for both trainers' checkpoints.
 10. ilql parity — three fp32 train steps on the kernel path, each against
    the dense path at the same parameters (B 8, T 200, right-padded,
    terminal slots masked): loss and grad norm at rtol 1e-5, and every
@@ -90,6 +113,8 @@ each kernel, and by phase), the nvidia-smi line, and last
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -102,9 +127,10 @@ import torch.nn.functional as F
 
 from trlx_tpu_torch import ops, telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.examples import ilql_sentiments
+from trlx_tpu_torch.examples import ilql_sentiments, ppo_tldr
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
 from trlx_tpu_torch.models.params import (
+    decode_views_from_numpy,
     hydra_to_numpy,
     init_decode_views,
     init_hydra_numpy,
@@ -133,6 +159,7 @@ from trlx_tpu_torch.serve import (
     ServeConfig,
     SlotScheduler,
 )
+from trlx_tpu_torch.serve import __main__ as serve_cli
 from trlx_tpu_torch.trainers import build_optimizer
 from trlx_tpu_torch.trainers.ilql_trainer import STEP_PARTS
 from trlx_tpu_torch.utils.loading import (
@@ -140,6 +167,11 @@ from trlx_tpu_torch.utils.loading import (
     get_orchestrator,
     get_pipeline,
 )
+
+#: where the run's checkpoints go (inside the checkout, git-ignored),
+#: removed when the run ends
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "ckpts", "chip_smoke")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -168,6 +200,11 @@ USER_PROMPTS = [
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
 
 
 def config_dict(compute_dtype="bfloat16"):
@@ -1035,65 +1072,52 @@ def parity_phase(views, device, requests=USER_PROMPTS):
 
 
 def train_config_dict(compute_dtype="bfloat16", fused=True, ppo_epochs=4):
-    """configs/ppo_tldr.yml's geometry with fused_attention, from a dict
-    (no pyyaml on the card machine): gpt2-124M, 2 unfrozen layers, 512
-    prompt + 64 generated tokens, batch 32, 64 rollouts in chunks of 32,
-    8 steps of 4 PPO epochs, one epoch; eval and checkpoints beyond the
-    run; the byte tokenizer; seeded random weights."""
-    return {
-        "model": {
-            "model_path": "from-config", "tokenizer_path": "byte",
-            "model_type": "JaxPPOTrainer", "num_layers_unfrozen": 2,
-            "model_spec": dict(GPT2_SPEC), "compute_dtype": compute_dtype,
-            "fused_attention": fused,
-        },
-        "train": {
-            "n_ctx": 1024, "epochs": 1, "total_steps": 8, "batch_size": 32,
-            "grad_clip": 1.0, "lr_ramp_steps": 100, "lr_decay_steps": 79000,
-            "weight_decay": 1e-6, "learning_rate_init": 1.412e-4,
-            "learning_rate_target": 1.412e-4, "log_interval": 4,
-            "checkpoint_interval": 10**9, "eval_interval": 10**9,
-            "pipeline": "PPOPipeline", "orchestrator": "PPOOrchestrator",
-            "input_size": 512, "gen_size": 64, "seed": 0,
-        },
-        "method": {
-            "name": "ppoconfig", "num_rollouts": 64, "chunk_size": 32,
-            "ppo_epochs": ppo_epochs, "init_kl_coef": 0.2, "target": 6,
-            "horizon": 10000, "gamma": 1, "lam": 0.95, "cliprange": 0.2,
-            "cliprange_value": 0.2, "vf_coef": 0.2,
-            "gen_kwargs": {"max_length": 64, "min_length": 48, "top_k": 0,
-                           "top_p": 1.0, "do_sample": True,
-                           "temperature": 0.7},
-        },
-    }
+    """examples/ppo_tldr.py's config (configs/ppo_tldr.yml through the
+    port example's dict, no pyyaml on the card machine) at gpt2-124M
+    width: 2 unfrozen layers, 512 prompt + 64 generated tokens, batch
+    32, 64 rollouts in chunks of 32, ``ppo_epochs`` PPO epochs; the byte
+    tokenizer, seeded random weights; one epoch of 8 passes, stats every
+    4, eval and checkpoints beyond the run."""
+    cfg = ppo_tldr.tldr_config()
+    cfg["model"].update(model_path="from-config", tokenizer_path="byte",
+                        model_spec=dict(GPT2_SPEC),
+                        compute_dtype=compute_dtype, fused_attention=fused)
+    cfg["train"].update(epochs=1, total_steps=8, log_interval=4,
+                        eval_interval=10**9, checkpoint_interval=10**9)
+    cfg["method"].update(ppo_epochs=ppo_epochs)
+    return cfg
 
 
-def train_prompts(n=64, seed=0, max_len=512):
-    """Synthetic printable prompts of ragged length (16 to 512 bytes), so
-    the left padding is real."""
-    rng = np.random.default_rng(seed)
-    return ["".join(chr(c) for c in rng.integers(32, 127, size=int(size)))
-            for size in rng.integers(16, max_len + 1, size=n)]
+def tldr_config_dict(run_dir, seed=0):
+    """:func:`train_config_dict` in bf16 with fused attention, the commit
+    gate on (``max_bad_steps`` 2) and a step checkpoint every 4 passes
+    under ``run_dir``, the newest 2 kept."""
+    cfg = train_config_dict()
+    cfg["train"].update(checkpoint_interval=4, keep_checkpoints=2,
+                        max_bad_steps=2, checkpoint_dir=run_dir, seed=seed)
+    return cfg
 
 
-def lowercase_reward(samples):
-    """examples/ppo_sentiments.py's offline reward: the lowercase ratio."""
-    return [float(np.mean([c.islower() for c in s] or [0.0]))
-            for s in samples]
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
 
 
-def train_phase(tree, device):
+def train_phase(tree, device, run_dir):
     """registry -> pipeline -> orchestrator.make_experience -> learn(),
-    with every launch counter at 0 just before and read just after."""
-    cfg = TRLConfig.from_dict(train_config_dict())
+    with the reward model built from the trainer's own trunk scoring on
+    the device, every launch counter at 0 just before and read just
+    after. Two step checkpoints land in ``run_dir``; every logged
+    ``bad_step`` is 0."""
+    cfg = TRLConfig.from_dict(tldr_config_dict(run_dir))
     spec, m = cfg.model.resolve_spec(), cfg.method
     trainer = get_model(cfg.model.model_type)(cfg, device=device,
                                               params=tree)
-    pipeline = get_pipeline(cfg.train.pipeline)(train_prompts(),
-                                                trainer.tokenizer, cfg)
+    reward_model = ppo_tldr.build_reward_model(cfg, trainer)
+    pipeline = get_pipeline(cfg.train.pipeline)(
+        ppo_tldr.synthetic_documents(64), trainer.tokenizer, cfg)
     orch = get_orchestrator(cfg.train.orchestrator)(
-        trainer, pipeline, reward_fn=lowercase_reward,
-        chunk_size=m.chunk_size)
+        trainer, pipeline, reward_fn=reward_model, chunk_size=m.chunk_size)
     logs = []
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1112,21 +1136,165 @@ def train_phase(tree, device):
         assert launches == want, f"flash launches {launches} != {want}"
     train_logs = [entry for entry in logs if "loss" in entry]
     assert len(train_logs) == passes // m.ppo_epochs, logs
-    assert np.isfinite(info["mean_kl"]), info
+    assert np.isfinite(info["mean_kl"]) and np.isfinite(info["mean_score"])
     for entry in train_logs:
         for key in ("loss", "pg_loss", "vf_loss", "grad_norm", "approx_kl"):
             assert np.isfinite(entry[key]), (key, entry)
+        assert entry["bad_step"] == 0.0, entry
+    steps = sorted(e for e in os.listdir(run_dir) if e.startswith("step_"))
+    assert steps == ["step_4", "step_8"], steps
+    with open(os.path.join(run_dir, "LATEST")) as f:
+        assert f.read() == "step_8"
     hists = telemetry.current().registry.hists
     batch = trainer.store._stacked().map(lambda x: x[:cfg.train.batch_size])
+    save = hists["time/checkpoint_save"]
     return {
-        "launches": launches, "all_launches": all_launches, "want": want,
-        "chunks": chunks,
+        "trainer": trainer, "launches": launches,
+        "all_launches": all_launches, "want": want, "chunks": chunks,
         "passes": passes, "wall_s": wall, "info": info, "logs": train_logs,
         "rollout_s": hists["time/rollout"].total,
         "update_s": hists["time/ppo_update"].total,
         "samples_per_sec": train_logs[-1]["samples_per_sec"],
-        "batch": batch,
+        "batch": batch, "checkpoints": steps,
+        "save_ms": [save.first * 1e3] + [t * 1e3 for t in save.window],
+        "checkpoint_bytes": dir_bytes(os.path.join(run_dir, "step_8")),
     }
+
+
+def leaves_of(trainer):
+    """Every tensor a trainer restores: params, then optimizer state."""
+    return [x for tree in (trainer.params, trainer.opt_state)
+            for _, x in named_leaves(tree)]
+
+
+def assert_same_state(a, b, what):
+    """Bit-identical params, optimizer state (count, mu, nu) and sampling
+    generator state; zero-size leaves included."""
+    pairs = list(zip(named_leaves(a.params) + named_leaves(a.opt_state),
+                     named_leaves(b.params) + named_leaves(b.opt_state)))
+    assert len(pairs) == len(leaves_of(b))
+    for (name, x), (_, y) in pairs:
+        assert x.shape == y.shape and x.dtype == y.dtype \
+            and torch.equal(x, y), f"{what}: {name} differs"
+    assert torch.equal(a.generator.get_state(), b.generator.get_state()), \
+        f"{what}: generator state differs"
+    return len(pairs), sum(x.numel() == 0 for (_, x), _ in pairs)
+
+
+def resume_phase(trainer, batch, device, run_dir):
+    """A fresh trainer from another seed with ``resume_from: auto``
+    restores LATEST at construction; its next update on ``batch`` equals
+    the original trainer's next update from the same state, bit for bit
+    (params, mu, nu, count, generator state)."""
+    cfg = TRLConfig.from_dict(tldr_config_dict(run_dir, seed=1))
+    cfg.train.resume_from = "auto"
+    t0 = time.perf_counter()
+    fresh = get_model(cfg.model.model_type)(cfg, device=device)
+    sync(device)
+    restore_s = time.perf_counter() - t0
+    with open(os.path.join(run_dir, "LATEST")) as f:
+        latest = int(f.read().split("_")[1])
+    assert fresh.iter_count == trainer.iter_count == latest, \
+        (fresh.iter_count, trainer.iter_count, latest)
+    assert fresh.kl_ctl.value == trainer.kl_ctl.value
+    n, empty = assert_same_state(trainer, fresh, "restored state")
+    ops.reset_launches()
+    stats = [t.train_step(batch) for t in (trainer, fresh)]
+    sync(device)
+    launches = {name: ops.LAUNCHES[name] for name in FLASH_NAMES}
+    for st in stats:
+        assert float(st["bad_step"]) == 0.0, st
+    assert float(stats[0]["loss"]) == float(stats[1]["loss"])
+    assert_same_state(trainer, fresh, "next update")
+    del fresh
+    torch.cuda.empty_cache() if device == "cuda" else None
+    return {"restore_s": restore_s, "step": latest, "leaves": n,
+            "zero_size_leaves": empty, "launches": launches}
+
+
+def gate_phase(trainer, batch, device):
+    """The commit gate on the card: a batch with NaN rewards gives
+    ``bad_step`` 1 and leaves params, moments and count bit-identical; the
+    guarded step runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    so a host sync inside it fails the phase. The next clean batch
+    commits."""
+    before = [x.detach().clone() for x in leaves_of(trainer)]
+    count = int(trainer.opt_state["count"])
+    poisoned = batch.map(lambda x: x)
+    poisoned.rewards = torch.full_like(batch.rewards, float("nan"))
+    sync(device)
+    ops.reset_launches()
+    if device == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        stats = trainer.train_step(poisoned)
+    finally:
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    sync(device)
+    launches = {name: ops.LAUNCHES[name] for name in FLASH_NAMES}
+    assert float(stats["bad_step"]) == 1.0, stats
+    assert not np.isfinite(float(stats["loss"]))
+    for x, y in zip(before, leaves_of(trainer)):
+        assert torch.equal(x, y), "a skipped step changed the state"
+    assert int(trainer.opt_state["count"]) == count
+    stats = trainer.train_step(batch)
+    assert float(stats["bad_step"]) == 0.0, stats
+    assert int(trainer.opt_state["count"]) == count + 1
+    moved = sum(not torch.equal(x, y)
+                for x, y in zip(before, leaves_of(trainer)))
+    assert moved > 0
+    if device == "cuda":
+        assert all(launches[name] > 0 for name in FLASH_NAMES), launches
+    return {"launches": launches, "moved_leaves": moved,
+            "sync_checked": device == "cuda"}
+
+
+def serve_checkpoint_phase(trainer, device, run_dir, requests):
+    """The serve CLI's ``--checkpoint`` loader on the PPO run directory
+    (the newest step, the config from meta.json with greedy sampling put
+    in by ``--config``), against an engine built from the trainer's
+    in-memory params: identical greedy tokens on ``requests``, and the
+    paged-decode kernel launches (layers x decode steps)."""
+    with open(os.path.join(run_dir, "LATEST")) as f:
+        latest = os.path.join(run_dir, f.read())
+    with open(os.path.join(latest, "meta.json")) as f:
+        meta_config = json.load(f)["config"]
+    assert meta_config == trainer.config.to_nested_dict()
+    greedy = dict(meta_config)
+    greedy["method"] = {**greedy["method"],
+                        "gen_kwargs": {"max_length": 64, "do_sample": False}}
+    config_path = os.path.join(run_dir, "greedy.json")
+    with open(config_path, "w") as f:
+        json.dump(greedy, f)
+    flags = ["--checkpoint", run_dir, "--config", config_path,
+             "--buckets", "2x512x32", "--slots", "2", "--page-size", "16",
+             "--attention", "pallas", "--device", device]
+    telemetry.start()
+    t0 = time.perf_counter()
+    engine = serve_cli.build_engine(serve_cli.build_parser().parse_args(
+        flags))
+    sync(device)
+    load_s = time.perf_counter() - t0
+    assert engine.checkpoint_path == latest
+    live = InferenceEngine(
+        TRLConfig.from_dict(greedy), serve=engine.serve,
+        views=decode_views_from_numpy(trainer.params, engine.spec,
+                                      trainer.policy.num_layers_unfrozen),
+        device=device)
+    out = {}
+    for label, e in (("checkpoint", engine), ("in-memory", live)):
+        ops.reset_launches()
+        tokens, sched = run_scheduler(e, requests)
+        out[label] = tokens
+        if label == "checkpoint":
+            launches = ops.LAUNCHES["paged_decode"]
+            steps = sched.runtime.steps
+    assert out["checkpoint"] == out["in-memory"], out
+    if device == "cuda":
+        assert launches == engine.spec.n_layer * steps > 0, (launches, steps)
+    return {"load_s": load_s, "launches": launches, "steps": steps,
+            "layers": engine.spec.n_layer, "tokens": out["checkpoint"]}
 
 
 # --------------------------------------------------------------------- #
@@ -1177,10 +1345,11 @@ def train_parity_phase(tree, batch, device):
                                                   params=tree)
         grads[fused], opt_step = [], trainer.opt.step
 
-        def capture(params, g, state, opt_step=opt_step, out=grads[fused]):
+        def capture(params, g, state, ok=None, g_norm=None,
+                    opt_step=opt_step, out=grads[fused]):
             if not out:  # the first step's gradients
                 out.append([x.detach().float().cpu().numpy() for x in g])
-            return opt_step(params, g, state)
+            return opt_step(params, g, state, ok=ok, g_norm=g_norm)
 
         trainer.opt.step = capture
         trainers[fused] = trainer
@@ -1362,7 +1531,7 @@ def ilql_phase(tree, device):
         for i, part in enumerate(STEP_PARTS)} if device == "cuda" else {}
     step_s = update.quantile(0.5)  # steps 2-4: the window skips the first
     return {
-        "launches": launches, "all_launches": all_launches, "want": want,
+        "trainer": trainer, "launches": launches, "all_launches": all_launches, "want": want,
         "steps": steps, "T": T,
         "wall_s": wall, "step_p50_s": step_s,
         "steps_s": [update.first] + list(update.window),
@@ -1373,6 +1542,38 @@ def ilql_phase(tree, device):
         "logs": train_logs, "eval_reward": evals[0]["reward"],
         "first_mask": first.attention_mask, "split_ms": split,
     }
+
+
+def ilql_checkpoint_phase(trainer, device, directory):
+    """Save the ILQL trainer after its updates (full unfreeze: the frozen
+    bottom has zero-size leaves and the frozen embed is empty), restore
+    into a fresh trainer from another seed, hold the trees bit-identical,
+    then one more update of each on the same batch, bit-identical again."""
+    sync(device)
+    t0 = time.perf_counter()
+    trainer.save(directory)
+    save_s = time.perf_counter() - t0
+    cfg = TRLConfig.from_dict(ilql_config_dict())
+    cfg.train.seed = 1
+    fresh = get_model(cfg.model.model_type)(cfg, device=device)
+    t0 = time.perf_counter()
+    fresh.load(directory)
+    sync(device)
+    restore_s = time.perf_counter() - t0
+    assert fresh.iter_count == trainer.iter_count
+    assert fresh.params["frozen_base"]["embed"] == {}
+    n, empty = assert_same_state(trainer, fresh, "ILQL restored state")
+    assert empty > 0, "no zero-size leaf in the ILQL tree"
+    full, _ = trainer._collate_store()
+    batch = full.map(lambda x: torch.as_tensor(
+        x[:cfg.train.batch_size]).to(device))
+    losses = [float(t.train_step(batch)["loss"]) for t in (trainer, fresh)]
+    assert losses[0] == losses[1], losses
+    assert_same_state(trainer, fresh, "ILQL next update")
+    del fresh
+    torch.cuda.empty_cache() if device == "cuda" else None
+    return {"save_s": save_s, "restore_s": restore_s, "leaves": n,
+            "zero_size_leaves": empty, "bytes": dir_bytes(directory)}
 
 
 # --------------------------------------------------------------------- #
@@ -1397,9 +1598,10 @@ def ilql_parity_phase(tree, device, B=8, hi=200, steps=3):
                                                   params=tree)
         opt_step = trainer.opt.step
 
-        def capture(params, g, state, opt_step=opt_step, fused=fused):
+        def capture(params, g, state, ok=None, g_norm=None,
+                    opt_step=opt_step, fused=fused):
             grads[fused] = [x.detach().clone() for x in g]
-            return opt_step(params, g, state)
+            return opt_step(params, g, state, ok=ok, g_norm=g_norm)
 
         trainer.opt.step = capture
         trainers[fused] = trainer
@@ -1448,6 +1650,128 @@ def ilql_parity_phase(tree, device, B=8, hi=200, steps=3):
     torch.cuda.empty_cache() if device == "cuda" else None
     return {"worst_rel": worst, "grads_rel_l2": worst_grad[0],
             "T": int(batch.input_ids.shape[1])}
+
+
+# --------------------------------------------------------------------- #
+# 7-10 and the durability checks, in one place so their checkpoints are
+# removed however the run ends
+# --------------------------------------------------------------------- #
+
+
+def durability_phases(card, device="cuda"):
+    """PPO (ppo_tldr's wiring) with its serve-from-checkpoint, resume and
+    commit-gate checks, the PPO parity phase, ILQL with its save /
+    restore check, the ILQL parity phase and the bf16 flash kernels at
+    the ILQL shape. Checkpoints go under CKPT_ROOT."""
+    tree = init_hydra_numpy(
+        TRLConfig.from_dict(train_config_dict()).model.resolve_spec(), 2,
+        seed=0)
+    run_dir = os.path.join(CKPT_ROOT, "ppo")
+    train = train_phase(tree, device, run_dir)
+    last = train["logs"][-1]
+    log("train", f"PPO (ppo_tldr's wiring, a reward model from the "
+                 f"trainer's trunk scoring on the device) at gpt2-124M "
+                 f"width: {train['chunks']} rollout chunks + "
+                 f"{train['passes']} update passes in {train['wall_s']:.2f}s"
+                 f" (rollout {train['rollout_s']:.2f}s, update "
+                 f"{train['update_s']:.2f}s, {train['samples_per_sec']:.1f}"
+                 f" samples/s in updates); flash launches "
+                 f"{train['launches']} == chunks x (L + k) + passes x L / "
+                 f"passes x k = {train['want']}; last loss "
+                 f"{last['loss']:.4f} grad_norm {last['grad_norm']:.4f} "
+                 f"approx_kl {last['approx_kl']:.3e} bad_step "
+                 f"{last['bad_step']:.0f}, rollout mean_kl "
+                 f"{train['info']['mean_kl']:.3e} mean reward-model score "
+                 f"{train['info']['mean_score']:.4f}; step checkpoints "
+                 f"{train['checkpoints']} ({card}; for information, not a "
+                 f"metric)")
+    trainer, batch = train.pop("trainer"), train["batch"]
+    docs = ppo_tldr.synthetic_documents(2, seed=5)
+    serve_ckpt = serve_checkpoint_phase(trainer, device, run_dir,
+                                        [(d, 32) for d in docs])
+    log("serve-checkpoint", f"the serve CLI's --checkpoint loader on the "
+                            f"PPO run directory ({serve_ckpt['load_s']:.2f}s"
+                            f" to build): greedy tokens of 2 requests equal "
+                            f"the in-memory policy's; paged decode launches "
+                            f"{serve_ckpt['launches']} == "
+                            f"{serve_ckpt['layers']} layers x "
+                            f"{serve_ckpt['steps']} steps")
+    resume = resume_phase(trainer, batch, device, run_dir)
+    restore_ms = telemetry.current().registry.hists[
+        "time/checkpoint_restore"].total * 1e3
+    log("resume", f"a fresh trainer (seed 1, resume_from: auto) restored "
+                  f"step {resume['step']} == LATEST in {restore_ms:.1f} ms "
+                  f"({resume['leaves']} tensors); its next update equals "
+                  f"the original trainer's bit for bit (params, mu, nu, "
+                  f"count, generator state)")
+    gate = gate_phase(trainer, batch, device)
+    log("gate", f"NaN rewards: bad_step 1, params / moments / count "
+                f"bit-identical, no host sync inside the guarded step "
+                f"(set_sync_debug_mode error: {gate['sync_checked']}); the "
+                f"next clean batch committed ({gate['moved_leaves']} "
+                f"tensors moved); flash launches {gate['launches']}")
+    del trainer
+    torch.cuda.empty_cache() if device == "cuda" else None
+    train_parity = train_parity_phase(tree, batch, device)
+    del tree, train["batch"], batch
+
+    ilql_tree = init_ilql_numpy(
+        TRLConfig.from_dict(ilql_config_dict()).model.resolve_spec(), -1,
+        True, seed=0)
+    ilql = ilql_phase(ilql_tree, device)
+    last = ilql["logs"][-1]
+    log("ilql", f"ILQL at gpt2-124M width, full unfreeze, bf16, fused "
+                f"attention: {ilql['steps']} updates of B80 x T{ilql['T']} "
+                f"in {ilql['wall_s']:.2f}s with one eval; update times "
+                f"{[round(t, 4) for t in ilql['steps_s']]} s, median of "
+                f"steps 2-4 {ilql['step_p50_s'] * 1e3:.1f} ms = "
+                f"{ilql['tokens_per_s']:.0f} training tokens/s; eval (64 "
+                f"prompts x 32 tokens, host reward) {ilql['eval_s']:.3f}s; "
+                f"max_memory_allocated {ilql['max_memory_gb']:.2f} GiB; "
+                f"steps 2-4 split on the device timeline (median ms): "
+                f"{ {k: round(v, 2) for k, v in ilql['split_ms'].items()} }; "
+                f"flash launches {ilql['launches']} == L x steps "
+                f"{ilql['want']}; last loss {last['loss']:.4f} (q "
+                f"{last['loss_q']:.4f} v {last['loss_v']:.4f} cql "
+                f"{last['loss_cql']:.4f} awac {last['loss_awac']:.4f}) "
+                f"grad_norm {last['grad_norm']:.4f}; eval reward "
+                f"{ilql['eval_reward']:.3f} ({card}; for information, not "
+                f"a metric)")
+    ilql_ckpt = ilql_checkpoint_phase(ilql.pop("trainer"), device,
+                                      os.path.join(CKPT_ROOT, "ilql"))
+    log("ilql-checkpoint", f"saved after {ilql['steps']} updates, restored "
+                           f"into a fresh trainer (seed 1): "
+                           f"{ilql_ckpt['leaves']} tensors bit-identical, "
+                           f"{ilql_ckpt['zero_size_leaves']} of them "
+                           f"zero-size; one more update bit-identical")
+    ilql_parity = ilql_parity_phase(ilql_tree, device)
+    del ilql_tree
+    torch.cuda.empty_cache() if device == "cuda" else None
+    ilql_lengths = (ilql.pop("first_mask").sum(1) + 1).tolist()
+    ilql_errs = check_flash_at(device, "ILQL shape (terminal-holed mask)",
+                               80, ilql["T"], ilql_lengths)
+    flash_ilql = time_flash(device, "ILQL shape (terminal-holed mask)", 80,
+                            ilql["T"], iters=10, lengths=ilql_lengths)
+    durability = {
+        "ppo_save_ms": train["save_ms"],
+        "ppo_checkpoint_bytes": train["checkpoint_bytes"],
+        "ppo_restore_ms": restore_ms,
+        "ilql_save_ms": ilql_ckpt["save_s"] * 1e3,
+        "ilql_restore_ms": ilql_ckpt["restore_s"] * 1e3,
+        "ilql_checkpoint_bytes": ilql_ckpt["bytes"],
+        "serve_checkpoint_load_s": serve_ckpt["load_s"],
+        "resume": resume, "gate": gate,
+    }
+    log("durability", f"PPO checkpoint {train['checkpoint_bytes']} bytes: "
+                      f"save {[round(t, 1) for t in train['save_ms']]} ms, "
+                      f"restore {restore_ms:.1f} ms; ILQL checkpoint "
+                      f"{ilql_ckpt['bytes']} bytes: save "
+                      f"{ilql_ckpt['save_s'] * 1e3:.1f} ms, restore "
+                      f"{ilql_ckpt['restore_s'] * 1e3:.1f} ms ({card})")
+    return {"train": train, "ilql": ilql, "train_parity": train_parity,
+            "ilql_parity": ilql_parity, "ilql_errs": ilql_errs,
+            "flash_ilql": flash_ilql, "serve_checkpoint": serve_ckpt,
+            "durability": durability}
 
 
 # --------------------------------------------------------------------- #
@@ -1513,65 +1837,27 @@ def main() -> int:
                   f"requests (kernel path vs plain path)")
     del views
 
-    tree = init_hydra_numpy(
-        TRLConfig.from_dict(train_config_dict()).model.resolve_spec(), 2,
-        seed=0)
-    train = train_phase(tree, "cuda")
-    last = train["logs"][-1]
-    log("train", f"PPO at gpt2-124M width: {train['chunks']} rollout chunks "
-                 f"+ {train['passes']} update passes in "
-                 f"{train['wall_s']:.2f}s (rollout "
-                 f"{train['rollout_s']:.2f}s, update "
-                 f"{train['update_s']:.2f}s, {train['samples_per_sec']:.1f}"
-                 f" samples/s in updates); flash launches "
-                 f"{train['launches']} == chunks x (L + k) + passes x L / "
-                 f"passes x k = {train['want']}; last loss "
-                 f"{last['loss']:.4f} grad_norm {last['grad_norm']:.4f} "
-                 f"approx_kl {last['approx_kl']:.3e}, rollout mean_kl "
-                 f"{train['info']['mean_kl']:.3e} mean_score "
-                 f"{train['info']['mean_score']:.3f} ({card}; for "
-                 f"information, not a metric)")
-    train_parity = train_parity_phase(tree, train["batch"], "cuda")
-    del tree, train["batch"]
-
-    ilql_tree = init_ilql_numpy(
-        TRLConfig.from_dict(ilql_config_dict()).model.resolve_spec(), -1,
-        True, seed=0)
-    ilql = ilql_phase(ilql_tree, "cuda")
-    last = ilql["logs"][-1]
-    log("ilql", f"ILQL at gpt2-124M width, full unfreeze, bf16, fused "
-                f"attention: {ilql['steps']} updates of B80 x T{ilql['T']} "
-                f"in {ilql['wall_s']:.2f}s with one eval; update times "
-                f"{[round(t, 4) for t in ilql['steps_s']]} s, median of "
-                f"steps 2-4 {ilql['step_p50_s'] * 1e3:.1f} ms = "
-                f"{ilql['tokens_per_s']:.0f} training tokens/s; eval (64 "
-                f"prompts x 32 tokens, host reward) {ilql['eval_s']:.3f}s; "
-                f"max_memory_allocated {ilql['max_memory_gb']:.2f} GiB; "
-                f"steps 2-4 split on the device timeline (median ms): "
-                f"{ {k: round(v, 2) for k, v in ilql['split_ms'].items()} }; "
-                f"flash launches {ilql['launches']} == L x steps "
-                f"{ilql['want']}; last loss {last['loss']:.4f} (q "
-                f"{last['loss_q']:.4f} v {last['loss_v']:.4f} cql "
-                f"{last['loss_cql']:.4f} awac {last['loss_awac']:.4f}) "
-                f"grad_norm {last['grad_norm']:.4f}; eval reward "
-                f"{ilql['eval_reward']:.3f} ({card}; for information, not "
-                f"a metric)")
-    ilql_parity = ilql_parity_phase(ilql_tree, "cuda")
-    del ilql_tree
-    torch.cuda.empty_cache()
-    ilql_lengths = (ilql.pop("first_mask").sum(1) + 1).tolist()
-    ilql_errs = check_flash_at("cuda", "ILQL shape (terminal-holed mask)",
-                               80, ilql["T"], ilql_lengths)
-    flash_err = {n: max(flash_err[n], ilql_errs[n]) for n in flash_err}
-    flash_ilql = time_flash("cuda", "ILQL shape (terminal-holed mask)", 80,
-                            ilql["T"], iters=10, lengths=ilql_lengths)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    try:
+        durable = durability_phases(card)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    train, ilql = durable["train"], durable["ilql"]
+    train_parity, ilql_parity = durable["train_parity"], \
+        durable["ilql_parity"]
+    flash_err = {n: max(flash_err[n], durable["ilql_errs"][n])
+                 for n in flash_err}
+    flash_ilql = durable["flash_ilql"]
+    serve_ckpt = durable["serve_checkpoint"]
 
     print(json.dumps({"timing": {
         "serving_shape": serving, "ctx1024": long_ctx,
         "ctx1024_by_partitions": by_partitions,
         "flash_training_shape": flash_slice, "flash_2048": flash_long,
         "train": {k: train[k] for k in ("wall_s", "rollout_s", "update_s",
-                                        "samples_per_sec", "launches")},
+                                        "samples_per_sec", "launches",
+                                        "save_ms", "checkpoint_bytes")},
+        "durability": durable["durability"],
         "train_parity": train_parity,
         "ilql": {k: ilql[k] for k in ("wall_s", "step_p50_s", "steps_s",
                                       "tokens_per_s", "eval_s",
@@ -1584,9 +1870,10 @@ def main() -> int:
         "route": "cuda",
         "source": "trlx_tpu_torch/csrc/paged_decode.cu",
         "replaces": "trlx_tpu/ops/paged_attention.py:58",
-        "launches": run["launches"],
+        "launches": run["launches"] + serve_ckpt["launches"],
         "launches_by_phase": {
             "serve": run["launches"],
+            "serve_checkpoint": serve_ckpt["launches"],
             "ppo": train["all_launches"]["paged_decode"],
             "ilql": ilql["all_launches"]["paged_decode"]},
         "max_abs_err": err,
@@ -1604,8 +1891,13 @@ def main() -> int:
             "source": "trlx_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
             "launches": train["launches"][name] + ilql["launches"][name],
-            "launches_by_phase": {"ppo": train["launches"][name],
-                                  "ilql": ilql["launches"][name]},
+            "launches_by_phase": {
+                "ppo": train["launches"][name],
+                "ilql": ilql["launches"][name],
+                "ppo_resume": durable["durability"]["resume"]["launches"][
+                    name],
+                "ppo_gate": durable["durability"]["gate"]["launches"][
+                    name]},
             "max_abs_err": flash_err[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

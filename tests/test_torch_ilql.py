@@ -606,9 +606,9 @@ def test_registry_and_config_resolve_to_the_port():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("max_bad_steps", 2), ("resume_from", "auto"),
     ("mesh", {"dp": 2, "fsdp": 1, "tp": 1}), ("mesh", {"dp": 1, "sp": 2}),
-    ("mesh", {"dp": 1, "pp": 2}),
+    ("mesh", {"dp": 1, "pp": 2}), ("stall_timeout", 30.0),
+    ("max_walltime", 3600.0), ("chaos", "ilql_update:exc@2"),
 ])
 def test_refused_knobs_raise(knob, value):
     cfg = _config_dict()
@@ -618,10 +618,6 @@ def test_refused_knobs_raise(knob, value):
 
 
 def test_refused_entry_points_raise():
-    trainer = get_model("JaxILQLTrainer")(
-        TRLConfig.from_dict(_config_dict()), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.save()
     cfg = _config_dict()
     cfg["model"]["model_spec"] = None
     with pytest.raises(NotImplementedError, match="not ported"):

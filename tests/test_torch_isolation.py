@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "data.ilql_types", "models.ilql", "trainers.ilql_trainer",
                  "orchestrator.offline_orchestrator",
                  "pipeline.offline_pipeline", "examples.ilql_randomwalks",
-                 "examples.ilql_sentiments", "examples.randomwalks_data"):
+                 "examples.ilql_sentiments", "examples.randomwalks_data",
+                 "utils.checkpoint", "utils.preemption", "utils.faults",
+                 "utils.trackers", "models.reward", "examples.ppo_tldr"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

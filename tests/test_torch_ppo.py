@@ -11,6 +11,7 @@ trlx_tpu's, on the CPU at float32 from the same params carried across:
 - ``make_experience`` fills the store with the expected shapes;
 - the port's offline example runs a few steps on the CPU and stays
   finite;
+- ``evaluate`` returns trlx_tpu's keys, the generations table included;
 - the knobs the port does not run yet raise."""
 
 import jax
@@ -215,28 +216,48 @@ def test_offline_example_runs_on_cpu_and_stays_finite():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("max_bad_steps", 2), ("continuous_rollouts", True),
-    ("resume_from", "auto"), ("mesh", {"dp": 2, "fsdp": 1, "tp": 1}),
+    ("continuous_rollouts", True),
+    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1}),
     ("mesh", {"dp": 1, "sp": 2}), ("mesh", {"dp": 1, "pp": 2}),
-    ("optimizer", "adafactor"),
+    ("optimizer", "adafactor"), ("stall_timeout", 30.0),
+    ("stall_first_timeout", 60.0), ("max_walltime", 3600.0),
+    ("host_call_timeout", 5.0), ("checkpoint_timeout", 60.0),
+    ("chaos", "ppo_update:exc@2"),
 ])
 def test_refused_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="not ported"):
         _port_trainer(**{knob: value})
 
 
-def test_refused_entry_points_raise():
-    _, trainer, orch = _port_trainer()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.save()
+def test_evaluate_returns_the_reference_keys():
+    """PPO ``evaluate`` returns what trlx_tpu's does: ``mean_score``,
+    ``samples`` and the ``generations_table`` of decoded query, response
+    and score rows."""
+    jcfg, tcfg = _configs()
+    jtrainer = jax_get_model("JaxPPOTrainer")(jcfg)
+    ttrainer = get_model("JaxPPOTrainer")(tcfg, device="cpu")
+    data = _batch()
+    prompts = (data["query_tensors"], data["query_masks"])
+    evals = []
+    for trainer in (jtrainer, ttrainer):
+        trainer.set_orchestrator(None, reward_fn)
+        evals.append(trainer.evaluate(eval_prompts=prompts))
+    theirs, ours = evals
+    assert sorted(ours) == sorted(theirs)
+    table, their_table = ours["generations_table"], \
+        theirs["generations_table"]
+    assert table["columns"] == their_table["columns"] \
+        == ["query", "response", "score"]
+    assert len(table["rows"]) == len(their_table["rows"]) == 16
+    for (q, _, score), (tq, _, _) in zip(table["rows"], their_table["rows"]):
+        assert q == tq and np.isfinite(score)
 
-    def device_reward(texts):
-        return [0.0] * len(texts)
 
-    device_reward.is_device_reward = True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_orchestrator("PPOOrchestrator")(trainer, orch.pipeline,
-                                            reward_fn=device_reward)
+def test_refused_entry_points_raise(monkeypatch):
+    monkeypatch.setenv("TRLX_TPU_CHAOS", "ppo_update:exc@2")
+    with pytest.raises(NotImplementedError, match="TRLX_TPU_CHAOS"):
+        _port_trainer()
+    monkeypatch.delenv("TRLX_TPU_CHAOS")
     _, tcfg = _configs()
     tcfg.model.model_spec = None
     with pytest.raises(NotImplementedError, match="not ported"):

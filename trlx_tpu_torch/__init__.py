@@ -19,7 +19,13 @@ flash-attention forward and backward kernels on train-time forwards
 ILQL training — the ILQL network with its Q / target-Q / value heads,
 the chunked ILQL loss, the offline pipeline, orchestrator and trainer
 with advantage-shifted sampling, on the same kernels
-(``python -m trlx_tpu_torch.examples.ilql_randomwalks``).
+(``python -m trlx_tpu_torch.examples.ilql_randomwalks``); and durable
+training — crash-atomic checkpoints, ``resume_from``, the commit gate
+and SIGTERM preemption (``utils/checkpoint.py``, ``utils/faults.py``,
+``utils/preemption.py``), the device reward model
+(``models/reward.py``, ``python -m
+trlx_tpu_torch.examples.ppo_tldr``) and serving a checkpoint
+(``python -m trlx_tpu_torch.serve --checkpoint <run dir>``).
 
 Importing the package does nothing else: no CUDA initialisation, no
 kernel build, no thread.

@@ -5,9 +5,14 @@ with that example's overrides (gen_size 10, 10 epochs, batch 64, a
 [V, V] edge mask on sampling, the percent-of-optimal-path metric.
 
     python -m trlx_tpu_torch.examples.ilql_randomwalks [--device cpu]
+        [--epochs N] [--checkpoint-dir DIR --checkpoint-interval K
+        --keep-checkpoints N --resume-from auto]
 
 Without ``--device cpu`` it runs on the card and raises when there is
-none.
+none. With the checkpoint flags it is a durable run: it saves
+``step_<N>`` checkpoints every K updates, keeps the newest N, and a
+relaunch with ``--resume-from auto`` continues from the newest one (the
+first line printed, ``start_iter``, is the update it starts from).
 """
 
 import argparse
@@ -20,7 +25,10 @@ from trlx_tpu_torch.examples.randomwalks_data import generate_random_walks
 from trlx_tpu_torch.utils.loading import get_model, get_orchestrator
 
 
-def randomwalks_config(n_nodes: int, epochs: int = 10) -> TRLConfig:
+def randomwalks_config(n_nodes: int, epochs: int = 10,
+                       **train) -> TRLConfig:
+    """The example's config; ``train`` overrides train-section keys
+    (the checkpoint knobs)."""
     config = ilql_config()
     config["model"].update(
         tokenizer_path="byte", compute_dtype="float32",
@@ -29,6 +37,7 @@ def randomwalks_config(n_nodes: int, epochs: int = 10) -> TRLConfig:
     config["train"].update(gen_size=10, epochs=epochs, batch_size=64,
                            eval_interval=50, log_interval=25,
                            checkpoint_interval=10**9)
+    config["train"].update(train)
     return TRLConfig.from_dict(config)
 
 
@@ -37,13 +46,25 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--seed", type=int, default=1000)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-interval", type=int, default=None)
+    ap.add_argument("--keep-checkpoints", type=int, default=None)
+    ap.add_argument("--resume-from", default=None,
+                    help="a checkpoint or run dir, or 'auto'")
     args = ap.parse_args(argv)
     walks, logit_mask, stats_fn, reward_fn = generate_random_walks(
         seed=args.seed)
-    config = randomwalks_config(int(logit_mask.shape[0]), args.epochs)
+    train = {key: value for key, value in (
+        ("checkpoint_dir", args.checkpoint_dir),
+        ("checkpoint_interval", args.checkpoint_interval),
+        ("keep_checkpoints", args.keep_checkpoints),
+        ("resume_from", args.resume_from)) if value is not None}
+    config = randomwalks_config(int(logit_mask.shape[0]), args.epochs,
+                                **train)
     eval_prompts = np.arange(1, logit_mask.shape[0]).reshape(-1, 1)
     trainer = get_model(config.model.model_type)(
         config, logit_mask=logit_mask, device=args.device)
+    print({"start_iter": trainer.iter_count}, flush=True)
     get_orchestrator(config.train.orchestrator)(
         trainer, walks, eval_prompts, reward_fn=reward_fn, stats_fn=stats_fn)
     print({"walk_baseline": stats_fn(walks)}, flush=True)

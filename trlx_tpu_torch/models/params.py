@@ -7,7 +7,8 @@ value head, ref): :func:`hydra_to_torch` places a numpy tree (what
 random one) on a device, and :func:`hydra_to_numpy` brings (updated)
 parameters back for comparison. The ILQL trainer's tree ({frozen_base,
 trainable, target}) crosses the same way: :func:`init_ilql_numpy`,
-:func:`ilql_to_torch`, :func:`ilql_to_numpy`.
+:func:`ilql_to_torch`, :func:`ilql_to_numpy`; a reward model's tree
+({embed, blocks, ln_f, r_head}) through :func:`reward_to_torch`.
 
 The port serves from DECODE VIEWS: ``DecodeViews(blocks, embed, ln_f)``
 where ``blocks`` is the (trunk, trainable-top) pair of stacked block
@@ -53,14 +54,17 @@ class DecodeViews(NamedTuple):
 
 
 def _to_torch(x) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", copy=True)
     return torch.from_numpy(np.array(x, copy=True, order="C"))
 
 
 def decode_views_from_numpy(hydra_tree: Params, spec: ModelSpec,
                             num_layers_unfrozen: int) -> DecodeViews:
-    """A trlx_tpu hydra param tree (nested dicts of numpy arrays) -> CPU
-    torch decode views. Checks the trunk/top split against
-    ``num_layers_unfrozen``."""
+    """A hydra param tree (nested dicts of numpy arrays, as trlx_tpu's
+    comes back, or of torch tensors, as the port's trainer and its
+    checkpoints hold it) -> CPU torch decode views (copies). Checks the
+    trunk/top split against ``num_layers_unfrozen``."""
     bottom, top = all_blocks(hydra_tree)
     embed, ln_f = head_params_for_decode(hydra_tree)
     k = resolve_num_unfrozen(spec, num_layers_unfrozen)
@@ -232,6 +236,18 @@ def ilql_to_torch(tree: Params, device=None) -> Params:
         tree["trainable"])
     return {"frozen_base": frozen["frozen_base"], "trainable": trainable,
             "target": frozen["target"]}
+
+
+def reward_to_torch(tree: Params, device=None) -> Params:
+    """A reward-model tree ({embed, blocks, ln_f, r_head}) of numpy or
+    torch leaves as FRESH torch tensors on ``device``, each leaf keeping
+    its dtype and leaving any autograd graph behind: a copy that the
+    tensors it came from (a trainer's, updated in place) never touch."""
+    return tree_map(lambda x: x.detach().to(device=device, copy=True)
+                    if torch.is_tensor(x)
+                    else torch.as_tensor(np.array(x, copy=True,
+                                                  order="C")).to(device),
+                    tree)
 
 
 def hydra_to_numpy(tree: Params) -> Params:

@@ -131,7 +131,7 @@ def apply_rotary(
         0, rot_dim, 2, dtype=torch.float32, device=x.device
     ) / rot_dim
     inv_freq = 1.0 / torch.pow(
-        torch.tensor(theta, dtype=torch.float32, device=x.device), exponent
+        torch.full((), theta, dtype=torch.float32, device=x.device), exponent
     )
     freqs = positions[..., None].float() * inv_freq  # [B, T, rot_dim/2]
     if interleaved:
@@ -381,10 +381,7 @@ def causal_mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
         torch.ones((T, T), dtype=torch.bool, device=attention_mask.device)
     )
     allowed = causal[None, :, :] & (attention_mask[:, None, :] > 0)
-    return torch.where(
-        allowed, torch.tensor(0.0, device=attention_mask.device),
-        torch.tensor(NEG_INF, device=attention_mask.device),
-    ).float()[:, None, :, :]
+    return torch.where(allowed, 0.0, NEG_INF).float()[:, None, :, :]
 
 
 def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:

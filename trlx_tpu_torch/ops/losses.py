@@ -26,7 +26,7 @@ def whiten(x: torch.Tensor, shift_mean: bool = True,
     the real elements when masked."""
     mean = masked_mean(x, mask)
     if mask is None:
-        n = torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)
+        n = torch.full((), float(x.numel()), dtype=x.dtype, device=x.device)
         sq = ((x - mean) ** 2).sum()
     else:
         m = mask.to(x.dtype)
@@ -101,8 +101,8 @@ def gae_advantages(values: torch.Tensor, rewards: torch.Tensor,
     if T <= _GAE_MATMUL_MAX_T:
         idx = torch.arange(T, device=values.device)
         exponent = idx[:, None] - idx[None, :]  # k - t
-        base = torch.tensor(gamma * lam, dtype=torch.float32,
-                            device=values.device)
+        base = torch.full((), gamma * lam, dtype=torch.float32,
+                          device=values.device)
         weights = torch.where(
             exponent >= 0,
             torch.pow(base, exponent.clamp(min=0).float()),

@@ -4,17 +4,19 @@ trlx_tpu.orchestrator.ppo_orchestrator).
 Per chunk of ``chunk_size`` prompts: the trainer's ``rollout`` selects
 the prompts from the device-resident bank, generates, and scores them in
 one shared-trunk forward (policy and reference logprobs, values, the
-KL-penalty rewards); the host decodes the sequences and calls the user's
-``reward_fn(List[str]) -> scores``; the score lands on each row's last
-real response token; the chunk goes into the store. Then the adaptive KL
-controller updates from the measured mean KL. The prompt iteration is
-the JAX package's (``batch_iterator`` with a seed that advances each
-pass over the prompts).
+KL-penalty rewards); the task score comes from the user's host
+``reward_fn(List[str]) -> scores`` on the decoded sequences or, for a
+device reward model (``is_device_reward``, trlx_tpu_torch.models.reward),
+from its ``score_tokens`` on the sequences themselves, with no decode;
+the score lands on each row's last real response token; the chunk goes
+into the store. Then the adaptive KL controller updates from the
+measured mean KL. The prompt iteration is the JAX package's
+(``batch_iterator`` with a seed that advances each pass over the
+prompts).
 
 ``start_experience`` dispatches every chunk against one policy snapshot
 and ``finish_experience`` harvests them. The host reward is called
-plainly: retries, seam timeouts and a device reward model are not
-ported.
+plainly: retries and seam timeouts wait for the run floor.
 """
 
 from typing import Callable
@@ -34,11 +36,6 @@ class PPOOrchestrator(Orchestrator):
     def __init__(self, model, pipeline, reward_fn: Callable,
                  metric_fn: Callable = None, chunk_size: int = 512):
         super().__init__(pipeline, model)
-        if getattr(reward_fn, "is_device_reward", False):
-            raise NotImplementedError(
-                "a device reward model is not ported yet; pass a host "
-                "reward_fn(List[str]) -> scores"
-            )
         self.chunk_size = chunk_size
         self.reward_fn = reward_fn
         self.metric_fn = metric_fn
@@ -118,18 +115,32 @@ class PPOOrchestrator(Orchestrator):
         with telemetry.span("rollout"):
             return self._finish_experience(handle)
 
+    def device_scores(self, out, prompt_len: int) -> torch.Tensor:
+        """A device reward model's scores for one chunk, on the device.
+        The mask is the prompt's with ``gen_mask`` spliced in for the
+        response: ``out.attention_mask`` keeps post-eos pads at 1 (cache
+        validity), and a row that ended early must be summarised at its
+        last real token, not at a trailing pad."""
+        mask = torch.cat([out.attention_mask[:, :prompt_len],
+                          out.gen_mask.to(out.attention_mask.dtype)], dim=1)
+        return self.reward_fn.score_tokens(out.sequences, mask)
+
     def _finish_experience(self, handle):
         trainer = self.rl_model
+        device_reward = getattr(self.reward_fn, "is_device_reward", False)
         all_kls, all_scores = [], []
         for pending in handle["pendings"]:
             out, query, qmask, logprobs, values, kl_rewards, seq_kl = pending
-            sequences = out.sequences.cpu().numpy()
             seq_kl_host = seq_kl.cpu().numpy()
-            texts = trainer.tokenizer.batch_decode(sequences,
-                                                   skip_special_tokens=True)
-            with telemetry.span("reward_fn"):
-                scores = self.score(texts)
-            all_scores.append(scores)
+            if device_reward:
+                scores = self.device_scores(out, query.shape[1])
+                all_scores.append(scores.float().cpu().numpy())
+            else:
+                texts = trainer.tokenizer.batch_decode(
+                    out.sequences.cpu().numpy(), skip_special_tokens=True)
+                with telemetry.span("reward_fn"):
+                    scores = self.score(texts)
+                all_scores.append(scores)
             rewards = trainer.finalize_rewards(kl_rewards, out.gen_mask,
                                                scores)
             all_kls.append(float(seq_kl_host.mean()))
@@ -142,7 +153,7 @@ class PPOOrchestrator(Orchestrator):
                 response_masks=out.gen_mask,
                 query_masks=qmask,
             ))
-            self.clock.tick(len(sequences))
+            self.clock.tick(out.sequences.shape[0])
         n_chunks = handle["n_chunks"]
         trainer.post_rollout_kl_update(float(np.mean(all_kls)),
                                        n_chunks * self.chunk_size)

@@ -1,15 +1,21 @@
-"""``python -m trlx_tpu_torch.serve`` — a config and weights in, an HTTP
-endpoint out.
+"""``python -m trlx_tpu_torch.serve`` — a checkpoint (or a config and
+weights) in, an HTTP endpoint out.
 
-The config file is a trlx_tpu training config (YAML, or the same
-three-section layout as JSON); its ``serve:`` section sizes the bucket
-lattice and the slot pool, and the flags below win over it. Weights are
-a ``torch.save`` file of the port's decode views (``--weights``, see
-trlx_tpu_torch.models.params) or, without it, a random policy made from
-``--seed``. The server runs on the card unless ``--device cpu``.
+``--checkpoint`` takes a checkpoint directory of the port's PPO trainer
+or a run directory of ``step_<N>`` checkpoints (the newest committed one
+is used); the config then comes from the checkpoint's meta.json, and
+``--config`` overrides it. Without ``--checkpoint`` the config file is
+required, and the weights are a ``torch.save`` file of the port's decode
+views (``--weights``, see trlx_tpu_torch.models.params) or, without it,
+a random policy made from ``--seed``. A config file is a trlx_tpu
+training config (YAML, or the same three-section layout as JSON); its
+``serve:`` section sizes the bucket lattice and the slot pool, and the
+flags below win over it. The server runs on the card unless ``--device
+cpu``.
 
-Example::
+Examples::
 
+    python -m trlx_tpu_torch.serve --checkpoint ckpts --port 8080
     python -m trlx_tpu_torch.serve --config configs/test_config.yml \\
         --buckets 4x16x16,8x16x16 --slots 8 --page-size 8 \\
         --attention pallas --port 8080
@@ -46,8 +52,13 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m trlx_tpu_torch.serve",
         description="Serve a policy over HTTP with the PyTorch/CUDA port.",
     )
-    p.add_argument("--config", required=True,
-                   help="training config, YAML (needs pyyaml) or JSON")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint dir, or a run dir of step_<N> dirs "
+                        "(the newest committed one is used)")
+    p.add_argument("--config", default=None,
+                   help="training config, YAML (needs pyyaml) or JSON; "
+                        "default with --checkpoint: the config in the "
+                        "checkpoint's meta.json")
     p.add_argument("--weights", default=None,
                    help="torch.save file of decode views; default: a "
                         "random policy made from --seed")
@@ -98,13 +109,31 @@ def serve_config_from_args(args, raw: dict) -> ServeConfig:
     return cfg
 
 
+def build_engine(args) -> InferenceEngine:
+    """The engine the parsed flags describe."""
+    if args.checkpoint is None and args.config is None:
+        raise SystemExit("serve: give --checkpoint or --config")
+    raw = load_config_file(args.config) if args.config else {}
+    serve_cfg = serve_config_from_args(args, raw)
+    if args.checkpoint is not None:
+        if args.weights:
+            raise SystemExit("serve: --weights and --checkpoint exclude "
+                             "each other")
+        engine = InferenceEngine.from_checkpoint(
+            args.checkpoint,
+            config=TRLConfig.from_dict(raw) if raw else None,
+            serve=serve_cfg, device=args.device)
+        print(f"[trlx_tpu_torch.serve] restored policy from "
+              f"{engine.checkpoint_path}", file=sys.stderr, flush=True)
+        return engine
+    views = load_decode_views(args.weights) if args.weights else None
+    return InferenceEngine(TRLConfig.from_dict(raw), serve=serve_cfg,
+                           views=views, device=args.device)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    raw = load_config_file(args.config)
-    serve_cfg = serve_config_from_args(args, raw)
-    views = load_decode_views(args.weights) if args.weights else None
-    engine = InferenceEngine(TRLConfig.from_dict(raw), serve=serve_cfg,
-                             views=views, device=args.device)
+    engine = build_engine(args)
     server = InferenceServer(engine).start(warmup=not args.no_warmup)
     server.serve_forever()
     return 0

@@ -7,8 +7,10 @@ plus the bucket lattice and the paged-pool geometry the slot scheduler
 (trlx_tpu_torch.serve.slots) sizes itself from. Weights come in as
 :class:`~trlx_tpu_torch.models.params.DecodeViews` (carried across from
 a trlx_tpu tree, loaded from a ``torch.save`` file, or a seeded random
-init). The engine runs on CUDA unless the caller passes
-``device="cpu"``; with no card it raises.
+init), or from a port checkpoint (:meth:`InferenceEngine.from_checkpoint`:
+a checkpoint or run directory, the config from its meta.json). The
+engine runs on CUDA unless the caller passes ``device="cpu"``; with no
+card it raises.
 
 Knob names and defaults are trlx_tpu's, so a YAML ``serve:`` section
 means the same thing to both packages: ``attention: pallas`` names the
@@ -28,6 +30,7 @@ from trlx_tpu_torch.data.method_configs import PPOConfig, filter_known_fields
 from trlx_tpu_torch.models.generation import GenerationConfig
 from trlx_tpu_torch.models.params import (
     DecodeViews,
+    decode_views_from_numpy,
     init_decode_views,
     views_to,
 )
@@ -137,6 +140,7 @@ class InferenceEngine:
         if telemetry.current() is None:
             telemetry.start()
         self.config = config
+        self.checkpoint_path: Optional[str] = None
         self.serve = serve or ServeConfig()
         self._validate()
         self.device = resolve_device(device)
@@ -186,6 +190,37 @@ class InferenceEngine:
             for t in _leaves(part)
         )
         telemetry.set_gauge("serve/model_gb", n_bytes / 2**30)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint: str,
+                        config: Optional[TRLConfig] = None,
+                        serve: Optional[ServeConfig] = None,
+                        device: Optional[str] = None) -> "InferenceEngine":
+        """An engine on a PPO checkpoint of the port's trainer:
+        ``checkpoint`` is a checkpoint directory or a run directory (its
+        newest committed ``step_<N>``, falling back past a corrupt one).
+        Only the ``params`` component is read and verified; the config is
+        the one the trainer embedded in meta.json unless ``config`` is
+        given. The decode views are built from the restored params."""
+        from trlx_tpu_torch.utils.checkpoint import restore_tensor_component
+
+        params, meta, resolved = restore_tensor_component("params",
+                                                          checkpoint)
+        if config is None:
+            if "config" not in meta:
+                raise ValueError(
+                    f"checkpoint '{resolved}' carries no embedded config; "
+                    f"pass the training config explicitly (--config)")
+            config = TRLConfig.from_dict(meta["config"])
+        if not isinstance(config.method, PPOConfig):
+            raise NotImplementedError(
+                f"the inference engine serves hydra (PPO) policies; the "
+                f"checkpoint's method is '{config.method.name}'")
+        views = decode_views_from_numpy(params, config.model.resolve_spec(),
+                                        config.model.num_layers_unfrozen)
+        engine = cls(config, serve=serve, views=views, device=device)
+        engine.checkpoint_path = resolved
+        return engine
 
     def _validate(self) -> None:
         s = self.serve

@@ -7,20 +7,38 @@ updates in place on its device. :func:`build_optimizer` is optax's
 ``chain(clip_by_global_norm, adamw)`` with a schedule, written out; both
 trainers build theirs with it.
 
+Durability (trlx_tpu's ``BaseRLTrainer`` surface): ``save`` (a step
+checkpoint under ``train.checkpoint_dir`` with ``keep_checkpoints``
+retention, or a plain save to a named directory), ``load``,
+``maybe_resume`` (``train.resume_from``: a path, or ``auto`` for the
+newest checkpoint, a fresh start when there is none), the StepGuard
+hooks behind ``train.max_bad_steps`` and SIGTERM preemption
+(trlx_tpu_torch.utils.{checkpoint,faults,preemption}).
+
 Not ported yet, and refused at construction with a clear error: a mesh
-other than all ones (and ``sp`` / ``pp``), ``max_bad_steps > 0`` (the
-StepGuard and the commit gate), ``continuous_rollouts`` and
-``resume_from`` (checkpoints).
+other than all ones (and ``sp`` / ``pp``), ``continuous_rollouts``, and
+the run supervisor's knobs (``stall_timeout``, ``stall_first_timeout``,
+``max_walltime``, ``host_call_timeout``, ``checkpoint_timeout``,
+``chaos`` and ``$TRLX_TPU_CHAOS``).
 """
 
+import os
 from abc import abstractmethod
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.models.transformer import tree_map
 from trlx_tpu_torch.utils import DTYPES, cosine_schedule, resolve_device
+from trlx_tpu_torch.utils.checkpoint import (
+    find_latest_checkpoint,
+    restore_components,
+    save_components,
+    save_step_checkpoint,
+)
+from trlx_tpu_torch.utils.faults import StepGuard
+from trlx_tpu_torch.utils.preemption import PreemptionGuard
 from trlx_tpu_torch.utils.registry import BuiltinLoader, make_register
 
 _TRAINERS: Dict[str, type] = {}
@@ -35,6 +53,12 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to trlx_tpu_torch yet")
 
 
+#: the run supervisor's knobs (trlx_tpu.supervisor), which the port
+#: does not run yet: any non-default value is refused
+SUPERVISOR_KNOBS = ("stall_timeout", "stall_first_timeout", "max_walltime",
+                    "host_call_timeout", "checkpoint_timeout", "chaos")
+
+
 def check_ported(config, mesh=None) -> None:
     """Raise for the configuration knobs this port does not run yet."""
     t = config.train
@@ -44,19 +68,39 @@ def check_ported(config, mesh=None) -> None:
         if size not in (1, -1):  # -1 = every device: one here
             raise _not_ported(f"train.mesh {axis}={size} (only a "
                               f"single-device mesh runs)")
-    if getattr(t, "max_bad_steps", 0) > 0:
-        raise _not_ported("train.max_bad_steps > 0 (the StepGuard and "
-                          "the commit gate)")
     if getattr(t, "continuous_rollouts", False):
         raise _not_ported("train.continuous_rollouts")
-    if getattr(t, "resume_from", ""):
-        raise _not_ported("train.resume_from (checkpoints)")
+    for knob in SUPERVISOR_KNOBS:
+        if getattr(t, knob, None):
+            raise _not_ported(f"train.{knob} (the run supervisor)")
+    if os.environ.get("TRLX_TPU_CHAOS"):
+        raise _not_ported("$TRLX_TPU_CHAOS (the run supervisor's chaos "
+                          "schedule)")
 
 
 def _leaves(tree) -> List[torch.Tensor]:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+@torch.no_grad()
+def copy_into(dst, src) -> None:
+    """Copy tree ``src`` into tree ``dst``'s tensors in place (same
+    structure and shapes)."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            copy_into(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, x in zip(dst, src):
+            copy_into(d, x)
+    else:
+        dst.copy_(src)
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the L2 norm over every gradient, float32."""
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
 class AdamW:
@@ -71,9 +115,16 @@ class AdamW:
     3. decoupled weight decay: + weight_decay * param;
     4. the step: param -= schedule(count) * update, the schedule read at
        the count BEFORE this step's increment.
+
+    The count is a 0-d int32 tensor on the parameters' device, and the
+    schedule and both bias corrections are computed from it there: no
+    step reads anything back to the host. ``ok`` (a 0-d bool tensor) is
+    the commit gate: where it is False the parameters, both moments and
+    the count keep their values, as optax's state does under the
+    reference's ``jnp.where``; without it nothing is selected.
     """
 
-    def __init__(self, schedule: Callable[[int], float], max_norm: float,
+    def __init__(self, schedule: Callable, max_norm: float,
                  weight_decay: float, mu_dtype=torch.float32, b1=0.9,
                  b2=0.999, eps=1e-8):
         self.schedule = schedule
@@ -85,39 +136,53 @@ class AdamW:
     def init(self, params) -> Dict:
         leaves = _leaves(params)
         return {
-            "count": 0,
+            "count": torch.zeros((), dtype=torch.int32,
+                                 device=leaves[0].device),
             "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in leaves],
             "nu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
         }
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-             state: Dict) -> torch.Tensor:
-        """One update of ``params`` in place; returns the pre-clip global
-        gradient norm."""
-        g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+             state: Dict, ok: Optional[torch.Tensor] = None,
+             g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One update of ``params`` in place, committed only where ``ok``
+        (when given); returns the pre-clip global gradient norm."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < self.max_norm
-        count = state["count"] + 1
+        count = state["count"]
+        new_count = count + 1
         dev = g_norm.device
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
-        bc1 = 1 - f32(self.b1) ** count
-        bc2 = 1 - f32(self.b2) ** count
-        lr = f32(self.schedule(state["count"]))
+
+        def corr(b):  # 1 - b ** count, float32 on the device
+            base = torch.full((), b, dtype=torch.float32, device=dev)
+            return 1 - torch.pow(base, new_count.float())
+
+        bc1, bc2 = corr(self.b1), corr(self.b2)
+        lr = self.schedule(count)
         for i, (p, g) in enumerate(zip(params, grads)):
             g = g.float()
             g = torch.where(keep, g, (g / g_norm) * self.max_norm)
             # b1 * mu in the moment's own dtype, b1 rounded to it first,
             # as optax's weak-typed scalar times a bfloat16 moment is
-            mu_prev = state["mu"][i]
-            mu = (1 - self.b1) * g + mu_prev * torch.tensor(
-                self.b1, dtype=mu_prev.dtype, device=dev)
-            nu = (1 - self.b2) * g * g + self.b2 * state["nu"][i]
+            mu_prev, nu_prev = state["mu"][i], state["nu"][i]
+            mu = (1 - self.b1) * g + mu_prev * torch.full(
+                (), self.b1, dtype=mu_prev.dtype, device=dev)
+            nu = (1 - self.b2) * g * g + self.b2 * nu_prev
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             update = update + self.weight_decay * p
-            p.add_(-lr * update)
-            state["mu"][i] = mu.to(self.mu_dtype)
+            mu = mu.to(self.mu_dtype)
+            if ok is None:
+                p.add_(-lr * update)
+            else:
+                p.copy_(torch.where(ok, p + (-lr * update), p))
+                mu = torch.where(ok, mu, mu_prev)
+                nu = torch.where(ok, nu, nu_prev)
+            state["mu"][i] = mu
             state["nu"][i] = nu
-        state["count"] = count
+        state["count"] = new_count if ok is None \
+            else torch.where(ok, new_count, count)
         return g_norm
 
 
@@ -201,8 +266,131 @@ class BaseRLTrainer:
             "do_save": steps > 0 and steps % t.checkpoint_interval == 0,
         }
 
+    def _apply_update(self, loss, leaves, grads, stats,
+                      kl_limit: float = 0.0) -> None:
+        """The optimizer step on ``leaves`` with the commit gate when
+        ``max_bad_steps > 0``: ``ok = isfinite(loss) & isfinite(grad_norm)``
+        (and ``approx_kl <= kl_limit`` when the limit is > 0), selected on
+        the device; ``stats`` gains ``grad_norm`` and, gated,
+        ``bad_step``."""
+        g_norm = global_norm(grads)
+        ok = None
+        if self.guard_on:
+            ok = torch.isfinite(loss) & torch.isfinite(g_norm)
+            if kl_limit > 0:
+                ok = ok & (stats["approx_kl"] <= kl_limit)
+            stats["bad_step"] = 1.0 - ok.float()
+        stats["grad_norm"] = self.opt.step(leaves, grads, self.opt_state,
+                                           ok=ok, g_norm=g_norm)
+
+    # -- durability ------------------------------------------------------ #
+
+    @property
+    def guard_on(self) -> bool:
+        """Whether the steps carry the commit gate (``max_bad_steps``)."""
+        return getattr(self.config.train, "max_bad_steps", 0) > 0
+
     def save(self, directory: str = None) -> None:
-        raise _not_ported("save() (checkpoints)")
+        """Checkpoint the components, crash-atomically
+        (trlx_tpu_torch.utils.checkpoint). With no ``directory`` the save
+        lands as ``checkpoint_dir/step_<iter_count>`` with a ``LATEST``
+        marker and ``train.keep_checkpoints`` retention — the layout
+        ``resume_from: auto`` and the rollback restore from."""
+        if directory is not None:
+            save_components(self.get_components(), directory)
+            return
+        t = self.config.train
+        save_step_checkpoint(self.get_components(), t.checkpoint_dir,
+                             step=getattr(self, "iter_count", 0),
+                             keep=getattr(t, "keep_checkpoints", 0))
+
+    def load(self, directory: str = None) -> None:
+        """Restore from a checkpoint or a run directory (default
+        ``checkpoint_dir``) into the trainer's own tensors."""
+        self.set_components(restore_components(
+            self.get_components(),
+            directory or self.config.train.checkpoint_dir))
+
+    def _rollback_to_latest(self) -> Optional[str]:
+        """The StepGuard's rollback: restore the newest valid checkpoint
+        under ``checkpoint_dir``; its path, or None when there is none."""
+        directory = find_latest_checkpoint(self.config.train.checkpoint_dir)
+        if directory is None:
+            return None
+        self.load(directory)
+        return directory
+
+    def _make_step_guard(self, log_fn):
+        """The learn loops' divergence guard, from ``train.max_bad_steps``
+        (disabled, and free, at 0)."""
+        return StepGuard(max_bad_steps=getattr(self.config.train,
+                                               "max_bad_steps", 0),
+                         rollback_fn=self._rollback_to_latest, log=log_fn)
+
+    def _observe_step(self, step_guard, stats) -> None:
+        """Feed one step's verdict to the StepGuard. Only with the guard
+        on does this read the ``bad_step`` flag (and the loss, grad norm
+        and KL beside it) back to the host."""
+        if step_guard is None or not step_guard.enabled:
+            return
+        host = {k: float(stats[k])
+                for k in ("bad_step", "loss", "grad_norm", "approx_kl")
+                if k in stats}
+        bad = host.pop("bad_step", 0.0) > 0
+        step_guard.observe(bad=bad, step=self.iter_count, detail=host)
+
+    def _preempt(self, log_fn, guard, just_saved: bool = False) -> bool:
+        """Checkpoint and return True when the preemption guard says stop
+        (SIGTERM on any rank). ``just_saved``: an interval checkpoint
+        fired at this boundary, so the second save is skipped."""
+        if guard is None or not guard.poll():
+            return False
+        if not just_saved:
+            self.save()
+        log_fn({"iter": self.iter_count, "preempted": 1.0})
+        return True
+
+    def _preemption_guard(self):
+        """``PreemptionGuard(save_on_preemption, poll_interval)``: the
+        interval is ``preempt_poll_interval`` or ``min(log_interval, 8)``."""
+        t = self.config.train
+        return PreemptionGuard(
+            t.save_on_preemption,
+            poll_interval=t.preempt_poll_interval or min(t.log_interval, 8))
+
+    def maybe_resume(self) -> bool:
+        """Restore from ``train.resume_from`` once per process; called at
+        construction (before any rollout) and at the top of ``learn``.
+        ``auto`` resolves to the newest valid checkpoint under
+        ``checkpoint_dir`` and starts fresh when there is none. True when
+        a restore happened."""
+        directory = getattr(self.config.train, "resume_from", "")
+        if not directory or getattr(self, "_resumed", False):
+            return False
+        if directory == "auto":
+            directory = find_latest_checkpoint(
+                self.config.train.checkpoint_dir)
+            if directory is None:
+                return False
+        self.load(directory)
+        self._resumed = True
+        return True
+
+    def _generator_state(self):
+        """The sampling generator's state as JSON-ready ints."""
+        return self.generator.get_state().tolist()
+
+    def _set_generator_state(self, state) -> None:
+        self.generator.set_state(torch.tensor(state, dtype=torch.uint8))
+
+    def set_components(self, components: Dict) -> None:
+        """Restored ``params`` and ``opt_state`` are copied INTO the
+        trainer's own tensors, so every holder of them (the leaf lists of
+        ``train_step``, the reference branch, the target heads) trains on
+        the restored values; a reward model's deep copy does not follow.
+        Subclasses restore their ``state``."""
+        copy_into(self.params, components["params"])
+        copy_into(self.opt_state, components["opt_state"])
 
     @abstractmethod
     def act(self, prompts):

@@ -19,13 +19,20 @@ advantage-shifted sampling (port of trlx_tpu.trainers.ilql_trainer).
   ``warp_top_k(pi + beta * (min target Q - V), top_k) / temperature``,
   then a plain categorical draw.
 
+Durability as the PPO trainer's: with ``train.max_bad_steps > 0`` an
+update whose loss or grad norm is not finite commits nothing; ``learn``
+resumes from ``train.resume_from``, feeds the StepGuard, saves every
+``checkpoint_interval`` and stops cleanly on SIGTERM. The components are
+``params`` (zero-size frozen leaves included), ``opt_state``, ``state``
+(``iter_count`` and the sampling generator's state) and ``config``.
+
 Registered as ``JaxILQLTrainer`` and ``ILQLModel``. Not ported yet (each
-raises): pretrained import (set ``model.model_spec``), checkpoints and
-the knobs :func:`trlx_tpu_torch.trainers.check_ported` lists.
+raises): pretrained import (set ``model.model_spec``) and the knobs
+:func:`trlx_tpu_torch.trainers.check_ported` lists.
 """
 
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -52,6 +59,7 @@ from trlx_tpu_torch.utils import (
     tree_bytes,
 )
 from trlx_tpu_torch.utils.tokenizer import load_tokenizer
+from trlx_tpu_torch.utils.trackers import samples_table
 
 #: below this many bytes the collated dataset stays on the device
 DATASET_DEVICE_BYTES = 512 * 2**20
@@ -65,12 +73,6 @@ def _mark(events) -> None:
     if events is not None:
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
-
-
-def samples_table(samples: List[str], rewards, max_rows: int = 128):
-    """The eval table: sampled text and reward, first ``max_rows`` rows."""
-    rows = [[s, float(r)] for s, r in zip(samples[:max_rows], rewards)]
-    return {"columns": ["sample", "reward"], "rows": rows}
 
 
 @register_trainer("JaxILQLTrainer")
@@ -129,6 +131,7 @@ class JaxILQLTrainer(BaseRLTrainer):
         self.eval_pipeline = None
         self.reward_fn: Optional[Callable] = None
         self.stats_fn: Optional[Callable] = None
+        self.maybe_resume()
 
     def tokenize(self, texts):
         """bos + text + eos per text, truncated to ``train.gen_size``
@@ -145,7 +148,9 @@ class JaxILQLTrainer(BaseRLTrainer):
     def train_step(self, batch: ILQLBatch) -> Dict[str, torch.Tensor]:
         """One update on ``batch`` (tensors on the trainer's device): the
         loss with the V-wide heads chunked over T, backward, optimizer
-        step. Returns the stats with the pre-clip ``grad_norm``."""
+        step (through the commit gate when ``max_bad_steps > 0``). Returns
+        the stats with the pre-clip ``grad_norm`` and, gated,
+        ``bad_step``."""
         m, net = self.config.method, self.net
         events = None if self.step_events is None else []
         _mark(events)
@@ -161,7 +166,7 @@ class JaxILQLTrainer(BaseRLTrainer):
         leaves = _leaves(self.params["trainable"])
         grads = torch.autograd.grad(loss, leaves)
         _mark(events)
-        stats["grad_norm"] = self.opt.step(leaves, grads, self.opt_state)
+        self._apply_update(loss, leaves, grads, stats)
         _mark(events)
         if events is not None:
             self.step_events.append(events)
@@ -282,12 +287,20 @@ class JaxILQLTrainer(BaseRLTrainer):
 
     def learn(self, log_fn: Callable = None, save_fn=None, eval_fn=None):
         """The ILQL loop over ``epochs`` shuffled passes (the epoch is the
-        shuffle seed), stopping at ``total_steps``. Each update runs in an
+        shuffle seed), stopping at ``total_steps``, or at the first step
+        boundary after a SIGTERM (saving first). Each update runs in an
         ``ilql_update`` span that closes after a device sync; logged
-        stats carry ``samples_per_sec`` and the ``time/*`` span
-        totals."""
-        cfg, m = self.config.train, self.config.method
+        stats carry ``samples_per_sec`` and the ``time/*`` span totals.
+        Resumes from ``train.resume_from`` once per process; with
+        ``max_bad_steps > 0`` the StepGuard rolls back or aborts."""
         log_fn = log_fn or print
+        self.maybe_resume()  # no-op when already restored at construction
+        step_guard = self._make_step_guard(log_fn)
+        with self._preemption_guard() as guard:
+            self._learn_epochs(log_fn, guard, step_guard)
+
+    def _learn_epochs(self, log_fn, guard, step_guard) -> None:
+        cfg, m = self.config.train, self.config.method
         full, device_resident = self._collate_store()
         self._tokens_per_sample = int(full.input_ids.shape[1])
         if device_resident:
@@ -312,6 +325,7 @@ class JaxILQLTrainer(BaseRLTrainer):
                     self._sync()
                 self.iter_count += 1
                 clock.tick(len(idx))
+                self._observe_step(step_guard, stats)
                 if self.iter_count % m.steps_for_target_q_sync == 0:
                     self.sync_targets()
                 if self.iter_count % cfg.log_interval == 0:
@@ -320,8 +334,11 @@ class JaxILQLTrainer(BaseRLTrainer):
                                 samples_per_sec=clock.samples_per_second())
                     host.update(self._telemetry_stats())
                     log_fn(host)
-                if self.intervals(self.iter_count)["do_save"]:
+                saved_now = self.intervals(self.iter_count)["do_save"]
+                if saved_now:
                     self.save()
+                if self._preempt(log_fn, guard, just_saved=saved_now):
+                    return
                 if self.iter_count >= cfg.total_steps:
                     return
 
@@ -329,6 +346,13 @@ class JaxILQLTrainer(BaseRLTrainer):
         return {
             "params": self.params,
             "opt_state": self.opt_state,
-            "state": {"iter_count": self.iter_count},
+            "state": {"iter_count": self.iter_count,
+                      "generator": self._generator_state()},
             "config": self.config.to_nested_dict(),
         }
+
+    def set_components(self, components: Dict) -> None:
+        super().set_components(components)
+        state = components["state"]
+        self.iter_count = int(state["iter_count"])
+        self._set_generator_state(state["generator"])

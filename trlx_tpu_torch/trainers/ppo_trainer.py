@@ -8,14 +8,21 @@ trlx_tpu.trainers.ppo_trainer).
 - ``train_step`` runs GAE, advantage whitening, the policy forward, the
   clipped losses and the optimizer update; ``train_multi`` runs
   ``ppo_epochs`` such passes over one minibatch and returns the last
-  pass's stats.
+  pass's stats (``bad_step``: the max over the passes).
 - the optimizer is :func:`trlx_tpu_torch.trainers.build_optimizer`
-  with its default cosine schedule.
+  with its default cosine schedule. With ``train.max_bad_steps > 0``
+  each update is committed only when its loss and grad norm are finite
+  and, with ``train.max_step_kl > 0``, its ``approx_kl`` is within it.
+- ``learn`` resumes from ``train.resume_from``, feeds the StepGuard,
+  saves every ``checkpoint_interval`` and stops cleanly on SIGTERM.
+- the components (``get_components``) are ``params``, ``opt_state``,
+  ``state`` (``iter_count``, ``epoch``, ``kl_coef`` and the sampling
+  generator's state) and ``config``.
 
 Registered as ``JaxPPOTrainer`` and ``AcceleratePPOModel`` so a YAML
 resolves to it as it does to trlx_tpu's trainer. Not ported yet (each
 raises): ``optimizer: adafactor``, pretrained import (set
-``model.model_spec``), checkpoints, and the knobs
+``model.model_spec``), and the knobs
 :func:`trlx_tpu_torch.trainers.check_ported` lists.
 """
 
@@ -51,6 +58,7 @@ from trlx_tpu_torch.trainers import (
 from trlx_tpu_torch.trainers.kl_controllers import make_kl_controller
 from trlx_tpu_torch.utils import DTYPES, Clock
 from trlx_tpu_torch.utils.tokenizer import load_tokenizer
+from trlx_tpu_torch.utils.trackers import generations_table
 
 
 @register_trainer("JaxPPOTrainer")
@@ -104,6 +112,9 @@ class JaxPPOTrainer(BaseRLTrainer):
         self.generator.manual_seed(config.train.seed)
         self.orch = None
         self.reward_fn: Optional[Callable] = None
+        # resume at construction: rollouts made before learn() must come
+        # from the restored policy
+        self.maybe_resume()
 
     def set_orchestrator(self, orch, reward_fn: Callable) -> None:
         self.orch = orch
@@ -162,8 +173,9 @@ class JaxPPOTrainer(BaseRLTrainer):
         """kl_rewards + the task score on each row's last real token."""
         rows = torch.arange(kl_rewards.shape[0], device=kl_rewards.device)
         last = (gen_mask.sum(dim=-1).long() - 1).clamp(min=0)
-        scores = torch.as_tensor(np.asarray(scores, np.float32),
-                                 device=kl_rewards.device)
+        if not torch.is_tensor(scores):
+            scores = torch.as_tensor(np.asarray(scores, np.float32))
+        scores = scores.to(device=kl_rewards.device, dtype=torch.float32)
         return kl_rewards.index_put((rows, last), scores, accumulate=True)
 
     def act(self, batch):
@@ -188,8 +200,9 @@ class JaxPPOTrainer(BaseRLTrainer):
         whitened advantages, the policy forward over query + response
         (attending what generation attended: the rollout's prompt mask,
         response pads included; only the losses exclude pads), the
-        clipped losses, the optimizer step. Returns the stats, with the
-        pre-clip ``grad_norm``."""
+        clipped losses, the optimizer step (through the commit gate when
+        ``max_bad_steps > 0``). Returns the stats, with the pre-clip
+        ``grad_norm`` and, with the gate, ``bad_step``."""
         m = self.config.method
         query, response = batch.query_tensors, batch.response_tensors
         P, G = query.shape[1], response.shape[1]
@@ -214,14 +227,23 @@ class JaxPPOTrainer(BaseRLTrainer):
             mask=resp_mask)
         leaves = _leaves(trainable)
         grads = torch.autograd.grad(loss, leaves)
-        stats["grad_norm"] = self.opt.step(leaves, grads, self.opt_state)
+        self._apply_update(loss, leaves, grads, stats,
+                           kl_limit=getattr(self.config.train, "max_step_kl",
+                                            0.0))
         return {k: v.detach() for k, v in stats.items()}
 
     def train_multi(self, batch: PPORLBatch) -> Dict[str, torch.Tensor]:
         """``ppo_epochs`` passes over one minibatch; the last pass's
-        stats."""
+        stats, with ``bad_step`` the max over the passes (each pass gates
+        itself; the host counts the batch once)."""
+        bad = None
         for _ in range(self.config.method.ppo_epochs):
             stats = self.train_step(batch)
+            if "bad_step" in stats:
+                bad = stats["bad_step"] if bad is None \
+                    else torch.maximum(bad, stats["bad_step"])
+        if bad is not None:
+            stats["bad_step"] = bad
         return stats
 
     # -- loop ------------------------------------------------------------- #
@@ -248,17 +270,36 @@ class JaxPPOTrainer(BaseRLTrainer):
                                                 skip_special_tokens=True)
             with telemetry.span("reward_fn"):
                 scores = np.asarray(self.reward_fn(texts), np.float32)
-        return {"mean_score": float(scores.mean()), "samples": texts[:4]}
+        decode = self.tokenizer.batch_decode
+        return {
+            "mean_score": float(scores.mean()),
+            "samples": texts[:4],
+            "generations_table": generations_table(
+                decode(np.asarray(query), skip_special_tokens=True),
+                decode(out.gen_tokens.cpu().numpy(),
+                       skip_special_tokens=True),
+                scores),
+        }
 
     def learn(self, log_fn: Callable = None, save_fn=None, eval_fn=None):
         """The PPO loop: minibatches over the rollout store (shuffled with
         the epoch as seed), ``ppo_epochs`` passes per batch in a
-        ``ppo_update`` span, logging / eval between batches, fresh
-        experience after each epoch. Stops when EITHER ``total_steps`` or
-        ``epochs`` is reached, as trlx_tpu does. Logged stats carry
-        ``samples_per_sec`` and the ``time/*`` span totals."""
-        cfg, m = self.config.train, self.config.method
+        ``ppo_update`` span, logging / eval / checkpoints between
+        batches, fresh experience after each epoch. Stops when EITHER
+        ``total_steps`` or ``epochs`` is reached, as trlx_tpu does, or at
+        the first boundary after a SIGTERM (saving first). Resumes from
+        ``train.resume_from`` once per process; with ``max_bad_steps >
+        0`` the StepGuard rolls back to the latest checkpoint or aborts
+        (DivergenceError). Logged stats carry ``samples_per_sec`` and the
+        ``time/*`` span totals."""
         log_fn = log_fn or print
+        self.maybe_resume()  # no-op when already restored at construction
+        step_guard = self._make_step_guard(log_fn)
+        with self._preemption_guard() as guard:
+            self._learn_loop(log_fn, guard, step_guard)
+
+    def _learn_loop(self, log_fn, guard, step_guard) -> None:
+        cfg, m = self.config.train, self.config.method
         clock = Clock()
         while self.iter_count < cfg.total_steps and self.epoch < cfg.epochs:
             loader = self.store.create_loader(cfg.batch_size, shuffle=True,
@@ -269,6 +310,9 @@ class JaxPPOTrainer(BaseRLTrainer):
                     self.iter_count += m.ppo_epochs
                     self._sync()
                 clock.tick(len(batch) * m.ppo_epochs)
+                # a rollback restores params, optimizer and iter_count
+                # from the latest checkpoint, and the loop goes on
+                self._observe_step(step_guard, stats)
                 intervals = self.intervals(self.iter_count)
                 if intervals["do_log"]:
                     host_stats = {k: float(v) for k, v in stats.items()}
@@ -285,6 +329,9 @@ class JaxPPOTrainer(BaseRLTrainer):
                         log_fn({"iter": self.iter_count, **ev})
                 if intervals["do_save"]:
                     self.save()
+                if self._preempt(log_fn, guard,
+                                 just_saved=intervals["do_save"]):
+                    return
                 if self.iter_count >= cfg.total_steps:
                     break
             self.epoch += 1
@@ -295,6 +342,8 @@ class JaxPPOTrainer(BaseRLTrainer):
                                                  self.iter_count)
                 log_fn({"iter": self.iter_count, "epoch": self.epoch, **info,
                         **self._telemetry_stats()})
+                if self._preempt(log_fn, guard):
+                    return
 
     def post_rollout_kl_update(self, mean_kl: float, n_samples: int) -> None:
         self.kl_ctl.update(mean_kl, n_samples)
@@ -304,6 +353,16 @@ class JaxPPOTrainer(BaseRLTrainer):
             "params": self.params,
             "opt_state": self.opt_state,
             "state": {"iter_count": self.iter_count, "epoch": self.epoch,
-                      "kl_coef": self.kl_ctl.value},
+                      "kl_coef": self.kl_ctl.value,
+                      "generator": self._generator_state()},
+            # self-describing: the serve CLI rebuilds the policy from it
             "config": self.config.to_nested_dict(),
         }
+
+    def set_components(self, components: Dict) -> None:
+        super().set_components(components)
+        state = components["state"]
+        self.iter_count = int(state["iter_count"])
+        self.epoch = int(state["epoch"])
+        self.kl_ctl.value = float(state["kl_coef"])
+        self._set_generator_state(state["generator"])
