@@ -42,9 +42,18 @@ Phases, each printing its own line; any failure exits non-zero:
    random weights, bf16) behind its HTTP server: concurrent
    ``/generate`` requests with mixed ``max_new_tokens`` and a shared
    system prompt, ``/healthz``, kernel launches == layers x decode
-   steps, radix prefix hits > 0; prints tok/s and latency.
+   steps, radix prefix hits > 0; prints tok/s and latency. Decode and
+   every prefill bucket run as CUDA-graph replays
+   (trlx_tpu_torch.utils.aotjit; 7 graphs captured at warmup, their
+   capture seconds and private-pool bytes printed), with
+   ``compile/recompiles`` 0 in the registry and in ``/healthz``.
 6. parity — the same requests through fp32 engines on the kernel path
    and on the plain path, with the same weights: identical greedy tokens.
+   Then graphs against eager (``aotjit.CUDA_GRAPHS`` off, then on, in
+   this process): the same requests at fp32 and bf16, greedy and sampled
+   (each step re-seeded from serve.seed + step): identical tokens,
+   paged-decode launches identical on both paths and == layers x steps,
+   0 recompiles; the step's p50 / p95 on both paths.
 7. train — the PPO main path at gpt2-124M width with
    examples/ppo_tldr.py's wiring (configs/ppo_tldr.yml's geometry: 12
    layers, 2 unfrozen, synthetic TL;DR documents left-padded to 512
@@ -57,8 +66,9 @@ Phases, each printing its own line; any failure exits non-zero:
    launches equal chunks x (L + k) + passes x L forwards and passes x k
    of each backward kernel, every logged loss, grad norm and KL is
    finite, every logged bad_step is 0, and step_4 and step_8 land with
-   LATEST naming step_8; prints rollout and update time, samples/s and
-   each save's time. Then, on that run directory:
+   LATEST naming step_8; the rollouts replay one captured decode step
+   (one signature, 0 recompiles); prints rollout and update time,
+   samples/s and each save's time. Then, on that run directory:
    - serve from a checkpoint: the serve CLI's ``--checkpoint`` loader
      (newest step; the config from meta.json, made greedy by
      ``--config``) and an engine on the trainer's in-memory params give
@@ -71,7 +81,11 @@ Phases, each printing its own line; any failure exits non-zero:
    - the commit gate: NaN rewards give bad_step 1 with params, moments
      and count bit-identical, the guarded step running under
      ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside it
-     fails the run); the next clean batch commits.
+     fails the run); the next clean batch commits;
+   - graphs against eager: greedy rollout decode at the rollout shape,
+     tokens and logprobs identical on both paths before and after one
+     more update pass (which moved the logprobs: the graph read the new
+     weights); the orchestrator's 64 rollouts timed on both paths.
 8. train parity — one train_step and one 2-pass train_multi at fp32 on
    the kernel path, each pass against the dense path's pass at the same
    parameters and on one rollout batch: loss and grad norm at rtol 1e-5,
@@ -89,7 +103,10 @@ Phases, each printing its own line; any failure exits non-zero:
    loss finite; prints the update times, training tokens/s, the eval
    time, the peak device memory and the split of steps 2-4 (trunk
    forward, heads and loss, backward, optimizer) from the CUDA events
-   the trainer's ``step_events`` records. Then the trainer is saved,
+   the trainer's ``step_events`` records. Then its eval sampler (the
+   advantage-shifted step, captured at the step-0 eval) on both paths
+   from one generator state: identical sampled tokens and generator
+   state, timed. Then the trainer is saved,
    restored into a fresh trainer from seed 1 (every tensor
    bit-identical, the zero-size frozen leaves included) and both take
    one more update on the same batch, bit-identical again; save and
@@ -129,6 +146,7 @@ from trlx_tpu_torch import ops, telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.examples import ilql_sentiments, ppo_tldr
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
+from trlx_tpu_torch.models.generation import RolloutDecoder, generate
 from trlx_tpu_torch.models.params import (
     decode_views_from_numpy,
     hydra_to_numpy,
@@ -147,6 +165,7 @@ from trlx_tpu_torch.models.transformer import (
 from trlx_tpu_torch.ops import _build
 from trlx_tpu_torch.ops import flash_attention as fa
 from trlx_tpu_torch.ops import paged_attention as pa
+from trlx_tpu_torch.models.policy import all_blocks, head_params_for_decode
 from trlx_tpu_torch.ops.paged_attention import (
     decode_partitions,
     paged_decode_attention,
@@ -161,7 +180,9 @@ from trlx_tpu_torch.serve import (
 )
 from trlx_tpu_torch.serve import __main__ as serve_cli
 from trlx_tpu_torch.trainers import build_optimizer
+from trlx_tpu_torch.ops.sampling import SamplingParams
 from trlx_tpu_torch.trainers.ilql_trainer import STEP_PARTS
+from trlx_tpu_torch.utils import aotjit
 from trlx_tpu_torch.utils.loading import (
     get_model,
     get_orchestrator,
@@ -207,7 +228,7 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def config_dict(compute_dtype="bfloat16"):
+def config_dict(compute_dtype="bfloat16", sample=False):
     return {
         "model": {
             "model_path": "from-config", "tokenizer_path": "byte",
@@ -227,7 +248,7 @@ def config_dict(compute_dtype="bfloat16"):
             "name": "ppoconfig", "num_rollouts": 8, "chunk_size": 8,
             "ppo_epochs": 1,
             "gen_kwargs": {"max_length": 48, "top_k": 0, "top_p": 1.0,
-                           "do_sample": False},
+                           "do_sample": sample},
         },
     }
 
@@ -930,12 +951,26 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10, lengths=None):
 # --------------------------------------------------------------------- #
 
 
-def build_engine(views, device, compute_dtype, attention):
+def build_engine(views, device, compute_dtype, attention, sample=False):
     serve = ServeConfig(buckets=[list(b) for b in SERVE_BUCKETS],
                         slots=16, page_size=16, attention=attention,
                         max_queue=256, request_timeout=600.0)
-    return InferenceEngine(TRLConfig.from_dict(config_dict(compute_dtype)),
-                           serve=serve, views=views, device=device)
+    return InferenceEngine(
+        TRLConfig.from_dict(config_dict(compute_dtype, sample)),
+        serve=serve, views=views, device=device)
+
+
+def graph_stats(graphs):
+    """Count, capture seconds and private-pool bytes of captured graphs
+    (trlx_tpu_torch.utils.aotjit: memory reserved before and after each
+    capture)."""
+    return {"graphs": len(graphs),
+            "capture_s": sum(g.seconds for g in graphs),
+            "pool_bytes": sum(g.pool_bytes for g in graphs)}
+
+
+def recompiles():
+    return telemetry.current().registry.counters["compile/recompiles"]
 
 
 def post(url, payload, timeout=600):
@@ -1000,6 +1035,8 @@ def serve_phase(views, device, requests=USER_PROMPTS):
             f"decode steps")
         assert launches > 0
     assert hits > 0, "no radix prefix hit"
+    assert recompiles() == 0, f"serve recompiled {recompiles()} times"
+    assert health["recompiles"] == 0, health
     generated = sum(len(t) for _, t in results)
     lat = sorted(b["latency_ms"] for b in bodies)
     return {
@@ -1013,6 +1050,7 @@ def serve_phase(views, device, requests=USER_PROMPTS):
         "step_count": len(step.window),
         "prefill_s": sum(h.total - h.first for h in prefills),
         "prefill_calls": sum(len(h.window) for h in prefills),
+        "graphs": graph_stats(server.scheduler.runtime.graphs()),
     }
 
 
@@ -1063,6 +1101,66 @@ def parity_phase(views, device, requests=USER_PROMPTS):
             log("parity", f"request {i} diverges at token {j}: "
                           f"{a[j]} vs {b[j]}, top-2 logit gap {gap:.3e}")
     assert out["pallas"] == out["jnp"], "kernel path != plain path (fp32)"
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 6b. CUDA graphs against the eager path: serving
+# --------------------------------------------------------------------- #
+
+
+def with_graphs(on, fn, *args):
+    """``fn(*args)`` with trlx_tpu_torch.utils.aotjit's switch set to
+    ``on`` (off: the eager path on the card), restored after."""
+    aotjit.CUDA_GRAPHS = on
+    try:
+        return fn(*args)
+    finally:
+        aotjit.CUDA_GRAPHS = True
+
+
+def serve_ab_phase(views, device, requests=USER_PROMPTS):
+    """The slot scheduler with graphs off (eager) and on, in one process,
+    at fp32 and bf16, greedy and sampled (every step re-seeded from
+    serve.seed + step, so both paths draw from the same streams): the
+    same tokens, paged-decode launches equal on both paths and to layers
+    x steps, ``compile/recompiles`` 0. The graphs are captured on this
+    thread (warmup) and replayed on the scheduler's worker thread."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for sample in (False, True):
+            runs = {}
+            for graphs in (False, True):
+                telemetry.start()
+                engine = build_engine(views, device, dtype, "pallas",
+                                      sample=sample)
+                ops.reset_launches()
+                tokens, sched = with_graphs(graphs, run_scheduler, engine,
+                                            requests)
+                step = telemetry.current().registry.hists[
+                    "time/serve/slot_step"]
+                runs[graphs] = {
+                    "tokens": tokens, "steps": sched.runtime.steps,
+                    "launches": ops.LAUNCHES["paged_decode"],
+                    "recompiles": recompiles(),
+                    "step_p50_ms": step.quantile(0.5) * 1e3,
+                    "step_p95_ms": step.quantile(0.95) * 1e3,
+                    "graphs": graph_stats(sched.runtime.graphs()),
+                }
+            eager, graph = runs[False], runs[True]
+            what = f"serve {dtype} {'sampled' if sample else 'greedy'}"
+            assert eager["tokens"] == graph["tokens"], \
+                f"{what}: graph tokens != eager tokens"
+            assert eager["launches"] == graph["launches"], (what, runs)
+            if device == "cuda":
+                assert graph["launches"] == \
+                    engine.spec.n_layer * graph["steps"] > 0, (what, graph)
+            assert eager["recompiles"] == graph["recompiles"] == 0, runs
+            assert graph["graphs"]["graphs"] == (
+                7 if device == "cuda" else 0), graph["graphs"]
+            for r in runs.values():
+                del r["tokens"]
+            out[f"{dtype}_{'sampled' if sample else 'greedy'}"] = runs
     return out
 
 
@@ -1143,13 +1241,17 @@ def train_phase(tree, device, run_dir):
         assert entry["bad_step"] == 0.0, entry
     steps = sorted(e for e in os.listdir(run_dir) if e.startswith("step_"))
     assert steps == ["step_4", "step_8"], steps
+    # the rollouts replay one captured decode step: one signature, no
+    # recompile
+    assert recompiles() == 0, f"PPO recompiled {recompiles()} times"
+    assert trainer.decoder.step.signatures() == 1
     with open(os.path.join(run_dir, "LATEST")) as f:
         assert f.read() == "step_8"
     hists = telemetry.current().registry.hists
     batch = trainer.store._stacked().map(lambda x: x[:cfg.train.batch_size])
     save = hists["time/checkpoint_save"]
     return {
-        "trainer": trainer, "launches": launches,
+        "trainer": trainer, "orch": orch, "launches": launches,
         "all_launches": all_launches, "want": want, "chunks": chunks,
         "passes": passes, "wall_s": wall, "info": info, "logs": train_logs,
         "rollout_s": hists["time/rollout"].total,
@@ -1158,6 +1260,7 @@ def train_phase(tree, device, run_dir):
         "batch": batch, "checkpoints": steps,
         "save_ms": [save.first * 1e3] + [t * 1e3 for t in save.window],
         "checkpoint_bytes": dir_bytes(os.path.join(run_dir, "step_8")),
+        "graphs": graph_stats(trainer.decoder.step.graphs()),
     }
 
 
@@ -1293,6 +1396,7 @@ def serve_checkpoint_phase(trainer, device, run_dir, requests):
     assert out["checkpoint"] == out["in-memory"], out
     if device == "cuda":
         assert launches == engine.spec.n_layer * steps > 0, (launches, steps)
+    assert recompiles() == 0, f"serve recompiled {recompiles()} times"
     return {"load_s": load_s, "launches": launches, "steps": steps,
             "layers": engine.spec.n_layer, "tokens": out["checkpoint"]}
 
@@ -1653,6 +1757,91 @@ def ilql_parity_phase(tree, device, B=8, hi=200, steps=3):
 
 
 # --------------------------------------------------------------------- #
+# 10b. CUDA graphs against the eager path: the rollout decoder
+# --------------------------------------------------------------------- #
+
+
+def ppo_ab_phase(trainer, orch, batch, device):
+    """PPO's rollout decoder with graphs off and on, at the rollout
+    shape (B 32, P 512, G 64): greedy tokens and logprobs identical,
+    before and after one update pass, and the pass moved the logprobs
+    (the graph read the updated weights); then the orchestrator's
+    rollouts timed on both paths, each path warmed by one chunk first.
+    The trainer's own decoder keeps one signature."""
+    greedy = trainer.gen_config._replace(
+        sampling=SamplingParams(do_sample=False))
+    decoder = RolloutDecoder()
+
+    def rollout():
+        embed, ln_f = head_params_for_decode(trainer.params)
+        out = generate(trainer.policy.spec, all_blocks(trainer.params),
+                       embed, ln_f, batch.query_tensors, batch.query_masks,
+                       trainer.generator, greedy,
+                       compute_dtype=trainer.policy.compute_dtype,
+                       decoder=decoder)
+        sync(device)
+        return out
+
+    def experience():
+        orch.make_experience(orch.chunk_size)  # warm
+        sync(device)
+        t0 = time.perf_counter()
+        orch.make_experience(trainer.config.method.num_rollouts)
+        sync(device)
+        return time.perf_counter() - t0
+
+    runs = {}
+    for label in ("before", "after"):
+        if label == "after":
+            stats = trainer.train_step(batch)
+            assert float(stats["bad_step"]) == 0.0, stats
+        for graphs in (False, True):
+            t0 = time.perf_counter()
+            out = with_graphs(graphs, rollout)
+            runs[label, graphs] = (out, time.perf_counter() - t0)
+        (eager, _), (graph, _) = runs[label, False], runs[label, True]
+        assert torch.equal(eager.gen_tokens, graph.gen_tokens), label
+        assert torch.equal(eager.gen_logprobs, graph.gen_logprobs), label
+    moved = float((runs["after", True][0].gen_logprobs
+                   - runs["before", True][0].gen_logprobs).abs().max())
+    assert moved > 0, "the update moved no logprob: nothing was checked"
+    rollout_s = {graphs: with_graphs(graphs, experience)
+                 for graphs in (False, True)}
+    assert trainer.decoder.step.signatures() == 1
+    return {"moved_logprob": moved,
+            "greedy_decode_s": {g: runs["after", g][1] for g in (False, True)},
+            "rollout_s": rollout_s,
+            "rollouts": trainer.config.method.num_rollouts,
+            "graphs": graph_stats(decoder.step.graphs())}
+
+
+def ilql_ab_phase(trainer, device):
+    """ILQL's eval sampler (the advantage-shifted ``extras_fn`` inside
+    the decode step) with graphs off and on from the same generator
+    state: identical sampled tokens and the same generator state after;
+    timed on both paths. The graph was captured by the phase's eval at
+    step 0 and replays here, after the updates, reading the trained
+    weights."""
+    prompts = trainer.eval_pipeline.texts[:trainer.EVAL_CAP]
+    state = trainer.generator.get_state()
+    runs = {}
+    for graphs in (False, True):
+        trainer.generator.set_state(state)
+        sync(device)
+        t0 = time.perf_counter()
+        samples = with_graphs(graphs, trainer.sample, prompts)
+        sync(device)
+        runs[graphs] = (samples, time.perf_counter() - t0,
+                        trainer.generator.get_state())
+    assert np.array_equal(runs[False][0], runs[True][0]), \
+        "ILQL eval: graph tokens != eager tokens"
+    assert torch.equal(runs[False][2], runs[True][2])
+    return {"prompts": len(prompts),
+            "sample_s": {g: runs[g][1] for g in (False, True)},
+            "graphs": graph_stats(trainer.decoder.step.graphs())}
+
+
+# --------------------------------------------------------------------- #
 # 7-10 and the durability checks, in one place so their checkpoints are
 # removed however the run ends
 # --------------------------------------------------------------------- #
@@ -1710,6 +1899,18 @@ def durability_phases(card, device="cuda"):
                 f"(set_sync_debug_mode error: {gate['sync_checked']}); the "
                 f"next clean batch committed ({gate['moved_leaves']} "
                 f"tensors moved); flash launches {gate['launches']}")
+    ppo_ab = ppo_ab_phase(trainer, train.pop("orch"), batch, device)
+    log("graphs-ppo", f"greedy rollout decode (B32 P512 G64) graph == "
+                      f"eager, tokens and logprobs, before and after one "
+                      f"update pass (logprobs moved by up to "
+                      f"{ppo_ab['moved_logprob']:.3e}); greedy decode "
+                      f"{ppo_ab['greedy_decode_s'][False]:.3f}s eager, "
+                      f"{ppo_ab['greedy_decode_s'][True]:.3f}s graph; "
+                      f"{ppo_ab['rollouts']} rollouts (generate + score + "
+                      f"reward model) {ppo_ab['rollout_s'][False]:.3f}s "
+                      f"eager, {ppo_ab['rollout_s'][True]:.3f}s graph; the "
+                      f"training run's rollouts: {train['graphs']} "
+                      f"captured, 0 recompiles ({card})")
     del trainer
     torch.cuda.empty_cache() if device == "cuda" else None
     train_parity = train_parity_phase(tree, batch, device)
@@ -1737,6 +1938,13 @@ def durability_phases(card, device="cuda"):
                 f"grad_norm {last['grad_norm']:.4f}; eval reward "
                 f"{ilql['eval_reward']:.3f} ({card}; for information, not "
                 f"a metric)")
+    ilql_ab = ilql_ab_phase(ilql["trainer"], device)
+    log("graphs-ilql", f"eval sampling ({ilql_ab['prompts']} prompts x 32 "
+                       f"tokens, advantage-shifted) graph == eager from "
+                       f"one generator state: "
+                       f"{ilql_ab['sample_s'][False]:.3f}s eager, "
+                       f"{ilql_ab['sample_s'][True]:.3f}s graph; "
+                       f"{ilql_ab['graphs']} ({card})")
     ilql_ckpt = ilql_checkpoint_phase(ilql.pop("trainer"), device,
                                       os.path.join(CKPT_ROOT, "ilql"))
     log("ilql-checkpoint", f"saved after {ilql['steps']} updates, restored "
@@ -1769,6 +1977,7 @@ def durability_phases(card, device="cuda"):
                       f"{ilql_ckpt['save_s'] * 1e3:.1f} ms, restore "
                       f"{ilql_ckpt['restore_s'] * 1e3:.1f} ms ({card})")
     return {"train": train, "ilql": ilql, "train_parity": train_parity,
+            "ppo_ab": ppo_ab, "ilql_ab": ilql_ab,
             "ilql_parity": ilql_parity, "ilql_errs": ilql_errs,
             "flash_ilql": flash_ilql, "serve_checkpoint": serve_ckpt,
             "durability": durability}
@@ -1835,6 +2044,21 @@ def main() -> int:
     parity = parity_phase(views, "cuda")
     log("parity", f"fp32 greedy tokens identical on {len(parity['jnp'])} "
                   f"requests (kernel path vs plain path)")
+    log("graphs-serve", f"the serve phase replayed {run['graphs']} "
+                        f"(capture seconds, private-pool bytes), 0 "
+                        f"recompiles")
+    serve_ab = serve_ab_phase(views, "cuda")
+    for name, runs in serve_ab.items():
+        e, g = runs[False], runs[True]
+        log("graphs-serve", f"{name}: tokens identical graph vs eager, "
+                            f"paged decode launches {g['launches']} == "
+                            f"{e['launches']} = layers x {g['steps']} "
+                            f"steps, 0 recompiles; step p50 "
+                            f"{e['step_p50_ms']:.2f} ms eager, "
+                            f"{g['step_p50_ms']:.2f} ms graph, p95 "
+                            f"{e['step_p95_ms']:.2f} / "
+                            f"{g['step_p95_ms']:.2f} ms; {g['graphs']} "
+                            f"({card})")
     del views
 
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
@@ -1864,6 +2088,9 @@ def main() -> int:
                                       "max_memory_gb", "launches", "T",
                                       "split_ms")},
         "ilql_parity": ilql_parity, "flash_ilql_shape": flash_ilql,
+        "graphs": {"serve": run["graphs"], "serve_ab": serve_ab,
+                   "ppo": train["graphs"], "ppo_ab": durable["ppo_ab"],
+                   "ilql_ab": durable["ilql_ab"]},
     }}))
     kernels = [{
         "name": "paged_decode",

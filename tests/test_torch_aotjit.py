@@ -1,0 +1,194 @@
+"""The port's CUDA-graph cache (trlx_tpu_torch.utils.aotjit) against
+trlx_tpu's AOT executable cache: one call sequence (same shapes, a new
+shape, a dtype drift, a plain-leaf change, a tree-structure change, and
+back to a known signature) counts ``compile/recompiles`` identically
+and gives the same outputs. On the CPU the port's wrapper runs the
+function directly and keeps no tensor. The ``cuda`` cases capture a
+tiny graph on the card (each decides inside itself whether a card is
+there): replay, launch accounting through the paged-decode kernel, a
+generator re-seeded before each replay, and weights swapped in place or
+rebound.
+
+The JAX side is imported inside its test, so the card cases run
+without JAX::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_aotjit.py"""
+
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu_torch import ops, telemetry
+from trlx_tpu_torch.utils import aotjit
+from trlx_tpu_torch.utils.aotjit import aot_jit, tree_flatten
+
+
+def _fn(tree, scale):
+    return tree["x"] * scale + tree["y"][0]
+
+
+def _calls():
+    """(tree of float32 numpy arrays, plain scale, in bf16?, expected
+    recompile count)."""
+    rng = np.random.default_rng(0)
+
+    def tree(rows=4, extra=False):
+        t = {"x": rng.standard_normal((rows, 3)).astype(np.float32),
+             "y": (rng.standard_normal((rows, 3)).astype(np.float32),)}
+        if extra:
+            t["z"] = rng.standard_normal(2).astype(np.float32)
+        return t
+
+    return [
+        (tree(), 2.0, False, 0),  # first signature: a compile, not a miss
+        (tree(), 2.0, False, 0),  # same shapes, new values: a hit
+        (tree(rows=8), 2.0, False, 1),  # a new shape
+        (tree(), 2.0, True, 2),  # a dtype drift
+        (tree(), 3.0, False, 3),  # a plain leaf's value
+        (tree(extra=True), 2.0, False, 4),  # the tree's structure
+        (tree(), 2.0, False, 4),  # back to a known signature: a hit
+    ]
+
+
+def _convert(tree, to):
+    if isinstance(tree, dict):
+        return {k: _convert(v, to) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_convert(v, to) for v in tree)
+    return to(tree)
+
+
+def test_recompile_counts_and_outputs_match_trlx_tpu():
+    import jax.numpy as jnp
+
+    from trlx_tpu import telemetry as jax_telemetry
+    from trlx_tpu.utils.aotjit import aot_jit as jax_aot_jit
+
+    jax_session = jax_telemetry.start()
+    session = telemetry.start()
+    theirs, mine = jax_aot_jit(_fn), aot_jit(_fn)
+    for i, (tree, scale, bf16, want) in enumerate(_calls()):
+        jtree = _convert(tree, lambda x: jnp.asarray(
+            x, jnp.bfloat16 if bf16 else jnp.float32))
+        ttree = _convert(tree, lambda x: torch.from_numpy(x).to(
+            torch.bfloat16 if bf16 else torch.float32))
+        ref = np.asarray(theirs(jtree, scale), np.float32)
+        out = mine(ttree, scale).float().numpy()
+        # bf16: both round x * scale and the sum once, in their own order
+        np.testing.assert_allclose(out, ref, rtol=1e-2 if bf16 else 1e-6,
+                                   atol=1e-2 if bf16 else 0)
+        counts = (jax_session.registry.counters.get("compile/recompiles", 0),
+                  session.registry.counters["compile/recompiles"])
+        assert counts == (want, want), (i, counts)
+    assert mine.signatures() == 5
+    assert mine.graphs() == []  # CPU arguments: keyed, never captured
+
+
+def test_cpu_calls_run_directly_and_predeclare_the_counter():
+    session = telemetry.start()
+    assert session.registry.counters["compile/recompiles"] == 0.0
+    seen = []
+
+    def fn(x, n):
+        seen.append(x)
+        return x + n
+
+    wrapped = aot_jit(fn)
+    x = torch.ones(3)
+    assert torch.equal(wrapped(x, 1), torch.full((3,), 2.0))
+    assert torch.equal(wrapped(x, 1), torch.full((3,), 2.0))
+    assert len(seen) == 2 and all(t is x for t in seen)  # fn ran each time
+    leaves, structure = tree_flatten(({"b": x, "a": None}, [1, (x,)]))
+    assert leaves == [x, 1, x]  # dict keys sorted; None is an empty node
+    assert structure == tree_flatten(({"a": None, "b": x}, [1, (x,)]))[1]
+
+
+# --------------------------------------------------------------------- #
+# on the card
+# --------------------------------------------------------------------- #
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replays_with_launches_and_weight_swaps():
+    """A layer of paged decode behind a matmul: the first call runs
+    eagerly (one launch counted) and captures (one launch recorded, not
+    counted), each replay adds the record; in-place weight updates are
+    read, a rebound weight is copied in."""
+    from trlx_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    dev = _card()
+    g = torch.Generator(device=dev)
+    S, H, hd, page, pages = 2, 2, 16, 4, 3
+    k = torch.randn(S * pages, page, H, hd, device=dev, generator=g)
+    v = torch.randn(S * pages, page, H, hd, device=dev, generator=g)
+    pt = torch.arange(S * pages, device=dev, dtype=torch.int32).view(S, pages)
+    bias = torch.zeros(S, pages * page, device=dev)
+    w = torch.randn(hd, hd, device=dev, generator=g)
+    q = torch.randn(S, H, hd, device=dev, generator=g)
+
+    def fn(w, q, k, v, pt, bias):
+        return paged_decode_attention((q @ w).contiguous(), k, v, pt, bias)
+
+    def eager(w):
+        return paged_decode_attention((q @ w).contiguous(), k, v, pt, bias)
+
+    wrapped = aot_jit(fn)
+    ops.reset_launches()
+    first = wrapped(w, q, k, v, pt, bias)
+    assert ops.LAUNCHES["paged_decode"] == 1
+    (entry,) = wrapped.graphs()
+    assert entry.launches == {"paged_decode": 1}
+    out = wrapped(w, q, k, v, pt, bias)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_decode"] == 2  # the eager call + 1 replay
+    torch.testing.assert_close(out, first, rtol=0, atol=0)
+    w.mul_(-1.0)  # updated in place: the replay reads it
+    out = wrapped(w, q, k, v, pt, bias).clone()
+    torch.testing.assert_close(out, eager(w), rtol=1e-5, atol=1e-5)
+    rebound = torch.randn(hd, hd, device=dev, generator=g)
+    out = wrapped(rebound, q, k, v, pt, bias).clone()
+    torch.testing.assert_close(out, eager(rebound), rtol=1e-5, atol=1e-5)
+    assert torch.equal(w, rebound)  # copied into the captured input
+    assert len(wrapped.graphs()) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_graph_draws_follow_the_generator():
+    """A draw inside the graph reads the generator at replay time: after
+    ``manual_seed(s)`` a replay draws what an eager call draws after the
+    same seed, two replays without a re-seed draw afresh, and the
+    generator ends in the eager path's state."""
+    dev = _card()
+    g = torch.Generator(device=dev)
+    logits = torch.randn(4, 300, device=dev)
+
+    def fn(gen, logits):
+        race = torch.empty_like(logits).exponential_(generator=gen)
+        return torch.argmax(torch.softmax(logits, -1) / race, dim=-1)
+
+    wrapped = aot_jit(fn)
+    draws = {}
+    for graphs in (False, True):
+        aotjit.CUDA_GRAPHS = graphs
+        try:
+            runs = []
+            for seed in (5, 6, 5):
+                g.manual_seed(seed)
+                runs.append([wrapped(g, logits).clone() for _ in range(3)])
+            draws[graphs] = (runs, g.get_state())
+        finally:
+            aotjit.CUDA_GRAPHS = True
+    (eager, eager_state), (graph, graph_state) = draws[False], draws[True]
+    for a, b in zip(eager, graph):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert torch.equal(eager_state, graph_state)
+    assert not all(torch.equal(graph[0][0], x) for x in graph[0][1:])
+    assert all(torch.equal(x, y) for x, y in zip(graph[0], graph[2]))
+    assert len(wrapped.graphs()) == 1

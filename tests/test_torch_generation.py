@@ -147,3 +147,48 @@ def test_prefill_both_variants_and_decode_match_jax(page_size):
         np.testing.assert_array_equal(tem.numpy(), np.asarray(jem))
         np.testing.assert_array_equal(tfin.numpy(), np.asarray(jfin))
         _check(tstate, jstate, tpool, jpool, num_pages)
+
+
+@pytest.mark.parametrize("suffix", [False, True])
+def test_prefill_filler_rows_drop_like_jax(suffix):
+    """A bucket whose filler rows carry out-of-range slot ids (S and
+    S + 5, sentinel page tables) between real rows: the static-shape
+    prefill drops them as JAX's ``mode="drop"`` scatter does, pool and
+    every lane equal to trlx_tpu's, in both prefill variants."""
+    spec, jspec = ModelSpec(**SPEC), JaxSpec(**SPEC)
+    tree = init_hydra_numpy(spec, num_layers_unfrozen=1, seed=12)
+    views = decode_views_from_numpy(tree, spec, 1)
+    jblocks, jembed, jln = _jax_views(tree)
+    page_size, P = 4, 8
+    max_pages = 4
+    T, num_pages = max_pages * page_size, S * max_pages
+    jpool = jg.init_page_pool(jspec, [1, 1], num_pages, page_size)
+    jstate = jg.init_slot_state(S, T, 257, max_pages=max_pages)
+    tpool = tg.init_page_pool(spec, [1, 1], num_pages, page_size)
+    tstate = tg.init_slot_state(S, T, 257, max_pages)
+    tokens, mask = _right_pad([[5, 6, 7], [9], [1, 2, 3, 4, 5], [8, 8]], P)
+    slot_ids = np.asarray([S, 2, S + 5, 0], np.int32)
+    tables = np.full((4, max_pages), num_pages, np.int32)
+    tables[1] = np.arange(max_pages)
+    tables[3] = np.arange(max_pages, 2 * max_pages)
+    start = np.zeros(4, np.int32)
+    if suffix:  # each real row's suffix after one committed page
+        start[[1, 3]] = page_size
+    max_new = np.asarray([3, 4, 5, 6], np.int32)
+    jpool, jstate = jax.jit(
+        lambda pool, st, *host: jg.prefill_into_slots(
+            jspec, jblocks, jembed, jln, pool, st, *host[:4],
+            compute_dtype=jnp.float32, page_tables=host[4],
+            page_size=page_size, start=host[5], prefix_context=suffix,
+        )
+    )(jpool, jstate, tokens, mask, slot_ids, max_new, tables, start)
+    lanes = list(tstate)
+    tpool, tstate = tg.prefill_into_slots(
+        spec, views.blocks, views.embed, views.ln_f, tpool, tstate,
+        tokens, mask, slot_ids, max_new, compute_dtype=torch.float32,
+        page_tables=tables, page_size=page_size, start=start,
+        prefix_context=suffix,
+    )
+    assert all(a is b for a, b in zip(lanes, tstate))  # updated in place
+    _check(tstate, jstate, tpool, jpool, num_pages)
+    assert tstate.active.tolist() == [True, False, True]

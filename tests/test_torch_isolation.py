@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "pipeline.offline_pipeline", "examples.ilql_randomwalks",
                  "examples.ilql_sentiments", "examples.randomwalks_data",
                  "utils.checkpoint", "utils.preemption", "utils.faults",
-                 "utils.trackers", "models.reward", "examples.ppo_tldr"):
+                 "utils.trackers", "models.reward", "examples.ppo_tldr",
+                 "utils.aotjit"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

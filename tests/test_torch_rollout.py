@@ -47,7 +47,8 @@ def _views(tree, to):
     return conv(blocks), conv(embed), conv(tree["trainable"]["ln_f"])
 
 
-def _run_both(gen_kwargs, eos, early_exit=True, monkeypatch=None):
+def _run_both(gen_kwargs, eos, early_exit=True, monkeypatch=None,
+              decoder=None):
     tree, tokens, mask = _inputs()
     jcfg = jg.GenerationConfig.from_gen_kwargs(G, gen_kwargs, eos, 256, P)
     tcfg = tg.GenerationConfig.from_gen_kwargs(G, gen_kwargs, eos, 256, P)
@@ -66,7 +67,7 @@ def _run_both(gen_kwargs, eos, early_exit=True, monkeypatch=None):
                        *_views(tree, lambda x: torch.from_numpy(x.copy())),
                        torch.from_numpy(tokens), torch.from_numpy(mask),
                        None, tcfg, compute_dtype=torch.float32,
-                       cache_dtype=torch.float32)
+                       cache_dtype=torch.float32, decoder=decoder)
     return jout, tout
 
 
@@ -106,6 +107,43 @@ def test_greedy_eos_and_min_new_tokens_match_jax(early_exit, monkeypatch):
     assert gm[:, :3].all() and not gm.all()  # eos ended some rows
     ended = tout.gen_tokens.numpy()[gm == 0]
     assert (ended == 256).all()  # pads after eos
+
+
+@pytest.mark.parametrize("every", [1, 3])
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_chunked_decode_matches_jax(early_exit, every, monkeypatch):
+    """The decode loop checks for the all-finished exit once every
+    ``every`` steps (K = 1 leaves where JAX's loop leaves, K = 3 runs up
+    to 2 steps of pads past it): tokens, sequences, ``gen_mask`` and
+    logprobs equal trlx_tpu's either way, with eos ending rows early and
+    ``min_new_tokens`` holding it back for the first 2 steps."""
+    monkeypatch.setattr(tg, "_EXIT_CHECK_EVERY", every)
+    kwargs = dict(GREEDY, min_length=P + 2)
+    _, tfree = _run_both(GREEDY, eos=-1)
+    for eos in sorted(set(tfree.gen_tokens.numpy().ravel().tolist())):
+        jout, tout = _run_both(kwargs, eos, early_exit, monkeypatch)
+        if not tout.gen_mask.numpy().all():
+            break
+    _assert_same(jout, tout)
+    gm = tout.gen_mask.numpy()
+    assert gm[:, :3].all() and not gm.all()
+
+
+def test_decoder_reuses_its_buffers_and_hands_out_copies():
+    """One decoder across calls (what a trainer holds): each shape gets
+    one set of buffers and one step signature; a later call does not
+    change what an earlier call returned."""
+    decoder = tg.RolloutDecoder()
+    jout, first = _run_both(GREEDY, eos=256, decoder=decoder)
+    kept = [t.clone() for t in first]
+    _, second = _run_both(dict(GREEDY, min_length=0), eos=256,
+                          decoder=decoder)
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
+    _assert_same(jout, first)
+    assert len(decoder._buffers) == 1
+    # the two configs are two plain-leaf values: two signatures
+    assert decoder.step.signatures() == 2
 
 
 def test_sampled_decode_keeps_the_output_contract():

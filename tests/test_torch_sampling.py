@@ -59,3 +59,19 @@ def test_greedy_is_argmax_and_sampled_draws_stay_in_support():
     assert torch.equal(draws[0], draws[1])  # same seed, same stream
     rows = torch.arange(logits.shape[0])
     assert all(support[rows, d].all() for d in draws[0])
+
+
+def test_exponential_race_draws_what_multinomial_draws():
+    """The sampler's draw, ``argmax(probs / E)`` with ``E ~ Exp(1)``, is
+    ``torch.multinomial``'s one-sample computation: the same tokens from
+    the same generator state, and the generator ends in the same state."""
+    logits = torch.from_numpy(_logits(seed=2))
+    params = SamplingParams(temperature=0.8, top_k=7)
+    probs = torch.softmax(warp_logits(logits, params), dim=-1)
+    ours, theirs = torch.Generator().manual_seed(3), \
+        torch.Generator().manual_seed(3)
+    for _ in range(20):
+        mine = sample_token(ours, logits, params)
+        ref = torch.multinomial(probs, 1, generator=theirs)[:, 0]
+        assert torch.equal(mine, ref)
+    assert torch.equal(ours.get_state(), theirs.get_state())

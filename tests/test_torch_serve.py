@@ -95,6 +95,51 @@ def test_slot_engine_greedy_tokens_identical_to_trlx_tpu(page_size):
         assert s.runtime.steps > 0
 
 
+def test_soak_mixed_lengths_no_recompiles_no_leaks():
+    """Many mixed-length requests through the port's slot scheduler (as
+    tests/test_slots.py's soak drives trlx_tpu's): after warmup no
+    signature is new (``compile/recompiles`` stays 0, in /healthz's
+    terms too), every slot and page returns (no refcount left, every
+    page free or cached), and each response holds exactly its own
+    ``max_new_tokens`` unless eos ended it."""
+    engine = _port_engine(None, attention="pallas", page_size=4,
+                          buckets=[[2, 8, 8], [4, 8, 8], [4, 16, 8]])
+    s = SlotScheduler(engine, max_queue=256)
+    s.warmup()
+    s.start()
+    rng = np.random.default_rng(0)
+    shared = [int(t) for t in rng.integers(0, 250, 8)]
+    try:
+        reqs = []
+        for i in range(80):
+            plen = int(rng.integers(1, 16))
+            tokens = [int(t) for t in rng.integers(0, 250, plen)]
+            if i % 3 == 0:  # a committed prefix page to hit
+                tokens = (shared + tokens)[:15]
+            mn = int(rng.integers(1, 9))
+            reqs.append(s.submit(tokens, max_new_tokens=mn))
+        for r in reqs:
+            r.wait(timeout=120.0)
+    finally:
+        s.stop()
+    eos = engine.tokenizer.eos_token_id
+    for r in reqs:
+        ended = bool(r.result) and r.result[-1] == eos
+        assert len(r.result) == r.max_new_tokens or (
+            ended and len(r.result) < r.max_new_tokens), (r.max_new_tokens,
+                                                          r.result)
+    counters = telemetry.current().registry.counters
+    assert counters["compile/recompiles"] == 0.0
+    assert counters["serve/admissions"] == counters["serve/evictions"] \
+        == counters["serve/responses"] == 80.0
+    assert counters.get("serve/request_errors", 0.0) == 0.0
+    assert counters["serve/prefix_tokens_saved"] > 0
+    assert s.free_slots() == s.runtime.num_slots
+    cache, pages = s.cache, s.runtime.num_pages
+    assert all(cache.allocator.refcount(p) == 0 for p in range(pages))
+    assert cache.free_pages() + cache.cached_pages() == pages
+
+
 @pytest.mark.parametrize("page_size", [3, 64])
 def test_engine_lattice_and_page_geometry_match_trlx_tpu(page_size):
     buckets = [[4, 8, 8], [2, 8, 8], [2, 16, 4]]
@@ -166,10 +211,12 @@ def test_http_generate_healthz_metrics():
             health = json.loads(resp.read())
         assert health["status"] == "ok" and health["device"] == "cpu"
         assert health["kv"]["kv_layout"] == "paged"
+        assert health["recompiles"] == 0.0
         with urllib.request.urlopen(f"{base}/metrics", timeout=10) as resp:
             counters = json.loads(resp.read())["counters"]
         # four from the direct run, two over HTTP
         assert counters["serve/responses"] == 6.0
+        assert counters["compile/recompiles"] == 0.0
         bad = urllib.request.Request(f"{base}/generate", data=b"{}")
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(bad, timeout=10)

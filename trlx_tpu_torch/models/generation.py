@@ -15,13 +15,16 @@ per-slot pool and ``verify_step`` are not ported yet.
 
 :func:`generate` is the trainer's rollout decoder (``:196-587``): a
 static-shape dense KV cache over left-padded prompts, request to
-completion.
+completion, one captured step per token (:class:`RolloutDecoder`).
 
-Torch vs JAX, made explicit here: JAX's ``mode="drop"`` scatters become
-host-side filtering (filler rows at ``slot_id == num_slots``), masked
-writes (``offset == T`` on finished slots) and the pool's drop page
-(sentinel page ids); the pool is updated IN PLACE; the per-slot lanes
-(:class:`SlotState`) are returned as new tensors, as in JAX.
+All three keep the CUDA-graph contract of trlx_tpu_torch.utils.aotjit
+(static shapes, no host read), and the serve runtime and the trainers
+replay them as graphs on the card. Torch vs JAX, made explicit here:
+JAX's ``mode="drop"`` scatters become a one-hot select (filler rows at
+``slot_id >= num_slots`` match no slot), masked writes (``offset == T``
+on finished slots) and the pool's drop page (sentinel page ids); the
+pool and the per-slot lanes (:class:`SlotState`) are updated IN PLACE,
+where JAX returns new arrays.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -49,6 +52,7 @@ from trlx_tpu_torch.models.transformer import (
     tree_map,
 )
 from trlx_tpu_torch.ops.sampling import SamplingParams, sample_token
+from trlx_tpu_torch.utils.aotjit import aot_jit
 
 
 class GenerationConfig(NamedTuple):
@@ -114,6 +118,147 @@ class GenerationOutput(NamedTuple):
 #: stop decoding once every row has finished (tests A/B it)
 _EOS_EARLY_EXIT = True
 
+#: decode steps between two reads of "has every row finished?" (one
+#: device-to-host copy each, through pinned memory on the card); tests
+#: A/B it
+_EXIT_CHECK_EVERY = 8
+
+
+class DecodeBuffers(NamedTuple):
+    """The rollout decoder's state between steps, updated in place so a
+    captured step reads and writes the same memory on every replay."""
+
+    caches: tuple  # per segment (k, v) [L_seg, B, P + G, Hkv, hd]
+    buffer_mask: torch.Tensor  # [B, P + G] int32: prompt mask ++ ones
+    real_len: torch.Tensor  # [B] int64 real prompt tokens
+    step: torch.Tensor  # [] int64 tokens emitted so far
+    prev_tok: torch.Tensor  # [B] int64 the last token (or prompt token)
+    h_normed: torch.Tensor  # [B, D] post-ln_f hidden of the last token
+    logits: torch.Tensor  # [B, V] float32 the next token's logits
+    finished: torch.Tensor  # [B] bool
+    gen_tokens: torch.Tensor  # [B, G] int64
+    gen_logprobs: torch.Tensor  # [B, G] float32
+    gen_mask: torch.Tensor  # [B, G] int32
+    all_finished: torch.Tensor  # [1] bool on the host (pinned on the card)
+
+
+def _new_buffers(spec, seg_sizes, B, P, G, compute_dtype, cache_dtype,
+                 dev) -> DecodeBuffers:
+    S = P + G
+
+    def empty(*shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    return DecodeBuffers(
+        caches=tuple(init_kv_cache(spec, size, B, S, cache_dtype, dev)
+                     for size in seg_sizes),
+        buffer_mask=empty(B, S, dtype=torch.int32),
+        real_len=empty(B, dtype=torch.long),
+        step=empty(dtype=torch.long),
+        prev_tok=empty(B, dtype=torch.long),
+        h_normed=empty(B, spec.d_model, dtype=compute_dtype),
+        logits=empty(B, spec.vocab_size, dtype=torch.float32),
+        finished=empty(B, dtype=torch.bool),
+        gen_tokens=empty(B, G, dtype=torch.long),
+        gen_logprobs=empty(B, G, dtype=torch.float32),
+        gen_mask=empty(B, G, dtype=torch.int32),
+        all_finished=torch.empty(1, dtype=torch.bool,
+                                 pin_memory=dev.type == "cuda"),
+    )
+
+
+class RolloutDecoder:
+    """What :func:`generate` keeps between calls: its per-token step
+    behind :func:`~trlx_tpu_torch.utils.aotjit.aot_jit` (one CUDA graph
+    per signature on the card) and, per shape, the
+    :class:`DecodeBuffers` those graphs read. A trainer holds one for its
+    life; ``generate`` without one makes a fresh decoder."""
+
+    def __init__(self):
+        self.step = aot_jit(_decode_token)
+        self._buffers = {}
+
+    def buffers(self, spec, seg_sizes, B, P, G, compute_dtype, cache_dtype,
+                dev) -> DecodeBuffers:
+        key = (spec.vocab_size, spec.d_model, spec.kv_heads, spec.head_dim,
+               tuple(seg_sizes), B, P, G, compute_dtype, cache_dtype,
+               str(dev))
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = self._buffers[key] = _new_buffers(
+                spec, seg_sizes, B, P, G, compute_dtype, cache_dtype, dev)
+        return buf
+
+
+def _decode_token(spec, segments, embed, ln_f, buf: DecodeBuffers,
+                  generator, config, compute_dtype, attention_fn,
+                  logit_mask, extras_fn) -> None:
+    """One decode step of :func:`generate`, in place on ``buf``: emit the
+    token of column ``buf.step`` from the carried logits, then forward it
+    against the cache. Static shapes and no host read, so it replays as
+    one CUDA graph; the last step's forward feeds nothing but keeps every
+    step the same program."""
+    B, S = buf.buffer_mask.shape
+    G = config.gen_size
+    P = S - G
+    dev = buf.logits.device
+    step = buf.step
+    step_logits = buf.logits
+    if extras_fn is not None:
+        step_logits = extras_fn(buf.h_normed, step_logits, buf.prev_tok)
+    if logit_mask is not None:
+        step_logits = torch.where(logit_mask, step_logits, NEG_INF)
+    eos = config.eos_token_id
+    if eos >= 0 and config.min_new_tokens > 0:
+        eos_col = torch.arange(step_logits.shape[-1], device=dev) == eos
+        step_logits = torch.where(eos_col & (step < config.min_new_tokens),
+                                  NEG_INF, step_logits)
+    logz = torch.logsumexp(step_logits, dim=-1)
+    tok = sample_token(generator, step_logits, config.sampling)
+    logprob = torch.gather(step_logits, 1, tok[:, None])[:, 0] - logz
+    finished = buf.finished.clone()
+    tok = torch.where(finished, config.pad_token_id, tok)
+    logprob = torch.where(finished, 0.0, logprob)
+    col = step.view(1, 1).expand(B, 1)
+    buf.gen_tokens.scatter_(1, col, tok[:, None])
+    buf.gen_logprobs.scatter_(1, col, logprob[:, None])
+    buf.gen_mask.scatter_(1, col, (~finished).int()[:, None])
+    if eos >= 0:
+        buf.finished.copy_(finished | (tok == eos))
+    buf.prev_tok.copy_(tok)
+
+    flags = ArchFlags.for_spec(spec)
+    offset = P + step
+    pos = (buf.real_len + step)[:, None]
+    h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
+    key_valid = (torch.arange(S, device=dev)[None, :] <= offset) \
+        & (buf.buffer_mask > 0)
+    bias = torch.where(key_valid, 0.0, NEG_INF).float()[:, None, None, :]
+    for seg, (k_c, v_c) in zip(segments, buf.caches):
+        for i in range(num_layers(seg)):
+            h, _ = block_apply(
+                spec, flags, layer_params(seg, i), h, bias, pos,
+                kv_cache=(k_c[i], v_c[i]), cache_offset=offset,
+                attention_fn=attention_fn,
+            )
+    h_normed = layer_norm(ln_f, h[:, 0], spec.layer_norm_epsilon)
+    buf.h_normed.copy_(h_normed)
+    buf.logits.copy_(project_logits(embed, spec, h_normed))
+    buf.step.add_(1)
+
+
+def _all_finished(buf: DecodeBuffers) -> bool:
+    """Whether every row has finished: one small device-to-host read
+    (non-blocking into pinned memory on the card, then a wait on it)."""
+    flag = buf.finished.all().reshape(1)
+    if flag.device.type != "cuda":
+        return bool(flag)
+    buf.all_finished.copy_(flag, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return bool(buf.all_finished[0])
+
 
 @torch.no_grad()
 def generate(
@@ -130,6 +275,7 @@ def generate(
     attention_fn=attention_scores,
     logit_mask: Optional[torch.Tensor] = None,
     extras_fn: Optional[Callable] = None,
+    decoder: Optional[RolloutDecoder] = None,
 ) -> GenerationOutput:
     """Decode ``config.gen_size`` tokens per row from LEFT-padded prompts
     (the rollout decoder; port of trlx_tpu.models.generation.generate).
@@ -141,9 +287,16 @@ def generate(
     logits with ``logit_mask`` applied and eos suppressed for the first
     ``min_new_tokens`` steps; the recorded logprob is that distribution's
     (unwarped) logprob of the drawn token. After a row emits eos it emits
-    ``pad_token_id`` with ``gen_mask`` 0 and logprob 0. When eos can end
-    rows early, decoding stops once every row has finished (the
-    remaining steps would emit only pads).
+    ``pad_token_id`` with ``gen_mask`` 0 and logprob 0.
+
+    The prefill runs eagerly into ``decoder``'s buffers; each token is
+    one call of the decoder's step (a CUDA-graph replay on the card), so
+    ``extras_fn`` and ``logit_mask`` must keep its contract
+    (trlx_tpu_torch.utils.aotjit). When eos can end rows early, every
+    :data:`_EXIT_CHECK_EVERY` steps one read tells whether every row has
+    finished, and decoding then stops (the remaining steps would emit
+    only pads). The CPU runs the same chunked loop, so the generator
+    ends in the same state with graphs on or off.
     """
     B, P = prompt_tokens.shape
     G = config.gen_size
@@ -153,96 +306,60 @@ def generate(
             f"prompt ({P}) + gen_size ({G}) = {S} exceeds the model's "
             f"n_positions ({spec.n_positions})"
         )
+    decoder = decoder or RolloutDecoder()
     dev = prompt_tokens.device
     segments, seg_sizes = _segments_of(blocks)
-    flags = ArchFlags.for_spec(spec)
     prompt_tokens = prompt_tokens.long()
     prompt_mask = prompt_mask.to(torch.int32)
+    buf = decoder.buffers(spec, seg_sizes, B, P, G, compute_dtype,
+                          cache_dtype, dev)
     real_len = prompt_mask.long().sum(-1)  # [B]
 
-    caches = [init_kv_cache(spec, size, B, S, cache_dtype, dev)
-              for size in seg_sizes]
     positions = positions_from_mask(prompt_mask)
     h = embed_tokens(embed, spec, prompt_tokens, positions, compute_dtype)
     prefill_bias = torch.cat([
         causal_mask_bias(prompt_mask),
         torch.full((B, 1, P, G), NEG_INF, dtype=torch.float32, device=dev),
     ], dim=-1)
-    for seg, cache in zip(segments, caches):
+    for seg, cache in zip(segments, buf.caches):
+        for c in cache:
+            c.zero_()
         h, _ = apply_blocks_with_cache(seg, cache, spec, h, prefill_bias,
                                        positions, 0, attention_fn)
     h_normed = layer_norm(ln_f, h[:, -1], spec.layer_norm_epsilon)
-    logits = project_logits(embed, spec, h_normed)
-    prev_tok = torch.gather(prompt_tokens, 1,
-                            (real_len - 1).clamp(min=0)[:, None])[:, 0]
+    buf.h_normed.copy_(h_normed)
+    buf.logits.copy_(project_logits(embed, spec, h_normed))
+    last = (real_len - 1).clamp(min=0)[:, None]
+    buf.prev_tok.copy_(torch.gather(prompt_tokens, 1, last)[:, 0])
+    buf.buffer_mask[:, :P].copy_(prompt_mask)
+    buf.buffer_mask[:, P:].fill_(1)
+    buf.real_len.copy_(real_len)
+    buf.step.zero_()
+    buf.finished.zero_()
+    buf.gen_tokens.fill_(config.pad_token_id)
+    buf.gen_logprobs.zero_()
+    buf.gen_mask.zero_()
 
-    buffer_mask = torch.cat(
-        [prompt_mask, torch.ones((B, G), dtype=torch.int32, device=dev)],
-        dim=-1)
-    slot_idx = torch.arange(S, device=dev)
     early_exit = (_EOS_EARLY_EXIT and config.eos_token_id >= 0
                   and config.min_new_tokens < G)
-    pad = torch.full((B,), config.pad_token_id, dtype=torch.long,
-                     device=dev)
-    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
-    toks, logprobs, emitted = [], [], []
-    for step in range(G):
-        if early_exit and step > config.min_new_tokens and bool(
-                finished.all()):
+    done = 0
+    while done < G:
+        chunk = min(_EXIT_CHECK_EVERY, G - done)
+        for _ in range(chunk):
+            decoder.step(spec, segments, embed, ln_f, buf, generator, config,
+                         compute_dtype, attention_fn, logit_mask, extras_fn)
+        done += chunk
+        if early_exit and done < G and done > config.min_new_tokens \
+                and _all_finished(buf):
             break  # every later step emits pads only
-        step_logits = logits
-        if extras_fn is not None:
-            step_logits = extras_fn(h_normed, step_logits, prev_tok)
-        if logit_mask is not None:
-            step_logits = torch.where(logit_mask, step_logits,
-                                      torch.full_like(step_logits, NEG_INF))
-        if config.eos_token_id >= 0 and step < config.min_new_tokens:
-            step_logits = step_logits.clone()
-            step_logits[:, config.eos_token_id] = NEG_INF
-        logz = torch.logsumexp(step_logits, dim=-1)
-        tok = sample_token(generator, step_logits, config.sampling)
-        logprob = torch.gather(step_logits, 1, tok[:, None])[:, 0] - logz
-        tok = torch.where(finished, pad, tok)
-        logprob = torch.where(finished, torch.zeros_like(logprob), logprob)
-        emitted.append(~finished)
-        if config.eos_token_id >= 0:
-            finished = finished | (tok == config.eos_token_id)
-        toks.append(tok)
-        logprobs.append(logprob)
-        prev_tok = tok
-        if step == G - 1:
-            break  # the last token's forward feeds nothing
 
-        offset = P + step
-        pos = (real_len + step)[:, None]
-        h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
-        key_valid = (slot_idx[None, :] <= offset) & (buffer_mask > 0)
-        bias = torch.where(
-            key_valid, torch.tensor(0.0, device=dev),
-            torch.tensor(NEG_INF, device=dev),
-        ).float()[:, None, None, :]
-        for seg, size, (k_c, v_c) in zip(segments, seg_sizes, caches):
-            for i in range(size):
-                h, _ = block_apply(
-                    spec, flags, layer_params(seg, i), h, bias, pos,
-                    kv_cache=(k_c[i], v_c[i]), cache_offset=offset,
-                    attention_fn=attention_fn,
-                )
-        h_normed = layer_norm(ln_f, h[:, 0], spec.layer_norm_epsilon)
-        logits = project_logits(embed, spec, h_normed)
-
-    n = len(toks)
-    gen_tokens = torch.stack(toks + [pad] * (G - n), dim=1)
-    zeros = torch.zeros((B,), dtype=torch.float32, device=dev)
-    gen_logprobs = torch.stack(logprobs + [zeros] * (G - n), dim=1)
-    gen_mask = torch.stack(emitted + [torch.zeros_like(finished)] * (G - n),
-                           dim=1).to(torch.int32)
+    gen_tokens = buf.gen_tokens.clone()
     return GenerationOutput(
         sequences=torch.cat([prompt_tokens, gen_tokens], dim=1),
         gen_tokens=gen_tokens,
-        gen_logprobs=gen_logprobs,
-        gen_mask=gen_mask,
-        attention_mask=buffer_mask,
+        gen_logprobs=buf.gen_logprobs.clone(),
+        gen_mask=buf.gen_mask.clone(),
+        attention_mask=buf.buffer_mask.clone(),
     )
 
 
@@ -332,12 +449,6 @@ def _as(x, device, dtype) -> torch.Tensor:
                            device=device).to(dtype)
 
 
-def _set_rows(t: torch.Tensor, rows: torch.Tensor, vals) -> torch.Tensor:
-    out = t.clone()
-    out[rows] = torch.as_tensor(vals, device=t.device).to(t.dtype)
-    return out
-
-
 def prefill_into_slots(
     spec: ModelSpec,
     blocks,
@@ -369,7 +480,10 @@ def prefill_into_slots(
     prefill whose cache takes the POOL's dtype, then one block-scatter.
     First-step logits come from each row's last REAL suffix token.
 
-    Returns ``(pool, state)``: the pool updated in place, new lanes.
+    Shapes are static and nothing is read back to the host, so a bucket
+    replays as one CUDA graph once its inputs are device tensors.
+
+    Returns ``(pool, state)``, both updated in place.
     """
     if page_tables is None:
         raise NotImplementedError(
@@ -439,10 +553,8 @@ def prefill_into_slots(
         # p <= start[b] + j (causality over LOGICAL positions)
         allowed = torch.arange(T, device=dev)[None, None, :] \
             <= positions[:, :, None]
-        bias = torch.where(
-            allowed, torch.tensor(0.0, device=dev),
-            torch.tensor(NEG_INF, device=dev),
-        ).float()[:, None]  # [Bp, 1, P, T]
+        bias = torch.where(allowed, 0.0, NEG_INF).float()[:, None]
+        # bias: [Bp, 1, P, T]
         for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
             for i in range(size):
                 h, _ = block_apply(
@@ -458,31 +570,28 @@ def prefill_into_slots(
         embed, spec, layer_norm(ln_f, h_last, spec.layer_norm_epsilon)
     )
 
-    # filler rows (slot_id outside [0, S)) are dropped on the host
-    slot_ids = np.asarray(
-        slot_ids.cpu() if torch.is_tensor(slot_ids) else slot_ids
-    ).astype(np.int64)
-    keep = np.nonzero((slot_ids >= 0) & (slot_ids < S))[0]
-    if keep.size == 0:
-        return pool, state
-    sel = torch.as_tensor(keep, device=dev)
-    rows = torch.as_tensor(slot_ids[keep], device=dev)
-    real = real_len[sel]
-    valid_rows = (torch.arange(T, device=dev)[None, :] < real[:, None])
-    caps = torch.minimum(_as(max_new, dev, torch.long)[sel].clamp(min=0),
+    # rows land in their slots by a one-hot select, in place: a filler
+    # row (slot id outside [0, S)) matches no slot and is dropped, as
+    # JAX's mode="drop" scatter drops it, with no host read of the ids
+    slot_ids = _as(slot_ids, dev, torch.long)
+    hit = slot_ids[None, :] == torch.arange(S, device=dev)[:, None]  # [S, Bp]
+    landed = hit.any(1)  # [S]
+    src = hit.int().argmax(1)  # [S] the row each landed slot takes
+    real = real_len[src]
+    caps = torch.minimum(_as(max_new, dev, torch.long)[src].clamp(min=0),
                          T - real)
-    new_state = SlotState(
-        valid=_set_rows(state.valid, rows, valid_rows),
-        offset=_set_rows(state.offset, rows, real),
-        pos=_set_rows(state.pos, rows, real),
-        generated=_set_rows(state.generated, rows, 0),
-        max_new=_set_rows(state.max_new, rows, caps),
-        active=_set_rows(state.active, rows, True),
-        finished=_set_rows(state.finished, rows, False),
-        logits=_set_rows(state.logits, rows, logits0[sel]),
-        pages=_set_rows(state.pages, rows, pt[sel]),
-    )
-    return pool, new_state
+    rows = {
+        "valid": torch.arange(T, device=dev)[None, :] < real[:, None],
+        "offset": real, "pos": real, "generated": torch.zeros_like(real),
+        "max_new": caps, "active": torch.ones_like(landed),
+        "finished": torch.zeros_like(landed), "logits": logits0[src],
+        "pages": pt[src],
+    }
+    for name, new in rows.items():
+        lane = getattr(state, name)
+        keep = landed.view(S, *([1] * (lane.dim() - 1)))
+        lane.copy_(torch.where(keep, new.to(lane.dtype), lane))
+    return pool, state
 
 
 def decode_step(
@@ -509,7 +618,7 @@ def decode_step(
     layer's ``block_apply``; ``None`` keeps the plain gather path.
 
     Returns ``(pool, state, tokens [S] int32, emitted [S], finished
-    [S])`` with the pool updated in place.
+    [S])`` with the pool and the lanes updated in place.
     """
     S, T = state.valid.shape
     dev = state.valid.device
@@ -518,15 +627,13 @@ def decode_step(
 
     step_logits = state.logits
     if config.eos_token_id >= 0 and config.min_new_tokens > 0:
-        suppress = state.generated < config.min_new_tokens
-        step_logits = step_logits.clone()
-        eos_col = step_logits[:, config.eos_token_id]
-        step_logits[:, config.eos_token_id] = torch.where(
-            suppress, torch.full_like(eos_col, NEG_INF), eos_col
-        )
+        eos_col = torch.arange(step_logits.shape[-1], device=dev) \
+            == config.eos_token_id
+        suppress = (state.generated < config.min_new_tokens)[:, None]
+        step_logits = torch.where(eos_col & suppress, NEG_INF, step_logits)
     tok = sample_token(generator, step_logits, config.sampling)
     emitted = state.active & ~state.finished
-    tok = torch.where(emitted, tok, torch.full_like(tok, config.pad_token_id))
+    tok = torch.where(emitted, tok, config.pad_token_id)
     finished = state.finished
     if config.eos_token_id >= 0:
         finished = finished | (emitted & (tok == config.eos_token_id))
@@ -538,20 +645,15 @@ def decode_step(
     rows = torch.arange(S, device=dev)
     off = state.offset.long()
     off_c = off.clamp(max=T - 1)
-    valid = state.valid.clone()
-    valid[rows, off_c] = torch.where(off < T, emitted.int(),
-                                     valid[rows, off_c])
-    bias = torch.where(
-        valid > 0, torch.tensor(0.0, device=dev),
-        torch.tensor(NEG_INF, device=dev),
-    ).float()[:, None, None, :]
+    state.valid[rows, off_c] = torch.where(off < T, emitted.int(),
+                                           state.valid[rows, off_c])
+    bias = torch.where(state.valid > 0, 0.0, NEG_INF).float()[
+        :, None, None, :]
     pos = state.pos.long()[:, None]
     h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
     num_pages, page_size = _pool_page_geometry(pool)
-    pt_step = torch.where(
-        emitted[:, None], state.pages,
-        torch.full_like(state.pages, num_pages),
-    ).contiguous()
+    pt_step = torch.where(emitted[:, None], state.pages,
+                          num_pages).to(torch.int32).contiguous()
     for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
         for i in range(size):
             h, _ = block_apply(
@@ -565,15 +667,9 @@ def decode_step(
     next_logits = project_logits(embed, spec, h_normed)[:, 0]
 
     adv = emitted.int()
-    new_state = SlotState(
-        valid=valid,
-        offset=state.offset + adv,
-        pos=state.pos + adv,
-        generated=generated,
-        max_new=state.max_new,
-        active=state.active,
-        finished=finished,
-        logits=next_logits,
-        pages=state.pages,
-    )
-    return pool, new_state, tok.int(), emitted, finished
+    state.offset.add_(adv)
+    state.pos.add_(adv)
+    state.generated.copy_(generated)
+    state.finished.copy_(finished)
+    state.logits.copy_(next_logits)
+    return pool, state, tok.int(), emitted, finished

@@ -59,7 +59,10 @@ def _cast(x, dtype):
 
 def all_blocks(params: Params) -> Tuple[Params, Params]:
     """(bottom, trainable top) stacked segments, run in order. The top is
-    cast to the frozen storage dtype, as trlx_tpu does."""
+    cast to the frozen storage dtype, as trlx_tpu does: where the dtypes
+    already match, the trainer's own tensors come back, which a captured
+    decode step reads in place; a real cast makes new tensors each call,
+    which the step's CUDA graph copies in (trlx_tpu_torch.utils.aotjit)."""
     bottom = params["frozen_base"]["blocks"]
     frozen_dtype = _first_leaf(bottom).dtype
     top = tree_map(lambda b: _cast(b, frozen_dtype),

@@ -236,7 +236,7 @@ def block_apply(
     mask_bias: torch.Tensor,
     positions: torch.Tensor,
     kv_cache=None,
-    cache_offset: Optional[int] = None,
+    cache_offset=None,
     attention_fn=attention_scores,
     cache_row_offsets: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
@@ -249,8 +249,9 @@ def block_apply(
 
     - dense: no ``kv_cache``;
     - dense-with-cache: ``kv_cache`` = (k_cache, v_cache) [B, Tbuf, Hkv,
-      hd]; fresh K/V is written at scalar ``cache_offset`` (in place)
-      and q attends over the whole buffer;
+      hd]; fresh K/V is written at ``cache_offset`` (in place; an int,
+      or a 0-d device tensor read on the device) and q attends over the
+      whole buffer;
     - paged: ``page_table`` [B, max_pages] int32 and
       ``cache_row_offsets`` [B]; ``kv_cache`` is one layer's global pool
       WITH its trailing drop page ([num_pages + 1, page_size, Hkv, hd],
@@ -338,9 +339,15 @@ def block_apply(
         k_cache, v_cache = kv_cache
         tbuf = k_cache.shape[1]
         # dynamic_update_slice clamps the start so the update fits
-        off = min(max(int(cache_offset or 0), 0), tbuf - T)
-        k_cache[:, off:off + T] = k.to(k_cache.dtype)
-        v_cache[:, off:off + T] = v.to(v_cache.dtype)
+        if torch.is_tensor(cache_offset):  # a device offset: no host read
+            idx = cache_offset.long().clamp(0, tbuf - T) + torch.arange(
+                T, device=k.device)
+            k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+            v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+        else:
+            off = min(max(int(cache_offset or 0), 0), tbuf - T)
+            k_cache[:, off:off + T] = k.to(k_cache.dtype)
+            v_cache[:, off:off + T] = v.to(v_cache.dtype)
         new_cache = (k_cache, v_cache)
         a = attention_fn(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
                          mask_bias)

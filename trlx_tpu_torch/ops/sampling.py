@@ -82,8 +82,14 @@ def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
                  params: SamplingParams) -> torch.Tensor:
     """Draw next tokens [B] (int64) from warped logits [B, V], or the
     argmax under greedy decode — which skips the warpers entirely (every
-    warper keeps the top-1 token, so the argmax cannot change)."""
+    warper keeps the top-1 token, so the argmax cannot change).
+
+    The draw is the exponential race ``argmax(probs / E)``, ``E ~ Exp(1)``
+    from ``generator``: what ``torch.multinomial`` computes for one
+    sample, token for token, without its input check, which reads a
+    value back to the host and so cannot run inside a CUDA graph."""
     if not params.do_sample:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(warp_logits(logits, params), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / race, dim=-1)

@@ -9,10 +9,14 @@ of trlx_tpu.serve.server, the routes of this slice).
   queue + decode latency. Errors are typed: 400 (bad request / no
   bucket fits), 429 (queue full, with ``Retry-After``), 503 (not
   decoded within ``serve.request_timeout``), 500 (decode failure).
-- ``GET /healthz`` — liveness, lattice, queue depth, free slots and the
-  paged pool's ``kv`` block.
+- ``GET /healthz`` — liveness, lattice, queue depth, free slots, the
+  paged pool's ``kv`` block and ``recompiles`` (the
+  ``compile/recompiles`` counter: 0 once warmed, the serving
+  invariant).
 - ``GET /metrics`` — the telemetry registry summary as JSON (counters,
-  gauges, timing histograms with the first call kept apart).
+  among them ``compile/recompiles`` from the first scrape, gauges,
+  timing histograms with the first call kept apart; on the card a
+  warmup span's first call is the graph's capture).
 
 Not ported in this slice: ``/readyz``, ``/debug/*``, the ``/admin/*``
 drain and reload routes, Prometheus text, request tracing, tenants and
@@ -78,6 +82,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "slots": sched.runtime.num_slots,
                 "free_slots": sched.free_slots(),
                 "kv": sched.pool_stats(),
+                "recompiles": telemetry.summary().get("counters", {}).get(
+                    "compile/recompiles", 0.0),
             })
         elif self.path == "/metrics":
             self._json(200, telemetry.summary())
@@ -179,7 +185,8 @@ class InferenceServer:
         if warmup and not self.warmed:
             for name, secs in self.scheduler.warmup().items():
                 print(f"[trlx_tpu_torch.serve] warmed {name}: {secs:.3f}s "
-                      f"first call", file=sys.stderr, flush=True)
+                      f"first call (with its graph capture on the card)",
+                      file=sys.stderr, flush=True)
         self.scheduler.start()
         handler = type("Handler", (_Handler,), {"server_ref": self})
         httpd = ThreadingHTTPServer((self.host, self.port), handler)

@@ -5,9 +5,13 @@ trlx_tpu.serve.slots).
   per-slot lanes, and the two primitives (trlx_tpu_torch.models
   .generation) — ``prefill_into_slots`` per admission bucket (plain, or
   the prefix-context variant when a request hit the radix cache) and
-  ``decode_step`` for all slots at once. ``serve.attention: pallas``
-  hands decode the hand-written paged-decode kernel; prefill is plain
-  torch either way.
+  ``decode_step`` for all slots at once, each behind its own
+  :func:`~trlx_tpu_torch.utils.aotjit.aot_jit` (on the card, one CUDA
+  graph per bucket and variant and one for the step, captured at
+  warmup, as trlx_tpu keeps one executable each). Pool and lanes are
+  static buffers updated in place. ``serve.attention: pallas`` hands
+  decode the hand-written paged-decode kernel, which then runs inside
+  the step's graph; prefill is plain torch either way.
 - :class:`SlotScheduler` runs the host loop on one worker thread: at
   every step boundary it harvests finished rows (EOS, or the request's
   own ``max_new_tokens``), frees their slots and pages, and admits
@@ -41,6 +45,31 @@ from trlx_tpu_torch.models.generation import (
 from trlx_tpu_torch.serve.batcher import QueueFull, Request
 from trlx_tpu_torch.serve.paged import RadixCache
 from trlx_tpu_torch.supervisor import monotonic
+from trlx_tpu_torch.utils.aotjit import aot_jit
+
+
+def _prefill(spec, blocks, embed, ln_f, pool, state, inputs, compute_dtype,
+             page_size, suffix) -> None:
+    """One admission bucket, in place on pool and lanes (a graph per
+    bucket and variant on the card)."""
+    tokens, mask, slot_ids, max_new, page_tables, start = inputs
+    prefill_into_slots(
+        spec, blocks, embed, ln_f, pool, state, tokens, mask, slot_ids,
+        max_new, compute_dtype=compute_dtype, page_tables=page_tables,
+        page_size=page_size, start=start, prefix_context=suffix,
+    )
+
+
+def _step(spec, blocks, embed, ln_f, pool, state, generator, config,
+          compute_dtype, paged_decode_fn) -> torch.Tensor:
+    """One decode step for every slot; tokens, emitted and finished
+    packed into one int32 [3, S] tensor, so the host reads them in one
+    copy."""
+    _, _, tok, emitted, finished = decode_step(
+        spec, blocks, embed, ln_f, pool, state, generator, config,
+        compute_dtype=compute_dtype, paged_decode_fn=paged_decode_fn,
+    )
+    return torch.stack([tok, emitted.int(), finished.int()])
 
 
 class SlotPoolRuntime:
@@ -79,6 +108,8 @@ class SlotPoolRuntime:
         #: decode steps run (kernel launches = steps x layers under pallas)
         self.steps = 0
         self.warmed = False
+        self._step_fn = aot_jit(_step)
+        self._prefill_fns = {}  # (Bp, P, suffix) -> its own aot_jit
 
     def _fresh_state(self):
         return init_slot_state(self.num_slots, self.buffer_len, self._vocab,
@@ -95,51 +126,62 @@ class SlotPoolRuntime:
         """Admit one prompt bucket into the pool: filler rows carry the
         out-of-range slot id and are dropped; ``page_tables`` maps each
         row's logical pages (sentinel-padded), ``start`` is its committed
-        prefix length, ``suffix=True`` attends to the committed prefix."""
+        prefix length, ``suffix=True`` attends to the committed prefix.
+        The host arrays become device tensors before the bucket's
+        graph."""
         e = self.engine
+        key = (*bucket, bool(suffix))
+        fn = self._prefill_fns.get(key)
+        if fn is None:
+            fn = self._prefill_fns[key] = aot_jit(_prefill)
         with telemetry.span(self.prefill_span(bucket, suffix)):
-            self.pool, self.state = prefill_into_slots(
-                e.spec, e.blocks, e.embed, e.ln_f, self.pool, self.state,
-                np.ascontiguousarray(tokens, np.int32),
-                np.ascontiguousarray(mask, np.int32),
-                np.asarray(slot_ids, np.int32),
-                np.asarray(max_new, np.int32),
-                compute_dtype=e.compute_dtype,
-                page_tables=np.ascontiguousarray(page_tables, np.int32),
-                page_size=self.page_size,
-                start=np.asarray(start, np.int32),
-                prefix_context=suffix,
-            )
+            inputs = tuple(
+                torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                                device=self.device)
+                for x in (tokens, mask, slot_ids, max_new, page_tables,
+                          start))
+            fn(e.spec, e.blocks, e.embed, e.ln_f, self.pool, self.state,
+               inputs, e.compute_dtype, self.page_size, bool(suffix))
 
     @torch.no_grad()
     def step(self, seed: int):
         """One decode step for every slot; returns host numpy (tokens [S],
-        emitted [S], finished [S]). The span closes after the results
-        reach the host, so it times the device work too."""
+        emitted [S], finished [S]), read in one device-to-host copy. The
+        step's stream is re-seeded with ``seed`` first, which the graph's
+        replay reads. The span closes after the results reach the host,
+        so it times the device work too."""
         e = self.engine
         self.generator.manual_seed(int(seed))
         with telemetry.span(self.STEP_SPAN):
-            self.pool, self.state, tok, emitted, finished = decode_step(
+            out = self._step_fn(
                 e.spec, e.blocks, e.embed, e.ln_f, self.pool, self.state,
-                self.generator, e.gen_config,
-                compute_dtype=e.compute_dtype,
-                paged_decode_fn=self.paged_decode_fn,
+                self.generator, e.gen_config, e.compute_dtype,
+                self.paged_decode_fn,
             )
             self.steps += 1
-            return (tok.cpu().numpy(), emitted.cpu().numpy(),
-                    finished.cpu().numpy())
+            tok, emitted, finished = out.cpu().numpy()
+            return tok, emitted.astype(bool), finished.astype(bool)
+
+    def graphs(self):
+        """Every captured graph of this runtime (capture seconds, pool
+        bytes)."""
+        fns = [self._step_fn, *self._prefill_fns.values()]
+        return [g for fn in fns for g in fn.graphs()]
 
     def reset_lanes(self) -> None:
-        """Fresh all-free lanes, reusing the pool (zeroed lanes gate every
-        read of it)."""
-        self.state = self._fresh_state()
+        """All-free lanes, refilled in place (the graphs read these
+        buffers), reusing the pool (zeroed lanes gate every read of
+        it)."""
+        for lane, fresh in zip(self.state, self._fresh_state()):
+            lane.copy_(fresh)
 
     def warmup(self) -> Dict[str, float]:
         """Run every admission bucket (both variants) against the live
         pool with all rows aimed at the drop sentinel, then one decode
         step over the all-free pool — which builds the decode kernel
-        under ``attention: pallas`` on the card. Touches no slot.
-        Returns {span: first-call seconds}."""
+        under ``attention: pallas`` on the card and, there, captures
+        every graph. Touches no slot. Returns {span: first-call seconds}
+        (on the card: the eager first call plus the capture)."""
         pad = self.engine.pad_token_id
         spans = [self.STEP_SPAN]
         for P, extents in self.engine.prompt_classes():

@@ -16,9 +16,20 @@ from typing import Any, Dict, Optional
 from trlx_tpu_torch.telemetry.registry import MetricsRegistry, TimingHist  # noqa: F401
 
 
+#: counters registered at 0 by every session, so a scrape reads 0 rather
+#: than missing the series
+PREDECLARED = (
+    # steady-state misses of the CUDA-graph cache after warmup
+    # (trlx_tpu_torch.utils.aotjit): a signature that drifts every call
+    # shows as a counter climbing with the calls, not as silence
+    "compile/recompiles",
+)
+
+
 class TelemetrySession:
     def __init__(self):
         self.registry = MetricsRegistry()
+        self.registry.predeclare(PREDECLARED)
 
     @contextlib.contextmanager
     def span(self, name: str):

@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from trlx_tpu_torch import telemetry
+from trlx_tpu_torch.models.generation import RolloutDecoder
 from trlx_tpu_torch.models.transformer import tree_map
 from trlx_tpu_torch.utils import DTYPES, cosine_schedule, resolve_device
 from trlx_tpu_torch.utils.checkpoint import (
@@ -219,6 +220,11 @@ class BaseRLTrainer:
         self.device = resolve_device(device)
         if config.train.telemetry:
             telemetry.start()
+        #: generate's captured decode steps and their buffers, one per
+        #: rollout shape; they read the parameters where they live, so a
+        #: rollout after an update, a load or a rollback (all in place)
+        #: decodes with the new weights
+        self.decoder = RolloutDecoder()
 
     def _put(self, tree):
         """Host tensors (or a tree of them) -> the trainer's device."""

@@ -207,7 +207,8 @@ class JaxILQLTrainer(BaseRLTrainer):
         return generate(
             self.net.spec, self.net.all_blocks(self.params), embed, ln_f,
             query, mask, self.generator, config,
-            compute_dtype=self.net.compute_dtype, extras_fn=self._extras)
+            compute_dtype=self.net.compute_dtype, extras_fn=self._extras,
+            decoder=self.decoder)
 
     def act(self, batch):
         query, mask = batch

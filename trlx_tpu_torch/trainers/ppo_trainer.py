@@ -128,7 +128,7 @@ class JaxPPOTrainer(BaseRLTrainer):
         return generate(
             self.policy.spec, all_blocks(self.params), embed, ln_f, query,
             mask, self.generator, self.gen_config,
-            compute_dtype=self.policy.compute_dtype,
+            compute_dtype=self.policy.compute_dtype, decoder=self.decoder,
         )
 
     @torch.no_grad()

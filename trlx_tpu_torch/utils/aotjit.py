@@ -1,0 +1,189 @@
+"""A cache of CUDA graphs keyed by argument signature: the port's
+counterpart of ``trlx_tpu.utils.aotjit``.
+
+``aot_jit(fn)`` returns a callable with the JAX wrapper's cache
+semantics. A call's signature is the argument tree's structure plus,
+for each tensor leaf, its shape, dtype and device, and for every other
+leaf its value (a ``torch.Generator`` or a function keys by identity).
+When the arguments' tensors lie on the card, the first call of a
+signature runs ``fn`` eagerly on a side stream (its result is the
+call's result, and any lazy set-up happens there), then captures one
+``torch.cuda.CUDAGraph`` of ``fn`` over the same arguments; every later
+call of that signature replays the graph. A miss once the cache holds an
+entry increments ``compile/recompiles``, as the JAX wrapper does: an
+argument that drifts every call shows as a counter climbing with the
+calls, not as silence. CPU arguments run ``fn`` directly, keyed and
+counted alike, so the CPU tests run the code the card captures.
+
+The graph's contract, which ``fn`` must keep (a capture that breaks it
+raises; nothing falls back to eager):
+
+- static shapes: every shape inside ``fn`` follows from the signature;
+- no host syncs: no ``.item()``, ``bool(t)``, ``nonzero``, boolean-mask
+  indexing or ``torch.multinomial`` (whose input check reads back);
+- no host-to-device copies from pageable memory: make the device
+  tensors before the call;
+- no allocation that outlives the graph's pool except its outputs:
+  ``fn`` stores no tensor it allocates anywhere but its return value
+  or the in-place updates of its arguments;
+- random draws only through a ``torch.Generator`` passed as an
+  argument. It is registered with the graph, so each replay draws from
+  the generator's seed and offset at replay time (a ``manual_seed``
+  just before is seen) and advances the offset as the eager call would.
+
+The first call's tensors become the graph's inputs: the entry keeps
+them and every replay reads their memory. A later call whose tensor
+lies elsewhere (another storage, offset or stride) has it copied into
+that first tensor before the replay. So weights and state updated in
+place are read as they are, with no copy, and a rebuilt tensor costs
+one copy. Pass no tensor that the caller reads again after a later
+call of the same signature with another tensor in its place.
+
+A replay returns the graph's own output tensors: they stay valid only
+until the next call of the same signature.
+
+The module switch :data:`CUDA_GRAPHS` set to False runs ``fn`` eagerly
+on the card too (still keyed and counted): the A/B of
+``chip_smoke.py``. Nothing else selects the eager path.
+"""
+
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from trlx_tpu_torch import ops, telemetry
+
+__all__ = ["aot_jit", "CUDA_GRAPHS", "tree_flatten"]
+
+#: capture and replay CUDA graphs for card arguments (chip_smoke A/Bs it)
+CUDA_GRAPHS = True
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves, structure) of nested dicts (keys sorted, as JAX's
+    treedef sorts them), lists, tuples and named tuples; ``None`` is an
+    empty node, everything else a leaf."""
+    leaves: List[Any] = []
+
+    def walk(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            keys = tuple(sorted(x))
+            return (dict, keys, tuple(walk(x[k]) for k in keys))
+        if isinstance(x, (tuple, list)):
+            return (type(x), len(x), tuple(walk(v) for v in x))
+        leaves.append(x)
+        return "*"
+
+    return leaves, walk(tree)
+
+
+def _leaf_sig(x):
+    if torch.is_tensor(x):
+        return (tuple(x.shape), str(x.dtype), str(x.device))
+    # a plain leaf's VALUE shapes what fn does, so it keys the cache
+    try:
+        hash(x)
+        return ("py", type(x), x)
+    except TypeError:
+        return ("py", type(x), repr(x))
+
+
+class _Graph:
+    """One captured signature: the graph, the tensors it reads, its
+    outputs, the kernel launches its capture recorded, and the capture's
+    cost."""
+
+    def __init__(self, graph, inputs, outputs, launches, seconds, pool_bytes):
+        self.graph = graph
+        self.inputs = inputs  # per leaf: the captured tensor, or None
+        self.outputs = outputs
+        self.launches = launches
+        self.seconds = seconds
+        self.pool_bytes = pool_bytes
+
+    def replay(self, leaves):
+        for held, x in zip(self.inputs, leaves):
+            if held is not None and x is not held and (
+                    x.data_ptr() != held.data_ptr()
+                    or x.stride() != held.stride()):
+                held.copy_(x)
+        self.graph.replay()
+        ops.add_launches(self.launches)
+        return self.outputs
+
+
+def _card_device(leaves) -> Optional[torch.device]:
+    for x in leaves:
+        if torch.is_tensor(x) and x.device.type == "cuda":
+            return x.device
+    return None
+
+
+class _AotJit:
+    def __init__(self, fn):
+        self._fn = fn
+        #: signature -> its captured graph (None until one is captured)
+        self._cache: Dict[Any, Optional[_Graph]] = {}
+
+    def __call__(self, *args):
+        leaves, treedef = tree_flatten(args)
+        key = (treedef, tuple(_leaf_sig(x) for x in leaves))
+        if key not in self._cache:
+            if self._cache:
+                # steady-state miss: an entry exists but this signature
+                # matches none (trlx_tpu.utils.aotjit's counter)
+                telemetry.inc("compile/recompiles")
+            self._cache[key] = None
+        device = _card_device(leaves)
+        if device is None or not CUDA_GRAPHS:
+            return self._fn(*args)
+        entry = self._cache[key]
+        if entry is None:
+            entry, out = self._capture(args, leaves, device)
+            self._cache[key] = entry
+            return out
+        return entry.replay(leaves)
+
+    def _capture(self, args, leaves, device):
+        """The first call: ``fn`` eagerly on a side stream (the result),
+        then one capture over the same arguments."""
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self._fn(*args)
+        current.wait_stream(side)
+
+        graph = torch.cuda.CUDAGraph()
+        for x in leaves:
+            if isinstance(x, torch.Generator):
+                graph.register_generator_state(x)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()  # what the graph's pool reserves shows
+        reserved = torch.cuda.memory_reserved(device)
+        start = time.perf_counter()
+        with ops.recording_launches() as launches:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self._fn(*args)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - start
+        inputs = [x if torch.is_tensor(x) else None for x in leaves]
+        entry = _Graph(graph, inputs, outputs, launches, seconds,
+                       torch.cuda.memory_reserved(device) - reserved)
+        return entry, out
+
+    def graphs(self) -> List[_Graph]:
+        """The captured entries (capture seconds, pool bytes)."""
+        return [e for e in self._cache.values() if e is not None]
+
+    def signatures(self) -> int:
+        return len(self._cache)
+
+
+def aot_jit(fn):
+    """``fn`` behind a per-signature cache of CUDA graphs (module
+    docstring). Positional arguments only, as the JAX wrapper."""
+    return _AotJit(fn)
