@@ -86,6 +86,34 @@ Phases, each printing its own line; any failure exits non-zero:
      tokens and logprobs identical on both paths before and after one
      more update pass (which moved the logprobs: the graph read the new
      weights); the orchestrator's 64 rollouts timed on both paths.
+   - the run floor: phase 7 runs supervised with configs/ppo_config.yml's
+     block as shipped (stall_timeout 300, stall_grace 120,
+     host_call_timeout 60, telemetry on) and learn() logs through
+     ``tracker: "jsonl:<run dir>/metrics.jsonl"``: one record per
+     logged iteration, each with ``time/*``, ``throughput/*`` (MFU in
+     (0, 1)) and ``device/hbm_*`` (the peak equal to
+     ``torch.cuda.max_memory_allocated()``); ``telemetry.json`` and
+     ``trace.jsonl`` written, every ``fault/*`` counter 0; the first
+     calls the watchdog saw printed. Then on the warm trainer: its
+     update and rollout times with the supervisor on and off
+     (alternated); the drills (a hung reward_fn attempt under a 1.5 s
+     stall budget: learn() completes, fault/stalls, seam_timeouts and
+     host_retries >= 1, the stack dump names 'reward_fn' and
+     MainThread; every attempt hung: StallError, the checkpoint at the
+     stall step restored bit-identically by a fresh trainer; a chaos
+     SIGTERM: a preemption checkpoint; max_walltime: a checkpoint and a
+     clean return; the guarded step with the telemetry payload inside an
+     armed supervisor under set_sync_debug_mode "error"); a decode
+     graph captured while an abandoned scoring seam launches on the card
+     (first attempt), and again while it synchronises the whole device
+     (the invalidated capture taken again); one cycle under
+     ``TRLX_TPU_PROFILE_DIR`` whose Chrome trace names the three flash
+     kernels' CUDA symbols and the decode graph's ``cudaGraphLaunch``.
+   - escalation, in child processes beside phases 8 and 10 (2 layers, T
+     576): a hung ``ppo_update`` under ``stall_action: checkpoint_exit``
+     exits 75 with a rescue checkpoint at step 4, which a third child
+     with ``resume_from: auto`` continues to step 16; ``abort`` exits 70
+     with none.
 8. train parity — one train_step and one 2-pass train_multi at fp32 on
    the kernel path, each pass against the dense path's pass at the same
    parameters and on one rollout batch: loss and grad norm at rtol 1e-5,
@@ -103,7 +131,9 @@ Phases, each printing its own line; any failure exits non-zero:
    loss finite; prints the update times, training tokens/s, the eval
    time, the peak device memory and the split of steps 2-4 (trunk
    forward, heads and loss, backward, optimizer) from the CUDA events
-   the trainer's ``step_events`` records. Then its eval sampler (the
+   the trainer's ``step_events`` records; supervised like phase 7, its
+   ``telemetry.json`` and ``trace.jsonl`` written, fault counters 0.
+   Then its eval sampler (the
    advantage-shifted step, captured at the step-0 eval) on both paths
    from one generator state: identical sampled tokens and generator
    state, timed. Then the trainer is saved,
@@ -128,12 +158,15 @@ each kernel, and by phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -142,7 +175,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from trlx_tpu_torch import ops, telemetry
+from trlx_tpu_torch import ops, supervisor, telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.examples import ilql_sentiments, ppo_tldr
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
@@ -182,7 +215,16 @@ from trlx_tpu_torch.serve import __main__ as serve_cli
 from trlx_tpu_torch.trainers import build_optimizer
 from trlx_tpu_torch.ops.sampling import SamplingParams
 from trlx_tpu_torch.trainers.ilql_trainer import STEP_PARTS
+from trlx_tpu_torch.supervisor import (
+    RunSupervisor,
+    SeamTimeout,
+    StallError,
+    chaos,
+)
 from trlx_tpu_torch.utils import aotjit
+from trlx_tpu_torch.utils.checkpoint import find_latest_checkpoint
+from trlx_tpu_torch.utils.faults import retry_call
+from trlx_tpu_torch.utils.profiling import annotate
 from trlx_tpu_torch.utils.loading import (
     get_model,
     get_orchestrator,
@@ -1186,13 +1228,25 @@ def train_config_dict(compute_dtype="bfloat16", fused=True, ppo_epochs=4):
     return cfg
 
 
+#: configs/ppo_config.yml's run-supervisor and telemetry block, as
+#: shipped (no pyyaml on the card machine)
+SUPERVISED = {"stall_timeout": 300, "stall_grace": 120,
+              "host_call_timeout": 60, "max_walltime": 0,
+              "telemetry": True, "telemetry_dir": "",
+              "telemetry_flush_every": 0}
+
+
 def tldr_config_dict(run_dir, seed=0):
     """:func:`train_config_dict` in bf16 with fused attention, the commit
     gate on (``max_bad_steps`` 2) and a step checkpoint every 4 passes
-    under ``run_dir``, the newest 2 kept."""
+    under ``run_dir``, the newest 2 kept; supervised with
+    :data:`SUPERVISED`, and logging through ``train.tracker`` to
+    ``<run_dir>/metrics.jsonl``."""
     cfg = train_config_dict()
     cfg["train"].update(checkpoint_interval=4, keep_checkpoints=2,
-                        max_bad_steps=2, checkpoint_dir=run_dir, seed=seed)
+                        max_bad_steps=2, checkpoint_dir=run_dir, seed=seed,
+                        tracker=f"jsonl:{run_dir}/metrics.jsonl",
+                        **SUPERVISED)
     return cfg
 
 
@@ -1201,12 +1255,54 @@ def dir_bytes(path):
                for root, _, files in os.walk(path) for f in files)
 
 
+def rounded(seconds):
+    """A dict of seconds rounded to ms, for printing."""
+    return {k: round(v, 3) for k, v in seconds.items()}
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_run_floor(run_dir, records, device, peak_gb):
+    """What a supervised learn() leaves: ``telemetry.json`` and
+    ``trace.jsonl`` in ``run_dir``, every ``fault/*`` counter at 0, and
+    per-iteration records that carry ``time/*``, ``throughput/*`` (MFU
+    in (0, 1) on the card) and the ``device/hbm_*`` gauges, whose peak
+    is ``torch.cuda.max_memory_allocated()`` at the learn's exit."""
+    with open(os.path.join(run_dir, "telemetry.json")) as f:
+        summary = json.load(f)
+    trace = read_jsonl(os.path.join(run_dir, "trace.jsonl"))
+    faults = {k: v for k, v in summary["counters"].items()
+              if k.startswith("fault/")}
+    assert faults and not any(faults.values()), faults
+    last = records[-1]
+    want = ["throughput/samples_per_sec", "throughput/tokens_per_sec"]
+    if device == "cuda":
+        want += ["throughput/mfu", "device/hbm_in_use_gb",
+                 "device/hbm_peak_gb", "device/hbm_limit_gb",
+                 "device/hbm_utilization"]
+        assert 0 < last["throughput/mfu"] < 1, last["throughput/mfu"]
+        assert summary["gauges"]["device/hbm_peak_gb"] == peak_gb, \
+            (summary["gauges"]["device/hbm_peak_gb"], peak_gb)
+    missing = [k for k in want if k not in last]
+    assert not missing and any(k.startswith("time/") for k in last), \
+        missing
+    return {"summary": summary, "trace_events": len(trace),
+            "trace_names": sorted({e["name"] for e in trace}),
+            "last": last}
+
+
 def train_phase(tree, device, run_dir):
     """registry -> pipeline -> orchestrator.make_experience -> learn(),
     with the reward model built from the trainer's own trunk scoring on
     the device, every launch counter at 0 just before and read just
-    after. Two step checkpoints land in ``run_dir``; every logged
-    ``bad_step`` is 0."""
+    after. Supervised as configs/ppo_config.yml ships it; learn() gets no
+    log_fn, so its stats go to the jsonl tracker, one record per logged
+    iteration. Two step checkpoints land in ``run_dir``; every logged
+    ``bad_step`` is 0; ``telemetry.json`` and ``trace.jsonl`` land there
+    too (:func:`check_run_floor`)."""
     cfg = TRLConfig.from_dict(tldr_config_dict(run_dir))
     spec, m = cfg.model.resolve_spec(), cfg.method
     trainer = get_model(cfg.model.model_type)(cfg, device=device,
@@ -1216,13 +1312,14 @@ def train_phase(tree, device, run_dir):
         ppo_tldr.synthetic_documents(64), trainer.tokenizer, cfg)
     orch = get_orchestrator(cfg.train.orchestrator)(
         trainer, pipeline, reward_fn=reward_model, chunk_size=m.chunk_size)
-    logs = []
     ops.reset_launches()
     t0 = time.perf_counter()
     info = orch.make_experience(m.num_rollouts)
-    trainer.learn(log_fn=logs.append)
+    trainer.learn()
     torch.cuda.synchronize() if device == "cuda" else None
     wall = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() / 2**30
+               if device == "cuda" else 0.0)
     all_launches = dict(ops.LAUNCHES)
     launches = {n: all_launches[n] for n in FLASH_NAMES}
     L, k = spec.n_layer, trainer.policy.k
@@ -1232,8 +1329,10 @@ def train_phase(tree, device, run_dir):
             "flash_bwd_dq": passes * k, "flash_bwd_dkv": passes * k}
     if device == "cuda":
         assert launches == want, f"flash launches {launches} != {want}"
-    train_logs = [entry for entry in logs if "loss" in entry]
-    assert len(train_logs) == passes // m.ppo_epochs, logs
+    records = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    train_logs = [entry for entry in records if "loss" in entry]
+    assert len(records) == len(train_logs) == passes // m.ppo_epochs, \
+        records
     assert np.isfinite(info["mean_kl"]) and np.isfinite(info["mean_score"])
     for entry in train_logs:
         for key in ("loss", "pg_loss", "vf_loss", "grad_norm", "approx_kl"):
@@ -1247,6 +1346,10 @@ def train_phase(tree, device, run_dir):
     assert trainer.decoder.step.signatures() == 1
     with open(os.path.join(run_dir, "LATEST")) as f:
         assert f.read() == "step_8"
+    floor = check_run_floor(run_dir, train_logs, device, peak_gb)
+    sup = trainer.supervisor
+    assert (sup.stall_timeout, sup.stall_grace) == (300, 120)
+    assert sup.stalls == 0 and not sup.escalated
     hists = telemetry.current().registry.hists
     batch = trainer.store._stacked().map(lambda x: x[:cfg.train.batch_size])
     save = hists["time/checkpoint_save"]
@@ -1261,6 +1364,10 @@ def train_phase(tree, device, run_dir):
         "save_ms": [save.first * 1e3] + [t * 1e3 for t in save.window],
         "checkpoint_bytes": dir_bytes(os.path.join(run_dir, "step_8")),
         "graphs": graph_stats(trainer.decoder.step.graphs()),
+        "first_call_s": dict(sup.first_call_s), "peak_gb": peak_gb,
+        "mfu": floor["last"].get("throughput/mfu"),
+        "trace_events": floor["trace_events"],
+        "trace_names": floor["trace_names"],
     }
 
 
@@ -1551,6 +1658,8 @@ def train_parity_phase(tree, batch, device):
 
 #: rows of the ILQL store (4 batches of 80) and their length range
 ILQL_ROWS, ILQL_MIN_LEN, ILQL_MAX_LEN = 320, 130, 500
+#: where the ILQL phase's telemetry.json and trace.jsonl land
+ILQL_RUN_DIR = os.path.join(CKPT_ROOT, "ilql_run")
 
 
 def ilql_config_dict(compute_dtype="bfloat16", fused=True):
@@ -1558,12 +1667,15 @@ def ilql_config_dict(compute_dtype="bfloat16", fused=True):
     batch 80, tau 0.7, gamma 0.99, cql 0.1, awac 1, alpha 1, beta 4, two
     Q heads) at gpt2-124M width from config with fused_attention, the
     byte tokenizer, a target sync every 2 steps, stats every step, one
-    eval at step 0 and checkpoints beyond the run."""
+    eval at step 0 and checkpoints beyond the run; supervised as
+    configs/ppo_config.yml ships it, its telemetry in
+    :data:`ILQL_RUN_DIR`."""
     cfg = ilql_sentiments.ilql_config()
     cfg["model"].update(model_path="from-config", tokenizer_path="byte",
                         model_spec=dict(GPT2_SPEC),
                         compute_dtype=compute_dtype, fused_attention=fused)
-    cfg["train"].update(log_interval=1, checkpoint_interval=10**9)
+    cfg["train"].update(log_interval=1, checkpoint_interval=10**9,
+                        **{**SUPERVISED, "telemetry_dir": ILQL_RUN_DIR})
     cfg["method"].update(steps_for_target_q_sync=2)
     return cfg
 
@@ -1623,6 +1735,12 @@ def ilql_phase(tree, device):
             assert np.isfinite(entry[key]), (key, entry)
     evals = [entry for entry in logs if "reward" in entry]
     assert len(evals) == 1 and np.isfinite(evals[0]["reward"]), evals
+    floor = check_run_floor(ILQL_RUN_DIR, train_logs, device,
+                            torch.cuda.max_memory_allocated() / 2**30
+                            if device == "cuda" else 0.0)
+    assert floor["summary"]["timings"]["time/ilql_update"]["count"] == steps
+    assert trainer.supervisor.stall_timeout == 300
+    assert trainer.supervisor.stalls == 0
     hists = telemetry.current().registry.hists
     update = hists["time/ilql_update"]
     T = trainer._tokens_per_sample
@@ -1645,6 +1763,8 @@ def ilql_phase(tree, device):
                           if device == "cuda" else 0.0),
         "logs": train_logs, "eval_reward": evals[0]["reward"],
         "first_mask": first.attention_mask, "split_ms": split,
+        "first_call_s": dict(trainer.supervisor.first_call_s),
+        "mfu": floor["last"].get("throughput/mfu"),
     }
 
 
@@ -1842,6 +1962,479 @@ def ilql_ab_phase(trainer, device):
 
 
 # --------------------------------------------------------------------- #
+# 7b. the run floor on the card: the cost of supervision, the drills, a
+# profiled cycle and the escalation drive
+# --------------------------------------------------------------------- #
+
+#: the supervisor's knobs off (the run floor's telemetry stays on)
+UNSUPERVISED = {"stall_timeout": 0, "stall_grace": 60,
+                "host_call_timeout": 0}
+
+
+def warm_learn(trainer, orch, schedule="", **train):
+    """One more cycle of the warm PPO trainer through learn(): a chunk of
+    fresh experience first (outside learn), then ``train`` set on its
+    config (no interval checkpoints unless given) and ``schedule`` as
+    ``train.chaos``, and two updates of ``ppo_epochs`` passes with one
+    chunk's rollout refresh between them, the rollout and update shapes
+    of phase 7. Returns the logged stats; the schedule is cleared after."""
+    t, m = trainer.config.train, trainer.config.method
+    trainer.store.clear_history()
+    orch.make_experience(orch.chunk_size)
+    m.num_rollouts = orch.chunk_size
+    for key, value in {"checkpoint_interval": 10**9, **train}.items():
+        setattr(t, key, value)
+    t.chaos = schedule
+    t.total_steps = trainer.iter_count + 2 * m.ppo_epochs
+    t.epochs = trainer.epoch + 2
+    logs = []
+    try:
+        trainer.learn(log_fn=logs.append)
+    finally:
+        t.chaos = ""
+        chaos.reset()
+    return logs
+
+
+def supervision_cost_phase(trainer, orch):
+    """Phase 7's update and rollout times with the supervisor as
+    configs/ppo_config.yml ships it and with it off, alternated (on,
+    off, on, off) on the warm trainer in one process at the same shapes:
+    each learn's two ``ppo_update`` spans (4 passes of B 32, T 576 each)
+    and its ``rollout_refresh`` (one chunk of 32 rollouts); medians."""
+    times = {mode: {"update_s": [], "rollout_s": []}
+             for mode in ("supervised", "unsupervised")}
+    for armed in (True, False, True, False):
+        mode = "supervised" if armed else "unsupervised"
+        warm_learn(trainer, orch, **(SUPERVISED if armed else UNSUPERVISED))
+        assert (trainer.supervisor.stall_timeout > 0) == armed
+        hists = telemetry.current().registry.hists
+        times[mode]["update_s"] += list(hists["time/ppo_update"].window)[-2:]
+        times[mode]["rollout_s"].append(hists["time/rollout_refresh"].last)
+    return {mode: {k: float(np.median(v)) for k, v in d.items()}
+            for mode, d in times.items()}
+
+
+def host_reward(texts):
+    """The drills' host reward: each text's share of vowels."""
+    return [sum(c in "aeiou" for c in t) / max(len(t), 1) for t in texts]
+
+
+def drills_phase(trainer, orch, batch, device, drill_dir):
+    """The run supervisor's drills on the warm PPO trainer, with a host
+    reward (the device reward model takes no host seam), each in a fresh
+    telemetry session and run directory:
+
+    1. ``reward_fn:hang=30@1`` under a 1.5 s stall budget (first calls
+       too: the trainer is warm) and a 3 s seam timeout: learn()
+       completes; fault/stalls, fault/seam_timeouts and
+       fault/host_retries >= 1; the stack dump names the reward_fn phase
+       and MainThread;
+    2. ``reward_fn:hang=30@*``, one retry of 2 s each: StallError, the
+       checkpoint at the stall step, and a fresh trainer (seed 1,
+       ``resume_from: auto``) restores it bit-identically;
+    3. ``ppo_update:sigterm@1``: a preemption checkpoint at that step;
+    4. ``max_walltime`` 1 ms: a checkpoint and a clean return;
+    5. the guarded step (commit gate on) inside an armed supervisor's
+       ``ppo_update`` phase, with the telemetry payload (device gauges
+       included), under ``torch.cuda.set_sync_debug_mode("error")``."""
+    t = trainer.config.train
+    host = get_orchestrator(t.orchestrator)(
+        trainer, orch.pipeline, reward_fn=host_reward,
+        chunk_size=orch.chunk_size)
+    base = dict(stall_timeout=1.5, stall_first_timeout=1.5, stall_grace=600,
+                host_call_timeout=3.0, host_retries=2, host_retry_backoff=0.0,
+                max_walltime=0)
+    passes = 2 * trainer.config.method.ppo_epochs
+    out = {}
+
+    def fresh(name):
+        t.checkpoint_dir = os.path.join(drill_dir, name)
+        t.telemetry_dir = os.path.join(drill_dir, name, "telemetry")
+        return telemetry.start_from_config(trainer.config).registry.counters
+
+    def latest_step():
+        found = find_latest_checkpoint(t.checkpoint_dir)
+        assert found is not None, t.checkpoint_dir
+        return int(os.path.basename(found).split("_")[1])
+
+    counters = fresh("hung")
+    start, err = trainer.iter_count, io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        warm_learn(trainer, host, "reward_fn:hang=30@1", **base)
+    dump = err.getvalue()
+    assert trainer.iter_count == start + passes
+    for key in ("fault/stalls", "fault/seam_timeouts", "fault/host_retries"):
+        assert counters[key] >= 1, (key, counters)
+    assert "STALL: phase 'reward_fn'" in dump, dump[-2000:]
+    assert "--- thread MainThread" in dump, dump[-2000:]
+    out["hung"] = {"s": time.perf_counter() - t0,
+                   "stalls": counters["fault/stalls"],
+                   "seam_timeouts": counters["fault/seam_timeouts"],
+                   "host_retries": counters["fault/host_retries"],
+                   "dump_lines": dump.count("\n")}
+
+    counters = fresh("stall")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        try:
+            warm_learn(trainer, host, "reward_fn:hang=30@*",
+                       **{**base, "stall_timeout": 0, "host_retries": 1,
+                          "host_call_timeout": 2.0})
+        except StallError:
+            pass
+        else:
+            raise AssertionError("a permanently hung reward_fn raised "
+                                 "no StallError")
+    stall_s = time.perf_counter() - t0
+    assert latest_step() == trainer.iter_count
+    assert counters["fault/host_giveups"] == 1
+    assert counters["fault/seam_timeouts"] == 2
+    cfg = TRLConfig.from_dict(tldr_config_dict(t.checkpoint_dir, seed=1))
+    cfg.train.resume_from = "auto"
+    resumed = get_model(cfg.model.model_type)(cfg, device=device)
+    assert resumed.iter_count == trainer.iter_count
+    n, _ = assert_same_state(trainer, resumed, "the stall checkpoint")
+    del resumed
+    torch.cuda.empty_cache() if device == "cuda" else None
+    out["stall"] = {"s": stall_s, "step": trainer.iter_count, "tensors": n}
+
+    counters = fresh("sigterm")
+    logs = warm_learn(trainer, host, "ppo_update:sigterm@1",
+                      **{**base, "stall_timeout": 0})
+    assert any(s.get("preempted") for s in logs), logs
+    assert counters["fault/preempt_sigterm"] == 1
+    assert latest_step() == trainer.iter_count
+    out["sigterm"] = {"step": trainer.iter_count}
+
+    counters = fresh("walltime")
+    logs = warm_learn(trainer, host, "", **{**base, "stall_timeout": 0,
+                                            "max_walltime": 0.001})
+    t.max_walltime = 0
+    assert any(s.get("walltime_exceeded") for s in logs), logs
+    assert counters["fault/walltime_exits"] == 1
+    assert latest_step() == trainer.iter_count
+    out["walltime"] = {"step": trainer.iter_count}
+
+    if device == "cuda":
+        sync(device)
+        with RunSupervisor(stall_timeout=300, stall_grace=120) as sup:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with annotate("ppo_update"):
+                    stats = trainer.train_step(batch)
+                    supervisor.beat()
+                payload = trainer._telemetry_stats(1.0)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert sup._thread is None and sup.stalls == 0
+        assert float(stats["bad_step"]) == 0.0, stats
+        assert "device/hbm_in_use_gb" in payload, sorted(payload)
+        out["sync_checked"] = True
+    return out
+
+
+def seam_capture_drill(trainer, batch, device):
+    """A reward seam that scores on the card is timed out and abandoned
+    by its bounded worker while it keeps launching (a matmul loop on its
+    own thread's stream, reading a value back every 128 launches), and
+    meanwhile the main thread captures a fresh rollout decoder (greedy,
+    at the rollout shape) for the first time:
+
+    (a) the capture holds at its first attempt while the worker keeps
+        launching (``compile/capture_retries`` unchanged);
+    (b) the worker synchronises the whole device once inside a second
+        fresh decoder's capture (a hook on the capture's start waits for
+        it): CUDA refuses the sync in the worker and invalidates the
+        capture, and aot_jit takes it again (``compile/capture_retries``
+        + 1).
+
+    In both the eager first call, the replay and the eager path give
+    identical tokens; then the worker is released and ends without an
+    error."""
+    release, started = threading.Event(), threading.Event()
+    began, synced = threading.Event(), threading.Event()
+    work = {"launches": 0, "error": None, "sync_error": None,
+            "armed": False}
+    weight = torch.randn(1024, 1024, device=device) / 32
+
+    def scorer(texts):
+        try:
+            x = torch.randn(256, 1024, device=device)
+            started.set()
+            while not release.is_set():
+                x = torch.tanh(x @ weight)
+                work["launches"] += 2
+                if work["launches"] % 128 == 0:
+                    float(x[0, 0])  # a read back on this thread's stream
+                if work["armed"] and began.is_set() and not synced.is_set():
+                    try:
+                        torch.cuda.synchronize()  # device-wide
+                    except Exception as e:  # CUDA refuses it: expected
+                        work["sync_error"] = e
+                    synced.set()
+        except Exception as e:  # reported below, never swallowed
+            work["error"] = e
+            raise
+        return [0.0] * len(texts)
+
+    try:
+        retry_call(scorer, ["x"], retries=0, timeout=0.2, seam="reward_fn",
+                   label="reward_fn")
+    except SeamTimeout:
+        pass
+    else:
+        raise AssertionError("the scoring seam did not time out")
+    assert started.is_set()
+    worker = next(th for th in threading.enumerate()
+                  if th.name == "trlx-seam-reward_fn")
+    greedy = trainer.gen_config._replace(
+        sampling=SamplingParams(do_sample=False))
+    counters = telemetry.current().registry.counters
+
+    def rollout(decoder):
+        embed, ln_f = head_params_for_decode(trainer.params)
+        out = generate(trainer.policy.spec, all_blocks(trainer.params),
+                       embed, ln_f, batch.query_tensors, batch.query_masks,
+                       trainer.generator, greedy,
+                       compute_dtype=trainer.policy.compute_dtype,
+                       decoder=decoder)
+        sync(device)
+        return out.gen_tokens.clone()
+
+    def capture_begin(graph, *args, **kwargs):
+        real_begin(graph, *args, **kwargs)
+        if work["armed"] and not synced.is_set():
+            began.set()
+            assert synced.wait(60), "the worker never synchronised"
+
+    real_begin = torch.cuda.CUDAGraph.capture_begin
+    runs = {}
+    try:
+        torch.cuda.CUDAGraph.capture_begin = capture_begin
+        for case in ("launching", "device sync"):
+            work["armed"] = case == "device sync"
+            decoder = RolloutDecoder()
+            retries = counters.get("compile/capture_retries", 0.0)
+            before = work["launches"]
+            first = rollout(decoder)  # eager on a side stream, then capture
+            during = work["launches"] - before
+            assert worker.is_alive() and work["error"] is None, work
+            replay = rollout(decoder)
+            eager = with_graphs(False, rollout, decoder)
+            assert torch.equal(first, replay) and torch.equal(first, eager)
+            runs[case] = {
+                "seam_launches": during,
+                "capture_retries": counters.get("compile/capture_retries",
+                                                0.0) - retries,
+                "graphs": graph_stats(decoder.step.graphs())}
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = real_begin
+        release.set()
+        worker.join(60)
+    assert not worker.is_alive() and work["error"] is None, work
+    if device == "cuda":
+        assert runs["launching"]["seam_launches"] > 0, runs
+        assert runs["launching"]["capture_retries"] == 0, runs
+        assert runs["device sync"]["capture_retries"] == 1, runs
+        assert "capturing" in str(work["sync_error"]), work["sync_error"]
+        for run in runs.values():
+            assert run["graphs"]["graphs"] == 1, runs
+    return runs
+
+
+#: the CUDA symbols of the bf16 flash kernels on the training path
+FLASH_SYMBOLS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkv_mma_kernel")
+
+
+def profile_phase(trainer, orch, device, trace_dir):
+    """One supervised cycle (:func:`warm_learn`: two updates of 4 passes
+    and one chunk's rollout refresh) under ``$TRLX_TPU_PROFILE_DIR``: the
+    learn loop's torch.profiler exports one Chrome trace, which names
+    the three flash kernels' CUDA symbols and the decode graph's
+    replays (``cudaGraphLaunch``)."""
+    t = trainer.config.train
+    t.telemetry_dir = t.checkpoint_dir = os.path.join(
+        os.path.dirname(trace_dir), "profile_run")
+    telemetry.start_from_config(trainer.config)
+    os.environ["TRLX_TPU_PROFILE_DIR"] = trace_dir
+    t0 = time.perf_counter()
+    try:
+        warm_learn(trainer, orch, **{**SUPERVISED,
+                                     "telemetry_dir": t.telemetry_dir})
+    finally:
+        del os.environ["TRLX_TPU_PROFILE_DIR"]
+    wall = time.perf_counter() - t0
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    assert len(files) == 1, files
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {sym: sum(sym in e.get("name", "") for e in kernels)
+             for sym in FLASH_SYMBOLS}
+    replays = sum(e.get("name") == "cudaGraphLaunch" for e in events)
+    annotated = {name: sum(e.get("name") == name for e in events)
+                 for name in ("ppo_update", "rollout", "rollout_refresh")}
+    if device == "cuda":
+        assert all(found.values()) and replays > 0, (found, replays)
+        assert all(annotated.values()), annotated
+    return {"wall_s": wall, "bytes": os.path.getsize(files[0]),
+            "events": len(events), "kernels": len(kernels),
+            "flash": found, "graph_launches": replays,
+            "annotations": annotated}
+
+
+def child_config(run_dir, action):
+    """The escalation drive's trainer: :func:`tldr_config_dict` cut to 2
+    layers (T 576 still, so the flash kernels launch), one chunk of 32
+    rollouts, 16 passes over 4 epochs, ``resume_from: auto``; a 2 s
+    stall budget after first calls (300 s for those) and a 2 s grace.
+    ``action`` "checkpoint_exit" or "abort": that ``stall_action``, and
+    the second ``ppo_update`` hangs (chaos); "resume": no chaos."""
+    cfg = tldr_config_dict(run_dir)
+    cfg["model"]["model_spec"]["n_layer"] = 2
+    cfg["method"]["num_rollouts"] = 32
+    cfg["train"].update(
+        epochs=4, total_steps=16, checkpoint_interval=10**9,
+        resume_from="auto", stall_timeout=2.0, stall_first_timeout=300.0,
+        stall_grace=2.0,
+        stall_action="checkpoint_exit" if action == "resume" else action,
+        chaos="" if action == "resume" else "ppo_update:hang=600@2")
+    return cfg
+
+
+def escalation_child(action, run_dir, device="cuda"):
+    """The child process of the escalation drive (``chip_smoke.py
+    --escalation-child <action> <run dir> [device]``): a supervised PPO
+    learn() that the watchdog ends (exit 75 after a rescue checkpoint,
+    or 70), or, for "resume", one that continues from that checkpoint
+    and prints its start and end iterations as a JSON line."""
+    cfg = TRLConfig.from_dict(child_config(run_dir, action))
+    trainer = get_model(cfg.model.model_type)(cfg, device=device)
+    start = trainer.iter_count
+    reward_model = ppo_tldr.build_reward_model(cfg, trainer)
+    pipeline = get_pipeline(cfg.train.pipeline)(
+        ppo_tldr.synthetic_documents(32), trainer.tokenizer, cfg)
+    orch = get_orchestrator(cfg.train.orchestrator)(
+        trainer, pipeline, reward_fn=reward_model,
+        chunk_size=cfg.method.chunk_size)
+    orch.make_experience(cfg.method.num_rollouts)
+    ops.reset_launches()
+    trainer.learn(log_fn=lambda stats: None)
+    print(json.dumps({"child": action, "start_iter": start,
+                      "iter": trainer.iter_count,
+                      "first_call_s": trainer.supervisor.first_call_s,
+                      "launches": dict(ops.LAUNCHES)}), flush=True)
+    return 0
+
+
+def start_child(action, run_dir, device):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--escalation-child",
+         action, run_dir, device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_child(proc, want_rc, timeout=600):
+    """Wait for a child (killed past ``timeout``); its output, after
+    checking its exit code."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    assert proc.returncode == want_rc, (
+        f"escalation child exited {proc.returncode}, not {want_rc}:\n"
+        f"{out[-3000:]}\n{err[-6000:]}")
+    return out, err
+
+
+class EscalationDrive:
+    """Three child processes, chained on a thread of this process so
+    they run beside the untimed drills, profile and phase 8: a
+    ``ppo_update`` hang with ``stall_action: checkpoint_exit`` exits 75
+    after committing a rescue checkpoint at step 4, and a third child
+    with ``resume_from: auto`` starts once it has exited and continues
+    from that checkpoint to step 16; the same hang with ``abort`` exits
+    70 and commits none. Every child is waited for, or killed, before
+    the run ends."""
+
+    def __init__(self, root, device):
+        self.root, self.device = root, device
+        self.procs, self.results = {}, {}
+        self.error = None
+        self.stopping = threading.Event()
+
+    def _run(self, action):
+        return os.path.join(self.root, "checkpoint_exit"
+                            if action == "resume" else action)
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        for action in ("checkpoint_exit", "abort"):
+            self.procs[action] = start_child(action, self._run(action),
+                                             self.device)
+        self.thread = threading.Thread(target=self._chain, daemon=True,
+                                       name="escalation-drive")
+        self.thread.start()
+
+    def _chain(self):
+        try:
+            self.results["checkpoint_exit"] = finish_child(
+                self.procs["checkpoint_exit"], 75)
+            if not self.stopping.is_set():
+                self.procs["resume"] = start_child(
+                    "resume", self._run("resume"), self.device)
+            self.results["abort"] = finish_child(self.procs["abort"], 70)
+            if "resume" in self.procs:
+                self.results["resume"] = finish_child(self.procs["resume"],
+                                                      0)
+        except BaseException as e:  # re-raised by finish()
+            self.error = e
+        self.wall_s = time.perf_counter() - self.t0
+
+    def finish(self, timeout=900):
+        """Wait for the chain and check each child's outcome."""
+        self.thread.join(timeout)
+        assert not self.thread.is_alive(), "the escalation children hung"
+        if self.error is not None:
+            raise self.error
+        out = {}
+        for action in ("checkpoint_exit", "abort"):
+            _, err = self.results[action]
+            latest = find_latest_checkpoint(self._run(action))
+            if action == "abort":
+                assert latest is None, latest
+            else:
+                assert latest is not None and latest.endswith("step_4"), \
+                    latest
+                assert "rescue checkpoint committed" in err, err[-3000:]
+            assert "STALL ESCALATION: phase 'ppo_update'" in err, \
+                err[-3000:]
+            out[action] = {"exit": self.procs[action].returncode,
+                           "checkpoint": latest and os.path.basename(latest)}
+        report = json.loads(self.results["resume"][0].strip()
+                            .splitlines()[-1])
+        assert (report["start_iter"], report["iter"]) == (4, 16), report
+        if self.device == "cuda":
+            assert all(report["launches"][n] > 0 for n in FLASH_NAMES), \
+                report
+        out["resume"] = report
+        out["wall_s"] = self.wall_s
+        return out
+
+    def kill(self):
+        self.stopping.set()
+        for _ in range(2):  # again for a child started meanwhile
+            for proc in list(self.procs.values()):
+                if proc.poll() is None:
+                    proc.kill()
+            self.thread.join(30)
+
+
+# --------------------------------------------------------------------- #
 # 7-10 and the durability checks, in one place so their checkpoints are
 # removed however the run ends
 # --------------------------------------------------------------------- #
@@ -1899,7 +2492,8 @@ def durability_phases(card, device="cuda"):
                 f"(set_sync_debug_mode error: {gate['sync_checked']}); the "
                 f"next clean batch committed ({gate['moved_leaves']} "
                 f"tensors moved); flash launches {gate['launches']}")
-    ppo_ab = ppo_ab_phase(trainer, train.pop("orch"), batch, device)
+    train["orch_device"] = train.pop("orch")
+    ppo_ab = ppo_ab_phase(trainer, train["orch_device"], batch, device)
     log("graphs-ppo", f"greedy rollout decode (B32 P512 G64) graph == "
                       f"eager, tokens and logprobs, before and after one "
                       f"update pass (logprobs moved by up to "
@@ -1911,9 +2505,91 @@ def durability_phases(card, device="cuda"):
                       f"eager, {ppo_ab['rollout_s'][True]:.3f}s graph; the "
                       f"training run's rollouts: {train['graphs']} "
                       f"captured, 0 recompiles ({card})")
-    del trainer
-    torch.cuda.empty_cache() if device == "cuda" else None
-    train_parity = train_parity_phase(tree, batch, device)
+    log("run-floor", f"phase 7 ran supervised as configs/ppo_config.yml "
+                     f"ships it (stall_timeout 300, stall_grace 120, "
+                     f"host_call_timeout 60, telemetry on) and logged "
+                     f"through the jsonl tracker: {len(train['logs'])} "
+                     f"records; telemetry.json and trace.jsonl "
+                     f"({train['trace_events']} spans: "
+                     f"{train['trace_names']}) written; every fault/* "
+                     f"counter 0; last record throughput/mfu "
+                     f"{train['mfu']}, device/hbm_peak_gb "
+                     f"{train['peak_gb']:.3f} == max_memory_allocated; "
+                     f"first calls the watchdog saw (s): "
+                     f"{rounded(train['first_call_s'])} ({card})")
+    cost = supervision_cost_phase(trainer, train["orch_device"])
+    on, off = cost["supervised"], cost["unsupervised"]
+    log("run-floor", f"cost of supervision (the same warm trainer, "
+                     f"alternated on/off/on/off, medians): ppo_update (4 "
+                     f"passes of B32 T576) {on['update_s'] * 1e3:.1f} ms "
+                     f"supervised, {off['update_s'] * 1e3:.1f} ms "
+                     f"unsupervised; rollout refresh (32 rollouts) "
+                     f"{on['rollout_s'] * 1e3:.1f} / "
+                     f"{off['rollout_s'] * 1e3:.1f} ms "
+                     f"({card})")
+    escalation = EscalationDrive(os.path.join(CKPT_ROOT, "escalation"),
+                                 device)
+    escalation.start()
+    try:
+        drills = drills_phase(trainer, train["orch_device"], batch, device,
+                              os.path.join(CKPT_ROOT, "drills"))
+        log("drills", f"hung reward_fn (one attempt): learn() completed in "
+                      f"{drills['hung']['s']:.2f}s, fault/stalls "
+                      f"{drills['hung']['stalls']:.0f}, fault/seam_timeouts "
+                      f"{drills['hung']['seam_timeouts']:.0f}, "
+                      f"fault/host_retries "
+                      f"{drills['hung']['host_retries']:.0f}, the dump "
+                      f"names 'reward_fn' and MainThread; every attempt "
+                      f"hung: StallError after {drills['stall']['s']:.2f}s, "
+                      f"checkpoint step {drills['stall']['step']} restored "
+                      f"bit-identically by a fresh trainer "
+                      f"({drills['stall']['tensors']} tensors); chaos "
+                      f"SIGTERM: preemption checkpoint step "
+                      f"{drills['sigterm']['step']}; max_walltime: checkpoint "
+                      f"step {drills['walltime']['step']}, clean return; "
+                      f"guarded step + telemetry payload inside an armed "
+                      f"supervisor under set_sync_debug_mode error: "
+                      f"{drills.get('sync_checked', False)} ({card})")
+        capture = seam_capture_drill(trainer, batch, device)
+        launching, synced = capture["launching"], capture["device sync"]
+        log("drills", f"a timed-out scoring seam kept launching on the "
+                      f"card ({launching['seam_launches']} launches during "
+                      f"a fresh rollout decoder's first call and capture): "
+                      f"the capture held at its first attempt "
+                      f"({launching['graphs']}); the seam synchronising the "
+                      f"whole device inside the next capture invalidated it "
+                      f"and aot_jit captured again (compile/capture_retries "
+                      f"+{synced['capture_retries']:.0f}, "
+                      f"{synced['graphs']}); tokens identical eager / "
+                      f"replay / eager path in both; the worker ended "
+                      f"cleanly")
+        profile = profile_phase(trainer, train["orch_device"], device,
+                                os.path.join(CKPT_ROOT, "profile"))
+        log("profile", f"one supervised cycle under TRLX_TPU_PROFILE_DIR in "
+                       f"{profile['wall_s']:.2f}s: trace {profile['bytes']} "
+                       f"bytes, {profile['events']} events, "
+                       f"{profile['kernels']} kernels; flash symbols "
+                       f"{profile['flash']}, cudaGraphLaunch "
+                       f"{profile['graph_launches']}, annotations "
+                       f"{profile['annotations']} ({card})")
+        del trainer
+        torch.cuda.empty_cache() if device == "cuda" else None
+        train_parity = train_parity_phase(tree, batch, device)
+        esc = escalation.finish()
+    finally:
+        escalation.kill()
+    log("escalation", f"child processes at 2 layers, T 576: a ppo_update "
+                      f"hang under stall_action checkpoint_exit exited "
+                      f"{esc['checkpoint_exit']['exit']} with rescue "
+                      f"checkpoint {esc['checkpoint_exit']['checkpoint']}; "
+                      f"abort exited {esc['abort']['exit']} with none; "
+                      f"resume_from auto continued from step "
+                      f"{esc['resume']['start_iter']} to "
+                      f"{esc['resume']['iter']} (first calls its watchdog "
+                      f"saw, s: {rounded(esc['resume']['first_call_s'])}"
+                      f"); {esc['wall_s']:.1f}s from the first start to the "
+                      f"last exit, beside the drills, the profile and phase "
+                      f"8 ({card})")
     del tree, train["batch"], batch
 
     ilql_tree = init_ilql_numpy(
@@ -1976,7 +2652,14 @@ def durability_phases(card, device="cuda"):
                       f"{ilql_ckpt['bytes']} bytes: save "
                       f"{ilql_ckpt['save_s'] * 1e3:.1f} ms, restore "
                       f"{ilql_ckpt['restore_s'] * 1e3:.1f} ms ({card})")
-    return {"train": train, "ilql": ilql, "train_parity": train_parity,
+    train.pop("orch_device")
+    run_floor = {"first_call_s": train["first_call_s"],
+                 "mfu": train["mfu"], "peak_gb": train["peak_gb"],
+                 "supervision": cost, "drills": drills,
+                 "seam_capture": capture,
+                 "profile": profile, "escalation": esc}
+    return {"run_floor": run_floor,
+            "train": train, "ilql": ilql, "train_parity": train_parity,
             "ppo_ab": ppo_ab, "ilql_ab": ilql_ab,
             "ilql_parity": ilql_parity, "ilql_errs": ilql_errs,
             "flash_ilql": flash_ilql, "serve_checkpoint": serve_ckpt,
@@ -1989,6 +2672,8 @@ def durability_phases(card, device="cuda"):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--escalation-child"]:
+        return escalation_child(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on "
               "the card", file=sys.stderr)
@@ -2088,6 +2773,7 @@ def main() -> int:
                                       "max_memory_gb", "launches", "T",
                                       "split_ms")},
         "ilql_parity": ilql_parity, "flash_ilql_shape": flash_ilql,
+        "run_floor": durable["run_floor"],
         "graphs": {"serve": run["graphs"], "serve_ab": serve_ab,
                    "ppo": train["graphs"], "ppo_ab": durable["ppo_ab"],
                    "ilql_ab": durable["ilql_ab"]},

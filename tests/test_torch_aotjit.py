@@ -6,8 +6,9 @@ and gives the same outputs. On the CPU the port's wrapper runs the
 function directly and keeps no tensor. The ``cuda`` cases capture a
 tiny graph on the card (each decides inside itself whether a card is
 there): replay, launch accounting through the paged-decode kernel, a
-generator re-seeded before each replay, and weights swapped in place or
-rebound.
+generator re-seeded before each replay, weights swapped in place or
+rebound, and a capture that another thread's device-wide synchronize
+invalidated, taken again (on the CPU: the retry policy itself).
 
 The JAX side is imported inside its test, so the card cases run
 without JAX::
@@ -103,6 +104,58 @@ def test_cpu_calls_run_directly_and_predeclare_the_counter():
     assert structure == tree_flatten(({"a": None, "b": x}, [1, (x,)]))[1]
 
 
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+@pytest.mark.parametrize("failures,retried", [(0, 0), (1, 1), (2, 2),
+                                              (3, None)])
+def test_invalidated_capture_is_taken_again(monkeypatch, failures,
+                                            retried):
+    """``_capture`` takes an invalidated capture again, up to
+    CAPTURE_ATTEMPTS times, counting each retry; the last failure, and
+    any other capture error at once, raises. (The streams are stubbed:
+    this is the policy; the card case below is the real capture.)"""
+    import contextlib
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda d: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    session = telemetry.start()
+    wrapped = aot_jit(lambda x: x + 1)
+    attempts = []
+
+    def capture_once(args, leaves, device):
+        attempts.append(1)
+        if len(attempts) <= failures:
+            raise RuntimeError("CUDA error: operation failed due to a "
+                               "previous error during capture\nSearch for "
+                               "`cudaErrorStreamCaptureInvalidated'")
+        return "entry"
+
+    monkeypatch.setattr(wrapped, "_capture_once", capture_once)
+    x = torch.ones(2)
+    if retried is None:
+        with pytest.raises(RuntimeError, match="Invalidated"):
+            wrapped._capture((x,), [x], "cuda")
+        assert len(attempts) == aotjit.CAPTURE_ATTEMPTS
+    else:
+        entry, out = wrapped._capture((x,), [x], "cuda")
+        assert entry == "entry" and torch.equal(out, x + 1)
+    assert session.registry.counters.get("compile/capture_retries",
+                                         0.0) == (retried if retried is
+                                                  not None else 2)
+
+    def broken(args, leaves, device):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(wrapped, "_capture_once", broken)
+    with pytest.raises(RuntimeError, match="illegal memory"):
+        wrapped._capture((x,), [x], "cuda")
+
+
 # --------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------- #
@@ -192,3 +245,71 @@ def test_cuda_graph_draws_follow_the_generator():
     assert not all(torch.equal(graph[0][0], x) for x in graph[0][1:])
     assert all(torch.equal(x, y) for x, y in zip(graph[0], graph[2]))
     assert len(wrapped.graphs()) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_capture_invalidated_by_another_thread_is_taken_again():
+    """Another thread keeps launching on the card during a capture (the
+    capture holds), then synchronises the whole device inside one (CUDA
+    refuses the sync there and invalidates the capture): the capture is
+    taken again, ``compile/capture_retries`` counts 1, and the replays
+    draw what the eager path draws from the same generator state."""
+    import threading
+
+    dev = _card()
+    session = telemetry.start()
+    g = torch.Generator(device=dev)
+    w = torch.randn(256, 256, device=dev) / 16
+    logits = torch.randn(4, 300, device=dev)
+    release, began, synced = (threading.Event() for _ in range(3))
+    state = {"armed": False, "launches": 0, "sync_error": None}
+
+    def other_thread():
+        x = torch.randn(64, 256, device=dev)
+        while not release.is_set():
+            x = torch.tanh(x @ w)
+            state["launches"] += 1
+            if state["armed"] and began.is_set() and not synced.is_set():
+                try:
+                    torch.cuda.synchronize()
+                except Exception as e:  # refused during a capture
+                    state["sync_error"] = e
+                synced.set()
+
+    def fn(gen, logits):
+        race = torch.empty_like(logits).exponential_(generator=gen)
+        return torch.argmax(torch.softmax(logits, -1) / race, dim=-1)
+
+    real_begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(graph, *args, **kwargs):
+        real_begin(graph, *args, **kwargs)
+        if state["armed"] and not synced.is_set():
+            began.set()
+            assert synced.wait(30)
+
+    worker = threading.Thread(target=other_thread, daemon=True)
+    worker.start()
+    try:
+        torch.cuda.CUDAGraph.capture_begin = capture_begin
+        for armed in (False, True):
+            state["armed"] = armed
+            wrapped = aot_jit(fn)
+            g.manual_seed(7)
+            first = [wrapped(g, logits).clone() for _ in range(3)]
+            aotjit.CUDA_GRAPHS = False
+            try:
+                g.manual_seed(7)
+                eager = [wrapped(g, logits).clone() for _ in range(3)]
+            finally:
+                aotjit.CUDA_GRAPHS = True
+            for x, y in zip(first, eager):
+                assert torch.equal(x, y)
+            assert len(wrapped.graphs()) == 1
+            assert session.registry.counters.get(
+                "compile/capture_retries", 0.0) == float(armed)
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = real_begin
+        release.set()
+        worker.join(30)
+    assert state["launches"] > 0 and "capturing" in str(state["sync_error"])

@@ -21,7 +21,8 @@ the same numpy inputs and weights:
 - the orchestrator's rows, masks and whitened rewards from text (the
   byte tokenizer's left-padding quirk included) and from token rows;
 - the randomwalks example learns; the device-resident and per-batch
-  dataset paths give identical parameters; the refused knobs raise."""
+  dataset paths give identical parameters; the refused knobs raise and
+  the run supervisor's knobs reach the trainer's run floor."""
 
 import jax
 import jax.numpy as jnp
@@ -607,14 +608,35 @@ def test_registry_and_config_resolve_to_the_port():
 
 @pytest.mark.parametrize("knob,value", [
     ("mesh", {"dp": 2, "fsdp": 1, "tp": 1}), ("mesh", {"dp": 1, "sp": 2}),
-    ("mesh", {"dp": 1, "pp": 2}), ("stall_timeout", 30.0),
-    ("max_walltime", 3600.0), ("chaos", "ilql_update:exc@2"),
+    ("mesh", {"dp": 1, "pp": 2}),
 ])
 def test_refused_knobs_raise(knob, value):
     cfg = _config_dict()
     cfg["train"][knob] = value
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model("JaxILQLTrainer")(TRLConfig.from_dict(cfg), device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("stall_timeout", 30.0), ("max_walltime", 3600.0),
+    ("chaos", "ilql_update:exc@2"),
+])
+def test_supervisor_knobs_reach_the_run_floor(knob, value, tmp_path,
+                                              monkeypatch):
+    """The knobs the port refused until the run supervisor was ported
+    construct an ILQL trainer whose RunSupervisor or chaos schedule
+    carries them."""
+    from tests.test_torch_ppo import assert_supervisor_knob
+    from trlx_tpu_torch.supervisor import chaos
+
+    cfg = _config_dict()
+    cfg["train"][knob] = value
+    trainer = get_model("JaxILQLTrainer")(TRLConfig.from_dict(cfg),
+                                          device="cpu")
+    try:
+        assert_supervisor_knob(trainer, knob, value, tmp_path, monkeypatch)
+    finally:
+        chaos.reset()
 
 
 def test_refused_entry_points_raise():

@@ -52,7 +52,11 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "examples.ilql_sentiments", "examples.randomwalks_data",
                  "utils.checkpoint", "utils.preemption", "utils.faults",
                  "utils.trackers", "models.reward", "examples.ppo_tldr",
-                 "utils.aotjit"):
+                 "utils.aotjit", "utils.profiling", "telemetry",
+                 "telemetry.registry", "telemetry.tracer",
+                 "telemetry.device", "telemetry.flops",
+                 "telemetry.prometheus", "supervisor", "supervisor.seams",
+                 "supervisor.chaos"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

@@ -12,7 +12,11 @@ trlx_tpu's, on the CPU at float32 from the same params carried across:
 - the port's offline example runs a few steps on the CPU and stays
   finite;
 - ``evaluate`` returns trlx_tpu's keys, the generations table included;
-- the knobs the port does not run yet raise."""
+- the knobs the port does not run yet raise, and the run supervisor's
+  knobs (and ``$TRLX_TPU_CHAOS``) reach the trainer's RunSupervisor, its
+  chaos schedule, its seam timeout and its bounded save."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -219,14 +223,74 @@ def test_offline_example_runs_on_cpu_and_stays_finite():
     ("continuous_rollouts", True),
     ("mesh", {"dp": 2, "fsdp": 1, "tp": 1}),
     ("mesh", {"dp": 1, "sp": 2}), ("mesh", {"dp": 1, "pp": 2}),
-    ("optimizer", "adafactor"), ("stall_timeout", 30.0),
-    ("stall_first_timeout", 60.0), ("max_walltime", 3600.0),
-    ("host_call_timeout", 5.0), ("checkpoint_timeout", 60.0),
-    ("chaos", "ppo_update:exc@2"),
+    ("optimizer", "adafactor"),
 ])
 def test_refused_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="not ported"):
         _port_trainer(**{knob: value})
+
+
+def assert_supervisor_knob(trainer, knob, value, tmp_path, monkeypatch):
+    """The run supervisor's knob ``knob`` = ``value`` reaches what it
+    configures: the RunSupervisor that learn() builds, the chaos schedule
+    it installs, the host seams' timeout, or the bounded save. ``knob``
+    "$TRLX_TPU_CHAOS" is the environment's schedule (set by the caller
+    before the trainer was built)."""
+    from trlx_tpu_torch import trainers
+    from trlx_tpu_torch.supervisor import chaos, seam_timeout
+
+    sup = trainer._make_supervisor()
+    assert trainer.supervisor is sup
+    if knob in ("stall_timeout", "stall_first_timeout", "max_walltime"):
+        assert getattr(sup, knob) == value
+        if knob == "stall_timeout":
+            assert sup.stall_first_timeout == 5 * value
+            assert seam_timeout(trainer.config.train) == value
+    elif knob == "host_call_timeout":
+        assert seam_timeout(trainer.config.train) == value
+        assert sup.stall_timeout == 0 and sup._thread is None
+    elif knob == "checkpoint_timeout":
+        calls = []
+
+        def record(fn, timeout, label=""):
+            calls.append((timeout, label))
+            return fn()
+
+        monkeypatch.setattr(trainers, "bounded_call", record)
+        trainer.save(str(tmp_path / "ckpt"))
+        assert calls == [(value, "checkpoint_save")]
+        assert os.path.isfile(tmp_path / "ckpt" / "meta.json")
+    else:  # train.chaos or $TRLX_TPU_CHAOS
+        sched = chaos.active()
+        assert sched is not None and len(sched.rules) == 1
+        rule = sched.rules[0]
+        seam, action = value.split("@")[0].split(":")
+        assert (rule.seam, rule.action) == (seam, action)
+        assert rule.matches(2) and not rule.matches(1)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("stall_timeout", 30.0), ("stall_first_timeout", 60.0),
+    ("max_walltime", 3600.0), ("host_call_timeout", 5.0),
+    ("checkpoint_timeout", 60.0), ("chaos", "ppo_update:exc@2"),
+    ("$TRLX_TPU_CHAOS", "ppo_update:exc@2"),
+])
+def test_supervisor_knobs_reach_the_run_floor(knob, value, tmp_path,
+                                              monkeypatch):
+    """The knobs the port refused until the run supervisor was ported:
+    each constructs a trainer, and its value is carried where trlx_tpu
+    carries it."""
+    from trlx_tpu_torch.supervisor import chaos
+
+    if knob.startswith("$"):
+        monkeypatch.setenv(knob[1:], value)
+        _, trainer, _ = _port_trainer()
+    else:
+        _, trainer, _ = _port_trainer(**{knob: value})
+    try:
+        assert_supervisor_knob(trainer, knob, value, tmp_path, monkeypatch)
+    finally:
+        chaos.reset()
 
 
 def test_evaluate_returns_the_reference_keys():
@@ -253,11 +317,7 @@ def test_evaluate_returns_the_reference_keys():
         assert q == tq and np.isfinite(score)
 
 
-def test_refused_entry_points_raise(monkeypatch):
-    monkeypatch.setenv("TRLX_TPU_CHAOS", "ppo_update:exc@2")
-    with pytest.raises(NotImplementedError, match="TRLX_TPU_CHAOS"):
-        _port_trainer()
-    monkeypatch.delenv("TRLX_TPU_CHAOS")
+def test_refused_entry_points_raise():
     _, tcfg = _configs()
     tcfg.model.model_spec = None
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -282,8 +282,10 @@ def test_shipped_configs_save_at_their_first_interval(tmp_path):
     learn loop saves ``step_<checkpoint_interval>`` plus LATEST where the
     port used to raise. ILQL runs to its shipped interval (100); PPO's
     shipped interval is 1000 passes, so it runs to 8 with the interval
-    set to 8. ppo_config.yml also sets two run-supervisor knobs, which
-    the port refuses at construction until the supervisor is ported."""
+    set to 8. ppo_config.yml's run-supervisor block runs as shipped
+    (stall_timeout 300, stall_grace 120, host_call_timeout 60): the
+    watchdog is armed through learn() and the reward seam is bounded,
+    and telemetry.json lands in the run directory."""
     tiny = {"model_path": "from-config", "tokenizer_path": "byte",
             "compute_dtype": "float32",
             "model_spec": {"vocab_size": 257, "n_layer": 1, "n_head": 2,
@@ -312,11 +314,8 @@ def test_shipped_configs_save_at_their_first_interval(tmp_path):
     for k, v in tiny.items():
         setattr(cfg.model, k, v)
     cfg.train.checkpoint_dir = str(tmp_path / "ppo")
-    assert (cfg.train.stall_timeout, cfg.train.host_call_timeout) == (300,
-                                                                      60)
-    with pytest.raises(NotImplementedError, match="stall_timeout"):
-        get_model(cfg.model.model_type)(cfg, device="cpu")
-    cfg.train.stall_timeout = cfg.train.host_call_timeout = 0
+    assert (cfg.train.stall_timeout, cfg.train.stall_grace,
+            cfg.train.host_call_timeout) == (300, 120, 60)
     cfg.train.checkpoint_interval = cfg.train.total_steps = 8
     trainer = get_model(cfg.model.model_type)(cfg, device="cpu")
     assert trainer.guard_on  # the shipped max_bad_steps: 5
@@ -329,3 +328,9 @@ def test_shipped_configs_save_at_their_first_interval(tmp_path):
     trainer.learn(log_fn=lambda s: None)
     assert trainer.iter_count == 8
     assert _committed(cfg.train.checkpoint_dir) == ["step_8"]
+    sup = trainer.supervisor
+    assert (sup.stall_timeout, sup.stall_grace) == (300, 120)
+    assert sup.stalls == 0 and not sup.escalated
+    assert {"ppo_update", "checkpoint_save"} <= set(sup.first_call_s)
+    assert os.path.isfile(os.path.join(cfg.train.checkpoint_dir,
+                                       "telemetry.json"))

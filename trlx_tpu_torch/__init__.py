@@ -25,7 +25,11 @@ and SIGTERM preemption (``utils/checkpoint.py``, ``utils/faults.py``,
 ``utils/preemption.py``), the device reward model
 (``models/reward.py``, ``python -m
 trlx_tpu_torch.examples.ppo_tldr``) and serving a checkpoint
-(``python -m trlx_tpu_torch.serve --checkpoint <run dir>``).
+(``python -m trlx_tpu_torch.serve --checkpoint <run dir>``); decode as
+CUDA graphs (``utils/aotjit.py``); and the run floor — telemetry
+(``telemetry/``), the run supervisor with bounded host seams, walltime
+and chaos drills (``supervisor/``), trackers and profiling
+(``utils/trackers.py``, ``utils/profiling.py``).
 
 Importing the package does nothing else: no CUDA initialisation, no
 kernel build, no thread.

@@ -15,8 +15,14 @@ measured mean KL. The prompt iteration is the JAX package's
 prompts).
 
 ``start_experience`` dispatches every chunk against one policy snapshot
-and ``finish_experience`` harvests them. The host reward is called
-plainly: retries and seam timeouts wait for the run floor.
+and ``finish_experience`` harvests them, inside a ``rollout`` phase
+(telemetry span + supervisor heartbeat; the ``rollout`` chaos seam fires
+at its entry) that closes once the chunks' results are on the host, with
+one heartbeat per harvested chunk. The host reward goes through
+``retry_call`` (``train.host_retries``, a bounded worker under
+``train.host_call_timeout``, the ``reward_fn`` chaos seam) in a nested
+``reward_fn`` phase; a device reward model scores on the card, plainly,
+as in trlx_tpu.
 """
 
 from typing import Callable
@@ -24,11 +30,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from trlx_tpu_torch import telemetry
+from trlx_tpu_torch import supervisor
 from trlx_tpu_torch.data.ppo_types import PPORLBatch
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
 from trlx_tpu_torch.pipeline import batch_iterator
+from trlx_tpu_torch.supervisor import chaos, seam_timeout
 from trlx_tpu_torch.utils import Clock
+from trlx_tpu_torch.utils.faults import retry_call
+from trlx_tpu_torch.utils.profiling import annotate
 
 
 @register_orchestrator("PPOOrchestrator")
@@ -76,13 +85,23 @@ class PPOOrchestrator(Orchestrator):
             return self._next_idx()
 
     def score(self, texts) -> np.ndarray:
-        """The user reward callback on decoded query + response texts."""
-        return np.asarray(self.reward_fn(texts), np.float32)
+        """The user reward callback on decoded query + response texts, with
+        ``train.host_retries`` retries and, under
+        ``train.host_call_timeout`` (or ``stall_timeout``), each attempt
+        bounded: a HUNG scoring service times out and is retried."""
+        t = self.rl_model.config.train
+        return np.asarray(retry_call(
+            self.reward_fn, texts, retries=t.host_retries,
+            backoff=t.host_retry_backoff, timeout=seam_timeout(t),
+            seam="reward_fn", label="reward_fn"), np.float32)
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
         """Fill the trainer's store with ``num_rollouts`` scored rollouts,
-        rounded up to whole chunks (with a warning)."""
-        with telemetry.span("rollout"):
+        rounded up to whole chunks (with a warning). Generation and
+        scoring run inside the ``rollout`` phase too: eager PyTorch runs
+        them in ``start_experience``."""
+        with annotate("rollout"):
+            chaos.maybe_inject("rollout")
             return self._finish_experience(
                 self.start_experience(num_rollouts, iter_count))
 
@@ -108,11 +127,10 @@ class PPOOrchestrator(Orchestrator):
 
     def finish_experience(self, handle):
         """Score, finalize and store every dispatched chunk inside a
-        ``rollout`` span (each reward call in a nested ``reward_fn``
-        span), then update the KL controller. (``make_experience`` puts
-        generation and scoring inside the span too: eager PyTorch runs
-        them in ``start_experience``.)"""
-        with telemetry.span("rollout"):
+        ``rollout`` phase (each host reward call in a nested
+        ``reward_fn`` phase), then update the KL controller."""
+        with annotate("rollout"):
+            chaos.maybe_inject("rollout")
             return self._finish_experience(handle)
 
     def device_scores(self, out, prompt_len: int) -> torch.Tensor:
@@ -138,7 +156,7 @@ class PPOOrchestrator(Orchestrator):
             else:
                 texts = trainer.tokenizer.batch_decode(
                     out.sequences.cpu().numpy(), skip_special_tokens=True)
-                with telemetry.span("reward_fn"):
+                with annotate("reward_fn"):
                     scores = self.score(texts)
                 all_scores.append(scores)
             rewards = trainer.finalize_rewards(kl_rewards, out.gen_mask,
@@ -154,6 +172,8 @@ class PPOOrchestrator(Orchestrator):
                 query_masks=qmask,
             ))
             self.clock.tick(out.sequences.shape[0])
+            # chunk-to-chunk progress resets the watchdog's timer
+            supervisor.beat()
         n_chunks = handle["n_chunks"]
         trainer.post_rollout_kl_update(float(np.mean(all_kls)),
                                        n_chunks * self.chunk_size)

@@ -15,23 +15,36 @@ newest checkpoint, a fresh start when there is none), the StepGuard
 hooks behind ``train.max_bad_steps`` and SIGTERM preemption
 (trlx_tpu_torch.utils.{checkpoint,faults,preemption}).
 
+The run floor (trlx_tpu's same hooks): the telemetry session started at
+construction (``train.telemetry``), the per-iteration observability
+payload (``_telemetry_stats``), the ``telemetry.json`` / ``trace.jsonl``
+flushes, the run supervisor and its containment (``_make_supervisor``,
+``_contain_stall``, the walltime and stall stop folded into
+``_preempt``), the supervised and bounded ``save``, and the memory-fit
+pre-check (``_check_memory_fit``).
+
 Not ported yet, and refused at construction with a clear error: a mesh
-other than all ones (and ``sp`` / ``pp``), ``continuous_rollouts``, and
-the run supervisor's knobs (``stall_timeout``, ``stall_first_timeout``,
-``max_walltime``, ``host_call_timeout``, ``checkpoint_timeout``,
-``chaos`` and ``$TRLX_TPU_CHAOS``).
+other than all ones (and ``sp`` / ``pp``), ``continuous_rollouts`` and
+``optimizer: adafactor``.
 """
 
 import os
+import sys
 from abc import abstractmethod
 from typing import Callable, Dict, List, Optional
 
 import torch
 
-from trlx_tpu_torch import telemetry
+from trlx_tpu_torch import supervisor, telemetry
 from trlx_tpu_torch.models.generation import RolloutDecoder
 from trlx_tpu_torch.models.transformer import tree_map
-from trlx_tpu_torch.utils import DTYPES, cosine_schedule, resolve_device
+from trlx_tpu_torch.utils import (
+    DTYPES,
+    cosine_schedule,
+    is_main_process,
+    resolve_device,
+)
+from trlx_tpu_torch.supervisor import RunSupervisor, bounded_call, chaos
 from trlx_tpu_torch.utils.checkpoint import (
     find_latest_checkpoint,
     restore_components,
@@ -54,12 +67,6 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to trlx_tpu_torch yet")
 
 
-#: the run supervisor's knobs (trlx_tpu.supervisor), which the port
-#: does not run yet: any non-default value is refused
-SUPERVISOR_KNOBS = ("stall_timeout", "stall_first_timeout", "max_walltime",
-                    "host_call_timeout", "checkpoint_timeout", "chaos")
-
-
 def check_ported(config, mesh=None) -> None:
     """Raise for the configuration knobs this port does not run yet."""
     t = config.train
@@ -71,12 +78,6 @@ def check_ported(config, mesh=None) -> None:
                               f"single-device mesh runs)")
     if getattr(t, "continuous_rollouts", False):
         raise _not_ported("train.continuous_rollouts")
-    for knob in SUPERVISOR_KNOBS:
-        if getattr(t, knob, None):
-            raise _not_ported(f"train.{knob} (the run supervisor)")
-    if os.environ.get("TRLX_TPU_CHAOS"):
-        raise _not_ported("$TRLX_TPU_CHAOS (the run supervisor's chaos "
-                          "schedule)")
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -218,8 +219,18 @@ class BaseRLTrainer:
         self.train_mode = train_mode
         self.store = None
         self.device = resolve_device(device)
-        if config.train.telemetry:
-            telemetry.start()
+        # the telemetry session (train.telemetry, default on) starts at
+        # construction, before any resume or rollout, so their counters
+        # and spans land in the run's registry; a fresh trainer is a
+        # fresh session
+        self._telemetry = telemetry.start_from_config(config)
+        # per-token FLOPs and tokens per sample for throughput/* and MFU;
+        # the subclasses set their analytic values
+        self._flops_per_token = 0
+        self._tokens_per_sample = 0
+        #: the run supervisor of the latest learn() (its watchdog's
+        #: stalls and first-call times stay readable after it)
+        self.supervisor: Optional[RunSupervisor] = None
         #: generate's captured decode steps and their buffers, one per
         #: rollout shape; they read the parameters where they live, so a
         #: rollout after an update, a load or a rollback (all in place)
@@ -253,12 +264,122 @@ class BaseRLTrainer:
             return make_flash_attention_fn()
         return None
 
-    def _telemetry_stats(self) -> Dict[str, float]:
-        """Seconds spent so far in each span (``time/<name>``)."""
-        session = telemetry.current()
-        if session is None:
+    def _check_memory_fit(self, spec, frozen_dtype, ref_branch=True,
+                          extra_trainable=0, extra_frozen=0,
+                          embed_trainable=False) -> None:
+        """Fail BEFORE allocation, with the options, when the model state
+        clearly cannot fit the card: the parameters (frozen in
+        ``frozen_dtype``; the trainable top and, with ``ref_branch``,
+        its frozen reference copy) plus the AdamW moments of the
+        trainable part, against the card's total memory from
+        ``torch.cuda.mem_get_info``. A deliberate lower bound (no
+        activations, no CUDA context): a config that passes can still
+        run out near the edge; one that fails would have. Skipped on
+        the CPU and with ``TRLX_TPU_SKIP_MEMCHECK=1``.
+        ``extra_trainable`` / ``extra_frozen`` add parameter counts for
+        method heads (ILQL's Q / V heads and target-Q copies)."""
+        if os.environ.get("TRLX_TPU_SKIP_MEMCHECK") \
+                or self.device.type != "cuda":
+            return
+        limit = torch.cuda.mem_get_info(self.device)[1]
+        d, f, L, V = spec.d_model, spec.d_ff, spec.n_layer, spec.vocab_size
+        per_layer = 4 * d * d + 2 * d * f  # qkv / o + mlp (biases aside)
+        k = self.config.model.num_layers_unfrozen
+        k = L if k < 0 else min(k, L)
+        embed = V * d + spec.n_positions * d
+        # an untied lm_head lives in the trainable branch AND its ref copy
+        lm_head = 0 if spec.tie_lm_head else V * d
+        frozen_sz = torch.empty((), dtype=frozen_dtype).element_size()
+        mu_dtype = getattr(self.config.train, "adam_moment_dtype", "float32")
+        opt_bytes = (2 if mu_dtype == "bfloat16" else 4) + 4
+        embed_train = embed if embed_trainable else 0
+        embed_frozen = 0 if embed_trainable else embed
+        est = (
+            ((L - k) * per_layer + embed_frozen) * frozen_sz
+            + (k * per_layer + lm_head) * frozen_sz * (1 if ref_branch else 0)
+            + (k * per_layer + lm_head + embed_train + extra_trainable)
+            * (4 + opt_bytes)
+            + extra_frozen * frozen_sz
+        )
+        if est > int(limit * 1.05):
+            dtype_opt = (
+                "set model.param_dtype: bfloat16 (frozen trunk + ref "
+                "branch storage; trainable/optimizer stay fp32), "
+                if ref_branch else "")
+            raise ValueError(
+                f"model state needs ~{est / 2**30:.1f} GB but the card has "
+                f"{limit / 2**30:.1f} GB. Options: {dtype_opt}set "
+                f"train.adam_moment_dtype: bfloat16, lower "
+                f"num_layers_unfrozen, or set TRLX_TPU_SKIP_MEMCHECK=1 to "
+                f"try anyway.")
+
+    def _main_process_log(self, log_fn: Callable) -> Callable:
+        """Emit metrics from the main process only."""
+        if log_fn is None or is_main_process():
+            return log_fn
+        return lambda stats: None
+
+    def _make_tracker(self, log_fn: Callable = None):
+        """The learn loops' sink: ``log_fn`` when given, else the
+        ``train.tracker`` of the config (trlx_tpu_torch.utils.trackers:
+        print, jsonl:<path>, wandb, none); main-process only."""
+        from trlx_tpu_torch.utils.trackers import make_tracker
+
+        return self._main_process_log(log_fn or make_tracker(self.config))
+
+    def _telemetry_stats(self, samples_per_sec: float) -> Dict[str, float]:
+        """The per-iteration observability payload the learn loops merge
+        into their stats: ``time/*`` (each phase's LAST duration),
+        ``fault/*`` and the other counters, ``device/*`` memory gauges,
+        ``compile/*`` first-call latencies, and ``throughput/*`` from the
+        loop's sample clock and the trainer's analytic FLOPs (MFU only
+        where the card's peak is known). Empty with telemetry off."""
+        tel = telemetry.current()
+        if tel is None:
             return {}
-        return {name: h.total for name, h in session.registry.hists.items()}
+        out = tel.tracker_stats()
+        out["throughput/samples_per_sec"] = samples_per_sec
+        if self._tokens_per_sample:
+            tokens_per_sec = samples_per_sec * self._tokens_per_sample
+            out["throughput/tokens_per_sec"] = tokens_per_sec
+            mfu = telemetry.mfu_estimate(
+                tokens_per_sec, self._flops_per_token, self.device)
+            if mfu is not None:
+                out["throughput/mfu"] = mfu
+        return out
+
+    def _maybe_flush_telemetry(self) -> None:
+        """Every ``train.telemetry_flush_every`` iterations rewrite
+        ``telemetry.json`` + ``trace.jsonl``, so a SIGKILL'd run still
+        leaves them; a failed write is reported, never raised."""
+        every = int(getattr(self.config.train, "telemetry_flush_every", 0))
+        tel = telemetry.current()
+        if every <= 0 or tel is None:
+            return
+        last = getattr(self, "_telemetry_flushed_at", 0)
+        if self.iter_count - last < every:
+            return
+        self._telemetry_flushed_at = self.iter_count
+        try:
+            tel.write()
+        except Exception as e:
+            print(f"[trlx_tpu_torch] periodic telemetry flush failed "
+                  f"({e!r}); continuing", file=sys.stderr, flush=True)
+
+    def _finish_telemetry(self, kind: str, clock=None) -> None:
+        """learn()-exit hook, on every exit path: the run's headline
+        throughput, then ``telemetry.json`` + ``trace.jsonl``."""
+        tel = telemetry.current()
+        if tel is None:
+            return
+        if clock is not None and clock.total_samples:
+            sps = clock.samples_per_second()
+            tel.set_headline(f"{kind}_learn_samples_per_sec", sps,
+                             "samples/s")
+            if self._tokens_per_sample:
+                tel.registry.set_gauge("throughput/tokens_per_sec",
+                                       sps * self._tokens_per_sample)
+        tel.finish()
 
     def push_to_store(self, data) -> None:
         self.store.push(data)
@@ -301,14 +422,29 @@ class BaseRLTrainer:
         (trlx_tpu_torch.utils.checkpoint). With no ``directory`` the save
         lands as ``checkpoint_dir/step_<iter_count>`` with a ``LATEST``
         marker and ``train.keep_checkpoints`` retention — the layout
-        ``resume_from: auto`` and the rollback restore from."""
-        if directory is not None:
-            save_components(self.get_components(), directory)
-            return
+        ``resume_from: auto`` and the rollback restore from.
+
+        Supervised: the save is the watchdog's ``checkpoint_save`` phase
+        and fires that chaos seam; with ``train.checkpoint_timeout`` it
+        runs through a bounded worker, so a save wedged on a dead mount
+        raises SeamTimeout instead of hanging the run."""
         t = self.config.train
-        save_step_checkpoint(self.get_components(), t.checkpoint_dir,
-                             step=getattr(self, "iter_count", 0),
-                             keep=getattr(t, "keep_checkpoints", 0))
+
+        def write():
+            if directory is not None:
+                save_components(self.get_components(), directory)
+                return
+            save_step_checkpoint(self.get_components(), t.checkpoint_dir,
+                                 step=getattr(self, "iter_count", 0),
+                                 keep=getattr(t, "keep_checkpoints", 0))
+
+        with supervisor.phase("checkpoint_save"):
+            chaos.maybe_inject("checkpoint_save")
+            timeout = float(getattr(t, "checkpoint_timeout", 0.0) or 0.0)
+            if timeout > 0:
+                bounded_call(write, timeout=timeout, label="checkpoint_save")
+            else:
+                write()
 
     def load(self, directory: str = None) -> None:
         """Restore from a checkpoint or a run directory (default
@@ -345,16 +481,65 @@ class BaseRLTrainer:
         bad = host.pop("bad_step", 0.0) > 0
         step_guard.observe(bad=bad, step=self.iter_count, detail=host)
 
-    def _preempt(self, log_fn, guard, just_saved: bool = False) -> bool:
-        """Checkpoint and return True when the preemption guard says stop
-        (SIGTERM on any rank). ``just_saved``: an interval checkpoint
-        fired at this boundary, so the second save is skipped."""
-        if guard is None or not guard.poll():
+    def _preempt(self, log_fn, guard, just_saved: bool = False,
+                 sup=None) -> bool:
+        """Checkpoint and return True when any process wants the loop to
+        stop: SIGTERM (the preemption guard), the supervisor's walltime
+        deadline, or a stall escalation that found the loop still alive.
+        All three ride the guard's rank agreement
+        (``PreemptionGuard.poll(extra=)``). ``just_saved``: an interval
+        checkpoint fired at this boundary, so the second save is
+        skipped."""
+        local = sup is not None and sup.stop_requested()
+        stop = local if guard is None else guard.poll(extra=local)
+        if not stop:
             return False
         if not just_saved:
             self.save()
-        log_fn({"iter": self.iter_count, "preempted": 1.0})
+        reason = sup.stop_reason() if local else "preempted"
+        log_fn({"iter": self.iter_count, reason: 1.0})
         return True
+
+    def _make_supervisor(self) -> RunSupervisor:
+        """The learn loop's run supervisor from the ``train.stall_*`` /
+        ``max_walltime`` knobs (inert, but still a context manager, when
+        they are 0), after installing the chaos schedule from
+        ``$TRLX_TPU_CHAOS`` / ``train.chaos`` with fresh counters. Its
+        rescue hook, for the ``checkpoint_exit`` escalation, runs on the
+        watchdog thread while the main thread is wedged, bounded by
+        ``train.checkpoint_timeout`` (or 120 s): it first waits for the
+        card (every stream), so its copies read the parameters after the
+        last update the main thread enqueued, then saves; a wedged
+        kernel makes the wait, and so the rescue, time out."""
+        chaos.configure_from(self.config.train)
+        device = self.device
+
+        def rescue():
+            def sync_then_save():
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                self.save()
+
+            bounded_call(sync_then_save, timeout=float(
+                getattr(self.config.train, "checkpoint_timeout", 0.0)
+                or 120.0), label="stall rescue checkpoint")
+
+        self.supervisor = RunSupervisor.from_config(self.config.train,
+                                                    rescue_fn=rescue)
+        return self.supervisor
+
+    def _contain_stall(self, log_fn) -> None:
+        """StallError containment: a hung seam past its retry budget
+        becomes a clean checkpoint-and-exit. Commit a resumable
+        checkpoint (best effort: the stall may be the save path itself),
+        log the verdict; the caller re-raises."""
+        try:
+            self.save()
+        except Exception as e:
+            print(f"[trlx_tpu_torch] stall-exit checkpoint failed ({e!r}); "
+                  f"the last interval checkpoint remains the resume point",
+                  flush=True)
+        log_fn({"iter": self.iter_count, "stalled": 1.0})
 
     def _preemption_guard(self):
         """``PreemptionGuard(save_on_preemption, poll_interval)``: the

@@ -22,7 +22,11 @@ advantage-shifted sampling (port of trlx_tpu.trainers.ilql_trainer).
 Durability as the PPO trainer's: with ``train.max_bad_steps > 0`` an
 update whose loss or grad norm is not finite commits nothing; ``learn``
 resumes from ``train.resume_from``, feeds the StepGuard, saves every
-``checkpoint_interval`` and stops cleanly on SIGTERM. The components are
+``checkpoint_interval`` and stops cleanly on SIGTERM. The run floor is
+the PPO trainer's: the run supervisor (``ilql_update``, ``eval`` and
+``reward_fn`` phases, walltime, chaos), ``train.tracker``, the telemetry
+payload in every emission, ``telemetry.json`` / ``trace.jsonl`` at every
+exit and ``$TRLX_TPU_PROFILE_DIR``. The components are
 ``params`` (zero-size frozen leaves included), ``opt_state``, ``state``
 (``iter_count`` and the sampling generator's state) and ``config``.
 
@@ -45,7 +49,9 @@ from trlx_tpu_torch.models.params import ilql_to_torch, init_ilql_numpy
 from trlx_tpu_torch.models.transformer import NEG_INF
 from trlx_tpu_torch.ops.losses import ilql_losses_chunked
 from trlx_tpu_torch.ops.sampling import SamplingParams, warp_top_k
+from trlx_tpu_torch.models.policy import resolve_num_unfrozen
 from trlx_tpu_torch.pipeline import batch_iterator
+from trlx_tpu_torch.supervisor import StallError, chaos, seam_timeout
 from trlx_tpu_torch.trainers import (
     BaseRLTrainer,
     _leaves,
@@ -58,6 +64,8 @@ from trlx_tpu_torch.utils import (
     rampup_decay_schedule,
     tree_bytes,
 )
+from trlx_tpu_torch.utils.faults import retry_call
+from trlx_tpu_torch.utils.profiling import annotate, maybe_trace
 from trlx_tpu_torch.utils.tokenizer import load_tokenizer
 from trlx_tpu_torch.utils.trackers import samples_table
 
@@ -105,6 +113,18 @@ class JaxILQLTrainer(BaseRLTrainer):
                 "from-config model")
         spec = config.model.resolve_spec()
         m, t = config.method, config.train
+        # the memory pre-check: no ref branch, but the Q / V heads are
+        # trainable [d, V] tensors with moments and the target-Q copies
+        # frozen ones
+        n_q = 2 if m.two_qs else 1
+        full = resolve_num_unfrozen(
+            spec, config.model.num_layers_unfrozen) == spec.n_layer
+        self._check_memory_fit(
+            spec, torch.float32, ref_branch=False,
+            extra_trainable=n_q * spec.d_model * spec.vocab_size
+            + spec.d_model,
+            extra_frozen=n_q * spec.d_model * spec.vocab_size,
+            embed_trainable=full)
         self.net = ILQLNet(
             spec=spec,
             num_layers_unfrozen=config.model.num_layers_unfrozen,
@@ -131,6 +151,11 @@ class JaxILQLTrainer(BaseRLTrainer):
         self.eval_pipeline = None
         self.reward_fn: Optional[Callable] = None
         self.stats_fn: Optional[Callable] = None
+        # analytic FLOPs for throughput/* and MFU; the tokens per sample
+        # come from the collated dataset's width in learn()
+        self._flops_per_token = telemetry.ilql_train_flops_per_token(
+            spec, resolve_num_unfrozen(spec, config.model.num_layers_unfrozen),
+            m.two_qs)
         self.maybe_resume()
 
     def tokenize(self, texts):
@@ -254,7 +279,10 @@ class JaxILQLTrainer(BaseRLTrainer):
             n = self.EVAL_CAP
         if n:
             prompts = prompts[:n]
-        with telemetry.span("eval"):
+        t = self.config.train
+        # telemetry span + supervisor phase; it closes after the samples
+        # and rewards are on the host
+        with annotate("eval"):
             samples = self.sample(prompts)
             sample_lists = [list(map(int, row)) for row in samples]
             logs = {}
@@ -262,10 +290,13 @@ class JaxILQLTrainer(BaseRLTrainer):
             if len(prompts) and isinstance(prompts[0], str):
                 decoded = self.tokenizer.batch_decode(samples)
             if self.reward_fn is not None:
-                with telemetry.span("reward_fn"):
-                    rewards = np.asarray(self.reward_fn(
-                        decoded if decoded is not None else sample_lists),
-                        np.float32)
+                with annotate("reward_fn"):
+                    rewards = np.asarray(retry_call(
+                        self.reward_fn,
+                        decoded if decoded is not None else sample_lists,
+                        retries=t.host_retries, backoff=t.host_retry_backoff,
+                        timeout=seam_timeout(t), seam="reward_fn",
+                        label="reward_fn (eval)"), np.float32)
                 logs["reward"] = float(rewards.mean())
                 if decoded is not None:
                     logs["samples_table"] = samples_table(decoded, rewards)
@@ -289,24 +320,35 @@ class JaxILQLTrainer(BaseRLTrainer):
     def learn(self, log_fn: Callable = None, save_fn=None, eval_fn=None):
         """The ILQL loop over ``epochs`` shuffled passes (the epoch is the
         shuffle seed), stopping at ``total_steps``, or at the first step
-        boundary after a SIGTERM (saving first). Each update runs in an
-        ``ilql_update`` span that closes after a device sync; logged
-        stats carry ``samples_per_sec`` and the ``time/*`` span totals.
-        Resumes from ``train.resume_from`` once per process; with
-        ``max_bad_steps > 0`` the StepGuard rolls back or aborts."""
-        log_fn = log_fn or print
+        boundary after a SIGTERM or past ``train.max_walltime`` (saving
+        first). Each update runs in an ``ilql_update`` phase that closes
+        after a device sync. Resumes from ``train.resume_from`` once per
+        process; with ``max_bad_steps > 0`` the StepGuard rolls back or
+        aborts. Stats go to ``log_fn`` or ``train.tracker`` with the
+        telemetry payload; the run supervisor watches the phases, a hung
+        host seam past its retry budget becomes a checkpoint and a
+        re-raised StallError, and ``telemetry.json`` / ``trace.jsonl``
+        land at every exit (the PPO trainer's run floor)."""
+        log_fn = self._make_tracker(log_fn)
+        clock = Clock()
         self.maybe_resume()  # no-op when already restored at construction
         step_guard = self._make_step_guard(log_fn)
-        with self._preemption_guard() as guard:
-            self._learn_epochs(log_fn, guard, step_guard)
+        sup = self._make_supervisor()
+        try:
+            with maybe_trace(), self._preemption_guard() as guard, sup:
+                self._learn_epochs(log_fn, guard, step_guard, clock, sup)
+        except StallError:
+            self._contain_stall(log_fn)
+            raise
+        finally:
+            self._finish_telemetry("ilql", clock)
 
-    def _learn_epochs(self, log_fn, guard, step_guard) -> None:
+    def _learn_epochs(self, log_fn, guard, step_guard, clock, sup) -> None:
         cfg, m = self.config.train, self.config.method
         full, device_resident = self._collate_store()
         self._tokens_per_sample = int(full.input_ids.shape[1])
         if device_resident:
             dataset = full.map(lambda x: torch.as_tensor(x).to(self.device))
-        clock = Clock()
         n = len(self.train_store)
         for epoch in range(cfg.epochs):
             for idx in batch_iterator(n, cfg.batch_size, True, epoch,
@@ -315,7 +357,8 @@ class JaxILQLTrainer(BaseRLTrainer):
                     ev = self.evaluate()
                     if ev:
                         log_fn({"iter": self.iter_count, **ev})
-                with telemetry.span("ilql_update"):
+                with annotate("ilql_update"):
+                    chaos.maybe_inject("ilql_update")
                     if device_resident:
                         rows = torch.as_tensor(idx, device=self.device)
                         batch = dataset.map(lambda x: x[rows])
@@ -331,14 +374,17 @@ class JaxILQLTrainer(BaseRLTrainer):
                     self.sync_targets()
                 if self.iter_count % cfg.log_interval == 0:
                     host = {k: float(v) for k, v in stats.items()}
+                    sps = clock.samples_per_second()
                     host.update(iter=self.iter_count, epoch=epoch,
-                                samples_per_sec=clock.samples_per_second())
-                    host.update(self._telemetry_stats())
+                                samples_per_sec=sps)
+                    host.update(self._telemetry_stats(sps))
                     log_fn(host)
                 saved_now = self.intervals(self.iter_count)["do_save"]
                 if saved_now:
                     self.save()
-                if self._preempt(log_fn, guard, just_saved=saved_now):
+                self._maybe_flush_telemetry()
+                if self._preempt(log_fn, guard, just_saved=saved_now,
+                                 sup=sup):
                     return
                 if self.iter_count >= cfg.total_steps:
                     return

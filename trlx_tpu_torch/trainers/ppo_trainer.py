@@ -14,7 +14,11 @@ trlx_tpu.trainers.ppo_trainer).
   each update is committed only when its loss and grad norm are finite
   and, with ``train.max_step_kl > 0``, its ``approx_kl`` is within it.
 - ``learn`` resumes from ``train.resume_from``, feeds the StepGuard,
-  saves every ``checkpoint_interval`` and stops cleanly on SIGTERM.
+  saves every ``checkpoint_interval`` and stops cleanly on SIGTERM; it
+  runs under the run supervisor (watchdog, walltime, chaos), logs
+  through ``train.tracker`` unless given a ``log_fn``, carries the
+  telemetry payload in every emission and, with
+  ``$TRLX_TPU_PROFILE_DIR``, exports a torch.profiler trace.
 - the components (``get_components``) are ``params``, ``opt_state``,
   ``state`` (``iter_count``, ``epoch``, ``kl_coef`` and the sampling
   generator's state) and ``config``.
@@ -49,6 +53,7 @@ from trlx_tpu_torch.ops.losses import (
     whiten,
 )
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.supervisor import StallError, chaos, seam_timeout
 from trlx_tpu_torch.trainers import (
     BaseRLTrainer,
     _leaves,
@@ -57,6 +62,8 @@ from trlx_tpu_torch.trainers import (
 )
 from trlx_tpu_torch.trainers.kl_controllers import make_kl_controller
 from trlx_tpu_torch.utils import DTYPES, Clock
+from trlx_tpu_torch.utils.faults import retry_call
+from trlx_tpu_torch.utils.profiling import annotate, maybe_trace
 from trlx_tpu_torch.utils.tokenizer import load_tokenizer
 from trlx_tpu_torch.utils.trackers import generations_table
 
@@ -90,6 +97,7 @@ class JaxPPOTrainer(BaseRLTrainer):
             remat=config.train.remat,
             attention_fn=self._train_attention_fn(),
         )
+        self._check_memory_fit(spec, DTYPES[config.model.param_dtype])
         if params is None:
             params = init_hydra_numpy(spec, config.model.num_layers_unfrozen,
                                       seed=config.train.seed)
@@ -112,6 +120,12 @@ class JaxPPOTrainer(BaseRLTrainer):
         self.generator.manual_seed(config.train.seed)
         self.orch = None
         self.reward_fn: Optional[Callable] = None
+        # analytic throughput accounting: one optimization step touches
+        # input + gen tokens
+        self._tokens_per_sample = (config.train.input_size
+                                   + config.train.gen_size)
+        self._flops_per_token = telemetry.ppo_train_flops_per_token(
+            spec, config.model.num_layers_unfrozen)
         # resume at construction: rollouts made before learn() must come
         # from the restored policy
         self.maybe_resume()
@@ -264,12 +278,20 @@ class JaxPPOTrainer(BaseRLTrainer):
             except StopIteration:
                 return {}
         query, mask = eval_prompts
-        with telemetry.span("eval"):
+        t = self.config.train
+        # a telemetry span and a supervisor phase: a hung eval or reward
+        # call is a stalled phase; the phase closes after the tokens and
+        # the scores are on the host
+        with annotate("eval"):
+            chaos.maybe_inject("eval")
             out = self.generate(query, mask)
             texts = self.tokenizer.batch_decode(out.sequences.cpu().numpy(),
                                                 skip_special_tokens=True)
-            with telemetry.span("reward_fn"):
-                scores = np.asarray(self.reward_fn(texts), np.float32)
+            with annotate("reward_fn"):
+                scores = np.asarray(retry_call(
+                    self.reward_fn, texts, retries=t.host_retries,
+                    backoff=t.host_retry_backoff, timeout=seam_timeout(t),
+                    seam="reward_fn", label="reward_fn (eval)"), np.float32)
         decode = self.tokenizer.batch_decode
         return {
             "mean_score": float(scores.mean()),
@@ -284,28 +306,49 @@ class JaxPPOTrainer(BaseRLTrainer):
     def learn(self, log_fn: Callable = None, save_fn=None, eval_fn=None):
         """The PPO loop: minibatches over the rollout store (shuffled with
         the epoch as seed), ``ppo_epochs`` passes per batch in a
-        ``ppo_update`` span, logging / eval / checkpoints between
-        batches, fresh experience after each epoch. Stops when EITHER
-        ``total_steps`` or ``epochs`` is reached, as trlx_tpu does, or at
-        the first boundary after a SIGTERM (saving first). Resumes from
+        ``ppo_update`` phase, logging / eval / checkpoints between
+        batches, fresh experience after each epoch (``rollout_refresh``).
+        Stops when EITHER ``total_steps`` or ``epochs`` is reached, as
+        trlx_tpu does, or at the first boundary after a SIGTERM or past
+        ``train.max_walltime`` (saving first). Resumes from
         ``train.resume_from`` once per process; with ``max_bad_steps >
         0`` the StepGuard rolls back to the latest checkpoint or aborts
-        (DivergenceError). Logged stats carry ``samples_per_sec`` and the
-        ``time/*`` span totals."""
-        log_fn = log_fn or print
+        (DivergenceError).
+
+        The run floor: stats go to ``log_fn``, or to ``train.tracker``
+        when none is given; each emission carries the telemetry payload
+        (``time/*`` last durations, ``throughput/*``, ``fault/*``,
+        ``device/*``, ``compile/*``); ``telemetry.json`` and
+        ``trace.jsonl`` land in the run dir at every exit. The run
+        supervisor watches the phases (``train.stall_timeout``), and a
+        hung host seam past its retry budget becomes a checkpoint and a
+        re-raised StallError. ``$TRLX_TPU_PROFILE_DIR`` wraps the loop
+        in torch.profiler."""
+        log_fn = self._make_tracker(log_fn)
+        clock = Clock()
         self.maybe_resume()  # no-op when already restored at construction
         step_guard = self._make_step_guard(log_fn)
-        with self._preemption_guard() as guard:
-            self._learn_loop(log_fn, guard, step_guard)
+        sup = self._make_supervisor()
+        try:
+            with maybe_trace(), self._preemption_guard() as guard, sup:
+                self._learn_loop(log_fn, guard, step_guard, clock, sup)
+        except StallError:
+            self._contain_stall(log_fn)
+            raise
+        finally:
+            # every exit path leaves telemetry.json + trace.jsonl
+            self._finish_telemetry("ppo", clock)
 
-    def _learn_loop(self, log_fn, guard, step_guard) -> None:
+    def _learn_loop(self, log_fn, guard, step_guard, clock, sup) -> None:
         cfg, m = self.config.train, self.config.method
-        clock = Clock()
         while self.iter_count < cfg.total_steps and self.epoch < cfg.epochs:
             loader = self.store.create_loader(cfg.batch_size, shuffle=True,
                                               seed=self.epoch)
             for batch in loader:
-                with telemetry.span("ppo_update"):
+                # the phase closes after a device sync, so its time (and
+                # a hung kernel) belongs to the update
+                with annotate("ppo_update"):
+                    chaos.maybe_inject("ppo_update")
                     stats = self.train_multi(batch)
                     self.iter_count += m.ppo_epochs
                     self._sync()
@@ -316,12 +359,13 @@ class JaxPPOTrainer(BaseRLTrainer):
                 intervals = self.intervals(self.iter_count)
                 if intervals["do_log"]:
                     host_stats = {k: float(v) for k, v in stats.items()}
+                    sps = clock.samples_per_second()
                     host_stats.update(
                         iter=self.iter_count, epoch=self.epoch,
                         kl_coef=float(self.kl_ctl.value),
-                        samples_per_sec=clock.samples_per_second(),
+                        samples_per_sec=sps,
                     )
-                    host_stats.update(self._telemetry_stats())
+                    host_stats.update(self._telemetry_stats(sps))
                     log_fn(host_stats)
                 if intervals["do_eval"]:
                     ev = self.evaluate()
@@ -329,8 +373,9 @@ class JaxPPOTrainer(BaseRLTrainer):
                         log_fn({"iter": self.iter_count, **ev})
                 if intervals["do_save"]:
                     self.save()
+                self._maybe_flush_telemetry()
                 if self._preempt(log_fn, guard,
-                                 just_saved=intervals["do_save"]):
+                                 just_saved=intervals["do_save"], sup=sup):
                     return
                 if self.iter_count >= cfg.total_steps:
                     break
@@ -338,11 +383,12 @@ class JaxPPOTrainer(BaseRLTrainer):
             if self.orch is not None and self.iter_count < cfg.total_steps \
                     and self.epoch < cfg.epochs:
                 self.store.clear_history()
-                info = self.orch.make_experience(m.num_rollouts,
-                                                 self.iter_count)
+                with annotate("rollout_refresh"):
+                    info = self.orch.make_experience(m.num_rollouts,
+                                                     self.iter_count)
                 log_fn({"iter": self.iter_count, "epoch": self.epoch, **info,
-                        **self._telemetry_stats()})
-                if self._preempt(log_fn, guard):
+                        **self._telemetry_stats(clock.samples_per_second())})
+                if self._preempt(log_fn, guard, sup=sup):
                     return
 
     def post_rollout_kl_update(self, mean_kl: float, n_samples: int) -> None:

@@ -1,4 +1,5 @@
-"""Host utilities shared by the port (``resolve_device``, ``DTYPES``)
+"""Host utilities shared by the port (``resolve_device``, ``DTYPES``,
+``is_main_process``)
 and the copies of trlx_tpu.utils the trainers need: ``flatten``,
 ``chunk``, ``rampup_decay_schedule``, ``cosine_schedule``,
 ``tree_bytes`` and ``Clock``.
@@ -20,6 +21,17 @@ from typing import Any, Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+
+def is_main_process() -> bool:
+    """Rank 0 of the default ``torch.distributed`` group, or True when
+    none is initialised: the one process that writes run artifacts and
+    emits metrics."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return True
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:

@@ -42,6 +42,14 @@ call of the same signature with another tensor in its place.
 A replay returns the graph's own output tensors: they stay valid only
 until the next call of the same signature.
 
+Captures run in ``thread_local`` mode, so other threads may launch,
+allocate and read back on their own streams meanwhile (a reward seam
+abandoned by ``bounded_call`` that still scores on the card, say). A
+device-wide ``torch.cuda.synchronize()`` from another thread during a
+capture is what CUDA forbids: it invalidates the capture. Such a capture
+is taken again, up to :data:`CAPTURE_ATTEMPTS` times, each retry
+counted in ``compile/capture_retries``; any other capture error raises.
+
 The module switch :data:`CUDA_GRAPHS` set to False runs ``fn`` eagerly
 on the card too (still keyed and counted): the A/B of
 ``chip_smoke.py``. Nothing else selects the eager path.
@@ -58,6 +66,15 @@ __all__ = ["aot_jit", "CUDA_GRAPHS", "tree_flatten"]
 
 #: capture and replay CUDA graphs for card arguments (chip_smoke A/Bs it)
 CUDA_GRAPHS = True
+
+#: captures of one signature before an invalidated capture raises
+CAPTURE_ATTEMPTS = 3
+
+
+def _capture_invalidated(err: BaseException) -> bool:
+    """Whether a capture failed because CUDA invalidated it (another
+    thread synchronised the device while it ran)."""
+    return "cudaErrorStreamCaptureInvalidated" in str(err)
 
 
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
@@ -149,14 +166,23 @@ class _AotJit:
 
     def _capture(self, args, leaves, device):
         """The first call: ``fn`` eagerly on a side stream (the result),
-        then one capture over the same arguments."""
+        then one capture over the same arguments, taken again when CUDA
+        invalidated it (module docstring)."""
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             out = self._fn(*args)
         current.wait_stream(side)
+        for attempt in range(1, CAPTURE_ATTEMPTS + 1):
+            try:
+                return self._capture_once(args, leaves, device), out
+            except Exception as e:
+                if attempt == CAPTURE_ATTEMPTS or not _capture_invalidated(e):
+                    raise
+                telemetry.inc("compile/capture_retries")
 
+    def _capture_once(self, args, leaves, device) -> _Graph:
         graph = torch.cuda.CUDAGraph()
         for x in leaves:
             if isinstance(x, torch.Generator):
@@ -171,9 +197,8 @@ class _AotJit:
         torch.cuda.synchronize(device)
         seconds = time.perf_counter() - start
         inputs = [x if torch.is_tensor(x) else None for x in leaves]
-        entry = _Graph(graph, inputs, outputs, launches, seconds,
-                       torch.cuda.memory_reserved(device) - reserved)
-        return entry, out
+        return _Graph(graph, inputs, outputs, launches, seconds,
+                      torch.cuda.memory_reserved(device) - reserved)
 
     def graphs(self) -> List[_Graph]:
         """The captured entries (capture seconds, pool bytes)."""
