@@ -151,18 +151,52 @@ Phases, each printing its own line; any failure exits non-zero:
    their times there, each beside its bound (the causal pairs with a
    real key) and SDPA's.
 
+11. gpt-j-6B at its published width (vocab 50400, 28 layers, 16 heads of
+   256, d_model 4096, d_ff 16384; ~6.05 B parameters), in a child
+   process (``chip_smoke.py --gptj-child``) started right after the
+   build, while this process holds next to nothing on the card, so its
+   memory never meets the gpt2 phases'. Its weights are a seeded HF-layout GPT-J
+   ``state_dict`` made on the card in bf16 and turned into the
+   trainer's tree by the ported converter and
+   ``hydra_params_from_trunk``:
+   - configs/ppo_gptj_single_chip.yml as shipped (adafactor, 1 unfrozen
+     layer, bf16 frozen storage, remat, B 8, 4 + 48 tokens, top_p 0.7,
+     temperature 0.5, the byte tokenizer the ``gpt2`` path falls back
+     to, a host reward), cut to 3 cycles, with ``continuous_rollouts``
+     off, then on: finite losses, no step skipped by the commit gate, 0
+     recompiles, the update and rollout times, ``device/hbm_peak_gb``
+     beside ``_check_memory_fit``'s state estimate;
+   - the trained policy served from its own tensors (8 requests, one
+     bucket): paged decode at hd 256 inside the decode step's CUDA graph
+     (launches == layers x steps), fp32 greedy tokens identical on the
+     kernel and the plain gather path, the bf16 divergences printed
+     with their fp32 top-2 logit gaps;
+   - one PPO cycle at configs/ppo_tldr.yml's shape (512 + 64 tokens, 2
+     unfrozen layers, fused_attention, bf16, B 8): the three flash
+     kernels launch at hd 256 (chunks x (L + k) + passes x L forwards,
+     passes x k of each backward kernel); then phase 8's fp32 kernel vs
+     dense step at 2 layers (1 trainable) of the same width, at its
+     tolerances.
+
 The flash checks of phase 4 include ILQL's mask at T 500 (fp32 against
-the dense oracle, bf16 against the plain versions). Then one
-``{"kernels": [...]}`` line (launches summed over the phases that drive
-each kernel, and by phase), the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+the dense oracle, bf16 against the plain versions) and, at gpt-j-6B's
+head dim, the TL;DR shape (B 8, T 576, H 16, hd 256, left padding; bf16
+against the plain versions, fp32 against the dense oracle), timed there
+beside its bounds and SDPA; phase 3's include paged decode at gpt-j's
+heads (16 slots, the serving context and 1024 tokens; bf16, fp32, int8)
+timed at both, with each partition count. Then one ``{"kernels":
+[...]}`` line (launches summed over the phases that drive each kernel,
+and by phase; the hd-256 instances as entries of their own), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import gc
 import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -176,13 +210,16 @@ import torch
 import torch.nn.functional as F
 
 from trlx_tpu_torch import ops, supervisor, telemetry
-from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.data.configs import ModelSpec, TRLConfig
 from trlx_tpu_torch.examples import ilql_sentiments, ppo_tldr
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
 from trlx_tpu_torch.models.generation import RolloutDecoder, generate
+from trlx_tpu_torch.models.hf_import import (
+    convert_state_dict,
+    hydra_params_from_trunk,
+)
 from trlx_tpu_torch.models.params import (
     decode_views_from_numpy,
-    hydra_to_numpy,
     init_decode_views,
     init_hydra_numpy,
     init_ilql_numpy,
@@ -194,11 +231,16 @@ from trlx_tpu_torch.models.transformer import (
     embed_tokens,
     lm_logits,
     quantize_kv,
+    tree_map,
 )
 from trlx_tpu_torch.ops import _build
 from trlx_tpu_torch.ops import flash_attention as fa
 from trlx_tpu_torch.ops import paged_attention as pa
-from trlx_tpu_torch.models.policy import all_blocks, head_params_for_decode
+from trlx_tpu_torch.models.policy import (
+    HydraPolicy,
+    all_blocks,
+    head_params_for_decode,
+)
 from trlx_tpu_torch.ops.paged_attention import (
     decode_partitions,
     paged_decode_attention,
@@ -221,7 +263,7 @@ from trlx_tpu_torch.supervisor import (
     StallError,
     chaos,
 )
-from trlx_tpu_torch.utils import aotjit
+from trlx_tpu_torch.utils import DTYPES, aotjit
 from trlx_tpu_torch.utils.checkpoint import find_latest_checkpoint
 from trlx_tpu_torch.utils.faults import retry_call
 from trlx_tpu_torch.utils.profiling import annotate
@@ -298,6 +340,29 @@ def config_dict(compute_dtype="bfloat16", sample=False):
 # --------------------------------------------------------------------- #
 # 1. device
 # --------------------------------------------------------------------- #
+
+
+def ptxas_summary(text):
+    """One line per compiled kernel from ``nvcc -Xptxas -v`` output: its
+    short name (kernel and template arguments, from the mangled symbol),
+    registers and, where not zero, spill bytes."""
+    out, name, spill = [], "?", ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?\d+([a-z_]+_kernel)"
+                      r"I(\w*?)EEv", ln)
+        if m:
+            args = m.group(2)
+            kind = {"f": ["f32"], "1": ["bf16"]}.get(args[:1], [])
+            args = kind + re.findall(r"Li(\d+)", args)
+            name, spill = f"{m.group(1)}<{', '.join(args)}>", ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and (m.group(1) != "0" or m.group(2) != "0"):
+            spill = f", spills {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers{spill}")
+    return out
 
 
 def card_line():
@@ -551,14 +616,15 @@ def bound(q, k_pages, pt, bias):
                                    else "operations"), kv + io
 
 
-def time_kernel(dev, label, max_pages, iters):
-    """Kernel / plain / yardstick times at a full-length bf16 geometry,
-    cycling enough pool copies to exceed the 50 MB L2."""
-    pool_bytes = 2 * 16 * max_pages * 16 * 12 * 64 * 2
+def time_kernel(dev, label, max_pages, iters, H=12, hd=64):
+    """Kernel / plain / yardstick times at a full-length bf16 geometry
+    (16 slots, H heads of ``hd``, MHA), cycling enough pool copies to
+    exceed the 50 MB L2."""
+    pool_bytes = 2 * 16 * max_pages * 16 * H * hd * 2
     copies = max(1, math.ceil(120e6 / pool_bytes))
     q, pools, pt, bias = serving_case(
         dev, seed=3, max_pages=max_pages, lengths=[max_pages * 16] * 16,
-        copies=copies,
+        copies=copies, H=H, Hkv=H, hd=hd,
     )
     args = [(q, k, v, pt, bias) for k, v in pools]
     fns = (paged_decode_attention, paged_decode_attention_reference,
@@ -566,7 +632,7 @@ def time_kernel(dev, label, max_pages, iters):
     eager = [time_ms(fn, args, iters) for fn in fns]
     ms, plain, lib = graph_ms(fns, args, iters)
     b_ms, b_by, nbytes = bound(q, pools[0][0], pt, bias)
-    log("kernel", f"{label}: S=16 H=Hkv=12 hd=64 ps=16 max_pages="
+    log("kernel", f"{label}: S=16 H=Hkv={H} hd={hd} ps=16 max_pages="
                   f"{max_pages} bf16, {nbytes / 1e6:.2f} MB, {copies} pool "
                   f"copies cycled; device (CUDA graph): kernel "
                   f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
@@ -579,21 +645,26 @@ def time_kernel(dev, label, max_pages, iters):
             "eager_plain_ms": eager[1], "eager_library_ms": eager[2]}
 
 
-def sweep_partitions(dev, iters=200, counts=(1, 2, 3, 4, 6, 8, 16)):
-    """Device time of paged decode at a full 1024-token context (the
-    time_kernel geometry) for each partition count, in one call, so the
-    planner's choice stands beside the others."""
-    pool_bytes = 2 * 16 * 64 * 16 * 12 * 64 * 2
+def sweep_partitions(dev, iters=200, counts=(1, 2, 3, 4, 6, 8, 16), H=12,
+                     hd=64, max_pages=64):
+    """Device time of paged decode at a full context of ``max_pages``
+    pages of 16 (the time_kernel geometry) for each partition count, in
+    one call, so the planner's choice stands beside the others."""
+    pool_bytes = 2 * 16 * max_pages * 16 * H * hd * 2
     q, pools, pt, bias = serving_case(
-        dev, seed=3, max_pages=64, lengths=[1024] * 16,
-        copies=max(1, math.ceil(120e6 / pool_bytes)))
+        dev, seed=3, max_pages=max_pages, lengths=[max_pages * 16] * 16,
+        copies=max(1, math.ceil(120e6 / pool_bytes)), H=H, Hkv=H, hd=hd)
     args = [(q, k, v, pt, bias) for k, v in pools]
+    # the partition counts that cut the pages into parts with none empty
+    counts = [P for P in counts
+              if P <= max_pages and (P - 1) * -(-max_pages // P) < max_pages]
     fns = [lambda *a, P=P: pa._launch(*a, partitions=P) for P in counts]
     times = graph_ms(fns, args, iters)
-    chosen = decode_partitions(16, 12, 64, 16)[0]
-    log("kernel", "1024-token context by partition count P (device, CUDA "
-                  "graph): " + ", ".join(f"P={P} {t * 1e3:.2f} us"
-                                         for P, t in zip(counts, times))
+    chosen = decode_partitions(16, H, max_pages, 16)[0]
+    log("kernel", f"H={H} hd={hd} {max_pages * 16}-token context by "
+                  f"partition count P (device, CUDA graph): " + ", ".join(
+                      f"P={P} {t * 1e3:.2f} us"
+                      for P, t in zip(counts, times))
         + f"; the planner picks P={chosen}")
     return dict(zip(counts, times))
 
@@ -865,6 +936,94 @@ def check_flash_at(dev, label, B, T, lengths, H=12, hd=64):
     del case
     torch.cuda.empty_cache()
     return errs
+
+
+#: gpt-j-6B at configs/ppo_tldr.yml's shape: B 8, T 512 + 64, 16 heads of
+#: 256; left padding as the TL;DR prompts have it
+GPTJ_FLASH = dict(B=8, T=576, H=16, hd=256)
+GPTJ_PADS = [0, 5, 64, 100, 255, 300, 449, 511]
+
+
+def check_flash_gptj(dev):
+    """The flash kernels at gpt-j-6B's head dim on the TL;DR shape
+    (:data:`GPTJ_FLASH`, causal, left padding): bf16, each kernel against
+    its plain version on the same inputs (O, dq, dk, dv at atol 1e-2 +
+    rtol 1e-2, lse at atol 1e-3, every row finite); fp32 against the
+    dense oracle and its autograd (O and lse at 1e-5, gradients at
+    2e-4). Returns {kernel: max abs error}."""
+    g = GPTJ_FLASH
+    label = f"B{g['B']} T{g['T']} H{g['H']} hd{g['hd']} causal, left pads " \
+        f"{GPTJ_PADS}"
+    case = flash_case(dev, g["B"], g["T"], g["H"], g["hd"], GPTJ_PADS,
+                      torch.bfloat16, seed=256)
+    o_ratio, lse_err, o_err = bf16_forward_check(*case[:3], case[4], True)
+    ratios, errs = bf16_backward_check(*case, True)
+    errs["flash_fwd"] = o_err
+    log("flash", f"gpt-j bf16 {label}, each kernel vs its plain version: "
+                 + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                 + f"; largest |err| / (1e-2 + 1e-2 |ref|): O "
+                 f"{o_ratio:.3f}, " + ", ".join(
+                     f"{n} {r:.3f}" for n, r in ratios.items())
+                 + f" (<= 1 passes), lse max_abs_err {lse_err:.3e} (atol "
+                   f"1e-3); every row finite")
+    assert o_ratio <= 1.0 and lse_err <= 1e-3, "gpt-j bf16 flash forward"
+    for name, r in ratios.items():
+        assert r <= 1.0, f"gpt-j bf16 flash {name} disagrees"
+    del case
+    case = flash_case(dev, g["B"], g["T"], g["H"], g["hd"], GPTJ_PADS,
+                      seed=257)
+    errs32 = flash_errors(*case, True)[2]
+    log("flash", f"gpt-j fp32 {label} vs the dense oracle and autograd: "
+                 + ", ".join(f"{n} {e:.3e}" for n, e in errs32.items())
+                 + " (atol 1e-5 fwd, 2e-4 grads)")
+    assert errs32["flash_fwd"] <= 1e-5, "gpt-j flash forward (fp32)"
+    assert errs32["flash_bwd_dq"] <= 2e-4, "gpt-j flash dq (fp32)"
+    assert errs32["flash_bwd_dkv"] <= 2e-4, "gpt-j flash dk/dv (fp32)"
+    del case
+    torch.cuda.empty_cache()
+    return {n: max(errs[n], errs32[n]) for n in FLASH_NAMES}
+
+
+def check_paged_gptj(dev):
+    """Paged decode at gpt-j-6B's heads (H = Hkv = 16, hd 256) against
+    its plain version: 16 slots at the serving context (4 pages of 16,
+    ragged, row 5 free; one partition) and at a 1024-token context
+    (split-K, the ragged lengths of SPLIT_LENGTHS[16], row 14 free): bf16
+    at atol 1e-2 + rtol 1e-2 against float32 math, float32 and the int8
+    tier at atol 1e-5, every row finite. Returns the largest error."""
+    worst = 0.0
+    for ctx, max_pages, lengths, free in (
+            ("serving", 4, None, 5),
+            ("1024-token", 64, SPLIT_LENGTHS[16], FREE_ROW[16])):
+        for i, (tier, dtype) in enumerate((("bf16", torch.bfloat16),
+                                           ("fp32", torch.float32),
+                                           ("int8", torch.float32))):
+            q, ((k, v),), pt, bias = serving_case(
+                dev, seed=60 + i + max_pages, H=16, Hkv=16, hd=256,
+                max_pages=max_pages, lengths=lengths, free_row=free,
+                dtype=dtype)
+            if tier == "int8":
+                k, v = quantize_kv(k), quantize_kv(v)
+            out = paged_decode_attention(q, k, v, pt, bias)
+            ref = paged_decode_attention_reference(q.float(), k, v, pt, bias)
+            torch.cuda.synchronize()
+            assert out.dtype == q.dtype
+            assert torch.isfinite(out.float()).all(), f"non-finite {tier}"
+            err = max_err(out, ref)
+            worst = max(worst, err)
+            if tier == "bf16":
+                ok = not ((out.float() - ref).abs()
+                          > 1e-2 + 1e-2 * ref.abs()).any()
+                tol = "atol 1e-2 + rtol 1e-2"
+            else:
+                ok, tol = err <= 1e-5, "atol 1e-5"
+            P, per = decode_partitions(16, 16, max_pages, 16)
+            log("kernel", f"gpt-j paged decode {tier} S=16 H=Hkv=16 hd=256 "
+                          f"{ctx} context (row {free} free): P={P} x {per} "
+                          f"pages, max_abs_err={err:.3e} ({tol}; every row "
+                          f"finite)")
+            assert ok, f"gpt-j paged decode {tier} {ctx} disagrees"
+    return worst
 
 
 def flash_bounds(B, T, H, hd, elem, causal=True, key_mask=None):
@@ -1527,15 +1686,27 @@ def named_leaves(tree, prefix=""):
 
 def leaf_norms(ours, theirs):
     """[(name, |ours - theirs|, |theirs|)] per leaf of two [(name, array)]
-    lists, L2 norms in float64."""
+    lists (numpy arrays, or tensors, which stay on their device), L2
+    norms in float64."""
     rows = []
     for (name, o), (_, t) in zip(ours, theirs):
+        if torch.is_tensor(o):
+            o, t = o.double(), t.double()
+            rows.append((name, float(torch.linalg.vector_norm(o - t)),
+                         float(torch.linalg.vector_norm(t))))
+            continue
         o, t = np.asarray(o, np.float64), np.asarray(t, np.float64)
         rows.append((name, np.linalg.norm(o - t), np.linalg.norm(t)))
     return rows
 
 
-def train_parity_phase(tree, batch, device):
+def snapshot(tree):
+    """[(dotted name, float32 copy)] of a tensor tree, on its device."""
+    return [(n, x.detach().float().clone()) for n, x in named_leaves(tree)]
+
+
+def train_parity_phase(tree, batch, device, config_fn=None,
+                       phase="train-parity"):
     """One train_step, then one 2-pass train_multi, at fp32 on the kernel
     path, every pass held against the dense path's pass at the same
     parameters (the kernel path's, copied into the dense trainer before
@@ -1548,10 +1719,13 @@ def train_parity_phase(tree, batch, device):
     far beyond float32 rounding within a pass or two (PERF.md).
     For the same reason tests/test_golden_step.py's rule on each pass's
     update is printed, not asserted, with the dense gradient at the
-    elements whose first updates differ by more than lr / 2."""
+    elements whose first updates differ by more than lr / 2.
+    ``config_fn(compute_dtype, fused, ppo_epochs)`` gives the config dict
+    (default :func:`train_config_dict`); ``phase`` labels the lines."""
     trainers, grads = {}, {}
     for fused in (True, False):
-        cfg = TRLConfig.from_dict(train_config_dict("float32", fused, 2))
+        cfg = TRLConfig.from_dict((config_fn or train_config_dict)(
+            "float32", fused, 2))
         trainer = get_model(cfg.model.model_type)(cfg, device=device,
                                                   params=tree)
         grads[fused], opt_step = [], trainer.opt.step
@@ -1559,7 +1733,7 @@ def train_parity_phase(tree, batch, device):
         def capture(params, g, state, ok=None, g_norm=None,
                     opt_step=opt_step, out=grads[fused]):
             if not out:  # the first step's gradients
-                out.append([x.detach().float().cpu().numpy() for x in g])
+                out.append([x.detach().float().clone() for x in g])
             return opt_step(params, g, state, ok=ok, g_norm=g_norm)
 
         trainer.opt.step = capture
@@ -1574,12 +1748,12 @@ def train_parity_phase(tree, batch, device):
             for (_, d), (_, k) in zip(named_leaves(dense.params["trainable"]),
                                       named_leaves(kernel.params["trainable"])):
                 d.copy_(k)
-        before = named_leaves(hydra_to_numpy(kernel.params["trainable"]))
+        before = snapshot(kernel.params["trainable"])
         stats = kernel_step(batch)
         dense_stats = dense.train_step(batch)
         passes.append(({k: float(v) for k, v in stats.items()},
                        {k: float(v) for k, v in dense_stats.items()}, before,
-                       *(named_leaves(hydra_to_numpy(t.params["trainable"]))
+                       *(snapshot(t.params["trainable"])
                          for t in (kernel, dense))))
         return stats
 
@@ -1595,9 +1769,9 @@ def train_parity_phase(tree, batch, device):
         for key in ("loss", "grad_norm"):
             a, b = ours[key], theirs[key]
             rel = abs(a - b) / max(abs(b), 1e-30)
-            log("train-parity", f"{label} {key}: kernel {a!r} dense {b!r} "
-                                f"at the same parameters (relative "
-                                f"{rel:.2e}, rtol 1e-5)")
+            log(phase, f"{label} {key}: kernel {a!r} dense {b!r} "
+                       f"at the same parameters (relative "
+                       f"{rel:.2e}, rtol 1e-5)")
             worst = max(worst, rel)
     assert worst <= 1e-5, f"loss or grad norm differs by {worst:.2e}"
     # a leaf whose gradient is analytically zero (the key bias: softmax
@@ -1611,10 +1785,10 @@ def train_parity_phase(tree, batch, device):
     zero = {n: f"|grad| {t:.2e} |diff| {d:.2e}" for n, d, t in rows
             if t < floor}
     grad_rel, name = max(rel)
-    log("train-parity", f"train_step gradients: largest relative L2 "
-                        f"{grad_rel:.2e} ({name}) over {len(rel)} leaves "
-                        f"(rtol 2e-3); below the floor {floor:.2e} (1e-5 "
-                        f"of the global norm), held to it: {zero}")
+    log(phase, f"train_step gradients: largest relative L2 "
+               f"{grad_rel:.2e} ({name}) over {len(rel)} leaves "
+               f"(rtol 2e-3); below the floor {floor:.2e} (1e-5 "
+               f"of the global norm), held to it: {zero}")
     for name, d, t in rows:
         assert (d < 2e-3 * t) if t >= floor else (d < floor), \
             f"{name}: gradients differ by {d} of {t}"
@@ -1629,24 +1803,24 @@ def train_parity_phase(tree, batch, device):
         updates[label] = {n: 0.0 if d < 1e-5 else d / max(t, 1e-12)
                           for n, d, t in leaf_norms(ours, theirs)}
         over = {n: f"{r:.2e}" for n, r in updates[label].items() if r >= 2e-3}
-        log("train-parity", f"{label} update from the same parameters by "
-                            f"tests/test_golden_step.py's rule at 2e-3 "
-                            f"(printed, not asserted): {len(over)} leaves "
-                            f"at or over: {over}")
+        log(phase, f"{label} update from the same parameters by "
+                   f"tests/test_golden_step.py's rule at 2e-3 "
+                   f"(printed, not asserted): {len(over)} leaves "
+                   f"at or over: {over}")
         if label != "train_step":
             continue
         flipped, total, top = 0, 0, (0.0, "")
         for (n, u_k), (_, u_d), (_, g_d) in zip(ours, theirs, g_dense):
-            flip = np.abs(u_k - u_d) > 0.5 * lr
-            flipped, total = flipped + int(flip.sum()), total + flip.size
+            flip = (u_k - u_d).abs() > 0.5 * lr
+            flipped, total = flipped + int(flip.sum()), total + flip.numel()
             if flip.any():
-                rms = float(np.sqrt(np.mean(np.square(g_d, dtype=np.float64))))
-                share = float(np.abs(g_d[flip]).max()) / max(rms, 1e-30)
+                rms = float(g_d.double().square().mean().sqrt())
+                share = float(g_d[flip].abs().max()) / max(rms, 1e-30)
                 top = max(top, (share, n))
-        log("train-parity", f"train_step: {flipped} of {total} elements "
-                            f"have updates differing by > lr/2; the dense "
-                            f"|grad| there is at most {top[0]:.2e} of its "
-                            f"leaf's RMS gradient ({top[1] or 'none'})")
+        log(phase, f"train_step: {flipped} of {total} elements "
+                   f"have updates differing by > lr/2; the dense "
+                   f"|grad| there is at most {top[0]:.2e} of its "
+                   f"leaf's RMS gradient ({top[1] or 'none'})")
     return {"worst_rel": worst, "grads_rel_l2": grad_rel,
             "updates_rel_l2": {k: max(v.values())
                                for k, v in updates.items()}}
@@ -2667,13 +2841,463 @@ def durability_phases(card, device="cuda"):
 
 
 # --------------------------------------------------------------------- #
+# 11. gpt-j-6B at its published width, in a child process
+# --------------------------------------------------------------------- #
+
+#: gpt-j-6B's published geometry (``ModelSpec.preset("gpt-j-6b")``):
+#: vocab 50400, 28 layers, 16 heads of 256, d_model 4096, d_ff 16384,
+#: rotary_dim 64, n_positions 2048, an untied lm_head
+GPTJ_SPEC = dict(ModelSpec.preset("gpt-j-6b").__dict__)
+#: the recipe's 4-byte prompts (input_size 4)
+GPTJ_PROMPTS = ["The ", "A ca", "Once", "When", "Data", "Rain", "Hope",
+                "Time", "Fire", "Blue", "Cold", "Moon", "Wind", "Gold",
+                "Road", "Star"]
+#: what the served gpt-j policy answers (prompts within the 16-token
+#: bucket, mixed lengths)
+GPTJ_REQUESTS = [("Hello", 32), ("The card", 24), ("x", 8),
+                 ("Tell a story", 32), ("What is 2+2?", 16),
+                 ("Name a fruit", 28), ("Why?", 20), ("Count to 5", 12)]
+
+
+def release(device):
+    """Free what the dropped trainers and engines held: they sit in
+    reference cycles (a trainer and its orchestrator, an engine and its
+    scheduler), which only the cycle collector frees, and the caching
+    allocator keeps freed blocks until emptied."""
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def gptj_recipe_config() -> dict:
+    """configs/ppo_gptj_single_chip.yml as a dict (no pyyaml on the card
+    machine; tests/test_torch_adafactor.py holds the two equal)."""
+    return {
+        "model": {
+            "model_path": "EleutherAI/gpt-j-6B", "tokenizer_path": "gpt2",
+            "model_type": "JaxPPOTrainer", "num_layers_unfrozen": 1,
+            "compute_dtype": "bfloat16", "param_dtype": "bfloat16",
+        },
+        "train": {
+            "n_ctx": 512, "epochs": 10, "total_steps": 80000,
+            "batch_size": 8, "grad_clip": 1.0, "lr_ramp_steps": 100,
+            "lr_decay_steps": 79000, "weight_decay": 1.0e-6,
+            "learning_rate_init": 1.412e-4,
+            "learning_rate_target": 1.412e-4, "log_interval": 25,
+            "checkpoint_interval": 1000000, "eval_interval": 16,
+            "pipeline": "PPOPipeline", "orchestrator": "PPOOrchestrator",
+            "input_size": 4, "gen_size": 48, "seed": 0, "remat": True,
+            "optimizer": "adafactor",
+        },
+        "method": {
+            "name": "ppoconfig", "num_rollouts": 8, "chunk_size": 8,
+            "ppo_epochs": 4, "init_kl_coef": 0.2, "target": 6,
+            "horizon": 10000, "gamma": 1, "lam": 0.95, "cliprange": 0.2,
+            "cliprange_value": 0.2, "vf_coef": 2.3,
+            "gen_kwargs": {"max_length": 48, "min_length": 48,
+                           "temperature": 0.5, "top_k": 0, "top_p": 0.7,
+                           "do_sample": True},
+        },
+    }
+
+
+def gptj_smoke_config(run_dir, continuous):
+    """The recipe as shipped, but for: the synthetic checkpoint's spec as
+    ``model_spec`` (no transformers on the card to read a config), 3
+    cycles (3 epochs of one batch x 4 passes), stats every cycle, the
+    commit gate on (``max_bad_steps`` 2, to show it skips nothing),
+    ``continuous_rollouts`` as given, run files under ``run_dir``."""
+    cfg = gptj_recipe_config()
+    cfg["model"]["model_spec"] = dict(GPTJ_SPEC)
+    cfg["train"].update(epochs=3, total_steps=12, log_interval=4,
+                        max_bad_steps=2, continuous_rollouts=continuous,
+                        checkpoint_dir=run_dir)
+    return cfg
+
+
+def gptj_tldr_config(run_dir, compute_dtype="bfloat16", fused=True,
+                     ppo_epochs=4, n_layer=None):
+    """configs/ppo_tldr.yml's shape at gpt-j-6B width ("gpt-j-6B at full
+    scale", its line 6): 512-token prompts + 64 generated, 2 unfrozen
+    layers, ``fused_attention``, frozen storage in ``compute_dtype``;
+    batch 8, one cycle of 8 rollouts and ``ppo_epochs`` passes; depth
+    ``n_layer`` (default the published 28)."""
+    cfg = train_config_dict(compute_dtype, fused, ppo_epochs)
+    cfg["model"].update(model_spec=dict(GPTJ_SPEC,
+                                        n_layer=n_layer or GPTJ_SPEC[
+                                            "n_layer"]),
+                        param_dtype=compute_dtype)
+    cfg["train"].update(batch_size=8, total_steps=ppo_epochs,
+                        log_interval=ppo_epochs, checkpoint_dir=run_dir)
+    cfg["method"].update(num_rollouts=8, chunk_size=8)
+    return cfg
+
+
+def gptj_state_dict(spec, device, seed=0, dtype=torch.bfloat16):
+    """A seeded gpt-j checkpoint laid out as HF's GPTJForCausalLM
+    ``state_dict`` (HF's tensor names; nn.Linear weights [out, in]), made
+    on the card with an explicit CUDA generator: N(0, 0.02) matrices, the
+    residual projections' scaled by 1 / sqrt(2 n_layer), zero biases,
+    unit norm scales."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, f, V, L = spec.d_model, spec.d_ff, spec.vocab_size, spec.n_layer
+    resid = 0.02 / math.sqrt(2 * L)
+
+    def normal(*shape, std=0.02):
+        return torch.empty(shape, dtype=dtype, device=device).normal_(
+            0.0, std, generator=gen)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    sd = {"transformer.wte.weight": normal(V, d),
+          "transformer.ln_f.weight": const(1.0, d),
+          "transformer.ln_f.bias": const(0.0, d),
+          "lm_head.weight": normal(V, d), "lm_head.bias": const(0.0, V)}
+    for i in range(L):
+        h = f"transformer.h.{i}."
+        sd.update({
+            h + "ln_1.weight": const(1.0, d), h + "ln_1.bias": const(0.0, d),
+            h + "attn.q_proj.weight": normal(d, d),
+            h + "attn.k_proj.weight": normal(d, d),
+            h + "attn.v_proj.weight": normal(d, d),
+            h + "attn.out_proj.weight": normal(d, d, std=resid),
+            h + "mlp.fc_in.weight": normal(f, d),
+            h + "mlp.fc_in.bias": const(0.0, f),
+            h + "mlp.fc_out.weight": normal(d, f, std=resid),
+            h + "mlp.fc_out.bias": const(0.0, d),
+        })
+    return sd
+
+
+def gptj_tree(cfg, device, seed=0):
+    """The trainer's hydra tree from :func:`gptj_state_dict` (in the
+    config's frozen storage dtype) through the ported converter and
+    ``hydra_params_from_trunk``, on the card; the state dict is dropped
+    once converted."""
+    spec = cfg.model.resolve_spec()
+    frozen = DTYPES[cfg.model.param_dtype]
+    sd = gptj_state_dict(spec, device, seed, frozen)
+    trunk = convert_state_dict(sd, spec, dtype=None)
+    del sd
+    return hydra_params_from_trunk(
+        HydraPolicy(spec, cfg.model.num_layers_unfrozen), *trunk,
+        np.random.default_rng(seed), frozen_dtype=frozen)
+
+
+def gptj_stack(cfg, device, prompts, seed=0):
+    """Trainer (adopting :func:`gptj_tree` on the card), pipeline and
+    orchestrator with the host reward."""
+    trainer = get_model(cfg.model.model_type)(
+        cfg, device=device, params=gptj_tree(cfg, device, seed))
+    pipeline = get_pipeline(cfg.train.pipeline)(prompts, trainer.tokenizer,
+                                                cfg)
+    orch = get_orchestrator(cfg.train.orchestrator)(
+        trainer, pipeline, reward_fn=host_reward,
+        chunk_size=cfg.method.chunk_size)
+    return trainer, orch
+
+
+def hist_times(name):
+    """Every duration of telemetry span ``name`` (s), first call first."""
+    h = telemetry.current().registry.hists.get(name)
+    return [] if h is None else [h.first] + list(h.window)
+
+
+def gptj_recipe_phase(device, continuous):
+    """configs/ppo_gptj_single_chip.yml (:func:`gptj_smoke_config`):
+    make_experience, then learn() over 3 cycles with a host reward.
+    Every logged loss, grad norm and KL finite, every ``bad_step`` 0,
+    ``compile/recompiles`` 0; the state estimate ``_check_memory_fit``
+    made beside the peak device memory of the run (reset once the
+    trainer is built)."""
+    run_dir = os.path.join(CKPT_ROOT, "gptj", f"recipe_{int(continuous)}")
+    cfg = TRLConfig.from_dict(gptj_smoke_config(run_dir, continuous))
+    torch.cuda.reset_peak_memory_stats() if device == "cuda" else None
+    t0 = time.perf_counter()
+    trainer, orch = gptj_stack(cfg, device, GPTJ_PROMPTS)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2**30 \
+        if device == "cuda" else 0.0
+    torch.cuda.reset_peak_memory_stats() if device == "cuda" else None
+    records = []
+    t0 = time.perf_counter()
+    orch.make_experience(cfg.method.num_rollouts)
+    trainer.learn(log_fn=records.append)
+    sync(device)
+    wall = time.perf_counter() - t0
+    logs = [r for r in records if "loss" in r]
+    assert len(logs) == 3 and trainer.iter_count == 12, records
+    for entry in logs:
+        for key in ("loss", "pg_loss", "vf_loss", "grad_norm", "approx_kl"):
+            assert np.isfinite(entry[key]), (key, entry)
+        assert entry["bad_step"] == 0.0, entry
+    assert recompiles() == 0, f"recompiled {recompiles()} times"
+    refresh = hist_times("time/rollout_harvest") + hist_times(
+        "time/rollout_dispatch_stale") if continuous \
+        else hist_times("time/rollout_refresh")
+    assert len(refresh) == (4 if continuous else 2), refresh
+    return trainer, cfg, {
+        "build_s": build_s, "build_peak_gb": build_peak, "wall_s": wall,
+        "update_s": hist_times("time/ppo_update"),
+        "first_rollout_s": hist_times("time/rollout")[0],
+        "refresh_s": hist_times("time/rollout_refresh"),
+        "dispatch_stale_s": hist_times("time/rollout_dispatch_stale"),
+        "harvest_s": hist_times("time/rollout_harvest"),
+        "losses": [e["loss"] for e in logs],
+        "hbm_peak_gb": logs[-1].get("device/hbm_peak_gb"),
+        "state_estimate_gb": trainer.state_bytes / 2**30,
+        "grad_gb": sum(p.numel() * 4 for _, p in named_leaves(
+            trainer.params["trainable"])) / 2**30,
+        "decode_graphs": trainer.decoder.step.signatures(),
+    }
+
+
+def gptj_engine(cfg_dict, params, device, compute_dtype, attention):
+    """An engine on a trainer's parameters where they live (no checkpoint
+    round trip), greedy, one bucket of 8 x (16 + 32), 8 slots of pages of
+    16."""
+    cfg = json.loads(json.dumps(cfg_dict))
+    cfg["model"]["compute_dtype"] = compute_dtype
+    cfg["method"]["gen_kwargs"]["do_sample"] = False
+    serve = ServeConfig(buckets=[[8, 16, 32]], slots=8, page_size=16,
+                        attention=attention, max_queue=64,
+                        request_timeout=600.0)
+    return InferenceEngine(TRLConfig.from_dict(cfg), serve=serve,
+                           device=device, params=params)
+
+
+def gptj_serve_phase(trainer, cfg_dict, device):
+    """The trained policy served through the slot scheduler: bf16 on the
+    kernel path (paged decode inside the decode step's CUDA graph;
+    launches == layers x decode steps, 0 recompiles), then fp32 on the
+    kernel path and on the plain gather path, greedy tokens identical;
+    where the bf16 tokens part from the fp32 ones, the fp32 top-2 logit
+    gap there is printed (as parity_phase does)."""
+    telemetry.start()
+    engine = gptj_engine(cfg_dict, trainer.params, device, "bfloat16",
+                         "pallas")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    bf16, sched = run_scheduler(engine, GPTJ_REQUESTS)
+    wall = time.perf_counter() - t0
+    launches, steps = ops.LAUNCHES["paged_decode"], sched.runtime.steps
+    L = engine.spec.n_layer
+    if device == "cuda":
+        assert launches == L * steps, (launches, L, steps)
+    assert recompiles() == 0, f"serve recompiled {recompiles()} times"
+    step = telemetry.current().registry.hists["time/serve/slot_step"]
+    step_p50 = step.quantile(0.5) * 1e3
+    graphs = graph_stats(sched.runtime.graphs())
+    del engine, sched
+    release(device)
+    fp32 = {}
+    for attention in ("pallas", "jnp"):
+        telemetry.start()
+        engine = gptj_engine(cfg_dict, trainer.params, device, "float32",
+                             attention)
+        fp32[attention], _ = run_scheduler(engine, GPTJ_REQUESTS)
+        if attention == "pallas":
+            del engine
+            release(device)
+    assert fp32["pallas"] == fp32["jnp"], "kernel path != plain path (fp32)"
+    parted = {}
+    for i, (a, b) in enumerate(zip(bf16, fp32["jnp"])):
+        if a != b:
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            parted[i] = (j, logit_gap(engine, engine.encode_prompt(
+                GPTJ_REQUESTS[i][0]) + b[:j]))
+    del engine
+    release(device)
+    return {"launches": launches, "steps": steps, "layers": L,
+            "tokens": sum(len(t) for t in bf16), "wall_s": wall,
+            "step_p50_ms": step_p50, "graphs": graphs,
+            "bf16_parted": parted, "requests": len(GPTJ_REQUESTS)}
+
+
+def gptj_flash_phase(device):
+    """One PPO cycle at configs/ppo_tldr.yml's shape at gpt-j-6B width
+    (:func:`gptj_tldr_config`, bf16, ``fused_attention``): flash
+    launches == chunks x (L + k) + passes x L forwards and passes x k of
+    each backward kernel, all at hd 256; finite losses. Returns the
+    counts and one rollout batch."""
+    run_dir = os.path.join(CKPT_ROOT, "gptj", "tldr")
+    cfg = TRLConfig.from_dict(gptj_tldr_config(run_dir))
+    trainer, orch = gptj_stack(cfg, device, ppo_tldr.synthetic_documents(8),
+                               seed=1)
+    if device == "cuda":
+        assert trainer.policy.spec.head_dim == 256
+    records = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    orch.make_experience(cfg.method.num_rollouts)
+    trainer.learn(log_fn=records.append)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {n: ops.LAUNCHES[n] for n in FLASH_NAMES}
+    L, k = trainer.policy.spec.n_layer, trainer.policy.k
+    chunks = cfg.method.num_rollouts // cfg.method.chunk_size
+    passes = trainer.iter_count
+    want = {"flash_fwd": chunks * (L + k) + passes * L,
+            "flash_bwd_dq": passes * k, "flash_bwd_dkv": passes * k}
+    if device == "cuda":
+        assert launches == want, f"flash launches {launches} != {want}"
+    logs = [r for r in records if "loss" in r]
+    assert logs and all(np.isfinite(e["loss"]) and np.isfinite(
+        e["grad_norm"]) for e in logs), logs
+    batch = trainer.store._stacked().map(lambda x: x[:8])
+    return {"launches": launches, "want": want, "wall_s": wall,
+            "update_s": hist_times("time/ppo_update"),
+            "loss": logs[-1]["loss"]}, batch
+
+
+def gptj_child(device="cuda"):
+    """The gpt-j-6B phase (``chip_smoke.py --gptj-child [device]``):
+    the single-card recipe with continuous rollouts off, then on; the
+    trained policy served; the flash path at the TL;DR shape and its
+    fp32 kernel-against-dense step at 2 layers of the same width. Prints
+    its lines, then one JSON line of its numbers."""
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out, t0 = {}, time.perf_counter()
+
+    def done(part):
+        log("gptj-child", f"{part} done at {time.perf_counter() - t0:.1f}s")
+
+    try:
+        for continuous in (False, True):
+            trainer, cfg, out[f"recipe_{int(continuous)}"] = \
+                gptj_recipe_phase(device, continuous)
+            done(f"recipe (continuous_rollouts {continuous})")
+            if not continuous:
+                del trainer
+                release(device)
+        out["serve"] = gptj_serve_phase(trainer, cfg.to_nested_dict(),
+                                        device)
+        done("serve")
+        del trainer
+        release(device)
+        out["flash"], batch = gptj_flash_phase(device)
+        done("TL;DR flash cycle")
+        release(device)
+        parity_dir = os.path.join(CKPT_ROOT, "gptj", "parity")
+
+        def parity_config(dtype, fused, epochs):
+            # 2 layers, the top one trainable: the float32 trainable
+            # branch (a block, the untied lm_head, the value head; 441 M
+            # parameters) and its copies stay a fraction of the card
+            cfg = gptj_tldr_config(parity_dir, dtype, fused, epochs,
+                                   n_layer=2)
+            cfg["model"]["num_layers_unfrozen"] = 1
+            return cfg
+
+        tree = gptj_tree(TRLConfig.from_dict(parity_config("float32", True,
+                                                           2)),
+                         device, seed=2)
+        # each trainer copies its own trainable top (the kernel path's
+        # step must not move the dense path's); the frozen trunk is shared
+        tree["trainable"] = tree_map(lambda x: x.cpu().numpy(),
+                                     tree["trainable"])
+        out["parity"] = train_parity_phase(tree, batch, device,
+                                           parity_config, phase="gptj-parity")
+        done("parity")
+    finally:
+        shutil.rmtree(os.path.join(CKPT_ROOT, "gptj"), ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def log_gptj(g, card):
+    """The gpt-j child's numbers, one line a part."""
+    def times(seconds):
+        return [round(t, 3) for t in seconds]
+
+    for key in ("recipe_0", "recipe_1"):
+        r = g[key]
+        refresh = (f"dispatch (stale) {times(r['dispatch_stale_s'])} s + "
+                   f"harvest {times(r['harvest_s'])} s"
+                   if key == "recipe_1" else
+                   f"refresh {times(r['refresh_s'])} s")
+        log("gptj", f"configs/ppo_gptj_single_chip.yml (adafactor, 1 "
+                    f"unfrozen layer, bf16 frozen storage, remat, B8, 4 + 48 "
+                    f"tokens, top_p 0.7, temperature 0.5), continuous_"
+                    f"rollouts {key == 'recipe_1'}: 3 cycles in "
+                    f"{r['wall_s']:.2f}s; update (4 passes) "
+                    f"{times(r['update_s'])} s; first "
+                    f"rollout {r['first_rollout_s']:.3f}s, {refresh}; "
+                    f"losses {[round(x, 4) for x in r['losses']]}, no step "
+                    f"skipped by the gate, 0 recompiles; device/hbm_peak_gb "
+                    f"{r['hbm_peak_gb']:.3f} against _check_memory_fit's "
+                    f"{r['state_estimate_gb']:.3f} GiB of state + "
+                    f"{r['grad_gb']:.3f} GiB of gradients; building the "
+                    f"trainer from the synthetic checkpoint took "
+                    f"{r['build_s']:.2f}s, peak {r['build_peak_gb']:.3f} GiB "
+                    f"({card})")
+    sv = g["serve"]
+    log("gptj", f"the trained policy served (8 slots, bucket 8 x (16 + 32)): "
+                f"{sv['requests']} requests, {sv['tokens']} tokens in "
+                f"{sv['wall_s']:.2f}s, decode step p50 {sv['step_p50_ms']:.2f}"
+                f" ms; paged decode launches {sv['launches']} == "
+                f"{sv['layers']} layers x {sv['steps']} steps inside the "
+                f"step's CUDA graph, 0 recompiles; fp32 greedy tokens "
+                f"identical kernel vs plain path; bf16 parts from fp32 at "
+                f"(request: token, fp32 top-2 logit gap) {sv['bf16_parted']} "
+                f"({card})")
+    fl = g["flash"]
+    log("gptj", f"one PPO cycle at the TL;DR shape (B8, 512 + 64, 2 "
+                f"unfrozen layers, fused_attention, bf16): flash launches at "
+                f"hd 256 {fl['launches']} == {fl['want']}; {fl['wall_s']:.2f}s"
+                f", update (4 passes) {times(fl['update_s'])} s, last loss "
+                f"{fl['loss']:.4f} ({card})")
+    log("gptj", f"fp32 kernel vs dense at 2 layers of gpt-j width: worst "
+                f"loss / grad norm relative {g['parity']['worst_rel']:.2e} "
+                f"(rtol 1e-5), gradients relative L2 "
+                f"{g['parity']['grads_rel_l2']:.2e} (rtol 2e-3)")
+
+
+def kernel_entry(name, source, replaces, launches, err, t, by_phase):
+    """One entry of the kernels line from a timing dict of time_kernel /
+    time_flash."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_by_phase": by_phase, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+def run_gptj_child(device="cuda", timeout=900):
+    """:func:`gptj_child` in its own process (its 15-30 GB never overlap
+    the gpt2 phases'; its peak is its own): its lines re-printed, its
+    JSON returned; a non-zero exit fails the run."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--gptj-child", device],
+        capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    assert proc.returncode == 0 and lines, (
+        f"gpt-j child exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+        f"{proc.stderr[-8000:]}")
+    return json.loads(lines[-1])
+
+
+# --------------------------------------------------------------------- #
 # main
 # --------------------------------------------------------------------- #
 
 
 def main() -> int:
+    # every load is local: a checkpoint name never reaches for a hub
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
     if sys.argv[1:2] == ["--escalation-child"]:
         return escalation_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--gptj-child"]:
+        return gptj_child(*sys.argv[2:3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on "
               "the card", file=sys.stderr)
@@ -2687,28 +3311,48 @@ def main() -> int:
 
     info = _build.build()
     for name, entry in info.items():
-        ptxas = [ln.strip() for ln in str(entry["log"]).splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
         log("build", f"{name}: {entry['seconds']:.2f}s nvcc")
-        for ln in ptxas:
+        for ln in ptxas_summary(str(entry["log"])):
             log("build", f"  {ln}")
     per_1024 = decode_partitions(16, 12, 64, 16)[1]
+    gptj_per = decode_partitions(16, 16, 64, 16)[1]
     log("build", "paged_decode dynamic shared memory per block: "
                  f"{shared_memory_bytes(12, 12, 64, 4)} B at the serving "
                  f"shape, {shared_memory_bytes(12, 12, 64, per_1024)} B at "
                  f"a 1024-token context; flash kernels at hd 64: bf16 "
                  f"{fa.shared_memory_bytes(64)} B, fp32 "
-                 f"{fa.shared_memory_bytes(64, torch.float32)} B")
+                 f"{fa.shared_memory_bytes(64, torch.float32)} B; at hd "
+                 f"256: bf16 {fa.shared_memory_bytes(256)} B, fp32 "
+                 f"{fa.shared_memory_bytes(256, torch.float32)} B; paged "
+                 f"decode at gpt-j's heads (H 16, hd 256): "
+                 f"{shared_memory_bytes(16, 16, 256, 4)} B serving, "
+                 f"{shared_memory_bytes(16, 16, 256, gptj_per)} B at 1024 "
+                 f"tokens")
+
+    # gpt-j-6B first, while this process holds next to nothing on the card
+    gptj = run_gptj_child("cuda")
+    log_gptj(gptj, card)
 
     err = check_kernel("cuda")
     serving = time_kernel("cuda", "serving shape", max_pages=4, iters=500)
     long_ctx = time_kernel("cuda", "1024-token context", max_pages=64,
                            iters=200)
     by_partitions = sweep_partitions("cuda")
+    gptj_paged_err = check_paged_gptj("cuda")
+    gptj_serving = time_kernel("cuda", "gpt-j serving shape", max_pages=4,
+                               iters=500, H=16, hd=256)
+    gptj_long = time_kernel("cuda", "gpt-j 1024-token context",
+                            max_pages=64, iters=200, H=16, hd=256)
+    gptj_by_partitions = {
+        ctx: sweep_partitions("cuda", H=16, hd=256, max_pages=mp)
+        for ctx, mp in (("serving", 4), ("ctx1024", 64))}
 
     flash_err = check_flash("cuda")
     flash_slice = time_flash("cuda", "training shape", 32, 576, iters=10)
     flash_long = time_flash("cuda", "2048-token", 8, 2048, iters=5)
+    gptj_flash_err = check_flash_gptj("cuda")
+    flash_gptj = time_flash("cuda", "gpt-j TL;DR shape", iters=10,
+                            **GPTJ_FLASH)
 
     views = init_decode_views(TRLConfig.from_dict(config_dict()).model
                               .resolve_spec(), seed=0,
@@ -2777,47 +3421,40 @@ def main() -> int:
         "graphs": {"serve": run["graphs"], "serve_ab": serve_ab,
                    "ppo": train["graphs"], "ppo_ab": durable["ppo_ab"],
                    "ilql_ab": durable["ilql_ab"]},
+        "gptj": {**gptj, "paged_serving": gptj_serving,
+                 "paged_ctx1024": gptj_long,
+                 "paged_by_partitions": gptj_by_partitions,
+                 "flash_tldr_shape": flash_gptj},
     }}))
-    kernels = [{
-        "name": "paged_decode",
-        "route": "cuda",
-        "source": "trlx_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "trlx_tpu/ops/paged_attention.py:58",
-        "launches": run["launches"] + serve_ckpt["launches"],
-        "launches_by_phase": {
-            "serve": run["launches"],
-            "serve_checkpoint": serve_ckpt["launches"],
-            "ppo": train["all_launches"]["paged_decode"],
-            "ilql": ilql["all_launches"]["paged_decode"]},
-        "max_abs_err": err,
-        "ms": serving["ms"],
-        "plain_ms": serving["plain_ms"],
-        "bound_ms": serving["bound_ms"],
-        "bound_by": serving["bound_by"],
-        "library_ms": serving["library_ms"],
-    }]
+    resume, gate = (durable["durability"][k]["launches"]
+                    for k in ("resume", "gate"))
+    kernels = [kernel_entry(
+        "paged_decode", "trlx_tpu_torch/csrc/paged_decode.cu",
+        "trlx_tpu/ops/paged_attention.py:58",
+        run["launches"] + serve_ckpt["launches"], err, serving,
+        {"serve": run["launches"],
+         "serve_checkpoint": serve_ckpt["launches"],
+         "ppo": train["all_launches"]["paged_decode"],
+         "ilql": ilql["all_launches"]["paged_decode"]})]
     for name in FLASH_NAMES:
-        t = flash_slice[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "trlx_tpu_torch/csrc/flash_attention.cu",
-            "replaces": FLASH_REPLACES[name],
-            "launches": train["launches"][name] + ilql["launches"][name],
-            "launches_by_phase": {
-                "ppo": train["launches"][name],
-                "ilql": ilql["launches"][name],
-                "ppo_resume": durable["durability"]["resume"]["launches"][
-                    name],
-                "ppo_gate": durable["durability"]["gate"]["launches"][
-                    name]},
-            "max_abs_err": flash_err[name],
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-        })
+        kernels.append(kernel_entry(
+            name, "trlx_tpu_torch/csrc/flash_attention.cu",
+            FLASH_REPLACES[name],
+            train["launches"][name] + ilql["launches"][name],
+            flash_err[name], flash_slice[name],
+            {"ppo": train["launches"][name], "ilql": ilql["launches"][name],
+             "ppo_resume": resume[name], "ppo_gate": gate[name]}))
+    kernels.append(kernel_entry(
+        "paged_decode (hd 256)", "trlx_tpu_torch/csrc/paged_decode.cu",
+        "trlx_tpu/ops/paged_attention.py:58", gptj["serve"]["launches"],
+        gptj_paged_err, gptj_serving,
+        {"gptj_serve": gptj["serve"]["launches"]}))
+    for name in FLASH_NAMES:
+        kernels.append(kernel_entry(
+            f"{name} (hd 256)", "trlx_tpu_torch/csrc/flash_attention.cu",
+            FLASH_REPLACES[name], gptj["flash"]["launches"][name],
+            gptj_flash_err[name], flash_gptj[name],
+            {"gptj_tldr": gptj["flash"]["launches"][name]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -135,6 +135,42 @@ def test_cuda_split_paged_decode_matches_plain_version(pool):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("H,Hkv,lengths", [
+    (16, 16, (1, 128, 129, 700, 0)),  # gpt-j-6B's heads
+    (8, 2, (33, 1024, 511, 2, 0)),  # GQA
+])
+def test_cuda_paged_decode_head_dim_256(pool, H, Hkv, lengths):
+    """Paged decode at head_dim 256 (a float32 row is 64 vectors of 16
+    bytes, two a lane) against the plain version on the card, split-K at
+    a 1024-token context with ragged lengths, a dead partition and a free
+    row, and the one-partition serving context: float32 and int8 pools
+    with float32 q at atol 1e-5, a bf16 pool with bf16 q at
+    atol 1e-2 + rtol 1e-2 against float32 math on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cases = [_split_case(seed=3, H=H, Hkv=Hkv, hd=256, lengths=lengths),
+             _split_case(seed=4, S=16, H=H, Hkv=Hkv, hd=256, max_pages=4,
+                         lengths=tuple(range(1, 65, 4)), free_row=15)]
+    for case in cases:
+        q, k, v, pt, bias = (_t(x).to(dev) for x in case)
+        if pool == "int8":
+            k, v = quantize_kv(k), quantize_kv(v)
+        elif pool == "bfloat16":
+            q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        before = ops.LAUNCHES["paged_decode"]
+        out = paged_decode_attention(q, k, v, pt, bias)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["paged_decode"] == before + 1
+        ref = paged_decode_attention_reference(q.float(), k, v, pt, bias)
+        assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
+        tol = dict(atol=1e-2, rtol=1e-2) if pool == "bfloat16" else \
+            dict(atol=1e-5, rtol=0)
+        torch.testing.assert_close(out.float(), ref, **tol)
+
+
+@pytest.mark.cuda
 def test_cuda_paged_decode_refuses_misaligned_rows():
     """The kernel reads 16-byte vectors, so the wrapper raises on a q or
     a pool that does not start 16-byte aligned rather than launch."""
@@ -210,7 +246,44 @@ def test_cuda_flash_kernels_match_plain_version(dtype, T, causal, pads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("T,causal,pads", [
+    (130, True, (0, 130, 17)), (96, False, (0, 9)),
+])
+def test_cuda_float32_flash_kernels_head_dim_256(T, causal, pads):
+    """The float32 flash kernels at head_dim 256, where a block owns 32
+    query (or key) rows, against the dense oracle and its autograd on
+    the card: O and lse on real rows at 1e-5 and 1e-4, the gradients at
+    2e-4, as at hd 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q, k, v, g, mask = (_t(x).to(dev) for x in _flash_case(len(pads), T, 2,
+                                                            256, pads, 256))
+    g = g * mask[:, :, None, None]
+    real = mask.bool()
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, mask, causal)
+    out.backward(g)
+    torch.cuda.synchronize()
+    ref_leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref = fa.flash_attention_reference(*ref_leaves, mask, causal)
+    ref.backward(g)
+    torch.testing.assert_close(out[real], ref.detach()[real], atol=1e-5,
+                               rtol=0)
+    _, lse = fa.flash_fwd(q, k, v, mask, causal)
+    _, lse_ref = fa.flash_fwd_reference(q, k, v, mask, causal)
+    torch.testing.assert_close(lse.permute(0, 2, 1)[real],
+                               lse_ref.permute(0, 2, 1)[real], atol=1e-4,
+                               rtol=1e-5)
+    for a, b in zip(leaves, ref_leaves):
+        assert torch.isfinite(a.grad).all()
+        torch.testing.assert_close(a.grad, b.grad, atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("T,causal,pads", [
     (130, True, (0, 130, 17)),  # ragged T, one fully left-padded row
     (96, False, (0, 9)),
@@ -250,7 +323,7 @@ def test_cuda_bf16_backward_kernels_match_plain_version(hd, T, causal, pads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("T,causal,pads", [
     (130, True, (0, 130, 17)),  # ragged T, one fully left-padded row
     (96, False, (0, 9)),

@@ -140,6 +140,53 @@ def test_plain_versions_return_q_dtype(dtype):
                                rtol=0)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_256_matches_jax_flash(causal):
+    """gpt-j-6B's head dim: the seam's plain versions at hd 256, left
+    padding and a ragged T against JAX's Pallas flash attention in
+    interpret mode, on the same numpy inputs: O on real rows at atol
+    1e-5, gradients at atol 2e-4 (dO zero on pad rows), float32."""
+    q, k, v, mask = _case(256 + causal, 2, 40, 2, 256, (0, 7))
+    jm = jnp.asarray(mask)
+    real = mask.astype(bool)
+
+    def loss_jax(q, k, v):
+        out = jax_flash(q, k, v, jm, 16, 16, causal)
+        return ((out * jm[:, :, None, None]) ** 2).sum(), out
+
+    (_, ref), gj = jax.value_and_grad(loss_jax, argnums=(0, 1, 2),
+                                      has_aux=True)(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    tm = torch.from_numpy(mask)
+    out = fa.make_flash_attention_fn(min_fused_t=0, causal=causal)(
+        tq, tk, tv, tm)
+    np.testing.assert_allclose(out.detach().numpy()[real],
+                               np.asarray(ref)[real], atol=1e-5, rtol=0)
+    ((out * tm[:, :, None, None]) ** 2).sum().backward()
+    for t, j in zip((tq, tk, tv), gj):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=2e-4,
+                                   rtol=0)
+
+
+def test_shared_memory_fits_one_block_at_every_head_dim():
+    """Every kernel instance, both dtypes, hd 16-256, asks for at most one
+    Hopper block's 232,448 bytes of shared memory; at hd 256 the float32
+    kernels own 32 rows a block (four 64-row tiles of 257 floats would
+    not fit) and the bf16 ones keep their 64-row tiles."""
+    for hd in fa.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            sm = fa.shared_memory_bytes(hd, dtype)
+            assert max(sm.values()) <= 232448, (hd, dtype, sm)
+    assert fa.fma_rows(256) == 32 and fa.fma_rows(128) == 64
+    sm = fa.shared_memory_bytes(256, torch.bfloat16)
+    assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
+        (169472, 203264, 203776)
+    sm = fa.shared_memory_bytes(256, torch.float32)
+    assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
+        (173056, 205952, 214528)
+
+
 def test_non_causal_matches_jax_flash():
     q, k, v, mask = _case(4, 2, 32, 2, 16, (0, 9))
     ref = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v, mask)), 16, 16,
@@ -249,7 +296,7 @@ def _bf16_forward_model(q, k, v, mask, causal):
     return out.to(torch.bfloat16), lse
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("T,causal,pads", [
     (130, True, (0, 130, 17)),  # ragged T, one fully left-padded row
     (96, False, (0, 9)),

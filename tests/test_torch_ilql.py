@@ -640,9 +640,12 @@ def test_supervisor_knobs_reach_the_run_floor(knob, value, tmp_path,
 
 
 def test_refused_entry_points_raise():
+    """No model_spec: the pretrained import of model_path fails and the
+    trainer raises rather than start from random weights; no card: the
+    default device raises."""
     cfg = _config_dict()
     cfg["model"]["model_spec"] = None
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="could not load pretrained"):
         get_model("JaxILQLTrainer")(TRLConfig.from_dict(cfg), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

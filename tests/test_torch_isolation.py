@@ -1,8 +1,9 @@
 """The port stands alone: importing every ``trlx_tpu_torch`` module, and
-``chip_smoke.py``, in a fresh interpreter leaves ``jax`` and every
-``trlx_tpu`` module out of ``sys.modules`` (``trlx_tpu_torch`` itself
-shares that prefix, so the check compares package names, not string
-prefixes), starts no thread and builds no kernel."""
+``chip_smoke.py``, in a fresh interpreter leaves ``jax``, every
+``trlx_tpu`` module and ``transformers`` out of ``sys.modules``
+(``trlx_tpu_torch`` itself shares that prefix, so the check compares
+package names, not string prefixes), starts no thread and builds no
+kernel."""
 
 import json
 import os
@@ -56,12 +57,15 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "telemetry.registry", "telemetry.tracer",
                  "telemetry.device", "telemetry.flops",
                  "telemetry.prometheus", "supervisor", "supervisor.seams",
-                 "supervisor.chaos"):
+                 "supervisor.chaos", "models.hf_import", "utils.hf_offline"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]
         if m.split(".")[0] in ("jax", "jaxlib", "trlx_tpu", "flax", "optax")
     ]
     assert leaked == []
+    # transformers only inside load_trunk_from_hf (the card's machine has
+    # none)
+    assert "transformers" not in {m.split(".")[0] for m in report["modules"]}
     assert report["threads"] == 1
     assert report["built"] == []

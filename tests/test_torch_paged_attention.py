@@ -74,6 +74,35 @@ def test_plain_matches_pallas_kernel_int8_pool():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2)])
+def test_plain_matches_pallas_kernel_head_dim_256(H, Hkv):
+    """gpt-j-6B's head dim (and a GQA variant): the plain version at hd
+    256, with sentinel pages and ragged lengths, equals the TPU kernel in
+    interpret mode at 1e-5, for a float32 pool and for the int8 tier."""
+    rng = np.random.default_rng(256 + Hkv)
+    S, hd, num_pages, page_size, max_pages = 3, 256, 8, 4, 3
+    q = rng.standard_normal((S, H, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((num_pages, page_size, Hkv, hd))
+            .astype(np.float32) for _ in range(2))
+    pt = np.asarray([[1, 3, SENT], [0, SENT, SENT], [5, 6, 7]], np.int32)
+    lengths = np.asarray([6, 3, 12])
+    bias = np.where(np.arange(max_pages * page_size)[None, :]
+                    < lengths[:, None], 0.0, NEG_INF).astype(np.float32)
+    ref = jax_paged_decode_attention(*map(jnp.asarray, (q, k, v, pt, bias)),
+                                     interpret=True)
+    out = paged_decode_attention(*map(_t, (q, k, v, pt, bias)))
+    assert out.shape == (S, H, hd)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    ref8 = jax_paged_decode_attention(
+        jnp.asarray(q), jax_quantize_kv(jnp.asarray(k)),
+        jax_quantize_kv(jnp.asarray(v)), jnp.asarray(pt), jnp.asarray(bias),
+        interpret=True)
+    out8 = paged_decode_attention(_t(q), quantize_kv(_t(k)),
+                                  quantize_kv(_t(v)), _t(pt), _t(bias))
+    np.testing.assert_allclose(out8.numpy(), np.asarray(ref8), atol=1e-5)
+    assert 256 in pa.HEAD_DIMS
+
+
 def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
     """A CPU tensor goes to the plain version — and only a launch on the
     card counts as one."""
@@ -207,3 +236,13 @@ def test_shared_memory_bytes():
             4 * (gt * 64 + 4 * gt * 66) + 32
     assert pa.shared_memory_bytes(8, 2, 128, 8) == \
         4 * (4 * 128 + 4 * 4 * 130) + 64
+    # hd 256: gpt-j-6B's serving shape (G 1) and a GQA head group of 4,
+    # at the serving context and a split 1024-token one, under one
+    # Hopper block's 232,448 bytes
+    assert pa.shared_memory_bytes(16, 16, 256, 4) == \
+        4 * (256 + 4 * 258) + 32
+    for H, Hkv in ((16, 16), (16, 4)):
+        for max_pages in (4, 64):
+            per = decode_partitions(16, Hkv, max_pages, 16)[1]
+            assert pa.shared_memory_bytes(H, Hkv, 256, per) <= \
+                pa._SMEM_LIMIT

@@ -6,7 +6,15 @@ fixed-length decode, with eos termination and ``min_new_tokens``, and
 with the early exit on or off. Sampled decode cannot agree token for
 token (Philox vs threefry); its warped logits are held equal in
 tests/test_torch_sampling.py, and here a sampled run keeps the output
-contract. ``GenerationConfig.from_gen_kwargs`` translates like JAX's."""
+contract. ``GenerationConfig.from_gen_kwargs`` translates like JAX's.
+
+The trainer's rollouts: with ``train.continuous_rollouts`` the next
+epoch's experience is dispatched before the epoch's updates, and equals
+what trlx_tpu's continuous loop produces from the same pre-update
+parameters (greedy, float32: tokens identical, logprobs, values and KL
+rewards at atol 1e-5); the orchestrator's double-buffered harvest fills
+the store exactly as harvesting each chunk in turn does, with the
+``reward_fn`` calls in chunk order."""
 
 import jax
 import jax.numpy as jnp
@@ -178,3 +186,130 @@ def test_from_gen_kwargs_matches_jax():
             j.gen_size, tuple(j.sampling), j.min_new_tokens)
     with pytest.raises(ValueError, match="exceeds"):
         tg.GenerationConfig.from_gen_kwargs(4, {"max_new_tokens": 5})
+
+
+# --------------------------------------------------------------------- #
+# the trainer's rollouts: continuous mode and the harvest
+# --------------------------------------------------------------------- #
+
+
+def _ppo_pair(tmp_path=None, **train):
+    """A trlx_tpu PPO stack and the port's from the same parameters:
+    greedy decode, 16 prompts a chunk, one chunk of experience each."""
+    from tests.test_ppo_e2e import PROMPTS, make_config, reward_fn
+    from trlx_tpu.utils import loading as jl
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.utils import loading as tl
+
+    jcfg = make_config(total_steps=10**6, epochs=2, num_rollouts=16,
+                       chunk_size=16, batch_size=8, ppo_epochs=1)
+    jcfg.method.gen_kwargs = dict(jcfg.method.gen_kwargs, do_sample=False)
+    for k, v in train.items():
+        setattr(jcfg.train, k, v)
+    tcfg = TRLConfig.from_dict(jcfg.to_nested_dict())
+    stacks = []
+    for cfg, lib, kw in ((jcfg, jl, {}), (tcfg, tl, {"device": "cpu"})):
+        if stacks:
+            kw["params"] = jax.device_get(stacks[0][0].params)
+        trainer = lib.get_model(cfg.model.model_type)(cfg, **kw)
+        pipeline = lib.get_pipeline(cfg.train.pipeline)(
+            PROMPTS, trainer.tokenizer, cfg)
+        orch = lib.get_orchestrator(cfg.train.orchestrator)(
+            trainer, pipeline, reward_fn=reward_fn,
+            chunk_size=cfg.method.chunk_size)
+        stacks.append((trainer, orch))
+    return stacks
+
+
+def _assert_same_experience(ours, theirs):
+    for name in ("query_tensors", "response_tensors", "response_masks",
+                 "query_masks"):
+        np.testing.assert_array_equal(
+            getattr(ours, name).numpy(), np.asarray(getattr(theirs, name)),
+            err_msg=name)
+    for name in ("logprobs", "values", "rewards"):
+        np.testing.assert_allclose(
+            getattr(ours, name).numpy(), np.asarray(getattr(theirs, name)),
+            atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_continuous_rollouts_match_jax():
+    """Two epochs with ``continuous_rollouts``: epoch 1's experience is
+    dispatched before epoch 0's updates (against the initial parameters)
+    and harvested after them, in both packages; the port's equals
+    trlx_tpu's. Had the port scored after the updates, its logprobs would
+    carry the update (lr 3e-3), far past 1e-5."""
+    from trlx_tpu_torch import telemetry
+
+    (jtrainer, jorch), (ttrainer, torch_orch) = _ppo_pair(
+        continuous_rollouts=True)
+    jorch.make_experience(16)
+    torch_orch.make_experience(16)
+    _assert_same_experience(ttrainer.store._stacked(),
+                            jtrainer.store._stacked())
+    assert ttrainer._will_refresh(ttrainer.config.train,
+                                  ttrainer.config.method)
+    before = ttrainer.params["trainable"]["ln_f"]["scale"].detach().clone()
+    jtrainer.learn(log_fn=lambda stats: None)
+    ttrainer.learn(log_fn=lambda stats: None)
+    assert ttrainer.epoch == jtrainer.epoch == 2
+    assert not torch.equal(before,
+                           ttrainer.params["trainable"]["ln_f"]["scale"])
+    _assert_same_experience(ttrainer.store._stacked(),
+                            jtrainer.store._stacked())
+    hists = telemetry.current().registry.hists
+    assert "time/rollout_dispatch_stale" in hists
+    assert "time/rollout_harvest" in hists
+
+
+def test_double_buffered_harvest_matches_chunk_by_chunk():
+    """Four chunks through ``finish_experience``: the store holds what
+    harvesting each chunk in turn gives (the host reward on its decoded
+    sequences, added at each row's last real token), and the reward_fn
+    saw the chunks in order. The harvest's two host slots serve chunks
+    0, 1, 2, 3 in turn."""
+    from tests.test_ppo_e2e import reward_fn
+    from trlx_tpu_torch.orchestrator import ppo_orchestrator as po
+
+    (_, _), (trainer, orch) = _ppo_pair()
+    orch.chunk_size = 8
+    calls = []
+
+    def recording(texts):
+        calls.append(list(texts))
+        return reward_fn(texts)
+
+    orch.reward_fn = recording
+    handle = orch.start_experience(32)
+    assert handle["n_chunks"] == 4 and handle["device_scores"] == []
+    want = []
+    for out, query, qmask, logprobs, values, kl_rewards, _ in \
+            handle["pendings"]:
+        texts = trainer.tokenizer.batch_decode(
+            out.sequences.numpy(), skip_special_tokens=True)
+        scores = np.asarray(reward_fn(texts), np.float32)
+        want.append((texts, trainer.finalize_rewards(
+            kl_rewards, out.gen_mask, scores), out.gen_tokens, logprobs,
+            values))
+    slots = []
+    real = po.HostHarvest.start
+
+    def start(self, i):
+        real(self, i)
+        slots.append(id(self.slots[i % 2][0]))
+
+    po.HostHarvest.start = start
+    try:
+        info = orch.finish_experience(handle)
+    finally:
+        po.HostHarvest.start = real
+    assert info["rollouts"] == 32
+    assert calls == [w[0] for w in want]
+    assert slots[0] == slots[2] and slots[1] == slots[3] \
+        and slots[0] != slots[1]
+    for got, (_, rewards, gen_tokens, logprobs, values) in zip(
+            trainer.store.history, want):
+        assert torch.equal(got.rewards, rewards)
+        assert torch.equal(got.response_tensors, gen_tokens)
+        assert torch.equal(got.logprobs, logprobs)
+        assert torch.equal(got.values, values)

@@ -76,6 +76,16 @@
 //   - O (divided once by the row sum), dq, dk, dv are rounded once to
 //     bf16, staged in the warp's own rows of a finished tile and written
 //     with 16-byte stores; lse = m + log(l) is float32.
+//   - at hd 256 (gpt-j-6B) a warp holding all 256 columns of a float32
+//     accumulator would need 128 (O, dq) to 256 (dk and dv) registers a
+//     lane for it alone, so the block runs 8 warps: a pair of warps per
+//     16-row strip, both forming the strip's whole S (and dP) over the
+//     full head dim, so both hold the same softmax statistics, each
+//     keeping the accumulators of its own 128 output columns (the first
+//     products run twice: 1.5x the forward's mma, ~1.3x the backward's);
+//     the tiles, 5 or 6 x 33.8 KB, leave one block an SM.
+// For float32 at hd 256 the block owns 32 query (or key) rows instead of
+// 64 (fma_rows): four 64-row [257]-float tiles would not fit one block.
 // What bounds them on this card: shared-memory reads and the mma.sync
 // issue rate, not device memory. Per warp and 64 x 64 tile pair the
 // forward issues about 32 ldmatrix.x4 (16 for K, 16 for V at hd 64)
@@ -137,14 +147,20 @@ __device__ __forceinline__ size_t row_at(int b, int t, int T, int H, int h) {
   return ((static_cast<size_t>(b) * T + t) * H + h) * HD;
 }
 
-// stage rows [t0, t0 + 64) of head (b, h) as float32 times `mul` into a
-// [64][HD + 1] shared tile; rows past T are zeros
-template <typename T, int HD>
+// rows of the block's own tile in the float32 kernels (query rows in the
+// forward and dq, key rows in dk/dv): 64, or 32 at HD 256, where four
+// [64][HD + 1] float tiles would pass the 227 KB a block may use
+template <int HD>
+__host__ __device__ constexpr int fma_rows() { return HD > 128 ? 32 : 64; }
+
+// stage rows [t0, t0 + ROWS) of head (b, h) as float32 times `mul` into a
+// [ROWS][HD + 1] shared tile; rows past T are zeros
+template <typename T, int HD, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
                                           int t0, int Tlen, int H, int h,
                                           float mul) {
   constexpr int LD = HD + 1;
-  for (int idx = threadIdx.x; idx < 64 * HD; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
     const int r = idx / HD;
     const int d = idx - r * HD;
     const int t = t0 + r;
@@ -180,25 +196,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = HD + 1;
   constexpr int PLD = kBK + 1;
   constexpr int NJ = HD / 16;
+  constexpr int BQ = fma_rows<HD>();
+  constexpr int RI = BQ / 16;  // query rows a thread owns
   extern __shared__ float smem[];
   float* q_s = smem;                 // [BQ][HD + 1], scaled
-  float* k_s = q_s + kBQ * LD;       // [BK][HD + 1]
+  float* k_s = q_s + BQ * LD;        // [BK][HD + 1]
   float* v_s = k_s + kBK * LD;       // [BK][HD + 1]
   float* p_s = v_s + kBK * LD;       // [BQ][BK + 1]
-  float* kb_s = p_s + kBQ * PLD;     // [BK] key-mask bias
+  float* kb_s = p_s + BQ * PLD;      // [BK] key-mask bias
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * BQ;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, HD>(q_s, q, b, q0, Tlen, H, h, scale);
+  load_tile<T, HD, BQ>(q_s, q, b, q0, Tlen, H, h, scale);
 
-  float m[4], l[4], acc[4][NJ];
+  float m[RI], l[RI], acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -206,7 +224,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int n_k = (Tlen + kBK - 1) / kBK;
-  const int n_live = causal ? min(n_k, (q0 + kBQ + kBK - 1) / kBK) : n_k;
+  const int n_live = causal ? min(n_k, (q0 + BQ + kBK - 1) / kBK) : n_k;
   for (int jt = 0; jt < n_live; ++jt) {
     const int k0 = jt * kBK;
     __syncthreads();  // the previous tile's readers are done
@@ -215,26 +233,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_key_bias(kb_s, mask, b, k0, Tlen);
     __syncthreads();
 
-    float s[4][4];
+    float s[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
+      float qv[RI], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty + 16 * i) * LD + d];
+      for (int i = 0; i < RI; ++i) qv[i] = q_s[(ty + 16 * i) * LD + d];
 #pragma unroll
       for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
       const int qpos = q0 + r;
       float mt = -INFINITY;
@@ -269,7 +287,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) vv[jj] = v_s[c * LD + tx + 16 * jj];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const float p = p_s[(ty + 16 * i) * PLD + c];
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(p, vv[jj], acc[i][jj]);
@@ -278,7 +296,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Tlen) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
@@ -308,26 +326,28 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
   constexpr int LD = HD + 1;
   constexpr int PLD = kBK + 1;
   constexpr int NJ = HD / 16;
+  constexpr int BQ = fma_rows<HD>();
+  constexpr int RI = BQ / 16;  // query rows a thread owns
   extern __shared__ float smem[];
   float* q_s = smem;               // [BQ][HD + 1], scaled
-  float* g_s = q_s + kBQ * LD;     // [BQ][HD + 1]
-  float* k_s = g_s + kBQ * LD;     // [BK][HD + 1]
+  float* g_s = q_s + BQ * LD;      // [BQ][HD + 1]
+  float* k_s = g_s + BQ * LD;      // [BK][HD + 1]
   float* v_s = k_s + kBK * LD;     // [BK][HD + 1]
   float* ds_s = v_s + kBK * LD;    // [BQ][BK + 1]
-  float* kb_s = ds_s + kBQ * PLD;  // [BK]
+  float* kb_s = ds_s + BQ * PLD;   // [BK]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * BQ;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<float, HD>(q_s, q, b, q0, Tlen, H, h, scale);
-  load_tile<float, HD>(g_s, g, b, q0, Tlen, H, h, 1.f);
-  float lse_r[4], d_r[4], acc[4][NJ];
+  load_tile<float, HD, BQ>(q_s, q, b, q0, Tlen, H, h, scale);
+  load_tile<float, HD, BQ>(g_s, g, b, q0, Tlen, H, h, 1.f);
+  float lse_r[RI], d_r[RI], acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     const bool in = row < Tlen;
     lse_r[i] = in ? lse[static_cast<size_t>(bh) * Tlen + row] : 0.f;
@@ -337,7 +357,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
   }
 
   const int n_k = (Tlen + kBK - 1) / kBK;
-  const int n_live = causal ? min(n_k, (q0 + kBQ + kBK - 1) / kBK) : n_k;
+  const int n_live = causal ? min(n_k, (q0 + BQ + kBK - 1) / kBK) : n_k;
   for (int jt = 0; jt < n_live; ++jt) {
     const int k0 = jt * kBK;
     __syncthreads();
@@ -346,16 +366,16 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
     load_key_bias(kb_s, mask, b, k0, Tlen);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][4], dp[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      float qv[RI], gv[RI], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         qv[i] = q_s[(ty + 16 * i) * LD + d];
         gv[i] = g_s[(ty + 16 * i) * LD + d];
       }
@@ -365,7 +385,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
         vv[j] = v_s[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
@@ -374,7 +394,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
       const int qpos = q0 + r;
 #pragma unroll
@@ -393,7 +413,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) kv[jj] = k_s[c * LD + tx + 16 * jj];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const float ds = ds_s[(ty + 16 * i) * PLD + c];
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(ds, kv[jj], acc[i][jj]);
@@ -402,7 +422,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Tlen) continue;
     const size_t off = row_at<HD>(b, row, Tlen, H, h);
@@ -429,28 +449,30 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
   constexpr int LD = HD + 1;
   constexpr int PLD = kBQ + 1;
   constexpr int NJ = HD / 16;
+  constexpr int BK = fma_rows<HD>();
+  constexpr int RI = BK / 16;  // key rows a thread owns
   extern __shared__ float smem[];
   float* k_s = smem;               // [BK][HD + 1]
-  float* v_s = k_s + kBK * LD;     // [BK][HD + 1]
-  float* q_s = v_s + kBK * LD;     // [BQ][HD + 1], scaled
+  float* v_s = k_s + BK * LD;      // [BK][HD + 1]
+  float* q_s = v_s + BK * LD;      // [BQ][HD + 1], scaled
   float* g_s = q_s + kBQ * LD;     // [BQ][HD + 1]
   float* p_s = g_s + kBQ * LD;     // [BK][BQ + 1]  P^T
-  float* ds_s = p_s + kBK * PLD;   // [BK][BQ + 1]  dS^T
-  float* lse_s = ds_s + kBK * PLD; // [BQ]
+  float* ds_s = p_s + BK * PLD;    // [BK][BQ + 1]  dS^T
+  float* lse_s = ds_s + BK * PLD;  // [BQ]
   float* d_s = lse_s + kBQ;        // [BQ]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int k0 = blockIdx.y * kBK;
+  const int k0 = blockIdx.y * BK;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<float, HD>(k_s, k, b, k0, Tlen, H, h, 1.f);
-  load_tile<float, HD>(v_s, v, b, k0, Tlen, H, h, 1.f);
-  float kbias[4], dk_acc[4][NJ], dv_acc[4][NJ];
+  load_tile<float, HD, BK>(k_s, k, b, k0, Tlen, H, h, 1.f);
+  load_tile<float, HD, BK>(v_s, v, b, k0, Tlen, H, h, 1.f);
+  float kbias[RI], dk_acc[RI][NJ], dv_acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int t = k0 + ty + 16 * i;
     kbias[i] = (t < Tlen && mask[static_cast<size_t>(b) * Tlen + t] > 0)
                    ? 0.f
@@ -474,16 +496,16 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
     }
     __syncthreads();
 
-    float st[4][4], dpt[4][4];
+    float st[RI][4], dpt[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      float kv[4], vv[4], qv[4], gv[4];
+      float kv[RI], vv[RI], qv[4], gv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         kv[i] = k_s[(ty + 16 * i) * LD + d];
         vv[i] = v_s[(ty + 16 * i) * LD + d];
       }
@@ -493,7 +515,7 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
         gv[j] = g_s[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
@@ -502,7 +524,7 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int c = ty + 16 * i;  // key row of this tile
       const int kpos = k0 + c;
 #pragma unroll
@@ -525,7 +547,7 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
         qv[jj] = q_s[r * LD + tx + 16 * jj];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const float p = p_s[(ty + 16 * i) * PLD + r];
         const float ds = ds_s[(ty + 16 * i) * PLD + r];
 #pragma unroll
@@ -539,7 +561,7 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
 
   // dk is taken against the pre-scaled q, so it needs no extra factor
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= Tlen) continue;
     const size_t off = row_at<HD>(b, row, Tlen, H, h);
@@ -567,6 +589,20 @@ __host__ __device__ constexpr int tc_ld() { return HD + 8; }
 
 template <int HD>
 __host__ __device__ constexpr int tc_tile() { return kBQ * tc_ld<HD>(); }
+
+// warps that share one 16-row strip of the tile: 1, or 2 at HD 256, where
+// a warp holding all HD columns of a float32 accumulator (O, dq, or dk
+// and dv) would need 128 to 256 registers a lane for it alone. The warps
+// of a pair both form the strip's whole S (and dP) over the full head
+// dim, so both hold the same softmax statistics, and each keeps the
+// accumulators of its own HD / 2 output columns.
+template <int HD>
+__host__ __device__ constexpr int tc_split() { return HD > 128 ? 2 : 1; }
+
+template <int HD>
+__host__ __device__ constexpr int tc_threads() {
+  return kTcThreads * tc_split<HD>();
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -670,7 +706,7 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                                                 int b, int t0, int Tlen,
                                                 int H, int h) {
   constexpr int CH = HD / 8;
-  for (int idx = threadIdx.x; idx < kBQ * CH; idx += kTcThreads) {
+  for (int idx = threadIdx.x; idx < kBQ * CH; idx += blockDim.x) {
     const int r = idx / CH;
     const int c = idx - r * CH;
     const int t = t0 + r;
@@ -693,41 +729,42 @@ __device__ __forceinline__ void load_row_async(void* dst, const void* src,
             static_cast<const uint32_t*>(src) + (ok ? t : 0), ok);
 }
 
-// a warp's 16 rows of float32 accumulators [HD / 8][4], times `mul`,
-// rounded once to bf16, staged in the warp's own 16 rows of `stage` and
-// stored to rows t0 .. t0 + 15 (those below T) with 16-byte stores
-template <int HD>
+// a warp's 16 rows of float32 accumulators [NT][4] (output columns
+// c0 .. c0 + 8 NT), times `mul`, rounded once to bf16, staged in the
+// warp's own rows and columns of `stage` and stored to rows t0 .. t0 + 15
+// (those below T) with 16-byte stores
+template <int HD, int NT>
 __device__ __forceinline__ void store_rows(bf16* out, bf16* stage,
-                                           const float (&acc)[HD / 8][4],
+                                           const float (&acc)[NT][4],
                                            float mul, int lane, int b, int t0,
-                                           int Tlen, int H, int h) {
+                                           int Tlen, int H, int h, int c0) {
   constexpr int LD = tc_ld<HD>();
-  constexpr int CH = HD / 8;
   const int gq = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    const int c = nt * 8 + tq * 2;
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = c0 + nt * 8 + tq * 2;
     *reinterpret_cast<uint32_t*>(stage + gq * LD + c) =
         pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
     *reinterpret_cast<uint32_t*>(stage + (gq + 8) * LD + c) =
         pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
   }
   __syncwarp();
-  for (int idx = lane; idx < 16 * CH; idx += 32) {
-    const int r = idx / CH;
-    const int c = idx - r * CH;
+  for (int idx = lane; idx < 16 * NT; idx += 32) {
+    const int r = idx / NT;
+    const int c = c0 + (idx - r * NT) * 8;
     if (t0 + r < Tlen)
       *reinterpret_cast<uint4*>(out + row_at<HD>(b, t0 + r, Tlen, H, h) +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+                                c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
   }
 }
 
 // dq: one block per (batch * head, 64-row query tile), heaviest tiles
-// first; warp w owns query rows 16 w .. 16 w + 15. Q and dO are loaded
-// once; K, V and the key mask stream through two stages.
+// first; warp w owns query rows 16 (w % 4) .. + 15 and, at HD 256, output
+// columns (w / 4) HD / 2 .. + HD / 2. Q and dO are loaded once; K, V and
+// the key mask stream through two stages.
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(tc_threads<HD>())
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ g,
                         const float* __restrict__ lse,
@@ -736,6 +773,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         bf16* __restrict__ dq, int Tlen, int H, int causal,
                         float scale) {
   constexpr int TILE = tc_tile<HD>();
+  constexpr int SPLIT = tc_split<HD>();
+  constexpr int NT = HD / 8 / SPLIT;  // accumulator n-tiles a warp keeps
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);      // [64][HD + 8]
   bf16* g_s = q_s + TILE;                              // [64][HD + 8]
@@ -749,7 +788,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int iq = gridDim.y - 1 - blockIdx.y;
   const int q0 = iq * kBQ;
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16;
+  const int c0 = (threadIdx.x >> 7) * (HD / SPLIT);
   const int gq = lane >> 2, tq = lane & 3;
   const size_t mrow = static_cast<size_t>(b) * Tlen;
 
@@ -771,9 +811,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse_r[i] = in ? lse[static_cast<size_t>(bh) * Tlen + row] : 0.f;
     d_r[i] = in ? dD[static_cast<size_t>(bh) * Tlen + row] : 0.f;
   }
-  float acc[HD / 8][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
@@ -839,14 +879,15 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       split_bf16(ds[2], ds[3], dsa[j >> 1][f + 1], dsl[j >> 1][f + 1]);
     }
 
-    // dq += dS K (hi, then lo): K is stored [key][d], so B comes by
-    // ldmatrix.trans
+    // dq += dS K (hi, then lo) for the warp's output columns: K is
+    // stored [key][d], so B comes by ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int nd = 0; nd < HD / 16; ++nd) {
+      for (int nd = 0; nd < NT / 2; ++nd) {
         uint32_t kb[4];
-        ldsm_x4_t(smem_u32(ks + frag_a<HD>(lane, kk * 16, nd * 16)), kb);
+        ldsm_x4_t(smem_u32(ks + frag_a<HD>(lane, kk * 16, c0 + nd * 16)),
+                  kb);
         mma_bf16(acc[2 * nd], dsa[kk], kb[0], kb[1]);
         mma_bf16(acc[2 * nd + 1], dsa[kk], kb[2], kb[3]);
         mma_bf16(acc[2 * nd], dsl[kk], kb[0], kb[1]);
@@ -855,19 +896,21 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with this stage
   }
 
-  // the warp's own rows of the Q tile are free now: stage dq there
-  store_rows<HD>(dq, q_s + r0 * tc_ld<HD>(), acc, scale, lane, b, q0 + r0,
-                 Tlen, H, h);
+  // the warp's own rows and columns of the Q tile are free now: stage dq
+  // there
+  store_rows<HD, NT>(dq, q_s + r0 * tc_ld<HD>(), acc, scale, lane, b,
+                     q0 + r0, Tlen, H, h, c0);
 }
 
 // dk, dv: one block per (batch * head, 64-key tile); warp w owns key rows
-// 16 w .. 16 w + 15. K and V are loaded once; Q, dO, lse and D stream
-// through two stages. The transposed scores S^T = K Q^T and
+// 16 (w % 4) .. + 15 and, at HD 256, output columns (w / 4) HD / 2 ..
+// + HD / 2. K and V are loaded once; Q, dO, lse and D stream through two
+// stages. The transposed scores S^T = K Q^T and
 // dP^T = V dO^T come out as accumulators whose rows are keys, so P^T and
 // dS^T become the A operands of dV += P^T dO and dK += dS^T Q in
 // registers.
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(tc_threads<HD>())
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -878,6 +921,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
                          int Tlen, int H, int causal, float scale) {
   constexpr int TILE = tc_tile<HD>();
+  constexpr int SPLIT = tc_split<HD>();
+  constexpr int NT = HD / 8 / SPLIT;  // accumulator n-tiles a warp keeps
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // [64][HD + 8]
   bf16* v_s = k_s + TILE;                             // [64][HD + 8]
@@ -892,7 +937,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   const int jk = blockIdx.y;
   const int k0 = jk * kBK;
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16;
+  const int c0 = (threadIdx.x >> 7) * (HD / SPLIT);
   const int gq = lane >> 2, tq = lane & 3;
   const float* lse_row = lse + static_cast<size_t>(bh) * Tlen;
   const float* d_row = dD + static_cast<size_t>(bh) * Tlen;
@@ -916,9 +962,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                    ? 0.f
                    : kNegInf;
   }
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
 
@@ -988,14 +1034,15 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       split_bf16(ds[2], ds[3], dsa[j >> 1][f + 1], dsl[j >> 1][f + 1]);
     }
 
-    // dV += P^T dO and dK += dS^T Q (hi, then lo): dO and Q are stored
-    // [query][d], so B comes by ldmatrix.trans
+    // dV += P^T dO and dK += dS^T Q (hi, then lo) for the warp's output
+    // columns: dO and Q are stored [query][d], so B comes by
+    // ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int nd = 0; nd < HD / 16; ++nd) {
+      for (int nd = 0; nd < NT / 2; ++nd) {
         uint32_t gb[4], qb[4];
-        const int off = frag_a<HD>(lane, kk * 16, nd * 16);
+        const int off = frag_a<HD>(lane, kk * 16, c0 + nd * 16);
         ldsm_x4_t(smem_u32(gs + off), gb);
         ldsm_x4_t(smem_u32(qs + off), qb);
         mma_bf16(dv_acc[2 * nd], pa[kk], gb[0], gb[1]);
@@ -1010,11 +1057,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     __syncthreads();  // every warp is done with this stage
   }
 
-  // the warp's own rows of the K and V tiles are free now: stage there
-  store_rows<HD>(dk, k_s + r0 * tc_ld<HD>(), dk_acc, scale, lane, b,
-                 k0 + r0, Tlen, H, h);
-  store_rows<HD>(dv, v_s + r0 * tc_ld<HD>(), dv_acc, 1.f, lane, b, k0 + r0,
-                 Tlen, H, h);
+  // the warp's own rows and columns of the K and V tiles are free now:
+  // stage there
+  store_rows<HD, NT>(dk, k_s + r0 * tc_ld<HD>(), dk_acc, scale, lane, b,
+                     k0 + r0, Tlen, H, h, c0);
+  store_rows<HD, NT>(dv, v_s + r0 * tc_ld<HD>(), dv_acc, 1.f, lane, b,
+                     k0 + r0, Tlen, H, h, c0);
 }
 
 // ------------------------------------------------------------------ //
@@ -1022,7 +1070,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 // ------------------------------------------------------------------ //
 
 // one block per (batch * head, 64-row query tile), heaviest causal tiles
-// first; warp w owns query rows 16 w .. 16 w + 15. Q is loaded once and
+// first; warp w owns query rows 16 (w % 4) .. + 15 and, at HD 256, output
+// columns (w / 4) HD / 2 .. + HD / 2 of O. Q is loaded once and
 // kept as A fragments in registers; K, V and the key mask stream through
 // two stages. The online softmax runs on the S accumulators in
 // registers: each row lives in the 4 lanes of a quad, so its max takes
@@ -1030,13 +1079,15 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 // (every lane rescales by the same row max). P, rounded once to bf16, is
 // the A operand of O += P V.
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(tc_threads<HD>())
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const int32_t* __restrict__ mask, bf16* __restrict__ out,
                      float* __restrict__ lse, int Tlen, int H, int causal,
                      float scale) {
   constexpr int TILE = tc_tile<HD>();
+  constexpr int SPLIT = tc_split<HD>();
+  constexpr int NT = HD / 8 / SPLIT;  // accumulator n-tiles a warp keeps
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);      // [64][HD + 8]
   bf16* k_s = q_s + TILE;                              // [2][64][HD + 8]
@@ -1049,7 +1100,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int iq = gridDim.y - 1 - blockIdx.y;
   const int q0 = iq * kBQ;
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16;
+  const int c0 = (threadIdx.x >> 7) * (HD / SPLIT);
   const int gq = lane >> 2, tq = lane & 3;
   const size_t mrow = static_cast<size_t>(b) * Tlen;
 
@@ -1065,9 +1117,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // rows gq and gq + 8 of the warp: running max (finite from the start,
   // below any biased score), per-lane partial sums, O accumulators
   float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
   uint32_t qa[HD / 16][4];
@@ -1150,20 +1202,22 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       acc[nt][0] *= alpha[0];
       acc[nt][1] *= alpha[0];
       acc[nt][2] *= alpha[1];
       acc[nt][3] *= alpha[1];
     }
 
-    // O += P V: V is stored [key][d], so B comes by ldmatrix.trans
+    // O += P V for the warp's output columns: V is stored [key][d], so B
+    // comes by ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int nd = 0; nd < HD / 16; ++nd) {
+      for (int nd = 0; nd < NT / 2; ++nd) {
         uint32_t vb[4];
-        ldsm_x4_t(smem_u32(vs + frag_a<HD>(lane, kk * 16, nd * 16)), vb);
+        ldsm_x4_t(smem_u32(vs + frag_a<HD>(lane, kk * 16, c0 + nd * 16)),
+                  vb);
         mma_bf16(acc[2 * nd], pa[kk], vb[0], vb[1]);
         mma_bf16(acc[2 * nd + 1], pa[kk], vb[2], vb[3]);
       }
@@ -1179,32 +1233,34 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     l_safe[i] = fmaxf(l, 1e-30f);
     const int row = q0 + r0 + gq + 8 * i;
-    if (tq == 0 && row < Tlen)
+    if (tq == 0 && c0 == 0 && row < Tlen)
       lse[static_cast<size_t>(bh) * Tlen + row] = m_r[i] + logf(l_safe[i]);
   }
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     acc[nt][0] /= l_safe[0];
     acc[nt][1] /= l_safe[0];
     acc[nt][2] /= l_safe[1];
     acc[nt][3] /= l_safe[1];
   }
-  // the warp's own rows of the Q tile are free now: stage O there
-  store_rows<HD>(out, q_s + r0 * tc_ld<HD>(), acc, 1.f, lane, b, q0 + r0,
-                 Tlen, H, h);
+  // the warp's own rows and columns of the Q tile are free now (every
+  // warp loaded its Q fragments before the loop's last barrier): stage O
+  // there
+  store_rows<HD, NT>(out, q_s + r0 * tc_ld<HD>(), acc, 1.f, lane, b,
+                     q0 + r0, Tlen, H, h, c0);
 }
 
 // ------------------------------------------------------------------ //
 // launch helpers
 // ------------------------------------------------------------------ //
 
-// float32 forward: [64][HD + 1] float tiles of Q, K, V, the score tile
-// and the key-mask bias
+// float32 forward: [HD + 1]-float rows of the Q tile (fma_rows), K and
+// V (64 each), the score tile and the key-mask bias
 template <int HD>
 constexpr size_t fwd_fma_smem() {
+  constexpr size_t R = fma_rows<HD>();
   return sizeof(float) *
-         (static_cast<size_t>(kBQ + 2 * kBK) * (HD + 1) +
-          static_cast<size_t>(kBQ) * (kBK + 1) + kBK);
+         ((R + 2 * kBK) * (HD + 1) + R * (kBK + 1) + kBK);
 }
 
 // bf16 forward: five [64][HD + 8] bf16 tiles (Q, then K and V x two
@@ -1215,19 +1271,21 @@ constexpr size_t fwd_mma_smem() {
          sizeof(int32_t) * 2 * kBK;
 }
 
-// float32 backward: [64][HD + 1] float tiles, score tiles, row vectors
+// float32 backward: [HD + 1]-float rows of the block's own two tiles
+// (fma_rows each) and of the two streamed ones (64 each), score tiles,
+// row vectors
 template <int HD>
 constexpr size_t dq_fma_smem() {
+  constexpr size_t R = fma_rows<HD>();
   return sizeof(float) *
-         (static_cast<size_t>(2 * kBQ + 2 * kBK) * (HD + 1) +
-          static_cast<size_t>(kBQ) * (kBK + 1) + kBK);
+         ((2 * R + 2 * kBK) * (HD + 1) + R * (kBK + 1) + kBK);
 }
 
 template <int HD>
 constexpr size_t dkv_fma_smem() {
+  constexpr size_t R = fma_rows<HD>();
   return sizeof(float) *
-         (static_cast<size_t>(2 * kBK + 2 * kBQ) * (HD + 1) +
-          2 * static_cast<size_t>(kBK) * (kBQ + 1) + 2 * kBQ);
+         ((2 * R + 2 * kBQ) * (HD + 1) + 2 * R * (kBQ + 1) + 2 * kBQ);
 }
 
 // bf16 backward: six [64][HD + 8] bf16 tiles (the block's own two, two
@@ -1273,8 +1331,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Tlen + kBQ - 1) / kBQ);
-  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, st>>>(
+  const int rows = f32 ? fma_rows<HD>() : kBQ;
+  dim3 grid(B * H, (Tlen + rows - 1) / rows);
+  kernel<<<grid, f32 ? kThreads : tc_threads<HD>(), smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(mask),
       static_cast<T*>(out), static_cast<float*>(lse), Tlen, H, causal, scale);
@@ -1296,8 +1355,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Tlen + kBQ - 1) / kBQ);
-  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, st>>>(
+  const int rows = f32 ? fma_rows<HD>() : kBQ;
+  dim3 grid(B * H, (Tlen + rows - 1) / rows);
+  kernel<<<grid, f32 ? kThreads : tc_threads<HD>(), smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(dD),
@@ -1321,8 +1381,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Tlen + kBK - 1) / kBK);
-  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, st>>>(
+  const int rows = f32 ? fma_rows<HD>() : kBK;
+  dim3 grid(B * H, (Tlen + rows - 1) / rows);
+  kernel<<<grid, f32 ? kThreads : tc_threads<HD>(), smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(dD),
@@ -1333,7 +1394,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 bool shape_ok(int B, int T, int H, int hd, int dtype) {
   return B > 0 && T > 0 && H > 0 && (dtype == kF32 || dtype == kBF16) &&
-         (hd == 16 || hd == 32 || hd == 64 || hd == 128);
+         (hd == 16 || hd == 32 || hd == 64 || hd == 128 || hd == 256);
 }
 
 // dispatch on (dtype, hd) to F<T, HD>::run(args...)
@@ -1344,21 +1405,24 @@ bool shape_ok(int B, int T, int H, int hd, int dtype) {
         case 16: return static_cast<int>(LAUNCH<float, 16>(__VA_ARGS__)); \
         case 32: return static_cast<int>(LAUNCH<float, 32>(__VA_ARGS__)); \
         case 64: return static_cast<int>(LAUNCH<float, 64>(__VA_ARGS__)); \
-        default: return static_cast<int>(LAUNCH<float, 128>(__VA_ARGS__));\
+        case 128: return static_cast<int>(LAUNCH<float, 128>(__VA_ARGS__));\
+        default: return static_cast<int>(LAUNCH<float, 256>(__VA_ARGS__));\
       }                                                                   \
     }                                                                     \
     switch (hd) {                                                         \
       case 16: return static_cast<int>(LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__));  \
       case 32: return static_cast<int>(LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__));  \
       case 64: return static_cast<int>(LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__));  \
-      default: return static_cast<int>(LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)); \
+      case 128: return static_cast<int>(LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)); \
+      default: return static_cast<int>(LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__)); \
     }                                                                     \
   } while (0)
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). dtype: 0 float32, 1 bfloat16
-// (q, k, v, dO, O, dq, dk and dv share it); hd one of 16, 32, 64, 128;
+// (q, k, v, dO, O, dq, dk and dv share it); hd one of 16, 32, 64, 128,
+// 256;
 // mask int32 [B, T]; lse and D float32 [B, H, T]; the bf16 kernels read
 // and write 16-byte rows, so their tensors start 16-byte aligned.
 // Each returns cudaGetLastError() after its launch (0 = launched).

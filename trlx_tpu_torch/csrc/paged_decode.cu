@@ -37,7 +37,9 @@
 //     version, never NaN;
 //   - the 4 warps split the partition's tokens; a K or V row is read as
 //     16-byte vectors (8 bf16, 16 int8 codes or 4 f32 per lane, so
-//     hd * bytes / 16 lanes per row) and its dot product with q comes
+//     hd * bytes / 16 lanes per row; a row of more than 32 vectors, a
+//     float32 row at hd 256, gives each lane two, 32 vectors apart) and
+//     its dot product with q comes
 //     from shuffles among the lanes that hold it; each lane keeps a
 //     running max, sum and accumulator in float32 registers for the
 //     tokens of its row slot, merged across the warp by shuffles and
@@ -90,11 +92,11 @@ __host__ __device__ constexpr int elem_bytes() {
   return KV == kF32 ? 4 : (KV == kBF16 ? 2 : 1);
 }
 
-// 16 bytes of one K/V row as float: float32 as is, bf16 widened, int8
-// codes times the row scale rounded to q's dtype QT first
+// 16 bytes of one K/V row as float into x[0 .. 16 / bytes): float32 as
+// is, bf16 widened, int8 codes times the row scale rounded to q's dtype
+// QT first
 template <typename QT, int KV>
-__device__ __forceinline__ void widen(const uint4& raw, float sc,
-                                      float (&x)[16 / elem_bytes<KV>()]) {
+__device__ __forceinline__ void widen(const uint4& raw, float sc, float* x) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -114,13 +116,24 @@ __device__ __forceinline__ void widen(const uint4& raw, float sc,
   }
 }
 
-// Loads a lane issues per iteration (U) for a row of HD elements: aim for
-// 16 tokens per warp iteration, at most 4 rows in flight per lane.
+// 16-byte vectors of a row of HD elements a lane holds: 1, or more once
+// the row has more than 32
+template <int KV, int HD>
+__host__ __device__ constexpr int chunks_per_lane() {
+  constexpr int ch = HD * elem_bytes<KV>() / 16;
+  return ch > 32 ? ch / 32 : 1;
+}
+
+// Rows a lane loads per iteration (U) for a row of HD elements: aim for
+// 16 tokens per warp iteration, at most 4 16-byte K vectors in flight
+// per lane.
 template <int KV, int HD>
 __host__ __device__ constexpr int loads_per_lane() {
-  constexpr int lpr = HD * elem_bytes<KV>() / 16;
+  constexpr int cpl = chunks_per_lane<KV, HD>();
+  constexpr int lpr = HD * elem_bytes<KV>() / 16 / cpl;
   constexpr int rpw = 32 / lpr;
-  return rpw >= 16 ? 1 : (16 / rpw > 4 ? 4 : 16 / rpw);
+  constexpr int u = rpw >= 16 ? 1 : (16 / rpw > 4 ? 4 : 16 / rpw);
+  return u * cpl > 4 ? 4 / cpl : u;
 }
 
 // one block per (slot, kv-head x head group, partition); module comment
@@ -137,13 +150,16 @@ paged_decode_kernel(const QT* __restrict__ q,
                     int page_size, int max_pages, int pages_per,
                     float scale) {
   constexpr int EB = elem_bytes<KV>();
-  constexpr int VEC = 16 / EB;     // elements a lane holds of a row
+  constexpr int E16 = 16 / EB;     // elements of a 16-byte vector
+  constexpr int CPL = chunks_per_lane<KV, HD>();  // vectors a lane holds
+  constexpr int VEC = CPL * E16;   // elements a lane holds of a row
   constexpr int LPR = HD / VEC;    // lanes per row
   constexpr int RPW = 32 / LPR;    // rows per warp load
   constexpr int U = loads_per_lane<KV, HD>();
   constexpr int TPI = RPW * U;     // tokens per warp iteration
   constexpr int RED = HD + 2;      // m, l, acc[HD]
   static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row split");
+  // a lane's element i lies in vector cc + (i / E16) LPR of its row
 
   const int s = blockIdx.x;
   const int G = H / Hkv;
@@ -187,12 +203,13 @@ paged_decode_kernel(const QT* __restrict__ q,
 
   const int warp = tid >> 5, lane = tid & 31;
   const int rr = lane / LPR;        // row of a warp load
-  const int cc = lane - rr * LPR;   // 16-byte column of that row
+  const int cc = lane - rr * LPR;   // first 16-byte column of that row
   float qr[GT][VEC];
 #pragma unroll
   for (int g = 0; g < GT; ++g)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[g][e] = q_s[g * HD + cc * VEC + e];
+    for (int e = 0; e < VEC; ++e)
+      qr[g][e] = q_s[g * HD + (cc + (e / E16) * LPR) * E16 + e % E16];
   float m[GT], l[GT], acc[GT][VEC];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
@@ -204,7 +221,7 @@ paged_decode_kernel(const QT* __restrict__ q,
 
   const size_t row_bytes = static_cast<size_t>(HD) * EB;
   for (int base = t0 + warp * TPI; base < t1; base += kWarps * TPI) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][CPL], vr[U][CPL];
     float bu[U], ks[U], vs[U];
     bool ok[U];
 #pragma unroll
@@ -212,16 +229,21 @@ paged_decode_kernel(const QT* __restrict__ q,
       const int t = base + u * RPW + rr;
       const int pi = (t - t0) / page_size;
       ok[u] = t < t1 && (!row_live || live_s[pi]);
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        kr[u][j] = vr[u][j] = make_uint4(0u, 0u, 0u, 0u);
       bu[u] = 0.f;
       ks[u] = vs[u] = 1.f;
       if (ok[u]) {
         const size_t row =
             (static_cast<size_t>(pid_s[pi]) * page_size +
              (t - (pg0 + pi) * page_size)) * Hkv + kvh;
-        const size_t off = row * row_bytes + cc * 16;
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(k_pool + off));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(v_pool + off));
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          const size_t off = row * row_bytes + (cc + j * LPR) * 16;
+          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k_pool + off));
+          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v_pool + off));
+        }
         bu[u] = bias_row[t];
         if constexpr (KV == kInt8) {
           ks[u] = k_scale[row];
@@ -235,7 +257,8 @@ paged_decode_kernel(const QT* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[VEC];
-      widen<QT, KV>(kr[u], ks[u], kf);
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) widen<QT, KV>(kr[u][j], ks[u], kf + j * E16);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         float d = 0.f;
@@ -269,7 +292,8 @@ paged_decode_kernel(const QT* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[VEC];
-      widen<QT, KV>(vr[u], vs[u], vf);
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) widen<QT, KV>(vr[u][j], vs[u], vf + j * E16);
 #pragma unroll
       for (int g = 0; g < GT; ++g)
 #pragma unroll
@@ -304,7 +328,8 @@ paged_decode_kernel(const QT* __restrict__ q,
         red[1] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) red[2 + cc * VEC + e] = acc[g][e];
+      for (int e = 0; e < VEC; ++e)
+        red[2 + (cc + (e / E16) * LPR) * E16 + e % E16] = acc[g][e];
     }
   }
   __syncthreads();
@@ -417,7 +442,8 @@ cudaError_t launch_hd(const Args& a) {
     case 16: return launch_gt<QT, KV, 16>(a);
     case 32: return launch_gt<QT, KV, 32>(a);
     case 64: return launch_gt<QT, KV, 64>(a);
-    default: return launch_gt<QT, KV, 128>(a);
+    case 128: return launch_gt<QT, KV, 128>(a);
+    default: return launch_gt<QT, KV, 256>(a);
   }
 }
 
@@ -426,7 +452,7 @@ cudaError_t launch_hd(const Args& a) {
 // Plain C entry point (bound with ctypes). dtype codes: 0 float32,
 // 1 bfloat16, 2 int8 (kv only, with k_scale/v_scale). Supported:
 // q bf16 with a bf16 or int8 pool; q f32 with an f32, bf16 or int8 pool;
-// hd one of 16, 32, 64, 128; q and the pools start 16-byte aligned.
+// hd one of 16, 32, 64, 128, 256; q and the pools start 16-byte aligned.
 // ``partitions`` splits the max_pages pages into parts of
 // ceil(max_pages / partitions) pages, none empty; above 1, ``partials``
 // is float32 scratch of S * H * partitions * (hd + 2). Returns
@@ -441,7 +467,7 @@ extern "C" int paged_decode_attention(
       page_size <= 0 || max_pages <= 0 || partitions <= 0 ||
       partitions > max_pages)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128)
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const int pages_per = (max_pages + partitions - 1) / partitions;
   if ((partitions - 1) * pages_per >= max_pages ||

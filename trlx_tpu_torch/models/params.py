@@ -55,7 +55,7 @@ class DecodeViews(NamedTuple):
 
 def _to_torch(x) -> torch.Tensor:
     if torch.is_tensor(x):
-        return x.detach().to("cpu", copy=True)
+        return x.detach()
     return torch.from_numpy(np.array(x, copy=True, order="C"))
 
 
@@ -63,8 +63,12 @@ def decode_views_from_numpy(hydra_tree: Params, spec: ModelSpec,
                             num_layers_unfrozen: int) -> DecodeViews:
     """A hydra param tree (nested dicts of numpy arrays, as trlx_tpu's
     comes back, or of torch tensors, as the port's trainer and its
-    checkpoints hold it) -> CPU torch decode views (copies). Checks the
-    trunk/top split against ``num_layers_unfrozen``."""
+    checkpoints hold it) -> torch decode views: numpy leaves copied to
+    the CPU, torch leaves detached where they are, not copied (a
+    trainer's card-resident tree serves without a round trip through the
+    host; :func:`views_to` makes the engine's own copies where the dtype
+    or device differs). Checks the trunk/top split against
+    ``num_layers_unfrozen``."""
     bottom, top = all_blocks(hydra_tree)
     embed, ln_f = head_params_for_decode(hydra_tree)
     k = resolve_num_unfrozen(spec, num_layers_unfrozen)
@@ -198,10 +202,12 @@ def init_ilql_numpy(spec: ModelSpec, num_layers_unfrozen: int = -1,
 
 
 def _place(x, device, dtype) -> torch.Tensor:
-    """A numpy or torch leaf as a fresh torch tensor on ``device``,
-    floating leaves in ``dtype``."""
-    t = torch.as_tensor(np.array(x, copy=True, order="C")) \
-        if not torch.is_tensor(x) else x.detach().clone()
+    """A numpy leaf as a fresh torch tensor on ``device``, floating
+    leaves in ``dtype``; a torch leaf already on ``device`` in that dtype
+    is taken over as it is (detached, not copied: a 6B tree built on the
+    card is not duplicated there), any other one copied."""
+    t = x.detach() if torch.is_tensor(x) else \
+        torch.as_tensor(np.array(x, copy=True, order="C"))
     return t.to(device=device, dtype=dtype if t.is_floating_point()
                 else t.dtype)
 
@@ -211,7 +217,9 @@ def hydra_to_torch(tree: Params, device=None,
     """A hydra tree of numpy (or torch) leaves as torch tensors on
     ``device``: ``frozen_base`` and ``ref`` stored in ``frozen_dtype``
     (every leaf, as trlx_tpu casts them), ``trainable`` float32 leaves
-    that require grad — the trainer's parameter tree."""
+    that require grad — the trainer's parameter tree. Torch leaves
+    already on ``device`` in their target dtype are taken over, not
+    copied (:func:`_place`)."""
 
     def frozen(sub):
         return tree_map(lambda x: _place(x, device, frozen_dtype), sub)

@@ -31,6 +31,14 @@ Q's fragments there for the whole key loop. Their tensors must start
 on the CUDA cores in full float32: the tensor cores would round to TF32
 and miss the float32 parity.
 
+At hd 256 (gpt-j-6B's heads) two changes keep each kernel on one block
+of the card's 227 KB of shared memory and under its 255 registers a
+thread: the bf16 kernels run 8 warps, a pair of warps per 16 query (or
+key) rows, each of the pair keeping the float32 accumulators of half the
+head dim (both form the rows' whole scores, so both hold the same
+softmax statistics); the float32 kernels own 32 rows a block instead of
+64 (:func:`fma_rows`).
+
 A CUDA tensor goes to the kernel, or the call raises; only a CPU tensor
 goes to the plain version beside it (``*_reference``), which repeats the
 same math densely. The kernels skip key tiles wholly above the diagonal,
@@ -63,7 +71,7 @@ from trlx_tpu_torch.ops import count_launch
 _MIN_FUSED_T = 128
 #: query rows / keys per tile of the kernels
 TILE = 64
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -73,20 +81,35 @@ def flash_scale(hd: int) -> float:
     return 1.0 / (hd ** 0.5)
 
 
+def fma_rows(hd: int) -> int:
+    """Rows of a float32 kernel block's own tile (query rows in the
+    forward and dq, key rows in dk/dv): 64, or 32 at hd 256, where four
+    [64][hd + 1] float tiles would not fit one block."""
+    return 64 if hd <= 128 else 32
+
+
 def shared_memory_bytes(hd: int, dtype=torch.bfloat16) -> dict:
     """Dynamic shared memory per block of each kernel for inputs of
     ``dtype`` (``*_smem`` in csrc/flash_attention.cu). For float32 each
-    kernel holds [64][hd + 1] float tiles plus one [64][65] score tile
-    (two in dk/dv) and the row vectors. For bfloat16 the forward holds
-    five [64][hd + 8] bf16 tiles (Q, then K and V x two stages) and two
-    stages of the key mask; the backward six (its own two, two streamed
-    tiles x two stages) and two stages of the key mask (dq) or of the lse
-    and D rows (dk/dv)."""
-    tile, scores = TILE * (hd + 1), TILE * (TILE + 1)
+    kernel holds [hd + 1]-float rows of its own tiles (:func:`fma_rows`
+    rows: Q in the forward, Q and dO in dq, K and V in dk/dv) and of the
+    streamed 64-row tiles (K and V, or Q and dO), a [rows][65] score
+    tile (two in dk/dv) and the row vectors. For bfloat16 the forward
+    holds five [64][hd + 8] bf16 tiles (Q, then K and V x two stages) and
+    two stages of the key mask; the backward six (its own two, two
+    streamed tiles x two stages) and two stages of the key mask (dq) or
+    of the lse and D rows (dk/dv)."""
     if dtype == torch.float32:
-        return {"flash_fwd": 4 * (3 * tile + scores + TILE),
-                "flash_bwd_dq": 4 * (4 * tile + scores + TILE),
-                "flash_bwd_dkv": 4 * (4 * tile + 2 * scores + 2 * TILE)}
+        own, row = fma_rows(hd), hd + 1
+        streamed = 2 * TILE * row
+        return {
+            "flash_fwd": 4 * (own * row + streamed + own * (TILE + 1)
+                              + TILE),
+            "flash_bwd_dq": 4 * (2 * own * row + streamed
+                                 + own * (TILE + 1) + TILE),
+            "flash_bwd_dkv": 4 * (2 * own * row + streamed
+                                  + 2 * own * (TILE + 1) + 2 * TILE),
+        }
     bf16_tile = 2 * TILE * (hd + 8)
     return {"flash_fwd": 5 * bf16_tile + 4 * 2 * TILE,
             "flash_bwd_dq": 6 * bf16_tile + 4 * 2 * TILE,

@@ -49,7 +49,7 @@ _SUPPORTED = {
     (torch.float32, torch.int8),
 }
 #: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: streaming multiprocessors of an H100 SXM
 _SMS = 132
 #: blocks per SM the partition count aims for once the context is long

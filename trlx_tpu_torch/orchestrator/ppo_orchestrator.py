@@ -14,18 +14,26 @@ measured mean KL. The prompt iteration is the JAX package's
 (``batch_iterator`` with a seed that advances each pass over the
 prompts).
 
-``start_experience`` dispatches every chunk against one policy snapshot
-and ``finish_experience`` harvests them, inside a ``rollout`` phase
+``start_experience`` enqueues every device computation of the
+experience against one policy snapshot — each chunk's generation, its
+scoring (policy and reference logprobs, values, KL rewards) and, for a
+device reward model, its scores — so under ``train.continuous_rollouts``
+the updates the trainer queues afterwards cannot change it.
+``finish_experience`` harvests the chunks inside a ``rollout`` phase
 (telemetry span + supervisor heartbeat; the ``rollout`` chaos seam fires
 at its entry) that closes once the chunks' results are on the host, with
-one heartbeat per harvested chunk. The host reward goes through
-``retry_call`` (``train.host_retries``, a bounded worker under
-``train.host_call_timeout``, the ``reward_fn`` chaos seam) in a nested
-``reward_fn`` phase; a device reward model scores on the card, plainly,
-as in trlx_tpu.
+one heartbeat per harvested chunk. The harvest is double-buffered, as
+trlx_tpu's: chunk i + 1's device-to-host copies (sequences, per-sequence
+KL, device scores; non-blocking into pinned buffers, one CUDA event a
+chunk) start before chunk i's host decode and ``reward_fn``, so the host
+work overlaps the next transfer (:class:`HostHarvest`). The host reward
+goes through ``retry_call`` (``train.host_retries``, a bounded worker
+under ``train.host_call_timeout``, the ``reward_fn`` chaos seam) in a
+nested ``reward_fn`` phase; a device reward model's scores stay on the
+card for the rewards and reach the host only for the statistics.
 """
 
-from typing import Callable
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +46,42 @@ from trlx_tpu_torch.supervisor import chaos, seam_timeout
 from trlx_tpu_torch.utils import Clock
 from trlx_tpu_torch.utils.faults import retry_call
 from trlx_tpu_torch.utils.profiling import annotate
+
+
+class HostHarvest:
+    """Double-buffered device-to-host copies of each chunk's host-bound
+    tensors. Two slots of host buffers (pinned when the tensors are on
+    the card) serve the chunks in turn: :meth:`start` enqueues chunk i's
+    copies into slot i % 2 (non-blocking, then one CUDA event),
+    :meth:`wait` waits for that event and returns numpy views of the
+    slot. The caller starts chunk i + 1 only after it is done with chunk
+    i - 1's views, so a slot is never refilled before its copies have
+    landed and its consumer has finished. On the CPU the same slots
+    receive plain copies."""
+
+    def __init__(self, trees: Sequence[Sequence[torch.Tensor]]):
+        self.trees = trees
+        self.slots: List = [None, None]
+        self.events: List = [None, None]
+
+    def start(self, i: int) -> None:
+        tree, k = self.trees[i], i % 2
+        pin = tree[0].is_cuda
+        if self.slots[k] is None:  # every chunk has the same shapes
+            self.slots[k] = [torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=pin) for t in tree]
+        slot = self.slots[k]
+        for dst, src in zip(slot, tree):
+            dst.copy_(src, non_blocking=pin)
+        if pin:
+            self.events[k] = torch.cuda.Event()
+            self.events[k].record()
+
+    def wait(self, i: int):
+        k = i % 2
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        return tuple(t.numpy() for t in self.slots[k])
 
 
 @register_orchestrator("PPOOrchestrator")
@@ -106,6 +150,11 @@ class PPOOrchestrator(Orchestrator):
                 self.start_experience(num_rollouts, iter_count))
 
     def start_experience(self, num_rollouts: int, iter_count: int = 0):
+        """Enqueue every chunk's device work (generation, scoring, device
+        reward) against the policy as of this call; the handle for
+        :meth:`finish_experience`. All chunks go at once, so one
+        experience batch comes from one policy snapshot even when the
+        trainer queues updates before the harvest."""
         import warnings
 
         if num_rollouts <= 0:
@@ -119,11 +168,17 @@ class PPOOrchestrator(Orchestrator):
                 f"{n_chunks * self.chunk_size} rollouts", stacklevel=2,
             )
         bank_tokens, bank_mask = self._prompt_bank()
-        pendings = [
-            self.rl_model.rollout(bank_tokens, bank_mask, self._next_idx())
-            for _ in range(n_chunks)
-        ]
-        return {"pendings": pendings, "n_chunks": n_chunks}
+        device_reward = getattr(self.reward_fn, "is_device_reward", False)
+        pendings, scores = [], []
+        for _ in range(n_chunks):
+            pending = self.rl_model.rollout(bank_tokens, bank_mask,
+                                            self._next_idx())
+            pendings.append(pending)
+            if device_reward:
+                out, query = pending[0], pending[1]
+                scores.append(self.device_scores(out, query.shape[1]))
+        return {"pendings": pendings, "device_scores": scores,
+                "n_chunks": n_chunks}
 
     def finish_experience(self, handle):
         """Score, finalize and store every dispatched chunk inside a
@@ -145,17 +200,29 @@ class PPOOrchestrator(Orchestrator):
 
     def _finish_experience(self, handle):
         trainer = self.rl_model
-        device_reward = getattr(self.reward_fn, "is_device_reward", False)
+        pendings, device_scores = handle["pendings"], handle["device_scores"]
+        n_chunks = handle["n_chunks"]
+        harvest = HostHarvest([
+            (p[0].sequences, p[6]) + ((device_scores[i].float(),)
+                                      if device_scores else ())
+            for i, p in enumerate(pendings)])
+        if pendings:
+            harvest.start(0)
         all_kls, all_scores = [], []
-        for pending in handle["pendings"]:
+        for i, pending in enumerate(pendings):
             out, query, qmask, logprobs, values, kl_rewards, seq_kl = pending
-            seq_kl_host = seq_kl.cpu().numpy()
-            if device_reward:
-                scores = self.device_scores(out, query.shape[1])
-                all_scores.append(scores.float().cpu().numpy())
+            host = harvest.wait(i)
+            # chunk i + 1's copies run while the host decodes and scores
+            # chunk i (chunk i - 1's buffers are free by now)
+            if i + 1 < n_chunks:
+                harvest.start(i + 1)
+            sequences, seq_kl_host = host[0], host[1]
+            if device_scores:
+                scores = device_scores[i]
+                all_scores.append(np.array(host[2], np.float32))
             else:
                 texts = trainer.tokenizer.batch_decode(
-                    out.sequences.cpu().numpy(), skip_special_tokens=True)
+                    sequences, skip_special_tokens=True)
                 with annotate("reward_fn"):
                     scores = self.score(texts)
                 all_scores.append(scores)
@@ -174,7 +241,6 @@ class PPOOrchestrator(Orchestrator):
             self.clock.tick(out.sequences.shape[0])
             # chunk-to-chunk progress resets the watchdog's timer
             supervisor.beat()
-        n_chunks = handle["n_chunks"]
         trainer.post_rollout_kl_update(float(np.mean(all_kls)),
                                        n_chunks * self.chunk_size)
         return {

@@ -7,8 +7,12 @@ plus the bucket lattice and the paged-pool geometry the slot scheduler
 (trlx_tpu_torch.serve.slots) sizes itself from. Weights come in as
 :class:`~trlx_tpu_torch.models.params.DecodeViews` (carried across from
 a trlx_tpu tree, loaded from a ``torch.save`` file, or a seeded random
-init), or from a port checkpoint (:meth:`InferenceEngine.from_checkpoint`:
-a checkpoint or run directory, the config from its meta.json). The
+init), as a hydra param tree (``params``: a trainer's own tensors serve
+where they live, with no copy through the host), from a port checkpoint
+(:meth:`InferenceEngine.from_checkpoint`: a checkpoint or run
+directory, the config from its meta.json), or, when the config has no
+``model.model_spec``, from the pretrained ``model.model_path``
+(trlx_tpu_torch.models.hf_import, which also gives the spec). The
 engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 card it raises.
 
@@ -28,12 +32,14 @@ from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import PPOConfig, filter_known_fields
 from trlx_tpu_torch.models.generation import GenerationConfig
+from trlx_tpu_torch.models.hf_import import hydra_params_from_trunk
 from trlx_tpu_torch.models.params import (
     DecodeViews,
     decode_views_from_numpy,
     init_decode_views,
     views_to,
 )
+from trlx_tpu_torch.models.policy import HydraPolicy
 from trlx_tpu_torch.models.transformer import tree_map
 from trlx_tpu_torch.ops.sampling import SamplingParams
 from trlx_tpu_torch.utils import DTYPES, resolve_device
@@ -129,9 +135,13 @@ class InferenceEngine:
 
     def __init__(self, config: TRLConfig, serve: Optional[ServeConfig] = None,
                  views: Optional[DecodeViews] = None,
-                 device: Optional[str] = None):
-        """``views`` defaults to a seeded random policy (``serve.seed``);
-        ``device`` defaults to CUDA (``"cpu"`` runs the plain path)."""
+                 device: Optional[str] = None, params: Optional[Dict] = None):
+        """``views``, else the decode views of the hydra tree ``params``
+        (numpy or torch leaves; torch leaves are not copied on their way
+        to the views), else the pretrained trunk when the config has no
+        ``model.model_spec``, else a seeded random policy
+        (``serve.seed``); ``device`` defaults to CUDA (``"cpu"`` runs
+        the plain path)."""
         if not isinstance(config.method, PPOConfig):
             raise NotImplementedError(
                 f"the inference engine serves hydra (PPO) policies; this "
@@ -146,12 +156,8 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.buckets = _normalize_buckets(self.serve.buckets)
         self.tokenizer = load_tokenizer(config.model.tokenizer_path)
-        if config.model.model_spec is None:
-            raise NotImplementedError(
-                "serving a pretrained HF checkpoint is not ported; give "
-                "the config a model.model_spec"
-            )
-        spec = config.model.resolve_spec()
+        spec, trunk = self._resolve_spec_and_trunk(config)
+        k = config.model.num_layers_unfrozen
         for b, p, g in self.buckets:
             if p + g > spec.n_positions:
                 raise ValueError(
@@ -161,9 +167,15 @@ class InferenceEngine:
                 )
         self.spec = spec
         self.compute_dtype = DTYPES[config.model.compute_dtype]
-        if views is None:
-            views = init_decode_views(spec, self.serve.seed,
-                                      config.model.num_layers_unfrozen)
+        if views is None and params is None and trunk is not None:
+            params = hydra_params_from_trunk(
+                HydraPolicy(spec, k), *trunk,
+                np.random.default_rng(self.serve.seed))
+        if views is None and params is not None:
+            views = decode_views_from_numpy(params, spec, k)
+        elif views is None:
+            views = init_decode_views(spec, self.serve.seed, k)
+        del params, trunk
         views = views_to(views, self.device, self.compute_dtype)
         self.blocks, self.embed, self.ln_f = views
 
@@ -191,6 +203,30 @@ class InferenceEngine:
         )
         telemetry.set_gauge("serve/model_gb", n_bytes / 2**30)
 
+    @staticmethod
+    def _resolve_spec_and_trunk(config: TRLConfig):
+        """(spec, pretrained trunk | None), as the trainers'
+        ``_load_or_spec``: an explicit ``model.model_spec`` wins;
+        otherwise the HF import of ``model.model_path`` gives the spec
+        and the weights (which a checkpoint's params then replace)."""
+        if config.model.model_spec is not None:
+            return config.model.resolve_spec(), None
+        from trlx_tpu_torch.models.hf_import import load_trunk_from_hf
+
+        try:
+            spec, embed, blocks, ln_f = load_trunk_from_hf(
+                config.model.model_path)
+        except Exception as e:
+            raise RuntimeError(
+                f"could not resolve the model architecture for serving: "
+                f"pretrained load of '{config.model.model_path}' failed "
+                f"({e!r}) and the config has no model.model_spec. Serve "
+                f"from a config whose model section matches the "
+                f"checkpoint's (the checkpoint's own meta.json 'config' "
+                f"component has it for checkpoints saved by this "
+                f"framework).") from e
+        return spec, (embed, blocks, ln_f)
+
     @classmethod
     def from_checkpoint(cls, checkpoint: str,
                         config: Optional[TRLConfig] = None,
@@ -216,9 +252,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"the inference engine serves hydra (PPO) policies; the "
                 f"checkpoint's method is '{config.method.name}'")
-        views = decode_views_from_numpy(params, config.model.resolve_spec(),
-                                        config.model.num_layers_unfrozen)
-        engine = cls(config, serve=serve, views=views, device=device)
+        engine = cls(config, serve=serve, device=device, params=params)
         engine.checkpoint_path = resolved
         return engine
 

@@ -24,8 +24,12 @@ flushes, the run supervisor and its containment (``_make_supervisor``,
 pre-check (``_check_memory_fit``).
 
 Not ported yet, and refused at construction with a clear error: a mesh
-other than all ones (and ``sp`` / ``pp``), ``continuous_rollouts`` and
-``optimizer: adafactor``.
+other than all ones (and ``sp`` / ``pp``).
+
+Pretrained weights: with no ``model.model_spec`` the trainers import
+``model.model_path`` through trlx_tpu_torch.models.hf_import
+(:meth:`BaseRLTrainer._load_or_spec`); a failed load raises, never a
+silent random init.
 """
 
 import os
@@ -33,6 +37,7 @@ import sys
 from abc import abstractmethod
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from trlx_tpu_torch import supervisor, telemetry
@@ -76,8 +81,6 @@ def check_ported(config, mesh=None) -> None:
         if size not in (1, -1):  # -1 = every device: one here
             raise _not_ported(f"train.mesh {axis}={size} (only a "
                               f"single-device mesh runs)")
-    if getattr(t, "continuous_rollouts", False):
-        raise _not_ported("train.continuous_rollouts")
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -188,18 +191,160 @@ class AdamW:
         return g_norm
 
 
-def build_optimizer(train_config, sched=None) -> AdamW:
-    """Grad clip + AdamW + LR schedule (default: cosine anneal from
-    ``learning_rate_init`` to ``learning_rate_target`` over
-    ``total_steps``), as trlx_tpu builds it with optax."""
+#: optax.adafactor's defaults, as the reference builds it
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR = 128
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIPPING_THRESHOLD = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+
+
+def factored_dims(shape):
+    """optax's ``_factored_dims``: (d1, d0), the second-largest and the
+    largest axis (``np.argsort`` order), when the second-largest has at
+    least ``ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR`` entries; else None (a 1-D
+    leaf or a small one keeps an unfactored second moment)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """``optax.chain(optax.clip_by_global_norm(max_norm),
+    optax.adafactor(learning_rate=schedule, weight_decay_rate=...))`` as
+    optax 0.2.6 builds it, on a list of float32 parameters updated in
+    place. Per leaf, after the global-norm clip (AdamW's rule):
+
+    1. ``scale_by_factored_rms`` (decay_rate 0.8, offset 0,
+       min_dim_size_to_factor 128, eps 1e-30): with
+       beta = 1 - (count + 1) ** -0.8 and g2 = g * g + eps, a factored
+       leaf keeps row and column means of g2 over its two largest axes
+       (``factored_dims``), v_row = beta v_row + (1 - beta) mean(g2, d0)
+       and v_col likewise over d1, and scales g by
+       (v_row / mean(v_row)) ** -0.5 and v_col ** -0.5; any other leaf
+       keeps v = beta v + (1 - beta) g2 and scales g by v ** -0.5;
+    2. ``clip_by_block_rms(1.0)``: u / max(1, rms(u));
+    3. ``scale_by_learning_rate``: u * schedule(count);
+    4. ``scale_by_param_block_rms()``: u * max(rms(p), 1e-3);
+    5. ``add_decayed_weights``: + weight_decay * p (after the learning
+       rate, so the decay is not scaled by it; skipped at 0, as the
+       reference passes ``weight_decay or None``);
+    6. ``scale(-1)``: p - u.
+
+    The state is optax's ``FactoredState`` layout (``v_row``, ``v_col``,
+    ``v`` per leaf, [1] zeros where a leaf has none) with one 0-d int32
+    count on the device: the factored statistics' count and the
+    schedule's advance together. ``ok`` is the commit gate, as in
+    :class:`AdamW`: where it is False the parameters, every moment and
+    the count keep their values, selected on the device."""
+
+    def __init__(self, schedule: Callable, max_norm: float,
+                 weight_decay: float = 0.0):
+        self.schedule = schedule
+        self.max_norm = float(max_norm)
+        self.weight_decay = float(weight_decay or 0.0)
+
+    def init(self, params) -> Dict:
+        leaves = _leaves(params)
+        state = {"count": torch.zeros((), dtype=torch.int32,
+                                      device=leaves[0].device),
+                 "v_row": [], "v_col": [], "v": []}
+        for p in leaves:
+            dims = factored_dims(tuple(p.shape))
+            one = torch.zeros((1,), dtype=p.dtype, device=p.device)
+            if dims is None:
+                state["v_row"].append(one)
+                state["v_col"].append(one.clone())
+                state["v"].append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                state["v_row"].append(torch.zeros(
+                    shape[:d0] + shape[d0 + 1:], dtype=p.dtype,
+                    device=p.device))
+                state["v_col"].append(torch.zeros(
+                    shape[:d1] + shape[d1 + 1:], dtype=p.dtype,
+                    device=p.device))
+                state["v"].append(one.clone())
+        return state
+
+    def _rms(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(torch.mean(x * x))
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             state: Dict, ok: Optional[torch.Tensor] = None,
+             g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One update of ``params`` in place, committed only where ``ok``
+        (when given); returns the pre-clip global gradient norm."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
+        keep = g_norm < self.max_norm
+        count = state["count"]
+        new_count = count + 1
+        beta = 1.0 - torch.pow(new_count.float(), -ADAFACTOR_DECAY_RATE)
+        lr = self.schedule(count)
+        for i, (p, g) in enumerate(zip(params, grads)):
+            g = g.float()
+            g = torch.where(keep, g, (g / g_norm) * self.max_norm)
+            g2 = g * g + ADAFACTOR_EPS
+            v_row, v_col, v = (state["v_row"][i], state["v_col"][i],
+                               state["v"][i])
+            dims = factored_dims(tuple(p.shape))
+            if dims is None:
+                v = beta * v + (1.0 - beta) * g2
+                u = g * torch.pow(v, -0.5)
+            else:
+                d1, d0 = dims
+                v_row = beta * v_row + (1.0 - beta) * g2.mean(dim=d0)
+                v_col = beta * v_col + (1.0 - beta) * g2.mean(dim=d1)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = torch.pow(
+                    v_row / v_row.mean(dim=reduced_d1, keepdim=True), -0.5)
+                col_factor = torch.pow(v_col, -0.5)
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            u = u / torch.clamp(self._rms(u) / ADAFACTOR_CLIPPING_THRESHOLD,
+                                min=1.0)
+            u = lr * u
+            rms_p = self._rms(p)
+            u = u * torch.where(rms_p <= ADAFACTOR_MIN_SCALE,
+                                torch.full_like(rms_p, ADAFACTOR_MIN_SCALE),
+                                rms_p)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            if ok is None:
+                p.sub_(u)
+            else:
+                p.copy_(torch.where(ok, p - u, p))
+                v_row = torch.where(ok, v_row, state["v_row"][i])
+                v_col = torch.where(ok, v_col, state["v_col"][i])
+                v = torch.where(ok, v, state["v"][i])
+            state["v_row"][i], state["v_col"][i], state["v"][i] = \
+                v_row, v_col, v
+        state["count"] = new_count if ok is None \
+            else torch.where(ok, new_count, count)
+        return g_norm
+
+
+def build_optimizer(train_config, sched=None):
+    """Grad clip + the configured optimizer + LR schedule (default:
+    cosine anneal from ``learning_rate_init`` to ``learning_rate_target``
+    over ``total_steps``), as trlx_tpu builds it with optax:
+    ``train.optimizer`` "adamw" (:class:`AdamW`,
+    ``train.adam_moment_dtype`` for its first moment) or "adafactor"
+    (:class:`Adafactor`: a factored second moment and no first, so its
+    state is ~0 bytes a parameter)."""
     if sched is None:
         sched = cosine_schedule(train_config.learning_rate_init,
                                 train_config.total_steps,
                                 lr_min=train_config.learning_rate_target)
     name = getattr(train_config, "optimizer", "adamw").lower()
     if name == "adafactor":
-        raise NotImplementedError(
-            "train.optimizer 'adafactor' is not ported to trlx_tpu_torch yet")
+        return Adafactor(sched, train_config.grad_clip,
+                         train_config.weight_decay)
     if name != "adamw":
         raise ValueError(
             f"train.optimizer '{name}' is not one of: adamw, adafactor")
@@ -266,7 +411,7 @@ class BaseRLTrainer:
 
     def _check_memory_fit(self, spec, frozen_dtype, ref_branch=True,
                           extra_trainable=0, extra_frozen=0,
-                          embed_trainable=False) -> None:
+                          embed_trainable=False) -> int:
         """Fail BEFORE allocation, with the options, when the model state
         clearly cannot fit the card: the parameters (frozen in
         ``frozen_dtype``; the trainable top and, with ``ref_branch``,
@@ -277,11 +422,8 @@ class BaseRLTrainer:
         run out near the edge; one that fails would have. Skipped on
         the CPU and with ``TRLX_TPU_SKIP_MEMCHECK=1``.
         ``extra_trainable`` / ``extra_frozen`` add parameter counts for
-        method heads (ILQL's Q / V heads and target-Q copies)."""
-        if os.environ.get("TRLX_TPU_SKIP_MEMCHECK") \
-                or self.device.type != "cuda":
-            return
-        limit = torch.cuda.mem_get_info(self.device)[1]
+        method heads (ILQL's Q / V heads and target-Q copies). Returns
+        the estimate in bytes, checked or not."""
         d, f, L, V = spec.d_model, spec.d_ff, spec.n_layer, spec.vocab_size
         per_layer = 4 * d * d + 2 * d * f  # qkv / o + mlp (biases aside)
         k = self.config.model.num_layers_unfrozen
@@ -290,8 +432,16 @@ class BaseRLTrainer:
         # an untied lm_head lives in the trainable branch AND its ref copy
         lm_head = 0 if spec.tie_lm_head else V * d
         frozen_sz = torch.empty((), dtype=frozen_dtype).element_size()
-        mu_dtype = getattr(self.config.train, "adam_moment_dtype", "float32")
-        opt_bytes = (2 if mu_dtype == "bfloat16" else 4) + 4
+        # optimizer-state bytes a parameter follow train.optimizer: fp32
+        # AdamW 8 (mu + nu), bf16-mu AdamW 6, adafactor ~0 (its factored
+        # second moment is O(rows + cols) a matrix)
+        opt_name = getattr(self.config.train, "optimizer", "adamw").lower()
+        if opt_name == "adafactor":
+            opt_bytes = 0
+        else:
+            mu_dtype = getattr(self.config.train, "adam_moment_dtype",
+                               "float32")
+            opt_bytes = (2 if mu_dtype == "bfloat16" else 4) + 4
         embed_train = embed if embed_trainable else 0
         embed_frozen = 0 if embed_trainable else embed
         est = (
@@ -301,17 +451,49 @@ class BaseRLTrainer:
             * (4 + opt_bytes)
             + extra_frozen * frozen_sz
         )
+        if os.environ.get("TRLX_TPU_SKIP_MEMCHECK") \
+                or self.device.type != "cuda":
+            return est
+        limit = torch.cuda.mem_get_info(self.device)[1]
         if est > int(limit * 1.05):
             dtype_opt = (
                 "set model.param_dtype: bfloat16 (frozen trunk + ref "
                 "branch storage; trainable/optimizer stay fp32), "
                 if ref_branch else "")
+            opt_hint = (
+                f"set train.optimizer: adafactor (drops the {opt_bytes} "
+                f"optimizer bytes/param), set train.adam_moment_dtype: "
+                f"bfloat16, " if opt_bytes else "")
             raise ValueError(
                 f"model state needs ~{est / 2**30:.1f} GB but the card has "
-                f"{limit / 2**30:.1f} GB. Options: {dtype_opt}set "
-                f"train.adam_moment_dtype: bfloat16, lower "
-                f"num_layers_unfrozen, or set TRLX_TPU_SKIP_MEMCHECK=1 to "
-                f"try anyway.")
+                f"{limit / 2**30:.1f} GB. Options: {dtype_opt}{opt_hint}"
+                f"lower num_layers_unfrozen, or set TRLX_TPU_SKIP_MEMCHECK=1 "
+                f"to try anyway.")
+        return est
+
+    def _load_or_spec(self, config):
+        """(spec, trunk | None): the pretrained import
+        (trlx_tpu_torch.models.hf_import) when no ``model.model_spec`` is
+        configured, a from-config random init otherwise.
+
+        A failing pretrained load RAISES instead of silently training a
+        from-scratch model: a typo'd ``model_path`` must not pass for a
+        successful run. Random init is asked for with
+        ``model.model_spec``."""
+        if config.model.model_spec is not None:
+            return config.model.resolve_spec(), None
+        from trlx_tpu_torch.models.hf_import import load_trunk_from_hf
+
+        try:
+            spec, embed, blocks, ln_f = load_trunk_from_hf(
+                config.model.model_path)
+        except Exception as e:
+            raise RuntimeError(
+                f"could not load pretrained weights for "
+                f"'{config.model.model_path}': {e!r}. For a from-config "
+                f"randomly-initialized model, set model.model_spec in the "
+                f"config instead.") from e
+        return spec, (embed, blocks, ln_f)
 
     def _main_process_log(self, log_fn: Callable) -> Callable:
         """Emit metrics from the main process only."""

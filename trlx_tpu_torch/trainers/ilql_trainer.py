@@ -30,8 +30,10 @@ exit and ``$TRLX_TPU_PROFILE_DIR``. The components are
 ``params`` (zero-size frozen leaves included), ``opt_state``, ``state``
 (``iter_count`` and the sampling generator's state) and ``config``.
 
-Registered as ``JaxILQLTrainer`` and ``ILQLModel``. Not ported yet (each
-raises): pretrained import (set ``model.model_spec``) and the knobs
+Registered as ``JaxILQLTrainer`` and ``ILQLModel``. With no
+``model.model_spec`` the trunk is imported from ``model.model_path``
+(``ilql_params_from_trunk``: fresh V and Q heads; a failed load raises).
+Not ported yet (each raises): the knobs
 :func:`trlx_tpu_torch.trainers.check_ported` lists.
 """
 
@@ -44,6 +46,7 @@ import torch
 from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.ilql_types import ILQLBatch
 from trlx_tpu_torch.models.generation import GenerationConfig, generate
+from trlx_tpu_torch.models.hf_import import ilql_params_from_trunk
 from trlx_tpu_torch.models.ilql import ILQLModel as ILQLNet, sync_targets
 from trlx_tpu_torch.models.params import ilql_to_torch, init_ilql_numpy
 from trlx_tpu_torch.models.transformer import NEG_INF
@@ -87,8 +90,10 @@ def _mark(events) -> None:
 @register_trainer("ILQLModel")
 class JaxILQLTrainer(BaseRLTrainer):
     """Offline ILQL. ``params`` (optional) is a numpy ILQL tree to start
-    from (e.g. ``jax.device_get`` of the JAX trainer's); by default a
-    random tree is drawn from ``train.seed`` with numpy. The
+    from (e.g. ``jax.device_get`` of the JAX trainer's); by default the
+    trunk is imported from ``model.model_path`` or, with
+    ``model.model_spec``, a random tree is drawn from ``train.seed`` with
+    numpy. The
     :class:`OfflineOrchestrator` installs ``train_store``,
     ``eval_pipeline``, ``reward_fn`` and ``stats_fn``."""
 
@@ -106,12 +111,7 @@ class JaxILQLTrainer(BaseRLTrainer):
         self.iter_count = 0
         self.tokenizer = load_tokenizer(config.model.tokenizer_path)
         self.max_length = config.train.gen_size
-        if config.model.model_spec is None:
-            raise NotImplementedError(
-                "pretrained import (models/hf_import.py) is not ported to "
-                "trlx_tpu_torch yet; set model.model_spec for a "
-                "from-config model")
-        spec = config.model.resolve_spec()
+        spec, trunk = self._load_or_spec(config)
         m, t = config.method, config.train
         # the memory pre-check: no ref branch, but the Q / V heads are
         # trainable [d, V] tensors with moments and the target-Q copies
@@ -133,7 +133,10 @@ class JaxILQLTrainer(BaseRLTrainer):
             remat=t.remat,
             attention_fn=self._train_attention_fn(),
         )
-        if params is None:
+        if params is None and trunk is not None:
+            params = ilql_params_from_trunk(self.net, *trunk,
+                                            np.random.default_rng(t.seed))
+        elif params is None:
             params = init_ilql_numpy(spec, config.model.num_layers_unfrozen,
                                      m.two_qs, seed=t.seed)
         self.params = ilql_to_torch(params, self.device)

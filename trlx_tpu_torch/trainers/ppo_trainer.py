@@ -24,10 +24,17 @@ trlx_tpu.trainers.ppo_trainer).
   generator's state) and ``config``.
 
 Registered as ``JaxPPOTrainer`` and ``AcceleratePPOModel`` so a YAML
-resolves to it as it does to trlx_tpu's trainer. Not ported yet (each
-raises): ``optimizer: adafactor``, pretrained import (set
-``model.model_spec``), and the knobs
-:func:`trlx_tpu_torch.trainers.check_ported` lists.
+resolves to it as it does to trlx_tpu's trainer. With no
+``model.model_spec`` the policy is imported from ``model.model_path``
+(``hydra_params_from_trunk``; a failed load raises). Not ported yet
+(each raises): the knobs :func:`trlx_tpu_torch.trainers.check_ported`
+lists.
+
+``train.continuous_rollouts``: when the post-epoch refresh will run
+(``_will_refresh``, predicted before the epoch's updates), the next
+epoch's experience is dispatched against the pre-update parameters
+(``rollout_dispatch_stale``) and harvested after the updates
+(``rollout_harvest``): one update phase stale, as in trlx_tpu.
 """
 
 from typing import Callable, Dict, Optional
@@ -38,6 +45,7 @@ import torch
 from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.ppo_types import PPORLBatch
 from trlx_tpu_torch.models.generation import GenerationConfig, generate
+from trlx_tpu_torch.models.hf_import import hydra_params_from_trunk
 from trlx_tpu_torch.models.params import hydra_to_torch, init_hydra_numpy
 from trlx_tpu_torch.models.policy import (
     HydraPolicy,
@@ -73,10 +81,14 @@ from trlx_tpu_torch.utils.trackers import generations_table
 class JaxPPOTrainer(BaseRLTrainer):
     """PPO with a KL penalty against the frozen reference branch.
 
-    ``params`` (optional) is a numpy hydra tree to start from (e.g. the
-    JAX trainer's ``jax.device_get(trainer.params)``); by default a
-    random tree is drawn from ``train.seed`` with numpy. The orchestrator
-    binds itself and the reward through :meth:`set_orchestrator`."""
+    ``params`` (optional) is a hydra tree to start from: numpy leaves
+    (e.g. the JAX trainer's ``jax.device_get(trainer.params)``), copied
+    to the device, or torch leaves, of which those already on the
+    trainer's device in their storage dtype are taken over, not copied
+    (a 6B tree built on the card); by default the tree is imported from
+    ``model.model_path`` or, with ``model.model_spec``, drawn from
+    ``train.seed`` with numpy. The orchestrator binds itself and the
+    reward through :meth:`set_orchestrator`."""
 
     def __init__(self, config, train_mode: bool = True, mesh=None,
                  device=None, params=None):
@@ -84,12 +96,7 @@ class JaxPPOTrainer(BaseRLTrainer):
         self.iter_count = 0
         self.epoch = 0
         self.tokenizer = load_tokenizer(config.model.tokenizer_path)
-        if config.model.model_spec is None:
-            raise NotImplementedError(
-                "pretrained import (models/hf_import.py) is not ported to "
-                "trlx_tpu_torch yet; set model.model_spec for a "
-                "from-config model")
-        spec = config.model.resolve_spec()
+        spec, trunk = self._load_or_spec(config)
         self.policy = HydraPolicy(
             spec=spec,
             num_layers_unfrozen=config.model.num_layers_unfrozen,
@@ -97,12 +104,18 @@ class JaxPPOTrainer(BaseRLTrainer):
             remat=config.train.remat,
             attention_fn=self._train_attention_fn(),
         )
-        self._check_memory_fit(spec, DTYPES[config.model.param_dtype])
-        if params is None:
+        frozen_dtype = DTYPES[config.model.param_dtype]
+        #: the model state's bytes as the memory pre-check estimates them
+        self.state_bytes = self._check_memory_fit(spec, frozen_dtype)
+        if params is None and trunk is not None:
+            params = hydra_params_from_trunk(
+                self.policy, *trunk, np.random.default_rng(config.train.seed),
+                frozen_dtype=frozen_dtype)
+        elif params is None:
             params = init_hydra_numpy(spec, config.model.num_layers_unfrozen,
                                       seed=config.train.seed)
-        self.params = hydra_to_torch(params, self.device,
-                                     DTYPES[config.model.param_dtype])
+        self.params = hydra_to_torch(params, self.device, frozen_dtype)
+        del params, trunk
         self.opt = build_optimizer(config.train)
         self.opt_state = self.opt.init(self.params["trainable"])
 
@@ -339,11 +352,37 @@ class JaxPPOTrainer(BaseRLTrainer):
             # every exit path leaves telemetry.json + trace.jsonl
             self._finish_telemetry("ppo", clock)
 
+    @staticmethod
+    def _epoch_batch_count(n_rows: int, batch_size: int) -> int:
+        """Batches one epoch runs over ``n_rows`` store rows (the loader
+        drops the last partial batch): the one definition that
+        :meth:`_will_refresh` predicts the epoch's end from."""
+        return n_rows // batch_size
+
+    def _will_refresh(self, cfg, m) -> bool:
+        """Whether the post-epoch refresh will run, predicted before the
+        epoch's updates: the epoch advances ``iter_count`` by exactly
+        ``_epoch_batch_count * ppo_epochs``, which lets continuous mode
+        dispatch the next epoch's rollouts before this epoch's updates."""
+        if self.orch is None:
+            return False
+        n_batches = self._epoch_batch_count(len(self.store), cfg.batch_size)
+        end_count = self.iter_count + n_batches * m.ppo_epochs
+        return end_count < cfg.total_steps and self.epoch + 1 < cfg.epochs
+
     def _learn_loop(self, log_fn, guard, step_guard, clock, sup) -> None:
         cfg, m = self.config.train, self.config.method
         while self.iter_count < cfg.total_steps and self.epoch < cfg.epochs:
             loader = self.store.create_loader(cfg.batch_size, shuffle=True,
                                               seed=self.epoch)
+            pending = None
+            if cfg.continuous_rollouts and self._will_refresh(cfg, m):
+                # the NEXT epoch's rollouts, enqueued now against the
+                # pre-update params: the card runs them ahead of the
+                # updates queued below (one update phase stale)
+                with annotate("rollout_dispatch_stale"):
+                    pending = self.orch.start_experience(m.num_rollouts,
+                                                         self.iter_count)
             for batch in loader:
                 # the phase closes after a device sync, so its time (and
                 # a hung kernel) belongs to the update
@@ -380,12 +419,19 @@ class JaxPPOTrainer(BaseRLTrainer):
                 if self.iter_count >= cfg.total_steps:
                     break
             self.epoch += 1
-            if self.orch is not None and self.iter_count < cfg.total_steps \
-                    and self.epoch < cfg.epochs:
+            if pending is not None or (
+                    self.orch is not None and self.iter_count < cfg.total_steps
+                    and self.epoch < cfg.epochs):
                 self.store.clear_history()
-                with annotate("rollout_refresh"):
-                    info = self.orch.make_experience(m.num_rollouts,
-                                                     self.iter_count)
+                if pending is not None:
+                    # continuous mode: harvest what was dispatched before
+                    # this epoch's updates (a preemption above abandons it)
+                    with annotate("rollout_harvest"):
+                        info = self.orch.finish_experience(pending)
+                else:
+                    with annotate("rollout_refresh"):
+                        info = self.orch.make_experience(m.num_rollouts,
+                                                         self.iter_count)
                 log_fn({"iter": self.iter_count, "epoch": self.epoch, **info,
                         **self._telemetry_stats(clock.samples_per_second())})
                 if self._preempt(log_fn, guard, sup=sup):
