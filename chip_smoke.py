@@ -24,7 +24,11 @@ Phases, each printing its own line; any failure exits non-zero:
    device time from CUDA-graph replay (the numbers in the kernels line)
    and the eager loop's time, which includes the host's launch cost; and
    the 1024-token time for each partition count beside the planner's.
-4. flash — the three flash-attention kernels against the dense oracle
+   Then the bf16-query x int8-pool instance (what an int8 KV engine
+   launches at bf16) against its plain version in float32 math at hd 64
+   and hd 256, at the serving context and at 1024 tokens (atol 1e-2 +
+   rtol 1e-2, every row finite), and timed at both serving shapes.
+4. flash —the three flash-attention kernels against the dense oracle
    and its autograd: fp32 causal with left padding at T 52 and 576 and
    the non-causal form (O and lse on real rows atol 1e-5, dq / dk / dv
    atol 2e-4); the bf16 kernels (tensor cores) at hd 16, 32, 64 and 128,
@@ -54,6 +58,17 @@ Phases, each printing its own line; any failure exits non-zero:
    (each step re-seeded from serve.seed + step): identical tokens,
    paged-decode launches identical on both paths and == layers x steps,
    0 recompiles; the step's p50 / p95 on both paths.
+   Then the serve tiers on the same 10 requests (``serve_tiers_phase``):
+   ``scheduler: static`` (the micro-batcher, one ``generate`` graph per
+   bucket) and ``kv_layout: contiguous``, each with fp32 greedy tokens
+   equal to phase 6's; ``kv_dtype: int8`` on the kernel path at fp32
+   (tokens equal to the int8 plain path's) and at bf16 (the bf16 q x
+   int8 pool instance), paged-decode launches == layers x steps on the
+   int8 pool, tokens against the bf16 KV runs; ``speculation: lookup``
+   (spec_k 4) on the kernel path, fp32 tokens equal to speculation off,
+   at bf16 the share identical and the first divergence with its logit
+   margin; acceptance, tokens per slot per verify pass and step p50s
+   printed; 0 recompiles in every run.
 7. train — the PPO main path at gpt2-124M width with
    examples/ppo_tldr.py's wiring (configs/ppo_tldr.yml's geometry: 12
    layers, 2 unfrozen, synthetic TL;DR documents left-padded to 512
@@ -74,6 +89,9 @@ Phases, each printing its own line; any failure exits non-zero:
      ``--config``) and an engine on the trainer's in-memory params give
      identical greedy tokens for two requests; paged decode launches
      layers x decode steps;
+   - speculation draft: the same run directory's newest checkpoint as
+     target and draft (fp32, greedy, 4 slots): acceptance 1.0, tokens
+     equal to speculation off, 0 recompiles;
    - resume: a fresh trainer from seed 1 with ``resume_from: auto``
      restores iter_count == LATEST's step at construction, every tensor
      bit-identical; the next update of both trainers on the same batch
@@ -170,7 +188,12 @@ Phases, each printing its own line; any failure exits non-zero:
      bucket): paged decode at hd 256 inside the decode step's CUDA graph
      (launches == layers x steps), fp32 greedy tokens identical on the
      kernel and the plain gather path, the bf16 divergences printed
-     with their fp32 top-2 logit gaps;
+     with their fp32 top-2 logit gaps; then served again with
+     ``weights_dtype: int8`` and ``kv_dtype: int8`` (paged decode, bf16
+     q x int8 pool at hd 256, launches == layers x steps; ``serve/
+     model_gb`` against bf16's; every response as long as bf16's; the
+     first step's logit gap; step p50s; peak memory; the cost of the
+     int8 projections' bf16 weight copies);
    - one PPO cycle at configs/ppo_tldr.yml's shape (512 + 64 tokens, 2
      unfrozen layers, fused_attention, bf16, B 8): the three flash
      kernels launch at hd 256 (chunks x (L + k) + passes x L forwards,
@@ -186,8 +209,9 @@ beside its bounds and SDPA; phase 3's include paged decode at gpt-j's
 heads (16 slots, the serving context and 1024 tokens; bf16, fp32, int8)
 timed at both, with each partition count. Then one ``{"kernels":
 [...]}`` line (launches summed over the phases that drive each kernel,
-and by phase; the hd-256 instances as entries of their own), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+and by phase; the hd-256 and the bf16 q x int8 pool instances as
+entries of their own), the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 import contextlib
@@ -229,10 +253,12 @@ from trlx_tpu_torch.models.transformer import (
     apply_blocks,
     causal_mask_bias,
     embed_tokens,
+    layer_params,
     lm_logits,
     quantize_kv,
     tree_map,
 )
+from trlx_tpu_torch.models.transformer import _project as project
 from trlx_tpu_torch.ops import _build
 from trlx_tpu_torch.ops import flash_attention as fa
 from trlx_tpu_torch.ops import paged_attention as pa
@@ -250,9 +276,11 @@ from trlx_tpu_torch.ops.paged_attention import (
 from trlx_tpu_torch.serve import (
     InferenceEngine,
     InferenceServer,
+    MicroBatcher,
     ServeConfig,
     SlotScheduler,
 )
+from trlx_tpu_torch.serve.slots import SlotPoolRuntime
 from trlx_tpu_torch.serve import __main__ as serve_cli
 from trlx_tpu_torch.trainers import build_optimizer
 from trlx_tpu_torch.ops.sampling import SamplingParams
@@ -468,6 +496,42 @@ def check_kernel(dev):
     return max(err32, err8, errb, check_split(dev))
 
 
+def check_bf16_int8(dev):
+    """The bf16-query x int8-pool instance the engine launches under
+    ``kv_dtype: int8`` at bf16, against its plain version in float32
+    math on the same inputs (atol 1e-2 + rtol 1e-2, every row finite):
+    hd 64 (the serving shape, 16 slots x 4 pages of 16, row 5 free; and
+    a 1024-token context, split-K, SPLIT_LENGTHS[16], row 14 free) and
+    hd 256 (gpt-j's heads, the same two contexts). Returns the largest
+    error at each head dim."""
+    worst = {64: 0.0, 256: 0.0}
+    for hd, H in ((64, 12), (256, 16)):
+        for ctx, max_pages, lengths, free in (
+                ("serving", 4, None, 5),
+                ("1024-token", 64, SPLIT_LENGTHS[16], FREE_ROW[16])):
+            q, ((k, v),), pt, bias = serving_case(
+                dev, seed=80 + hd + max_pages, H=H, Hkv=H, hd=hd,
+                max_pages=max_pages, lengths=lengths, free_row=free)
+            kq, vq = quantize_kv(k), quantize_kv(v)
+            out = paged_decode_attention(q, kq, vq, pt, bias)
+            ref = paged_decode_attention_reference(q.float(), kq, vq, pt,
+                                                   bias)
+            torch.cuda.synchronize()
+            assert out.dtype == torch.bfloat16
+            assert torch.isfinite(out.float()).all(), f"non-finite hd {hd}"
+            err = max_err(out, ref)
+            worst[hd] = max(worst[hd], err)
+            bad = (out.float() - ref).abs() > 1e-2 + 1e-2 * ref.abs()
+            P, per = decode_partitions(16, H, max_pages, 16)
+            log("kernel", f"bf16 q x int8 pool S=16 H=Hkv={H} hd={hd} "
+                          f"{ctx} context (row {free} free): P={P} x {per} "
+                          f"pages, max_abs_err={err:.3e} (atol 1e-2 + rtol "
+                          f"1e-2 against float32 math; every row finite)")
+            assert not bad.any(), \
+                f"bf16 x int8 kernel (hd {hd}, {ctx}) disagrees"
+    return worst
+
+
 #: ragged lengths at a 1024-token context (pages of 16) for 16 and 8
 #: slots: ending inside partitions, at their edges (352 and 704 for the
 #: 16-slot planner's P = 3, multiples of 128 for the 8-slot P = 8) and
@@ -582,14 +646,22 @@ def graph_ms(fns, args_list, iters):
 
 
 def library_attention(q, k_pages, v_pages, pt, bias):
-    """The yardstick: clamp-gather to logical order, then one
-    scaled_dot_product_attention call (two PyTorch calls; the port never
-    calls this)."""
+    """The yardstick: clamp-gather to logical order (an int8 pool's codes
+    and scales, dequantized to q's dtype), then one
+    scaled_dot_product_attention call (the port never calls this)."""
     S, H, hd = q.shape
-    num_pages, ps, Hkv, _ = k_pages.shape
+    int8 = isinstance(k_pages, tuple)
+    num_pages, ps, Hkv, _ = (k_pages[0] if int8 else k_pages).shape
     ctx = pt.long().clamp(0, num_pages - 1)
-    k = k_pages[ctx].reshape(S, -1, Hkv, hd).transpose(1, 2)
-    v = v_pages[ctx].reshape(S, -1, Hkv, hd).transpose(1, 2)
+
+    def gather(pages):
+        if int8:
+            return (pages[0][ctx].to(q.dtype)
+                    * pages[1][ctx][..., None].to(q.dtype))
+        return pages[ctx]
+
+    k = gather(k_pages).reshape(S, -1, Hkv, hd).transpose(1, 2)
+    v = gather(v_pages).reshape(S, -1, Hkv, hd).transpose(1, 2)
     gqa = {"enable_gqa": True} if Hkv != H else {}
     out = F.scaled_dot_product_attention(
         q[:, :, None, :], k, v,
@@ -604,9 +676,12 @@ def bound(q, k_pages, pt, bias):
     written once, over HBM bandwidth, vs the score + weighted-sum FLOPs
     of those positions over the bf16 peak."""
     S, H, hd = q.shape
-    _, ps, Hkv, _ = k_pages.shape
+    int8 = isinstance(k_pages, tuple)
+    _, ps, Hkv, _ = (k_pages[0] if int8 else k_pages).shape
     live_pages = int((bias.reshape(S, -1, ps) > NEG_INF / 2).any(-1).sum())
-    kv = 2 * live_pages * ps * Hkv * hd * k_pages.element_size()
+    # an int8 row is hd one-byte codes and one float32 scale
+    row = hd + 4 if int8 else hd * k_pages.element_size()
+    kv = 2 * live_pages * ps * Hkv * row
     io = 2 * q.numel() * q.element_size() + pt.numel() * 4 \
         + bias.numel() * 4
     flops = 4 * H * hd * live_pages * ps
@@ -616,16 +691,19 @@ def bound(q, k_pages, pt, bias):
                                    else "operations"), kv + io
 
 
-def time_kernel(dev, label, max_pages, iters, H=12, hd=64):
+def time_kernel(dev, label, max_pages, iters, H=12, hd=64, int8=False):
     """Kernel / plain / yardstick times at a full-length bf16 geometry
-    (16 slots, H heads of ``hd``, MHA), cycling enough pool copies to
-    exceed the 50 MB L2."""
-    pool_bytes = 2 * 16 * max_pages * 16 * H * hd * 2
+    (16 slots, H heads of ``hd``, MHA; ``int8``: bf16 q over an int8
+    pool), cycling enough pool copies to exceed the 50 MB L2."""
+    pool_bytes = 2 * 16 * max_pages * 16 * H * (hd + 4 if int8 else 2 * hd)
     copies = max(1, math.ceil(120e6 / pool_bytes))
     q, pools, pt, bias = serving_case(
         dev, seed=3, max_pages=max_pages, lengths=[max_pages * 16] * 16,
         copies=copies, H=H, Hkv=H, hd=hd,
     )
+    if int8:
+        pools = [(quantize_kv(k), quantize_kv(v)) for k, v in pools]
+        label += " (bf16 q, int8 pool)"
     args = [(q, k, v, pt, bias) for k, v in pools]
     fns = (paged_decode_attention, paged_decode_attention_reference,
            library_attention)
@@ -1366,6 +1444,225 @@ def serve_ab_phase(views, device, requests=USER_PROMPTS):
 
 
 # --------------------------------------------------------------------- #
+# 6c. the serve tiers: static, contiguous, int8 KV, speculation
+# --------------------------------------------------------------------- #
+
+
+def tier_engine(views, device, compute_dtype, **serve):
+    """An engine at phase 5's lattice (16 slots, pages of 16) with the
+    given serve knobs (greedy)."""
+    cfg = ServeConfig(**{"buckets": [list(b) for b in SERVE_BUCKETS],
+                         "slots": 16, "page_size": 16, "max_queue": 256,
+                         "request_timeout": 600.0, **serve})
+    return InferenceEngine(TRLConfig.from_dict(config_dict(compute_dtype)),
+                           serve=cfg, views=views, device=device)
+
+
+def run_static(engine, requests):
+    """The static micro-batcher: every bucket warmed (a graph each on the
+    card), all requests queued, then the worker started."""
+    batcher = MicroBatcher(engine)
+    engine.warmup()
+    reqs = [batcher.submit(engine.encode_prompt(p), max_new_tokens=n)
+            for p, n in requests]
+    batcher.start()
+    try:
+        return [r.wait(timeout=600).result for r in reqs], batcher
+    finally:
+        batcher.stop()
+
+
+def p50_ms(name):
+    """Steady-state p50 (ms) of telemetry span ``name``, or None."""
+    h = telemetry.current().registry.hists.get(f"time/{name}")
+    return None if h is None or not h.count else h.quantile(0.5) * 1e3
+
+
+def makespan_s():
+    """The longest request latency of the run (all requests were queued
+    before the worker started, so: the time to serve them all)."""
+    hists = telemetry.current().registry.hists
+    lat = [x for name, h in hists.items()
+           if name.startswith("serve/request_latency")
+           for x in [h.first, *h.window] if x is not None]
+    return max(lat) if lat else None
+
+
+def tier_run(views, device, dtype, requests=USER_PROMPTS, **serve):
+    """One engine with ``serve`` knobs through its scheduler on
+    ``requests``: tokens, paged-decode launches (reset just before),
+    steps, verify passes, the speculation counters, step p50s, graphs
+    and recompiles."""
+    telemetry.start()
+    engine = tier_engine(views, device, dtype, **serve)
+    ops.reset_launches()
+    if serve.get("scheduler") == "static":
+        tokens, _ = run_static(engine, requests)
+        steps = verify = 0
+        graphs = engine.graphs()
+        step = [p50_ms(engine.span_name(b)) for b in engine.buckets]
+        sched = None
+    else:
+        tokens, sched = run_scheduler(engine, requests)
+        steps, verify = sched.runtime.steps, sched.runtime.verify_steps
+        graphs = sched.graphs()
+        step = p50_ms(SlotPoolRuntime.STEP_SPAN)
+    counters = telemetry.current().registry.counters
+    out = {
+        "tokens": tokens, "launches": ops.LAUNCHES["paged_decode"],
+        "steps": steps, "verify_steps": verify,
+        "proposed": counters.get("serve/spec_proposed", 0.0),
+        "accepted": counters.get("serve/spec_accepted", 0.0),
+        "fallbacks": counters.get("serve/spec_fallbacks", 0.0),
+        "step_p50_ms": step,
+        "verify_p50_ms": p50_ms(SlotPoolRuntime.VERIFY_SPAN),
+        "makespan_s": makespan_s(),
+        "graphs": graph_stats(graphs), "recompiles": recompiles(),
+        "layers": engine.spec.n_layer,
+        "model_gb": telemetry.current().registry.gauges["serve/model_gb"],
+        "kv": sched.pool_stats() if sched is not None else None,
+    }
+    assert out["recompiles"] == 0, f"{serve}: {out['recompiles']} recompiles"
+    return out, engine
+
+
+def divergence(tokens, reference, engine, requests):
+    """Share of requests whose tokens equal ``reference``'s, and the
+    first divergence (request, token index, the two tokens, the top-2
+    logit margin there from one dense forward on ``engine``)."""
+    same = sum(a == b for a, b in zip(tokens, reference))
+    first = None
+    for i, (a, b) in enumerate(zip(tokens, reference)):
+        if a != b:
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            margin = logit_gap(engine, engine.encode_prompt(requests[i][0])
+                               + b[:j])
+            first = {"request": i, "token": j,
+                     "tokens": [a[j] if j < len(a) else None,
+                                b[j] if j < len(b) else None],
+                     "margin": margin}
+            break
+    return {"identical": f"{same}/{len(tokens)}", "first": first}
+
+
+def serve_tiers_phase(views, device, fp32):
+    """The serve features of this slice at gpt2-124M width on phase 5's
+    10 requests, against ``fp32`` (phase 6's fp32 greedy tokens, the same
+    on the kernel and the plain path): the static micro-batcher, the
+    contiguous layout, the int8 KV tier on the kernel path (fp32 against
+    the int8 plain path, and bf16 — the bf16-query x int8-pool kernel
+    instance), and lookup speculation (fp32 tokens identical; at bf16
+    the share identical to speculation off and the first divergence
+    with its margin; the proposals these requests' histories give are
+    printed, the verify pass's graph captured at warmup either way).
+    0 recompiles everywhere."""
+    out = {}
+    out["paged"], _ = tier_run(views, device, "float32")
+    assert out["paged"]["tokens"] == fp32, "paged fp32 run drifted"
+    out["static"], _ = tier_run(views, device, "float32", scheduler="static")
+    assert out["static"]["tokens"] == fp32, \
+        "static scheduler != slot scheduler (fp32 greedy)"
+    if device == "cuda":
+        assert out["static"]["graphs"]["graphs"] == len(SERVE_BUCKETS)
+    out["contiguous"], _ = tier_run(views, device, "float32",
+                                    kv_layout="contiguous")
+    assert out["contiguous"]["tokens"] == fp32, \
+        "contiguous layout != paged layout (fp32 greedy)"
+    for dtype in ("float32", "bfloat16"):
+        run, _ = tier_run(views, device, dtype, kv_dtype="int8",
+                          attention="pallas")
+        if device == "cuda":
+            assert run["launches"] == run["layers"] * run["steps"] > 0, run
+        assert run["kv"]["kv_dtype"] == "int8"
+        out[f"int8_{dtype}"] = run
+    out["int8_plain"], engine = tier_run(views, device, "float32",
+                                         kv_dtype="int8", attention="jnp")
+    assert out["int8_float32"]["tokens"] == out["int8_plain"]["tokens"], \
+        "int8 KV: kernel path != plain path (fp32 greedy)"
+    out["int8_float32"]["vs_bf16_kv"] = divergence(
+        out["int8_float32"]["tokens"], fp32, engine, USER_PROMPTS)
+    out["bf16"], engine = tier_run(views, device, "bfloat16",
+                                   attention="pallas")
+    out["int8_bfloat16"]["vs_bf16_kv"] = divergence(
+        out["int8_bfloat16"]["tokens"], out["bf16"]["tokens"], engine,
+        USER_PROMPTS)
+    for dtype in ("float32", "bfloat16"):
+        run, engine = tier_run(views, device, dtype, attention="pallas",
+                               speculation="lookup", spec_k=4)
+        if device == "cuda":
+            assert run["launches"] == run["layers"] * run["steps"], run
+            # 6 prefill graphs, the step's and the verify pass's
+            assert run["graphs"]["graphs"] == 8, run["graphs"]
+        out[f"lookup_{dtype}"] = run
+    assert out["lookup_float32"]["tokens"] == fp32, \
+        "lookup speculation changed the fp32 greedy tokens"
+    out["lookup_bfloat16"]["vs_off"] = divergence(
+        out["lookup_bfloat16"]["tokens"], out["bf16"]["tokens"], engine,
+        USER_PROMPTS)
+    for run in out.values():
+        run["tokens_total"] = sum(len(t) for t in run.pop("tokens"))
+    return out
+
+
+def log_tiers(t, card):
+    st, ct = t["static"], t["contiguous"]
+    log("serve-tiers", f"scheduler static (fp32, {st['graphs']['graphs']} "
+                       f"bucket graphs): greedy tokens == the slot "
+                       f"scheduler's; decode span p50 per bucket "
+                       f"{[round(x, 2) if x else x for x in st['step_p50_ms']]}"
+                       f" ms, all 10 requests in "
+                       f"{st['makespan_s'] * 1e3:.1f} ms; kv_layout "
+                       f"contiguous (fp32): tokens == paged, step p50 "
+                       f"{ct['step_p50_ms']:.2f} ms, all 10 in "
+                       f"{ct['makespan_s'] * 1e3:.1f} ms; the paged "
+                       f"slot scheduler (fp32, plain path) step p50 "
+                       f"{t['paged']['step_p50_ms']:.2f} ms, all 10 in "
+                       f"{t['paged']['makespan_s'] * 1e3:.1f} ms; 0 "
+                       f"recompiles ({card})")
+    for dtype in ("float32", "bfloat16"):
+        r = t[f"int8_{dtype}"]
+        log("serve-tiers", f"kv_dtype int8, attention pallas, {dtype}: "
+                           f"paged decode launched {r['launches']} == "
+                           f"{r['layers']} layers x {r['steps']} steps on "
+                           f"the int8 pool ({r['kv']['kv_bytes_per_token']}"
+                           f" B/token vs bf16's "
+                           f"{t['bf16']['kv']['kv_bytes_per_token']}); "
+                           f"step p50 {r['step_p50_ms']:.2f} ms; tokens vs "
+                           f"bf16 KV {r['vs_bf16_kv']}" + (
+                               "; == the int8 plain path"
+                               if dtype == "float32" else
+                               f"; bf16 KV step p50 "
+                               f"{t['bf16']['step_p50_ms']:.2f} ms")
+            + f" ({card})")
+    log("serve-tiers", f"all 10 requests: bf16 KV (bf16, kernel path) "
+                       f"{t['bf16']['makespan_s'] * 1e3:.1f} ms, int8 KV "
+                       f"{t['int8_bfloat16']['makespan_s'] * 1e3:.1f} ms; "
+                       f"lookup speculation at bf16 "
+                       f"{t['lookup_bfloat16']['makespan_s'] * 1e3:.1f} ms "
+                       f"({card})")
+    for dtype in ("float32", "bfloat16"):
+        r = t[f"lookup_{dtype}"]
+        sp = r["kv"]["speculation"]
+        log("serve-tiers", f"speculation lookup (spec_k 4), {dtype}: "
+                           f"{r['proposed']:.0f} proposed, "
+                           f"{r['accepted']:.0f} accepted (acceptance "
+                           f"{sp['acceptance_rate']:.4f}), "
+                           f"{r['verify_steps']} verify passes + "
+                           f"{r['steps']} plain steps for "
+                           f"{r['tokens_total']} tokens, "
+                           f"{sp['tokens_per_slot_pass']:.3f} tokens per "
+                           f"slot per verify pass; verify p50 "
+                           f"{r['verify_p50_ms']:.2f} ms, plain step p50 "
+                           f"{r['step_p50_ms']:.2f} ms; "
+                           f"{r['graphs']['graphs']} graphs, 0 recompiles; "
+                           + ("tokens == speculation off"
+                              if dtype == "float32" else
+                              f"vs speculation off {r['vs_off']}")
+            + f" ({card})")
+
+
+# --------------------------------------------------------------------- #
 # 7. train: the PPO main path at gpt2-124M width
 # --------------------------------------------------------------------- #
 
@@ -1619,20 +1916,27 @@ def gate_phase(trainer, batch, device):
             "sync_checked": device == "cuda"}
 
 
+def greedy_run_config(run_dir):
+    """(the run directory's newest checkpoint, the config embedded in its
+    meta.json, that config with greedy sampling)."""
+    with open(os.path.join(run_dir, "LATEST")) as f:
+        latest = os.path.join(run_dir, f.read())
+    with open(os.path.join(latest, "meta.json")) as f:
+        meta_config = json.load(f)["config"]
+    greedy = dict(meta_config)
+    greedy["method"] = {**greedy["method"],
+                        "gen_kwargs": {"max_length": 64, "do_sample": False}}
+    return latest, meta_config, greedy
+
+
 def serve_checkpoint_phase(trainer, device, run_dir, requests):
     """The serve CLI's ``--checkpoint`` loader on the PPO run directory
     (the newest step, the config from meta.json with greedy sampling put
     in by ``--config``), against an engine built from the trainer's
     in-memory params: identical greedy tokens on ``requests``, and the
     paged-decode kernel launches (layers x decode steps)."""
-    with open(os.path.join(run_dir, "LATEST")) as f:
-        latest = os.path.join(run_dir, f.read())
-    with open(os.path.join(latest, "meta.json")) as f:
-        meta_config = json.load(f)["config"]
+    latest, meta_config, greedy = greedy_run_config(run_dir)
     assert meta_config == trainer.config.to_nested_dict()
-    greedy = dict(meta_config)
-    greedy["method"] = {**greedy["method"],
-                        "gen_kwargs": {"max_length": 64, "do_sample": False}}
     config_path = os.path.join(run_dir, "greedy.json")
     with open(config_path, "w") as f:
         json.dump(greedy, f)
@@ -1665,6 +1969,57 @@ def serve_checkpoint_phase(trainer, device, run_dir, requests):
     assert recompiles() == 0, f"serve recompiled {recompiles()} times"
     return {"load_s": load_s, "launches": launches, "steps": steps,
             "layers": engine.spec.n_layer, "tokens": out["checkpoint"]}
+
+
+#: the draft tier's requests: every history (prompt + tokens so far)
+#: fits the draft's 32-token window, so the draft sees what the target sees
+DRAFT_REQUESTS = [("Hi", 24), ("What is 2+2?", 16), ("Tell a story", 16),
+                  ("x", 24)]
+
+
+def spec_draft_phase(device, run_dir):
+    """``speculation: draft`` with the PPO run directory's newest
+    checkpoint as both target and draft (float32, greedy, 4 slots, the
+    kernel path for plain steps): the draft proposes the target's own
+    greedy tokens, so acceptance reads 1.0, and the tokens equal the
+    same checkpoint's with speculation off; 0 recompiles (the draft's
+    whole generate is one graph)."""
+    _, _, greedy = greedy_run_config(run_dir)
+    greedy["model"] = {**greedy["model"], "compute_dtype": "float32"}
+    out = {}
+    for mode in ("off", "draft"):
+        telemetry.start()
+        serve = ServeConfig(buckets=[[4, 16, 24]], slots=4, page_size=16,
+                            attention="pallas", max_queue=64,
+                            request_timeout=600.0, speculation=mode,
+                            spec_k=4, spec_draft_checkpoint=run_dir)
+        engine = InferenceEngine.from_checkpoint(
+            run_dir, config=TRLConfig.from_dict(greedy), serve=serve,
+            device=device)
+        tokens, sched = run_scheduler(engine, DRAFT_REQUESTS)
+        assert recompiles() == 0, f"{mode}: {recompiles()} recompiles"
+        counters = telemetry.current().registry.counters
+        out[mode] = {
+            "tokens": tokens, "steps": sched.runtime.steps,
+            "verify_steps": sched.runtime.verify_steps,
+            "proposed": counters.get("serve/spec_proposed", 0.0),
+            "accepted": counters.get("serve/spec_accepted", 0.0),
+            "verify_p50_ms": p50_ms(SlotPoolRuntime.VERIFY_SPAN),
+            "step_p50_ms": p50_ms(SlotPoolRuntime.STEP_SPAN),
+            "makespan_s": makespan_s(),
+            "graphs": graph_stats(sched.graphs()),
+            "kv": sched.pool_stats(),
+        }
+        del engine, sched
+        release(device)
+    d = out["draft"]
+    assert d["tokens"] == out["off"]["tokens"], \
+        "draft speculation changed the greedy tokens"
+    assert d["proposed"] > 0 and d["accepted"] == d["proposed"], (
+        f"self-draft acceptance {d['accepted']}/{d['proposed']} != 1.0")
+    for r in out.values():
+        r["tokens_total"] = sum(len(t) for t in r.pop("tokens"))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -2652,6 +3007,25 @@ def durability_phases(card, device="cuda"):
                             f"{serve_ckpt['launches']} == "
                             f"{serve_ckpt['layers']} layers x "
                             f"{serve_ckpt['steps']} steps")
+    draft = spec_draft_phase(device, run_dir)
+    d, off = draft["draft"], draft["off"]
+    log("spec-draft", f"speculation draft (spec_k 4) with the PPO run "
+                      f"directory's checkpoint as target and draft (fp32, "
+                      f"greedy): {d['proposed']:.0f} proposed, "
+                      f"{d['accepted']:.0f} accepted (acceptance "
+                      f"{d['accepted'] / d['proposed']:.3f}), "
+                      f"{d['kv']['speculation']['tokens_per_slot_pass']:.3f}"
+                      f" tokens per slot per verify pass; "
+                      f"{d['verify_steps']} verify passes + {d['steps']} "
+                      f"plain steps against {off['steps']} plain steps "
+                      f"off; verify p50 {d['verify_p50_ms']:.2f} ms, off "
+                      f"step p50 {off['step_p50_ms']:.2f} ms; all 4 "
+                      f"requests served in {d['makespan_s'] * 1e3:.1f} ms "
+                      f"against {off['makespan_s'] * 1e3:.1f} ms off "
+                      f"(draft proposals included); tokens == "
+                      f"speculation off; {d['graphs']['graphs']} graphs "
+                      f"(the draft's generate one of them), 0 recompiles "
+                      f"({card})")
     resume = resume_phase(trainer, batch, device, run_dir)
     restore_ms = telemetry.current().registry.hists[
         "time/checkpoint_restore"].total * 1e3
@@ -2837,7 +3211,7 @@ def durability_phases(card, device="cuda"):
             "ppo_ab": ppo_ab, "ilql_ab": ilql_ab,
             "ilql_parity": ilql_parity, "ilql_errs": ilql_errs,
             "flash_ilql": flash_ilql, "serve_checkpoint": serve_ckpt,
-            "durability": durability}
+            "spec_draft": draft, "durability": durability}
 
 
 # --------------------------------------------------------------------- #
@@ -3055,16 +3429,17 @@ def gptj_recipe_phase(device, continuous):
     }
 
 
-def gptj_engine(cfg_dict, params, device, compute_dtype, attention):
+def gptj_engine(cfg_dict, params, device, compute_dtype, attention,
+                **tiers):
     """An engine on a trainer's parameters where they live (no checkpoint
     round trip), greedy, one bucket of 8 x (16 + 32), 8 slots of pages of
-    16."""
+    16; ``tiers``: kv_dtype / weights_dtype."""
     cfg = json.loads(json.dumps(cfg_dict))
     cfg["model"]["compute_dtype"] = compute_dtype
     cfg["method"]["gen_kwargs"]["do_sample"] = False
     serve = ServeConfig(buckets=[[8, 16, 32]], slots=8, page_size=16,
                         attention=attention, max_queue=64,
-                        request_timeout=600.0)
+                        request_timeout=600.0, **tiers)
     return InferenceEngine(TRLConfig.from_dict(cfg), serve=serve,
                            device=device, params=params)
 
@@ -3091,8 +3466,13 @@ def gptj_serve_phase(trainer, cfg_dict, device):
     step = telemetry.current().registry.hists["time/serve/slot_step"]
     step_p50 = step.quantile(0.5) * 1e3
     graphs = graph_stats(sched.runtime.graphs())
+    bf16_gb = telemetry.current().registry.gauges["serve/model_gb"]
+    bf16_logits = probe_logits(sched, engine.encode_prompt(
+        GPTJ_REQUESTS[0][0]))
     del engine, sched
     release(device)
+    int8 = gptj_int8_serve_phase(trainer, cfg_dict, device, bf16, bf16_gb,
+                                 bf16_logits, step_p50)
     fp32 = {}
     for attention in ("pallas", "jnp"):
         telemetry.start()
@@ -3115,7 +3495,101 @@ def gptj_serve_phase(trainer, cfg_dict, device):
     return {"launches": launches, "steps": steps, "layers": L,
             "tokens": sum(len(t) for t in bf16), "wall_s": wall,
             "step_p50_ms": step_p50, "graphs": graphs,
-            "bf16_parted": parted, "requests": len(GPTJ_REQUESTS)}
+            "bf16_parted": parted, "requests": len(GPTJ_REQUESTS),
+            "int8": int8}
+
+
+@torch.no_grad()
+def probe_logits(sched, prompt):
+    """The first step's logits of ``prompt`` through a scheduler's own
+    prefill (slot 0 of a warmed runtime, its first pages; the other rows
+    fillers), as float32 on the host."""
+    rt = sched.runtime
+    Bp, P = 8, 16
+    tokens = np.zeros((Bp, P), np.int32)
+    mask = np.zeros((Bp, P), np.int32)
+    tokens[0, :len(prompt)], mask[0, :len(prompt)] = prompt, 1
+    slots = np.full((Bp,), rt.num_slots, np.int32)
+    slots[0] = 0
+    tables = np.full((Bp, rt.max_pages), rt.num_pages, np.int32)
+    tables[0] = np.arange(rt.max_pages)
+    rt.prefill((Bp, P), tokens, mask, slots, np.ones(Bp, np.int32),
+               page_tables=tables, start=np.zeros(Bp, np.int32))
+    return rt.state.logits[0].float().cpu()
+
+
+def int8_projection_cost(engine, device, iters=50):
+    """Device time (CUDA graph) of one decode step's int8 projections at
+    8 rows, layer 0 of the trunk times the layers: the ``codes.to(bf16)``
+    copy alone, the whole int8 projection (copy, matmul, scale) and the
+    bf16 matmul on a bf16 copy of the same weight."""
+    p = layer_params(engine.blocks[0], 0)
+    out = {"convert_ms": 0.0, "int8_ms": 0.0, "bf16_ms": 0.0}
+    if device != "cuda":
+        return out
+    for part in ("attn", "mlp"):
+        for leaf in p[part].values():
+            if not isinstance(leaf, tuple):
+                continue
+            codes, scale = leaf
+            x = torch.randn(8, codes.shape[0], device=device,
+                            dtype=torch.bfloat16)
+            w = codes.to(torch.bfloat16)
+            times = graph_ms([lambda: codes.to(torch.bfloat16),
+                              lambda: project(x, (codes, scale)),
+                              lambda: x @ w], [()], iters)
+            for key, t in zip(out, times):
+                out[key] += t * engine.spec.n_layer
+            del w
+    return out
+
+
+def gptj_int8_serve_phase(trainer, cfg_dict, device, bf16, bf16_gb,
+                          bf16_logits, bf16_p50):
+    """The same trained policy served with ``weights_dtype: int8`` and
+    ``kv_dtype: int8`` on the kernel path (bf16 q x int8 pool at hd 256),
+    8 slots, one bucket of 8 x (16 + 32): ``serve/model_gb`` against
+    bf16's, paged decode launches == layers x steps, 0 recompiles, every
+    request as long as its bf16 response (the bound trlx_tpu's
+    test_weights_int8_tracks_bf16_logits puts on the tier), the first
+    step's logit gap to the bf16 engine's, the step p50s, the peak device
+    memory of the int8 engine (its in-graph bf16 weight copies come from
+    the graphs' pools) and the cost of those copies."""
+    telemetry.start()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = gptj_engine(cfg_dict, trainer.params, device, "bfloat16",
+                         "pallas", weights_dtype="int8", kv_dtype="int8")
+    sync(device)
+    build_s = time.perf_counter() - t0
+    gb = telemetry.current().registry.gauges["serve/model_gb"]
+    ops.reset_launches()
+    tokens, sched = run_scheduler(engine, GPTJ_REQUESTS)
+    launches, steps = ops.LAUNCHES["paged_decode"], sched.runtime.steps
+    L = engine.spec.n_layer
+    if device == "cuda":
+        assert launches == L * steps > 0, (launches, L, steps)
+    assert recompiles() == 0, f"int8 serve recompiled {recompiles()} times"
+    assert [len(t) for t in tokens] == [len(t) for t in bf16], (tokens, bf16)
+    logits = probe_logits(sched, engine.encode_prompt(GPTJ_REQUESTS[0][0]))
+    assert torch.isfinite(logits).all()
+    gap = float((logits - bf16_logits).abs().max())
+    top = bool(logits.argmax() == bf16_logits.argmax())
+    p50 = telemetry.current().registry.hists[
+        "time/serve/slot_step"].quantile(0.5) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30         if device == "cuda" else 0.0
+    graphs = graph_stats(sched.runtime.graphs())
+    cost = int8_projection_cost(engine, device)
+    same = sum(a == b for a, b in zip(tokens, bf16))
+    del engine, sched
+    release(device)
+    return {"model_gb": gb, "bf16_model_gb": bf16_gb, "launches": launches,
+            "steps": steps, "layers": L, "logit_gap": gap,
+            "same_top1": top, "step_p50_ms": p50,
+            "bf16_step_p50_ms": bf16_p50, "peak_gb": peak,
+            "graphs": graphs, "projection": cost, "build_s": build_s,
+            "identical": f"{same}/{len(tokens)}"}
 
 
 def gptj_flash_phase(device):
@@ -3247,6 +3721,25 @@ def log_gptj(g, card):
                 f"identical kernel vs plain path; bf16 parts from fp32 at "
                 f"(request: token, fp32 top-2 logit gap) {sv['bf16_parted']} "
                 f"({card})")
+    i8 = sv["int8"]
+    pr = i8["projection"]
+    log("gptj", f"the same policy served with weights_dtype int8 and "
+                f"kv_dtype int8 (attention pallas, bf16): serve/model_gb "
+                f"{i8['model_gb']:.3f} vs bf16's {i8['bf16_model_gb']:.3f};"
+                f" paged decode (bf16 q x int8 pool, hd 256) launches "
+                f"{i8['launches']} == {i8['layers']} layers x {i8['steps']}"
+                f" steps, 0 recompiles; every response as long as bf16's, "
+                f"{i8['identical']} identical; first-step logit gap to the "
+                f"bf16 engine {i8['logit_gap']:.4f} (same top-1: "
+                f"{i8['same_top1']}); decode step p50 "
+                f"{i8['step_p50_ms']:.2f} ms vs bf16's "
+                f"{i8['bf16_step_p50_ms']:.2f} ms; peak "
+                f"{i8['peak_gb']:.3f} GiB, graphs {i8['graphs']}; one "
+                f"step's int8 projections (8 rows, {i8['layers']} layers): "
+                f"codes.to(bf16) copies {pr['convert_ms']:.3f} ms, int8 "
+                f"projection {pr['int8_ms']:.3f} ms, bf16 matmul alone "
+                f"{pr['bf16_ms']:.3f} ms; engine built in "
+                f"{i8['build_s']:.2f}s ({card})")
     fl = g["flash"]
     log("gptj", f"one PPO cycle at the TL;DR shape (B8, 512 + 64, 2 "
                 f"unfrozen layers, fused_attention, bf16): flash launches at "
@@ -3346,6 +3839,12 @@ def main() -> int:
     gptj_by_partitions = {
         ctx: sweep_partitions("cuda", H=16, hd=256, max_pages=mp)
         for ctx, mp in (("serving", 4), ("ctx1024", 64))}
+    int8_err = check_bf16_int8("cuda")
+    int8_serving = time_kernel("cuda", "serving shape", max_pages=4,
+                               iters=500, int8=True)
+    gptj_int8_serving = time_kernel("cuda", "gpt-j serving shape",
+                                    max_pages=4, iters=500, H=16, hd=256,
+                                    int8=True)
 
     flash_err = check_flash("cuda")
     flash_slice = time_flash("cuda", "training shape", 32, 576, iters=10)
@@ -3388,6 +3887,8 @@ def main() -> int:
                             f"{e['step_p95_ms']:.2f} / "
                             f"{g['step_p95_ms']:.2f} ms; {g['graphs']} "
                             f"({card})")
+    tiers = serve_tiers_phase(views, "cuda", parity["jnp"])
+    log_tiers(tiers, card)
     del views
 
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
@@ -3424,7 +3925,10 @@ def main() -> int:
         "gptj": {**gptj, "paged_serving": gptj_serving,
                  "paged_ctx1024": gptj_long,
                  "paged_by_partitions": gptj_by_partitions,
-                 "flash_tldr_shape": flash_gptj},
+                 "flash_tldr_shape": flash_gptj,
+                 "paged_int8_serving": gptj_int8_serving},
+        "serve_tiers": tiers, "spec_draft": durable["spec_draft"],
+        "paged_int8_serving": int8_serving,
     }}))
     resume, gate = (durable["durability"][k]["launches"]
                     for k in ("resume", "gate"))
@@ -3449,6 +3953,18 @@ def main() -> int:
         "trlx_tpu/ops/paged_attention.py:58", gptj["serve"]["launches"],
         gptj_paged_err, gptj_serving,
         {"gptj_serve": gptj["serve"]["launches"]}))
+    kernels.append(kernel_entry(
+        "paged_decode (bf16 q, int8 pool)",
+        "trlx_tpu_torch/csrc/paged_decode.cu",
+        "trlx_tpu/ops/paged_attention.py:58",
+        tiers["int8_bfloat16"]["launches"], int8_err[64], int8_serving,
+        {"serve_int8_bf16": tiers["int8_bfloat16"]["launches"]}))
+    kernels.append(kernel_entry(
+        "paged_decode (bf16 q, int8 pool, hd 256)",
+        "trlx_tpu_torch/csrc/paged_decode.cu",
+        "trlx_tpu/ops/paged_attention.py:58",
+        gptj["serve"]["int8"]["launches"], int8_err[256], gptj_int8_serving,
+        {"gptj_serve_int8": gptj["serve"]["int8"]["launches"]}))
     for name in FLASH_NAMES:
         kernels.append(kernel_entry(
             f"{name} (hd 256)", "trlx_tpu_torch/csrc/flash_attention.cu",

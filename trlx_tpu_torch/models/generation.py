@@ -1,28 +1,32 @@
-"""Slot-pool serving primitives over a PAGED KV pool (port of
-trlx_tpu.models.generation ``:588-925`` and ``:1136-1244``).
+"""Slot-pool serving primitives over a paged or a contiguous KV pool
+(port of trlx_tpu.models.generation ``:588-1244``).
 
-- :func:`prefill_into_slots` writes a prompt bucket's KV into the page
-  pool through per-row page tables and leaves each slot's first-step
-  logits in its lanes; with ``prefix_context=True`` the (unmatched)
-  suffix attends to committed prefix pages — the radix-cache path.
+- :func:`prefill_into_slots` writes a prompt bucket's KV into the pool
+  and leaves each slot's first-step logits in its lanes: through per-row
+  page tables (the paged pool; with ``prefix_context=True`` the
+  unmatched suffix attends to committed prefix pages — the radix-cache
+  path), or into one region per slot (the contiguous pool,
+  :func:`init_slot_pool`).
 - :func:`decode_step` emits ONE token for every slot: free and finished
-  slots ride along (static shapes) but emit nothing and their writes go
-  to the pool's drop page.
+  slots ride along (static shapes) but emit nothing, and their writes go
+  to the pool's drop page (paged) or land in their own row (contiguous).
+- :func:`verify_step` scores K proposed tokens per slot and the free
+  token in one pass (speculative decoding, paged pool only, greedy).
 
 Under greedy decode a row's tokens are identical to decoding it alone:
-masked positions contribute exactly zero probability. The contiguous
-per-slot pool and ``verify_step`` are not ported yet.
+masked positions contribute exactly zero probability.
 
 :func:`generate` is the trainer's rollout decoder (``:196-587``): a
 static-shape dense KV cache over left-padded prompts, request to
 completion, one captured step per token (:class:`RolloutDecoder`).
 
-All three keep the CUDA-graph contract of trlx_tpu_torch.utils.aotjit
+All of them keep the CUDA-graph contract of trlx_tpu_torch.utils.aotjit
 (static shapes, no host read), and the serve runtime and the trainers
 replay them as graphs on the card. Torch vs JAX, made explicit here:
 JAX's ``mode="drop"`` scatters become a one-hot select (filler rows at
 ``slot_id >= num_slots`` match no slot), masked writes (``offset == T``
-on finished slots) and the pool's drop page (sentinel page ids); the
+on finished slots), the pools' drop page, drop row and drop position,
+and a gather-and-select for the verify pass's ``valid`` lanes; the
 pool and the per-slot lanes (:class:`SlotState`) are updated IN PLACE,
 where JAX returns new arrays.
 """
@@ -372,7 +376,8 @@ class SlotState(NamedTuple):
     ``active`` host occupancy, ``finished`` terminal-for-decode;
     ``logits`` [S, V] float32 each slot's next-token distribution;
     ``pages`` [S, max_pages] int32 the per-slot page table
-    (unallocated entries at :data:`PAGE_SENTINEL`).
+    (unallocated entries at :data:`PAGE_SENTINEL`) under the paged
+    layout, ``None`` under the contiguous one.
     """
 
     valid: torch.Tensor
@@ -383,7 +388,7 @@ class SlotState(NamedTuple):
     active: torch.Tensor
     finished: torch.Tensor
     logits: torch.Tensor
-    pages: torch.Tensor
+    pages: Optional[torch.Tensor] = None
 
 
 #: page-table entry meaning "no page here": past any real pool's page
@@ -393,8 +398,11 @@ PAGE_SENTINEL = 2**30
 
 
 def init_slot_state(num_slots: int, buffer_len: int, vocab_size: int,
-                    max_pages: int, device=None) -> SlotState:
-    """An all-free pool state: nothing active, everything finished."""
+                    max_pages: Optional[int] = None,
+                    device=None) -> SlotState:
+    """An all-free pool state: nothing active, everything finished.
+    ``max_pages`` builds the paged variant (every page-table entry at
+    the sentinel); ``None`` the contiguous one."""
     S = num_slots
 
     def zeros(*shape, dtype=torch.int32):
@@ -409,8 +417,23 @@ def init_slot_state(num_slots: int, buffer_len: int, vocab_size: int,
         active=zeros(S, dtype=torch.bool),
         finished=torch.ones((S,), dtype=torch.bool, device=device),
         logits=zeros(S, vocab_size, dtype=torch.float32),
-        pages=torch.full((S, max_pages), PAGE_SENTINEL, dtype=torch.int32,
-                         device=device),
+        pages=None if max_pages is None else torch.full(
+            (S, max_pages), PAGE_SENTINEL, dtype=torch.int32,
+            device=device),
+    )
+
+
+def init_slot_pool(spec: ModelSpec, seg_sizes, num_slots: int,
+                   buffer_len: int, cache_dtype=torch.bfloat16, device=None):
+    """Per-segment (k, v) contiguous pools [L_seg, num_slots + 1,
+    buffer_len + 1, Hkv, hd]: one region per slot. The last row is the
+    drop row (a prefill filler row writes there) and the last position
+    of each row the drop position (a write at ``offset == buffer_len``
+    lands there); attention reads ``[:num_slots, :buffer_len]`` only."""
+    return tuple(
+        init_kv_cache(spec, size, num_slots + 1, buffer_len + 1,
+                      cache_dtype, device)
+        for size in seg_sizes
     )
 
 
@@ -456,7 +479,7 @@ def prefill_into_slots(
     ln_f,
     pool,
     state: SlotState,
-    prompt_tokens,  # [Bp, P] right-padded
+    prompt_tokens,  # [Bp, P]: right-padded (paged), left (contiguous)
     prompt_mask,  # [Bp, P]
     slot_ids,  # [Bp] host ints; == num_slots -> dropped filler row
     max_new,  # [Bp] per-request cap
@@ -480,16 +503,21 @@ def prefill_into_slots(
     prefill whose cache takes the POOL's dtype, then one block-scatter.
     First-step logits come from each row's last REAL suffix token.
 
+    Without ``page_tables`` the pool is the contiguous one
+    (:func:`init_slot_pool`) and the prompts are LEFT-padded: the exact
+    prefill :func:`generate` runs, on a local [Bp, P] cache, whose rows
+    then land in positions ``[0, P)`` of their slots (a filler row in
+    the pool's drop row).
+
     Shapes are static and nothing is read back to the host, so a bucket
     replays as one CUDA graph once its inputs are device tensors.
 
     Returns ``(pool, state)``, both updated in place.
     """
     if page_tables is None:
-        raise NotImplementedError(
-            "the contiguous slot pool is not ported; pass page_tables "
-            "(the paged layout)"
-        )
+        return _prefill_into_rows(
+            spec, blocks, embed, ln_f, pool, state, prompt_tokens,
+            prompt_mask, slot_ids, max_new, compute_dtype, attention_fn)
     dev = state.valid.device
     tokens = _as(prompt_tokens, dev, torch.long)
     mask = _as(prompt_mask, dev, torch.int32)
@@ -570,27 +598,83 @@ def prefill_into_slots(
         embed, spec, layer_norm(ln_f, h_last, spec.layer_norm_epsilon)
     )
 
-    # rows land in their slots by a one-hot select, in place: a filler
-    # row (slot id outside [0, S)) matches no slot and is dropped, as
-    # JAX's mode="drop" scatter drops it, with no host read of the ids
-    slot_ids = _as(slot_ids, dev, torch.long)
-    hit = slot_ids[None, :] == torch.arange(S, device=dev)[:, None]  # [S, Bp]
-    landed = hit.any(1)  # [S]
-    src = hit.int().argmax(1)  # [S] the row each landed slot takes
+    landed, src = _slot_rows(slot_ids, S, dev)
     real = real_len[src]
     caps = torch.minimum(_as(max_new, dev, torch.long)[src].clamp(min=0),
                          T - real)
-    rows = {
+    _land_rows(state, landed, {
         "valid": torch.arange(T, device=dev)[None, :] < real[:, None],
         "offset": real, "pos": real, "generated": torch.zeros_like(real),
         "max_new": caps, "active": torch.ones_like(landed),
         "finished": torch.zeros_like(landed), "logits": logits0[src],
         "pages": pt[src],
-    }
+    })
+    return pool, state
+
+
+def _slot_rows(slot_ids, S, dev):
+    """(landed [S], src [S]: the row each landed slot takes) of a
+    bucket's slot ids: rows land in their slots by a one-hot select, so
+    a filler row (slot id outside [0, S)) matches no slot and is
+    dropped, as JAX's mode="drop" scatter drops it, with no host read of
+    the ids."""
+    slot_ids = _as(slot_ids, dev, torch.long)
+    hit = slot_ids[None, :] == torch.arange(S, device=dev)[:, None]
+    return hit.any(1), hit.int().argmax(1)
+
+
+def _land_rows(state: SlotState, landed, rows) -> None:
+    """Write each landed slot's new lane values in place."""
+    S = landed.shape[0]
     for name, new in rows.items():
         lane = getattr(state, name)
         keep = landed.view(S, *([1] * (lane.dim() - 1)))
         lane.copy_(torch.where(keep, new.to(lane.dtype), lane))
+
+
+def _prefill_into_rows(spec, blocks, embed, ln_f, pool, state,
+                       prompt_tokens, prompt_mask, slot_ids, max_new,
+                       compute_dtype, attention_fn):
+    """Contiguous half of :func:`prefill_into_slots`: generate()'s
+    prefill over LEFT-padded prompts, then each row's [0, P) block into
+    its slot's region (a filler row into the drop row)."""
+    dev = state.valid.device
+    tokens = _as(prompt_tokens, dev, torch.long)
+    mask = _as(prompt_mask, dev, torch.int32)
+    B, P = tokens.shape
+    S, T = state.valid.shape
+    if P > T:
+        raise ValueError(
+            f"prefill prompt_len {P} exceeds the slot buffer length {T}"
+        )
+    segments, seg_sizes = _segments_of(blocks)
+    real_len = mask.long().sum(-1)
+    positions = positions_from_mask(mask)
+    h = embed_tokens(embed, spec, tokens, positions, compute_dtype)
+    bias = causal_mask_bias(mask)
+    sid = _as(slot_ids, dev, torch.long)
+    rows = torch.where((sid >= 0) & (sid < S), sid, torch.full_like(sid, S))
+    for seg, size, (k_pool, v_pool) in zip(segments, seg_sizes, pool):
+        if size == 0:
+            continue
+        cache = init_kv_cache(spec, size, B, P, k_pool.dtype, dev)
+        h, (k_new, v_new) = apply_blocks_with_cache(
+            seg, cache, spec, h, bias, positions, 0, attention_fn)
+        k_pool[:, rows, :P] = k_new
+        v_pool[:, rows, :P] = v_new
+    h_last = layer_norm(ln_f, h[:, -1], spec.layer_norm_epsilon)
+    logits0 = project_logits(embed, spec, h_last)  # [Bp, V]
+
+    landed, src = _slot_rows(slot_ids, S, dev)
+    caps = _as(max_new, dev, torch.long)[src].clamp(0, T - P)
+    valid = torch.cat([mask, torch.zeros((B, T - P), dtype=torch.int32,
+                                         device=dev)], dim=1)
+    _land_rows(state, landed, {
+        "valid": valid[src], "offset": torch.full_like(caps, P),
+        "pos": real_len[src], "generated": torch.zeros_like(caps),
+        "max_new": caps, "active": torch.ones_like(landed),
+        "finished": torch.zeros_like(landed), "logits": logits0[src],
+    })
     return pool, state
 
 
@@ -611,11 +695,14 @@ def decode_step(
     carried logits, forward the sampled tokens against the pool at
     per-slot offsets/positions, advance the lanes.
 
-    Non-emitting slots (free, finished, harvested-awaiting-reuse) aim
-    their page table at the sentinel so their writes vanish — a
-    harvested slot's pages may already belong to another slot.
-    ``paged_decode_fn`` (``serve.attention: pallas``) is handed to every
-    layer's ``block_apply``; ``None`` keeps the plain gather path.
+    Paged pool: non-emitting slots (free, finished,
+    harvested-awaiting-reuse) aim their page table at the sentinel so
+    their writes vanish — a harvested slot's pages may already belong to
+    another slot. Contiguous pool (``state.pages`` is None): every slot
+    writes into its own row, an ``offset == T`` write into the drop
+    position. ``paged_decode_fn`` (``serve.attention: pallas``, paged
+    only) is handed to every layer's ``block_apply``; ``None`` keeps the
+    plain gather path.
 
     Returns ``(pool, state, tokens [S] int32, emitted [S], finished
     [S])`` with the pool and the lanes updated in place.
@@ -651,9 +738,12 @@ def decode_step(
         :, None, None, :]
     pos = state.pos.long()[:, None]
     h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
-    num_pages, page_size = _pool_page_geometry(pool)
-    pt_step = torch.where(emitted[:, None], state.pages,
-                          num_pages).to(torch.int32).contiguous()
+    paged = state.pages is not None
+    pt_step = page_size = None
+    if paged:
+        num_pages, page_size = _pool_page_geometry(pool)
+        pt_step = torch.where(emitted[:, None], state.pages,
+                              num_pages).to(torch.int32).contiguous()
     for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
         for i in range(size):
             h, _ = block_apply(
@@ -661,7 +751,7 @@ def decode_step(
                 kv_cache=(_kv_layer(k_c, i), _kv_layer(v_c, i)),
                 cache_row_offsets=state.offset, page_table=pt_step,
                 page_size=page_size, attention_fn=attention_fn,
-                paged_decode_fn=paged_decode_fn,
+                paged_decode_fn=paged_decode_fn if paged else None,
             )
     h_normed = layer_norm(ln_f, h, spec.layer_norm_epsilon)
     next_logits = project_logits(embed, spec, h_normed)[:, 0]
@@ -673,3 +763,164 @@ def decode_step(
     state.finished.copy_(finished)
     state.logits.copy_(next_logits)
     return pool, state, tok.int(), emitted, finished
+
+
+def verify_step(
+    spec: ModelSpec,
+    blocks,
+    embed,
+    ln_f,
+    pool,
+    state: SlotState,
+    generator: Optional[torch.Generator],
+    proposals: torch.Tensor,  # [S, K] speculated continuation tokens
+    n_proposed: torch.Tensor,  # [S] how many of each row are real
+    config: GenerationConfig,
+    compute_dtype=torch.bfloat16,
+    attention_fn=attention_scores,
+):
+    """Speculative-decoding verification (port of trlx_tpu's
+    ``verify_step``): score K proposed tokens per slot in ONE batched
+    pass and emit the longest greedy-matching prefix plus the free token.
+
+    Per slot the candidate row is ``[t0, proposals...]``, ``t0`` the
+    token the slot's carried logits emit (what :func:`decode_step` would
+    emit this step). All K + 1 candidates go forward together at logical
+    positions ``pos + j``, attending over the committed positions
+    (``state.valid``) plus the candidates before them. Proposal ``j`` is
+    accepted iff it equals the argmax of the distribution after
+    candidate ``j - 1`` and every earlier proposal was accepted; the
+    emitted run is ``cand[:count]`` (eos truncates it and finishes the
+    slot, as does the slot's ``max_new`` budget).
+
+    Rejected candidates need no copy-back: they were written through the
+    slot's own reserved pages, and the ``valid`` lanes come out marking
+    exactly the accepted positions. The window may run past a row's
+    buffer near its budget's end, so the page table is extended with
+    sentinel entries: such writes go to the drop page (JAX's
+    ``mode="drop"``) and the extra key columns are masked; the ``valid``
+    update takes only in-range columns, by a gather and a select where
+    JAX scatters with drop.
+
+    Paged pool only; greedy only (the engine refuses speculation under
+    sampling); the plain gather attention path (the paged-decode kernel
+    takes one query row). Static shapes and no host read: one CUDA
+    graph beside the step's.
+
+    Returns ``(pool, state, cand [S, K+1] int32, counts [S] int32,
+    finished [S])`` with the pool and the lanes updated in place.
+    """
+    if state.pages is None:
+        raise ValueError(
+            "verify_step requires the paged pool layout (state.pages); "
+            "serve.speculation is gated on serve.kv_layout: paged"
+        )
+    S, K = proposals.shape
+    Tc = K + 1
+    T = state.valid.shape[1]
+    dev = state.valid.device
+    segments, seg_sizes = _segments_of(blocks)
+    flags = ArchFlags.for_spec(spec)
+    proposals = proposals.long()
+
+    emitting = state.active & ~state.finished
+    # at most remaining - 1 proposals can be accepted (t0 spends one)
+    remaining = (state.max_new - state.generated).clamp(min=0)
+    n = torch.minimum(n_proposed.long().clamp(0, K),
+                      (remaining - 1).clamp(min=0).long())
+    n = torch.where(emitting, n, 0)
+
+    vocab = torch.arange(state.logits.shape[-1], device=dev)
+    eos = config.eos_token_id
+    suppress_eos = eos >= 0 and config.min_new_tokens > 0
+    step_logits = state.logits
+    if suppress_eos:
+        suppress = (state.generated < config.min_new_tokens)[:, None]
+        step_logits = torch.where((vocab == eos) & suppress, NEG_INF,
+                                  step_logits)
+    t0 = sample_token(generator, step_logits, config.sampling)
+    cand = torch.cat([t0[:, None], proposals], dim=1)  # [S, Tc]
+    cand = torch.where(emitting[:, None], cand, config.pad_token_id)
+
+    # candidate j of row s sees the committed positions plus candidates
+    # 0..j (the prefix-suffix prefill's logical causality)
+    buf = torch.arange(T, device=dev)[None, None, :]
+    j_idx = torch.arange(Tc, device=dev)[None, :, None]
+    off = state.offset.long()[:, None, None]
+    cand_vis = (buf >= off) & (buf <= off + j_idx) \
+        & emitting[:, None, None]
+    allowed = (state.valid[:, None, :] > 0) | cand_vis
+    num_pages, page_size = _pool_page_geometry(pool)
+    extra = -(-Tc // page_size)
+    pt_step = torch.where(emitting[:, None], state.pages, num_pages)
+    pt_v = torch.cat([pt_step, torch.full((S, extra), num_pages,
+                                          dtype=pt_step.dtype, device=dev)],
+                     dim=1).to(torch.int32).contiguous()
+    bias = torch.cat([
+        torch.where(allowed, 0.0, NEG_INF).float(),
+        torch.full((S, Tc, extra * page_size), NEG_INF, dtype=torch.float32,
+                   device=dev),
+    ], dim=-1)[:, None]  # [S, 1, Tc, T + extra * page_size]
+
+    positions = state.pos.long()[:, None] \
+        + torch.arange(Tc, device=dev)[None, :]
+    h = embed_tokens(embed, spec, cand, positions, compute_dtype)
+    for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
+        for i in range(size):
+            h, _ = block_apply(
+                spec, flags, layer_params(seg, i), h, bias, positions,
+                kv_cache=(_kv_layer(k_c, i), _kv_layer(v_c, i)),
+                cache_row_offsets=state.offset, page_table=pt_v,
+                page_size=page_size, attention_fn=attention_fn,
+            )
+    h_normed = layer_norm(ln_f, h, spec.layer_norm_epsilon)
+    L = project_logits(embed, spec, h_normed)  # [S, Tc, V]
+
+    # proposal j (1-based emitted index) survives iff it is the greedy
+    # token after candidate j - 1 and every earlier proposal survived
+    jpos = torch.arange(1, K + 1, device=dev)[None, :]
+    Lm = L[:, :K]
+    if suppress_eos:
+        sup = (state.generated[:, None] + jpos) < config.min_new_tokens
+        Lm = torch.where((vocab == eos)[None, None, :] & sup[:, :, None],
+                         NEG_INF, Lm)
+    greedy = torch.argmax(Lm, dim=-1)  # [S, K]
+    match = (proposals == greedy) & (jpos <= n[:, None])
+    m = torch.cumprod(match.long(), dim=1).sum(dim=1)  # [S]
+
+    # the emitted run cand_0..cand_m, cut after the first eos in it
+    i_idx = torch.arange(Tc, device=dev)[None, :]
+    within = i_idx <= m[:, None]
+    if eos >= 0:
+        is_eos = (cand == eos) & within
+    else:
+        is_eos = torch.zeros_like(within)
+    eos_before = torch.cumsum(is_eos.long(), dim=1) - is_eos.long()
+    emit_mask = within & (eos_before == 0) & emitting[:, None]
+    counts = emit_mask.sum(dim=1)  # [S] in 0..K+1
+
+    finished = state.finished
+    if eos >= 0:
+        finished = finished | (emitting & (is_eos & emit_mask).any(dim=1))
+    generated = state.generated + counts.int()
+    finished = finished | (state.active & (generated >= state.max_new))
+
+    # exactly the accepted candidate positions become valid: column c of
+    # row s takes emit_mask[s, c - offset[s]] inside the window; columns
+    # past T belong to no lane (JAX drops those writes)
+    rel = torch.arange(T, device=dev)[None, :] - state.offset.long()[:, None]
+    in_win = (rel >= 0) & (rel < Tc)
+    landed = torch.gather(emit_mask.int(), 1, rel.clamp(0, Tc - 1))
+    state.valid.copy_(torch.where(in_win, landed, state.valid))
+
+    # carried logits advance to the distribution after the LAST emitted
+    # token, so the next step resumes on exactly the greedy prefix
+    last = (counts - 1).clamp(min=0)
+    next_logits = L[torch.arange(S, device=dev), last]
+    state.logits.copy_(torch.where(emitting[:, None], next_logits,
+                                   state.logits))
+    state.offset.add_(counts.int())
+    state.pos.add_(counts.int())
+    state.generated.copy_(generated)
+    state.finished.copy_(finished)
+    return pool, state, cand.int(), counts.int(), finished

@@ -282,12 +282,16 @@ def views_to(views: DecodeViews, device, compute_dtype) -> DecodeViews:
     """Views on ``device`` for serving: matmul weights, biases and
     embeddings stored in ``compute_dtype`` (every use casts them to it
     anyway, so pre-casting changes no result and halves bf16 memory);
-    norm parameters keep float32."""
+    norm parameters keep float32, and an int8 weight's (codes, scale)
+    pair (trlx_tpu_torch.serve.engine ``quantize_serve_weights``) keeps
+    its int8 codes and float32 scales."""
 
     def place(tree, keep):
         if isinstance(tree, dict):
             return {k: place(v, keep or k in _NORM_KEYS)
                     for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(x.to(device=device) for x in tree)
         dtype = tree.dtype if keep or not tree.is_floating_point() \
             else compute_dtype
         return tree.to(device=device, dtype=dtype)

@@ -78,8 +78,10 @@ def layer_params(blocks: Params, i: int) -> Params:
 
 def num_layers(blocks: Params) -> int:
     leaf = blocks
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
+    while isinstance(leaf, (dict, tuple, list)):
+        # an int8 serve weight is a (codes, scale) pair, both [L, ...]
+        leaf = next(iter(leaf.values())) if isinstance(leaf, dict) \
+            else leaf[0]
     return leaf.shape[0]
 
 
@@ -182,7 +184,16 @@ def attention_scores(
 
 
 def _project(x, w, b=None):
-    y = x @ w.to(x.dtype)
+    if isinstance(w, (tuple, list)):
+        # serve-only int8 weights (serve.weights_dtype: int8): (codes
+        # int8 [in, out], per-output-channel scale f32 [1, out]); the
+        # scale factors out of the contraction. Unlike XLA, which fuses
+        # the convert into the dot, torch writes codes.to(x.dtype) as a
+        # full-size temporary on every call.
+        codes, scale = w
+        y = (x @ codes.to(x.dtype)) * scale.to(x.dtype)
+    else:
+        y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -252,6 +263,12 @@ def block_apply(
       hd]; fresh K/V is written at ``cache_offset`` (in place; an int,
       or a 0-d device tensor read on the device) and q attends over the
       whole buffer;
+    - contiguous slot pool: ``kv_cache`` as above plus
+      ``cache_row_offsets`` [B] and T == 1: row b's fresh K/V lands at
+      ``cache_row_offsets[b]``; the pool carries a drop row and a drop
+      position past the ``mask_bias.shape[-1]`` logical ones
+      (trlx_tpu_torch.models.generation ``init_slot_pool``), where an
+      offset out of range writes instead of JAX's dropped scatter;
     - paged: ``page_table`` [B, max_pages] int32 and
       ``cache_row_offsets`` [B]; ``kv_cache`` is one layer's global pool
       WITH its trailing drop page ([num_pages + 1, page_size, Hkv, hd],
@@ -330,12 +347,33 @@ def block_apply(
             k_ctx = k_ctx.reshape(B, max_pages * page_size, Hkv, hd)
             v_ctx = v_ctx.reshape(B, max_pages * page_size, Hkv, hd)
             a = attention_fn(q, k_ctx, v_ctx, mask_bias)
-    elif kv_cache is not None:
-        if cache_row_offsets is not None:
-            raise NotImplementedError(
-                "per-row writes into a contiguous slot pool (the "
-                "contiguous KV layout) are not ported; use the paged pool"
+    elif kv_cache is not None and cache_row_offsets is not None:
+        # the contiguous slot pool: one fresh token per row, written at
+        # its own offset. JAX drops an out-of-range write (mode="drop");
+        # here it goes to the pool's trailing drop position (and a row
+        # past the slots to its drop row), which attention never reads
+        if T != 1:
+            raise ValueError(
+                f"cache_row_offsets (per-row cache writes) requires a "
+                f"single fresh token per row, got T={T}"
             )
+        k_cache, v_cache = kv_cache
+        tlog = mask_bias.shape[-1]
+        if k_cache.shape[1] != tlog + 1 or k_cache.shape[0] < B:
+            raise ValueError(
+                f"per-row writes need the contiguous slot pool's drop "
+                f"row and position (init_slot_pool): cache "
+                f"{tuple(k_cache.shape[:2])} for {B} rows of {tlog}")
+        rows = torch.arange(B, device=k.device)
+        off = cache_row_offsets.long()
+        off = torch.where((off >= 0) & (off < tlog), off,
+                          torch.full_like(off, tlog))
+        k_cache[rows, off] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, off] = v[:, 0].to(v_cache.dtype)
+        new_cache = kv_cache
+        a = attention_fn(q, k_cache[:B, :tlog].to(q.dtype),
+                         v_cache[:B, :tlog].to(q.dtype), mask_bias)
+    elif kv_cache is not None:
         k_cache, v_cache = kv_cache
         tbuf = k_cache.shape[1]
         # dynamic_update_slice clamps the start so the update fits

@@ -18,7 +18,10 @@ Examples::
     python -m trlx_tpu_torch.serve --checkpoint ckpts --port 8080
     python -m trlx_tpu_torch.serve --config configs/test_config.yml \\
         --buckets 4x16x16,8x16x16 --slots 8 --page-size 8 \\
-        --attention pallas --port 8080
+        --attention pallas --kv-dtype int8 --weights-dtype int8 --port 8080
+    python -m trlx_tpu_torch.serve --checkpoint ckpts --speculation lookup \\
+        --spec-k 4
+    python -m trlx_tpu_torch.serve --checkpoint ckpts --scheduler static
 """
 
 import argparse
@@ -69,15 +72,48 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--buckets", default=None,
                    help="comma-separated BATCHxPROMPTxGEN lattice, e.g. "
                         "'8x16x48,16x16x48' (overrides the serve: section)")
+    p.add_argument("--max-wait-ms", type=float, default=None,
+                   help="the static micro-batcher's coalescing deadline")
+    p.add_argument("--scheduler", choices=("static", "slots"), default=None,
+                   help="decode driver: 'slots' (default) = continuous "
+                        "batching over the slot pool; 'static' = the "
+                        "batch-to-completion micro-batcher")
     p.add_argument("--slots", type=int, default=None,
                    help="slot-pool size (0 = largest batch extent)")
+    p.add_argument("--kv-layout", choices=("paged", "contiguous"),
+                   default=None,
+                   help="slot-pool KV layout: 'paged' (default) = page "
+                        "pool + radix prefix cache; 'contiguous' = one "
+                        "worst-case region per slot")
     p.add_argument("--page-size", type=int, default=None,
                    help="tokens per KV page (also the prefix-cache "
                         "sharing granularity)")
+    p.add_argument("--pages", type=int, default=None,
+                   help="page-pool size (0 = slots x pages-per-slot)")
     p.add_argument("--attention", choices=("jnp", "pallas"), default=None,
                    help="decode attention: 'jnp' (default) = plain torch "
                         "gather + attention; 'pallas' = the hand-written "
                         "paged-decode kernel")
+    p.add_argument("--kv-dtype", choices=("bf16", "int8"), default=None,
+                   help="KV page tier under --kv-layout paged: 'int8' "
+                        "stores codes + one float32 scale per (token, "
+                        "kv-head)")
+    p.add_argument("--weights-dtype", choices=("bf16", "int8"),
+                   default=None,
+                   help="serve-only weight tier: 'int8' quantizes the "
+                        "block matrices per output channel at load")
+    p.add_argument("--speculation", choices=("off", "lookup", "draft"),
+                   default=None,
+                   help="speculative decoding: 'lookup' = n-gram "
+                        "proposals from each request's history and the "
+                        "radix cache, 'draft' = a draft model's "
+                        "(--spec-draft-checkpoint); greedy and --kv-layout "
+                        "paged only")
+    p.add_argument("--spec-k", type=int, default=None,
+                   help="proposed tokens verified per slot per step")
+    p.add_argument("--spec-draft-checkpoint", default=None,
+                   help="draft-model checkpoint (or run) directory for "
+                        "--speculation draft")
     p.add_argument("--host", default=None)
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--no-warmup", action="store_true",
@@ -99,13 +135,13 @@ def serve_config_from_args(args, raw: dict) -> ServeConfig:
     cfg = ServeConfig.from_dict(raw.get("serve") or {})
     if args.buckets is not None:
         cfg.buckets = parse_buckets(args.buckets)
-    for flag, attr in (("seed", "seed"), ("slots", "slots"),
-                       ("page_size", "page_size"),
-                       ("attention", "attention"), ("host", "host"),
-                       ("port", "port")):
+    for flag in ("seed", "max_wait_ms", "scheduler", "slots", "kv_layout",
+                 "page_size", "pages", "attention", "kv_dtype",
+                 "weights_dtype", "speculation", "spec_k",
+                 "spec_draft_checkpoint", "host", "port"):
         value = getattr(args, flag)
         if value is not None:
-            setattr(cfg, attr, value)
+            setattr(cfg, flag, value)
     return cfg
 
 

@@ -175,6 +175,38 @@ class RadixCache:
             node = child
         return pages
 
+    def peek_continuation(self, tokens: Sequence[int], k: int) -> List[int]:
+        """Read-only speculation probe: up to ``k`` tokens that committed
+        prompts continued ``tokens`` with. Walks the trie by whole
+        blocks, finishes a partial tail block from a prefix-matching
+        child, then follows child chains. Touches NOTHING — no
+        refcounts, no LRU clock — so a wrong guess costs only the
+        verify pass that rejects it."""
+        ps = self.page_size
+        node = self._root
+        blocks = len(tokens) // ps
+        for i in range(blocks):
+            child = node.children.get(tuple(tokens[i * ps:(i + 1) * ps]))
+            if child is None:
+                return []
+            node = child
+        out: List[int] = []
+        tail = tuple(tokens[blocks * ps:])
+        if tail:
+            nxt = None
+            for key, child in node.children.items():
+                if key[:len(tail)] == tail:
+                    nxt = child
+                    break
+            if nxt is None:
+                return []
+            out.extend(nxt.key[len(tail):])
+            node = nxt
+        while len(out) < k and node.children:
+            node = next(iter(node.children.values()))
+            out.extend(node.key)
+        return out[:k]
+
     # -- allocation + eviction -------------------------------------------
 
     def alloc(self, n: int) -> Optional[List[int]]:

@@ -1,5 +1,7 @@
-"""Stdlib HTTP endpoint over the inference engine + slot scheduler (port
-of trlx_tpu.serve.server, the routes of this slice).
+"""Stdlib HTTP endpoint over the inference engine and its decode driver
+(port of trlx_tpu.serve.server, the routes of this slice): the slot
+scheduler, or under ``serve.scheduler: static`` the micro-batcher; both
+have the same submit / wait surface.
 
 ``ThreadingHTTPServer`` + JSON, no extra dependencies:
 
@@ -9,8 +11,9 @@ of trlx_tpu.serve.server, the routes of this slice).
   queue + decode latency. Errors are typed: 400 (bad request / no
   bucket fits), 429 (queue full, with ``Retry-After``), 503 (not
   decoded within ``serve.request_timeout``), 500 (decode failure).
-- ``GET /healthz`` — liveness, lattice, queue depth, free slots, the
-  paged pool's ``kv`` block and ``recompiles`` (the
+- ``GET /healthz`` — liveness, the scheduler, lattice, queue depth and,
+  under the slot scheduler, its slots, free slots and the pool's ``kv``
+  block; ``recompiles`` (the
   ``compile/recompiles`` counter: 0 once warmed, the serving
   invariant).
 - ``GET /metrics`` — the telemetry registry summary as JSON (counters,
@@ -30,7 +33,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from trlx_tpu_torch import telemetry
-from trlx_tpu_torch.serve.batcher import QueueFull
+from trlx_tpu_torch.serve.batcher import MicroBatcher, QueueFull
+from trlx_tpu_torch.serve.slots import SlotScheduler
 
 #: counters registered when a server starts, so the ``serve/*`` series
 #: exist in /metrics from the first scrape, not the first event
@@ -72,19 +76,21 @@ class _Handler(BaseHTTPRequestHandler):
         srv = self.server_ref
         if self.path == "/healthz":
             sched = srv.scheduler
-            self._json(200, {
+            body = {
                 "status": "ok",
                 "warmed": sched.warmed,
                 "scheduler": srv.engine.serve.scheduler,
                 "device": str(srv.engine.device),
                 "buckets": [list(b) for b in srv.engine.buckets],
                 "queue_depth": sched.queue_depth(),
-                "slots": sched.runtime.num_slots,
-                "free_slots": sched.free_slots(),
-                "kv": sched.pool_stats(),
-                "recompiles": telemetry.summary().get("counters", {}).get(
-                    "compile/recompiles", 0.0),
-            })
+            }
+            if isinstance(sched, SlotScheduler):
+                body["slots"] = sched.runtime.num_slots
+                body["free_slots"] = sched.free_slots()
+                body["kv"] = sched.pool_stats()
+            body["recompiles"] = telemetry.summary().get(
+                "counters", {}).get("compile/recompiles", 0.0)
+            self._json(200, body)
         elif self.path == "/metrics":
             self._json(200, telemetry.summary())
         else:
@@ -125,23 +131,25 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class InferenceServer:
-    """Engine + slot scheduler + HTTP listener, one object.
+    """Engine + decode driver + HTTP listener, one object.
 
-    ``start()`` warms the scheduler (unless ``warmup=False``), starts its
-    worker and binds the HTTP thread; ``stop()`` tears both down. Usable
-    in-process (tests pass ``port=0`` and read ``server.port``) or via
-    ``python -m trlx_tpu_torch.serve``.
+    The driver is picked by ``serve.scheduler``: ``"slots"`` (default)
+    the continuous-batching :class:`SlotScheduler`, ``"static"`` the
+    batch-to-completion :class:`MicroBatcher`. ``start()`` warms the
+    driver (unless ``warmup=False``), starts its worker and binds the
+    HTTP thread; ``stop()`` tears both down. Usable in-process (tests
+    pass ``port=0`` and read ``server.port``) or via ``python -m
+    trlx_tpu_torch.serve``.
     """
 
     def __init__(self, engine, host: Optional[str] = None,
                  port: Optional[int] = None):
-        from trlx_tpu_torch.serve.slots import SlotScheduler
-
         self.engine = engine
         cfg = engine.serve
         self.host = cfg.host if host is None else host
         self.port = cfg.port if port is None else port
-        self.scheduler = SlotScheduler(engine)
+        self.scheduler = SlotScheduler(engine) if cfg.scheduler == "slots" \
+            else MicroBatcher(engine)
         self._httpd: Optional[ThreadingHTTPServer] = None  # guarded-by: _stop_lock
         self._http_thread: Optional[threading.Thread] = None  # guarded-by: _stop_lock
         self._stop_lock = threading.Lock()
@@ -178,10 +186,12 @@ class InferenceServer:
 
     def start(self, warmup: bool = True) -> "InferenceServer":
         telemetry.predeclare(_SERVE_COUNTERS)
-        telemetry.set_gauge("serve/slot_occupancy", 0.0)
-        telemetry.set_gauge("serve/pages_free",
-                            self.scheduler.cache.free_pages())
-        telemetry.set_gauge("serve/prefix_hit_rate", 0.0)
+        cache = getattr(self.scheduler, "cache", None)
+        if isinstance(self.scheduler, SlotScheduler):
+            telemetry.set_gauge("serve/slot_occupancy", 0.0)
+        if cache is not None:
+            telemetry.set_gauge("serve/pages_free", cache.free_pages())
+            telemetry.set_gauge("serve/prefix_hit_rate", 0.0)
         if warmup and not self.warmed:
             for name, secs in self.scheduler.warmup().items():
                 print(f"[trlx_tpu_torch.serve] warmed {name}: {secs:.3f}s "

@@ -16,10 +16,12 @@ A schedule is a ``;``-separated list of rules::
   inside ``retry_call`` (an injected hang lands inside the bounded
   worker, an injected exception consumes a retry), and the phase seams
   ``rollout``, ``ppo_update``, ``ilql_update``, ``eval`` and
-  ``checkpoint_save`` once at phase entry. The serving, router and
-  checkpoint-verify seams are the reference's names, kept so a schedule
-  written for trlx_tpu parses here; the port fires them once those
-  subsystems are ported.
+  ``checkpoint_save`` once at phase entry. The serve schedulers fire
+  ``serve_decode`` (each static batch or slot step), ``serve_admit``
+  (each slot admission) and ``serve_speculate`` (each proposal
+  gathering). The other serving, router and checkpoint-verify seams are
+  the reference's names, kept so a schedule written for trlx_tpu parses
+  here; the port fires them once those subsystems are ported.
 - ``action``: ``hang`` (block ``param`` seconds, default 3600: a bounded
   seam times out, the watchdog sees everything else), ``exc`` (raise
   :class:`ChaosError`), ``slow`` (sleep ``param`` seconds, default 1,
@@ -56,7 +58,8 @@ ENV_VAR = "TRLX_TPU_CHAOS"
 
 #: the closed seam namespace, the reference's: every injection point
 #: (``maybe_inject(<seam>)``, ``retry_call(seam=...)``) names one of
-#: these. The port fires the training seams; the serving, router and
+#: these. The port fires the training seams and serve_admit,
+#: serve_decode and serve_speculate; the other serving, router and
 #: checkpoint-verify names wait for those subsystems.
 KNOWN_SEAMS = (
     # retry_call seams (fired per attempt, inside the bounded worker)
@@ -68,7 +71,8 @@ KNOWN_SEAMS = (
     "ilql_update",
     "eval",
     "checkpoint_save",
-    # serving seams (trlx_tpu.serve; not fired by the port yet)
+    # serving seams (trlx_tpu.serve; the port fires serve_admit,
+    # serve_decode and serve_speculate)
     "serve_admit",
     "serve_prefix_match",
     "serve_decode",
