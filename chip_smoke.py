@@ -292,7 +292,11 @@ from trlx_tpu_torch.supervisor import (
     chaos,
 )
 from trlx_tpu_torch.utils import DTYPES, aotjit
-from trlx_tpu_torch.utils.checkpoint import find_latest_checkpoint
+from trlx_tpu_torch.utils.checkpoint import (
+    find_latest_checkpoint,
+    restore_tensor_component,
+    save_components,
+)
 from trlx_tpu_torch.utils.faults import retry_call
 from trlx_tpu_torch.utils.profiling import annotate
 from trlx_tpu_torch.utils.loading import (
@@ -1594,6 +1598,10 @@ def serve_tiers_phase(views, device, fp32):
             assert run["launches"] == run["layers"] * run["steps"], run
             # 6 prefill graphs, the step's and the verify pass's
             assert run["graphs"]["graphs"] == 8, run["graphs"]
+        # speculation ran: proposals verified, none lost to a fallback
+        assert run["fallbacks"] == 0, f"lookup {dtype}: {run['fallbacks']}" \
+            f" proposal faults fell back to plain steps"
+        assert run["proposed"] > 0 and run["verify_steps"] > 0, run
         out[f"lookup_{dtype}"] = run
     assert out["lookup_float32"]["tokens"] == fp32, \
         "lookup speculation changed the fp32 greedy tokens"
@@ -1655,7 +1663,8 @@ def log_tiers(t, card):
                            f"slot per verify pass; verify p50 "
                            f"{r['verify_p50_ms']:.2f} ms, plain step p50 "
                            f"{r['step_p50_ms']:.2f} ms; "
-                           f"{r['graphs']['graphs']} graphs, 0 recompiles; "
+                           f"{r['graphs']['graphs']} graphs, 0 recompiles, "
+                           f"{r['fallbacks']:.0f} fallbacks; "
                            + ("tokens == speculation off"
                               if dtype == "float32" else
                               f"vs speculation off {r['vs_off']}")
@@ -1977,25 +1986,53 @@ DRAFT_REQUESTS = [("Hi", 24), ("What is 2+2?", 16), ("Tell a story", 16),
                   ("x", 24)]
 
 
+def self_draft_counts(tokens, max_new, k):
+    """(proposed, accepted) that a self-draft gives one request whose
+    emitted tokens are ``tokens``. As in trlx_tpu, each step ships the
+    first k drafted tokens, which continue the history from the free
+    token t0 on; proposal j is accepted iff it equals the greedy token
+    after candidate j - 1, i.e. iff the draft's token j - 1 repeats
+    token j - 2 (counting t0 as 0): from emitted index i a step accepts
+    the run of repeats that starts at ``tokens[i]``, capped by the
+    budget (the free token spends one) and by the request's end."""
+    i = proposed = accepted = 0
+    while i < len(tokens):
+        n = max(0, min(k, max_new - i - 1))
+        m = 0
+        while m < n and i + m + 1 < len(tokens) \
+                and tokens[i + m + 1] == tokens[i + m]:
+            m += 1
+        proposed += n
+        accepted += m
+        i += m + 1
+    return proposed, accepted
+
+
 def spec_draft_phase(device, run_dir):
-    """``speculation: draft`` with the PPO run directory's newest
-    checkpoint as both target and draft (float32, greedy, 4 slots, the
-    kernel path for plain steps): the draft proposes the target's own
-    greedy tokens, so acceptance reads 1.0, and the tokens equal the
-    same checkpoint's with speculation off; 0 recompiles (the draft's
-    whole generate is one graph)."""
-    _, _, greedy = greedy_run_config(run_dir)
+    """``speculation: draft`` with the PPO run directory's newest params
+    as both target and draft (greedy, 4 slots, the kernel path for plain
+    steps), re-saved as one checkpoint whose embedded config computes in
+    float32, so the draft (which computes in its checkpoint's dtype)
+    proposes the target's own greedy tokens. The tokens equal the same
+    checkpoint's with speculation off; no proposal falls back; the
+    proposal and acceptance counts equal what trlx_tpu's rule gives a
+    self-draft on those tokens (:func:`self_draft_counts`); 0
+    recompiles (the draft's whole generate is one graph)."""
+    latest, _, greedy = greedy_run_config(run_dir)
     greedy["model"] = {**greedy["model"], "compute_dtype": "float32"}
+    params, _, _ = restore_tensor_component("params", latest)
+    ckpt = os.path.join(CKPT_ROOT, "ppo_fp32", os.path.basename(latest))
+    save_components({"params": params, "config": greedy}, ckpt)
+    del params
     out = {}
     for mode in ("off", "draft"):
         telemetry.start()
         serve = ServeConfig(buckets=[[4, 16, 24]], slots=4, page_size=16,
                             attention="pallas", max_queue=64,
                             request_timeout=600.0, speculation=mode,
-                            spec_k=4, spec_draft_checkpoint=run_dir)
-        engine = InferenceEngine.from_checkpoint(
-            run_dir, config=TRLConfig.from_dict(greedy), serve=serve,
-            device=device)
+                            spec_k=4, spec_draft_checkpoint=ckpt)
+        engine = InferenceEngine.from_checkpoint(ckpt, serve=serve,
+                                                 device=device)
         tokens, sched = run_scheduler(engine, DRAFT_REQUESTS)
         assert recompiles() == 0, f"{mode}: {recompiles()} recompiles"
         counters = telemetry.current().registry.counters
@@ -2004,6 +2041,7 @@ def spec_draft_phase(device, run_dir):
             "verify_steps": sched.runtime.verify_steps,
             "proposed": counters.get("serve/spec_proposed", 0.0),
             "accepted": counters.get("serve/spec_accepted", 0.0),
+            "fallbacks": counters.get("serve/spec_fallbacks", 0.0),
             "verify_p50_ms": p50_ms(SlotPoolRuntime.VERIFY_SPAN),
             "step_p50_ms": p50_ms(SlotPoolRuntime.STEP_SPAN),
             "makespan_s": makespan_s(),
@@ -2015,8 +2053,15 @@ def spec_draft_phase(device, run_dir):
     d = out["draft"]
     assert d["tokens"] == out["off"]["tokens"], \
         "draft speculation changed the greedy tokens"
-    assert d["proposed"] > 0 and d["accepted"] == d["proposed"], (
-        f"self-draft acceptance {d['accepted']}/{d['proposed']} != 1.0")
+    assert d["fallbacks"] == 0, \
+        f"{d['fallbacks']} draft proposal faults fell back to plain steps"
+    assert d["proposed"] > 0 and d["verify_steps"] > 0, d
+    want = [self_draft_counts(t, n, 4)
+            for t, (_, n) in zip(d["tokens"], DRAFT_REQUESTS)]
+    d["predicted"] = [sum(x) for x in zip(*want)]
+    assert [d["proposed"], d["accepted"]] == d["predicted"], (
+        f"self-draft proposed/accepted {d['proposed']}/{d['accepted']} != "
+        f"{d['predicted']}, trlx_tpu's rule on the emitted tokens")
     for r in out.values():
         r["tokens_total"] = sum(len(t) for t in r.pop("tokens"))
     return out
@@ -3010,10 +3055,13 @@ def durability_phases(card, device="cuda"):
     draft = spec_draft_phase(device, run_dir)
     d, off = draft["draft"], draft["off"]
     log("spec-draft", f"speculation draft (spec_k 4) with the PPO run "
-                      f"directory's checkpoint as target and draft (fp32, "
-                      f"greedy): {d['proposed']:.0f} proposed, "
+                      f"directory's newest params as target and draft "
+                      f"(fp32, greedy): {d['proposed']:.0f} proposed, "
                       f"{d['accepted']:.0f} accepted (acceptance "
-                      f"{d['accepted'] / d['proposed']:.3f}), "
+                      f"{d['accepted'] / d['proposed']:.3f}; trlx_tpu's "
+                      f"rule on the emitted tokens predicts "
+                      f"{d['predicted'][0]}/{d['predicted'][1]}), "
+                      f"{d['fallbacks']:.0f} fallbacks, "
                       f"{d['kv']['speculation']['tokens_per_slot_pass']:.3f}"
                       f" tokens per slot per verify pass; "
                       f"{d['verify_steps']} verify passes + {d['steps']} "

@@ -28,7 +28,10 @@ from trlx_tpu.models import generation as jg
 from trlx_tpu.serve import InferenceEngine as JaxEngine
 from trlx_tpu.serve import ServeConfig as JaxServe
 from trlx_tpu.serve.paged import RadixCache as JaxRadixCache
+from trlx_tpu import telemetry as jax_telemetry
+from trlx_tpu.serve.batcher import Request as JaxRequest
 from trlx_tpu.serve.slots import SlotScheduler as JaxSlotScheduler
+from trlx_tpu.serve.slots import _LiveSlot as JaxLiveSlot
 from trlx_tpu.serve.speculate import NgramIndex as JaxNgramIndex
 from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
@@ -170,18 +173,41 @@ def test_radix_peek_continuation_is_read_only_and_matches_trlx_tpu():
     assert all(c.allocator.refcount(p) == 0 for p in pages)
 
 
-def test_proposals_continue_after_the_free_token(tree):
-    """verify_step forwards [t0, proposals...] and accepts proposal j iff
-    it is the greedy token after candidate j: the scheduler drops the
-    speculator's first token (its guess of t0) and ships what follows."""
-    s = SlotScheduler(port_engine(tree))
-    req = Request([1, 2, 3, 1, 2, 3, 1], 8, (8, 8))
-    s._live[0] = _LiveSlot(req)
-    s._spawn_speculator(0, req.tokens)
-    # the history continues 2, 3, 1: 2 guesses t0, 3 and 1 follow it
-    assert s._speculators[0].propose() == [2, 3, 1]
-    props, n = s._gather_proposals()
-    assert props[0, :n[0]].tolist() == [3, 1] and not n[1:].any()
+@pytest.mark.parametrize("mode", ["lookup", "draft"])
+def test_gathered_proposals_match_trlx_tpu(tree, mode):
+    """Both tiers ship the first K tokens of their continuation of the
+    slot's history, as trlx_tpu's scheduler does: the same [S, K]
+    proposal batch from the same history and weights (the draft tier
+    with the target injected as its own draft)."""
+    history = [1, 2, 3, 1, 2, 3, 1]
+    serve = {"speculation": mode, "spec_k": 3}
+    if mode == "draft":
+        serve["spec_draft_checkpoint"] = "unused-injected"
+    jengine = build_engine(buckets=BUCKETS, **serve)
+    jengine._install_params(tree)
+    engine = port_engine(tree, **serve)
+    jdraft = draft = None
+    if mode == "draft":
+        from trlx_tpu.serve.speculate import DraftProposer as JaxDraft
+
+        jdraft = JaxDraft(jengine, spec_k=3, batch=jengine.slot_count())
+        draft = DraftProposer(engine, spec_k=3, batch=engine.slot_count())
+    got = []
+    for sched, live_cls, req in (
+            (JaxSlotScheduler(jengine, draft=jdraft), JaxLiveSlot,
+             JaxRequest(list(history), 8, (8, 8))),
+            (SlotScheduler(engine, draft=draft), _LiveSlot,
+             Request(list(history), 8, (8, 8)))):
+        sched._live[0] = live_cls(req)
+        sched._spawn_speculator(0, req.tokens)
+        props, n = sched._gather_proposals()
+        got.append((props.tolist(), n.tolist()))
+    assert got[1] == got[0]
+    props, n = got[1]
+    assert n[0] == 3 and not any(n[1:])
+    if mode == "lookup":
+        # the trigram [2, 3, 1] last continued with 2, 3, 1
+        assert props[0] == [2, 3, 1]
 
 
 # --------------------------------------------------------------------- #
@@ -322,9 +348,10 @@ SPEC_ROWS = [ROWS[0], ROWS[1], [1, 2, 3, 1, 2, 3, 1], ROWS[3]]
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 def test_greedy_parity_spec_on_off_and_trlx_tpu(tree, page_size, kv_dtype):
     jengine = build_engine(buckets=BUCKETS, page_size=page_size,
-                           kv_dtype=kv_dtype)
+                           kv_dtype=kv_dtype, speculation="lookup", spec_k=4)
     jengine._install_params(tree)
     want = run_staggered(JaxSlotScheduler(jengine), rows=SPEC_ROWS)
+    jcounters = dict(jax_telemetry.current().registry.counters)
     off = run_staggered(SlotScheduler(port_engine(
         tree, page_size=page_size, kv_dtype=kv_dtype, speculation="off")),
         rows=SPEC_ROWS)
@@ -335,6 +362,9 @@ def test_greedy_parity_spec_on_off_and_trlx_tpu(tree, page_size, kv_dtype):
     counters = telemetry.current().registry.counters
     assert counters["compile/recompiles"] == 0.0
     assert counters["serve/spec_proposed"] > 0
+    for name in ("serve/spec_proposed", "serve/spec_accepted"):
+        assert counters.get(name, 0.0) == jcounters.get(name, 0.0), name
+    assert counters.get("serve/spec_fallbacks", 0.0) == 0.0
     assert s.runtime.verify_steps > 0
     assert s.free_slots() == s.runtime.num_slots and not s._speculators
 
@@ -414,20 +444,31 @@ def test_chaos_speculate_hang_is_attributable_stall(tree, fresh_registry):
 
 def test_draft_tier_full_acceptance_from_a_port_checkpoint(tree, tmp_path):
     """The target's own weights, saved as a port checkpoint, as the
-    draft: every budget-feasible proposal is the target's greedy token,
-    so everything proposed is accepted and the output equals
-    speculation off; the injected-draft form (K + 1 ahead, as the
-    scheduler builds it) agrees."""
+    draft: the output equals speculation off, and the proposal and
+    acceptance counts equal trlx_tpu's with the target injected as its
+    own draft (both ship the first K drafted tokens; on this tiny
+    policy, whose greedy tokens repeat, everything proposed is
+    accepted, as tests/test_speculation.py finds). The injected-draft
+    form agrees."""
+    from trlx_tpu.serve.speculate import DraftProposer as JaxDraft
+
     ckpt = str(tmp_path / "step_1")
     save_components({"params": tree_map(torch.tensor, tree),
                      "config": tiny_config_dict()}, ckpt)
     rows = [[5, 6, 7], [9, 9, 2, 6], [3, 1, 4], [1, 2]]
+    jengine = build_engine(buckets=BUCKETS, speculation="draft", spec_k=4,
+                           spec_draft_checkpoint="unused-injected")
+    jengine._install_params(tree)
+    want = run_staggered(JaxSlotScheduler(jengine, draft=JaxDraft(
+        jengine, spec_k=4, batch=jengine.slot_count())), rows=rows)
+    jcounters = jax_telemetry.current().registry.counters
     off = run_staggered(SlotScheduler(port_engine(tree, speculation="off")),
                         rows=rows)
+    assert off == want
     for inject in (False, True):
         engine = port_engine(tree, speculation="draft",
                              spec_draft_checkpoint=ckpt)
-        draft = DraftProposer(engine, spec_k=5, batch=engine.slot_count()) \
+        draft = DraftProposer(engine, spec_k=4, batch=engine.slot_count()) \
             if inject else None
         s = SlotScheduler(engine, draft=draft)
         assert isinstance(s._draft, DraftProposer)
@@ -435,7 +476,10 @@ def test_draft_tier_full_acceptance_from_a_port_checkpoint(tree, tmp_path):
         reg = telemetry.current().registry
         proposed = reg.counters["serve/spec_proposed"]
         assert proposed > 0
-        assert reg.counters["serve/spec_accepted"] == proposed
+        assert proposed == jcounters["serve/spec_proposed"]
+        assert reg.counters["serve/spec_accepted"] == \
+            jcounters["serve/spec_accepted"] == proposed
+        assert reg.counters.get("serve/spec_fallbacks", 0.0) == 0.0
         assert reg.counters["compile/recompiles"] == 0.0
         assert s.free_slots() == s.runtime.num_slots
 

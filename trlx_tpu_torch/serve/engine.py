@@ -339,16 +339,13 @@ class InferenceEngine:
                         config: Optional[TRLConfig] = None,
                         serve: Optional[ServeConfig] = None,
                         device: Optional[str] = None,
-                        compute_dtype: Optional[str] = None,
                         ) -> "InferenceEngine":
         """An engine on a PPO checkpoint of the port's trainer:
         ``checkpoint`` is a checkpoint directory or a run directory (its
         newest committed ``step_<N>``, falling back past a corrupt one).
         Only the ``params`` component is read and verified; the config is
         the one the trainer embedded in meta.json unless ``config`` is
-        given, and ``compute_dtype`` (e.g. ``"float32"``) overrides its
-        ``model.compute_dtype``. The decode views are built from the
-        restored params."""
+        given. The decode views are built from the restored params."""
         from trlx_tpu_torch.utils.checkpoint import restore_tensor_component
 
         params, meta, resolved = restore_tensor_component("params",
@@ -359,9 +356,6 @@ class InferenceEngine:
                     f"checkpoint '{resolved}' carries no embedded config; "
                     f"pass the training config explicitly (--config)")
             config = TRLConfig.from_dict(meta["config"])
-        if compute_dtype is not None:
-            config = TRLConfig.from_dict(config.to_nested_dict())
-            config.model.compute_dtype = compute_dtype
         if not isinstance(config.method, PPOConfig):
             raise NotImplementedError(
                 f"the inference engine serves hydra (PPO) policies; the "

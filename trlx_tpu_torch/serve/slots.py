@@ -363,9 +363,8 @@ class SlotScheduler:
                 and cfg.spec_draft_checkpoint:
             from trlx_tpu_torch.serve.speculate import DraftProposer
 
-            # K + 1 ahead: the first is its guess of the free token
             self._draft = DraftProposer.from_checkpoint(
-                cfg.spec_draft_checkpoint, engine, self.spec_k + 1)
+                cfg.spec_draft_checkpoint, engine, self.spec_k)
         self._spec_proposed_total = 0
         self._spec_accepted_total = 0
         #: slots that emitted in verify passes, and the tokens they emitted
@@ -513,15 +512,14 @@ class SlotScheduler:
     def _spawn_speculator(self, slot: int, history: List[int]) -> None:
         """The lookup tier's per-slot state: an n-gram index over the
         request's own prompt (bounded by ``serve.spec_index_max_keys``,
-        dropped at harvest), proposing K + 1 tokens (the first is its
-        guess of the free token, :meth:`_gather_proposals`)."""
+        dropped at harvest)."""
         if self.spec_k <= 0 or self._spec_mode != "lookup":
             return
         from trlx_tpu_torch.serve.speculate import SlotSpeculator
 
         cfg = self.engine.serve
         self._speculators[slot] = SlotSpeculator(
-            history, self.spec_k + 1, ngram_max=int(cfg.spec_ngram_max),
+            history, self.spec_k, ngram_max=int(cfg.spec_ngram_max),
             max_keys=int(cfg.spec_index_max_keys))
 
     def _prefill_batch(self, batch: List[Request], P: int, extents) -> bool:
@@ -692,15 +690,13 @@ class SlotScheduler:
         nothing was dispatched yet, so the step completes unspeculated
         and ``serve/spec_fallbacks`` counts it.
 
-        ``verify_step`` forwards ``[t0, proposals...]``, t0 being the
-        free token it emits from the carried logits, and accepts
-        proposal j iff it is the greedy token after candidate j, so a
-        proposal continues AFTER t0. Both tiers continue the history,
-        whose next token is t0 itself: each proposes K + 1 tokens and
-        the first, its guess of t0, is dropped. (trlx_tpu ships the
-        continuation from t0 on, so its proposals sit one position early
-        and are accepted only where a token repeats its predecessor;
-        the greedy tokens are the same either way.)"""
+        Each tier ships the first K tokens of its continuation of the
+        history, as trlx_tpu does. ``verify_step`` forwards
+        ``[t0, proposals...]`` and accepts proposal j iff it is the
+        greedy token after candidate j, while the history's next token
+        is t0 itself: a proposal sits one position early and is
+        accepted only where a token repeats its predecessor (ROADMAP
+        queue 3). The greedy tokens are the same either way."""
         try:
             chaos.maybe_inject("serve_speculate")
             S, K = self.runtime.num_slots, self.spec_k
@@ -712,7 +708,7 @@ class SlotScheduler:
                     histories[s] = live.request.tokens + live.tokens
                 drafted = self._draft.propose(histories)
                 for s, live in self._live.items():
-                    p = drafted[s][1:K + 1]
+                    p = drafted[s][:K]
                     n = self._clamp_proposal(live, len(p))
                     props[s, :n] = p[:n]
                     nprops[s] = n
@@ -721,7 +717,7 @@ class SlotScheduler:
                     sp = self._speculators.get(s)
                     if sp is None:
                         continue
-                    p = sp.propose(self.cache)[1:K + 1]
+                    p = sp.propose(self.cache)[:K]
                     n = self._clamp_proposal(live, len(p))
                     props[s, :n] = p[:n]
                     nprops[s] = n

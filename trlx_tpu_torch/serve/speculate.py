@@ -180,15 +180,14 @@ class DraftProposer:
     def from_checkpoint(cls, path: str, serve_engine, spec_k: int):
         """The draft restored through the port's
         ``InferenceEngine.from_checkpoint`` with the serving engine's
-        serve config (itself not speculating), on its device and in its
-        compute dtype (the draft's architecture is its own checkpoint's)."""
+        serve config (itself not speculating), on its device; the
+        draft's architecture and compute dtype are its own checkpoint's."""
         from trlx_tpu_torch.serve.engine import InferenceEngine
 
         serve = dataclasses.replace(serve_engine.serve, speculation="off",
                                     spec_draft_checkpoint=None)
         draft = InferenceEngine.from_checkpoint(
-            path, serve=serve, device=str(serve_engine.device),
-            compute_dtype=serve_engine.config.model.compute_dtype)
+            path, serve=serve, device=str(serve_engine.device))
         return cls(draft, spec_k, serve_engine.slot_count())
 
     def graphs(self):
