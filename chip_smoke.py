@@ -127,6 +127,26 @@ Phases, each printing its own line; any failure exits non-zero:
      (the invalidated capture taken again); one cycle under
      ``TRLX_TPU_PROFILE_DIR`` whose Chrome trace names the three flash
      kernels' CUDA symbols and the decode graph's ``cudaGraphLaunch``.
+   - the serve lifecycle (``[serve-lifecycle]``), in process on the run
+     directory's newest step (bf16, greedy, the kernel path, phase 5's
+     lattice and 16 slots): the 10 requests over HTTP, each with a
+     ``trace_id``, ``serve/ttft`` and ``serve/itl`` observed, Prometheus
+     text on ``Accept: text/plain``, ``/debug/slo`` and ``/debug/state``;
+     a tenant over its 2-request bucket gets 429 with ``Retry-After``
+     while the default tenant is served, and a ``deadline_ms`` that
+     passes in the queue 503; a ``serve_decode`` fault at the third step
+     replays every request (bf16: the divergence printed; an fp32 engine:
+     tokens identical to the run without it); ``POST /admin/reload`` to
+     the older step commits model_version 2 with every engine tensor at
+     its address and 0 recompiles, its tokens those of a fresh engine on
+     that step, and a ``serve_reload`` fault answers 409 with the tokens
+     unchanged; ``POST /admin/drain`` with the requests in flight: 429
+     for a new one, ``/readyz`` 503, every request answered whole, the
+     drain clean; paged-decode launches == layers x steps; the step p50
+     with tracing on and off; and two ``python -m trlx_tpu_torch.serve``
+     children started with phase 7: a chaos hang under ``stall_timeout:
+     2`` exits 70 with the flight recorder in its stall dump, a SIGTERM
+     exits 0 after a clean drain.
    - escalation, in child processes beside phases 8 and 10 (2 layers, T
      576): a hung ``ppo_update`` under ``stall_action: checkpoint_exit``
      exits 75 with a rescue checkpoint at step 4, which a third child
@@ -193,7 +213,10 @@ Phases, each printing its own line; any failure exits non-zero:
      q x int8 pool at hd 256, launches == layers x steps; ``serve/
      model_gb`` against bf16's; every response as long as bf16's; the
      first step's logit gap; step p50s; peak memory; the cost of the
-     int8 projections' bf16 weight copies);
+     int8 projections' bf16 weight copies); then that engine hot-swapped
+     to the trainer's params (re-quantized, installed in place): version
+     2, every tensor at its address, 0 recompiles, the same tokens, the
+     swap's time printed;
    - one PPO cycle at configs/ppo_tldr.yml's shape (512 + 64 tokens, 2
      unfrozen layers, fused_attention, bf16, B 8): the three flash
      kernels launch at hd 256 (chunks x (L + k) + passes x L forwards,
@@ -224,8 +247,10 @@ import re
 import shutil
 import subprocess
 import sys
+import signal
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2068,6 +2093,523 @@ def spec_draft_phase(device, run_dir):
 
 
 # --------------------------------------------------------------------- #
+# 7b. the serve lifecycle: tracing, tenants, replay, hot-swap, drain and
+# the serve watchdog, on the PPO run directory
+# --------------------------------------------------------------------- #
+
+#: the over-quota tenant's bucket: two requests, then (at 0.01 rps) a
+#: 429 whose Retry-After is the bucket's refill time (100 s)
+LIFECYCLE_TENANTS = {"miser": {"rps": 0.01, "burst": 2}}
+
+
+def http(url, payload=None, headers=None, timeout=600):
+    """(status, headers, body) of one request; an HTTP error status is a
+    response here, not an exception. The body is parsed as JSON unless
+    it is text."""
+    req = urllib.request.Request(
+        url, method="GET" if payload is None else "POST",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, hdrs, raw = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, raw = e.code, dict(e.headers), e.read()
+    text = raw.decode()
+    if hdrs.get("Content-Type", "").startswith("application/json"):
+        return status, hdrs, json.loads(text)
+    return status, hdrs, text
+
+
+def engine_ptrs(engine):
+    """Every serving tensor's address: a swap must keep each one."""
+    return [t.data_ptr() for t in aotjit.tree_flatten(
+        (engine.blocks, engine.embed, engine.ln_f))[0]]
+
+
+def lifecycle_engine(checkpoint, config, device, **serve):
+    """An engine on a checkpoint of the PPO run at phase 5's lattice (16
+    slots, pages of 16, the kernel path), greedy."""
+    cfg = ServeConfig(**{"buckets": [list(b) for b in SERVE_BUCKETS],
+                         "slots": 16, "page_size": 16,
+                         "attention": "pallas", "max_queue": 256,
+                         "request_timeout": 600.0, **serve})
+    return InferenceEngine.from_checkpoint(
+        checkpoint, config=TRLConfig.from_dict(config), serve=cfg,
+        device=device)
+
+
+def serve_ordered(sched, engine, requests=USER_PROMPTS):
+    """``requests`` through a RUNNING scheduler, all queued under its
+    lock (one admission order, as :func:`run_scheduler` gives a stopped
+    one); their tokens."""
+    with sched._cond:
+        reqs = [sched.submit(engine.encode_prompt(p), max_new_tokens=n)
+                for p, n in requests]
+    return [r.wait(timeout=600).result for r in reqs]
+
+
+def step_ms_p50(records):
+    """Median whole-step wall time (ms) of flight-recorder records: the
+    device step plus the harvest and its tracing bookkeeping."""
+    return float(np.median([r["step_ms"] for r in records])) \
+        if records else None
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ServeWatchdogDrive:
+    """Two ``python -m trlx_tpu_torch.serve`` children at gpt2 width
+    (seeded weights, bf16, the kernel path), started with the PPO phase
+    and checked by ``[serve-lifecycle]``: one with ``stall_timeout: 2`` and
+    a ``serve_decode`` chaos hang at its sixth step, which must exit 70
+    after printing the flight recorder beside the stall's stack dump;
+    one sent SIGTERM while idle, which must drain clean and exit 0. A
+    thread of this process feeds them; :meth:`finish` checks, and
+    :meth:`kill` stops whatever is left."""
+
+    def __init__(self, root, device):
+        self.root, self.device = root, device
+        self.procs, self.ports, self.out = {}, {}, {}
+        self.error, self.result = None, None
+
+    def _start(self, name, chaos_spec):
+        os.makedirs(self.root, exist_ok=True)
+        cfg = config_dict("bfloat16")
+        cfg["serve"] = {"buckets": [[2, 16, 16]], "slots": 2,
+                        "page_size": 16, "attention": "pallas",
+                        "stall_timeout": 2.0, "request_timeout": 600.0,
+                        "drain_timeout": 30.0}
+        path = os.path.join(self.root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        self.ports[name] = free_port()
+        env = dict(os.environ, TRLX_TPU_CHAOS=chaos_spec)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        log_path = os.path.join(self.root, f"{name}.log")
+        self.out[name] = log_path
+        with open(log_path, "w") as log_file:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "trlx_tpu_torch.serve", "--config",
+                 path, "--port", str(self.ports[name]), "--device",
+                 self.device],
+                stdout=log_file, stderr=subprocess.STDOUT, cwd=here,
+                env=env)
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self._start("stall", "serve_decode:hang@6")
+        self._start("sigterm", "")
+        self.thread = threading.Thread(target=self._drive, daemon=True,
+                                       name="serve-watchdog-drive")
+        self.thread.start()
+
+    def _ready(self, name, timeout=600):
+        url = f"http://127.0.0.1:{self.ports[name]}/readyz"
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            assert self.procs[name].poll() is None, (
+                f"serve child '{name}' exited {self.procs[name].returncode}"
+                f" before it was ready")
+            try:
+                if http(url, timeout=5)[0] == 200:
+                    return
+            except OSError:
+                pass
+            time.sleep(0.25)
+        raise AssertionError(f"serve child '{name}' never became ready")
+
+    def _drive(self):
+        try:
+            out = {}
+            self._ready("stall")
+            base = f"http://127.0.0.1:{self.ports['stall']}"
+            status, _, body = http(f"{base}/generate",
+                                   {"prompt": "Hi", "max_new_tokens": 4})
+            assert status == 200 and len(body["tokens"]) == 4, body
+            hung_at = time.perf_counter()
+            try:  # the child dies under this request
+                http(f"{base}/generate", {"prompt": "Hi",
+                                          "max_new_tokens": 16},
+                     timeout=300)
+            except OSError:
+                pass
+            rc = self.procs["stall"].wait(timeout=300)
+            out["stall"] = {"exit": rc,
+                            "s": time.perf_counter() - hung_at}
+            self._ready("sigterm")
+            t = time.perf_counter()
+            self.procs["sigterm"].send_signal(signal.SIGTERM)
+            rc = self.procs["sigterm"].wait(timeout=120)
+            out["sigterm"] = {"exit": rc, "s": time.perf_counter() - t}
+            self.result = out
+        except BaseException as e:  # re-raised by finish()
+            self.error = e
+        self.wall_s = time.perf_counter() - self.t0
+
+    def finish(self, timeout=600):
+        self.thread.join(timeout)
+        assert not self.thread.is_alive(), "the serve children hung"
+        if self.error is not None:
+            raise self.error
+        logs = {}
+        for name, path in self.out.items():
+            with open(path) as f:
+                logs[name] = f.read()
+        out = self.result
+        stall, sigterm = logs["stall"], logs["sigterm"]
+        assert out["stall"]["exit"] == 70, (out, stall[-6000:])
+        assert "STALL: phase 'serve_decode'" in stall, stall[-6000:]
+        assert "FLIGHT RECORDER (watchdog stall): last 5 engine steps" \
+            in stall, stall[-6000:]
+        assert "STALL ESCALATION: phase 'serve_decode'" in stall
+        assert out["sigterm"]["exit"] == 0, (out, sigterm[-6000:])
+        assert "SIGTERM: beginning graceful drain" in sigterm, sigterm
+        assert "drained (clean)" in sigterm, sigterm[-6000:]
+        out["wall_s"] = self.wall_s
+        out["recorder_lines"] = sum(
+            1 for ln in stall.splitlines()
+            if ln.startswith('[trlx_tpu_torch.serve] {"step"'))
+        return out
+
+    def kill(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        if hasattr(self, "thread"):
+            self.thread.join(30)
+
+
+def serve_lifecycle_phase(device, run_dir, watchdog):
+    """The serve lifecycle on the PPO run directory at gpt2 width: an
+    in-process ``InferenceServer`` on its newest step (bf16, greedy, the
+    kernel path, 16 slots, pages of 16) with a tenant table, then
+
+    - tracing: the 10 ``USER_PROMPTS`` over HTTP, each response with a
+      ``trace_id``; ``serve/ttft`` and ``serve/itl`` with >= 10
+      observations; Prometheus text on ``Accept: text/plain``;
+      ``/debug/slo`` and ``/debug/state`` 200;
+    - tenants: the over-quota tenant's third request 429 with
+      ``Retry-After`` while the default tenant is served; a request whose
+      ``deadline_ms`` (1) passes while it waits for the queue: 503;
+    - replay at bf16: the 10 requests with a ``serve_decode`` fault at
+      their third step against the same run without it (the divergence
+      printed, not asserted); replays > 0, no request error. The third:
+      two committed tokens keep the longest prompt (30 bytes) inside the
+      32-token prompt class; a later fault ends it with
+      ``ReplayExhausted``, as in trlx_tpu;
+    - hot-swap: ``POST /admin/reload`` to the older ``step_<N>``: 200,
+      ``model_version`` 2, then a ``serve_reload`` fault: 409, the version
+      and the tokens unchanged; both times 0 recompiles and every engine
+      tensor at its address; the swapped engine's tokens equal a fresh
+      engine's on that step (built after the server stopped, tracing
+      off: the step p50 without tracing);
+    - drain: ``POST /admin/drain`` with the 10 requests in flight (steps
+      slowed by a chaos ``slow``): 202, a new request 429, ``/readyz``
+      503, every in-flight request 200 and whole, the drain clean;
+    - replay at fp32: an fp32 engine on the same step, the 10 requests
+      with and without a ``serve_decode`` fault: identical tokens,
+      replays > 0, no request error;
+    - the watchdog children (:class:`ServeWatchdogDrive`) checked.
+
+    Paged-decode launches are counted from 0 just before the server
+    starts to just after it drained: > 0, and layers x decode steps."""
+    t_phase = time.perf_counter()
+    latest, _, greedy = greedy_run_config(run_dir)
+    older = sorted((d for d in os.listdir(run_dir)
+                    if d.startswith("step_") and ".tmp-" not in d
+                    and os.path.join(run_dir, d) != latest),
+                   key=lambda d: int(d.split("_")[1]))[-1]
+    older = os.path.join(run_dir, older)
+    telemetry.start()
+    registry = telemetry.current().registry
+    engine = lifecycle_engine(latest, greedy, device,
+                              tenants=LIFECYCLE_TENANTS,
+                              drain_timeout=120.0)
+    L = engine.spec.n_layer
+    ops.reset_launches()
+    server = InferenceServer(engine, host="127.0.0.1", port=0).start()
+    sched = server.scheduler
+    base = f"http://127.0.0.1:{server.port}"
+    out = {}
+    try:
+        # -- tracing ---------------------------------------------------- #
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(USER_PROMPTS)) as pool:
+            replies = list(pool.map(
+                lambda r: http(f"{base}/generate",
+                               {"prompt": r[0], "max_new_tokens": r[1],
+                                "trace": r[0] == "Hi"}),
+                USER_PROMPTS))
+        out["burst_s"] = time.perf_counter() - t0
+        for status, headers, body in replies:
+            assert status == 200, body
+            assert body["trace_id"] and headers["X-Request-Id"] == \
+                body["trace_id"], body
+            assert body["model_version"] == 1
+        traced = next(b["trace"] for _, _, b in replies if "trace" in b)
+        hists = registry.hists
+        ttft, itl = hists["serve/ttft"], hists["serve/itl"]
+        assert ttft.count >= 10 and itl.count >= 10, (ttft.count, itl.count)
+        status, headers, text = http(f"{base}/metrics",
+                                     headers={"Accept": "text/plain"})
+        assert status == 200 and "trlx_tpu_serve_ttft" in text, text[:500]
+        assert headers["Content-Type"].startswith("text/plain")
+        for route in ("/debug/slo", "/debug/state"):
+            status, _, body = http(base + route)
+            assert status == 200, (route, body)
+        assert body["flight_recorder"], body.keys()
+        out["tracing"] = {
+            "ttft_p50_ms": ttft.quantile(0.5) * 1e3,
+            "ttft_max_ms": ttft.max * 1e3,
+            "itl_p50_ms": itl.quantile(0.5) * 1e3,
+            "itl_max_ms": itl.max * 1e3,
+            "ttft_n": ttft.count, "itl_n": itl.count, "trace": traced,
+            "prometheus_lines": len(text.splitlines())}
+
+        # -- tenants and deadlines --------------------------------------- #
+        miser = [http(f"{base}/generate", {"prompt": "Hi",
+                                           "max_new_tokens": 4},
+                      headers={"X-Tenant-Id": "miser"}) for _ in range(3)]
+        assert [s for s, _, _ in miser] == [200, 200, 429], miser
+        _, headers, body = miser[2]
+        assert body["tenant"] == "miser" and int(headers["Retry-After"]) \
+            >= 1, (headers, body)
+        status, _, body = http(f"{base}/generate",
+                               {"prompt": "Hi", "max_new_tokens": 4})
+        assert status == 200 and len(body["tokens"]) == 4, body
+        # with no slot free the request waits in the queue past its 1 ms,
+        # and the worker's next admission scan sheds it
+        free, sched._free = sched._free, []
+        try:
+            late = {"r": http(f"{base}/generate",
+                              {"prompt": "Hi", "max_new_tokens": 4,
+                               "deadline_ms": 1})}
+        finally:
+            sched._free = free
+        assert late["r"][0] == 503 and "deadline_ms" in \
+            late["r"][2]["error"], late
+        out["tenants"] = {"miser": [s for s, _, _ in miser],
+                          "retry_after_s": int(miser[2][1]["Retry-After"]),
+                          "deadline_status": late["r"][0]}
+
+        # -- replay at bf16 (divergence printed) --------------------------- #
+        first = sched._step_counter
+        bf16 = serve_ordered(sched, engine)
+        traced_records = [r for r in sched.flight.snapshot()
+                          if r["step"] > first]
+        replays0 = registry.counters["serve/replays"]
+        errors0 = registry.counters["serve/request_errors"]  # the shed
+        chaos.configure("serve_decode:exc@3")
+        try:
+            bf16_fault = serve_ordered(sched, engine)
+        finally:
+            chaos.reset()
+        replays = registry.counters["serve/replays"] - replays0
+        assert replays > 0, "the fault replayed nothing"
+        assert registry.counters["serve/request_errors"] == errors0, \
+            registry.counters["serve/request_errors"]
+        out["replay_bf16"] = {
+            "replays": replays,
+            "divergence": divergence(bf16_fault, bf16, engine,
+                                     USER_PROMPTS)}
+        out["step_on"] = {
+            "slot_step_p50_ms": hists["time/serve/slot_step"]
+            .quantile(0.5) * 1e3,
+            "step_ms_p50": step_ms_p50(traced_records)}
+
+        # -- hot-swap ------------------------------------------------------ #
+        ptrs = engine_ptrs(engine)
+        t0 = time.perf_counter()
+        status, _, swap = http(f"{base}/admin/reload",
+                               {"checkpoint": older})
+        swap_s = time.perf_counter() - t0
+        assert status == 200 and swap["reloaded"] is True, swap
+        assert swap["model_version"] == engine.model_version == 2, swap
+        assert engine_ptrs(engine) == ptrs, "the swap moved a tensor"
+        assert recompiles() == 0, f"the swap recompiled {recompiles()}"
+        swapped = serve_ordered(sched, engine)
+        chaos.configure("serve_reload:exc@1")
+        try:
+            status, _, failed = http(f"{base}/admin/reload",
+                                     {"checkpoint": latest})
+        finally:
+            chaos.reset()
+        assert status == 409 and failed["reloaded"] is False, failed
+        assert "ChaosError" in failed["reason"], failed
+        assert engine.model_version == 2 and engine_ptrs(engine) == ptrs
+        assert serve_ordered(sched, engine) == swapped, \
+            "the rolled-back swap changed the tokens"
+        t0 = time.perf_counter()  # the restore alone: verify + map
+        engine.load_params(older)
+        load_s = time.perf_counter() - t0
+        assert recompiles() == 0, f"the rollback recompiled {recompiles()}"
+        _, _, ready = http(f"{base}/readyz")
+        assert ready["model_version"] == 2, ready
+
+        # -- drain with the requests in flight ----------------------------- #
+        chaos.configure("serve_decode:slow=0.05@*")
+        submitted = registry.counters["serve/requests"]
+        try:
+            with ThreadPoolExecutor(len(USER_PROMPTS)) as pool:
+                burst = [pool.submit(http, f"{base}/generate",
+                                     {"prompt": p, "max_new_tokens": n})
+                         for p, n in USER_PROMPTS]
+                # the drain starts once every request was admitted to
+                # the queue: one still on its way would get its 429
+                deadline = time.monotonic() + 60
+                while registry.counters["serve/requests"] - submitted < \
+                        len(USER_PROMPTS) and time.monotonic() < deadline:
+                    time.sleep(0.002)
+                in_flight = len(sched._live) + sched.queue_depth()
+                assert registry.counters["serve/requests"] - submitted == \
+                    len(USER_PROMPTS), "the burst never reached the queue"
+                assert in_flight > 0, "the burst finished before the drain"
+                status, _, body = http(f"{base}/admin/drain", {})
+                assert status == 202 and body["draining"] is True, body
+                status, headers, body = http(
+                    f"{base}/generate", {"prompt": "Hi",
+                                         "max_new_tokens": 4})
+                assert status == 429 and "draining" in body["error"], body
+                assert int(headers["Retry-After"]) >= 1
+                status, _, ready = http(f"{base}/readyz")
+                assert status == 503 and ready["draining"] is True, ready
+                done = [f.result() for f in burst]
+        finally:
+            chaos.reset()
+        for (status, _, body), (_, n) in zip(done, USER_PROMPTS):
+            assert status == 200, body
+        check_counts([(r, b["tokens"]) for r, (_, _, b) in
+                      zip(USER_PROMPTS, done)],
+                     engine.tokenizer.eos_token_id)
+        assert server._drain_done.wait(120), "the drain never ended"
+        assert server._drain_clean is True, "the drain shed requests"
+        out["drain"] = {"in_flight": in_flight,
+                        "drains": registry.counters["serve/drains"]}
+    finally:
+        chaos.reset()
+        server.stop()
+    launches, steps = ops.LAUNCHES["paged_decode"], sched.runtime.steps
+    if device == "cuda":
+        assert launches == L * steps > 0, (launches, L, steps)
+    assert recompiles() == 0, f"the phase recompiled {recompiles()}"
+    out.update(launches=launches, steps=steps, layers=L, swap_s=swap_s,
+               load_s=load_s,
+               counters={k: registry.counters[k] for k in (
+                   "serve/replays", "serve/reloads", "serve/reload_failures",
+                   "serve/shed_quota", "serve/shed_expired", "serve/drains",
+                   "serve/flight_dumps", "serve/request_errors")})
+    del engine, sched, server
+    release(device)
+
+    # -- a fresh engine on the swapped-to step; the p50 without tracing -- #
+    telemetry.start()
+    fresh = lifecycle_engine(older, greedy, device, request_tracing=False)
+    fresh_tokens, fresh_sched = run_scheduler(fresh, USER_PROMPTS)
+    assert fresh_tokens == swapped, divergence(swapped, fresh_tokens,
+                                               fresh, USER_PROMPTS)
+    out["step_off"] = {
+        "slot_step_p50_ms": p50_ms(SlotPoolRuntime.STEP_SPAN),
+        "step_ms_p50": step_ms_p50(fresh_sched.flight.snapshot())}
+    del fresh, fresh_sched
+    release(device)
+
+    # -- replay at fp32: the tokens hold --------------------------------- #
+    fp32_config = dict(greedy)
+    fp32_config["model"] = {**greedy["model"], "compute_dtype": "float32"}
+    telemetry.start()
+    fp32 = lifecycle_engine(latest, fp32_config, device)
+    clean, _ = run_scheduler(fp32, USER_PROMPTS)
+    chaos.configure("serve_decode:exc@3")
+    try:
+        faulted, _ = run_scheduler(fp32, USER_PROMPTS)
+    finally:
+        chaos.reset()
+    counters = telemetry.current().registry.counters
+    assert counters["serve/replays"] > 0, "the fp32 fault replayed nothing"
+    assert counters.get("serve/request_errors", 0.0) == 0, counters
+    assert faulted == clean, divergence(faulted, clean, fp32, USER_PROMPTS)
+    out["replay_fp32"] = {"replays": counters["serve/replays"],
+                          "identical": f"{len(clean)}/{len(clean)}"}
+    del fp32
+    release(device)
+    out["watchdog"] = watchdog.finish()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def log_lifecycle(lc, card):
+    tr = lc["tracing"]
+    log("serve-lifecycle", f"10 traced HTTP requests in "
+                           f"{lc['burst_s'] * 1e3:.1f} ms: every response "
+                           f"carries a trace_id; serve/ttft {tr['ttft_n']} "
+                           f"and serve/itl {tr['itl_n']} observations; "
+                           f"Prometheus text ({tr['prometheus_lines']} lines) "
+                           f"on Accept: text/plain; /debug/slo and "
+                           f"/debug/state 200")
+    log("serve-lifecycle", f"smoke figures, not cells: TTFT p50 "
+                           f"{tr['ttft_p50_ms']:.2f} ms max "
+                           f"{tr['ttft_max_ms']:.2f} ms; inter-token gap p50 "
+                           f"{tr['itl_p50_ms']:.3f} ms max "
+                           f"{tr['itl_max_ms']:.3f} ms ({card})")
+    on, off = lc["step_on"], lc["step_off"]
+    log("serve-lifecycle", f"decode step p50, the span "
+                           f"(time/serve/slot_step): tracing on "
+                           f"{on['slot_step_p50_ms']:.3f} ms, off "
+                           f"{off['slot_step_p50_ms']:.3f} ms; the whole "
+                           f"step with its harvest (flight recorder): on "
+                           f"{on['step_ms_p50']:.3f} ms, off "
+                           f"{off['step_ms_p50']:.3f} ms ({card})")
+    t = lc["tenants"]
+    log("serve-lifecycle", f"tenants: the 2-request bucket answered "
+                           f"{t['miser']} (Retry-After "
+                           f"{t['retry_after_s']} s) while the default "
+                           f"tenant was served; deadline_ms 1 -> "
+                           f"{t['deadline_status']}")
+    log("serve-lifecycle", f"replay: a serve_decode fault at the 3rd step "
+                           f"replayed {lc['replay_fp32']['replays']:.0f} "
+                           f"requests at fp32, tokens identical "
+                           f"{lc['replay_fp32']['identical']}, no request "
+                           f"error; at bf16 "
+                           f"{lc['replay_bf16']['replays']:.0f} replayed, "
+                           f"divergence {lc['replay_bf16']['divergence']}")
+    log("serve-lifecycle", f"hot-swap to the older step: model_version 2 "
+                           f"in {lc['swap_s'] * 1e3:.1f} ms (POST "
+                           f"/admin/reload: restore, install in place, "
+                           f"probe; the restore alone, manifest check and "
+                           f"map, {lc['load_s'] * 1e3:.1f} ms), tokens == "
+                           f"a fresh engine's on that "
+                           f"step; a serve_reload fault: 409, version and "
+                           f"tokens unchanged; 0 recompiles, every engine "
+                           f"tensor at its address ({card})")
+    wd = lc["watchdog"]
+    log("serve-lifecycle", f"drain with {lc['drain']['in_flight']} requests "
+                           f"in flight: 202, new request 429, /readyz 503, "
+                           f"all 10 answered whole, clean; watchdog child: "
+                           f"exit {wd['stall']['exit']} "
+                           f"{wd['stall']['s']:.1f}s after the hung request "
+                           f"(stall_timeout 2 + the 60 s grace), flight "
+                           f"recorder {wd['recorder_lines']} records in its "
+                           f"dump; SIGTERM child: exit "
+                           f"{wd['sigterm']['exit']} in "
+                           f"{wd['sigterm']['s']:.2f}s, drained clean")
+    log("serve-lifecycle", f"paged decode launches {lc['launches']} == "
+                           f"{lc['layers']} layers x {lc['steps']} steps; "
+                           f"counters {lc['counters']}; the phase took "
+                           f"{lc['wall_s']:.1f}s (the children "
+                           f"{wd['wall_s']:.1f}s from their start, beside "
+                           f"the phases before it) ({card})")
+
+
+# --------------------------------------------------------------------- #
 # 8. train parity: kernel path vs dense path at fp32
 # --------------------------------------------------------------------- #
 
@@ -3014,11 +3556,12 @@ class EscalationDrive:
 # --------------------------------------------------------------------- #
 
 
-def durability_phases(card, device="cuda"):
+def durability_phases(card, watchdog, device="cuda"):
     """PPO (ppo_tldr's wiring) with its serve-from-checkpoint, resume and
-    commit-gate checks, the PPO parity phase, ILQL with its save /
-    restore check, the ILQL parity phase and the bf16 flash kernels at
-    the ILQL shape. Checkpoints go under CKPT_ROOT."""
+    commit-gate checks, the serve lifecycle (which checks ``watchdog``,
+    a started :class:`ServeWatchdogDrive`), the PPO parity phase, ILQL
+    with its save / restore check, the ILQL parity phase and the bf16
+    flash kernels at the ILQL shape. Checkpoints go under CKPT_ROOT."""
     tree = init_hydra_numpy(
         TRLConfig.from_dict(train_config_dict()).model.resolve_spec(), 2,
         seed=0)
@@ -3074,6 +3617,8 @@ def durability_phases(card, device="cuda"):
                       f"speculation off; {d['graphs']['graphs']} graphs "
                       f"(the draft's generate one of them), 0 recompiles "
                       f"({card})")
+    lifecycle = serve_lifecycle_phase(device, run_dir, watchdog)
+    log_lifecycle(lifecycle, card)
     resume = resume_phase(trainer, batch, device, run_dir)
     restore_ms = telemetry.current().registry.hists[
         "time/checkpoint_restore"].total * 1e3
@@ -3259,7 +3804,8 @@ def durability_phases(card, device="cuda"):
             "ppo_ab": ppo_ab, "ilql_ab": ilql_ab,
             "ilql_parity": ilql_parity, "ilql_errs": ilql_errs,
             "flash_ilql": flash_ilql, "serve_checkpoint": serve_ckpt,
-            "spec_draft": draft, "durability": durability}
+            "spec_draft": draft, "serve_lifecycle": lifecycle,
+            "durability": durability}
 
 
 # --------------------------------------------------------------------- #
@@ -3615,6 +4161,7 @@ def gptj_int8_serve_phase(trainer, cfg_dict, device, bf16, bf16_gb,
     ops.reset_launches()
     tokens, sched = run_scheduler(engine, GPTJ_REQUESTS)
     launches, steps = ops.LAUNCHES["paged_decode"], sched.runtime.steps
+    swap = gptj_swap(engine, sched, trainer.params, tokens, device)
     L = engine.spec.n_layer
     if device == "cuda":
         assert launches == L * steps > 0, (launches, L, steps)
@@ -3637,7 +4184,42 @@ def gptj_int8_serve_phase(trainer, cfg_dict, device, bf16, bf16_gb,
             "same_top1": top, "step_p50_ms": p50,
             "bf16_step_p50_ms": bf16_p50, "peak_gb": peak,
             "graphs": graphs, "projection": cost, "build_s": build_s,
-            "identical": f"{same}/{len(tokens)}"}
+            "identical": f"{same}/{len(tokens)}", "swap": swap}
+
+
+def rerun(sched, engine, requests):
+    """``requests`` through a stopped scheduler again (its graphs and
+    pool reused): all queued, then its worker started and stopped."""
+    reqs = [sched.submit(engine.encode_prompt(p), max_new_tokens=n)
+            for p, n in requests]
+    sched.start()
+    try:
+        return [r.wait(timeout=600).result for r in reqs]
+    finally:
+        sched.stop()
+
+
+def gptj_swap(engine, sched, params, tokens, device):
+    """One hot-swap of the int8-weight engine to the trainer's own params
+    (the block matrices quantized again on the card and installed in
+    place; the leaves the engine serves from the trainer's tree are that
+    very tree's, so they stay; probed): committed at model_version 2,
+    every engine tensor at its address, 0 recompiles, and the same
+    greedy tokens as before (the same weights quantize to the same
+    codes). Returns the swap's wall time."""
+    ptrs = engine_ptrs(engine)
+    sync(device)
+    t0 = time.perf_counter()
+    result = sched.request_swap(params, label="trainer params")
+    sync(device)
+    swap_s = time.perf_counter() - t0
+    assert result["reloaded"] is True, result
+    assert engine.model_version == 2, result
+    assert engine_ptrs(engine) == ptrs, "the swap moved a tensor"
+    assert recompiles() == 0, f"the swap recompiled {recompiles()} times"
+    assert rerun(sched, engine, GPTJ_REQUESTS) == tokens, \
+        "the swapped int8 engine changed the tokens"
+    return {"swap_s": swap_s, "model_version": engine.model_version}
 
 
 def gptj_flash_phase(device):
@@ -3788,6 +4370,12 @@ def log_gptj(g, card):
                 f"projection {pr['int8_ms']:.3f} ms, bf16 matmul alone "
                 f"{pr['bf16_ms']:.3f} ms; engine built in "
                 f"{i8['build_s']:.2f}s ({card})")
+    log("gptj", f"hot-swap of the int8-weight engine to the trainer's "
+                f"params (quantized on the card, installed in place, "
+                f"probed): {i8['swap']['swap_s'] * 1e3:.1f} ms, "
+                f"model_version {i8['swap']['model_version']}, every "
+                f"engine tensor at its address, 0 recompiles, the same "
+                f"tokens after ({card})")
     fl = g["flash"]
     log("gptj", f"one PPO cycle at the TL;DR shape (B8, 512 + 64, 2 "
                 f"unfrozen layers, fused_attention, bf16): flash launches at "
@@ -3940,9 +4528,15 @@ def main() -> int:
     del views
 
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    # the serve watchdog's children start here, beside the PPO phase, so
+    # their 60 s stall grace has passed when [serve-lifecycle] checks them
+    watchdog = ServeWatchdogDrive(os.path.join(CKPT_ROOT, "serve_children"),
+                                  "cuda")
+    watchdog.start()
     try:
-        durable = durability_phases(card)
+        durable = durability_phases(card, watchdog)
     finally:
+        watchdog.kill()
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     train, ilql = durable["train"], durable["ilql"]
     train_parity, ilql_parity = durable["train_parity"], \
@@ -3951,6 +4545,7 @@ def main() -> int:
                  for n in flash_err}
     flash_ilql = durable["flash_ilql"]
     serve_ckpt = durable["serve_checkpoint"]
+    lifecycle = durable["serve_lifecycle"]
 
     print(json.dumps({"timing": {
         "serving_shape": serving, "ctx1024": long_ctx,
@@ -3976,6 +4571,10 @@ def main() -> int:
                  "flash_tldr_shape": flash_gptj,
                  "paged_int8_serving": gptj_int8_serving},
         "serve_tiers": tiers, "spec_draft": durable["spec_draft"],
+        "serve_lifecycle": {k: v for k, v in lifecycle.items()
+                            if k != "tracing"} | {
+            "tracing": {k: v for k, v in lifecycle["tracing"].items()
+                        if k != "trace"}},
         "paged_int8_serving": int8_serving,
     }}))
     resume, gate = (durable["durability"][k]["launches"]
@@ -3983,9 +4582,11 @@ def main() -> int:
     kernels = [kernel_entry(
         "paged_decode", "trlx_tpu_torch/csrc/paged_decode.cu",
         "trlx_tpu/ops/paged_attention.py:58",
-        run["launches"] + serve_ckpt["launches"], err, serving,
+        run["launches"] + serve_ckpt["launches"] + lifecycle["launches"],
+        err, serving,
         {"serve": run["launches"],
          "serve_checkpoint": serve_ckpt["launches"],
+         "serve_lifecycle": lifecycle["launches"],
          "ppo": train["all_launches"]["paged_decode"],
          "ilql": ilql["all_launches"]["paged_decode"]})]
     for name in FLASH_NAMES:

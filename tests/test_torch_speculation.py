@@ -93,14 +93,20 @@ def run_staggered(s, rows=ROWS, max_new=8):
     s.warmup()
     s.start()
     try:
-        first = [s.submit(list(r), max_new_tokens=max_new) for r in rows[:2]]
-        for r in first:
-            r.wait(timeout=60.0)
-        second = [s.submit(list(r), max_new_tokens=max_new)
-                  for r in rows[2:]]
-        for r in second:
-            r.wait(timeout=60.0)
-        return [r.result for r in first + second]
+        done = []
+        for phase in (rows[:2], rows[2:]):
+            # each phase's rows are queued while the scheduler's lock is
+            # held (an RLock, so submit re-enters it): the worker then
+            # admits them together, never the first alone. The lookup
+            # tier reads other rows' committed pages, so its proposal
+            # counts follow the admission order.
+            with s._cond:
+                reqs = [s.submit(list(r), max_new_tokens=max_new)
+                        for r in phase]
+            for r in reqs:
+                r.wait(timeout=60.0)
+            done += reqs
+        return [r.result for r in done]
     finally:
         s.stop()
 

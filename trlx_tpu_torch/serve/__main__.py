@@ -22,6 +22,13 @@ Examples::
     python -m trlx_tpu_torch.serve --checkpoint ckpts --speculation lookup \\
         --spec-k 4
     python -m trlx_tpu_torch.serve --checkpoint ckpts --scheduler static
+    python -m trlx_tpu_torch.serve --checkpoint ckpts --stall-timeout 60 \
+        --watch-checkpoints 30 --drain-timeout 30
+
+The serve watchdog is armed by ``serve.stall_timeout`` (the flag, or
+the config's ``serve:`` section, as ``configs/ppo_config.yml`` sets
+it); SIGTERM drains and exits 0. The tp serve mesh (``serve.mesh``) is
+not ported, so there are no mesh flags.
 """
 
 import argparse
@@ -74,6 +81,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "'8x16x48,16x16x48' (overrides the serve: section)")
     p.add_argument("--max-wait-ms", type=float, default=None,
                    help="the static micro-batcher's coalescing deadline")
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="admission-control queue bound (429 past it)")
+    p.add_argument("--request-timeout", type=float, default=None,
+                   help="per-request walltime bound (503 past it)")
+    p.add_argument("--stall-timeout", type=float, default=None,
+                   help="serve watchdog budget per decode step or static "
+                        "batch (0 = off); a hung step dumps the stacks "
+                        "and the flight recorder, then exits 70")
     p.add_argument("--scheduler", choices=("static", "slots"), default=None,
                    help="decode driver: 'slots' (default) = continuous "
                         "batching over the slot pool; 'static' = the "
@@ -114,6 +129,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spec-draft-checkpoint", default=None,
                    help="draft-model checkpoint (or run) directory for "
                         "--speculation draft")
+    p.add_argument("--slo-ttft-ms", type=float, default=None,
+                   help="TTFT objective behind serve/goodput (0 = every "
+                        "request counts good)")
+    p.add_argument("--flight-recorder-steps", type=int, default=None,
+                   help="engine-step ring dumped on stalls and served at "
+                        "/debug/state (0 = off)")
+    p.add_argument("--max-replays", type=int, default=None,
+                   help="replay budget per request: a poisoned step "
+                        "re-queues in-flight requests this many times "
+                        "before a 503 (0 = fail on the first fault)")
+    p.add_argument("--drain-timeout", type=float, default=None,
+                   help="graceful-drain budget (SIGTERM, POST "
+                        "/admin/drain): requests still in flight past it "
+                        "get 503 and a reason")
+    p.add_argument("--watch-checkpoints", type=float, default=None,
+                   help="poll the run dir's LATEST every N seconds and "
+                        "hot-swap new checkpoints (0 = off; POST "
+                        "/admin/reload works either way)")
+    p.add_argument("--degrade-step-ms", type=float, default=None,
+                   help="halve the queue bound while a decode step takes "
+                        "longer than this (0 = off)")
+    p.add_argument("--no-request-tracing", action="store_true",
+                   help="disable per-request lifecycle tracing (the "
+                        "serve/ttft|itl|goodput family and the 'trace': "
+                        "true response)")
     p.add_argument("--host", default=None)
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--no-warmup", action="store_true",
@@ -135,13 +175,18 @@ def serve_config_from_args(args, raw: dict) -> ServeConfig:
     cfg = ServeConfig.from_dict(raw.get("serve") or {})
     if args.buckets is not None:
         cfg.buckets = parse_buckets(args.buckets)
-    for flag in ("seed", "max_wait_ms", "scheduler", "slots", "kv_layout",
+    for flag in ("seed", "max_wait_ms", "max_queue", "request_timeout",
+                 "stall_timeout", "scheduler", "slots", "kv_layout",
                  "page_size", "pages", "attention", "kv_dtype",
-                 "weights_dtype", "speculation", "spec_k",
+                 "weights_dtype", "slo_ttft_ms", "flight_recorder_steps",
+                 "max_replays", "drain_timeout", "watch_checkpoints",
+                 "degrade_step_ms", "speculation", "spec_k",
                  "spec_draft_checkpoint", "host", "port"):
         value = getattr(args, flag)
         if value is not None:
             setattr(cfg, flag, value)
+    if args.no_request_tracing:
+        cfg.request_tracing = False
     return cfg
 
 

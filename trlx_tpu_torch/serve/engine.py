@@ -26,9 +26,19 @@ scheduler; ``kv_layout`` the slot pool's paged or contiguous layout;
 ``kv_dtype: int8`` the quantized page pool; ``weights_dtype: int8``
 per-output-channel int8 block weights (:func:`quantize_serve_weights`);
 ``speculation: lookup | draft`` speculative decoding
-(trlx_tpu_torch.serve.speculate). Knobs of features not ported yet are
-accepted at their defaults and refused otherwise
-(:data:`DEFERRED_KNOBS`).
+(trlx_tpu_torch.serve.speculate); ``tenants`` / ``brownout_*`` /
+``priority_aging_rounds`` / ``degrade_step_ms`` overload containment,
+``request_tracing`` / ``slo_*`` / ``flight_recorder_steps`` tracing,
+``stall_timeout`` the serve watchdog, ``max_replays`` / ``drain_timeout``
+/ ``watch_checkpoints`` the crash-only lifecycle. The tp serve mesh
+(``mesh``, ``mesh_weights``) is not ported yet: a config may carry it at
+its defaults, any other value is refused (:data:`DEFERRED_KNOBS`).
+
+Hot-swap (:meth:`InferenceEngine.install_views`) writes the candidate
+INTO the engine's own tensors: the decode graphs captured those tensors,
+so a swap that rebound them would make every later replay copy the
+whole model into the captured ones. The candidate's tensors get the
+previous weights in exchange, which is the rollback copy.
 """
 
 import threading
@@ -52,6 +62,7 @@ from trlx_tpu_torch.models.params import (
 from trlx_tpu_torch.models.policy import HydraPolicy
 from trlx_tpu_torch.models.transformer import tree_map
 from trlx_tpu_torch.ops.sampling import SamplingParams
+from trlx_tpu_torch.serve.batcher import TenantTable
 from trlx_tpu_torch.utils import DTYPES, resolve_device
 from trlx_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -59,21 +70,19 @@ Bucket = Tuple[int, int, int]  # (batch, prompt_len, gen_len)
 
 _DEFAULT_BUCKETS = ((4, 32, 32), (8, 64, 64))
 
-#: trlx_tpu serve knobs whose features later slices port: a config may
-#: carry them at their defaults; any other value is refused rather than
-#: silently ignored
+#: trlx_tpu serve knobs whose features a later slice ports (tp serve
+#: meshes, with parallelism): a config may carry them at trlx_tpu's
+#: defaults; any other value is refused rather than silently ignored
 DEFERRED_KNOBS: Dict[str, Any] = {
-    "tenants": None,  # tenants, quotas and brownout
-    "brownout_max_new": 0,
-    "mesh": None,  # tp meshes
-    "watch_checkpoints": 0.0,  # hot-swap
+    "mesh": None,
+    "mesh_weights": "fsdp",
 }
 
 
 @dataclass
 class ServeConfig:
-    """The ``serve:`` YAML section / CLI knobs of this slice (trlx_tpu's
-    names and defaults).
+    """The ``serve:`` YAML section / CLI knobs (trlx_tpu's names and
+    defaults; every field of trlx_tpu's but the deferred tp mesh).
 
     :param buckets: the (batch, prompt_len, gen_len) lattice; requests
         round UP to the smallest (prompt_len, gen_len) class that fits,
@@ -85,6 +94,11 @@ class ServeConfig:
         (HTTP 429).
     :param request_timeout: bound on one request's queue + decode time
         at the HTTP edge (503 past it).
+    :param stall_timeout: the serve watchdog's budget for one decode
+        step or static batch (trlx_tpu_torch.supervisor, stall action
+        ``abort``): a hung step dumps every thread's stack and the
+        flight recorder, counts ``fault/stalls``, and exits 70 after
+        the grace so a supervisor restarts the replica. 0 disables.
     :param host / port: bind address of the HTTP endpoint.
     :param seed: base sampling seed (each decode step, or static batch,
         uses seed + its counter).
@@ -96,6 +110,36 @@ class ServeConfig:
     :param page_size: tokens per KV page (clamped to the slot buffer);
         also the prefix-cache sharing granularity.
     :param pages: page-pool size; 0 = slots x pages-per-slot.
+    :param request_tracing: per-request lifecycle tracing
+        (trlx_tpu_torch.serve.trace): the ``serve/ttft`` / ``serve/itl``
+        / ``serve/goodput`` family, Perfetto tracks and the opt-in
+        ``"trace": true`` response. Host bookkeeping only.
+    :param slo_ttft_ms: the TTFT objective in ms behind
+        ``serve/goodput`` (0 counts every request good).
+    :param slo_target: the goodput objective the windowed burn rates
+        are scored against (``slo/burn_rate_*``), in [0, 1).
+    :param flight_recorder_steps: ring size of the slot scheduler's
+        per-step flight recorder (0 disables).
+    :param max_replays: per-request replay budget of crash-only
+        recovery: a poisoned step re-queues its in-flight requests with
+        their committed tokens up to this many times (then
+        ``ReplayExhausted``, 503). 0 fails them at once.
+    :param drain_timeout: graceful-drain budget (SIGTERM, ``POST
+        /admin/drain``), seconds.
+    :param watch_checkpoints: poll interval (s) of the serving run
+        directory's ``LATEST``; a new committed step is hot-swapped in
+        (0 = off; ``POST /admin/reload`` works either way).
+    :param degrade_step_ms: a decode step slower than this marks the
+        scheduler degraded (halved queue bound); 0 disables the signal.
+    :param tenants: per-tenant quotas ``{tenant: {max_inflight,
+        max_queue_share, rps, burst, priority}}`` (None = none); the
+        ``"default"`` entry also governs tenants not named.
+    :param brownout_max_new: under sustained pressure, clamp
+        best-effort tenants' ``max_new_tokens`` to this (0 = off).
+    :param brownout_after_s / brownout_recover_s: pressure held this
+        long engages brownout; calm this long releases it.
+    :param priority_aging_rounds: a queued request gains one priority
+        level every this many admission scans (0 = aging off).
     :param attention: decode attention: ``"jnp"`` gathers each slot's
         pages into logical order and runs plain attention (the oracle);
         ``"pallas"`` runs the hand-written paged-decode kernel on the
@@ -126,6 +170,7 @@ class ServeConfig:
     max_wait_ms: float = 20.0
     max_queue: int = 256
     request_timeout: float = 120.0
+    stall_timeout: float = 0.0
     host: str = "127.0.0.1"
     port: int = 8080
     seed: int = 0
@@ -134,9 +179,22 @@ class ServeConfig:
     kv_layout: str = "paged"
     page_size: int = 64
     pages: int = 0
+    request_tracing: bool = True
+    slo_ttft_ms: float = 500.0
+    slo_target: float = 0.99
+    flight_recorder_steps: int = 256
+    max_replays: int = 2
+    drain_timeout: float = 30.0
+    watch_checkpoints: float = 0.0
+    degrade_step_ms: float = 0.0
     attention: str = "jnp"
     kv_dtype: str = "bf16"
     weights_dtype: str = "bf16"
+    tenants: Optional[Dict[str, Dict[str, Any]]] = None
+    brownout_max_new: int = 0
+    brownout_after_s: float = 2.0
+    brownout_recover_s: float = 5.0
+    priority_aging_rounds: int = 64
     speculation: str = "off"
     spec_k: int = 4
     spec_ngram_max: int = 3
@@ -238,8 +296,15 @@ class InferenceEngine:
             )
         if telemetry.current() is None:
             telemetry.start()
+        #: the caller's own tensors: an engine leaf that is one of them
+        #: is served without a copy, so a hot-swap may not write into it
+        given = _tensor_ptrs(views) | _tensor_ptrs(params)
         self.config = config
         self.checkpoint_path: Optional[str] = None
+        #: the weight generation: 1 at construction, bumped by
+        #: :meth:`commit_version` on each committed hot-swap, stamped
+        #: into every request at admission (``serve/model_version``)
+        self.model_version = 1
         self.serve = serve or ServeConfig()
         self._validate()
         self.device = resolve_device(device)
@@ -297,6 +362,7 @@ class InferenceEngine:
                 views.blocks, self.device))
         views = views_to(views, self.device, self.compute_dtype)
         self.blocks, self.embed, self.ln_f = views
+        self._borrowed = _tensor_ptrs(views) & given
         n_bytes = sum(
             t.numel() * t.element_size()
             for part in (self.blocks, self.embed, self.ln_f)
@@ -307,7 +373,9 @@ class InferenceEngine:
         #: graph cache), one sampling stream re-seeded per batch
         self._decoders: Dict[Bucket, Any] = {}
         self._generator = torch.Generator(device=self.device)
-        self._lock = threading.Lock()
+        #: serialises the static path's decodes and its weight swaps (a
+        #: swap's probe decodes while holding it)
+        self._lock = threading.RLock()
         self.warmed = False
 
     @staticmethod
@@ -362,6 +430,7 @@ class InferenceEngine:
                 f"checkpoint's method is '{config.method.name}'")
         engine = cls(config, serve=serve, device=device, params=params)
         engine.checkpoint_path = resolved
+        engine._borrowed = set()  # the restored tree is the engine's alone
         return engine
 
     def _validate(self) -> None:
@@ -384,6 +453,68 @@ class InferenceEngine:
             raise ValueError(f"serve.page_size={s.page_size} must be >= 1")
         if s.pages < 0:
             raise ValueError(f"serve.pages={s.pages} must be >= 0 (0 = auto)")
+        if s.slo_ttft_ms < 0:
+            raise ValueError(
+                f"serve.slo_ttft_ms={s.slo_ttft_ms} must be >= 0 "
+                f"(0 = every completed request counts toward goodput)"
+            )
+        if not 0.0 <= s.slo_target < 1.0:
+            raise ValueError(
+                f"serve.slo_target={s.slo_target} must be in "
+                f"[0, 1) — 1.0 leaves no error budget to burn"
+            )
+        if s.flight_recorder_steps < 0:
+            raise ValueError(
+                f"serve.flight_recorder_steps="
+                f"{s.flight_recorder_steps} must be >= 0 "
+                f"(0 = disabled)"
+            )
+        if s.max_replays < 0:
+            raise ValueError(
+                f"serve.max_replays={s.max_replays} must be >= 0 "
+                f"(0 = a poisoned step fails its requests, no replay)"
+            )
+        if s.drain_timeout <= 0:
+            raise ValueError(
+                f"serve.drain_timeout={s.drain_timeout} must be "
+                f"> 0 (a drain with no budget is just SIGKILL)"
+            )
+        if s.watch_checkpoints < 0:
+            raise ValueError(
+                f"serve.watch_checkpoints={s.watch_checkpoints} "
+                f"must be >= 0 (0 = no polling; POST /admin/reload only)"
+            )
+        if s.degrade_step_ms < 0:
+            raise ValueError(
+                f"serve.degrade_step_ms={s.degrade_step_ms} "
+                f"must be >= 0 (0 = step-time degradation signal off)"
+            )
+        if s.brownout_max_new < 0:
+            raise ValueError(
+                f"serve.brownout_max_new={s.brownout_max_new} "
+                f"must be >= 0 (0 = brownout degradation off)"
+            )
+        if s.brownout_after_s <= 0:
+            raise ValueError(
+                f"serve.brownout_after_s={s.brownout_after_s} "
+                f"must be > 0 (pressure debounce before brownout)"
+            )
+        if s.brownout_recover_s <= 0:
+            raise ValueError(
+                f"serve.brownout_recover_s="
+                f"{s.brownout_recover_s} must be > 0 "
+                f"(hysteresis: calm time required before recovery)"
+            )
+        if s.priority_aging_rounds < 0:
+            raise ValueError(
+                f"serve.priority_aging_rounds="
+                f"{s.priority_aging_rounds} must be >= 0 "
+                f"(0 = priority aging off)"
+            )
+        if s.tenants is not None:
+            # parsed eagerly, so a bad tenants block fails at boot with a
+            # config-shaped error, not at first admission
+            TenantTable(s.tenants, s.max_queue)
         if s.attention not in ("jnp", "pallas"):
             raise ValueError(
                 f"serve.attention '{s.attention}' is not one of: jnp, pallas"
@@ -442,6 +573,140 @@ class InferenceEngine:
                     f"'{s.kv_layout}' cannot re-claim rejected writes — "
                     "use kv_layout: paged or speculation: off"
                 )
+
+    # -- live hot-swap -------------------------------------------------- #
+
+    def strip_for_serve(self, params: Dict) -> DecodeViews:
+        """A hydra param tree (numpy or torch leaves; a checkpoint's
+        decode subset from :meth:`load_params`) reduced to decode views
+        the way construction does it — int8-quantized under
+        ``weights_dtype: int8``, on the serving device in the compute
+        dtype — WITHOUT installing them: the candidate must pass
+        :meth:`validate_swap` and a smoke probe first. Installing
+        exchanges contents with the live weights, so a leaf of ``params``
+        that would come through unchanged is copied — unless it IS the
+        serving tensor (an engine built on that same tree), which the
+        install leaves alone."""
+        given = _tensor_ptrs(params) - _tensor_ptrs(
+            (self.blocks, self.embed, self.ln_f))
+        views = decode_views_from_numpy(params, self.spec,
+                                        self.config.model.num_layers_unfrozen)
+        if self.serve.weights_dtype == "int8":
+            views = views._replace(blocks=quantize_serve_weights(
+                views.blocks, self.device))
+        views = views_to(views, self.device, self.compute_dtype)
+        return type(views)(*tree_map(
+            lambda t: t.clone() if _ptr(t) in given else t, tuple(views)))
+
+    def validate_swap(self, views) -> None:
+        """Reject a candidate that does not match the serving views leaf
+        for leaf in structure, shape and dtype (the graphs captured
+        those; drift needs a restart, not a reload), and one that would
+        change a tensor the engine serves without owning it (its
+        caller's, passed in as views or params): the swap writes in
+        place, so it would write into the caller's weights."""
+        from trlx_tpu_torch.utils.aotjit import tree_flatten
+
+        old_leaves, old_struct = tree_flatten(
+            (self.blocks, self.embed, self.ln_f))
+        new_leaves, new_struct = tree_flatten(tuple(views))
+        if old_struct != new_struct:
+            raise ValueError(
+                "hot-swap rejected: candidate param tree structure does "
+                "not match the serving policy (architecture drift — e.g. "
+                "a different model or num_layers_unfrozen). Restart the "
+                "endpoint against the new checkpoint instead."
+            )
+        for o, n in zip(old_leaves, new_leaves):
+            if o.shape != n.shape or o.dtype != n.dtype:
+                raise ValueError(
+                    f"hot-swap rejected: candidate leaf {tuple(n.shape)}/"
+                    f"{n.dtype} does not match serving leaf "
+                    f"{tuple(o.shape)}/{o.dtype} — shape/dtype drift "
+                    f"would force a recompile; restart the endpoint "
+                    f"instead."
+                )
+        written = [o for o, n in zip(old_leaves, new_leaves)
+                   if _ptr(o) in self._borrowed and _ptr(n) != _ptr(o)]
+        if written:
+            raise ValueError(
+                f"hot-swap rejected: it would write {len(written)} serving "
+                f"tensors that are the caller's own (the engine was built on "
+                f"views or params already on {self.device} in the compute "
+                f"dtype, and serves them without a copy); a swap writes "
+                f"in place, so it would write into them. Build the engine "
+                f"from a checkpoint (InferenceEngine.from_checkpoint) or "
+                f"from copies."
+            )
+
+    @torch.no_grad()
+    def install_views(self, views) -> None:
+        """Install validated decode views IN PLACE: each serving tensor
+        takes the candidate's values and the candidate's tensor takes
+        the previous ones, so the captured graphs keep reading the same
+        addresses (zero recompiles, no per-replay copy) and ``views``
+        is the rollback: installing it again restores the weights.
+        A leaf that is already the serving tensor is left alone."""
+        from trlx_tpu_torch.utils.aotjit import tree_flatten
+
+        live, _ = tree_flatten((self.blocks, self.embed, self.ln_f))
+        cand, _ = tree_flatten(tuple(views))
+        for old, new in zip(live, cand):
+            if new is old or (new.numel() and new.data_ptr() == old.data_ptr()):
+                continue
+            held = old.clone()
+            old.copy_(new)
+            new.copy_(held)
+            del held
+
+    def commit_version(self, checkpoint: Optional[str] = None) -> int:
+        """Bump the model version AFTER a successful swap and probe; a
+        rolled-back swap never commits, so the gauge always names the
+        weights actually serving."""
+        self.model_version += 1
+        if checkpoint:
+            self.checkpoint_path = checkpoint
+        telemetry.set_gauge("serve/model_version", self.model_version)
+        return self.model_version
+
+    def load_params(self, checkpoint: str):
+        """The decode subset of a port checkpoint's ``params`` component
+        for a hot-swap: (tree, resolved checkpoint directory).
+        ``checkpoint`` is a committed checkpoint directory or a run
+        directory (its newest committed ``step_<N>``). The component's
+        bytes are verified against the manifest first; a corrupt one is
+        quarantined and raises ``CheckpointCorrupt`` — fail-fast, with
+        no fallback to an older step: the old weights keep serving and
+        ``/admin/reload`` answers 409. The file is memory-mapped and
+        only the decode subset (the trunk, the trainable blocks, ln_f
+        and an untied lm_head; no reference branch, no value head) is
+        returned, so the rest is never read from disk."""
+        import os
+
+        from trlx_tpu_torch.utils.checkpoint import (
+            TENSOR_SUFFIX,
+            find_latest_checkpoint,
+            is_valid_checkpoint,
+            verify_or_quarantine,
+        )
+
+        resolved = checkpoint if is_valid_checkpoint(checkpoint) \
+            else find_latest_checkpoint(checkpoint)
+        if resolved is None:
+            raise FileNotFoundError(
+                f"no committed checkpoint at '{checkpoint}' to reload "
+                f"from (expected a checkpoint dir or a run dir of "
+                f"'step_<N>' checkpoints)"
+            )
+        resolved = os.path.abspath(resolved)
+        verify_or_quarantine(resolved, component="params")
+        tree = torch.load(os.path.join(resolved, "params" + TENSOR_SUFFIX),
+                          map_location="cpu", weights_only=True, mmap=True)
+        trainable = {k: v for k, v in tree["trainable"].items()
+                     if k != "v_head"}
+        telemetry.inc("checkpoint/restores")
+        return {"frozen_base": tree["frozen_base"],
+                "trainable": trainable}, resolved
 
     # -- bucket lattice ------------------------------------------------- #
 
@@ -625,3 +890,17 @@ def _leaves(tree):
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def _ptr(t) -> int:
+    """A tensor's storage address, 0 for an empty one (which holds no
+    bytes to share)."""
+    return t.data_ptr() if torch.is_tensor(t) and t.numel() else 0
+
+
+def _tensor_ptrs(tree) -> set:
+    """Storage addresses of the torch tensors in a nested tree of dicts,
+    lists and tuples (numpy and other leaves ignored)."""
+    from trlx_tpu_torch.utils.aotjit import tree_flatten
+
+    return {_ptr(x) for x in tree_flatten(tree)[0]} - {0}

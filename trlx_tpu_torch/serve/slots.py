@@ -35,13 +35,40 @@ The worker enters the serve supervisor when one is given and marks each
 step as the ``serve_decode`` phase (its chaos seam inside) with a
 heartbeat, each admission as ``serve_admit``.
 
-Not ported in this slice: tenants/quotas/brownout, crash-only replay,
-graceful drain, hot-swap, request tracing and the flight recorder. A
-step that raises fails the requests in flight (the reference's
-last-resort containment) and the loop keeps serving.
+Crash-only recovery: the unit of failure is the STEP. A step (or an
+admission) that raises dumps the flight recorder, resets the lanes and
+the prefix cache, and RE-QUEUES every in-flight request with its
+committed tokens journaled on the host; re-admission prefills ``prompt
++ committed`` and resumes decode from the last committed token (greedy
+decode depends on the token prefix alone). ``serve.max_replays`` bounds
+it per request (then ``ReplayExhausted``, 503); a fault at the
+``serve_replay`` seam is a double fault and fails the batch. A sticky
+CUDA error cannot be replayed: the process exits 70, as the watchdog's
+abort does (:meth:`SlotScheduler._recover_step`).
+:meth:`SlotScheduler.drain` is the graceful half (admission answers
+``Draining``, in-flight work finishes within ``serve.drain_timeout``);
+:meth:`SlotScheduler.request_swap` hot-swaps weights at a step boundary
+IN PLACE (the graphs captured the engine's tensors), probes one prefill
+bucket through its existing graph, and swaps back on failure (seam
+``serve_reload``), with zero recompiles.
+
+Overload: ``serve.tenants`` quotas at :meth:`SlotScheduler.submit`
+(``QuotaExceeded``, 429 with the tenant's ``Retry-After``), priority
+admission with aging, deadline shedding at every admission scan
+(``DeadlineExceeded``), a halved queue bound while degraded, and a
+hysteretic brownout that clamps best-effort tenants' ``max_new_tokens``.
+Tracing: every request's :class:`~trlx_tpu_torch.serve.trace.RequestTrace`
+is stamped at admission, at each harvested token and at completion,
+from host clocks the step already has; the flight recorder keeps one
+record per step. The stall dump, ``debug_state`` and ``pressure`` read
+host state only and never a CUDA tensor, so they are safe off the
+worker thread (a device-wide synchronise from another thread would
+invalidate a graph capture in progress).
 """
 
 import contextlib
+import os
+import sys
 import threading
 from collections import deque
 from typing import Dict, List, Optional
@@ -59,8 +86,19 @@ from trlx_tpu_torch.models.generation import (
     prefill_into_slots,
     verify_step,
 )
-from trlx_tpu_torch.serve.batcher import QueueFull, Request
+from trlx_tpu_torch.serve.batcher import (
+    DEFAULT_TENANT,
+    Draining,
+    DrainTimeout,
+    QueueFull,
+    ReplayExhausted,
+    Request,
+    TenantTable,
+    _validate_deadline,
+    shed_expired,
+)
 from trlx_tpu_torch.serve.paged import RadixCache
+from trlx_tpu_torch.serve.trace import FlightRecorder, RequestTrace
 from trlx_tpu_torch.supervisor import chaos, monotonic
 from trlx_tpu_torch.telemetry.flops import kv_bytes_per_token
 from trlx_tpu_torch.utils.aotjit import aot_jit
@@ -306,9 +344,10 @@ class SlotPoolRuntime:
 
 class _LiveSlot:
     """Host bookkeeping for one occupied slot: its request, emitted
-    tokens and, under the paged layout, its page-table content (one
-    allocator reference per entry) and the pages its admission committed
-    to the radix tree."""
+    tokens (its committed journal included after a replay) and, under
+    the paged layout, its page-table content (one allocator reference
+    per entry) and the pages its admission committed to the radix
+    tree."""
 
     __slots__ = ("request", "tokens", "pages", "committed")
 
@@ -322,8 +361,9 @@ class _LiveSlot:
 class SlotScheduler:
     """The continuous-batching decode driver: one worker thread running
     the admit -> step -> harvest loop over the slot pool. Same
-    ``submit`` / ``start`` / ``stop`` / ``queue_depth`` surface as the
-    static :class:`~trlx_tpu_torch.serve.batcher.MicroBatcher`.
+    ``submit`` / ``start`` / ``stop`` / ``queue_depth`` / ``drain`` /
+    ``request_swap`` surface as the static
+    :class:`~trlx_tpu_torch.serve.batcher.MicroBatcher`.
 
     ``run_supervisor`` (a RunSupervisor) is entered by the worker thread;
     ``draft`` injects the draft tier's proposer (otherwise built from
@@ -353,10 +393,21 @@ class SlotScheduler:
         self._live: Dict[int, _LiveSlot] = {}
         self._step_counter = 0
         self._starved = False
+        self._tracing = bool(cfg.request_tracing)
+        self._slo_s = float(cfg.slo_ttft_ms) / 1000.0
+        #: the per-step black box (serve.flight_recorder_steps; 0 = off),
+        #: dumped on a stall, a poisoned step or a drain
+        self.flight: Optional[FlightRecorder] = (
+            FlightRecorder(cfg.flight_recorder_steps)
+            if cfg.flight_recorder_steps > 0 else None
+        )
+        #: admissions / evictions since the flight recorder's last record
+        self._fr_admitted = 0
+        self._fr_evicted = 0
         # -- speculation: propose -> verify -> accept each step -------- #
         self._spec_mode = cfg.speculation
         self.spec_k = self.runtime.spec_k
-        #: the lookup tier's per-slot state, dropped at harvest
+        #: the lookup tier's per-slot state, dropped at harvest and replay
         self._speculators: Dict[int, object] = {}
         self._draft = draft
         if self._spec_mode == "draft" and draft is None \
@@ -367,9 +418,34 @@ class SlotScheduler:
                 cfg.spec_draft_checkpoint, engine, self.spec_k)
         self._spec_proposed_total = 0
         self._spec_accepted_total = 0
+        self._fr_spec_proposed = 0
+        self._fr_spec_accepted = 0
         #: slots that emitted in verify passes, and the tokens they emitted
         self._spec_slot_passes = 0
         self._spec_tokens = 0
+        # -- crash-only lifecycle ------------------------------------- #
+        self._draining = False  # guarded-by: _cond
+        self._drain_deadline = 0.0
+        self._drain_shed = 0  # requests the drain deadline ended
+        self._drained = threading.Event()
+        #: the worker-applied hot-swap: {"params", "label", "done",
+        #: "result"}
+        self._pending_swap: Optional[Dict] = None  # guarded-by: _cond
+        self._last_step_ms = 0.0
+        self._replayed_requests = 0
+        # -- overload containment ------------------------------------- #
+        #: per-tenant quotas; no serve.tenants = every check a no-op
+        #: (guarded-by: _cond, like the queue it meters)
+        self.tenants = TenantTable(cfg.tenants, self.max_queue)
+        self._aging_rounds = int(cfg.priority_aging_rounds)
+        #: brownout state machine (worker-written, HTTP-read: a stale
+        #: read mis-times one clamp at most)
+        self._brownout = False
+        self._pressure_since = 0.0
+        self._calm_since = 0.0
+        self._brownout_max_new = int(cfg.brownout_max_new)
+        self._brownout_after_s = float(cfg.brownout_after_s)
+        self._brownout_recover_s = float(cfg.brownout_recover_s)
 
     # -- lifecycle ------------------------------------------------------ #
 
@@ -426,21 +502,23 @@ class SlotScheduler:
     def free_slots(self) -> int:
         return len(self._free)
 
-    def retry_after_s(self) -> int:
-        """The 429 ``Retry-After`` hint: queue depth x recent step p50,
-        never below 1 s."""
-        p50 = 0.05
-        tel = telemetry.current()
-        if tel is not None:
-            hist = tel.registry.hists.get(f"time/{SlotPoolRuntime.STEP_SPAN}")
-            if hist is not None and hist.count:
-                p50 = max(hist.quantile(0.5), 1e-4)
-        return max(1, int(-(-(self.queue_depth() * p50) // 1)))
-
     def submit(self, tokens: List[int], max_new_tokens: Optional[int] = None,
-               seed: Optional[int] = None) -> Request:
+               seed: Optional[int] = None,
+               trace: Optional[RequestTrace] = None,
+               deadline_ms: Optional[float] = None,
+               priority: Optional[int] = None,
+               tenant: Optional[str] = None) -> Request:
         """Enqueue one request. ValueError when no bucket (or the page
-        pool) can ever hold it, QueueFull past ``max_queue``."""
+        pool) can ever hold it, QueueFull past the admission bound (half
+        ``max_queue`` while degraded), :class:`QuotaExceeded` when the
+        tenant's ``serve.tenants`` quota is spent, :class:`Draining`
+        during a drain. ``seed`` is accepted for surface parity; the
+        sampling stream is per step. ``deadline_ms`` bounds queueing (a
+        request still queued past it is shed at the next admission scan);
+        higher ``priority`` admits first (None: the tenant's default;
+        queued requests age upward every ``serve.priority_aging_rounds``
+        scans). Under brownout a best-effort tenant's ``max_new_tokens``
+        is clamped to ``serve.brownout_max_new`` (``degraded``)."""
         if not tokens:
             raise ValueError("empty prompt: at least one token is required")
         if max_new_tokens is None:
@@ -448,6 +526,22 @@ class SlotScheduler:
         max_new_tokens = int(max_new_tokens)
         if max_new_tokens <= 0:
             raise ValueError(f"max_new_tokens={max_new_tokens} must be >= 1")
+        deadline_s = _validate_deadline(deadline_ms)
+        tenant = DEFAULT_TENANT if not tenant else str(tenant)
+        if priority is None:
+            priority = self.tenants.priority_for(tenant)
+        # brownout clamp BEFORE bucket rounding, so the clamped request
+        # also reserves the smaller shape class (and fewer KV pages)
+        browned_out = (
+            self._brownout and self._brownout_max_new > 0
+            and self.tenants.best_effort(tenant)
+            and max_new_tokens > self._brownout_max_new
+        )
+        if browned_out:
+            max_new_tokens = self._brownout_max_new
+            telemetry.inc("serve/brownout_clamped")
+            telemetry.inc("serve/brownout_clamped",
+                          labels={"tenant": tenant})
         shape = self.engine.pick_shape(len(tokens), max_new_tokens)
         if self.cache is not None:
             need = self.engine.request_page_need(len(tokens), max_new_tokens)
@@ -457,19 +551,128 @@ class SlotScheduler:
                     f"pool holds {self.runtime.num_pages}; raise "
                     f"serve.pages (or serve.page_size)"
                 )
-        req = Request(list(tokens), max_new_tokens, shape, seed=seed)
+        if trace is None and self._tracing:
+            trace = RequestTrace()
+        req = Request(list(tokens), max_new_tokens, shape, seed=seed,
+                      trace=trace, deadline_s=deadline_s,
+                      priority=priority, tenant=tenant)
+        req.degraded = browned_out
+        if self.tenants.enabled:
+            chaos.maybe_inject("serve_quota")
         with self._cond:
-            if len(self._queue) >= self.max_queue:
+            if self._draining:
                 telemetry.inc("serve/rejected")
+                raise Draining(
+                    "server is draining: admission is closed while "
+                    "in-flight requests finish (serve.drain_timeout); "
+                    "retry against another replica"
+                )
+            denied = self.tenants.try_admit(
+                tenant,
+                queued=sum(1 for r in self._queue if r.tenant == tenant),
+                inflight=sum(1 for s in list(self._live.values())
+                             if s.request.tenant == tenant),
+                now=monotonic(),
+            )
+            if denied is not None:
+                telemetry.inc("serve/rejected")
+                telemetry.inc("serve/shed_quota")
+                telemetry.inc("serve/shed_quota",
+                              labels={"tenant": tenant})
+                raise denied
+            cap = self.max_queue
+            if self._degraded():
+                cap = max(1, self.max_queue // 2)
+            telemetry.set_gauge("serve/admission_limit", cap)
+            if len(self._queue) >= cap:
+                telemetry.inc("serve/rejected")
+                detail = " (halved: engine degraded)" \
+                    if cap < self.max_queue else ""
                 raise QueueFull(
-                    f"serve queue is full ({self.max_queue} pending); retry "
-                    f"with backoff"
+                    f"serve queue is full ({cap} pending{detail}); "
+                    f"retry with backoff (serve.max_queue bounds queueing "
+                    f"delay — raise it to trade latency for acceptance)"
                 )
             self._queue.append(req)
             telemetry.inc("serve/requests")
             telemetry.set_gauge("serve/queue_depth", len(self._queue))
             self._cond.notify_all()
         return req
+
+    # -- overload ------------------------------------------------------- #
+
+    def _degraded(self) -> bool:
+        """The adaptive-admission signal: requests starved for slots or
+        pages, the page pool pinned empty, or the last step over
+        ``serve.degrade_step_ms``."""
+        if self._starved:
+            return True
+        if self.cache is not None and self.cache.free_pages() == 0:
+            return True
+        limit_ms = float(self.engine.serve.degrade_step_ms)
+        return bool(limit_ms > 0 and self._last_step_ms > limit_ms)
+
+    def _update_brownout(self, now: float) -> None:
+        """The hysteretic brownout state machine, advanced once per
+        worker iteration: :meth:`_degraded` must hold continuously for
+        ``serve.brownout_after_s`` to engage it and be absent for
+        ``serve.brownout_recover_s`` to release it (gauge
+        ``serve/brownout``, counter ``serve/brownout_entries``)."""
+        if self._brownout_max_new <= 0:
+            return
+        if self._degraded():
+            self._calm_since = 0.0
+            if self._pressure_since == 0.0:
+                self._pressure_since = now
+            elif (not self._brownout
+                  and now - self._pressure_since >= self._brownout_after_s):
+                self._brownout = True
+                telemetry.inc("serve/brownout_entries")
+                telemetry.set_gauge("serve/brownout", 1)
+        else:
+            self._pressure_since = 0.0
+            if not self._brownout:
+                self._calm_since = 0.0
+            elif self._calm_since == 0.0:
+                self._calm_since = now
+            elif now - self._calm_since >= self._brownout_recover_s:
+                self._brownout = False
+                telemetry.set_gauge("serve/brownout", 0)
+
+    def pressure(self) -> Dict:
+        """The published backpressure block (``/readyz``,
+        ``/debug/state``): host counters only, read without a lock (a
+        slightly stale view mis-times one shed at most)."""
+        out = {
+            "degraded": self._degraded(),
+            "brownout": self._brownout,
+            "starved": self._starved,
+            "queue_depth": len(self._queue),
+            "free_slots": len(self._free),
+            "retry_after_s": self.retry_after_s(),
+        }
+        if self.cache is not None:
+            out["pages_free"] = self.cache.free_pages()
+        if self.spec_k > 0:
+            out["spec_acceptance_rate"] = round(
+                self._spec_acceptance_rate(), 4)
+        return out
+
+    def step_p50_s(self) -> float:
+        """Recent decode-step p50 (``time/serve/slot_step``), the pacing
+        term of ``Retry-After``; 50 ms before any step landed."""
+        tel = telemetry.current()
+        if tel is not None:
+            hist = tel.registry.hists.get(f"time/{self.runtime.STEP_SPAN}")
+            if hist is not None and hist.count:
+                return max(hist.quantile(0.5), 1e-4)
+        return 0.05
+
+    def retry_after_s(self) -> int:
+        """The 429 ``Retry-After`` hint: queue depth x recent step p50,
+        never below 1 s."""
+        estimate = len(self._queue) * self.step_p50_s()
+        return max(1, int(-(-estimate // 1)))
 
     # -- worker --------------------------------------------------------- #
 
@@ -478,16 +681,38 @@ class SlotScheduler:
 
     def _admit(self) -> None:
         """Move queued requests into free slots, one prompt-class bucket
-        at a time (the oldest request's class first, FIFO within it)."""
+        at a time (the highest-priority request's class first, ties FIFO
+        by ``seq``). Requests past their ``deadline_ms`` are shed here
+        first (:class:`DeadlineExceeded`). Priority ages: the effective
+        priority is ``priority + age // serve.priority_aging_rounds``,
+        ``age`` counting the scans a request waited. A poisoned
+        admission re-queues its batch for replay."""
+        aging = self._aging_rounds
+
+        def by_prio(r):
+            boost = r.age // aging if aging > 0 else 0
+            return (-(r.priority + boost), r.seq)
+
+        first_scan = True
         while True:
             with self._cond:
+                if first_scan:
+                    first_scan = False
+                    for r in self._queue:
+                        r.age += 1
+                if self._queue:
+                    survivors = shed_expired(list(self._queue), monotonic())
+                    if len(survivors) != len(self._queue):
+                        self._queue = deque(survivors)
+                        telemetry.set_gauge("serve/queue_depth",
+                                            len(self._queue))
                 self._starved = bool(self._queue) and not self._free
                 if not self._queue or not self._free:
                     return
-                P = min(self._queue, key=lambda r: r.seq).shape[0]
+                P = min(self._queue, key=by_prio).shape[0]
                 extents = self.engine.prefill_batch_sizes(P)
                 same = sorted((r for r in self._queue if r.shape[0] == P),
-                              key=lambda r: r.seq)
+                              key=by_prio)
                 batch = same[:min(len(same), len(self._free), extents[-1])]
                 for r in batch:
                     self._queue.remove(r)
@@ -497,11 +722,13 @@ class SlotScheduler:
                 try:
                     chaos.maybe_inject("serve_admit")
                     admitted_all = self._prefill_batch(batch, P, extents)
-                except Exception as e:  # a failed admission fails its batch
-                    telemetry.inc("serve/request_errors", len(batch))
-                    for r in batch:
-                        r.error = e
-                        r.done.set()
+                except Exception as e:
+                    # a poisoned admission RE-QUEUES its requests for
+                    # replay (bounded by serve.max_replays); page-starved
+                    # ones were already re-queued and left the batch
+                    if self.flight is not None:
+                        self.flight.dump(f"admission failure: {e!r}")
+                    self._requeue_for_replay(batch, e)
                 supervisor.beat()
             if not admitted_all:
                 # page pool exhausted: the rest stay QUEUED until
@@ -511,8 +738,8 @@ class SlotScheduler:
 
     def _spawn_speculator(self, slot: int, history: List[int]) -> None:
         """The lookup tier's per-slot state: an n-gram index over the
-        request's own prompt (bounded by ``serve.spec_index_max_keys``,
-        dropped at harvest)."""
+        request's own prompt and committed journal (bounded by
+        ``serve.spec_index_max_keys``, dropped at harvest and replay)."""
         if self.spec_k <= 0 or self._spec_mode != "lookup":
             return
         from trlx_tpu_torch.serve.speculate import SlotSpeculator
@@ -522,44 +749,70 @@ class SlotScheduler:
             history, self.spec_k, ngram_max=int(cfg.spec_ngram_max),
             max_keys=int(cfg.spec_index_max_keys))
 
+    def _stamp_admission(self, r: Request, Bp: int, P: int, at: float,
+                         version: int) -> None:
+        r.model_version = version
+        if r.trace is not None:
+            r.trace.admitted = at
+            r.trace.bucket = (Bp, P)
+            r.trace.prefill_start = at
+            r.trace.model_version = version
+
     def _prefill_batch(self, batch: List[Request], P: int, extents) -> bool:
         """Prefill one admission batch; returns False when the paged
-        allocator ran dry and part of the batch went back to the queue."""
+        allocator ran dry and part of the batch went back to the queue.
+        A replayed request prefills its prompt plus its committed tokens
+        and decodes only the budget it still has: greedy decode depends
+        on the token prefix alone, so it resumes where it stopped."""
         if self.cache is not None:
             return self._prefill_batch_paged(batch, P, extents)
         Bp = next(b for b in extents if b >= len(batch))
         slots = [self._free.pop() for _ in batch]
         slot_ids = slots + [self.runtime.num_slots] * (Bp - len(batch))
-        tokens, mask = self.engine.pad_batch([r.tokens for r in batch],
-                                             (Bp, P, 0))
-        max_new = [r.max_new_tokens for r in batch] + [1] * (Bp - len(batch))
+        tokens, mask = self.engine.pad_batch(
+            [r.tokens + r.committed for r in batch], (Bp, P, 0))
+        max_new = [r.remaining_new_tokens() for r in batch]
+        max_new += [1] * (Bp - len(batch))
+        admit_at, version = monotonic(), self.engine.model_version
+        for r in batch:
+            self._stamp_admission(r, Bp, P, admit_at, version)
         try:
             self.runtime.prefill((Bp, P), tokens, mask, slot_ids, max_new)
         except Exception:
             self._free.extend(slots)  # nothing was admitted
             raise
+        prefill_end = monotonic()
         for r, s in zip(batch, slots):
-            self._live[s] = _LiveSlot(r)
-            self._spawn_speculator(s, r.tokens)
+            if r.trace is not None:
+                r.trace.prefill_end = prefill_end
+            live = _LiveSlot(r)
+            live.tokens = list(r.committed)
+            self._live[s] = live
+            self._spawn_speculator(s, r.tokens + r.committed)
+        self._fr_admitted += len(batch)
         telemetry.inc("serve/admissions", len(batch))
+        for r in batch:
+            telemetry.inc("serve/admissions", labels={"tenant": r.tenant})
         telemetry.set_gauge("serve/slot_occupancy", self._occupancy())
         return True
 
     def _prefill_batch_paged(self, batch: List[Request], P: int,
                              extents) -> bool:
-        """Paged admission: radix-match each prompt, reserve pages for the
-        unmatched suffix + decode budget, map hit pages copy-free, and
+        """Paged admission: radix-match each prompt (a replayed one with
+        its committed tokens), reserve pages for the unmatched suffix +
+        the remaining decode budget, map hit pages copy-free, and
         prefill ONLY the suffix. Requests the allocator cannot cover
         (even after LRU eviction) go back to the queue head in order.
         Returns False when that happened."""
         ps = self.runtime.page_size
+        chaos.maybe_inject("serve_prefix_match")
         plans = []  # (request, toks, matched, pages, committed)
         deferred: List[Request] = []
         for i, r in enumerate(batch):
-            toks = r.tokens[-P:]
+            toks = (r.tokens + r.committed)[-P:]
             matched = self.cache.match(toks)
             need = self.engine.request_page_need(
-                len(toks), r.max_new_tokens
+                len(toks), r.remaining_new_tokens()
             ) - len(matched)
             fresh = self.cache.alloc(need)
             if fresh is None:
@@ -572,6 +825,8 @@ class SlotScheduler:
         if deferred:
             with self._cond:
                 for r in reversed(deferred):
+                    if r.trace is not None:  # page starvation: re-queued
+                        r.trace.queue_reentries += 1
                     self._queue.appendleft(r)
                 telemetry.set_gauge("serve/queue_depth", len(self._queue))
             # the caller's failure path must not fail re-queued rows
@@ -589,6 +844,7 @@ class SlotScheduler:
         starts = np.zeros((Bp,), np.int32)
         max_new = np.ones((Bp,), np.int32)
         slot_ids = np.full((Bp,), rt.num_slots, np.int32)
+        admit_at, version = monotonic(), self.engine.model_version
         for j, ((r, toks, matched, pages, _), s) in enumerate(
             zip(plans, slots)
         ):
@@ -598,8 +854,13 @@ class SlotScheduler:
             mask[j, :len(suf)] = 1
             page_tables[j, :len(pages)] = pages
             starts[j] = start
-            max_new[j] = r.max_new_tokens
+            max_new[j] = r.remaining_new_tokens()
             slot_ids[j] = s
+            self._stamp_admission(r, Bp, P, admit_at, version)
+            if r.trace is not None:
+                r.trace.pages_reserved = len(pages)
+                r.trace.prefix_blocks_hit = len(matched)
+                r.trace.suffix_len = len(suf)
         try:
             rt.prefill((Bp, P), tokens, mask, slot_ids, max_new,
                        page_tables=page_tables, start=starts,
@@ -611,16 +872,25 @@ class SlotScheduler:
             for _, _, _, pages, _ in plans:
                 self.cache.release_all(pages)
             raise
+        prefill_end = monotonic()
         saved = 0
         for (r, toks, matched, pages, committed), s in zip(plans, slots):
-            self._live[s] = _LiveSlot(r, pages, committed)
-            self._spawn_speculator(s, r.tokens)
+            if r.trace is not None:
+                r.trace.prefill_end = prefill_end
+            live = _LiveSlot(r, pages, committed)
+            live.tokens = list(r.committed)
+            self._live[s] = live
+            self._spawn_speculator(s, r.tokens + r.committed)
             saved += len(matched) * ps
             self._prompt_tokens_total += len(toks)
+            telemetry.observe("serve/pages_per_request", len(pages))
+        self._fr_admitted += len(plans)
         self._prefix_tokens_saved += saved
         if saved:
             telemetry.inc("serve/prefix_tokens_saved", saved)
         telemetry.inc("serve/admissions", len(plans))
+        for p in plans:
+            telemetry.inc("serve/admissions", labels={"tenant": p[0].tenant})
         telemetry.set_gauge("serve/slot_occupancy", self._occupancy())
         telemetry.set_gauge("serve/pages_free", self.cache.free_pages())
         telemetry.set_gauge("serve/prefix_hit_rate", self._hit_rate())
@@ -766,10 +1036,14 @@ class SlotScheduler:
                 telemetry.inc("serve/spec_steps_saved", accepted)
             self._spec_proposed_total += proposed
             self._spec_accepted_total += accepted
+            self._fr_spec_proposed += proposed
+            self._fr_spec_accepted += accepted
             self._spec_slot_passes += int((counts > 0).sum())
             self._spec_tokens += int(counts.sum())
             telemetry.set_gauge("serve/spec_acceptance_rate",
                                 self._spec_acceptance_rate())
+        # the host already holds this step's results: tracing stamps
+        # them with this one clock read and touches no device tensor
         done_at = monotonic()
         emitted_total = 0
         for slot in list(self._live):
@@ -782,12 +1056,20 @@ class SlotScheduler:
                 sp = self._speculators.get(slot)
                 if sp is not None:
                     sp.append(toks)
+                if live.request.trace is not None:
+                    for _ in range(c):
+                        live.request.trace.note_token(done_at)
             if finished[slot]:
                 req = live.request
                 req.result = live.tokens
                 req.latency_s = done_at - req.enqueued_at
-                telemetry.observe("serve/request_latency", req.latency_s,
-                                  labels={"path": "slots"})
+                if req.trace is not None:
+                    req.trace.harvested = done_at
+                    req.trace.complete("slots", self._slo_s)
+                else:
+                    telemetry.observe("serve/request_latency",
+                                      req.latency_s,
+                                      labels={"path": "slots"})
                 req.done.set()
                 del self._live[slot]
                 self._speculators.pop(slot, None)
@@ -796,6 +1078,7 @@ class SlotScheduler:
                     # committed (trie-owned) pages stay cached at
                     # refcount 0; the rest return to the free list
                     self.cache.release_all(live.pages)
+                self._fr_evicted += 1
                 telemetry.inc("serve/evictions")
                 telemetry.inc("serve/responses")
         if emitted_total:
@@ -810,34 +1093,463 @@ class SlotScheduler:
         if self.cache is not None:
             telemetry.set_gauge("serve/pages_free", self.cache.free_pages())
 
+    # -- crash-only recovery -------------------------------------------- #
+
+    def _reset_cache(self) -> None:
+        """A fresh allocator + radix tree. It runs whenever the lanes are
+        reset, so every page mapping and every cached prefix whose
+        content can no longer be trusted (a poisoned step, or KV
+        computed under the weights before a swap) goes with them."""
+        if self.cache is not None:
+            self.cache = RadixCache(self.runtime.num_pages,
+                                    self.runtime.page_size)
+            telemetry.set_gauge("serve/pages_free", self.cache.free_pages())
+
     def _fail_live(self, error: BaseException) -> None:
-        """Containment for a step that raised: fail every in-flight
-        request, free all slots, reset lanes + prefix cache (the pool's
-        content can no longer be trusted), keep the loop serving."""
+        """Last-resort containment (a double fault, or replay off): fail
+        every in-flight request, free all slots, reset lanes and prefix
+        cache, keep the loop serving."""
         live = list(self._live.values())
         self._live.clear()
         self._speculators.clear()
         self._free = list(range(self.runtime.num_slots))
         telemetry.inc("serve/request_errors", len(live))
+        # contain first, signal last: a waiter released by done.set()
+        # must see the reset pool and cache, not a torn one
         self.runtime.reset_lanes()
-        if self.cache is not None:
-            self.cache = RadixCache(self.runtime.num_pages,
-                                    self.runtime.page_size)
+        self._reset_cache()
         for s in live:
             s.request.error = error
             s.request.done.set()
         telemetry.set_gauge("serve/slot_occupancy", 0.0)
 
+    def _requeue_for_replay(self, requests: List[Request],
+                            error: BaseException) -> None:
+        """Journal and re-queue: each request goes back to the queue head
+        (original admission order) with its committed tokens, unless its
+        ``serve.max_replays`` budget is spent or its prompt plus those
+        tokens no longer fits the bucket lattice — those end with
+        :class:`ReplayExhausted` (HTTP 503) and a reason."""
+        max_replays = int(self.engine.serve.max_replays)
+        survivors = []
+        for req in requests:
+            req.replays += 1
+            if req.trace is not None:
+                req.trace.replays = req.replays
+                req.trace.queue_reentries += 1
+            if req.replays > max_replays:
+                telemetry.inc("serve/request_errors")
+                req.error = ReplayExhausted(
+                    f"request hit {max_replays} engine faults "
+                    f"(serve.max_replays) and will not be replayed "
+                    f"again; last fault: {error!r}"
+                )
+                req.done.set()
+                continue
+            try:
+                # the committed prefix is part of the replay prompt, so
+                # its admission class can grow — or grow past the
+                # lattice, which ends the request with a reason
+                req.shape = self.engine.pick_shape(
+                    len(req.tokens) + len(req.committed),
+                    req.remaining_new_tokens(),
+                )
+            except ValueError as e:
+                telemetry.inc("serve/request_errors")
+                req.error = ReplayExhausted(
+                    f"cannot replay: prompt + {len(req.committed)} "
+                    f"committed tokens no longer fit the bucket "
+                    f"lattice ({e})"
+                )
+                req.done.set()
+                continue
+            survivors.append(req)
+        if survivors:
+            self._replayed_requests += len(survivors)
+            telemetry.inc("serve/replays", len(survivors))
+            with self._cond:
+                for req in sorted(survivors, key=lambda r: r.seq,
+                                  reverse=True):
+                    self._queue.appendleft(req)
+                telemetry.set_gauge("serve/queue_depth", len(self._queue))
+                self._cond.notify_all()
+
+    def _recover_step(self, error: BaseException) -> None:
+        """The worker's first response to a step that raised: dump the
+        flight recorder (the steps that led INTO the fault), reset lanes
+        and cache, and re-queue — not fail — every in-flight request
+        with its committed tokens. The ``serve_replay`` chaos seam fires
+        before anything changes; a fault there, or in the reset, is a
+        double fault and falls back to :meth:`_fail_live`.
+
+        What this covers: an exception raised on the host around a step
+        (a chaos injection, a host error, a graph launch that raises). A
+        sticky CUDA error (an illegal address, a device-side assert)
+        poisons the process's CUDA context, and no in-process reset
+        clears it: when one tiny launch after the fault fails too, the
+        process takes the watchdog's abort path instead of carrying on
+        (:meth:`_abort_poisoned_context`, exit 70, a supervisor restarts
+        the replica); a step that hangs is the watchdog's itself
+        (``serve.stall_timeout``)."""
+        if self.flight is not None:
+            self.flight.dump(f"poisoned step: {error!r}")
+        if self._device_poisoned():
+            self._abort_poisoned_context(error)
+            return
+        try:
+            chaos.maybe_inject("serve_replay")
+        except Exception as twice:
+            self._fail_live(twice)
+            return
+        live = list(self._live.values())
+        self._live.clear()
+        # speculation state derives from the per-slot histories about to
+        # be journaled; re-admission rebuilds it
+        self._speculators.clear()
+        self._free = list(range(self.runtime.num_slots))
+        try:
+            self.runtime.reset_lanes()
+            self._reset_cache()
+        except Exception as twice:
+            telemetry.inc("serve/request_errors", len(live))
+            for s in live:
+                s.request.error = twice
+                s.request.done.set()
+            telemetry.set_gauge("serve/slot_occupancy", 0.0)
+            return
+        for s in live:
+            # journal BEFORE the requeue: live.tokens is everything
+            # committed so far (the earlier journal included)
+            s.request.committed = list(s.tokens)
+        self._requeue_for_replay([s.request for s in live], error)
+        telemetry.set_gauge("serve/slot_occupancy", 0.0)
+
+    def _device_poisoned(self) -> bool:
+        """Whether the CUDA context is unusable: after a sticky error
+        every later CUDA call fails, so one tiny launch and its copy back
+        tell (on the worker's own stream; False off the card)."""
+        if self.engine.device.type != "cuda":
+            return False
+        try:
+            torch.ones(1, device=self.engine.device).add_(1).cpu()
+        except Exception:
+            return True
+        return False
+
+    def _abort_poisoned_context(self, error: BaseException) -> None:
+        """The serve watchdog's abort for a fault no reset can clear:
+        flush telemetry and exit 70 (EX_SOFTWARE), through the run
+        supervisor's exit function when one is armed, so a supervisor
+        restarts a fresh replica."""
+        print(f"[trlx_tpu_torch.serve] the CUDA context is poisoned "
+              f"({error!r}): no in-process reset clears a sticky device "
+              f"error; exiting 70 so a supervisor restarts the replica",
+              file=sys.stderr, flush=True)
+        tel = telemetry.current()
+        if tel is not None:
+            try:
+                tel.write()
+            except Exception as e:  # the exit must still happen
+                print(f"[trlx_tpu_torch.serve] telemetry flush failed: "
+                      f"{e!r}", file=sys.stderr, flush=True)
+        getattr(self.run_supervisor, "exit_fn", os._exit)(70)
+
+    # -- graceful drain ------------------------------------------------- #
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful drain: admission flips to :class:`Draining` (HTTP
+        429) while the worker keeps admitting ALREADY-queued requests and
+        stepping until everything in flight finishes. What is still
+        unfinished at the deadline (default ``serve.drain_timeout``)
+        ends with :class:`DrainTimeout` (503). Dumps the flight recorder
+        on entry. Returns True when nothing was shed; idempotent; stops
+        the worker on the way out."""
+        if timeout is None:
+            timeout = float(self.engine.serve.drain_timeout)
+        with self._cond:
+            already = self._draining
+            self._draining = True
+            self._drain_deadline = monotonic() + float(timeout)
+            self._cond.notify_all()
+        if not already:
+            telemetry.inc("serve/drains")
+            if self.flight is not None:
+                self.flight.dump("drain")
+        if self._thread is None:
+            # never started: nothing in flight can finish
+            self._drain_expire()
+        else:
+            self._drained.wait(timeout=float(timeout) + 10.0)
+        with self._cond:
+            # trlx_tpu reads only the (by then empty) queue and slots,
+            # so a deadline shed reported clean there; the shed counts
+            clean = not self._queue and not self._live \
+                and not self._drain_shed
+        self.stop()
+        return clean
+
+    def _drain_expire(self) -> None:
+        """The drain deadline passed: end everything still in flight with
+        :class:`DrainTimeout` (on the worker, or inline when it never
+        started)."""
+        with self._cond:
+            pending = list(self._queue)
+            self._queue.clear()
+            telemetry.set_gauge("serve/queue_depth", 0)
+        live = list(self._live.values())
+        self._live.clear()
+        self._speculators.clear()
+        self._free = list(range(self.runtime.num_slots))
+        victims = pending + [s.request for s in live]
+        self._drain_shed += len(victims)
+        if victims:
+            telemetry.inc("serve/request_errors", len(victims))
+        if live:
+            self.runtime.reset_lanes()
+            self._reset_cache()
+        for req in victims:
+            req.error = DrainTimeout(
+                "server drain deadline (serve.drain_timeout) passed "
+                "with the request still in flight; retry against "
+                "another replica"
+            )
+            req.done.set()
+        telemetry.set_gauge("serve/slot_occupancy", 0.0)
+        self._drained.set()
+
+    # -- live weight hot-swap ------------------------------------------- #
+
+    def request_swap(self, params, label: str = "") -> Dict:
+        """Hot-swap the serving weights to ``params`` (a hydra param
+        tree; the engine strips it to decode views). Applied by the
+        worker at a step boundary: admission pauses (``submit`` still
+        accepts), live slots finish on the version that admitted them,
+        then the worker resets the KV state, installs the candidate IN
+        PLACE into the tensors the graphs captured, smoke-probes one
+        prefill bucket through its existing graph, and commits
+        (``serve/model_version`` bumps) or swaps the previous weights
+        back. Zero recompiles either way. Blocks until applied; returns
+        ``{"reloaded", "model_version", ...}``."""
+        box = {"params": params, "label": label,
+               "done": threading.Event(), "result": None}
+        with self._cond:
+            if self._pending_swap is not None:
+                return {
+                    "reloaded": False,
+                    "model_version": self.engine.model_version,
+                    "reason": "another reload is already in progress",
+                }
+            self._pending_swap = box
+            self._cond.notify_all()
+        if self._thread is None:
+            self._apply_pending_swap()  # idle engine: swap inline
+        else:
+            box["done"].wait(
+                timeout=float(self.engine.serve.request_timeout) + 30.0)
+        if box["result"] is None:
+            return {
+                "reloaded": False,
+                "model_version": self.engine.model_version,
+                "reason": "reload timed out waiting for a step boundary",
+            }
+        return box["result"]
+
+    def _apply_pending_swap(self) -> None:
+        """The worker's half of :meth:`request_swap`; runs only with no
+        live slot. A failure (shape or dtype drift, non-finite probe
+        logits, a ``serve_reload`` chaos fault) swaps the previous
+        weights back and the engine keeps serving version N."""
+        with self._cond:
+            box = self._pending_swap
+        if box is None:
+            return
+        e = self.engine
+        old_version = e.model_version
+        installed = None
+        try:
+            chaos.maybe_inject("serve_reload")
+            views = e.strip_for_serve(box["params"])
+            e.validate_swap(views)
+            # KV pages and cached prefixes were computed under the OLD
+            # weights; the lanes are already empty (step boundary)
+            self.runtime.reset_lanes()
+            self._reset_cache()
+            e.install_views(views)
+            installed = views  # now holds the previous weights
+            self._probe_swap()
+        except Exception as err:
+            if installed is not None:
+                e.install_views(installed)  # rollback
+            self.runtime.reset_lanes()
+            self._reset_cache()
+            telemetry.inc("serve/reload_failures")
+            box["result"] = {
+                "reloaded": False, "model_version": old_version,
+                "reason": f"{type(err).__name__}: {err}",
+            }
+        else:
+            version = e.commit_version(box["label"] or None)
+            telemetry.inc("serve/reloads")
+            box["result"] = {
+                "reloaded": True, "model_version": version,
+                "previous_version": old_version,
+            }
+        del installed
+        with self._cond:
+            self._pending_swap = None
+        box["done"].set()
+
+    def _probe_swap(self) -> None:
+        """One-bucket smoke probe through the smallest prefill bucket's
+        EXISTING graph (no new capture): prefill a dummy token into real
+        slot 0 and require finite logits under the candidate weights.
+        Reads ``state.logits[0]`` on the worker thread (a stream-ordered
+        copy, no device-wide sync); the lanes are reset afterwards."""
+        rt = self.runtime
+        P, extents = self.engine.prompt_classes()[0]
+        Bp = extents[0]
+        tokens = np.full((Bp, P), self.engine.pad_token_id, np.int32)
+        mask = np.zeros((Bp, P), np.int32)
+        paged = rt.kv_layout == "paged"
+        col = 0 if paged else -1  # paged prompts are right-padded
+        tokens[:, col] = 0
+        mask[:, col] = 1
+        slot_ids = np.full((Bp,), rt.num_slots, np.int32)
+        slot_ids[0] = 0  # ONE real row: the probe reads its logits
+        page_tables = start = None
+        if paged:
+            page_tables = np.full((Bp, rt.max_pages), rt.num_pages, np.int32)
+            need = self.engine.request_page_need(1, 1)
+            # the cache was reset just before: pages 0..need-1 are free,
+            # and the reset after the probe unmaps them again
+            page_tables[0, :need] = np.arange(need, dtype=np.int32)
+            start = np.zeros((Bp,), np.int32)
+        rt.prefill((Bp, P), tokens, mask, slot_ids, np.ones((Bp,), np.int32),
+                   page_tables=page_tables, start=start)
+        finite = bool(torch.isfinite(rt.state.logits[0]).all().cpu())
+        rt.reset_lanes()
+        if not finite:
+            raise ValueError(
+                "smoke probe produced non-finite logits under the "
+                "candidate checkpoint; rolling back"
+            )
+
+    # -- the flight recorder and debug state ---------------------------- #
+
+    def _record_step(self, start: float, end: float) -> None:
+        """One compact flight-recorder record per engine step (host
+        counters only); the admission / eviction deltas reset here."""
+        if self.flight is None:
+            self._fr_admitted = self._fr_evicted = 0
+            self._fr_spec_proposed = self._fr_spec_accepted = 0
+            return
+        rec = {
+            "step": self._step_counter,
+            "t": round(end, 4),
+            "active": len(self._live),
+            "finished": self._fr_evicted,
+            "admitted": self._fr_admitted,
+            "occupancy": round(self._occupancy(), 4),
+            "step_ms": round((end - start) * 1000.0, 3),
+        }
+        if self.cache is not None:
+            rec["pages_free"] = self.cache.free_pages()
+        if self.spec_k > 0:
+            rec["spec_proposed"] = self._fr_spec_proposed
+            rec["spec_accepted"] = self._fr_spec_accepted
+        self.flight.record(**rec)
+        self._fr_admitted = self._fr_evicted = 0
+        self._fr_spec_proposed = self._fr_spec_accepted = 0
+
+    def dump_flight_recorder(self) -> None:
+        """The watchdog's stall hook (``RunSupervisor.add_dump_fn``):
+        print the ring to stderr beside the stack dump. Runs on the
+        watchdog thread and reads host records only."""
+        if self.flight is not None:
+            self.flight.dump("watchdog stall")
+
+    def debug_state(self) -> Dict:
+        """Live engine state for ``GET /debug/state``: queue and slot
+        map, the flight-recorder ring, the KV pool. Read from the HTTP
+        thread without a lock and without touching a CUDA tensor: every
+        container is copied under the GIL, so a view may be stale, never
+        torn."""
+        slots = {}
+        for s, live in list(self._live.items()):
+            req = live.request
+            slots[str(s)] = {
+                "trace_id": req.trace.trace_id
+                if req.trace is not None else None,
+                "prompt_len": len(req.tokens),
+                "max_new_tokens": req.max_new_tokens,
+                "tokens_emitted": len(live.tokens),
+                "pages": len(live.pages),
+                "tenant": req.tenant,
+            }
+        return {
+            "scheduler": "slots",
+            "step": self._step_counter,
+            "queue_depth": len(self._queue),
+            "free_slots": len(self._free),
+            "starved": self._starved,
+            "degraded": self._degraded(),
+            "pressure": self.pressure(),
+            "tenants": (self.tenants.snapshot(monotonic())
+                        if self.tenants.enabled else {}),
+            "draining": self._draining,
+            "model_version": self.engine.model_version,
+            "replayed_requests": self._replayed_requests,
+            "last_step_ms": round(self._last_step_ms, 3),
+            "slots": slots,
+            "flight_recorder": (self.flight.snapshot()
+                                if self.flight is not None else []),
+            "flight_dumps": self.flight.dumps if self.flight else 0,
+            "kv": self.pool_stats(),
+            "speculation": {
+                "mode": self._spec_mode,
+                "k": self.spec_k,
+                "proposed": self._spec_proposed_total,
+                "accepted": self._spec_accepted_total,
+                "acceptance_rate": round(self._spec_acceptance_rate(), 4),
+            },
+        }
+
     def _run(self) -> None:
         with self.run_supervisor or contextlib.nullcontext():
             while not self._stop.is_set():
-                self._admit()
+                # one snapshot of the cross-thread state per iteration
+                # (the HTTP thread publishes swaps and drains under the
+                # cond); _live and _free are the worker's own
+                with self._cond:
+                    swap_pending = self._pending_swap is not None
+                    draining = self._draining
+                    queue_empty = not self._queue
+                self._update_brownout(monotonic())
+                if swap_pending:
+                    # admission pauses so _live can empty; queued and
+                    # in-flight requests finish on the ADMITTED version
+                    if not self._live:
+                        self._apply_pending_swap()
+                        continue
+                else:
+                    self._admit()
+                if draining:
+                    if not self._live and queue_empty:
+                        self._drained.set()
+                    elif monotonic() >= self._drain_deadline:
+                        self._drain_expire()
                 if not self._live:
                     with self._cond:
-                        if not self._queue and not self._stop.is_set():
+                        if not self._queue and not self._stop.is_set() \
+                                and self._pending_swap is None:
                             self._cond.wait(timeout=0.1)
                     continue
+                step_start = monotonic()
                 try:
                     self._step()
-                except Exception as e:  # the worker must keep serving
-                    self._fail_live(e)
+                except Exception as e:
+                    self._recover_step(e)
+                else:
+                    end = monotonic()
+                    self._last_step_ms = (end - step_start) * 1000.0
+                    self._record_step(step_start, end)

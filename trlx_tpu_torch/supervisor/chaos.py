@@ -58,9 +58,8 @@ ENV_VAR = "TRLX_TPU_CHAOS"
 
 #: the closed seam namespace, the reference's: every injection point
 #: (``maybe_inject(<seam>)``, ``retry_call(seam=...)``) names one of
-#: these. The port fires the training seams and serve_admit,
-#: serve_decode and serve_speculate; the other serving, router and
-#: checkpoint-verify names wait for those subsystems.
+#: these. The port fires the training seams and every serving seam; the
+#: router and checkpoint-verify names wait for those subsystems.
 KNOWN_SEAMS = (
     # retry_call seams (fired per attempt, inside the bounded worker)
     "reward_fn",
@@ -71,8 +70,7 @@ KNOWN_SEAMS = (
     "ilql_update",
     "eval",
     "checkpoint_save",
-    # serving seams (trlx_tpu.serve; the port fires serve_admit,
-    # serve_decode and serve_speculate)
+    # serving seams (trlx_tpu_torch.serve fires every one)
     "serve_admit",
     "serve_prefix_match",
     "serve_decode",

@@ -95,6 +95,9 @@ class TelemetrySession:
         self.run_dir = run_dir
         self.force_dir = force_dir
         self.headline: Optional[Dict[str, Any]] = None
+        #: the serve path's windowed SLO engine, created by
+        #: ``serve.trace.slo_engine()`` on first use (None until then)
+        self.slo: Optional[Any] = None
         self.registry.predeclare(PREDECLARED)
 
     # -- per-iteration ---------------------------------------------------- #
