@@ -188,7 +188,21 @@ Phases, each printing its own line; any failure exits non-zero:
    (atol 1e-2 + rtol 1e-2, lse at atol 1e-3, every row finite), and
    their times there, each beside its bound (the causal pairs with a
    real key) and SDPA's.
-
+10c. mesh (after phase 10) — the same policy (phase 7's seeded weights
+   and rollout batch, fused attention) on a device mesh of one card —
+   a world of one process over NCCL, ``build_mesh({"dp": -1, "fsdp":
+   1, "tp": 1})`` passed as ``mesh=`` — against the same trainer
+   without one. At fp32: one make_experience of 32 greedy rollouts
+   (the reward model from the trainer's trunk, on the mesh too) and
+   one learn() of 2 passes: every trainable leaf a DTensor, rollout
+   tokens identical, the logged loss and pre-clip grad norm and the
+   updated parameters at rtol 1e-5, the three flash kernels launched
+   in the phase (counted), 0 recompiles; a checkpoint of the mesh
+   trainer restored into a plain trainer (every tensor bit-identical)
+   and the next update bit-identical on both. At bf16: one update from
+   the same batch, loss and grad norm at rtol 1e-5. The update (2
+   passes) and rollout (32) times with the mesh and without it,
+   alternated, beside the card's line.
 11. gpt-j-6B at its published width (vocab 50400, 28 layers, 16 heads of
    256, d_model 4096, d_ff 16384; ~6.05 B parameters), in a child
    process (``chip_smoke.py --gptj-child``) started right after the
@@ -307,6 +321,8 @@ from trlx_tpu_torch.serve import (
 )
 from trlx_tpu_torch.serve.slots import SlotPoolRuntime
 from trlx_tpu_torch.serve import __main__ as serve_cli
+from trlx_tpu_torch.parallel import build_mesh, initialize_runtime
+from trlx_tpu_torch.parallel.sharding import is_dtensor
 from trlx_tpu_torch.trainers import build_optimizer
 from trlx_tpu_torch.ops.sampling import SamplingParams
 from trlx_tpu_torch.trainers.ilql_trainer import STEP_PARTS
@@ -2769,6 +2785,216 @@ def train_parity_phase(tree, batch, device, config_fn=None,
 
 
 # --------------------------------------------------------------------- #
+# 10c. mesh: the PPO main path on a device mesh of one card
+# --------------------------------------------------------------------- #
+
+
+def mesh_config_dict(compute_dtype="float32"):
+    """:func:`train_config_dict` at ``compute_dtype`` with fused attention
+    and greedy rollouts (the mesh and the plain trainer must decode the
+    same tokens): one chunk of 32 rollouts, one batch of 2 PPO epochs,
+    its stats logged once."""
+    cfg = train_config_dict(compute_dtype, True, 2)
+    cfg["method"].update(num_rollouts=32, chunk_size=32)
+    cfg["method"]["gen_kwargs"] = dict(cfg["method"]["gen_kwargs"],
+                                       do_sample=False)
+    cfg["train"].update(total_steps=2, log_interval=2)
+    return cfg
+
+
+def mesh_stack(cfg, tree, device, mesh):
+    """A PPO trainer (on ``mesh``, or plain with None) with ppo_tldr's
+    wiring: the reward model from its trunk, on its mesh."""
+    trainer = get_model(cfg.model.model_type)(cfg, device=device,
+                                              params=tree, mesh=mesh)
+    reward_model = ppo_tldr.build_reward_model(cfg, trainer)
+    pipeline = get_pipeline(cfg.train.pipeline)(
+        ppo_tldr.synthetic_documents(64), trainer.tokenizer, cfg)
+    orch = get_orchestrator(cfg.train.orchestrator)(
+        trainer, pipeline, reward_fn=reward_model,
+        chunk_size=cfg.method.chunk_size)
+    return trainer, orch
+
+
+def mesh_run(cfg, tree, device, mesh):
+    """make_experience + learn() on a fresh stack, the launch counters at
+    0 just before and read just after; 0 recompiles in its telemetry
+    session."""
+    trainer, orch = mesh_stack(cfg, tree, device, mesh)
+    logs = []
+    sync(device)
+    ops.reset_launches()
+    info = orch.make_experience(cfg.method.num_rollouts)
+    trainer.learn(log_fn=logs.append)
+    sync(device)
+    launches = {n: ops.LAUNCHES[n] for n in FLASH_NAMES}
+    assert recompiles() == 0, f"recompiled {recompiles()} times"
+    return {"trainer": trainer, "orch": orch, "info": info,
+            "logs": [e for e in logs if "loss" in e], "launches": launches,
+            "graphs": graph_stats(trainer.decoder.step.graphs())}
+
+
+def whole_leaves(tree):
+    """[(dotted name, the whole tensor)] of a tree, DTensors gathered."""
+    return [(n, x.full_tensor() if is_dtensor(x) else x)
+            for n, x in named_leaves(tree)]
+
+
+def assert_close_leaves(a, b, what, rtol=1e-5, atol=0.0):
+    """Per-leaf allclose of two [(name, tensor)] lists; the largest
+    absolute difference and whether every leaf is bit-identical."""
+    worst, same = 0.0, True
+    for (name, x), (_, y) in zip(a, b):
+        x, y = x.detach(), y.detach().to(x.device)
+        assert x.shape == y.shape and torch.allclose(
+            x.float(), y.float(), rtol=rtol, atol=atol), \
+            f"{what}: {name} differs"
+        if x.numel():
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+        same = same and torch.equal(x, y)
+    return worst, same
+
+
+def timed_alternating(fns, device, rounds=3):
+    """{name: median seconds} of each callable, called in turn ``rounds``
+    times (one after the other, so a drift in the card's clocks falls on
+    both), a device sync around each call."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            times[name].append(time.perf_counter() - t0)
+    return {name: float(np.median(v)) for name, v in times.items()}
+
+
+def mesh_phase(tree, batch, device, card):
+    """The PPO main path on a device mesh of one card against the plain
+    path (module docstring, phase 10c). A world of one process
+    over NCCL on a free localhost port, torn down at the end."""
+    import torch.distributed as dist
+
+    initialize_runtime(f"tcp://127.0.0.1:{free_port()}", 1, 0, device)
+    try:
+        mesh = build_mesh({"dp": -1, "fsdp": 1, "tp": 1}, device)
+        return _mesh_phase(tree, batch, device, card, mesh)
+    finally:
+        dist.destroy_process_group()
+        release(device)
+
+
+def _mesh_phase(tree, batch, device, card, mesh):
+    cfg = TRLConfig.from_dict(mesh_config_dict())
+    spec = cfg.model.resolve_spec()
+    meshed = mesh_run(cfg, tree, device, mesh)
+    plain = mesh_run(cfg, tree, device, None)
+    m, p = meshed["trainer"], plain["trainer"]
+    assert m.mesh is mesh and p.mesh is None
+    dtensors = [is_dtensor(x) for _, x in named_leaves(m.params)]
+    assert all(dtensors) and all(
+        is_dtensor(x) for _, x in named_leaves(m.opt_state["mu"])), \
+        "a leaf of the mesh trainer is not a DTensor"
+    ms, ps = m.store._stacked(), p.store._stacked()
+    assert torch.equal(ms.response_tensors, ps.response_tensors), \
+        "greedy rollout tokens differ with the mesh"
+    rollout_lp = float((ms.logprobs - ps.logprobs).abs().max())
+    for key in ("loss", "grad_norm"):
+        a, b = meshed["logs"][-1][key], plain["logs"][-1][key]
+        assert abs(a - b) <= 1e-5 * abs(b), f"{key}: mesh {a} plain {b}"
+    params_err, params_same = assert_close_leaves(
+        whole_leaves(m.params), whole_leaves(p.params), "updated params")
+    L, k = spec.n_layer, m.policy.k
+    want = {"flash_fwd": L + k + 2 * L, "flash_bwd_dq": 2 * k,
+            "flash_bwd_dkv": 2 * k}  # 1 chunk x (L + k), 2 passes x L
+    if device == "cuda":  # the CPU runs the plain versions
+        assert meshed["launches"] == want, (meshed["launches"], want)
+
+    # the mesh's checkpoint restored into a plain trainer: bit-identical
+    ckpt = os.path.join(CKPT_ROOT, "mesh")
+    m.save(ckpt)
+    back = get_model(cfg.model.model_type)(cfg, device=device, params=tree)
+    back.load(ckpt)
+    for what, x, y in (("params", m.params, back.params),
+                       ("opt_state", m.opt_state, back.opt_state)):
+        for (name, a), (_, b) in zip(whole_leaves(x), whole_leaves(y)):
+            assert torch.equal(a, b), f"restored {what}.{name} differs"
+    step_batch = ms.map(lambda x: x[:cfg.train.batch_size])
+    s_mesh, s_back = m.train_step(step_batch), back.train_step(step_batch)
+    for key in s_mesh:
+        assert torch.equal(s_mesh[key], s_back[key]), key
+    for what, x, y in (("params", m.params, back.params),
+                       ("opt_state", m.opt_state, back.opt_state)):
+        for (name, a), (_, b) in zip(whole_leaves(x), whole_leaves(y)):
+            assert torch.equal(a, b), f"next update: {what}.{name} differs"
+    del back
+
+    # times: the update (2 passes) and the rollout (32), alternated
+    orchs = {"mesh": meshed["orch"], "plain": plain["orch"]}
+    update_s = timed_alternating({
+        name: (lambda t=t: t.train_multi(step_batch))
+        for name, t in (("mesh", m), ("plain", p))}, device)
+    rollout_s = timed_alternating({
+        name: (lambda o=o: o.make_experience(cfg.method.num_rollouts))
+        for name, o in orchs.items()}, device, rounds=2)
+    for stack in (meshed, plain):
+        stack.pop("trainer"), stack.pop("orch")
+    del m, p, orchs
+    release(device)
+
+    # bf16: one update each from the same batch
+    cfg16 = TRLConfig.from_dict(mesh_config_dict("bfloat16"))
+    bf16 = {}
+    for name, on in (("mesh", mesh), ("plain", None)):
+        t = get_model(cfg16.model.model_type)(cfg16, device=device,
+                                              params=tree, mesh=on)
+        bf16[name] = {k: float(v) for k, v in t.train_step(batch).items()}
+        del t
+        release(device)
+    for key in ("loss", "grad_norm"):
+        a, b = bf16["mesh"][key], bf16["plain"][key]
+        assert abs(a - b) <= 1e-5 * abs(b), f"bf16 {key}: {a} vs {b}"
+    return {"launches": meshed["launches"], "want": want,
+            "leaves": len(dtensors), "rollout_logprob_err": rollout_lp,
+            "params_err": params_err, "params_bit_identical": params_same,
+            "loss": (meshed["logs"][-1]["loss"], plain["logs"][-1]["loss"]),
+            "grad_norm": (meshed["logs"][-1]["grad_norm"],
+                          plain["logs"][-1]["grad_norm"]),
+            "bf16": bf16, "update_s": update_s, "rollout_s": rollout_s,
+            "graphs": meshed["graphs"], "card": card}
+
+
+def log_mesh(r, card):
+    log("mesh", f"a world of one process over NCCL, the mesh "
+                f"{{dp: 1, pp: 1, fsdp: 1, sp: 1, tp: 1}} passed as mesh=: "
+                f"{r['leaves']} parameter leaves, every one a DTensor; 32 "
+                f"greedy rollouts' tokens identical to the plain trainer's "
+                f"(rollout logprobs differ by at most "
+                f"{r['rollout_logprob_err']:.3e}); learn() of 2 passes at "
+                f"fp32: loss {r['loss'][0]!r} vs {r['loss'][1]!r}, grad "
+                f"norm {r['grad_norm'][0]!r} vs {r['grad_norm'][1]!r}; "
+                f"updated params within rtol 1e-5 (largest difference "
+                f"{r['params_err']:.3e}, bit-identical: "
+                f"{r['params_bit_identical']}); flash launches "
+                f"{r['launches']} == {r['want']}; decode graphs "
+                f"{r['graphs']}, 0 recompiles; the mesh checkpoint "
+                f"restored into a plain trainer bit for bit, the next "
+                f"update bit-identical; bf16 update loss "
+                f"{r['bf16']['mesh']['loss']!r} vs "
+                f"{r['bf16']['plain']['loss']!r}, grad norm "
+                f"{r['bf16']['mesh']['grad_norm']!r} vs "
+                f"{r['bf16']['plain']['grad_norm']!r}")
+    log("mesh", f"update (2 passes of B32 T576, fp32, median of 3 "
+                f"alternated): {r['update_s']['mesh'] * 1e3:.1f} ms on the "
+                f"mesh, {r['update_s']['plain'] * 1e3:.1f} ms plain; "
+                f"rollout (32 greedy, generate + score + reward model, "
+                f"median of 2): {r['rollout_s']['mesh'] * 1e3:.1f} ms on "
+                f"the mesh, {r['rollout_s']['plain'] * 1e3:.1f} ms plain "
+                f"({card})")
+
+
+# --------------------------------------------------------------------- #
 # 9. ILQL: offline training at gpt2-124M width, full unfreeze
 # --------------------------------------------------------------------- #
 
@@ -3560,8 +3786,11 @@ def durability_phases(card, watchdog, device="cuda"):
     """PPO (ppo_tldr's wiring) with its serve-from-checkpoint, resume and
     commit-gate checks, the serve lifecycle (which checks ``watchdog``,
     a started :class:`ServeWatchdogDrive`), the PPO parity phase, ILQL
-    with its save / restore check, the ILQL parity phase and the bf16
-    flash kernels at the ILQL shape. Checkpoints go under CKPT_ROOT."""
+    with its save / restore check, the ILQL parity phase, the bf16
+    flash kernels at the ILQL shape, then the PPO policy on a device
+    mesh of one card (:func:`mesh_phase`, last, so the card's memory it
+    leaves behind reaches no earlier phase). Checkpoints go under
+    CKPT_ROOT."""
     tree = init_hydra_numpy(
         TRLConfig.from_dict(train_config_dict()).model.resolve_spec(), 2,
         seed=0)
@@ -3731,7 +3960,10 @@ def durability_phases(card, watchdog, device="cuda"):
                       f"); {esc['wall_s']:.1f}s from the first start to the "
                       f"last exit, beside the drills, the profile and phase "
                       f"8 ({card})")
+    # the mesh phase runs last, from phase 7's weights and batch
+    mesh_inputs = (tree, batch.map(lambda x: x.cpu()))
     del tree, train["batch"], batch
+    release(device)
 
     ilql_tree = init_ilql_numpy(
         TRLConfig.from_dict(ilql_config_dict()).model.resolve_spec(), -1,
@@ -3777,6 +4009,10 @@ def durability_phases(card, watchdog, device="cuda"):
                                80, ilql["T"], ilql_lengths)
     flash_ilql = time_flash(device, "ILQL shape (terminal-holed mask)", 80,
                             ilql["T"], iters=10, lengths=ilql_lengths)
+    release(device)
+    tree, batch = mesh_inputs
+    mesh = mesh_phase(tree, batch.map(lambda x: x.to(device)), device, card)
+    log_mesh(mesh, card)
     durability = {
         "ppo_save_ms": train["save_ms"],
         "ppo_checkpoint_bytes": train["checkpoint_bytes"],
@@ -3805,7 +4041,7 @@ def durability_phases(card, watchdog, device="cuda"):
             "ilql_parity": ilql_parity, "ilql_errs": ilql_errs,
             "flash_ilql": flash_ilql, "serve_checkpoint": serve_ckpt,
             "spec_draft": draft, "serve_lifecycle": lifecycle,
-            "durability": durability}
+            "durability": durability, "mesh": mesh}
 
 
 # --------------------------------------------------------------------- #
@@ -4556,6 +4792,7 @@ def main() -> int:
                                         "save_ms", "checkpoint_bytes")},
         "durability": durable["durability"],
         "train_parity": train_parity,
+        "mesh": {k: v for k, v in durable["mesh"].items() if k != "card"},
         "ilql": {k: ilql[k] for k in ("wall_s", "step_p50_s", "steps_s",
                                       "tokens_per_s", "eval_s",
                                       "max_memory_gb", "launches", "T",
@@ -4589,14 +4826,16 @@ def main() -> int:
          "serve_lifecycle": lifecycle["launches"],
          "ppo": train["all_launches"]["paged_decode"],
          "ilql": ilql["all_launches"]["paged_decode"]})]
+    mesh = durable["mesh"]["launches"]
     for name in FLASH_NAMES:
         kernels.append(kernel_entry(
             name, "trlx_tpu_torch/csrc/flash_attention.cu",
             FLASH_REPLACES[name],
-            train["launches"][name] + ilql["launches"][name],
+            train["launches"][name] + ilql["launches"][name] + mesh[name],
             flash_err[name], flash_slice[name],
             {"ppo": train["launches"][name], "ilql": ilql["launches"][name],
-             "ppo_resume": resume[name], "ppo_gate": gate[name]}))
+             "ppo_resume": resume[name], "ppo_gate": gate[name],
+             "mesh": mesh[name]}))
     kernels.append(kernel_entry(
         "paged_decode (hd 256)", "trlx_tpu_torch/csrc/paged_decode.cu",
         "trlx_tpu/ops/paged_attention.py:58", gptj["serve"]["launches"],

@@ -607,7 +607,8 @@ def test_registry_and_config_resolve_to_the_port():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1}), ("mesh", {"dp": 1, "sp": 2}),
+    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1, "sp": 2}),
+    ("mesh", {"dp": 1, "sp": 2}),
     ("mesh", {"dp": 1, "pp": 2}),
 ])
 def test_refused_knobs_raise(knob, value):

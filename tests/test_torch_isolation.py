@@ -57,7 +57,9 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "telemetry.registry", "telemetry.tracer",
                  "telemetry.device", "telemetry.flops",
                  "telemetry.prometheus", "supervisor", "supervisor.seams",
-                 "supervisor.chaos", "models.hf_import", "utils.hf_offline"):
+                 "supervisor.chaos", "models.hf_import", "utils.hf_offline",
+                 "parallel", "parallel.mesh", "parallel.runtime",
+                 "parallel.sharding"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

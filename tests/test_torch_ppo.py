@@ -220,7 +220,7 @@ def test_offline_example_runs_on_cpu_and_stays_finite():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1}),
+    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1, "sp": 2}),
     ("mesh", {"dp": 1, "sp": 2}), ("mesh", {"dp": 1, "pp": 2}),
 ])
 def test_refused_knobs_raise(knob, value):

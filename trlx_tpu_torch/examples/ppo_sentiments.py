@@ -6,17 +6,25 @@ policy, IMDB prompts, a sentiment reward) wait for the pretrained
 import.
 
     python -m trlx_tpu_torch.examples.ppo_sentiments [--device cpu]
-        [--total-steps N]
+        [--total-steps N] [--mesh '{"dp": -1, "fsdp": 2, "tp": 2}']
 
 Without ``--device cpu`` it runs on the card and raises when there is
-none.
+none. On several cards, one process each:
+
+    torchrun --nproc_per_node N -m trlx_tpu_torch.examples.ppo_sentiments \
+        --mesh '{"dp": -1, "fsdp": 2, "tp": 2}'
+
+(``train.mesh``; without ``--mesh`` every process goes to dp). Only the
+main process prints.
 """
 
 import argparse
+import json
 
 import numpy as np
 
 from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.parallel import is_main_process
 from trlx_tpu_torch.utils.loading import get_model, get_orchestrator, get_pipeline
 
 
@@ -69,8 +77,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--total-steps", type=int, default=200)
+    ap.add_argument("--mesh", type=json.loads, default=None,
+                    help="train.mesh as JSON, e.g. '{\"fsdp\": 2, "
+                         "\"tp\": 2}'")
     args = ap.parse_args(argv)
     config = offline_config(args.total_steps)
+    config.train.mesh = args.mesh
     trainer = get_model(config.model.model_type)(config, device=args.device)
     pipeline = get_pipeline(config.train.pipeline)(
         prompts(), trainer.tokenizer, config)
@@ -81,8 +93,9 @@ def main(argv=None):
 
     def log(stats):
         logs.append(stats)
-        print({k: v for k, v in stats.items() if k != "samples"},
-              flush=True)
+        if is_main_process():
+            print({k: v for k, v in stats.items() if k != "samples"},
+                  flush=True)
 
     log({"rollout": orch.make_experience(config.method.num_rollouts)})
     trainer.learn(log_fn=log)

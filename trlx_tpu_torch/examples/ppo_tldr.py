@@ -103,7 +103,8 @@ def build_reward_model(config, trainer, head_seed: int = 1):
                               p["trainable"]["ln_f"], head_seed=head_seed)
     return DeviceRewardModel(
         model, params, trainer.tokenizer, device=trainer.device,
-        max_length=config.train.input_size + config.train.gen_size)
+        max_length=config.train.input_size + config.train.gen_size,
+        mesh=trainer.mesh)
 
 
 def main(argv=None):

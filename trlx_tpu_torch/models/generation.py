@@ -196,12 +196,14 @@ class RolloutDecoder:
 
 def _decode_token(spec, segments, embed, ln_f, buf: DecodeBuffers,
                   generator, config, compute_dtype, attention_fn,
-                  logit_mask, extras_fn) -> None:
+                  logit_mask, extras_fn, rows=None) -> None:
     """One decode step of :func:`generate`, in place on ``buf``: emit the
     token of column ``buf.step`` from the carried logits, then forward it
     against the cache. Static shapes and no host read, so it replays as
     one CUDA graph; the last step's forward feeds nothing but keeps every
-    step the same program."""
+    step the same program. ``rows``: :func:`sample_token`'s (start,
+    total) on a mesh. No collective runs inside, so no capture holds
+    one that a peer process might not run."""
     B, S = buf.buffer_mask.shape
     G = config.gen_size
     P = S - G
@@ -218,7 +220,7 @@ def _decode_token(spec, segments, embed, ln_f, buf: DecodeBuffers,
         step_logits = torch.where(eos_col & (step < config.min_new_tokens),
                                   NEG_INF, step_logits)
     logz = torch.logsumexp(step_logits, dim=-1)
-    tok = sample_token(generator, step_logits, config.sampling)
+    tok = sample_token(generator, step_logits, config.sampling, rows)
     logprob = torch.gather(step_logits, 1, tok[:, None])[:, 0] - logz
     finished = buf.finished.clone()
     tok = torch.where(finished, config.pad_token_id, tok)
@@ -251,10 +253,18 @@ def _decode_token(spec, segments, embed, ln_f, buf: DecodeBuffers,
     buf.step.add_(1)
 
 
-def _all_finished(buf: DecodeBuffers) -> bool:
+def _all_finished(buf: DecodeBuffers, mesh=None) -> bool:
     """Whether every row has finished: one small device-to-host read
-    (non-blocking into pinned memory on the card, then a wait on it)."""
+    (non-blocking into pinned memory on the card, then a wait on it). On
+    a mesh, every row of every process (one all-reduce), so all of them
+    stop at the same step and their generators stay in step."""
     flag = buf.finished.all().reshape(1)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        flag = flag.int()
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        flag = flag.bool()
     if flag.device.type != "cuda":
         return bool(flag)
     buf.all_finished.copy_(flag, non_blocking=True)
@@ -280,6 +290,7 @@ def generate(
     logit_mask: Optional[torch.Tensor] = None,
     extras_fn: Optional[Callable] = None,
     decoder: Optional[RolloutDecoder] = None,
+    mesh=None,
 ) -> GenerationOutput:
     """Decode ``config.gen_size`` tokens per row from LEFT-padded prompts
     (the rollout decoder; port of trlx_tpu.models.generation.generate).
@@ -301,7 +312,25 @@ def generate(
     finished, and decoding then stops (the remaining steps would emit
     only pads). The CPU runs the same chunked loop, so the generator
     ends in the same state with graphs on or off.
+
+    With a ``mesh`` (trlx_tpu_torch.parallel) the prompts are DTensors
+    whose rows shard over (dp, fsdp) and the parameters whole plain
+    tensors: each process decodes its rows, draws as one process would
+    (``sample_token``'s ``rows``), stops when every process's rows have
+    finished, and the outputs come back whole on every process.
     """
+    rows = None
+    if mesh is not None:
+        from trlx_tpu_torch.parallel.sharding import (
+            gather_rows,
+            local_rows,
+            row_range,
+        )
+
+        total = prompt_tokens.shape[0]
+        rows = (row_range(mesh, total)[0], total)
+        prompt_tokens = local_rows(prompt_tokens)
+        prompt_mask = local_rows(prompt_mask)
     B, P = prompt_tokens.shape
     G = config.gen_size
     S = P + G
@@ -351,20 +380,24 @@ def generate(
         chunk = min(_EXIT_CHECK_EVERY, G - done)
         for _ in range(chunk):
             decoder.step(spec, segments, embed, ln_f, buf, generator, config,
-                         compute_dtype, attention_fn, logit_mask, extras_fn)
+                         compute_dtype, attention_fn, logit_mask, extras_fn,
+                         rows)
         done += chunk
         if early_exit and done < G and done > config.min_new_tokens \
-                and _all_finished(buf):
+                and _all_finished(buf, mesh):
             break  # every later step emits pads only
 
     gen_tokens = buf.gen_tokens.clone()
-    return GenerationOutput(
+    out = GenerationOutput(
         sequences=torch.cat([prompt_tokens, gen_tokens], dim=1),
         gen_tokens=gen_tokens,
         gen_logprobs=buf.gen_logprobs.clone(),
         gen_mask=buf.gen_mask.clone(),
         attention_mask=buf.buffer_mask.clone(),
     )
+    if mesh is not None:
+        out = GenerationOutput(*(gather_rows(x, mesh) for x in out))
+    return out
 
 
 class SlotState(NamedTuple):

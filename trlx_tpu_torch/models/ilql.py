@@ -57,6 +57,9 @@ class ILQLModel:
     compute_dtype: Any = torch.bfloat16
     remat: bool = False
     attention_fn: Any = None  # None => plain attention
+    #: trlx_tpu_torch.parallel.sharding.TensorParallel: the blocks' tp
+    #: compute on a mesh (their tp-ruled leaves are then shards)
+    tp: Any = None
 
     @property
     def k(self) -> int:
@@ -101,10 +104,11 @@ class ILQLModel:
                              positions, self.compute_dtype)
         with torch.no_grad():
             h = apply_blocks(params["frozen_base"]["blocks"], self.spec, h,
-                             mask_arg, positions, attention_fn=attn)
+                             mask_arg, positions, attention_fn=attn,
+                             tp=self.tp)
         h = apply_blocks(params["trainable"]["blocks"], self.spec, h,
                          mask_arg, positions, attention_fn=attn,
-                         remat=self.remat)
+                         remat=self.remat, tp=self.tp)
         return layer_norm(params["trainable"]["ln_f"], h,
                           self.spec.layer_norm_epsilon)
 
@@ -161,8 +165,13 @@ class ILQLModel:
 @torch.no_grad()
 def sync_targets(params: Params, alpha: float) -> None:
     """Polyak update in place: target <- alpha * q + (1 - alpha) * target,
-    in float32 as trlx_tpu's pytree lerp computes it."""
+    in float32 as trlx_tpu's pytree lerp computes it. DTensor heads update
+    their shards on this process (a target leaf and its Q-head leaf share
+    their placements)."""
+    from trlx_tpu_torch.parallel.sharding import local
+
     for name, tgt in params["target"].items():
         src = params["trainable"][name]
         for key, t in tgt.items():
-            t.copy_(alpha * src[key].float() + (1.0 - alpha) * t.float())
+            t, q = local(t), local(src[key])
+            t.copy_(alpha * q.float() + (1.0 - alpha) * t.float())

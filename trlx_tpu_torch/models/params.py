@@ -212,14 +212,25 @@ def _place(x, device, dtype) -> torch.Tensor:
                 else t.dtype)
 
 
+def _on_mesh(tree: Params, mesh) -> Params:
+    """``tree`` placed on ``mesh`` by trlx_tpu's leaf rules
+    (trlx_tpu_torch.parallel ``param_placements``); None: as it is."""
+    if mesh is None:
+        return tree
+    from trlx_tpu_torch.parallel import shard_params
+
+    return shard_params(mesh, tree)
+
+
 def hydra_to_torch(tree: Params, device=None,
-                   frozen_dtype=torch.float32) -> Params:
+                   frozen_dtype=torch.float32, mesh=None) -> Params:
     """A hydra tree of numpy (or torch) leaves as torch tensors on
     ``device``: ``frozen_base`` and ``ref`` stored in ``frozen_dtype``
     (every leaf, as trlx_tpu casts them), ``trainable`` float32 leaves
     that require grad — the trainer's parameter tree. Torch leaves
     already on ``device`` in their target dtype are taken over, not
-    copied (:func:`_place`)."""
+    copied (:func:`_place`). With a ``mesh`` every leaf becomes a
+    DTensor on its placements."""
 
     def frozen(sub):
         return tree_map(lambda x: _place(x, device, frozen_dtype), sub)
@@ -228,41 +239,53 @@ def hydra_to_torch(tree: Params, device=None,
         lambda x: _place(x, device, torch.float32).requires_grad_(True),
         tree["trainable"],
     )
-    return {"frozen_base": frozen(tree["frozen_base"]),
-            "trainable": trainable, "ref": frozen(tree["ref"])}
+    return _on_mesh({"frozen_base": frozen(tree["frozen_base"]),
+                     "trainable": trainable, "ref": frozen(tree["ref"])},
+                    mesh)
 
 
-def ilql_to_torch(tree: Params, device=None) -> Params:
+def ilql_to_torch(tree: Params, device=None, mesh=None) -> Params:
     """An ILQL tree of numpy (or torch) leaves as float32 torch tensors on
     ``device``, as trlx_tpu stores every ILQL leaf: ``trainable`` leaves
     require grad, ``frozen_base`` and ``target`` do not. Zero-size leaves
-    and an empty frozen embed carry over as they are."""
+    and an empty frozen embed carry over as they are. With a ``mesh``
+    every leaf becomes a DTensor on its placements."""
     frozen = {key: tree_map(lambda x: _place(x, device, torch.float32),
                             tree[key]) for key in ("frozen_base", "target")}
     trainable = tree_map(
         lambda x: _place(x, device, torch.float32).requires_grad_(True),
         tree["trainable"])
-    return {"frozen_base": frozen["frozen_base"], "trainable": trainable,
-            "target": frozen["target"]}
+    return _on_mesh({"frozen_base": frozen["frozen_base"],
+                     "trainable": trainable, "target": frozen["target"]},
+                    mesh)
 
 
-def reward_to_torch(tree: Params, device=None) -> Params:
+def reward_to_torch(tree: Params, device=None, mesh=None) -> Params:
     """A reward-model tree ({embed, blocks, ln_f, r_head}) of numpy or
     torch leaves as FRESH torch tensors on ``device``, each leaf keeping
     its dtype and leaving any autograd graph behind: a copy that the
-    tensors it came from (a trainer's, updated in place) never touch."""
-    return tree_map(lambda x: x.detach().to(device=device, copy=True)
-                    if torch.is_tensor(x)
-                    else torch.as_tensor(np.array(x, copy=True,
-                                                  order="C")).to(device),
-                    tree)
+    tensors it came from (a trainer's, updated in place) never touch. A
+    DTensor leaf is copied whole; with a ``mesh`` every leaf becomes a
+    DTensor on its placements."""
+    from trlx_tpu_torch.parallel.sharding import whole
+
+    return _on_mesh(tree_map(
+        lambda x: whole(x).detach().to(device=device, copy=True)
+        if torch.is_tensor(x)
+        else torch.as_tensor(np.array(x, copy=True, order="C")).to(device),
+        tree), mesh)
 
 
 def hydra_to_numpy(tree: Params) -> Params:
-    """torch -> numpy for a (sub)tree, float32 for floating leaves."""
-    return tree_map(
-        lambda x: x.detach().float().cpu().numpy() if x.is_floating_point()
-        else x.detach().cpu().numpy(), tree)
+    """torch -> numpy for a (sub)tree, float32 for floating leaves; a
+    DTensor leaf is gathered whole (every process must call this)."""
+    from trlx_tpu_torch.parallel.sharding import whole
+
+    def to_numpy(x):
+        x = whole(x).detach()
+        return (x.float() if x.is_floating_point() else x).cpu().numpy()
+
+    return tree_map(to_numpy, tree)
 
 
 #: an ILQL tree comes back to numpy the same way

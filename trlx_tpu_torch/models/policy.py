@@ -88,6 +88,9 @@ class HydraPolicy:
     compute_dtype: Any = torch.bfloat16
     remat: bool = False
     attention_fn: Any = None  # None => plain attention
+    #: trlx_tpu_torch.parallel.sharding.TensorParallel: the blocks' tp
+    #: compute on a mesh (their tp-ruled leaves are then shards)
+    tp: Any = None
 
     @property
     def k(self) -> int:
@@ -104,14 +107,16 @@ class HydraPolicy:
             h = embed_tokens(params["frozen_base"]["embed"], self.spec,
                              tokens, positions, self.compute_dtype)
             h = apply_blocks(params["frozen_base"]["blocks"], self.spec, h,
-                             mask_arg, positions, attention_fn=self._attn())
+                             mask_arg, positions, attention_fn=self._attn(),
+                             tp=self.tp)
         return h, mask_arg, positions
 
     def _branch_hidden(self, branch: Params, h, mask_arg, positions):
         """A top branch's blocks + final norm: the post-ln_f hidden that
         both the lm head and the value head read."""
         h = apply_blocks(branch["blocks"], self.spec, h, mask_arg, positions,
-                         attention_fn=self._attn(), remat=self.remat)
+                         attention_fn=self._attn(), remat=self.remat,
+                         tp=self.tp)
         return layer_norm(branch["ln_f"], h, self.spec.layer_norm_epsilon)
 
     def branch_head_fn(self, branch: Params, embed: Params):

@@ -41,7 +41,10 @@ def _concat_segments(segments):
         return {k: _concat_segments([seg[k] for seg in segments])
                 for k in first}
     if torch.is_tensor(first):
-        return torch.cat([x.detach().to(first.dtype) for x in segments])
+        from trlx_tpu_torch.parallel.sharding import whole
+
+        return torch.cat([whole(x).detach().to(first.dtype)
+                          for x in segments])
     return np.concatenate([np.asarray(x, first.dtype) for x in segments])
 
 
@@ -103,22 +106,50 @@ class DeviceRewardModel:
     The parameters are ALWAYS deep-copied onto ``device`` (default: the
     card, or pass ``device="cpu"``): a trainer updates its own tensors in
     place, and a reward model sharing them would drift with the policy.
+
+    With a ``mesh`` (trlx_tpu_torch.parallel) the copy lives on the mesh,
+    sharded by trlx_tpu's leaf rules; each process scores its rows of a
+    batch with the parameters gathered on use (a batch dp * fsdp does not
+    divide is padded with its last row) and every process gets the whole
+    batch's scores.
     """
 
     is_device_reward = True
 
     def __init__(self, model: RewardModel, params: Params, tokenizer,
-                 max_length: int = 512, device: Optional[str] = None):
+                 max_length: int = 512, device: Optional[str] = None,
+                 mesh=None):
         self.model = model
         self.tokenizer = tokenizer
         self.max_length = max_length
         self.device = resolve_device(device)
-        self.params = reward_to_torch(params, self.device)
+        if mesh is not None and self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = mesh
+        self.params = reward_to_torch(params, self.device, mesh=mesh)
+        self._gathered = {}
 
     def score_tokens(self, tokens, attention_mask) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, device=self.device)
         attention_mask = torch.as_tensor(attention_mask, device=self.device)
-        return self.model.score(self.params, tokens, attention_mask)
+        if self.mesh is None:
+            return self.model.score(self.params, tokens, attention_mask)
+        from trlx_tpu_torch.parallel.sharding import (
+            gather_rows,
+            n_data,
+            rows_of,
+            unshard_tree,
+        )
+
+        n = tokens.shape[0]
+        pad = (-n) % n_data(self.mesh)
+        if pad:
+            tokens, attention_mask = (torch.cat([x, x[-1:].expand(
+                pad, *x.shape[1:])]) for x in (tokens, attention_mask))
+        scores = self.model.score(
+            unshard_tree(self.params, into=self._gathered),
+            rows_of(tokens, self.mesh), rows_of(attention_mask, self.mesh))
+        return gather_rows(scores, self.mesh)[:n]
 
     def __call__(self, texts):
         enc = self.tokenizer(list(texts), max_length=self.max_length,

@@ -253,6 +253,7 @@ def block_apply(
     page_table: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
     paged_decode_fn=None,
+    tp=None,
 ):
     """One transformer block on hidden states `h` [B, T, D].
 
@@ -286,6 +287,15 @@ def block_apply(
     T == 1 with ``fn(q[:, 0], k_pages, v_pages, page_table, bias_row)``
     over the post-scatter pool without its drop page.
 
+    ``tp`` (trlx_tpu_torch.parallel.sharding ``TensorParallel``, dense
+    mode only): Megatron's tensor parallelism. ``p`` then holds this
+    process's column shards of wq / wk / wv / w_in / w_gate and their
+    biases (whole heads, so q / k / v carry this process's heads) and
+    row shards of wo / w_out; the input of each column-parallel
+    projection goes through ``tp.enter`` (its gradient summed over the
+    tp group) and each row-parallel product through ``tp.reduce`` (the
+    sum over the group) before its bias.
+
     Returns (h_out, new_cache) — the cache objects are updated in place.
     """
     B, T, D = h.shape
@@ -295,9 +305,12 @@ def block_apply(
 
     x = layer_norm(p["ln_1"], h, eps)
     attn = p["attn"]
-    q = _project(x, attn["wq"], attn.get("bq")).reshape(B, T, H, hd)
-    k = _project(x, attn["wk"], attn.get("bk")).reshape(B, T, Hkv, hd)
-    v = _project(x, attn["wv"], attn.get("bv")).reshape(B, T, Hkv, hd)
+    if tp is not None:  # this process's heads
+        H, Hkv = H // tp.size, Hkv // tp.size
+    x_in = x if tp is None else tp.enter(x)
+    q = _project(x_in, attn["wq"], attn.get("bq")).reshape(B, T, H, hd)
+    k = _project(x_in, attn["wk"], attn.get("bk")).reshape(B, T, Hkv, hd)
+    v = _project(x_in, attn["wv"], attn.get("bv")).reshape(B, T, Hkv, hd)
     if flags.use_rotary:
         q = apply_rotary(q, positions, spec.rotary_dim,
                          flags.rotary_interleaved, spec.rope_theta)
@@ -392,14 +405,23 @@ def block_apply(
     else:
         a = attention_fn(q, k, v, mask_bias)
 
-    a = _project(a.reshape(B, T, D), attn["wo"], attn.get("bo"))
+    def row_parallel(y, w, b=None):
+        if tp is None:
+            return _project(y, w, b)
+        y = tp.reduce(_project(y, w))
+        return y if b is None else y + b.to(y.dtype)
+
+    a = row_parallel(a.reshape(B, T, H * hd), attn["wo"], attn.get("bo"))
 
     def mlp(mlp_in):
         mp = p["mlp"]
+        if tp is not None:
+            mlp_in = tp.enter(mlp_in)
         if flags.swiglu:
             gate = F.silu(_project(mlp_in, mp["w_gate"]))
-            return _project(gate * _project(mlp_in, mp["w_in"]), mp["w_out"])
-        return _project(
+            return row_parallel(gate * _project(mlp_in, mp["w_in"]),
+                                mp["w_out"])
+        return row_parallel(
             gelu_new(_project(mlp_in, mp["w_in"], mp["b_in"])),
             mp["w_out"],
             mp["b_out"],
@@ -446,10 +468,12 @@ def mask_arg_for(attention_fn, attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 def apply_blocks(blocks, spec, h, mask_bias, positions,
-                 attention_fn=attention_scores, remat: bool = False):
+                 attention_fn=attention_scores, remat: bool = False,
+                 tp=None):
     """Run stacked blocks over `h` (dense, no cache). ``remat``
     recomputes each block in the backward instead of keeping its
-    activations (``torch.utils.checkpoint``; only while grad is on)."""
+    activations (``torch.utils.checkpoint``; only while grad is on).
+    ``tp``: :func:`block_apply`'s tensor parallelism."""
     flags = ArchFlags.for_spec(spec)
     for i in range(num_layers(blocks)):
         p_i = layer_params(blocks, i)
@@ -459,12 +483,13 @@ def apply_blocks(blocks, spec, h, mask_bias, positions,
             h = checkpoint(
                 lambda x, p=p_i: block_apply(spec, flags, p, x, mask_bias,
                                              positions,
-                                             attention_fn=attention_fn)[0],
+                                             attention_fn=attention_fn,
+                                             tp=tp)[0],
                 h, use_reentrant=False,
             )
         else:
             h, _ = block_apply(spec, flags, p_i, h, mask_bias, positions,
-                               attention_fn=attention_fn)
+                               attention_fn=attention_fn, tp=tp)
     return h
 
 

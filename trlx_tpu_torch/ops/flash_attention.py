@@ -52,7 +52,8 @@ smoke hold the kernels against.
 ``torch.no_grad`` (the frozen trunk, the reference branch, rollout
 scoring) :func:`flash_attention` calls the forward alone and saves
 nothing. :func:`make_flash_attention_fn` is the trunk's ``attention_fn``
-seam (``make_pallas_attention_fn``, single device).
+seam (``make_pallas_attention_fn``); given a mesh it runs the kernels on
+each process's rows and heads (:func:`_on_mesh`).
 """
 
 import ctypes
@@ -352,26 +353,82 @@ def flash_attention(q, k, v, mask, causal=True):
     return flash_fwd(q, k, v, mask, causal)[0]
 
 
-def make_flash_attention_fn(min_fused_t: int = None, causal: bool = True):
+def _on_mesh(fn, mesh, q, k, v, mask, tp_heads=False):
+    """``fn`` (the kernels, or their dense plain version) on each
+    process's shard, as trlx_tpu's ``shard_map`` around the Pallas
+    kernels: batch over (dp, fsdp) where dp * fsdp divides it, heads over
+    tp where tp divides them, else replicated. DTensor inputs are global
+    tensors; plain inputs are this process's rows of a batch sharded over
+    (dp, fsdp) (the trainers' forward) holding every head, or with
+    ``tp_heads`` this process's heads of a tp-sharded model, and come
+    back as such. Through ``local_map``: a ctypes launch takes no
+    DTensor, so the kernels see the local shards, and autograd carries
+    the gradients back through the redistributions (none when the
+    inputs already hold their shards)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from trlx_tpu_torch.parallel import AXES, mesh_sizes
+    from trlx_tpu_torch.parallel.sharding import batch_sharding, is_dtensor
+
+    sizes = mesh_sizes(mesh)
+    rows_local = not is_dtensor(q)
+    if rows_local:
+        rows = batch_sharding(mesh)
+        heads = [Shard(2) if ax == "tp" and tp_heads else pl
+                 for ax, pl in zip(AXES, rows)]
+        q, k, v = (DTensor.from_local(x, mesh, heads, run_check=False)
+                   for x in (q, k, v))
+        mask = DTensor.from_local(mask, mesh, rows, run_check=False)
+    batch_ok = q.shape[0] % (sizes["dp"] * sizes["fsdp"]) == 0
+    head_ok = q.shape[2] % sizes["tp"] == 0
+
+    def placements(split_heads):
+        return [Shard(0) if ax in ("dp", "fsdp") and batch_ok
+                else Shard(2) if ax == "tp" and split_heads and head_ok
+                else Replicate() for ax in AXES]
+
+    qkv, m = placements(True), placements(False)
+    out = local_map(fn, out_placements=qkv, in_placements=(qkv, qkv, qkv, m),
+                    device_mesh=mesh, redistribute_inputs=True)(q, k, v, mask)
+    if rows_local:
+        return out.redistribute(mesh, heads).to_local()
+    return out
+
+
+def make_flash_attention_fn(min_fused_t: int = None, causal: bool = True,
+                            mesh=None, tp_heads: bool = False):
     """An ``attention_fn`` for the trunk running the flash kernels. It
     takes the raw [B, T] mask (``takes_raw_mask``) and the compact
     Hkv-wide K/V: a GQA K/V is repeated to H heads before the kernels,
     as the JAX trunk does (``jnp.repeat`` on the head axis), so autograd
     sums dk/dv over each group. Sequences shorter than ``min_fused_t``
-    (default :data:`_MIN_FUSED_T`) take the dense path."""
+    (default :data:`_MIN_FUSED_T`) take the dense path. With a ``mesh``
+    (trlx_tpu_torch.parallel) either runs on each process's shard
+    (:func:`_on_mesh`; ``tp_heads``: the trainer's forward already holds
+    this process's heads)."""
     min_t = _MIN_FUSED_T if min_fused_t is None else min_fused_t
 
+    def kernels(q, k, v, mask):
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), mask.contiguous(), causal)
+
+    def dense(q, k, v, mask):
+        return flash_attention_reference(q, k, v, mask, causal)
+
     def flash_attention_fn(q, k, v, attention_mask):
-        if q.shape[1] < min_t:
-            return flash_attention_reference(q, k, v, attention_mask, causal)
+        fused = q.shape[1] >= min_t
+        if mesh is None and not fused:
+            return dense(q, k, v, attention_mask)
         H, Hkv = q.shape[2], k.shape[2]
         if Hkv != H:
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
-        return flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            attention_mask.to(torch.int32).contiguous(), causal,
-        )
+        mask = attention_mask.to(torch.int32)
+        if mesh is None:
+            return kernels(q, k, v, mask)
+        return _on_mesh(kernels if fused else dense, mesh, q, k, v, mask,
+                        tp_heads)
 
     flash_attention_fn.takes_raw_mask = True
     return flash_attention_fn

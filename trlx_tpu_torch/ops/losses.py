@@ -252,7 +252,8 @@ def ilql_losses(logits, qs, target_qs, vs, tokens, attention_mask, rewards,
 def ilql_losses_chunked(lm_head_fn, q_head_fns, tq_head_fns, vs, h_normed,
                         tokens, attention_mask, rewards, gamma: float,
                         tau: float, cql_scale: float, awac_scale: float,
-                        chunk: int = 16) -> Tuple[torch.Tensor, Dict]:
+                        chunk: int = 16, gather_rows: Optional[Callable] = None,
+                        ) -> Tuple[torch.Tensor, Dict]:
     """:func:`ilql_losses` without ever holding the [B, T, V] head
     outputs: each ``chunk`` positions of ``h_normed`` [B, T, D] go
     through the heads (callables [B, c, D] -> float32 [B, c, V]) and
@@ -260,7 +261,12 @@ def ilql_losses_chunked(lm_head_fn, q_head_fns, tq_head_fns, vs, h_normed,
     trainable heads' chunks run under ``torch.utils.checkpoint``, so the
     backward recomputes each chunk's projections instead of storing
     them; the target heads (no gradient) run outside it. Same math and
-    stats as :func:`ilql_losses`."""
+    stats as :func:`ilql_losses`.
+
+    ``gather_rows`` (trlx_tpu_torch.parallel.sharding ``gather_rows`` on
+    a mesh): the inputs are this process's rows, and every per-position
+    statistic, the mask and the rewards go through it to the whole batch
+    before the losses, which are then the whole batch's."""
     from torch.utils.checkpoint import checkpoint
 
     labels = _action_labels(tokens)
@@ -282,6 +288,11 @@ def ilql_losses_chunked(lm_head_fn, q_head_fns, tq_head_fns, vs, h_normed,
                             for f in tq_head_fns])
     out = [torch.cat(c, dim=1) for c in zip(*cols)]
     tq_g = [torch.cat(c, dim=1) for c in zip(*tq_cols)]
+    if gather_rows is not None:
+        out, tq_g = [gather_rows(x) for x in out], [gather_rows(x)
+                                                   for x in tq_g]
+        vs, attention_mask, rewards = (gather_rows(x) for x in
+                                       (vs, attention_mask, rewards))
     lm_g, lm_lse = out[0], out[1]
     return _ilql_terms(out[2::2], out[3::2], tq_g, lm_g, lm_lse, vs,
                        attention_mask, rewards, gamma, tau, cql_scale,

@@ -79,7 +79,7 @@ def warp_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor:
 
 
 def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
-                 params: SamplingParams) -> torch.Tensor:
+                 params: SamplingParams, rows=None) -> torch.Tensor:
     """Draw next tokens [B] (int64) from warped logits [B, V], or the
     argmax under greedy decode — which skips the warpers entirely (every
     warper keeps the top-1 token, so the argmax cannot change).
@@ -87,9 +87,22 @@ def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
     The draw is the exponential race ``argmax(probs / E)``, ``E ~ Exp(1)``
     from ``generator``: what ``torch.multinomial`` computes for one
     sample, token for token, without its input check, which reads a
-    value back to the host and so cannot run inside a CUDA graph."""
+    value back to the host and so cannot run inside a CUDA graph.
+
+    ``rows`` = (start, total): ``logits`` are rows [start, start + B) of
+    a ``total``-row batch sharded over processes. The draw is then made
+    for the whole batch and this process keeps its rows, so every
+    process's generator advances alike and each row draws what it would
+    in one process (processes holding the same rows, a tp group, draw
+    the same tokens)."""
     if not params.do_sample:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(warp_logits(logits, params), dim=-1)
-    race = torch.empty_like(probs).exponential_(generator=generator)
+    if rows is None:
+        race = torch.empty_like(probs).exponential_(generator=generator)
+    else:
+        start, total = rows
+        race = torch.empty((total,) + probs.shape[1:], dtype=probs.dtype,
+                           device=probs.device).exponential_(
+            generator=generator)[start:start + probs.shape[0]]
     return torch.argmax(probs / race, dim=-1)

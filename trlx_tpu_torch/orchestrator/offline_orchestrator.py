@@ -13,6 +13,7 @@ float32 array (the JAX package broadcasts them from process 0).
 import numpy as np
 
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
+from trlx_tpu_torch.parallel import broadcast_host_floats
 from trlx_tpu_torch.pipeline.offline_pipeline import (
     OfflinePipeline,
     OfflineRolloutStorage,
@@ -37,7 +38,8 @@ class OfflineOrchestrator(Orchestrator):
             m[-1] = 0
             attention_mask.append(m)
 
-        returns = np.asarray(reward_fn(train_samples), np.float32)
+        # every process trains on process 0's returns
+        returns = broadcast_host_floats(reward_fn(train_samples))
         returns = (returns - returns.mean()) / (returns.std() + 1e-30)
 
         rewards = []

@@ -41,6 +41,7 @@ import torch
 from trlx_tpu_torch import supervisor
 from trlx_tpu_torch.data.ppo_types import PPORLBatch
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
+from trlx_tpu_torch.parallel import broadcast_host_floats
 from trlx_tpu_torch.pipeline import batch_iterator
 from trlx_tpu_torch.supervisor import chaos, seam_timeout
 from trlx_tpu_torch.utils import Clock
@@ -101,7 +102,7 @@ class PPOOrchestrator(Orchestrator):
     def _prompt_bank(self):
         """The tokenized prompt set, moved to the trainer's device once."""
         if self._bank is None:
-            self._bank = self.rl_model._put(
+            self._bank = self.rl_model._to_device(
                 (torch.as_tensor(np.asarray(self.pipeline.tokens, np.int32)),
                  torch.as_tensor(np.asarray(self.pipeline.masks, np.int32)))
             )
@@ -134,10 +135,11 @@ class PPOOrchestrator(Orchestrator):
         ``train.host_call_timeout`` (or ``stall_timeout``), each attempt
         bounded: a HUNG scoring service times out and is retried."""
         t = self.rl_model.config.train
-        return np.asarray(retry_call(
+        # every process must train on the same rewards: process 0's
+        return broadcast_host_floats(retry_call(
             self.reward_fn, texts, retries=t.host_retries,
             backoff=t.host_retry_backoff, timeout=seam_timeout(t),
-            seam="reward_fn", label="reward_fn"), np.float32)
+            seam="reward_fn", label="reward_fn"))
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
         """Fill the trainer's store with ``num_rollouts`` scored rollouts,

@@ -23,8 +23,15 @@ flushes, the run supervisor and its containment (``_make_supervisor``,
 ``_preempt``), the supervised and bounded ``save``, and the memory-fit
 pre-check (``_check_memory_fit``).
 
-Not ported yet, and refused at construction with a clear error: a mesh
-other than all ones (and ``sp`` / ``pp``).
+Training on a device mesh (trlx_tpu_torch.parallel): ``train.mesh`` with
+``dp`` / ``fsdp`` / ``tp`` above 1 (under ``torchrun``), or an explicit
+``mesh=`` from ``build_mesh``, puts the parameters and the optimizer
+moments on the mesh as DTensors (``_shard_model_state``); the steps run
+each process's rows with the parameters gathered on use, and the
+optimizers update each process's shards (:func:`global_norm` and
+:class:`Adafactor` sum what they reduce across the shards). Not ported
+yet, and refused at construction with a clear error: ``sp`` and ``pp``
+above 1.
 
 Pretrained weights: with no ``model.model_spec`` the trainers import
 ``model.model_path`` through trlx_tpu_torch.models.hf_import
@@ -43,6 +50,28 @@ import torch
 from trlx_tpu_torch import supervisor, telemetry
 from trlx_tpu_torch.models.generation import RolloutDecoder
 from trlx_tpu_torch.models.transformer import tree_map
+from trlx_tpu_torch.parallel import (
+    initialize_runtime,
+    mesh_from_config,
+    mesh_sizes,
+    shard_batch,
+    shard_params,
+    sharded_opt_init,
+)
+from trlx_tpu_torch.parallel.sharding import (
+    dropped_dim_placements,
+    tensor_parallel,
+    unshard_tree,
+    is_dtensor,
+    like,
+    local,
+    n_data,
+    on_placements,
+    replication,
+    sum_over_shards,
+    whole,
+    zeros_on,
+)
 from trlx_tpu_torch.utils import (
     DTYPES,
     cosine_schedule,
@@ -73,14 +102,16 @@ def _not_ported(what: str):
 
 
 def check_ported(config, mesh=None) -> None:
-    """Raise for the configuration knobs this port does not run yet."""
-    t = config.train
+    """Raise for the configuration knobs this port does not run yet:
+    ``sp`` (ring attention) and ``pp`` (the pipeline schedule) above 1,
+    in ``train.mesh`` or in an explicit mesh."""
+    sizes = dict(config.train.mesh or {})
     if mesh is not None:
-        raise _not_ported("an explicit device mesh")
-    for axis, size in (t.mesh or {}).items():
-        if size not in (1, -1):  # -1 = every device: one here
-            raise _not_ported(f"train.mesh {axis}={size} (only a "
-                              f"single-device mesh runs)")
+        sizes.update(mesh_sizes(mesh))
+    for axis, what in (("sp", "ring attention"), ("pp", "GPipe")):
+        if sizes.get(axis, 1) not in (1, -1):
+            raise _not_ported(f"mesh {axis}={sizes[axis]} ({what} over "
+                              f"{axis})")
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -92,20 +123,34 @@ def _leaves(tree) -> List[torch.Tensor]:
 @torch.no_grad()
 def copy_into(dst, src) -> None:
     """Copy tree ``src`` into tree ``dst``'s tensors in place (same
-    structure and shapes)."""
+    structure and shapes; a DTensor ``dst`` takes its own shard of a
+    DTensor ``src``)."""
     if isinstance(dst, dict):
         for k, v in dst.items():
             copy_into(v, src[k])
     elif isinstance(dst, (list, tuple)):
         for d, x in zip(dst, src):
             copy_into(d, x)
+    elif is_dtensor(dst):
+        local(dst).copy_(local(on_placements(src, dst)))
     else:
         dst.copy_(src)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """optax's ``global_norm``: the L2 norm over every gradient, float32."""
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    """optax's ``global_norm``: the L2 norm over every gradient, float32.
+    On DTensor gradients (on their parameters' placements) each process
+    sums its shards' squares, each element weighted by one over the
+    number of processes holding it, and one all-reduce adds the
+    processes' sums: the same norm on every process."""
+    if not any(is_dtensor(g) for g in grads):
+        return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    import torch.distributed as dist
+
+    total = sum((local(g).float() ** 2).sum() / replication(g)
+                for g in grads)
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 class AdamW:
@@ -143,8 +188,10 @@ class AdamW:
         return {
             "count": torch.zeros((), dtype=torch.int32,
                                  device=leaves[0].device),
-            "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in leaves],
-            "nu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
+            "mu": [like(p, torch.zeros_like(local(p), dtype=self.mu_dtype))
+                   for p in leaves],
+            "nu": [like(p, torch.zeros_like(local(p), dtype=torch.float32))
+                   for p in leaves],
         }
 
     @torch.no_grad()
@@ -152,7 +199,9 @@ class AdamW:
              state: Dict, ok: Optional[torch.Tensor] = None,
              g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update of ``params`` in place, committed only where ``ok``
-        (when given); returns the pre-clip global gradient norm."""
+        (when given); returns the pre-clip global gradient norm. DTensor
+        parameters update their shards on this process."""
+        grads = [on_placements(g, p) for p, g in zip(params, grads)]
         if g_norm is None:
             g_norm = global_norm(grads)
         keep = g_norm < self.max_norm
@@ -167,11 +216,11 @@ class AdamW:
         bc1, bc2 = corr(self.b1), corr(self.b2)
         lr = self.schedule(count)
         for i, (p, g) in enumerate(zip(params, grads)):
-            g = g.float()
+            p, g = local(p), local(g).float()
             g = torch.where(keep, g, (g / g_norm) * self.max_norm)
             # b1 * mu in the moment's own dtype, b1 rounded to it first,
             # as optax's weak-typed scalar times a bfloat16 moment is
-            mu_prev, nu_prev = state["mu"][i], state["nu"][i]
+            mu_prev, nu_prev = local(state["mu"][i]), local(state["nu"][i])
             mu = (1 - self.b1) * g + mu_prev * torch.full(
                 (), self.b1, dtype=mu_prev.dtype, device=dev)
             nu = (1 - self.b2) * g * g + self.b2 * nu_prev
@@ -184,8 +233,8 @@ class AdamW:
                 p.copy_(torch.where(ok, p + (-lr * update), p))
                 mu = torch.where(ok, mu, mu_prev)
                 nu = torch.where(ok, nu, nu_prev)
-            state["mu"][i] = mu
-            state["nu"][i] = nu
+            state["mu"][i] = like(state["mu"][i], mu)
+            state["nu"][i] = like(state["nu"][i], nu)
         state["count"] = new_count if ok is None \
             else torch.where(ok, new_count, count)
         return g_norm
@@ -258,28 +307,52 @@ class Adafactor:
             if dims is None:
                 state["v_row"].append(one)
                 state["v_col"].append(one.clone())
-                state["v"].append(torch.zeros_like(p))
+                state["v"].append(like(p, torch.zeros_like(local(p))))
             else:
+                # a DTensor leaf's statistics shard like the leaf, less
+                # the dim each reduces over
                 d1, d0 = dims
                 shape = list(p.shape)
-                state["v_row"].append(torch.zeros(
-                    shape[:d0] + shape[d0 + 1:], dtype=p.dtype,
-                    device=p.device))
-                state["v_col"].append(torch.zeros(
-                    shape[:d1] + shape[d1 + 1:], dtype=p.dtype,
-                    device=p.device))
+                pl = getattr(p, "placements", None)
+                state["v_row"].append(zeros_on(
+                    p, shape[:d0] + shape[d0 + 1:],
+                    pl and dropped_dim_placements(pl, d0), p.dtype))
+                state["v_col"].append(zeros_on(
+                    p, shape[:d1] + shape[d1 + 1:],
+                    pl and dropped_dim_placements(pl, d1), p.dtype))
                 state["v"].append(one.clone())
         return state
 
-    def _rms(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sqrt(torch.mean(x * x))
+    @staticmethod
+    def _mean(x: torch.Tensor, leaf, dim=None, leaf_dim=None,
+              keepdim=False) -> torch.Tensor:
+        """``x.mean(dim)`` (every dim when None) where ``x`` is this
+        process's shard of ``leaf`` or of a statistic of it whose
+        ``dim`` is the leaf's ``leaf_dim``: on a DTensor leaf the sum
+        goes over the processes holding that dim's other shards, then
+        divides by its global size (the leaf's numel for every dim)."""
+        if not is_dtensor(leaf):
+            return torch.mean(x) if dim is None \
+                else x.mean(dim=dim, keepdim=keepdim)
+        if dim is None:
+            return sum_over_shards(torch.sum(x), leaf) / leaf.numel()
+        return sum_over_shards(x.sum(dim=dim, keepdim=keepdim), leaf,
+                               dims=[leaf_dim]) / leaf.shape[leaf_dim]
+
+    def _rms(self, x: torch.Tensor, leaf=None) -> torch.Tensor:
+        return torch.sqrt(self._mean(x * x, leaf))
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
              state: Dict, ok: Optional[torch.Tensor] = None,
              g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update of ``params`` in place, committed only where ``ok``
-        (when given); returns the pre-clip global gradient norm."""
+        (when given); returns the pre-clip global gradient norm. DTensor
+        parameters update their shards on this process; the row and
+        column means and the block RMS values are summed over the
+        processes holding the other shards, so every process computes
+        optax's statistics of the whole leaf."""
+        grads = [on_placements(g, p) for p, g in zip(params, grads)]
         if g_norm is None:
             g_norm = global_norm(grads)
         keep = g_norm < self.max_norm
@@ -287,29 +360,34 @@ class Adafactor:
         new_count = count + 1
         beta = 1.0 - torch.pow(new_count.float(), -ADAFACTOR_DECAY_RATE)
         lr = self.schedule(count)
-        for i, (p, g) in enumerate(zip(params, grads)):
-            g = g.float()
+        for i, (leaf, g) in enumerate(zip(params, grads)):
+            p, g = local(leaf), local(g).float()
             g = torch.where(keep, g, (g / g_norm) * self.max_norm)
             g2 = g * g + ADAFACTOR_EPS
-            v_row, v_col, v = (state["v_row"][i], state["v_col"][i],
-                               state["v"][i])
-            dims = factored_dims(tuple(p.shape))
+            v_row, v_col, v = (local(state["v_row"][i]),
+                               local(state["v_col"][i]),
+                               local(state["v"][i]))
+            dims = factored_dims(tuple(leaf.shape))
             if dims is None:
                 v = beta * v + (1.0 - beta) * g2
                 u = g * torch.pow(v, -0.5)
             else:
                 d1, d0 = dims
-                v_row = beta * v_row + (1.0 - beta) * g2.mean(dim=d0)
-                v_col = beta * v_col + (1.0 - beta) * g2.mean(dim=d1)
+                v_row = beta * v_row + (1.0 - beta) * self._mean(
+                    g2, leaf, d0, d0)
+                v_col = beta * v_col + (1.0 - beta) * self._mean(
+                    g2, leaf, d1, d1)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
+                # v_row's dim reduced_d1 is the leaf's d1, sharded alike
                 row_factor = torch.pow(
-                    v_row / v_row.mean(dim=reduced_d1, keepdim=True), -0.5)
+                    v_row / self._mean(v_row, leaf, reduced_d1, d1,
+                                       keepdim=True), -0.5)
                 col_factor = torch.pow(v_col, -0.5)
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            u = u / torch.clamp(self._rms(u) / ADAFACTOR_CLIPPING_THRESHOLD,
-                                min=1.0)
+            u = u / torch.clamp(
+                self._rms(u, leaf) / ADAFACTOR_CLIPPING_THRESHOLD, min=1.0)
             u = lr * u
-            rms_p = self._rms(p)
+            rms_p = self._rms(p, leaf)
             u = u * torch.where(rms_p <= ADAFACTOR_MIN_SCALE,
                                 torch.full_like(rms_p, ADAFACTOR_MIN_SCALE),
                                 rms_p)
@@ -319,11 +397,12 @@ class Adafactor:
                 p.sub_(u)
             else:
                 p.copy_(torch.where(ok, p - u, p))
-                v_row = torch.where(ok, v_row, state["v_row"][i])
-                v_col = torch.where(ok, v_col, state["v_col"][i])
-                v = torch.where(ok, v, state["v"][i])
-            state["v_row"][i], state["v_col"][i], state["v"][i] = \
-                v_row, v_col, v
+                v_row = torch.where(ok, v_row, local(state["v_row"][i]))
+                v_col = torch.where(ok, v_col, local(state["v_col"][i]))
+                v = torch.where(ok, v, local(state["v"][i]))
+            state["v_row"][i] = like(state["v_row"][i], v_row)
+            state["v_col"][i] = like(state["v_col"][i], v_col)
+            state["v"][i] = like(state["v"][i], v)
         state["count"] = new_count if ok is None \
             else torch.where(ok, new_count, count)
         return g_norm
@@ -364,6 +443,26 @@ class BaseRLTrainer:
         self.train_mode = train_mode
         self.store = None
         self.device = resolve_device(device)
+        # torchrun's world joins first (NCCL on cuda:LOCAL_RANK); one
+        # process not under torchrun stays as it is
+        initialize_runtime(device_type=self.device.type)
+        #: the DeviceMesh the model state lives on, or None (plain
+        #: tensors on one device): an explicit ``mesh``, else
+        #: ``train.mesh`` over the world when it is more than one process
+        #: or asks for more than one
+        self.mesh = mesh if mesh is not None \
+            else mesh_from_config(config.train, self.device.type)
+        #: the blocks' Megatron compute over tp (``_tensor_parallel``)
+        self.tp = None
+        if self.mesh is not None:
+            check_ported(config, self.mesh)
+            if self.mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"the mesh is on {self.mesh.device_type} but the "
+                    f"trainer on {self.device}")
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
         # the telemetry session (train.telemetry, default on) starts at
         # construction, before any resume or rollout, so their counters
         # and spans land in the run's registry; a fresh trainer is a
@@ -382,9 +481,82 @@ class BaseRLTrainer:
         #: decodes with the new weights
         self.decoder = RolloutDecoder()
 
-    def _put(self, tree):
-        """Host tensors (or a tree of them) -> the trainer's device."""
+    def _to_device(self, tree):
+        """Host tensors (or a tree of them) -> the trainer's device, whole
+        on every process."""
         return tree_map(lambda x: torch.as_tensor(x).to(self.device), tree)
+
+    def _put(self, tree):
+        """Batch data (host or device tensors, a tree or a batch with
+        ``map``) -> the trainer's device; on a mesh through
+        ``shard_batch``: DTensors whose rows shard over (dp, fsdp), each
+        process keeping its own (every process passes the same global
+        batch)."""
+        if self.mesh is None:
+            return self._to_device(tree)
+        return shard_batch(self.mesh, tree, device=self.device)
+
+    def _tensor_parallel(self, spec):
+        """Set and return ``self.tp``: Megatron compute over the mesh's tp
+        group for ``spec`` (trlx_tpu_torch.parallel.sharding
+        ``tensor_parallel``), or None (no mesh, tp 1, or a width tp does
+        not split)."""
+        self.tp = None if self.mesh is None \
+            else tensor_parallel(self.mesh, spec)
+        return self.tp
+
+    def _forward_params(self):
+        """The parameter tree the training and scoring forwards read: the
+        trainer's own without a mesh; on one each leaf gathered on use
+        (differentiably where it requires grad), the blocks' tp shards
+        kept under tp compute."""
+        if self.mesh is None:
+            return self.params
+        return unshard_tree(self.params, tp=self.tp)
+
+    def _whole_params(self):
+        """The parameter tree as whole plain tensors, for decoding
+        (rollouts, evaluation): the trainer's own tensors without a mesh;
+        on one, each leaf gathered into a buffer the trainer keeps
+        (``unshard_tree(into=)``), so the decoder's captured steps read
+        fresh values at stable addresses."""
+        if self.mesh is None:
+            return self.params
+        if not hasattr(self, "_gathered"):
+            self._gathered = {}
+        return unshard_tree(self.params, into=self._gathered)
+
+    def _pad_rows(self, tree):
+        """(padded tree, real row count): the final row repeated until the
+        batch dim is a multiple of dp * fsdp, for ad-hoc batch sizes (eval
+        prompts, ``sample`` calls) the mesh could not shard; callers
+        slice results back to the real count. No mesh: as it is."""
+        leaves = []
+        tree_map(leaves.append, tree)
+        n = leaves[0].shape[0]
+        if self.mesh is None:
+            return tree, n
+        pad = (-n) % n_data(self.mesh)
+        if pad == 0:
+            return tree, n
+
+        def grow(x):
+            if torch.is_tensor(x):
+                return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+            x = np.asarray(x)
+            return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+
+        return tree_map(grow, tree), n
+
+    def _shard_model_state(self, params):
+        """(params, opt_state) of a plain parameter tree: on a mesh every
+        leaf becomes a DTensor on trlx_tpu's placements and the optimizer
+        moments take their parameters' placements; without one, as it
+        is."""
+        if self.mesh is not None:
+            params = shard_params(self.mesh, params)
+        return params, sharded_opt_init(self.opt, self.mesh,
+                                        params["trainable"])
 
     def _sync(self) -> None:
         """Wait for the device (host spans then time device work)."""
@@ -406,7 +578,8 @@ class BaseRLTrainer:
                 make_flash_attention_fn,
             )
 
-            return make_flash_attention_fn()
+            return make_flash_attention_fn(mesh=self.mesh,
+                                           tp_heads=self.tp is not None)
         return None
 
     def _check_memory_fit(self, spec, frozen_dtype, ref_branch=True,
@@ -417,7 +590,8 @@ class BaseRLTrainer:
         ``frozen_dtype``; the trainable top and, with ``ref_branch``,
         its frozen reference copy) plus the AdamW moments of the
         trainable part, against the card's total memory from
-        ``torch.cuda.mem_get_info``. A deliberate lower bound (no
+        ``torch.cuda.mem_get_info``; on a mesh a card holds 1 / (fsdp *
+        tp) of the state, as trlx_tpu divides. A deliberate lower bound (no
         activations, no CUDA context): a config that passes can still
         run out near the edge; one that fails would have. Skipped on
         the CPU and with ``TRLX_TPU_SKIP_MEMCHECK=1``.
@@ -451,6 +625,10 @@ class BaseRLTrainer:
             * (4 + opt_bytes)
             + extra_frozen * frozen_sz
         )
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            sizes = mesh_sizes(mesh)
+            est //= sizes["fsdp"] * sizes["tp"]
         if os.environ.get("TRLX_TPU_SKIP_MEMCHECK") \
                 or self.device.type != "cuda":
             return est
@@ -582,6 +760,7 @@ class BaseRLTrainer:
         (and ``approx_kl <= kl_limit`` when the limit is > 0), selected on
         the device; ``stats`` gains ``grad_norm`` and, gated,
         ``bad_step``."""
+        grads = [on_placements(g, p) for p, g in zip(leaves, grads)]
         g_norm = global_norm(grads)
         ok = None
         if self.guard_on:

@@ -37,6 +37,7 @@ Not ported yet (each raises): the knobs
 :func:`trlx_tpu_torch.trainers.check_ported` lists.
 """
 
+import functools
 import os
 from typing import Callable, Dict, Optional
 
@@ -52,6 +53,10 @@ from trlx_tpu_torch.models.params import ilql_to_torch, init_ilql_numpy
 from trlx_tpu_torch.models.transformer import NEG_INF
 from trlx_tpu_torch.ops.losses import ilql_losses_chunked
 from trlx_tpu_torch.ops.sampling import SamplingParams, warp_top_k
+from trlx_tpu_torch.parallel.sharding import (
+    gather_rows,
+    local_rows,
+)
 from trlx_tpu_torch.models.policy import resolve_num_unfrozen
 from trlx_tpu_torch.pipeline import batch_iterator
 from trlx_tpu_torch.supervisor import StallError, chaos, seam_timeout
@@ -125,6 +130,7 @@ class JaxILQLTrainer(BaseRLTrainer):
             + spec.d_model,
             extra_frozen=n_q * spec.d_model * spec.vocab_size,
             embed_trainable=full)
+        tp = self._tensor_parallel(spec)
         self.net = ILQLNet(
             spec=spec,
             num_layers_unfrozen=config.model.num_layers_unfrozen,
@@ -132,6 +138,7 @@ class JaxILQLTrainer(BaseRLTrainer):
             compute_dtype=DTYPES[config.model.compute_dtype],
             remat=t.remat,
             attention_fn=self._train_attention_fn(),
+            tp=tp,
         )
         if params is None and trunk is not None:
             params = ilql_params_from_trunk(self.net, *trunk,
@@ -139,11 +146,14 @@ class JaxILQLTrainer(BaseRLTrainer):
         elif params is None:
             params = init_ilql_numpy(spec, config.model.num_layers_unfrozen,
                                      m.two_qs, seed=t.seed)
-        self.params = ilql_to_torch(params, self.device)
         self.opt = build_optimizer(t, sched=rampup_decay_schedule(
             t.lr_ramp_steps, t.lr_decay_steps, t.learning_rate_init,
             t.learning_rate_target))
-        self.opt_state = self.opt.init(self.params["trainable"])
+        self.params, self.opt_state = self._shard_model_state(
+            ilql_to_torch(params, self.device))
+        #: the tree the decode-time heads read (``_extras``): the
+        #: trainer's own, or on a mesh its gathered copy
+        self._decode_params = self.params
         self.logit_mask = None if logit_mask is None else torch.as_tensor(
             np.asarray(logit_mask), dtype=torch.bool, device=self.device)
         self.generator = torch.Generator(device=self.device)
@@ -178,18 +188,25 @@ class JaxILQLTrainer(BaseRLTrainer):
         loss with the V-wide heads chunked over T, backward, optimizer
         step (through the commit gate when ``max_bad_steps > 0``). Returns
         the stats with the pre-clip ``grad_norm`` and, gated,
-        ``bad_step``."""
-        m, net = self.config.method, self.net
+        ``bad_step``. On a mesh (the batch through ``_put``) the forward and
+        the heads run this process's rows with the parameters gathered
+        on use, and the losses the whole batch's statistics."""
+        m, net, mesh = self.config.method, self.net, self.mesh
         events = None if self.step_events is None else []
         _mark(events)
-        h = net.forward_hidden(self.params, batch.input_ids,
+        params, gather = self.params, None
+        if mesh is not None:
+            batch = self._put(batch).map(local_rows)
+            params = self._forward_params()
+            gather = functools.partial(gather_rows, mesh=mesh)
+        h = net.forward_hidden(params, batch.input_ids,
                                batch.attention_mask)
         _mark(events)
-        lm_fn, q_fns, tq_fns, v_fn = net.head_fns(self.params)
+        lm_fn, q_fns, tq_fns, v_fn = net.head_fns(params)
         loss, stats = ilql_losses_chunked(
             lm_fn, q_fns, tq_fns, v_fn(h), h, batch.input_ids,
             batch.attention_mask, batch.rewards, m.gamma, m.tau,
-            m.cql_scale, m.awac_scale)
+            m.cql_scale, m.awac_scale, gather_rows=gather)
         _mark(events)
         leaves = _leaves(self.params["trainable"])
         grads = torch.autograd.grad(loss, leaves)
@@ -217,7 +234,7 @@ class JaxILQLTrainer(BaseRLTrainer):
             else:
                 disallowed = self.logit_mask[None, :]
             logits = torch.where(disallowed, NEG_INF, logits)
-        tq, v = self.net.heads_on_hidden(self.params, h_normed)
+        tq, v = self.net.heads_on_hidden(self._decode_params, h_normed)
         pi = torch.log_softmax(logits, dim=-1)
         return warp_top_k(pi + m.beta * (tq - v), m.top_k) / m.temperature
 
@@ -229,14 +246,19 @@ class JaxILQLTrainer(BaseRLTrainer):
             # the warping happens in _extras; the sampler draws plainly
             sampling=SamplingParams(do_sample=True),
             eos_token_id=eos, pad_token_id=eos)
-        query, mask = self._put((np.asarray(query_tokens),
-                                 np.asarray(query_mask)))
-        embed, ln_f = self.net.head_params_for_decode(self.params)
-        return generate(
-            self.net.spec, self.net.all_blocks(self.params), embed, ln_f,
+        (query, mask), n = self._pad_rows((np.asarray(query_tokens),
+                                           np.asarray(query_mask)))
+        query, mask = self._put((query, mask))
+        params = self._decode_params = self._whole_params()
+        embed, ln_f = self.net.head_params_for_decode(params)
+        out = generate(
+            self.net.spec, self.net.all_blocks(params), embed, ln_f,
             query, mask, self.generator, config,
             compute_dtype=self.net.compute_dtype, extras_fn=self._extras,
-            decoder=self.decoder)
+            decoder=self.decoder, mesh=self.mesh)
+        if out.sequences.shape[0] != n:
+            out = type(out)(*(x[:n] for x in out))
+        return out
 
     def act(self, batch):
         query, mask = batch
@@ -354,8 +376,10 @@ class JaxILQLTrainer(BaseRLTrainer):
             dataset = full.map(lambda x: torch.as_tensor(x).to(self.device))
         n = len(self.train_store)
         for epoch in range(cfg.epochs):
+            # a partial final batch cannot shard over (dp, fsdp)
             for idx in batch_iterator(n, cfg.batch_size, True, epoch,
-                                      lambda idx: idx, drop_last=False):
+                                      lambda idx: idx,
+                                      drop_last=self.mesh is not None):
                 if self.iter_count % cfg.eval_interval == 0:
                     ev = self.evaluate()
                     if ev:

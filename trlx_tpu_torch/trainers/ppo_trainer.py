@@ -60,6 +60,12 @@ from trlx_tpu_torch.ops.losses import (
     ppo_losses,
     whiten,
 )
+from trlx_tpu_torch.parallel.sharding import (
+    gather_rows,
+    local_rows,
+    rows_of,
+    whole,
+)
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.supervisor import StallError, chaos, seam_timeout
 from trlx_tpu_torch.trainers import (
@@ -97,12 +103,14 @@ class JaxPPOTrainer(BaseRLTrainer):
         self.epoch = 0
         self.tokenizer = load_tokenizer(config.model.tokenizer_path)
         spec, trunk = self._load_or_spec(config)
+        tp = self._tensor_parallel(spec)
         self.policy = HydraPolicy(
             spec=spec,
             num_layers_unfrozen=config.model.num_layers_unfrozen,
             compute_dtype=DTYPES[config.model.compute_dtype],
             remat=config.train.remat,
             attention_fn=self._train_attention_fn(),
+            tp=tp,
         )
         frozen_dtype = DTYPES[config.model.param_dtype]
         #: the model state's bytes as the memory pre-check estimates them
@@ -114,10 +122,10 @@ class JaxPPOTrainer(BaseRLTrainer):
         elif params is None:
             params = init_hydra_numpy(spec, config.model.num_layers_unfrozen,
                                       seed=config.train.seed)
-        self.params = hydra_to_torch(params, self.device, frozen_dtype)
-        del params, trunk
         self.opt = build_optimizer(config.train)
-        self.opt_state = self.opt.init(self.params["trainable"])
+        self.params, self.opt_state = self._shard_model_state(
+            hydra_to_torch(params, self.device, frozen_dtype))
+        del params, trunk
 
         self.store = PPORolloutStorage()
         m = config.method
@@ -150,13 +158,22 @@ class JaxPPOTrainer(BaseRLTrainer):
     # -- rollout ---------------------------------------------------------- #
 
     def generate(self, query_tokens, query_mask):
-        query, mask = self._put((query_tokens, query_mask))
-        embed, ln_f = head_params_for_decode(self.params)
-        return generate(
-            self.policy.spec, all_blocks(self.params), embed, ln_f, query,
+        """Decode ``gen_size`` tokens for a prompt batch; on a mesh each
+        process decodes its rows (a batch that dp * fsdp does not divide
+        is padded with its last row, and the outputs sliced back)."""
+        (query, mask), n = self._pad_rows((query_tokens, query_mask))
+        query, mask = self._put((query, mask))
+        params = self._whole_params()
+        embed, ln_f = head_params_for_decode(params)
+        out = generate(
+            self.policy.spec, all_blocks(params), embed, ln_f, query,
             mask, self.generator, self.gen_config,
             compute_dtype=self.policy.compute_dtype, decoder=self.decoder,
+            mesh=self.mesh,
         )
+        if out.sequences.shape[0] != n:
+            out = type(out)(*(x[:n] for x in out))
+        return out
 
     @torch.no_grad()
     def score(self, sequences, attention_mask, response_mask, kl_coef,
@@ -164,25 +181,31 @@ class JaxPPOTrainer(BaseRLTrainer):
         """One shared-trunk forward -> (logprobs, values, KL-penalty
         rewards without the task score, per-sequence KL) over the
         response window, logprobs chunked through each branch's head so
-        the [B, T, V] logits are never materialized."""
-        policy = self.policy
+        the [B, T, V] logits are never materialized. On a mesh each
+        process scores its rows and the results come back whole."""
+        policy, mesh = self.policy, self.mesh
+        params = self._forward_params()
+        sequences, attention_mask, response_mask = (
+            rows_of(x, mesh) for x in (sequences, attention_mask,
+                                       response_mask))
         h_top, h_ref, values = policy.forward_hidden(
-            self.params, sequences, attention_mask, with_ref=True)
+            params, sequences, attention_mask, with_ref=True)
         P = input_size
         response = sequences[:, P:]
         window = slice(P - 1, sequences.shape[1] - 1)
-        embed = self.params["frozen_base"]["embed"]
+        embed = params["frozen_base"]["embed"]
         logprobs = chunked_label_logprobs(
-            policy.branch_head_fn(self.params["trainable"], embed),
+            policy.branch_head_fn(params["trainable"], embed),
             h_top[:, window], response)
         ref_logprobs = chunked_label_logprobs(
-            policy.branch_head_fn(self.params["ref"], embed),
+            policy.branch_head_fn(params["ref"], embed),
             h_ref[:, window], response)
         rewards, seq_kl = kl_penalty_rewards(
             logprobs, ref_logprobs,
             torch.zeros(sequences.shape[0], device=sequences.device),
             kl_coef, mask=response_mask)
-        return logprobs, values[:, window], rewards, seq_kl
+        return tuple(gather_rows(x, mesh) for x in
+                     (logprobs, values[:, window], rewards, seq_kl))
 
     def rollout(self, bank_tokens, bank_mask, idx):
         """One rollout chunk: prompts ``idx`` of the bank -> generation ->
@@ -229,8 +252,18 @@ class JaxPPOTrainer(BaseRLTrainer):
         response pads included; only the losses exclude pads), the
         clipped losses, the optimizer step (through the commit gate when
         ``max_bad_steps > 0``). Returns the stats, with the pre-clip
-        ``grad_norm`` and, with the gate, ``bad_step``."""
-        m = self.config.method
+        ``grad_norm`` and, with the gate, ``bad_step``.
+
+        On a mesh (``batch`` from ``_put``: rows sharded over (dp,
+        fsdp)) the forward runs this process's rows with the parameters
+        gathered on use, and GAE, the whitening and the losses run on
+        the whole batch: the single-process step, with the gradients
+        summed across the processes' rows."""
+        m, mesh = self.config.method, self.mesh
+        rows = batch
+        if mesh is not None:
+            batch = self._put(batch)  # no-op for a batch already sharded
+            rows, batch = batch.map(local_rows), batch.map(whole)
         query, response = batch.query_tensors, batch.response_tensors
         P, G = query.shape[1], response.shape[1]
         old_values, resp_mask = batch.values, batch.response_masks
@@ -238,21 +271,23 @@ class JaxPPOTrainer(BaseRLTrainer):
             advantages, returns = gae_advantages(
                 old_values, batch.rewards, m.gamma, m.lam, mask=resp_mask)
             advantages = whiten(advantages, mask=resp_mask)
-        tokens = torch.cat([query, response], dim=1)
-        mask = torch.cat([batch.query_masks,
-                          torch.ones_like(response, dtype=torch.int32)], dim=1)
-        trainable = self.params["trainable"]
-        h_top, _, values = self.policy.forward_hidden(self.params, tokens,
-                                                      mask, with_ref=False)
+        tokens = torch.cat([rows.query_tensors, rows.response_tensors], dim=1)
+        mask = torch.cat([rows.query_masks,
+                          torch.ones_like(rows.response_tensors,
+                                          dtype=torch.int32)], dim=1)
+        params = self._forward_params()
+        h_top, _, values = self.policy.forward_hidden(params, tokens, mask,
+                                                      with_ref=False)
         window = slice(P - 1, P + G - 1)
         head = self.policy.branch_head_fn(
-            trainable, self.params["frozen_base"]["embed"])
-        logprobs = logprobs_from_logits(head(h_top[:, window]), response)
+            params["trainable"], params["frozen_base"]["embed"])
+        logprobs = logprobs_from_logits(head(h_top[:, window]),
+                                        rows.response_tensors)
         loss, stats = ppo_losses(
-            logprobs, values[:, window], batch.logprobs, old_values,
-            advantages, returns, m.cliprange, m.cliprange_value, m.vf_coef,
-            mask=resp_mask)
-        leaves = _leaves(trainable)
+            gather_rows(logprobs, mesh), gather_rows(values[:, window], mesh),
+            batch.logprobs, old_values, advantages, returns, m.cliprange,
+            m.cliprange_value, m.vf_coef, mask=resp_mask)
+        leaves = _leaves(self.params["trainable"])
         grads = torch.autograd.grad(loss, leaves)
         self._apply_update(loss, leaves, grads, stats,
                            kl_limit=getattr(self.config.train, "max_step_kl",
@@ -262,7 +297,10 @@ class JaxPPOTrainer(BaseRLTrainer):
     def train_multi(self, batch: PPORLBatch) -> Dict[str, torch.Tensor]:
         """``ppo_epochs`` passes over one minibatch; the last pass's
         stats, with ``bad_step`` the max over the passes (each pass gates
-        itself; the host counts the batch once)."""
+        itself; the host counts the batch once). On a mesh the batch goes
+        through ``shard_batch`` once."""
+        if self.mesh is not None:
+            batch = self._put(batch)
         bad = None
         for _ in range(self.config.method.ppo_epochs):
             stats = self.train_step(batch)

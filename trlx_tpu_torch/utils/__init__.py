@@ -22,16 +22,9 @@ from typing import Any, Callable, Iterable, List, Optional
 import numpy as np
 import torch
 
-
-def is_main_process() -> bool:
-    """Rank 0 of the default ``torch.distributed`` group, or True when
-    none is initialised: the one process that writes run artifacts and
-    emits metrics."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+# the main-process gate lives with the runtime; re-exported for the
+# trackers, telemetry and the checkpoint gate
+from trlx_tpu_torch.parallel.runtime import is_main_process  # noqa: F401
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:

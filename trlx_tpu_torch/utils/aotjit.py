@@ -50,6 +50,13 @@ capture is what CUDA forbids: it invalidates the capture. Such a capture
 is taken again, up to :data:`CAPTURE_ATTEMPTS` times, each retry
 counted in ``compile/capture_retries``; any other capture error raises.
 
+On a device mesh the signature of a DTensor leaf also holds its
+placements and its mesh, and a card call with a DTensor argument raises
+instead of capturing: a captured collective would replay on one process
+whether or not its peers replay theirs, so the decode step of a mesh
+takes whole plain parameters and the process's own rows, and runs no
+collective.
+
 The module switch :data:`CUDA_GRAPHS` set to False runs ``fn`` eagerly
 on the card too (still keyed and counted): the A/B of
 ``chip_smoke.py``. Nothing else selects the eager path.
@@ -97,7 +104,20 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
     return leaves, walk(tree)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _leaf_sig(x):
+    if _is_dtensor(x):
+        # placements and mesh shape what each op does, and which
+        # collectives it runs
+        mesh = x.device_mesh
+        return (tuple(x.shape), str(x.dtype), str(x.device),
+                tuple(map(str, x.placements)), mesh.mesh_dim_names,
+                tuple(mesh.mesh.flatten().tolist()))
     if torch.is_tensor(x):
         return (tuple(x.shape), str(x.dtype), str(x.device))
     # a plain leaf's VALUE shapes what fn does, so it keys the cache
@@ -157,6 +177,13 @@ class _AotJit:
         device = _card_device(leaves)
         if device is None or not CUDA_GRAPHS:
             return self._fn(*args)
+        if any(_is_dtensor(x) for x in leaves):
+            # a DTensor op may run a collective: captured, it would
+            # replay on this process whether or not its peers replay
+            raise ValueError(
+                "aot_jit captures no DTensor argument: pass each "
+                "process's local tensors (the mesh's decode path hands "
+                "the step whole plain parameters and its own rows)")
         entry = self._cache[key]
         if entry is None:
             entry, out = self._capture(args, leaves, device)

@@ -28,8 +28,15 @@ lists of them) is one ``<name>.pt`` file written by ``torch.save`` with
 every tensor moved to the CPU first, and read back with
 ``torch.load(..., weights_only=True)``; zero-size tensors round-trip.
 :func:`restore_components` puts each tensor back on the template
-leaf's device in its dtype. One process writes: the port runs on one
-device (the sharded partial restore waits for parallelism).
+leaf's device in its dtype.
+
+On a device mesh (trlx_tpu_torch.parallel) the file format stays this
+plain one, whole tensors: every process gathers each DTensor leaf
+(``full_tensor``) and the main process writes, then every process waits
+for the commit; a restore is read by the main process and distributed
+to the template's placements (DTensor leaves) or broadcast (plain
+leaves and the plain-Python components). So a checkpoint written on a
+mesh restores in one plain process, and the reverse.
 """
 
 import hashlib
@@ -43,6 +50,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from trlx_tpu_torch import telemetry
+from trlx_tpu_torch.parallel.runtime import is_main_process, process_count
+from trlx_tpu_torch.parallel.sharding import is_dtensor, zip_map
 
 #: commit marker: always written, and written LAST — a directory without
 #: it is a torn write, not a checkpoint
@@ -76,12 +85,28 @@ def _is_tensor_tree(obj: Any) -> bool:
 
 def _to_cpu(obj: Any) -> Any:
     """A copy of a tensor tree on the CPU (each tensor its own compact
-    storage, so a view never drags its base into the file)."""
+    storage, so a view never drags its base into the file); a DTensor
+    leaf is gathered whole first (a collective every process runs)."""
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_cpu(v) for v in obj)
+    if is_dtensor(obj):
+        obj = obj.full_tensor()
     return obj.detach().to("cpu", copy=True)
+
+
+def _distributed() -> bool:
+    return process_count() > 1
+
+
+def _barrier() -> None:
+    """Every process waits for the main process's commit (a no-op in one
+    process), so all of them see the same run directory next."""
+    if _distributed():
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def _fsync_dir(path: str) -> None:
@@ -240,7 +265,17 @@ def save_components(components: Dict[str, Any], directory: str) -> None:
     trees as ``<name>.pt``, the rest into meta.json with the manifest,
     all in a staging directory that is renamed into place. An existing
     checkpoint is renamed aside first and deleted only after the new one
-    is committed."""
+    is committed. With several processes every one of them calls this:
+    all gather, the main process writes, all wait for the commit."""
+    _save_components(components, directory)
+    _barrier()
+
+
+def _save_components(components: Dict[str, Any], directory: str) -> None:
+    tensors = {name: _to_cpu(obj) for name, obj in components.items()
+               if _is_tensor_tree(obj)}
+    if not is_main_process():
+        return
     with telemetry.span("checkpoint_save"):
         directory = os.path.abspath(directory)
         parent = os.path.dirname(directory)
@@ -251,10 +286,10 @@ def save_components(components: Dict[str, Any], directory: str) -> None:
         os.makedirs(staging)
         meta = {}
         for name, obj in components.items():
-            if _is_tensor_tree(obj):
+            if name in tensors:
                 path = os.path.join(staging, name + TENSOR_SUFFIX)
                 with open(path, "wb") as f:
-                    torch.save(_to_cpu(obj), f)
+                    torch.save(tensors[name], f)
                     f.flush()
                     os.fsync(f.fileno())
             else:
@@ -339,10 +374,12 @@ def save_step_checkpoint(components: Dict[str, Any], run_dir: str, step: int,
     """``run_dir/step_<step>``: atomic save, atomic ``LATEST`` update,
     then retention. Returns the checkpoint path."""
     path = step_dir(run_dir, step)
-    save_components(components, path)
-    _atomic_write_text(os.path.basename(path),
-                       os.path.join(os.path.dirname(path), LATEST_NAME))
-    gc_checkpoints(run_dir, keep)
+    _save_components(components, path)
+    if is_main_process():
+        _atomic_write_text(os.path.basename(path),
+                           os.path.join(os.path.dirname(path), LATEST_NAME))
+        gc_checkpoints(run_dir, keep)
+    _barrier()
     return path
 
 
@@ -419,7 +456,76 @@ def restore_components(template: Dict[str, Any],
     ones). A missing component raises one error naming what was expected
     and what is on disk."""
     with telemetry.span("checkpoint_restore"):
-        return _restore_components(template, directory)
+        if not _distributed():
+            return _placed(template, _restore_components(template,
+                                                         directory))
+        return _restore_distributed(template, directory)
+
+
+def _placed(template: Any, restored: Any) -> Any:
+    """``restored`` (whole tensors) with every leaf whose template leaf is
+    a DTensor distributed to that leaf's placements (one process: each
+    its own shard of the same whole tensor)."""
+    if isinstance(template, dict):
+        return {k: _placed(v, restored[k]) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_placed(t, x)
+                              for t, x in zip(template, restored))
+    if is_dtensor(template):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(restored, template.device_mesh,
+                                 template.placements, src_data_rank=None)
+    return restored
+
+
+def _restore_distributed(template, directory):
+    """The main process restores (verification, fallback, quarantine and
+    errors as in one process); the others receive: a DTensor leaf
+    through ``distribute_tensor`` from process 0 onto the template's
+    placements, a plain tensor leaf and the plain-Python components
+    through broadcasts. An error on the main process is raised on every
+    process."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    loaded, error = None, None
+    if is_main_process():
+        try:
+            loaded = _restore_components(template, directory)
+        except Exception as e:  # re-raised below, on every process
+            error = e
+    msg = [None if error is None else (type(error).__name__, str(error))]
+    dist.broadcast_object_list(msg, src=0)
+    if error is not None:
+        raise error
+    if msg[0] is not None:
+        kinds = {"FileNotFoundError": FileNotFoundError,
+                 "ValueError": ValueError,
+                 "CheckpointCorrupt": CheckpointCorrupt}
+        raise kinds.get(msg[0][0], RuntimeError)(
+            f"on the main process: {msg[0][1]}")
+
+    main = loaded is not None
+
+    def receive(t, x):
+        if not main:
+            x = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        if is_dtensor(t):
+            return distribute_tensor(x, t.device_mesh, t.placements,
+                                     src_data_rank=0)
+        dist.broadcast(x, src=0)
+        return x
+
+    out = {}
+    for name, obj in template.items():
+        if _is_tensor_tree(obj):
+            out[name] = zip_map(receive, obj, loaded[name] if main else obj)
+        else:
+            box = [loaded[name] if main else None]
+            dist.broadcast_object_list(box, src=0)
+            out[name] = box[0]
+    return out
 
 
 def _restore_components(template, directory):

@@ -22,11 +22,13 @@ def _world_size() -> int:
 
 
 def _any_rank(flag: bool) -> bool:
-    """True when ``flag`` is set on any rank (an all-reduce of the max)."""
+    """True when ``flag`` is set on any rank (an all-reduce of the max; on
+    this process's card under NCCL, which reduces no CPU tensor)."""
     import torch
     import torch.distributed as dist
 
-    t = torch.tensor([1.0 if flag else 0.0])
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([1.0 if flag else 0.0], device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item() > 0)
 
