@@ -42,6 +42,24 @@ Phases, each printing its own line; any failure exits non-zero:
    eager) at the training shape (B 32, T 576, H 12, hd 64, bf16, causal)
    and at B 8, T 2048, each beside its bound, and the whole backward seam
    (D + dq + dk/dv in one graph) beside SDPA's backward.
+4b. sp and pp — sequence and pipeline parallelism with every rank in
+   this process (the loopback exchange: NCCL refuses two ranks on one
+   card). [sp]: ring attention (trlx_tpu_torch.ops.ring_attention) at
+   bf16 over sp 2 and 4 at the PPO training shape (B 32, T 576, H 12,
+   hd 64) and at gpt-j's heads (B 8, T 576, H 16, hd 256), left-padded:
+   forward and backward, each block pair through the flash kernels
+   (launches per call == sp (sp + 1) / 2 of each), against the same
+   ring on the plain versions (atol 1e-2 + rtol 1e-2), the dense oracle
+   in fp32 on the whole sequence and the one-call seam (O on live rows
+   at atol 1e-2 + rtol 1e-2, gradients by relative L2 at 2e-2); the
+   ring's time beside the seam's. [pp]: the GPipe schedule
+   (trlx_tpu_torch.ops.pipeline_parallel) of the gpt2-width trunk (12
+   seeded layers, B 32, T 576) at pp 2 and 4 in 4 microbatches, flash
+   inside the stages (flash_fwd launches == 4 x 12), against the plain
+   trunk (relative L2 on live rows: 1e-4 fp32, 2e-2 bf16), timed; and,
+   inside phase 10c's world of one, ``train.mesh {dp: -1, sp: 1, pp:
+   1}`` through the trainer: no ring, no pipeline, one fp32 update
+   equal to the plain trainer's.
 5. serve — the port's serving path at gpt2-124M width (12 layers, seeded
    random weights, bf16) behind its HTTP server: concurrent
    ``/generate`` requests with mixed ``max_new_tokens`` and a shared
@@ -306,6 +324,8 @@ from trlx_tpu_torch.models.policy import (
     all_blocks,
     head_params_for_decode,
 )
+from trlx_tpu_torch.ops.pipeline_parallel import pp_apply_blocks_loopback
+from trlx_tpu_torch.ops.ring_attention import ring_attention_loopback
 from trlx_tpu_torch.ops.paged_attention import (
     decode_partitions,
     paged_decode_attention,
@@ -1268,6 +1288,219 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10, lengths=None):
                      f"{t['eager_library_ms'] * 1e3:.1f} us; bound "
                      f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
     return out
+
+
+# --------------------------------------------------------------------- #
+# 4b. sequence and pipeline parallelism in one process
+# --------------------------------------------------------------------- #
+
+#: [sp]: the PPO training shape and gpt-j's heads at the TL;DR length,
+#: over sp 2 and 4 (chunks of 288 and 144 positions, both at or above
+#: the flash seam's 128-token floor)
+SP_SHAPES = (("PPO training shape", dict(B=32, T=576, H=12, hd=64),
+              list(range(0, 512, 16))),
+             ("gpt-j heads", dict(B=8, T=576, H=16, hd=256), GPTJ_PADS))
+SP_SIZES = (2, 4)
+#: relative L2 of the ring's bf16 gradients against float32 autograd of
+#: the dense oracle (and against the one-call seam's): each block pair's
+#: dq, dk and dv are rounded to bf16 once before the float32 sums
+SP_GRAD_RTOL = 2e-2
+#: [pp]: GPipe of the gpt2-width trunk (12 layers) in 4 microbatches, at
+#: the PPO training batch
+PP_SIZES, PP_MICRO, PP_B, PP_T = (2, 4), 4, 32, 576
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in float32."""
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def ring_run(q, k, v, g, mask, sp, plain=False):
+    """The loopback ring's output and (dq, dk, dv) for upstream ``g``:
+    block pairs through the kernels, or with ``plain`` through their
+    plain versions (the same ring in float32 math)."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = ring_attention_loopback(*leaves, mask, sp,
+                                  min_fused_t=10**9 if plain else None)
+    out.backward(g)
+    return out.detach(), [x.grad for x in leaves]
+
+
+def seam_run(q, k, v, g, mask):
+    """The one-call flash seam on the whole sequence: output and grads."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, mask)
+    out.backward(g)
+    return out.detach(), [x.grad for x in leaves]
+
+
+def sp_phase(dev):
+    """[sp]: the loopback ring (every sp rank in this process) at bf16,
+    forward and backward, at each of SP_SHAPES and SP_SIZES, left-padded
+    as the rollouts are (dO 0 on pad rows): the kernels' launches per
+    call == sp (sp + 1) / 2 of each (the pairs on and below the
+    diagonal); the ring against the same ring on the plain versions
+    (O on live rows, dq / dk / dv at atol 1e-2 + rtol 1e-2, as phase 4
+    holds each kernel), against the dense oracle in float32 on the whole
+    sequence (O on live rows at atol 1e-2 + rtol 1e-2; gradients by
+    relative L2 at SP_GRAD_RTOL) and against the one-call seam (the
+    same); every output finite. Times the ring's forward + backward
+    against the seam's on the whole sequence (eager, CUDA events).
+    Returns {"launches": per kernel summed over the calls, "errs": per
+    kernel, "runs": [...]}."""
+    launches = dict.fromkeys(FLASH_NAMES, 0)
+    errs = dict.fromkeys(FLASH_NAMES, 0.0)
+    runs = []
+    for label, shape, pads in SP_SHAPES:
+        B, T, H, hd = shape["B"], shape["T"], shape["H"], shape["hd"]
+        q, k, v, g, mask = flash_case(dev, B, T, H, hd, pads[:B],
+                                      torch.bfloat16, seed=T + H)
+        real = live_rows(mask)
+        refs = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        ref = fa.flash_attention_reference(*refs, mask)
+        ref.backward(g.float())
+        seam_out, seam_grads = seam_run(q, k, v, g, mask)
+        for sp in SP_SIZES:
+            sync(dev)
+            ops.reset_launches()
+            out, grads = ring_run(q, k, v, g, mask, sp)
+            sync(dev)
+            got = {n: ops.LAUNCHES[n] for n in FLASH_NAMES}
+            want = sp * (sp + 1) // 2
+            if dev == "cuda":  # the CPU runs the plain versions
+                assert got == dict.fromkeys(FLASH_NAMES, want), \
+                    (label, sp, got)
+            launches = {n: launches[n] + got[n] for n in FLASH_NAMES}
+            assert torch.isfinite(out.float()).all(), "non-finite ring O"
+            for x in grads:
+                assert torch.isfinite(x.float()).all(), "non-finite ring grad"
+            p_out, p_grads = ring_run(q, k, v, g, mask, sp, plain=True)
+            kern = {"O": ratio(out[real], p_out[real]),
+                    **{f"d{n}": ratio(a, b)
+                       for n, a, b in zip("qkv", grads, p_grads)}}
+            dense = {"O": ratio(out[real], ref.detach()[real]),
+                     **{f"d{n}": rel_l2(a, b.grad)
+                        for n, a, b in zip("qkv", grads, refs)}}
+            seam = {"O": ratio(out[real], seam_out[real]),
+                    **{f"d{n}": rel_l2(a, b)
+                       for n, a, b in zip("qkv", grads, seam_grads)}}
+            for what, r in kern.items():
+                assert r <= 1.0, f"[sp] {label} sp {sp}: {what} vs plain"
+            for table in (dense, seam):
+                assert table["O"] <= 1.0, f"[sp] {label} sp {sp}: O"
+                for what in ("dq", "dk", "dv"):
+                    assert table[what] <= SP_GRAD_RTOL, \
+                        f"[sp] {label} sp {sp}: {what} {table[what]:.3e}"
+            e = {"flash_fwd": max_err(out[real], p_out[real]),
+                 "flash_bwd_dq": max_err(grads[0], p_grads[0]),
+                 "flash_bwd_dkv": max(max_err(grads[1], p_grads[1]),
+                                      max_err(grads[2], p_grads[2]))}
+            errs = {n: max(errs[n], e[n]) for n in FLASH_NAMES}
+            ring_ms = seam_ms = float("nan")
+            if dev == "cuda":
+                ring_ms = time_ms(lambda: ring_run(q, k, v, g, mask, sp),
+                                  [()], 5)
+                seam_ms = time_ms(lambda: seam_run(q, k, v, g, mask), [()],
+                                  5)
+            runs.append({"label": label, "sp": sp, **shape,
+                         "launches": got, "vs_plain": kern,
+                         "vs_dense": dense, "vs_seam": seam,
+                         "ring_ms": ring_ms, "seam_ms": seam_ms})
+            log("sp", f"{label} B{B} T{T} H{H} hd{hd} bf16, sp {sp} "
+                      f"(chunks of {T // sp}): launches {got} == "
+                      f"sp (sp + 1) / 2 = {want} each; vs the plain ring "
+                      f"(ratio, <= 1) " + ", ".join(
+                          f"{n} {r:.3f}" for n, r in kern.items())
+                + "; vs the dense oracle in fp32 O ratio "
+                  f"{dense['O']:.3f}, grads rel L2 " + ", ".join(
+                      f"{n} {dense[n]:.2e}" for n in ("dq", "dk", "dv"))
+                + f"; vs the one-call seam O ratio {seam['O']:.3f}, grads "
+                  "rel L2 " + ", ".join(
+                      f"{n} {seam[n]:.2e}" for n in ("dq", "dk", "dv"))
+                + f" (<= {SP_GRAD_RTOL}); forward + backward "
+                  f"{ring_ms:.3f} ms ring vs {seam_ms:.3f} ms seam "
+                  f"(eager, one process holds every rank)")
+        del q, k, v, g, refs, ref, seam_grads
+        release(dev)
+    return {"launches": launches, "errs": errs, "runs": runs}
+
+
+def pp_phase(dev):
+    """[pp]: the loopback GPipe (every stage in this process) of the
+    gpt2-124M-width trunk — all 12 seeded blocks, B 32, T 576 with left
+    padding, the embeddings' hidden states — at pp 2 and 4 in
+    PP_MICRO microbatches, the flash kernels inside the stages, against
+    the plain trunk (``apply_blocks`` with the same seam on the whole
+    batch): at fp32 by relative L2 on live rows at 1e-4 (the
+    microbatches' matmuls may sum in another order), at bf16 at 2e-2;
+    flash_fwd launches == microbatches x layers, no backward kernel
+    (the schedule keeps no gradient). Times the schedule against the
+    plain trunk (eager, CUDA events). Returns {"launches", "runs"}."""
+    from trlx_tpu_torch.models.transformer import positions_from_mask
+
+    spec = TRLConfig.from_dict(config_dict()).model.resolve_spec()
+    tree = init_hydra_numpy(spec, 0, seed=0)["frozen_base"]
+    L, B, T = spec.n_layer, PP_B, PP_T
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, spec.vocab_size, (B, T), generator=gen,
+                           device=dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    for i, p in enumerate(range(0, 16 * B, 16)):
+        mask[i, :p] = 0
+    real = live_rows(mask)
+    positions = positions_from_mask(mask)
+    attn = fa.make_flash_attention_fn()
+    launches = dict.fromkeys(FLASH_NAMES, 0)
+    runs = []
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        blocks = tree_map(lambda x: torch.from_numpy(x).to(dev, dtype),
+                          tree["blocks"])
+        embed = tree_map(lambda x: torch.from_numpy(x).to(dev, dtype),
+                         tree["embed"])
+        with torch.no_grad():
+            h = embed_tokens(embed, spec, tokens, positions, dtype)
+            plain = apply_blocks(blocks, spec, h, mask, positions,
+                                 attention_fn=attn)
+        for pp in PP_SIZES:
+            sync(dev)
+            ops.reset_launches()
+            out = pp_apply_blocks_loopback(blocks, pp, spec, h, mask,
+                                           positions, n_micro=PP_MICRO,
+                                           attention_fn=attn)
+            sync(dev)
+            got = {n: ops.LAUNCHES[n] for n in FLASH_NAMES}
+            want = {"flash_fwd": PP_MICRO * L, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}
+            if dev == "cuda":  # the CPU runs the plain versions
+                assert got == want, ("[pp]", pp, got, want)
+            launches = {n: launches[n] + got[n] for n in FLASH_NAMES}
+            assert torch.isfinite(out.float()).all(), "non-finite [pp]"
+            err = rel_l2(out[real], plain[real])
+            assert err <= rtol, f"[pp] pp {pp} {dtype}: rel L2 {err:.3e}"
+            pp_ms = plain_ms = float("nan")
+            if dev == "cuda":
+                with torch.no_grad():
+                    pp_ms = time_ms(lambda: pp_apply_blocks_loopback(
+                        blocks, pp, spec, h, mask, positions,
+                        n_micro=PP_MICRO, attention_fn=attn), [()], 3)
+                    plain_ms = time_ms(lambda: apply_blocks(
+                        blocks, spec, h, mask, positions,
+                        attention_fn=attn), [()], 3)
+            runs.append({"pp": pp, "dtype": str(dtype), "rel_l2": err,
+                         "launches": got, "pp_ms": pp_ms,
+                         "plain_ms": plain_ms})
+            log("pp", f"GPipe of the gpt2-width trunk ({L} layers, "
+                      f"{L // pp} a stage) B{B} T{T} {dtype}, pp {pp}, "
+                      f"{PP_MICRO} microbatches, flash inside the stages: "
+                      f"launches {got} == {want}; vs the plain trunk rel "
+                      f"L2 {err:.2e} on live rows (<= {rtol}); "
+                      f"{pp_ms:.2f} ms pipelined vs {plain_ms:.2f} ms "
+                      f"plain (eager, one process holds every stage)")
+        del blocks, embed, h, plain
+        release(dev)
+    return {"launches": launches, "runs": runs}
 
 
 # --------------------------------------------------------------------- #
@@ -2879,10 +3112,54 @@ def mesh_phase(tree, batch, device, card):
     initialize_runtime(f"tcp://127.0.0.1:{free_port()}", 1, 0, device)
     try:
         mesh = build_mesh({"dp": -1, "fsdp": 1, "tp": 1}, device)
-        return _mesh_phase(tree, batch, device, card, mesh)
+        out = _mesh_phase(tree, batch, device, card, mesh)
+        release(device)
+        out["sp_pp_one"] = sp_pp_world_of_one(tree, batch, device)
+        return out
     finally:
         dist.destroy_process_group()
         release(device)
+
+
+def sp_pp_world_of_one(tree, batch, device):
+    """``train.mesh: {dp: -1, sp: 1, pp: 1}`` through the trainer in the
+    world of one (the [mesh] phase's): it constructs, its policy runs
+    neither the ring nor the pipeline (both axes are 1), and one fp32
+    update equals the plain trainer's (loss and grad norm at rtol 1e-5;
+    whether bit-identical is printed). The flash launches of the update
+    are counted."""
+    cfg = mesh_config_dict()
+    cfg["train"]["mesh"] = {"dp": -1, "sp": 1, "pp": 1}
+    cfg = TRLConfig.from_dict(cfg)
+    mesh = build_mesh(cfg.train.mesh, device)
+    t = get_model(cfg.model.model_type)(cfg, device=device, params=tree,
+                                        mesh=mesh)
+    assert t.sp is None and not t.policy._pp_active() \
+        and t.policy.pp_mesh is None, "size-1 sp / pp must not engage"
+    sync(device)
+    ops.reset_launches()
+    ours = {k: float(v) for k, v in t.train_step(batch).items()}
+    sync(device)
+    launches = {n: ops.LAUNCHES[n] for n in FLASH_NAMES}
+    del t
+    release(device)
+    plain = get_model(cfg.model.model_type)(
+        TRLConfig.from_dict(mesh_config_dict()), device=device, params=tree)
+    theirs = {k: float(v) for k, v in plain.train_step(batch).items()}
+    del plain
+    release(device)
+    for key in ("loss", "grad_norm"):
+        assert abs(ours[key] - theirs[key]) <= 1e-5 * abs(theirs[key]), \
+            f"{{sp: 1, pp: 1}} {key}: {ours[key]} vs {theirs[key]}"
+    same = all(ours[k] == theirs[k] for k in ours)
+    log("pp", f"train.mesh {{dp: -1, sp: 1, pp: 1}} through the trainer "
+              f"in a world of one (NCCL): no ring, no pipeline; one fp32 "
+              f"update loss {ours['loss']!r} vs {theirs['loss']!r} plain, "
+              f"grad norm {ours['grad_norm']!r} vs "
+              f"{theirs['grad_norm']!r} (bit-identical stats: {same}); "
+              f"flash launches {launches}")
+    return {"stats": ours, "plain": theirs, "bit_identical": same,
+            "launches": launches}
 
 
 def _mesh_phase(tree, batch, device, card, mesh):
@@ -4724,6 +5001,9 @@ def main() -> int:
     gptj_flash_err = check_flash_gptj("cuda")
     flash_gptj = time_flash("cuda", "gpt-j TL;DR shape", iters=10,
                             **GPTJ_FLASH)
+    sp = sp_phase("cuda")
+    pp = pp_phase("cuda")
+    flash_err = {n: max(flash_err[n], sp["errs"][n]) for n in flash_err}
 
     views = init_decode_views(TRLConfig.from_dict(config_dict()).model
                               .resolve_spec(), seed=0,
@@ -4793,6 +5073,7 @@ def main() -> int:
         "durability": durable["durability"],
         "train_parity": train_parity,
         "mesh": {k: v for k, v in durable["mesh"].items() if k != "card"},
+        "sp": sp["runs"], "pp": pp["runs"],
         "ilql": {k: ilql[k] for k in ("wall_s", "step_p50_s", "steps_s",
                                       "tokens_per_s", "eval_s",
                                       "max_memory_gb", "launches", "T",
@@ -4827,15 +5108,18 @@ def main() -> int:
          "ppo": train["all_launches"]["paged_decode"],
          "ilql": ilql["all_launches"]["paged_decode"]})]
     mesh = durable["mesh"]["launches"]
+    one = durable["mesh"]["sp_pp_one"]["launches"]
     for name in FLASH_NAMES:
         kernels.append(kernel_entry(
             name, "trlx_tpu_torch/csrc/flash_attention.cu",
             FLASH_REPLACES[name],
-            train["launches"][name] + ilql["launches"][name] + mesh[name],
+            train["launches"][name] + ilql["launches"][name] + mesh[name]
+            + sp["launches"][name] + pp["launches"][name] + one[name],
             flash_err[name], flash_slice[name],
             {"ppo": train["launches"][name], "ilql": ilql["launches"][name],
              "ppo_resume": resume[name], "ppo_gate": gate[name],
-             "mesh": mesh[name]}))
+             "mesh": mesh[name], "sp": sp["launches"][name],
+             "pp": pp["launches"][name], "sp_pp_world_of_one": one[name]}))
     kernels.append(kernel_entry(
         "paged_decode (hd 256)", "trlx_tpu_torch/csrc/paged_decode.cu",
         "trlx_tpu/ops/paged_attention.py:58", gptj["serve"]["launches"],

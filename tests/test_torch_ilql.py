@@ -607,14 +607,16 @@ def test_registry_and_config_resolve_to_the_port():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1, "sp": 2}),
-    ("mesh", {"dp": 1, "sp": 2}),
-    ("mesh", {"dp": 1, "pp": 2}),
+    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1, "sp": 2, "pp": 2}),
+    ("mesh", {"dp": 1, "sp": 2, "pp": 2}),
+    ("mesh", {"sp": 4, "pp": 2}),
 ])
 def test_refused_knobs_raise(knob, value):
+    """sp and pp each train; combined they are refused, with
+    trlx_tpu's message."""
     cfg = _config_dict()
     cfg["train"][knob] = value
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="cannot combine with sp > 1"):
         get_model("JaxILQLTrainer")(TRLConfig.from_dict(cfg), device="cpu")
 
 

@@ -59,7 +59,8 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "telemetry.prometheus", "supervisor", "supervisor.seams",
                  "supervisor.chaos", "models.hf_import", "utils.hf_offline",
                  "parallel", "parallel.mesh", "parallel.runtime",
-                 "parallel.sharding"):
+                 "parallel.sharding", "parallel.exchange",
+                 "ops.ring_attention", "ops.pipeline_parallel"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

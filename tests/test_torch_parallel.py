@@ -5,7 +5,7 @@
   trlx_tpu's ``param_sharding_specs(params, mesh)`` for the hydra, ILQL
   and reward trees of gpt2, gptj, gptneox and llama, on meshes built
   from the 8 virtual CPU devices;
-- ``sp`` / ``pp`` above 1 refused at construction, ``mesh_from_config``
+- ``sp`` with ``pp`` refused at construction, ``mesh_from_config``
   None for a world of one, ``broadcast_host_floats`` the identity,
   ``shard_batch``'s divisibility error, ``initialize_runtime``'s
   refusal of more processes than cards;
@@ -115,10 +115,14 @@ def test_param_placements_match_trlx_tpu_specs(arch, mesh_config, devices):
 
 
 @pytest.mark.parametrize("trainer", ["JaxPPOTrainer", "JaxILQLTrainer"])
-@pytest.mark.parametrize("mesh_config", [{"dp": -1, "sp": 2},
-                                         {"dp": -1, "pp": 2},
-                                         {"fsdp": 2, "tp": 2, "sp": 2}])
+@pytest.mark.parametrize("mesh_config", [{"dp": -1, "sp": 2, "pp": 2},
+                                         {"dp": -1, "pp": 2, "sp": 4},
+                                         {"fsdp": 2, "tp": 2, "sp": 2,
+                                          "pp": 2}])
 def test_sp_and_pp_refused_at_construction(trainer, mesh_config):
+    """sp and pp together, refused at construction before any process
+    group or mesh is built (each alone runs, across processes:
+    tests/test_torch_sp_pp_dist.py)."""
     from tests.test_torch_ilql import _config_dict
 
     if trainer == "JaxPPOTrainer":
@@ -126,7 +130,7 @@ def test_sp_and_pp_refused_at_construction(trainer, mesh_config):
     else:
         cfg = TRLConfig.from_dict(_config_dict())
     cfg.train.mesh = mesh_config
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="cannot combine with sp > 1"):
         get_model(trainer)(cfg, device="cpu")
 
 

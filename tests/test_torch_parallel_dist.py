@@ -161,7 +161,7 @@ def _gptj_config():
     return config.to_nested_dict()
 
 
-def _spawn(workdir: Path):
+def _spawn(workdir: Path, scenarios: str = "mesh"):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -171,7 +171,8 @@ def _spawn(workdir: Path):
     logs = [workdir / f"rank{r}.log" for r in range(WORLD)]
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "torch_parallel_worker.py"),
-         f"tcp://127.0.0.1:{port}", str(r), str(WORLD), str(workdir)],
+         f"tcp://127.0.0.1:{port}", str(r), str(WORLD), str(workdir),
+         scenarios],
         cwd=workdir, env=env, stdout=open(log, "w"),
         stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
     for p in procs:

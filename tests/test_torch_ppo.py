@@ -220,11 +220,13 @@ def test_offline_example_runs_on_cpu_and_stays_finite():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1, "sp": 2}),
-    ("mesh", {"dp": 1, "sp": 2}), ("mesh", {"dp": 1, "pp": 2}),
+    ("mesh", {"dp": 2, "fsdp": 1, "tp": 1, "sp": 2, "pp": 2}),
+    ("mesh", {"dp": 1, "sp": 2, "pp": 2}), ("mesh", {"sp": 4, "pp": 2}),
 ])
 def test_refused_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """sp and pp each train; combined they are refused, with
+    trlx_tpu's message."""
+    with pytest.raises(ValueError, match="cannot combine with sp > 1"):
         _port_trainer(**{knob: value})
 
 

@@ -1,11 +1,15 @@
-"""One process of the 4-process gloo world of
-tests/test_torch_parallel_dist.py (torch only, no JAX):
+"""One process of the 4-process gloo worlds of
+tests/test_torch_parallel_dist.py and tests/test_torch_sp_pp_dist.py
+(torch only, no JAX):
 
     python tests/torch_parallel_worker.py <init_method> <rank> <world> <dir>
+        [mesh | sp_pp]
 
 reads ``<dir>/inputs.pt`` (configs, weights and batches the test wrote),
-runs every scenario below on its meshes, writes ``<dir>/rank<r>.pt`` with
-what it saw and prints ``WORKER OK <rank>`` last. Whole tensors gathered
+runs the scenario set named last (``mesh``, the default: dp / fsdp /
+tp; ``sp_pp``: sequence and pipeline parallelism) on its meshes, writes
+``<dir>/rank<r>.pt`` with what it saw and prints ``WORKER OK <rank>``
+last. Whole tensors gathered
 from the mesh are kept on rank 0 only; every rank keeps SHA-256 digests
 of what must agree across ranks.
 """
@@ -382,18 +386,183 @@ def adafactor(inputs, rank):
     return {"leaves": [p.full_tensor().numpy() for p in leaves]}
 
 
-def main():
-    init_method, rank, world, workdir = sys.argv[1:5]
-    rank, world = int(rank), int(world)
-    torch.set_num_threads(1)
-    from trlx_tpu_torch.parallel import initialize_runtime
+def sp_pp_step(inputs, rank, name, mesh_config):
+    """One PPO step and two ILQL steps (the ramp makes the first lr 0)
+    on ``mesh_config`` from the shared weights; on the pp mesh also the
+    stage's slab, ``pp_apply_blocks`` called directly, and the PPO
+    trainer's checkpoint, saved after its step, restored into a fresh
+    mesh trainer (and, by the test, into a plain process)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.parallel import build_mesh
+    from trlx_tpu_torch.utils.loading import get_model
 
-    initialize_runtime(init_method, world, rank, "cpu")
-    import torch.distributed as dist
+    mesh = build_mesh(mesh_config, "cpu")
+    key = "pp" if "pp" in mesh_config else "sp"
+    tr = ppo_trainer({**inputs, "ppo_config": inputs[key + "_ppo_config"],
+                      "ppo_params": inputs[key + "_ppo_params"]}, mesh)
+    out = {"sp": tr.sp is not None and tr.policy.sp is tr.sp,
+           "pp": tr.policy._pp_active(), "tp": tr.tp is not None,
+           "ring": getattr(tr.policy.attention_fn, "takes_raw_mask",
+                           False)}
+    out["ppo_stats"] = floats(tr.train_step(ppo_batch(inputs["ppo_batch"])))
+    trainable = to_numpy(tr.params["trainable"])
+    out["ppo_digest"] = digest(tr.params)
+    if rank == 0:
+        out["ppo_trainable"] = trainable
+    if key == "pp":
+        wq = tr.params["frozen_base"]["blocks"]["attn"]["wq"]
+        out["pp_slab"] = tuple(wq.to_local().shape)
+        out["pp_direct_err"] = pp_direct(inputs, mesh, tr.policy.spec)
+        tr.save(os.path.join(inputs["workdir"], "ckpt_pp"))
+        saved = to_numpy(tr.params)
+        out["saved"] = saved if rank == 0 else None
+        back = ppo_trainer({**inputs,
+                            "ppo_config": inputs["pp_ppo_config"],
+                            "ppo_params": inputs["pp_ppo_params"]}, mesh)
+        back.load(os.path.join(inputs["workdir"], "ckpt_pp"))
+        out["restored_digest"] = digest(back.params)
+    itr = get_model("JaxILQLTrainer")(
+        TRLConfig.from_dict(inputs[key + "_ilql_config"]), device="cpu",
+        params=inputs[key + "_ilql_params"], mesh=mesh)
+    out["ilql_steps"] = [floats(itr.train_step(ilql_batch(
+        inputs["sp_ilql_batch"]))) for _ in range(2)]
+    itrainable = to_numpy(itr.params["trainable"])
+    out["ilql_digest"] = digest(itr.params)
+    if rank == 0:
+        out["ilql_trainable"] = itrainable
+    return out
 
-    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
-                        weights_only=False)
-    out = {
+
+def pp_direct(inputs, mesh, spec, blocks=None, n_micro=2):
+    """``pp_apply_blocks`` on ``shard_blocks_pp``'s placement of a trunk
+    (by default the 2 frozen layers; this process's rows of the test's
+    activations) against ``apply_blocks`` on the whole trunk: the largest
+    difference."""
+    from trlx_tpu_torch.models.transformer import (
+        apply_blocks,
+        causal_mask_bias,
+        positions_from_mask,
+        tree_map,
+    )
+    from trlx_tpu_torch.ops.pipeline_parallel import (
+        pp_apply_blocks,
+        shard_blocks_pp,
+    )
+    from trlx_tpu_torch.parallel.sharding import rows_of
+
+    blocks = tree_map(torch.as_tensor, inputs["pp_blocks"] if blocks is None
+                      else blocks)
+    h, mask = (rows_of(torch.from_numpy(inputs[k]), mesh)
+               for k in ("pp_h", "pp_mask"))
+    bias, pos = causal_mask_bias(mask), positions_from_mask(mask)
+    out = pp_apply_blocks(mesh, shard_blocks_pp(mesh, blocks), spec, h,
+                          bias, pos, n_micro=n_micro)
+    return float((out - apply_blocks(blocks, spec, h, bias, pos))
+                 .abs().max())
+
+
+def sp_pp_rollouts(inputs, rank, mesh_config, config=None):
+    """make_experience on ``mesh_config`` (with ``config``, by default
+    the sp or pp PPO config): scoring under sp or pp, the decode dense on
+    the whole trunk; the store (the same on every rank) and rank 0's copy
+    of it."""
+    from trlx_tpu_torch.parallel import build_mesh
+    from trlx_tpu_torch.utils.loading import get_orchestrator, get_pipeline
+
+    mesh = build_mesh(mesh_config, "cpu")
+    key = "pp" if "pp" in mesh_config else "sp"
+    tr = ppo_trainer({**inputs, "ppo_config": config
+                      or inputs[key + "_ppo_config"],
+                      "ppo_params": inputs[key + "_ppo_params"]}, mesh)
+    cfg = tr.config
+
+    def reward_fn(samples):
+        return [sum(c.islower() for c in s) / max(len(s), 1)
+                for s in samples]
+
+    pipeline = get_pipeline(cfg.train.pipeline)(inputs["prompts"],
+                                                tr.tokenizer, cfg)
+    orch = get_orchestrator(cfg.train.orchestrator)(
+        tr, pipeline, reward_fn=reward_fn, chunk_size=cfg.method.chunk_size)
+    orch.make_experience(cfg.method.num_rollouts)
+    store = tr.store._stacked()
+    out = {"digest": digest({k: getattr(store, k) for k in
+                             ("query_tensors", "response_tensors",
+                              "logprobs", "values", "rewards")})}
+    if rank == 0:
+        out["store"] = {k: getattr(store, k).numpy().copy() for k in
+                        ("response_tensors", "logprobs", "values",
+                         "rewards")}
+    return out
+
+
+def sp_long_prompt(inputs, rank):
+    """PPO on {dp: 2, sp: 2} with prompts longer than a chunk (input 8,
+    gen 4: rank 0's 6 positions end before the response window starts):
+    one step, and make_experience."""
+    from trlx_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh({"dp": 2, "sp": 2}, "cpu")
+    tr = ppo_trainer({**inputs, "ppo_config": inputs["long_ppo_config"],
+                      "ppo_params": inputs["sp_ppo_params"]}, mesh)
+    out = {"ppo_stats": floats(tr.train_step(ppo_batch(
+        inputs["long_ppo_batch"])))}
+    trainable = to_numpy(tr.params["trainable"])
+    out["ppo_digest"] = digest(tr.params)
+    if rank == 0:
+        out["ppo_trainable"] = trainable
+    out["rollout"] = sp_pp_rollouts(inputs, rank, {"dp": 2, "sp": 2},
+                                    inputs["long_ppo_config"])
+    return out
+
+
+def pp_four_stages(inputs, rank):
+    """``pp_apply_blocks`` on {pp: 4}: the 2 frozen layers twice over, a
+    layer a stage, 4 microbatches, so the first ticks leave stages with
+    nothing to send or receive."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.models.transformer import tree_map
+    from trlx_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh({"pp": 4}, "cpu")
+    blocks = tree_map(lambda x: torch.cat([torch.tensor(x)] * 2),
+                      inputs["pp_blocks"])
+    spec = TRLConfig.from_dict(inputs["pp_ppo_config"]).model.resolve_spec()
+    return {"err": pp_direct(inputs, mesh, spec, blocks, n_micro=4)}
+
+
+def sp_pp_refusals(inputs, rank):
+    """Construction on the world's meshes with trlx_tpu's refusals: a
+    trunk of zero frozen layers under pp, T not divisible by sp."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.utils.loading import get_model
+
+    out = {}
+    for name in ("zero_frozen", "t_sp"):
+        cfg = TRLConfig.from_dict(inputs["refusal_" + name])
+        try:
+            get_model("JaxPPOTrainer")(cfg, device="cpu")
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def sp_pp(inputs, rank):
+    return {
+        "dp_sp": sp_pp_step(inputs, rank, "dp_sp", {"dp": 2, "sp": 2}),
+        "sp_tp": sp_pp_step(inputs, rank, "sp_tp", {"sp": 2, "tp": 2}),
+        "pp_fsdp": sp_pp_step(inputs, rank, "pp_fsdp", {"pp": 2, "fsdp": 2}),
+        "rollout_sp": sp_pp_rollouts(inputs, rank, {"dp": 2, "sp": 2}),
+        "rollout_pp": sp_pp_rollouts(inputs, rank, {"pp": 2, "fsdp": 2}),
+        "long_prompt": sp_long_prompt(inputs, rank),
+        "pp4": pp_four_stages(inputs, rank),
+        "refusals": sp_pp_refusals(inputs, rank),
+    }
+
+
+def mesh(inputs, rank, workdir):
+    return {
         "ppo_fsdp_tp": ppo_steps(inputs, rank, {"fsdp": 2, "tp": 2},
                                  workdir, checkpoints=True),
         "ppo_dp": ppo_steps(inputs, rank, {"dp": 4}, workdir,
@@ -408,6 +577,24 @@ def main():
         "flash": flash_seam(inputs, rank),
         "adafactor": adafactor(inputs, rank),
     }
+
+
+def main():
+    init_method, rank, world, workdir = sys.argv[1:5]
+    scenarios = sys.argv[5] if len(sys.argv) > 5 else "mesh"
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    from trlx_tpu_torch.parallel import initialize_runtime
+
+    initialize_runtime(init_method, world, rank, "cpu")
+    import torch.distributed as dist
+
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    if scenarios == "sp_pp":
+        out = sp_pp({**inputs, "workdir": workdir}, rank)
+    else:
+        out = mesh(inputs, rank, workdir)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

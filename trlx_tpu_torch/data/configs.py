@@ -112,9 +112,9 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """Train section (field parity with trlx_tpu's TrainConfig; the PPO
-    trainer refuses the knobs it does not run yet —
-    ``trlx_tpu_torch.trainers.check_ported``)."""
+    """Train section (field parity with trlx_tpu's TrainConfig; the
+    trainers refuse, as trlx_tpu does, a ``mesh`` with both sp and pp
+    above 1 — ``trlx_tpu_torch.trainers.check_ported``)."""
 
     n_ctx: int
     epochs: int

@@ -14,6 +14,10 @@ trunk forward; the target heads give no gradient.
 
 Frozen parts run under ``torch.no_grad()``, which keeps no activations
 for them (the JAX package differentiates w.r.t. ``trainable`` only).
+On a mesh, ``pp_mesh`` and ``sp`` act as in
+trlx_tpu_torch.models.policy: GPipe of the frozen trunk over pp, and
+under sp the forward on this rank's chunk of positions (their ids the
+whole sequence's).
 """
 
 from dataclasses import dataclass
@@ -23,7 +27,11 @@ import torch
 
 from trlx_tpu_torch.data.configs import ModelSpec
 from trlx_tpu_torch.models.heads import head_apply
-from trlx_tpu_torch.models.policy import resolve_num_unfrozen
+from trlx_tpu_torch.models.policy import (
+    frozen_trunk,
+    pp_active,
+    resolve_num_unfrozen,
+)
 from trlx_tpu_torch.models.transformer import (
     apply_blocks,
     attention_scores,
@@ -60,10 +68,18 @@ class ILQLModel:
     #: trlx_tpu_torch.parallel.sharding.TensorParallel: the blocks' tp
     #: compute on a mesh (their tp-ruled leaves are then shards)
     tp: Any = None
+    #: GPipe of the frozen trunk, as HydraPolicy.pp_mesh
+    pp_mesh: Any = None
+    pp_n_micro: int = 4
+    #: this rank's chunk of positions under sp > 1, as HydraPolicy.sp
+    sp: Any = None
 
     @property
     def k(self) -> int:
         return resolve_num_unfrozen(self.spec, self.num_layers_unfrozen)
+
+    def _pp_active(self) -> bool:
+        return pp_active(self.pp_mesh)
 
     @property
     def q_names(self) -> Tuple[str, ...]:
@@ -87,7 +103,8 @@ class ILQLModel:
                 tuple(f(h_normed) for f in tq_fns), v_fn(h_normed))
 
     def forward_hidden(self, params: Params, tokens, attention_mask):
-        """Trunk up to and including the final layernorm: [B, T, D].
+        """Trunk up to and including the final layernorm: [B, T, D]; under
+        sp, this rank's chunk of T.
 
         Positions are plain arange over T, not derived from the mask: the
         data is right-padded with the terminal token's mask slot zeroed,
@@ -95,6 +112,10 @@ class ILQLModel:
         predecessor's position and shift V at the bootstrap target."""
         B, T = tokens.shape
         positions = torch.arange(T, device=tokens.device).expand(B, T)
+        if self.sp is not None:
+            tokens, attention_mask, positions = (
+                self.sp.chunk(x) for x in (tokens, attention_mask,
+                                           positions))
         attn = self._attn()
         mask_arg = mask_arg_for(attn, attention_mask)
         frozen_embed = "embed" not in params["trainable"]
@@ -103,9 +124,8 @@ class ILQLModel:
             h = embed_tokens(self.embed_params(params), self.spec, tokens,
                              positions, self.compute_dtype)
         with torch.no_grad():
-            h = apply_blocks(params["frozen_base"]["blocks"], self.spec, h,
-                             mask_arg, positions, attention_fn=attn,
-                             tp=self.tp)
+            h = frozen_trunk(self, params["frozen_base"]["blocks"], h,
+                             mask_arg, positions)
         h = apply_blocks(params["trainable"]["blocks"], self.spec, h,
                          mask_arg, positions, attention_fn=attn,
                          remat=self.remat, tp=self.tp)

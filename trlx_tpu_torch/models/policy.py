@@ -14,6 +14,16 @@ the reference branch run under ``torch.no_grad()``, which is the same
 thing and keeps no activations for them. ``remat`` recomputes each
 trainable block in the backward (``torch.utils.checkpoint``).
 
+On a mesh (trlx_tpu_torch.parallel) two more axes reach the forward.
+``pp_mesh`` with pp > 1 runs the frozen trunk through the GPipe schedule
+(trlx_tpu_torch.ops.pipeline_parallel), each stage on its slab of
+layers, its output the same on every stage. ``sp`` (a
+trlx_tpu_torch.ops.ring_attention ``SequenceSplit``) runs the trunk,
+both tops and the value head on this rank's chunk of positions, whose
+position ids are the whole sequence's; attention is then the ring
+(``attention_fn``), and :meth:`HydraPolicy.forward_hidden` returns the
+chunk, which the trainer gathers per token (``sp.gather``).
+
 The decode helpers (:func:`all_blocks`, :func:`head_params_for_decode`)
 serve the live policy branch: the frozen bottom then the trainable top,
 kept as two segments; they accept numpy or torch leaves.
@@ -91,6 +101,13 @@ class HydraPolicy:
     #: trlx_tpu_torch.parallel.sharding.TensorParallel: the blocks' tp
     #: compute on a mesh (their tp-ruled leaves are then shards)
     tp: Any = None
+    #: GPipe of the frozen trunk over this mesh's pp axis when it is > 1
+    #: (the trainers set it from train.mesh), in pp_n_micro microbatches
+    pp_mesh: Any = None
+    pp_n_micro: int = 4
+    #: trlx_tpu_torch.ops.ring_attention.SequenceSplit: this rank's chunk
+    #: of positions under sp > 1
+    sp: Any = None
 
     @property
     def k(self) -> int:
@@ -99,16 +116,23 @@ class HydraPolicy:
     def _attn(self):
         return self.attention_fn or attention_scores
 
+    def _pp_active(self) -> bool:
+        return pp_active(self.pp_mesh)
+
     def _trunk(self, params: Params, tokens, attention_mask):
-        """Embeddings + the frozen bottom blocks, without gradient."""
+        """Embeddings + the frozen bottom blocks, without gradient; under
+        sp on this rank's chunk of positions."""
         with torch.no_grad():
             positions = positions_from_mask(attention_mask)
+            if self.sp is not None:
+                tokens, attention_mask, positions = (
+                    self.sp.chunk(x) for x in (tokens, attention_mask,
+                                               positions))
             mask_arg = mask_arg_for(self._attn(), attention_mask)
             h = embed_tokens(params["frozen_base"]["embed"], self.spec,
                              tokens, positions, self.compute_dtype)
-            h = apply_blocks(params["frozen_base"]["blocks"], self.spec, h,
-                             mask_arg, positions, attention_fn=self._attn(),
-                             tp=self.tp)
+            h = frozen_trunk(self, params["frozen_base"]["blocks"], h,
+                             mask_arg, positions)
         return h, mask_arg, positions
 
     def _branch_hidden(self, branch: Params, h, mask_arg, positions):
@@ -131,7 +155,8 @@ class HydraPolicy:
                 with_ref: bool = True,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         """(logits [B, T, V] float32, ref_logits | None, values [B, T]
-        float32); the trunk runs once."""
+        float32); the trunk runs once. Under sp, this rank's chunk of
+        T."""
         h_top, h_ref, values = self.forward_hidden(params, tokens,
                                                    attention_mask, with_ref)
         embed = params["frozen_base"]["embed"]
@@ -145,7 +170,8 @@ class HydraPolicy:
     def forward_hidden(self, params: Params, tokens, attention_mask,
                        with_ref: bool = True):
         """Trunk + both top branches without the lm-head projection:
-        (h_policy_normed [B, T, D], h_ref_normed | None, values [B, T])."""
+        (h_policy_normed [B, T, D], h_ref_normed | None, values [B, T]);
+        under sp, this rank's chunk of T."""
         h, mask_arg, positions = self._trunk(params, tokens, attention_mask)
         h_top = self._branch_hidden(params["trainable"], h, mask_arg,
                                     positions)
@@ -156,3 +182,27 @@ class HydraPolicy:
                 h_ref = self._branch_hidden(params["ref"], h, mask_arg,
                                             positions)
         return h_top, h_ref, values
+
+
+def pp_active(pp_mesh) -> bool:
+    """Whether ``pp_mesh`` pipelines the frozen trunk (its pp axis > 1)."""
+    if pp_mesh is None:
+        return False
+    from trlx_tpu_torch.parallel.mesh import mesh_sizes
+
+    return mesh_sizes(pp_mesh)["pp"] > 1
+
+
+def frozen_trunk(model, blocks: Params, h, mask_arg, positions):
+    """``model``'s frozen bottom blocks on ``h``: the GPipe schedule over
+    its ``pp_mesh`` when that pipelines (the blocks are then this stage's
+    slab), else :func:`apply_blocks`."""
+    if pp_active(model.pp_mesh):
+        from trlx_tpu_torch.ops.pipeline_parallel import pp_apply_blocks
+
+        return pp_apply_blocks(model.pp_mesh, blocks, model.spec, h,
+                               mask_arg, positions,
+                               n_micro=model.pp_n_micro,
+                               attention_fn=model._attn(), tp=model.tp)
+    return apply_blocks(blocks, model.spec, h, mask_arg, positions,
+                        attention_fn=model._attn(), tp=model.tp)

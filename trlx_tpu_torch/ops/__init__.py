@@ -57,3 +57,19 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+# sequence and pipeline parallelism: no kernel of their own, they run the
+# flash kernels block by block and stage by stage (the mesh entry
+# ring_attention stays in its module: exported here, the function would
+# hide the module of the same name)
+from trlx_tpu_torch.ops.pipeline_parallel import (  # noqa: E402,F401
+    pp_apply_blocks,
+    pp_apply_blocks_loopback,
+    shard_blocks_pp,
+)
+from trlx_tpu_torch.ops.ring_attention import (  # noqa: E402,F401
+    SequenceSplit,
+    make_sp_attention_fn,
+    ring_attention_loopback,
+)

@@ -253,7 +253,7 @@ def ilql_losses_chunked(lm_head_fn, q_head_fns, tq_head_fns, vs, h_normed,
                         tokens, attention_mask, rewards, gamma: float,
                         tau: float, cql_scale: float, awac_scale: float,
                         chunk: int = 16, gather_rows: Optional[Callable] = None,
-                        ) -> Tuple[torch.Tensor, Dict]:
+                        seq=None) -> Tuple[torch.Tensor, Dict]:
     """:func:`ilql_losses` without ever holding the [B, T, V] head
     outputs: each ``chunk`` positions of ``h_normed`` [B, T, D] go
     through the heads (callables [B, c, D] -> float32 [B, c, V]) and
@@ -266,10 +266,17 @@ def ilql_losses_chunked(lm_head_fn, q_head_fns, tq_head_fns, vs, h_normed,
     ``gather_rows`` (trlx_tpu_torch.parallel.sharding ``gather_rows`` on
     a mesh): the inputs are this process's rows, and every per-position
     statistic, the mask and the rewards go through it to the whole batch
-    before the losses, which are then the whole batch's."""
+    before the losses, which are then the whole batch's.
+
+    ``seq`` (trlx_tpu_torch.ops.ring_attention ``SequenceSplit``, sp >
+    1): ``h_normed`` and ``vs`` are this process's chunk of positions
+    while ``tokens``, the mask and the rewards are whole; the chunk's
+    statistics and V are gathered over sp first."""
     from torch.utils.checkpoint import checkpoint
 
     labels = _action_labels(tokens)
+    if seq is not None:
+        labels = seq.chunk(labels)
     fns = (lm_head_fn,) + tuple(q_head_fns)
 
     def trainable_stats(h_c, lab_c):
@@ -288,6 +295,10 @@ def ilql_losses_chunked(lm_head_fn, q_head_fns, tq_head_fns, vs, h_normed,
                             for f in tq_head_fns])
     out = [torch.cat(c, dim=1) for c in zip(*cols)]
     tq_g = [torch.cat(c, dim=1) for c in zip(*tq_cols)]
+    if seq is not None:
+        out, tq_g = [seq.gather(x) for x in out], [seq.gather(x)
+                                                   for x in tq_g]
+        vs = seq.gather(vs)
     if gather_rows is not None:
         out, tq_g = [gather_rows(x) for x in out], [gather_rows(x)
                                                    for x in tq_g]

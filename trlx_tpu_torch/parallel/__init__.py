@@ -14,8 +14,16 @@ runtime (port of trlx_tpu.parallel).
   MLP width, and the row-parallel products are summed over tp. Where tp
   does not divide the heads or the MLP width the parameters are only
   stored so, and the flash kernels alone split the heads.
-- **sp** and **pp** are named axes, refused above 1 until ring
-  attention and the pipeline schedule are ported.
+- **sp** (sequence parallel): each process of an sp group runs its
+  chunk of every sequence's positions, and attention passes the key /
+  value chunks around the group (trlx_tpu_torch.ops.ring_attention);
+  per-token results are gathered over it before the losses, and the
+  gradients are summed across it.
+- **pp** (pipeline parallel): the frozen trunk's stacked layer axis is
+  split over it, and microbatches stream through the stages
+  (trlx_tpu_torch.ops.pipeline_parallel, GPipe); the trunk's output is
+  broadcast to every stage, so what follows runs replicated over pp.
+  sp and pp do not combine (trlx_tpu refuses it too).
 
 Parameters are DTensors with the placements of trlx_tpu's leaf rules
 (:func:`param_placements`), and the trainers' steps compute on each
@@ -26,6 +34,7 @@ process's rows at the whole width.
 
 from trlx_tpu_torch.parallel.mesh import (  # noqa: F401
     AXES,
+    axis_group,
     build_mesh,
     mesh_from_config,
     mesh_sizes,

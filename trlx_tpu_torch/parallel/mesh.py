@@ -86,6 +86,19 @@ def mesh_sizes(mesh) -> Dict[str, int]:
     return {ax: mesh.size(i) for i, ax in enumerate(AXES)}
 
 
+def axis_group(mesh, axis: str):
+    """(process group, this process's rank in it, its size, the global
+    rank of each member in group-rank order) of one mesh axis: the
+    processes that share every other coordinate with this one. Point-to-
+    point ops name their peers by global rank."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(AXES.index(axis))
+    size = mesh.size(AXES.index(axis))
+    ranks = [dist.get_global_rank(group, r) for r in range(size)]
+    return group, dist.get_rank(group), size, ranks
+
+
 def mesh_from_config(train_config, device_type: Optional[str] = None):
     """The mesh of ``TrainConfig.mesh`` over the world, or None when the
     world is one process and every axis resolves to 1 (the plain

@@ -29,6 +29,13 @@ tp). Per-row results meet again in the global batch through
 :func:`gather_rows` (an all-gather whose backward takes the process's
 own rows back), so every loss and statistic is the single-process one.
 
+Over sp each process of an sp group runs its chunk of the rows'
+positions (trlx_tpu_torch.ops.ring_attention), so a parameter's
+gradient is also a partial sum over sp (:func:`unshard`); over pp the
+frozen trunk's stages keep their slab of layers (``keep_pp``) and the
+trainable top runs alike on every stage, its gradient replicated. Rows
+shard over (dp, fsdp) only: sp and pp processes hold the same rows.
+
 Over tp the blocks run Megatron's compute (:class:`TensorParallel`):
 their tp-ruled leaves are gathered over every other axis only, each
 process keeping its column or row shard, so it computes its heads and
@@ -176,8 +183,8 @@ def param_sharding_specs(params: Params,
         ndim = len(getattr(x, "shape", ()))
         spec = spec_for_leaf(names, ndim)
         # frozen-trunk blocks under a pipelined mesh: the stacked layer
-        # axis shards over pp (trlx_tpu's layout; pp > 1 is refused at
-        # construction until the schedule is ported)
+        # axis shards over pp (trlx_tpu's layout: each stage holds its
+        # slab, trlx_tpu_torch.ops.pipeline_parallel)
         if (sizes is not None and sizes.get("pp", 1) > 1
                 and "frozen_base" in names and "blocks" in names
                 and ndim >= 1):
@@ -355,35 +362,46 @@ def _tp_dim(x) -> Optional[int]:
     return pl.dim if isinstance(pl, Shard) else None
 
 
-def unshard(x, keep_tp: bool = False):
+def unshard(x, keep_tp: bool = False, keep_pp: bool = False):
     """A parameter as a plain tensor on this process: the whole of it, or
     with ``keep_tp`` this process's tp shard of it (a leaf that
-    :class:`TensorParallel` compute reads as a column or row shard). A
-    DTensor is gathered over every other mesh dim; when it requires
-    grad, the gather's backward treats the gradient as a partial sum
-    over (dp, fsdp) — each process differentiates its own rows — as
-    replicated over the other axes, and as this process's shard over tp
-    when kept, so the parameter's gradient arrives summed and in its
-    own shards. A plain tensor comes back as it is."""
+    :class:`TensorParallel` compute reads as a column or row shard), and
+    with ``keep_pp`` this stage's slab of a trunk whose layer axis shards
+    over pp (trlx_tpu_torch.ops.pipeline_parallel). A DTensor is gathered
+    over every other mesh dim; when it requires grad, the gather's
+    backward treats the gradient as a partial sum over (dp, fsdp, sp) —
+    each process differentiates its own rows and, under sp, its own
+    chunk of positions — as replicated over the other axes, and as this
+    process's shard over tp when kept, so the parameter's gradient
+    arrives summed and in its own shards. A plain tensor comes back as it
+    is."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     tp_dim = _tp_dim(x) if keep_tp else None
     tp_pl = Replicate() if tp_dim is None else Shard(tp_dim)
-    target = [tp_pl if ax == "tp" else Replicate() for ax in AXES]
+    pp_pl = x.placements[AXES.index("pp")] if keep_pp else Replicate()
+    target = [tp_pl if ax == "tp" else pp_pl if ax == "pp" else Replicate()
+              for ax in AXES]
     y = x.redistribute(x.device_mesh, target)
     if not (x.requires_grad and torch.is_grad_enabled()):
         return y.to_local()
+    # a size-1 sp axis holds whole sequences: no sum over it
+    partial = ("dp", "fsdp", "sp") \
+        if x.device_mesh.size(AXES.index("sp")) > 1 else ("dp", "fsdp")
     return y.to_local(grad_placements=[
-        Partial() if ax in ("dp", "fsdp") else tp_pl if ax == "tp"
-        else Replicate() for ax in AXES])
+        Partial() if ax in partial else tp_pl if ax == "tp"
+        else pp_pl if ax == "pp" else Replicate() for ax in AXES])
 
 
-def unshard_tree(tree, into: Optional[dict] = None, tp=None):
+def unshard_tree(tree, into: Optional[dict] = None, tp=None,
+                 keep_pp: bool = False):
     """:func:`unshard` on every leaf of nested dicts / lists / tuples;
     with ``tp`` (a :class:`TensorParallel`) the leaves of every
-    ``blocks`` subtree keep their tp shards, the rest are whole.
+    ``blocks`` subtree keep their tp shards, and with ``keep_pp`` the
+    frozen trunk's blocks (``frozen_base`` / ``blocks``) keep their pp
+    slab; the rest are whole.
 
     With ``into`` (a dict the caller keeps; no gradient, every leaf
     whole) each gathered leaf lands in a buffer kept there by its path,
@@ -392,7 +410,9 @@ def unshard_tree(tree, into: Optional[dict] = None, tp=None):
     its own shard, with no copy."""
     if into is None:
         return _map_with_path(
-            lambda path, x: unshard(x, tp is not None and "blocks" in path),
+            lambda path, x: unshard(
+                x, tp is not None and "blocks" in path,
+                keep_pp and "frozen_base" in path and "blocks" in path),
             tree)
     from torch.distributed.tensor import Replicate
 

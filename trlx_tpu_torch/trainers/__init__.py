@@ -29,9 +29,13 @@ Training on a device mesh (trlx_tpu_torch.parallel): ``train.mesh`` with
 moments on the mesh as DTensors (``_shard_model_state``); the steps run
 each process's rows with the parameters gathered on use, and the
 optimizers update each process's shards (:func:`global_norm` and
-:class:`Adafactor` sum what they reduce across the shards). Not ported
-yet, and refused at construction with a clear error: ``sp`` and ``pp``
-above 1.
+:class:`Adafactor` sum what they reduce across the shards). ``sp`` above
+1 runs every training and scoring forward on each process's chunk of
+positions with ring attention (trlx_tpu_torch.ops.ring_attention), which
+then takes precedence over ``model.fused_attention``; ``pp`` above 1
+runs the frozen trunk as a GPipe schedule
+(trlx_tpu_torch.ops.pipeline_parallel, ``_pp_kwargs``). The two do not
+combine, as in trlx_tpu (:func:`check_ported`).
 
 Pretrained weights: with no ``model.model_spec`` the trainers import
 ``model.model_path`` through trlx_tpu_torch.models.hf_import
@@ -97,21 +101,19 @@ _load_builtins = BuiltinLoader(("trlx_tpu_torch.trainers.ppo_trainer",
 register_trainer = make_register(_TRAINERS)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to trlx_tpu_torch yet")
-
-
 def check_ported(config, mesh=None) -> None:
-    """Raise for the configuration knobs this port does not run yet:
-    ``sp`` (ring attention) and ``pp`` (the pipeline schedule) above 1,
-    in ``train.mesh`` or in an explicit mesh."""
+    """Raise, before any process group or mesh is built, for a mesh that
+    neither trlx_tpu nor the port runs: ``sp`` and ``pp`` both above 1,
+    in ``train.mesh`` or in an explicit mesh, with trlx_tpu's
+    message."""
     sizes = dict(config.train.mesh or {})
     if mesh is not None:
         sizes.update(mesh_sizes(mesh))
-    for axis, what in (("sp", "ring attention"), ("pp", "GPipe")):
-        if sizes.get(axis, 1) not in (1, -1):
-            raise _not_ported(f"mesh {axis}={sizes[axis]} ({what} over "
-                              f"{axis})")
+    if sizes.get("sp", 1) > 1 and sizes.get("pp", 1) > 1:
+        raise ValueError(
+            "train.mesh pp > 1 cannot combine with sp > 1: ring "
+            "attention runs its own shard_map over sp, which cannot "
+            "nest inside the GPipe stage shard_map")
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -454,8 +456,15 @@ class BaseRLTrainer:
             else mesh_from_config(config.train, self.device.type)
         #: the blocks' Megatron compute over tp (``_tensor_parallel``)
         self.tp = None
+        #: this process's chunk of positions when the mesh has sp > 1
+        #: (trlx_tpu_torch.ops.ring_attention.SequenceSplit), else None
+        self.sp = None
         if self.mesh is not None:
             check_ported(config, self.mesh)
+            if mesh_sizes(self.mesh)["sp"] > 1:
+                from trlx_tpu_torch.ops.ring_attention import SequenceSplit
+
+                self.sp = SequenceSplit(self.mesh)
             if self.mesh.device_type != self.device.type:
                 raise ValueError(
                     f"the mesh is on {self.mesh.device_type} but the "
@@ -496,6 +505,43 @@ class BaseRLTrainer:
             return self._to_device(tree)
         return shard_batch(self.mesh, tree, device=self.device)
 
+    def _pp_kwargs(self, n_bottom_layers: int, *batch_sizes) -> Dict:
+        """Policy-dataclass kwargs that turn on GPipe for the frozen trunk
+        when the mesh has pp > 1 (trlx_tpu_torch.ops.pipeline_parallel),
+        validated up front with trlx_tpu's messages: the frozen layer
+        count must split evenly into stages and every batch the forward
+        sees must split into microbatches — as a whole batch (trlx_tpu's
+        check) and as each process's rows over dp * fsdp (the port's
+        stages run those)."""
+        if self.mesh is None or mesh_sizes(self.mesh)["pp"] <= 1:
+            return {}
+        pp = mesh_sizes(self.mesh)["pp"]
+        n_micro = self.config.train.pp_num_microbatches
+        if n_bottom_layers == 0:
+            # 0 % pp == 0: without this check a fully-unfrozen model
+            # would pipeline an EMPTY trunk, every stage idle
+            raise ValueError(
+                f"pipeline parallelism: num_layers_unfrozen leaves zero "
+                f"frozen trunk layers, but train.mesh pp={pp} pipelines "
+                f"only the frozen trunk — the entire pp device slice "
+                f"would sit idle. Freeze at least pp layers (lower "
+                f"num_layers_unfrozen) or set pp: 1.")
+        if n_bottom_layers % pp:
+            raise ValueError(
+                f"pipeline parallelism: the frozen trunk has "
+                f"{n_bottom_layers} layers, not divisible into pp={pp} "
+                f"stages; adjust num_layers_unfrozen or the pp extent")
+        rows = n_data(self.mesh)
+        for b in batch_sizes:
+            if b % n_micro or (b // rows) % n_micro:
+                raise ValueError(
+                    f"pipeline parallelism: batch of {b} rows is not "
+                    f"divisible into train.pp_num_microbatches={n_micro} "
+                    f"microbatches"
+                    + ("" if b % n_micro else
+                       f" on each of dp * fsdp = {rows} processes"))
+        return {"pp_mesh": self.mesh, "pp_n_micro": n_micro}
+
     def _tensor_parallel(self, spec):
         """Set and return ``self.tp``: Megatron compute over the mesh's tp
         group for ``spec`` (trlx_tpu_torch.parallel.sharding
@@ -509,10 +555,12 @@ class BaseRLTrainer:
         """The parameter tree the training and scoring forwards read: the
         trainer's own without a mesh; on one each leaf gathered on use
         (differentiably where it requires grad), the blocks' tp shards
-        kept under tp compute."""
+        kept under tp compute and the frozen trunk's pp slab under
+        pp."""
         if self.mesh is None:
             return self.params
-        return unshard_tree(self.params, tp=self.tp)
+        return unshard_tree(self.params, tp=self.tp,
+                            keep_pp=mesh_sizes(self.mesh)["pp"] > 1)
 
     def _whole_params(self):
         """The parameter tree as whole plain tensors, for decoding
@@ -564,15 +612,22 @@ class BaseRLTrainer:
             torch.cuda.synchronize(self.device)
 
     def _train_attention_fn(self):
-        """Attention for train-time forwards: the flash kernels when
-        ``model.fused_attention`` is true (sequences shorter than the
-        seam's ``_MIN_FUSED_T`` take the dense path, as forced runs of
-        the JAX package do); else None = dense attention. The JAX package
-        also turns the kernel on by itself at T >= 1024 on a TPU — a
-        threshold measured on a TPU; the port sets its own from H100
-        measurements in a later change, and until then only an explicit
+        """Attention for train-time forwards, in trlx_tpu's precedence:
+        ring attention when the mesh has sp > 1 (each block pair through
+        the flash kernels on the card, chunks shorter than the seam's
+        ``_MIN_FUSED_T`` through their plain versions); the flash kernels
+        when ``model.fused_attention`` is true (sequences shorter than
+        the seam's floor take the dense path, as forced runs of the JAX
+        package do); else None = dense attention. The JAX package also
+        turns the kernel on by itself at T >= 1024 on a TPU — a threshold
+        measured on a TPU; the port sets its own from H100 measurements
+        in a later change, and until then only an explicit
         ``fused_attention: true`` selects the kernels. Generation keeps
         the dense KV-cache decode either way."""
+        if self.sp is not None:
+            from trlx_tpu_torch.ops.ring_attention import make_sp_attention_fn
+
+            return make_sp_attention_fn(self.mesh)
         if self.config.model.fused_attention:
             from trlx_tpu_torch.ops.flash_attention import (
                 make_flash_attention_fn,

@@ -30,11 +30,17 @@ exit and ``$TRLX_TPU_PROFILE_DIR``. The components are
 ``params`` (zero-size frozen leaves included), ``opt_state``, ``state``
 (``iter_count`` and the sampling generator's state) and ``config``.
 
+On a mesh with sp > 1 the store is collated to a multiple of sp
+positions and each process runs its chunk of them; the per-position
+head statistics, V, the mask and the rewards meet over sp (per-token
+scalars, never the [B, T, V] head outputs) and over the rows before the
+losses. With pp > 1 the frozen trunk runs the GPipe schedule.
+
 Registered as ``JaxILQLTrainer`` and ``ILQLModel``. With no
 ``model.model_spec`` the trunk is imported from ``model.model_path``
 (``ilql_params_from_trunk``: fresh V and Q heads; a failed load raises).
-Not ported yet (each raises): the knobs
-:func:`trlx_tpu_torch.trainers.check_ported` lists.
+A mesh with sp and pp both above 1 is refused, as trlx_tpu refuses it
+(:func:`trlx_tpu_torch.trainers.check_ported`).
 """
 
 import functools
@@ -139,6 +145,11 @@ class JaxILQLTrainer(BaseRLTrainer):
             remat=t.remat,
             attention_fn=self._train_attention_fn(),
             tp=tp,
+            sp=self.sp,
+            **self._pp_kwargs(
+                spec.n_layer - resolve_num_unfrozen(
+                    spec, config.model.num_layers_unfrozen),
+                t.batch_size),
         )
         if params is None and trunk is not None:
             params = ilql_params_from_trunk(self.net, *trunk,
@@ -189,8 +200,9 @@ class JaxILQLTrainer(BaseRLTrainer):
         step (through the commit gate when ``max_bad_steps > 0``). Returns
         the stats with the pre-clip ``grad_norm`` and, gated,
         ``bad_step``. On a mesh (the batch through ``_put``) the forward and
-        the heads run this process's rows with the parameters gathered
-        on use, and the losses the whole batch's statistics."""
+        the heads run this process's rows (under sp, its chunk of their
+        positions) with the parameters gathered on use, and the losses
+        the whole batch's statistics."""
         m, net, mesh = self.config.method, self.net, self.mesh
         events = None if self.step_events is None else []
         _mark(events)
@@ -206,7 +218,7 @@ class JaxILQLTrainer(BaseRLTrainer):
         loss, stats = ilql_losses_chunked(
             lm_fn, q_fns, tq_fns, v_fn(h), h, batch.input_ids,
             batch.attention_mask, batch.rewards, m.gamma, m.tau,
-            m.cql_scale, m.awac_scale, gather_rows=gather)
+            m.cql_scale, m.awac_scale, gather_rows=gather, seq=self.sp)
         _mark(events)
         leaves = _leaves(self.params["trainable"])
         grads = torch.autograd.grad(loss, leaves)
@@ -330,14 +342,16 @@ class JaxILQLTrainer(BaseRLTrainer):
         return logs
 
     def _collate_store(self):
-        """The whole store as one batch padded to its longest row with a
+        """The whole store as one batch padded to its longest row (rounded
+        up to a multiple of sp, so the positions split evenly) with a
         pad id kept inside the vocabulary, and whether it stays on the
         device."""
         eos = getattr(self.tokenizer, "eos_token_id", 0) or 0
         pad_id = min(eos, self.net.spec.vocab_size - 1)
         n = len(self.train_store)
+        sp = 1 if self.sp is None else self.sp.size
         full = next(iter(self.train_store.create_loader(
-            n, shuffle=False, eos_token_id=pad_id)))
+            n, shuffle=False, eos_token_id=pad_id, pad_to_multiple=sp)))
         limit = int(os.environ.get("TRLX_TPU_DATASET_HBM_BYTES",
                                    DATASET_DEVICE_BYTES))
         return full, tree_bytes(full) <= limit

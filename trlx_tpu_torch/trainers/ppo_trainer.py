@@ -26,9 +26,16 @@ trlx_tpu.trainers.ppo_trainer).
 Registered as ``JaxPPOTrainer`` and ``AcceleratePPOModel`` so a YAML
 resolves to it as it does to trlx_tpu's trainer. With no
 ``model.model_spec`` the policy is imported from ``model.model_path``
-(``hydra_params_from_trunk``; a failed load raises). Not ported yet
-(each raises): the knobs :func:`trlx_tpu_torch.trainers.check_ported`
-lists.
+(``hydra_params_from_trunk``; a failed load raises). A mesh with sp
+and pp both above 1 is refused, as trlx_tpu refuses it
+(:func:`trlx_tpu_torch.trainers.check_ported`).
+
+On a mesh with sp > 1 the scoring and training forwards run on each
+process's chunk of positions (``policy.sp``), and the per-token
+logprobs and values are gathered over sp before the losses — per-token
+scalars, never the [B, T, V] logits; with pp > 1 the frozen trunk runs
+the GPipe schedule (``_pp_kwargs``). Rollout decoding stays dense on the
+whole trunk, the same rows and tokens on every sp / pp process.
 
 ``train.continuous_rollouts``: when the post-epoch refresh will run
 (``_will_refresh``, predicted before the epoch's updates), the next
@@ -51,6 +58,7 @@ from trlx_tpu_torch.models.policy import (
     HydraPolicy,
     all_blocks,
     head_params_for_decode,
+    resolve_num_unfrozen,
 )
 from trlx_tpu_torch.ops.losses import (
     chunked_label_logprobs,
@@ -103,7 +111,16 @@ class JaxPPOTrainer(BaseRLTrainer):
         self.epoch = 0
         self.tokenizer = load_tokenizer(config.model.tokenizer_path)
         spec, trunk = self._load_or_spec(config)
+        if self.sp is not None:
+            T = config.train.input_size + config.train.gen_size
+            if T % self.sp.size != 0:
+                raise ValueError(
+                    f"mesh sp={self.sp.size} requires input_size + gen_size "
+                    f"({config.train.input_size} + {config.train.gen_size} "
+                    f"= {T}) to be divisible by it (ring attention splits "
+                    f"the train-time sequence across sp devices)")
         tp = self._tensor_parallel(spec)
+        k = resolve_num_unfrozen(spec, config.model.num_layers_unfrozen)
         self.policy = HydraPolicy(
             spec=spec,
             num_layers_unfrozen=config.model.num_layers_unfrozen,
@@ -111,6 +128,11 @@ class JaxPPOTrainer(BaseRLTrainer):
             remat=config.train.remat,
             attention_fn=self._train_attention_fn(),
             tp=tp,
+            sp=self.sp,
+            # every forward the policy runs: train batches, rollout
+            # scoring chunks (eval decodes, it does not score)
+            **self._pp_kwargs(spec.n_layer - k, config.train.batch_size,
+                              config.method.chunk_size),
         )
         frozen_dtype = DTYPES[config.model.param_dtype]
         #: the model state's bytes as the memory pre-check estimates them
@@ -191,21 +213,57 @@ class JaxPPOTrainer(BaseRLTrainer):
         h_top, h_ref, values = policy.forward_hidden(
             params, sequences, attention_mask, with_ref=True)
         P = input_size
-        response = sequences[:, P:]
-        window = slice(P - 1, sequences.shape[1] - 1)
         embed = params["frozen_base"]["embed"]
-        logprobs = chunked_label_logprobs(
-            policy.branch_head_fn(params["trainable"], embed),
-            h_top[:, window], response)
-        ref_logprobs = chunked_label_logprobs(
-            policy.branch_head_fn(params["ref"], embed),
-            h_ref[:, window], response)
+        logprobs = self._response_logprobs(
+            policy.branch_head_fn(params["trainable"], embed), h_top,
+            sequences, P, chunked=True)
+        ref_logprobs = self._response_logprobs(
+            policy.branch_head_fn(params["ref"], embed), h_ref, sequences,
+            P, chunked=True)
+        values = self._response_values(values, P, sequences.shape[1])
         rewards, seq_kl = kl_penalty_rewards(
             logprobs, ref_logprobs,
             torch.zeros(sequences.shape[0], device=sequences.device),
             kl_coef, mask=response_mask)
         return tuple(gather_rows(x, mesh) for x in
-                     (logprobs, values[:, window], rewards, seq_kl))
+                     (logprobs, values, rewards, seq_kl))
+
+    def _response_logprobs(self, head_fn, h, tokens, P: int,
+                           chunked: bool = False) -> torch.Tensor:
+        """Logprobs [B, G] of the response tokens ``tokens[:, P:]`` from
+        the layernormed hidden states ``h`` of positions P - 1 .. T - 2
+        (``head_fn``: hidden -> float32 logits; ``chunked`` through
+        ``chunked_label_logprobs``, so no [B, T, V] logits are held).
+        Under sp ``h`` is this process's chunk of positions: it projects
+        only its part of the window and the per-token logprobs are
+        gathered over sp (a process with none of the window, its chunk
+        ending before the window starts or starting after it ends,
+        projects an empty slice, so every head parameter stays in the
+        graph)."""
+        T = tokens.shape[1]
+
+        def logprobs(x, labels):
+            if chunked and x.shape[1]:
+                return chunked_label_logprobs(head_fn, x, labels)
+            return logprobs_from_logits(head_fn(x), labels)
+
+        if self.sp is None:
+            return logprobs(h[:, P - 1:T - 1], tokens[:, P:])
+        start, stop = self.sp.bounds(T)
+        lo = min(max(start, P - 1), stop)
+        hi = max(lo, min(stop, T - 1))
+        part = logprobs(h[:, lo - start:hi - start], tokens[:, lo + 1:hi + 1])
+        zeros = part.new_zeros
+        local = torch.cat([zeros((part.shape[0], lo - start)), part,
+                           zeros((part.shape[0], stop - hi))], dim=1)
+        return self.sp.gather(local)[:, P - 1:T - 1]
+
+    def _response_values(self, values, P: int, T: int) -> torch.Tensor:
+        """Values [B, G] at positions P - 1 .. T - 2, gathered over sp
+        when ``values`` is this process's chunk."""
+        if self.sp is not None:
+            values = self.sp.gather(values)
+        return values[:, P - 1:T - 1]
 
     def rollout(self, bank_tokens, bank_mask, idx):
         """One rollout chunk: prompts ``idx`` of the bank -> generation ->
@@ -258,7 +316,8 @@ class JaxPPOTrainer(BaseRLTrainer):
         fsdp)) the forward runs this process's rows with the parameters
         gathered on use, and GAE, the whitening and the losses run on
         the whole batch: the single-process step, with the gradients
-        summed across the processes' rows."""
+        summed across the processes' rows (and, under sp, their chunks
+        of positions)."""
         m, mesh = self.config.method, self.mesh
         rows = batch
         if mesh is not None:
@@ -278,13 +337,12 @@ class JaxPPOTrainer(BaseRLTrainer):
         params = self._forward_params()
         h_top, _, values = self.policy.forward_hidden(params, tokens, mask,
                                                       with_ref=False)
-        window = slice(P - 1, P + G - 1)
         head = self.policy.branch_head_fn(
             params["trainable"], params["frozen_base"]["embed"])
-        logprobs = logprobs_from_logits(head(h_top[:, window]),
-                                        rows.response_tensors)
+        logprobs = self._response_logprobs(head, h_top, tokens, P)
+        values = self._response_values(values, P, P + G)
         loss, stats = ppo_losses(
-            gather_rows(logprobs, mesh), gather_rows(values[:, window], mesh),
+            gather_rows(logprobs, mesh), gather_rows(values, mesh),
             batch.logprobs, old_values, advantages, returns, m.cliprange,
             m.cliprange_value, m.vf_coef, mask=resp_mask)
         leaves = _leaves(self.params["trainable"])
