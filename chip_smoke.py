@@ -87,6 +87,29 @@ Phases, each printing its own line; any failure exits non-zero:
    at bf16 the share identical and the first divergence with its logit
    margin; acceptance, tokens per slot per verify pass and step p50s
    printed; 0 recompiles in every run.
+6c. serve mesh (``[serve-mesh]``) — first paged decode at the shapes a
+   process of a tp serve mesh hands it (H = Hkv 6 and 3 at hd 64: gpt2
+   under tp 2 and 4; 8 and 4 at hd 256: gpt-j), bf16 q over the bf16 and
+   the int8 pool, 16 slots x 4 pages of 16 with a free row, against its
+   plain version in float32 math (atol 1e-2 + rtol 1e-2, every row
+   finite), and timed there (bf16 pool) beside its bound, the plain
+   version and gather + SDPA. Then phase 5's lattice, requests and
+   kernel path at fp32 on ``serve.mesh``: (a) ``{tp: 1}`` in a world
+   of one process over NCCL behind the HTTP server, graphs on, the
+   mesh's all-reduces captured inside the step and every prefill
+   bucket: greedy tokens identical to phase 6's plain engine, paged
+   decode launches == layers x steps, 0 recompiles, ``/healthz``'s
+   ``mesh`` block ``{devices: 1, axes: {tp: 1}}``, the step p50 beside
+   the plain engine's; (b) ``{tp: 2}`` and ``{tp: 4}`` with every rank a
+   child process on this card (``chip_smoke.py --serve-mesh-child``):
+   NCCL refuses two ranks on one card, so they join over gloo, which
+   stages CUDA tensors through the host and cannot be captured: the
+   runtime refuses graphs over it at construction (checked), so they
+   run with graphs off; rank 0 serves the requests, the others follow:
+   tokens identical to (a)'s, every rank's token digest equal, paged
+   decode on each rank's 6- and 3-head shards (launches == layers x
+   steps a rank), 0 recompiles. The kernels line counts the phase under
+   ``serve_mesh`` and gains a ``paged_decode (tp shards)`` entry.
 7. train — the PPO main path at gpt2-124M width with
    examples/ppo_tldr.py's wiring (configs/ppo_tldr.yml's geometry: 12
    layers, 2 unfrozen, synthetic TL;DR documents left-padded to 512
@@ -678,6 +701,10 @@ def graph_ms(fns, args_list, iters):
     ``args_list`` captured into one CUDA graph per function, so no host
     launch cost is timed. The graphs replay in turns (forward, then
     reversed) and each reading is the mean of its two replays."""
+    # the warm-up's stream reuses no block the caching allocator holds
+    # for another stream: hand back what the eager timings left cached
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture stream
@@ -689,7 +716,7 @@ def graph_ms(fns, args_list, iters):
     graphs = []
     for fn in fns:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with aotjit.collector_paused(), torch.cuda.graph(g):
             for i in range(iters):
                 fn(*args_list[i % len(args_list)])
         g.replay()
@@ -1943,6 +1970,280 @@ def log_tiers(t, card):
                               if dtype == "float32" else
                               f"vs speculation off {r['vs_off']}")
             + f" ({card})")
+
+
+# --------------------------------------------------------------------- #
+# 6c. the tp serve mesh
+# --------------------------------------------------------------------- #
+
+#: (H, hd) of the heads one process of a tp serve mesh hands paged
+#: decode: gpt2-124M (12 heads of 64) and gpt-j-6B (16 of 256) under tp 2
+#: and tp 4
+SHARD_SHAPES = ((6, 64), (3, 64), (8, 256), (4, 256))
+
+
+def check_shards(dev):
+    """Paged decode at the shard shapes (:data:`SHARD_SHAPES`, H = Hkv,
+    16 slots x 4 pages of 16, ragged, row 5 free), bf16 q over the bf16
+    and the int8 pool, against its plain version in float32 math on the
+    same inputs (atol 1e-2 + rtol 1e-2, every row finite). Returns the
+    largest error."""
+    worst = 0.0
+    for H, hd in SHARD_SHAPES:
+        for tier in ("bf16", "int8"):
+            q, ((k, v),), pt, bias = serving_case(
+                dev, seed=90 + H + hd, H=H, Hkv=H, hd=hd, free_row=5)
+            if tier == "int8":
+                k, v = quantize_kv(k), quantize_kv(v)
+            out = paged_decode_attention(q, k, v, pt, bias)
+            ref = paged_decode_attention_reference(q.float(), k, v, pt, bias)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), \
+                f"non-finite shard H {H} hd {hd} {tier}"
+            err = max_err(out, ref)
+            worst = max(worst, err)
+            bad = (out.float() - ref).abs() > 1e-2 + 1e-2 * ref.abs()
+            log("kernel", f"tp shard shape S=16 H=Hkv={H} hd={hd} bf16 q x "
+                          f"{tier} pool (row 5 free): max_abs_err={err:.3e} "
+                          f"(atol 1e-2 + rtol 1e-2 against float32 math; "
+                          f"every row finite)")
+            assert not bad.any(), \
+                f"paged decode at shard H {H} hd {hd} {tier} disagrees"
+    return worst
+
+
+def mesh_serve_engine(views, device, mesh):
+    """Phase 5's lattice (16 slots, pages of 16, the kernel path) at
+    fp32, greedy, on ``serve.mesh``."""
+    serve = ServeConfig(buckets=[list(b) for b in SERVE_BUCKETS],
+                        slots=16, page_size=16, attention="pallas",
+                        max_queue=256, request_timeout=600.0, mesh=mesh)
+    return InferenceEngine(TRLConfig.from_dict(config_dict("float32")),
+                           serve=serve, views=views, device=device)
+
+
+def record_heads(runtime):
+    """The (q heads, pool heads, hd) paged decode is called with on this
+    process, recorded by a wrapper around the runtime's seam (the eager
+    path calls it every step)."""
+    seen = set()
+    fn = runtime.paged_decode_fn
+
+    def seam(q, k_pages, v_pages, pt, bias):
+        k = k_pages[0] if isinstance(k_pages, tuple) else k_pages
+        seen.add((q.shape[1], k.shape[2], q.shape[2]))
+        return fn(q, k_pages, v_pages, pt, bias)
+
+    runtime.paged_decode_fn = seam
+    return seen
+
+
+def serve_mesh_one(views, device, fp32):
+    """(a): ``serve.mesh {tp: 1}`` in a world of one process over NCCL
+    through HTTP, graphs on: the decode step and every prefill bucket
+    captured with the mesh's all-reduces inside."""
+    import torch.distributed as dist
+
+    initialize_runtime(f"tcp://127.0.0.1:{free_port()}", 1, 0, device)
+    try:
+        out = _serve_mesh_one(views, device, fp32)
+    finally:
+        release(device)
+        dist.destroy_process_group()
+    telemetry.start()
+    plain = mesh_serve_engine(views, device, None)
+    tokens, _ = run_scheduler(plain, USER_PROMPTS)
+    out["plain_step_p50_ms"] = p50_ms("serve/slot_step")
+    assert tokens == fp32, "the plain fp32 engine's tokens moved"
+    del plain
+    release(device)
+    return out
+
+
+def _serve_mesh_one(views, device, fp32):
+    telemetry.start()
+    engine = mesh_serve_engine(views, device, {"tp": 1})
+    assert engine.tp is not None
+    server = InferenceServer(engine, host="127.0.0.1", port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    rt = server.scheduler.runtime
+    try:
+        health = http(f"{base}/healthz")[2]
+        sync(device)
+        ops.reset_launches()
+        steps0 = rt.steps
+        tokens = serve_ordered(server.scheduler, engine)
+        sync(device)
+        launches = ops.LAUNCHES["paged_decode"]
+        steps = rt.steps - steps0
+        with ThreadPoolExecutor(len(USER_PROMPTS)) as pool:
+            bodies = list(pool.map(
+                lambda r: post(f"{base}/generate",
+                               {"prompt": r[0], "max_new_tokens": r[1]}),
+                USER_PROMPTS))
+        gauges = http(f"{base}/metrics")[2]["gauges"]
+    finally:
+        server.stop()
+    graphs = graph_stats(rt.graphs())
+    n_layer = engine.spec.n_layer
+    assert tokens == fp32, "serve.mesh {tp: 1} tokens != the plain engine's"
+    check_counts([(r, b["tokens"]) for r, b in zip(USER_PROMPTS, bodies)],
+                 engine.tokenizer.eos_token_id)
+    if device == "cuda":
+        assert launches == n_layer * steps and launches > 0, (
+            f"paged decode launches {launches} != {n_layer} x {steps} "
+            f"steps")
+    assert recompiles() == 0, f"recompiled {recompiles()} times"
+    mesh = health["mesh"]
+    assert {k: mesh[k] for k in ("devices", "axes", "weights")} == {
+        "devices": 1, "axes": {"tp": 1}, "weights": "fsdp"}, mesh
+    assert gauges["serve/mesh_devices"] == 1
+    if device == "cuda":
+        assert graphs["graphs"] == len(rt._prefill_fns) + 1, graphs
+    return {"tokens_equal": True, "launches": launches, "steps": steps,
+            "step_p50_ms": p50_ms("serve/slot_step"), "graphs": graphs,
+            "mesh": mesh, "kv": health["kv"],
+            "http_tokens_equal": [b["tokens"] for b in bodies] == fp32}
+
+
+def serve_mesh_child(world, rank, port, out_path, device="cuda"):
+    """(b): one rank of a ``{tp: world}`` serve mesh, every rank on this
+    card (NCCL refuses two ranks on one card, so the group is gloo, which
+    moves CUDA tensors through the host): graphs off, since a gloo
+    collective cannot be captured. Rank 0 serves the 10 requests through
+    the slot scheduler; the others follow. Writes what it saw as JSON."""
+    from trlx_tpu_torch.serve.follower import follow
+
+    world, rank = int(world), int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_runtime(f"tcp://127.0.0.1:{port}", world, rank, "cpu")
+    telemetry.start()
+    spec = TRLConfig.from_dict(config_dict()).model.resolve_spec()
+    engine = mesh_serve_engine(init_decode_views(spec, seed=0,
+                                                 num_layers_unfrozen=2),
+                               device, {"tp": world})
+    out = {"rank": rank, "refused": None}
+    if device == "cuda":
+        # graphs over gloo are refused at construction, never replayed
+        # eager in silence
+        try:
+            SlotPoolRuntime(engine)
+        except RuntimeError as e:
+            out["refused"] = str(e)
+        assert out["refused"], "graphs over gloo were not refused"
+    aotjit.CUDA_GRAPHS = False
+    ops.reset_launches()
+    if engine.channel.leader:
+        sched = SlotScheduler(engine)
+        rt = sched.runtime
+        seen = record_heads(rt)
+        sched.warmup()
+        reqs = [sched.submit(engine.encode_prompt(p), max_new_tokens=n)
+                for p, n in USER_PROMPTS]
+        sched.start()
+        try:
+            out["tokens"] = [r.wait(timeout=600).result for r in reqs]
+            out["kv"] = sched.pool_stats()
+        finally:
+            sched.stop()
+        out["step_p50_ms"] = p50_ms("serve/slot_step")
+        out["mesh"] = engine.mesh_info()
+    else:
+        rt = SlotPoolRuntime(engine)
+        seen = record_heads(rt)
+        out["rc"] = follow(rt)
+    sync(device)
+    out.update(launches=ops.LAUNCHES["paged_decode"], steps=rt.steps,
+               digest=rt.digest.hexdigest(), heads=sorted(seen),
+               layers=engine.spec.n_layer, recompiles=recompiles())
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def serve_mesh_world(world, device, timeout=600):
+    """(b) at ``{tp: world}``: the ranks as child processes on this card;
+    their reports."""
+    port = free_port()
+    outs = [os.path.join(CKPT_ROOT, f"serve_mesh_{world}_{r}.json")
+            for r in range(world)]
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-mesh-child",
+         str(world), str(r), str(port), outs[r], device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, (f"serve-mesh rank {r} of {world} exited "
+                                   f"{p.returncode}:\n{logs[r][-6000:]}")
+    reports = []
+    for path in outs:
+        with open(path) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def serve_mesh_phase(views, device, fp32, card):
+    """``[serve-mesh]``: (a) a world of one over NCCL through HTTP, graphs
+    on; (b) tp 2 and tp 4 with every rank on this card. Returns the
+    phase's numbers."""
+    one = serve_mesh_one(views, device, fp32)
+    log("serve-mesh", f"(a) serve.mesh {{tp: 1}}, a world of one over NCCL "
+                      f"through HTTP: fp32 greedy tokens == the plain "
+                      f"engine's on the 10 requests (the HTTP burst's "
+                      f"equal too: {one['http_tokens_equal']}); "
+                      f"{one['graphs']['graphs']} CUDA graphs captured "
+                      f"with the mesh's all-reduces inside (2 a layer in "
+                      f"the step), 0 recompiles; paged decode launches "
+                      f"{one['launches']} == layers x {one['steps']} "
+                      f"steps; /healthz mesh {one['mesh']}; step p50 "
+                      f"{one['step_p50_ms']:.2f} ms on the mesh, "
+                      f"{one['plain_step_p50_ms']:.2f} ms plain ({card})")
+    worlds = {}
+    for world in (2, 4):
+        ranks = serve_mesh_world(world, device)
+        lead = ranks[0]
+        assert lead["tokens"] == fp32, f"tp {world} tokens != (a)'s"
+        H = GPT2_SPEC["n_head"] // world
+        hd = GPT2_SPEC["d_model"] // GPT2_SPEC["n_head"]
+        for r in ranks:
+            assert r["digest"] == lead["digest"], \
+                f"tp {world} rank {r['rank']}'s tokens diverged"
+            if device == "cuda":
+                assert r["launches"] == r["layers"] * r["steps"] > 0, r
+            assert r["heads"] == [[H, H, hd]], r["heads"]
+            assert r["recompiles"] == 0, r
+            assert r.get("rc", 0) == 0, r
+            assert device != "cuda" or "gloo" in r["refused"], r
+        worlds[world] = {
+            "launches": sum(r["launches"] for r in ranks),
+            "launches_per_rank": lead["launches"], "steps": lead["steps"],
+            "heads": H, "step_p50_ms": lead["step_p50_ms"],
+            "kv": lead["kv"], "mesh": lead["mesh"]}
+        log("serve-mesh", f"(b) serve.mesh {{tp: {world}}}, {world} gloo "
+                          f"ranks on this card (graphs refused over gloo at "
+                          f"construction, which cannot be captured; run "
+                          f"with graphs off): fp32 greedy tokens == (a)'s, "
+                          f"every "
+                          f"rank's token digest equal, paged decode on "
+                          f"{H}-head shards (hd {hd}) {lead['launches']} "
+                          f"launches a rank == layers x {lead['steps']} "
+                          f"steps; pool {lead['kv']['pool_gb_per_device']}"
+                          f" GB a rank of {lead['kv']['pool_gb']} GB; step "
+                          f"p50 {lead['step_p50_ms']:.2f} ms (host-staged "
+                          f"all-reduces) ({card})")
+    return {"one": one, "worlds": worlds,
+            "launches": one["launches"] + sum(w["launches"]
+                                              for w in worlds.values())}
 
 
 # --------------------------------------------------------------------- #
@@ -4940,6 +5241,8 @@ def main() -> int:
         return escalation_child(*sys.argv[2:5])
     if sys.argv[1:2] == ["--gptj-child"]:
         return gptj_child(*sys.argv[2:3])
+    if sys.argv[1:2] == ["--serve-mesh-child"]:
+        return serve_mesh_child(*sys.argv[2:7])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on "
               "the card", file=sys.stderr)
@@ -5041,6 +5344,11 @@ def main() -> int:
                             f"({card})")
     tiers = serve_tiers_phase(views, "cuda", parity["jnp"])
     log_tiers(tiers, card)
+    shard_err = check_shards("cuda")
+    shard_times = {f"H{H}_hd{hd}": time_kernel(
+        "cuda", "tp shard serving shape", max_pages=4, iters=500, H=H,
+        hd=hd) for H, hd in SHARD_SHAPES}
+    serve_mesh = serve_mesh_phase(views, "cuda", parity["jnp"], card)
     del views
 
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
@@ -5094,17 +5402,20 @@ def main() -> int:
             "tracing": {k: v for k, v in lifecycle["tracing"].items()
                         if k != "trace"}},
         "paged_int8_serving": int8_serving,
+        "serve_mesh": serve_mesh, "paged_shards": shard_times,
     }}))
     resume, gate = (durable["durability"][k]["launches"]
                     for k in ("resume", "gate"))
     kernels = [kernel_entry(
         "paged_decode", "trlx_tpu_torch/csrc/paged_decode.cu",
         "trlx_tpu/ops/paged_attention.py:58",
-        run["launches"] + serve_ckpt["launches"] + lifecycle["launches"],
+        run["launches"] + serve_ckpt["launches"] + lifecycle["launches"]
+        + serve_mesh["launches"],
         err, serving,
         {"serve": run["launches"],
          "serve_checkpoint": serve_ckpt["launches"],
          "serve_lifecycle": lifecycle["launches"],
+         "serve_mesh": serve_mesh["launches"],
          "ppo": train["all_launches"]["paged_decode"],
          "ilql": ilql["all_launches"]["paged_decode"]})]
     mesh = durable["mesh"]["launches"]
@@ -5137,6 +5448,13 @@ def main() -> int:
         "trlx_tpu/ops/paged_attention.py:58",
         gptj["serve"]["int8"]["launches"], int8_err[256], gptj_int8_serving,
         {"gptj_serve_int8": gptj["serve"]["int8"]["launches"]}))
+    worlds = serve_mesh["worlds"]
+    kernels.append(kernel_entry(
+        "paged_decode (tp shards)", "trlx_tpu_torch/csrc/paged_decode.cu",
+        "trlx_tpu/ops/paged_attention.py:58",
+        sum(w["launches"] for w in worlds.values()), shard_err,
+        shard_times["H6_hd64"],
+        {f"serve_mesh_tp{n}": w["launches"] for n, w in worlds.items()}))
     for name in FLASH_NAMES:
         kernels.append(kernel_entry(
             f"{name} (hd 256)", "trlx_tpu_torch/csrc/flash_attention.cu",

@@ -313,3 +313,78 @@ def test_cuda_capture_invalidated_by_another_thread_is_taken_again():
         release.set()
         worker.join(30)
     assert state["launches"] > 0 and "capturing" in str(state["sync_error"])
+
+
+def test_collector_paused_nests_across_threads_and_restores():
+    """The cycle collector stays off while any thread is inside
+    ``collector_paused`` and comes back as it was when the last leaves:
+    on if it was on, off if the caller had turned it off."""
+    import gc
+    import threading
+
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        inside, leave = threading.Event(), threading.Event()
+
+        def other():
+            with aotjit.collector_paused():
+                inside.set()
+                leave.wait(30)
+
+        worker = threading.Thread(target=other)
+        worker.start()
+        assert inside.wait(30)
+        assert not gc.isenabled()
+        with aotjit.collector_paused():
+            with aotjit.collector_paused():
+                assert not gc.isenabled()
+            leave.set()
+            worker.join(30)
+            assert not gc.isenabled()
+        assert gc.isenabled()
+        gc.disable()
+        with aotjit.collector_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_runs_no_collection():
+    """No cycle collection starts while aot_jit captures, however low
+    the collector's threshold: one could free a dead reference cycle
+    holding another CUDA graph (an engine dropped earlier), which CUDA
+    refuses to destroy on a capturing thread, and the capture is lost.
+    Collections start again after it, and the graph replays as the
+    first call returned."""
+    import gc
+
+    dev = _card()
+    telemetry.start()
+    x = torch.randn(64, 64, device=dev)
+    starts = []
+
+    def watch(phase, info):
+        if phase == "start":
+            starts.append(torch.cuda.is_current_stream_capturing())
+
+    def fn(a):
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1, 1, 1)
+            [[] for _ in range(1000)]  # a collection's trigger, were it on
+        return a @ a
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(watch)
+    try:
+        wrapped = aot_jit(fn)
+        first = wrapped(x).clone()
+        [[] for _ in range(1000)]
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*threshold)
+    assert len(wrapped.graphs()) == 1
+    assert starts and not any(starts), starts
+    assert torch.equal(wrapped(x), first)

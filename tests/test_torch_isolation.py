@@ -60,7 +60,8 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "supervisor.chaos", "models.hf_import", "utils.hf_offline",
                  "parallel", "parallel.mesh", "parallel.runtime",
                  "parallel.sharding", "parallel.exchange",
-                 "ops.ring_attention", "ops.pipeline_parallel"):
+                 "ops.ring_attention", "ops.pipeline_parallel",
+                 "serve.layouts", "serve.follower"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

@@ -183,6 +183,16 @@ def _committed(run):
                   and is_valid_checkpoint(os.path.join(run, e)))
 
 
+def _latest_step(run):
+    """The step ``LATEST`` names, or -1 before the first commit (the file
+    is replaced atomically, so a read sees a whole name)."""
+    try:
+        with open(os.path.join(run, "LATEST")) as f:
+            return int(f.read().strip().split("_")[1])
+    except (OSError, ValueError, IndexError):
+        return -1
+
+
 def test_durability_drive_sigkill_and_relaunch(tmp_path):
     run = str(tmp_path / "run")
     cmd = [sys.executable, "-m", "trlx_tpu_torch.examples.ilql_randomwalks",
@@ -194,14 +204,20 @@ def test_durability_drive_sigkill_and_relaunch(tmp_path):
                              stdout=subprocess.DEVNULL,
                              stderr=subprocess.DEVNULL)
     try:
+        # wait for the commit point the checks below read: LATEST naming
+        # step_8 or later (a save renames step_<n> into place first and
+        # writes LATEST after it, so two valid directories can precede
+        # the second LATEST). A kill during a later save may leave a
+        # committed step newer than LATEST names; the relaunch resumes
+        # from LATEST's step, which is what is checked.
         deadline = time.time() + 120
         while time.time() < deadline:
-            if os.path.isdir(run) and len(_committed(run)) >= 2:
+            if _latest_step(run) >= 8:
                 break
             assert first.poll() is None, "the run ended before two saves"
             time.sleep(0.05)
         else:
-            raise AssertionError("no two committed checkpoints in 120 s")
+            raise AssertionError("LATEST named no step >= 8 in 120 s")
     finally:
         first.send_signal(signal.SIGKILL)
         first.wait(timeout=60)

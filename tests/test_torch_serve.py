@@ -235,12 +235,11 @@ def test_cli_layers_flags_over_serve_section():
     assert cfg.buckets == [[8, 16, 48], [16, 16, 48]]
     assert (cfg.slots, cfg.page_size, cfg.attention, cfg.max_queue) == (
         16, 16, "pallas", 9)
-    # tenants are honoured since the serve-lifecycle slice; tp serve
-    # meshes are the knobs still refused
+    # tenants are honoured since the serve-lifecycle slice, the tp serve
+    # mesh since the serve-mesh slice
     assert ServeConfig.from_dict({"tenants": {"a": {"rps": 1.0}}}
                                  ).tenants == {"a": {"rps": 1.0}}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeConfig.from_dict({"mesh": {"tp": 2}})
+    assert ServeConfig.from_dict({"mesh": {"tp": 2}}).mesh == {"tp": 2}
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):

@@ -477,8 +477,8 @@ def test_hot_swap_probe_rollback_static_path_and_refusals(trees, run_dir,
 
 
 def test_cli_lifecycle_flags_layer_over_the_serve_section():
-    """The lifecycle flags trlx_tpu's CLI has (its mesh flags aside)
-    layer over the config's serve section."""
+    """The lifecycle flags trlx_tpu's CLI has layer over the config's
+    serve section (its mesh flags too, since the serve-mesh slice)."""
     from trlx_tpu_torch.serve.__main__ import (
         build_parser,
         serve_config_from_args,
@@ -497,8 +497,11 @@ def test_cli_lifecycle_flags_layer_over_the_serve_section():
             cfg.drain_timeout, cfg.watch_checkpoints, cfg.degrade_step_ms,
             cfg.request_tracing) == (9, 7.0, 3.0, 250.0, 16, 1, 5.0, 0.5,
                                      40.0, False)
+    args = build_parser().parse_args(["--mesh", "tp=2",
+                                      "--mesh-weights", "replicated"])
+    assert (args.mesh, args.mesh_weights) == ("tp=2", "replicated")
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["--mesh", "tp=2"])
+        build_parser().parse_args(["--mesh-weights", "sharded"])
 
 
 def test_watch_checkpoints_swaps_when_latest_moves(trees, tmp_path):

@@ -8,7 +8,7 @@ trlx_tpu's message; aging prevents starvation; the brownout state
 machine's hysteresis and its best-effort-only clamp; ``pressure()``,
 the 429 with ``Retry-After`` and ``/readyz``; deadline shedding in both
 schedulers; the 508 hop limit; and the port's ``ServeConfig`` field set
-equal to trlx_tpu's less ``DEFERRED_KNOBS``."""
+equal to trlx_tpu's."""
 
 import contextlib
 import dataclasses
@@ -42,7 +42,6 @@ from trlx_tpu_torch.serve.batcher import (
     TenantPolicy,
     TenantTable,
 )
-from trlx_tpu_torch.serve.engine import DEFERRED_KNOBS
 from trlx_tpu_torch.serve.server import MAX_HOPS
 from trlx_tpu_torch.supervisor import chaos
 
@@ -86,25 +85,20 @@ def serve_overrides(engine, **overrides):
 
 def test_serve_config_fields_equal_trlx_tpu_less_deferred_knobs():
     """Every serve knob trlx_tpu honours is a field of the port's
-    ServeConfig with trlx_tpu's default, except the deferred tp mesh,
-    which is refused unless it is at trlx_tpu's default: none is dropped
-    in silence."""
+    ServeConfig with trlx_tpu's default: none is deferred any more (the
+    tp serve mesh, ``mesh`` / ``mesh_weights``, was the last) and none is
+    dropped in silence."""
     ours = {f.name: f for f in dataclasses.fields(ServeConfig)}
     theirs = {f.name: f for f in dataclasses.fields(JaxServe)}
-    assert DEFERRED_KNOBS == {"mesh": None, "mesh_weights": "fsdp"}
-    assert set(ours) == set(theirs) - set(DEFERRED_KNOBS)
+    assert set(ours) == set(theirs)
     ref = JaxServe()
     for name, value in dataclasses.asdict(ServeConfig()).items():
         assert value == getattr(ref, name), name
-    for knob, default in DEFERRED_KNOBS.items():
-        assert getattr(ref, knob) == default
     full = dataclasses.asdict(ref)  # trlx_tpu's every knob, at defaults
-    assert dataclasses.asdict(ServeConfig.from_dict(full)) == {
-        k: v for k, v in full.items() if k not in DEFERRED_KNOBS}
-    with pytest.raises(NotImplementedError, match="mesh_weights"):
-        ServeConfig.from_dict({"mesh_weights": "replicated"})
-    with pytest.raises(NotImplementedError, match="serve.mesh="):
-        ServeConfig.from_dict({"mesh": {"tp": 2}})
+    assert dataclasses.asdict(ServeConfig.from_dict(full)) == full
+    cfg = ServeConfig.from_dict({"mesh": {"tp": 2},
+                                 "mesh_weights": "replicated"})
+    assert (cfg.mesh, cfg.mesh_weights) == ({"tp": 2}, "replicated")
 
 
 @pytest.mark.parametrize("knobs", [

@@ -147,14 +147,15 @@ class DecodeBuffers(NamedTuple):
 
 
 def _new_buffers(spec, seg_sizes, B, P, G, compute_dtype, cache_dtype,
-                 dev) -> DecodeBuffers:
+                 dev, kv_heads=None) -> DecodeBuffers:
     S = P + G
 
     def empty(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     return DecodeBuffers(
-        caches=tuple(init_kv_cache(spec, size, B, S, cache_dtype, dev)
+        caches=tuple(init_kv_cache(spec, size, B, S, cache_dtype, dev,
+                                   kv_heads)
                      for size in seg_sizes),
         buffer_mask=empty(B, S, dtype=torch.int32),
         real_len=empty(B, dtype=torch.long),
@@ -183,27 +184,31 @@ class RolloutDecoder:
         self._buffers = {}
 
     def buffers(self, spec, seg_sizes, B, P, G, compute_dtype, cache_dtype,
-                dev) -> DecodeBuffers:
-        key = (spec.vocab_size, spec.d_model, spec.kv_heads, spec.head_dim,
+                dev, kv_heads=None) -> DecodeBuffers:
+        kv_heads = kv_heads or spec.kv_heads
+        key = (spec.vocab_size, spec.d_model, kv_heads, spec.head_dim,
                tuple(seg_sizes), B, P, G, compute_dtype, cache_dtype,
                str(dev))
         buf = self._buffers.get(key)
         if buf is None:
             buf = self._buffers[key] = _new_buffers(
-                spec, seg_sizes, B, P, G, compute_dtype, cache_dtype, dev)
+                spec, seg_sizes, B, P, G, compute_dtype, cache_dtype, dev,
+                kv_heads)
         return buf
 
 
 def _decode_token(spec, segments, embed, ln_f, buf: DecodeBuffers,
                   generator, config, compute_dtype, attention_fn,
-                  logit_mask, extras_fn, rows=None) -> None:
+                  logit_mask, extras_fn, rows=None, tp=None) -> None:
     """One decode step of :func:`generate`, in place on ``buf``: emit the
     token of column ``buf.step`` from the carried logits, then forward it
     against the cache. Static shapes and no host read, so it replays as
     one CUDA graph; the last step's forward feeds nothing but keeps every
     step the same program. ``rows``: :func:`sample_token`'s (start,
-    total) on a mesh. No collective runs inside, so no capture holds
-    one that a peer process might not run."""
+    total) on a training mesh, whose step runs no collective. ``tp``: a
+    serve mesh's ``DecodeParallel`` (the draft model of speculation),
+    whose collectives the step captures: every process of the mesh
+    replays it in the same order."""
     B, S = buf.buffer_mask.shape
     G = config.gen_size
     P = S - G
@@ -236,20 +241,21 @@ def _decode_token(spec, segments, embed, ln_f, buf: DecodeBuffers,
     flags = ArchFlags.for_spec(spec)
     offset = P + step
     pos = (buf.real_len + step)[:, None]
-    h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
+    embed, ln_f = _head(tp, embed, ln_f)
+    h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype, tp)
     key_valid = (torch.arange(S, device=dev)[None, :] <= offset) \
         & (buf.buffer_mask > 0)
     bias = torch.where(key_valid, 0.0, NEG_INF).float()[:, None, None, :]
-    for seg, (k_c, v_c) in zip(segments, buf.caches):
+    for s, (seg, (k_c, v_c)) in enumerate(zip(segments, buf.caches)):
         for i in range(num_layers(seg)):
             h, _ = block_apply(
-                spec, flags, layer_params(seg, i), h, bias, pos,
+                spec, flags, _layer(tp, s, seg, i), h, bias, pos,
                 kv_cache=(k_c[i], v_c[i]), cache_offset=offset,
-                attention_fn=attention_fn,
+                attention_fn=attention_fn, tp=tp,
             )
     h_normed = layer_norm(ln_f, h[:, 0], spec.layer_norm_epsilon)
     buf.h_normed.copy_(h_normed)
-    buf.logits.copy_(project_logits(embed, spec, h_normed))
+    buf.logits.copy_(project_logits(embed, spec, h_normed, tp))
     buf.step.add_(1)
 
 
@@ -291,6 +297,7 @@ def generate(
     extras_fn: Optional[Callable] = None,
     decoder: Optional[RolloutDecoder] = None,
     mesh=None,
+    tp=None,
 ) -> GenerationOutput:
     """Decode ``config.gen_size`` tokens per row from LEFT-padded prompts
     (the rollout decoder; port of trlx_tpu.models.generation.generate).
@@ -318,6 +325,10 @@ def generate(
     tensors: each process decodes its rows, draws as one process would
     (``sample_token``'s ``rows``), stops when every process's rows have
     finished, and the outputs come back whole on every process.
+
+    ``tp`` (a serve mesh's ``DecodeParallel``, trlx_tpu_torch.serve.
+    layouts) runs the parameters as each process's shards instead: every
+    process decodes every row with its heads, the same tokens.
     """
     rows = None
     if mesh is not None:
@@ -345,23 +356,25 @@ def generate(
     prompt_tokens = prompt_tokens.long()
     prompt_mask = prompt_mask.to(torch.int32)
     buf = decoder.buffers(spec, seg_sizes, B, P, G, compute_dtype,
-                          cache_dtype, dev)
+                          cache_dtype, dev, _kv_heads(tp, spec))
     real_len = prompt_mask.long().sum(-1)  # [B]
 
     positions = positions_from_mask(prompt_mask)
-    h = embed_tokens(embed, spec, prompt_tokens, positions, compute_dtype)
+    embed_g, ln_f_g = _head(tp, embed, ln_f)
+    h = embed_tokens(embed_g, spec, prompt_tokens, positions, compute_dtype,
+                     tp)
     prefill_bias = torch.cat([
         causal_mask_bias(prompt_mask),
         torch.full((B, 1, P, G), NEG_INF, dtype=torch.float32, device=dev),
     ], dim=-1)
-    for seg, cache in zip(segments, buf.caches):
+    for s, (seg, cache) in enumerate(zip(segments, buf.caches)):
         for c in cache:
             c.zero_()
         h, _ = apply_blocks_with_cache(seg, cache, spec, h, prefill_bias,
-                                       positions, 0, attention_fn)
-    h_normed = layer_norm(ln_f, h[:, -1], spec.layer_norm_epsilon)
+                                       positions, 0, attention_fn, tp, s)
+    h_normed = layer_norm(ln_f_g, h[:, -1], spec.layer_norm_epsilon)
     buf.h_normed.copy_(h_normed)
-    buf.logits.copy_(project_logits(embed, spec, h_normed))
+    buf.logits.copy_(project_logits(embed_g, spec, h_normed, tp))
     last = (real_len - 1).clamp(min=0)[:, None]
     buf.prev_tok.copy_(torch.gather(prompt_tokens, 1, last)[:, 0])
     buf.buffer_mask[:, :P].copy_(prompt_mask)
@@ -381,7 +394,7 @@ def generate(
         for _ in range(chunk):
             decoder.step(spec, segments, embed, ln_f, buf, generator, config,
                          compute_dtype, attention_fn, logit_mask, extras_fn,
-                         rows)
+                         rows, tp)
         done += chunk
         if early_exit and done < G and done > config.min_new_tokens \
                 and _all_finished(buf, mesh):
@@ -457,26 +470,30 @@ def init_slot_state(num_slots: int, buffer_len: int, vocab_size: int,
 
 
 def init_slot_pool(spec: ModelSpec, seg_sizes, num_slots: int,
-                   buffer_len: int, cache_dtype=torch.bfloat16, device=None):
+                   buffer_len: int, cache_dtype=torch.bfloat16, device=None,
+                   kv_heads: Optional[int] = None):
     """Per-segment (k, v) contiguous pools [L_seg, num_slots + 1,
     buffer_len + 1, Hkv, hd]: one region per slot. The last row is the
     drop row (a prefill filler row writes there) and the last position
     of each row the drop position (a write at ``offset == buffer_len``
-    lands there); attention reads ``[:num_slots, :buffer_len]`` only."""
+    lands there); attention reads ``[:num_slots, :buffer_len]`` only.
+    ``kv_heads``: the heads one process of a tp mesh holds."""
     return tuple(
         init_kv_cache(spec, size, num_slots + 1, buffer_len + 1,
-                      cache_dtype, device)
+                      cache_dtype, device, kv_heads)
         for size in seg_sizes
     )
 
 
 def init_page_pool(spec: ModelSpec, seg_sizes, num_pages: int,
-                   page_size: int, cache_dtype=torch.bfloat16, device=None):
+                   page_size: int, cache_dtype=torch.bfloat16, device=None,
+                   kv_heads: Optional[int] = None):
     """Per-segment (k, v) page pools [L_seg, num_pages + 1, page_size,
-    Hkv, hd] (the last page is the drop page)."""
+    Hkv, hd] (the last page is the drop page); ``kv_heads`` as
+    :func:`init_slot_pool`'s."""
     return tuple(
         init_paged_kv_cache(spec, size, num_pages, page_size, cache_dtype,
-                            device)
+                            device, kv_heads)
         for size in seg_sizes
     )
 
@@ -485,6 +502,23 @@ def _segments_of(blocks):
     segments = tuple(blocks) if isinstance(blocks, (list, tuple)) \
         else (blocks,)
     return segments, [num_layers(s) for s in segments]
+
+
+def _layer(tp, segment: int, seg, i: int):
+    """Layer ``i`` of block segment ``segment``; on a serve mesh with its
+    shards gathered on use (``DecodeParallel.layer``)."""
+    p = layer_params(seg, i)
+    return p if tp is None else tp.layer(segment, p)
+
+
+def _head(tp, embed, ln_f):
+    """(embed, ln_f), on a serve mesh with their fsdp shards gathered."""
+    return (embed, ln_f) if tp is None else tp.head(embed, ln_f)
+
+
+def _kv_heads(tp, spec) -> int:
+    """The KV heads this process's caches hold."""
+    return spec.kv_heads if tp is None else tp.kv_heads(spec)
 
 
 def _kv_layer(entry, i):
@@ -522,6 +556,7 @@ def prefill_into_slots(
     page_size: Optional[int] = None,
     start=None,  # [Bp] page-aligned committed prefix length
     prefix_context: bool = False,
+    tp=None,
 ):
     """Write a prompt bucket's KV + first-step logits into pool slots.
 
@@ -545,12 +580,17 @@ def prefill_into_slots(
     Shapes are static and nothing is read back to the host, so a bucket
     replays as one CUDA graph once its inputs are device tensors.
 
+    ``tp``: a serve mesh's ``DecodeParallel`` (trlx_tpu_torch.serve.
+    layouts): the parameters are this process's shards and the pool holds
+    its KV heads.
+
     Returns ``(pool, state)``, both updated in place.
     """
+    embed, ln_f = _head(tp, embed, ln_f)
     if page_tables is None:
         return _prefill_into_rows(
             spec, blocks, embed, ln_f, pool, state, prompt_tokens,
-            prompt_mask, slot_ids, max_new, compute_dtype, attention_fn)
+            prompt_mask, slot_ids, max_new, compute_dtype, attention_fn, tp)
     dev = state.valid.device
     tokens = _as(prompt_tokens, dev, torch.long)
     mask = _as(prompt_mask, dev, torch.int32)
@@ -576,7 +616,7 @@ def prefill_into_slots(
         else _as(start, dev, torch.long)
     real_len = start + suffix_len
     positions = start[:, None] + torch.arange(P, device=dev)[None, :]
-    h = embed_tokens(embed, spec, tokens, positions, compute_dtype)
+    h = embed_tokens(embed, spec, tokens, positions, compute_dtype, tp)
 
     num_pages, _ = _pool_page_geometry(pool)
     quantized = isinstance(pool[0][0], (tuple, list))
@@ -591,12 +631,14 @@ def prefill_into_slots(
         pids = torch.where((pids >= 0) & (pids < num_pages), pids,
                            torch.full_like(pids, num_pages))
         ioff = pos_buf % page_size
-        for seg, size, (k_pool, v_pool) in zip(segments, seg_sizes, pool):
+        for s, (seg, size, (k_pool, v_pool)) in enumerate(
+                zip(segments, seg_sizes, pool)):
             if size == 0:
                 continue
-            cache = init_kv_cache(spec, size, B, P, cache_dtype, dev)
+            cache = init_kv_cache(spec, size, B, P, cache_dtype, dev,
+                                  _kv_heads(tp, spec))
             h, (k_new, v_new) = apply_blocks_with_cache(
-                seg, cache, spec, h, bias, positions, 0, attention_fn,
+                seg, cache, spec, h, bias, positions, 0, attention_fn, tp, s,
             )
             if quantized:
                 (k_codes, k_sc), (v_codes, v_sc) = k_pool, v_pool
@@ -616,19 +658,20 @@ def prefill_into_slots(
             <= positions[:, :, None]
         bias = torch.where(allowed, 0.0, NEG_INF).float()[:, None]
         # bias: [Bp, 1, P, T]
-        for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
+        for s, (seg, size, (k_c, v_c)) in enumerate(
+                zip(segments, seg_sizes, pool)):
             for i in range(size):
                 h, _ = block_apply(
-                    spec, flags, layer_params(seg, i), h, bias, positions,
+                    spec, flags, _layer(tp, s, seg, i), h, bias, positions,
                     kv_cache=(_kv_layer(k_c, i), _kv_layer(v_c, i)),
                     cache_row_offsets=start, page_table=pt,
-                    page_size=page_size, attention_fn=attention_fn,
+                    page_size=page_size, attention_fn=attention_fn, tp=tp,
                 )
 
     last_idx = (suffix_len - 1).clamp(min=0)
     h_last = h[torch.arange(B, device=dev), last_idx]  # [Bp, D]
     logits0 = project_logits(
-        embed, spec, layer_norm(ln_f, h_last, spec.layer_norm_epsilon)
+        embed, spec, layer_norm(ln_f, h_last, spec.layer_norm_epsilon), tp
     )
 
     landed, src = _slot_rows(slot_ids, S, dev)
@@ -667,7 +710,7 @@ def _land_rows(state: SlotState, landed, rows) -> None:
 
 def _prefill_into_rows(spec, blocks, embed, ln_f, pool, state,
                        prompt_tokens, prompt_mask, slot_ids, max_new,
-                       compute_dtype, attention_fn):
+                       compute_dtype, attention_fn, tp=None):
     """Contiguous half of :func:`prefill_into_slots`: generate()'s
     prefill over LEFT-padded prompts, then each row's [0, P) block into
     its slot's region (a filler row into the drop row)."""
@@ -683,20 +726,22 @@ def _prefill_into_rows(spec, blocks, embed, ln_f, pool, state,
     segments, seg_sizes = _segments_of(blocks)
     real_len = mask.long().sum(-1)
     positions = positions_from_mask(mask)
-    h = embed_tokens(embed, spec, tokens, positions, compute_dtype)
+    h = embed_tokens(embed, spec, tokens, positions, compute_dtype, tp)
     bias = causal_mask_bias(mask)
     sid = _as(slot_ids, dev, torch.long)
     rows = torch.where((sid >= 0) & (sid < S), sid, torch.full_like(sid, S))
-    for seg, size, (k_pool, v_pool) in zip(segments, seg_sizes, pool):
+    for s, (seg, size, (k_pool, v_pool)) in enumerate(
+            zip(segments, seg_sizes, pool)):
         if size == 0:
             continue
-        cache = init_kv_cache(spec, size, B, P, k_pool.dtype, dev)
+        cache = init_kv_cache(spec, size, B, P, k_pool.dtype, dev,
+                              _kv_heads(tp, spec))
         h, (k_new, v_new) = apply_blocks_with_cache(
-            seg, cache, spec, h, bias, positions, 0, attention_fn)
+            seg, cache, spec, h, bias, positions, 0, attention_fn, tp, s)
         k_pool[:, rows, :P] = k_new
         v_pool[:, rows, :P] = v_new
     h_last = layer_norm(ln_f, h[:, -1], spec.layer_norm_epsilon)
-    logits0 = project_logits(embed, spec, h_last)  # [Bp, V]
+    logits0 = project_logits(embed, spec, h_last, tp)  # [Bp, V]
 
     landed, src = _slot_rows(slot_ids, S, dev)
     caps = _as(max_new, dev, torch.long)[src].clamp(0, T - P)
@@ -723,6 +768,7 @@ def decode_step(
     compute_dtype=torch.bfloat16,
     attention_fn=attention_scores,
     paged_decode_fn=None,
+    tp=None,
 ):
     """One decode step for every pool slot: sample from each slot's
     carried logits, forward the sampled tokens against the pool at
@@ -735,7 +781,8 @@ def decode_step(
     writes into its own row, an ``offset == T`` write into the drop
     position. ``paged_decode_fn`` (``serve.attention: pallas``, paged
     only) is handed to every layer's ``block_apply``; ``None`` keeps the
-    plain gather path.
+    plain gather path. ``tp`` as :func:`prefill_into_slots`' (the
+    kernel then reads this process's heads).
 
     Returns ``(pool, state, tokens [S] int32, emitted [S], finished
     [S])`` with the pool and the lanes updated in place.
@@ -770,24 +817,26 @@ def decode_step(
     bias = torch.where(state.valid > 0, 0.0, NEG_INF).float()[
         :, None, None, :]
     pos = state.pos.long()[:, None]
-    h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype)
+    embed, ln_f = _head(tp, embed, ln_f)
+    h = embed_tokens(embed, spec, tok[:, None], pos, compute_dtype, tp)
     paged = state.pages is not None
     pt_step = page_size = None
     if paged:
         num_pages, page_size = _pool_page_geometry(pool)
         pt_step = torch.where(emitted[:, None], state.pages,
                               num_pages).to(torch.int32).contiguous()
-    for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
+    for s, (seg, size, (k_c, v_c)) in enumerate(
+            zip(segments, seg_sizes, pool)):
         for i in range(size):
             h, _ = block_apply(
-                spec, flags, layer_params(seg, i), h, bias, pos,
+                spec, flags, _layer(tp, s, seg, i), h, bias, pos,
                 kv_cache=(_kv_layer(k_c, i), _kv_layer(v_c, i)),
                 cache_row_offsets=state.offset, page_table=pt_step,
                 page_size=page_size, attention_fn=attention_fn,
-                paged_decode_fn=paged_decode_fn if paged else None,
+                paged_decode_fn=paged_decode_fn if paged else None, tp=tp,
             )
     h_normed = layer_norm(ln_f, h, spec.layer_norm_epsilon)
-    next_logits = project_logits(embed, spec, h_normed)[:, 0]
+    next_logits = project_logits(embed, spec, h_normed, tp)[:, 0]
 
     adv = emitted.int()
     state.offset.add_(adv)
@@ -811,6 +860,7 @@ def verify_step(
     config: GenerationConfig,
     compute_dtype=torch.bfloat16,
     attention_fn=attention_scores,
+    tp=None,
 ):
     """Speculative-decoding verification (port of trlx_tpu's
     ``verify_step``): score K proposed tokens per slot in ONE batched
@@ -897,17 +947,19 @@ def verify_step(
 
     positions = state.pos.long()[:, None] \
         + torch.arange(Tc, device=dev)[None, :]
-    h = embed_tokens(embed, spec, cand, positions, compute_dtype)
-    for seg, size, (k_c, v_c) in zip(segments, seg_sizes, pool):
+    embed, ln_f = _head(tp, embed, ln_f)
+    h = embed_tokens(embed, spec, cand, positions, compute_dtype, tp)
+    for s, (seg, size, (k_c, v_c)) in enumerate(
+            zip(segments, seg_sizes, pool)):
         for i in range(size):
             h, _ = block_apply(
-                spec, flags, layer_params(seg, i), h, bias, positions,
+                spec, flags, _layer(tp, s, seg, i), h, bias, positions,
                 kv_cache=(_kv_layer(k_c, i), _kv_layer(v_c, i)),
                 cache_row_offsets=state.offset, page_table=pt_v,
-                page_size=page_size, attention_fn=attention_fn,
+                page_size=page_size, attention_fn=attention_fn, tp=tp,
             )
     h_normed = layer_norm(ln_f, h, spec.layer_norm_epsilon)
-    L = project_logits(embed, spec, h_normed)  # [S, Tc, V]
+    L = project_logits(embed, spec, h_normed, tp)  # [S, Tc, V]
 
     # proposal j (1-based emitted index) survives iff it is the greedy
     # token after candidate j - 1 and every earlier proposal survived

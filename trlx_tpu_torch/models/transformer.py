@@ -287,14 +287,19 @@ def block_apply(
     T == 1 with ``fn(q[:, 0], k_pages, v_pages, page_table, bias_row)``
     over the post-scatter pool without its drop page.
 
-    ``tp`` (trlx_tpu_torch.parallel.sharding ``TensorParallel``, dense
-    mode only): Megatron's tensor parallelism. ``p`` then holds this
+    ``tp`` (trlx_tpu_torch.parallel.sharding ``TensorParallel``, in
+    every mode): Megatron's tensor parallelism. ``p`` then holds this
     process's column shards of wq / wk / wv / w_in / w_gate and their
     biases (whole heads, so q / k / v carry this process's heads) and
     row shards of wo / w_out; the input of each column-parallel
     projection goes through ``tp.enter`` (its gradient summed over the
     tp group) and each row-parallel product through ``tp.reduce`` (the
-    sum over the group) before its bias.
+    sum over the group) before its bias. The caches and pools then hold
+    this process's KV heads, which is what each process writes and
+    reads. A ``tp`` whose ``attn`` (or ``mlp``) is False runs that
+    sublayer whole width with whole weights (the serve mesh's
+    trlx_tpu_torch.serve.layouts ``DecodeParallel``, where tp does not
+    divide the heads or the MLP width).
 
     Returns (h_out, new_cache) — the cache objects are updated in place.
     """
@@ -305,9 +310,11 @@ def block_apply(
 
     x = layer_norm(p["ln_1"], h, eps)
     attn = p["attn"]
-    if tp is not None:  # this process's heads
+    tp_attn = tp if tp is not None and tp.attn else None
+    tp_mlp = tp if tp is not None and tp.mlp else None
+    if tp_attn is not None:  # this process's heads
         H, Hkv = H // tp.size, Hkv // tp.size
-    x_in = x if tp is None else tp.enter(x)
+    x_in = x if tp_attn is None else tp_attn.enter(x)
     q = _project(x_in, attn["wq"], attn.get("bq")).reshape(B, T, H, hd)
     k = _project(x_in, attn["wk"], attn.get("bk")).reshape(B, T, Hkv, hd)
     v = _project(x_in, attn["wv"], attn.get("bv")).reshape(B, T, Hkv, hd)
@@ -405,26 +412,28 @@ def block_apply(
     else:
         a = attention_fn(q, k, v, mask_bias)
 
-    def row_parallel(y, w, b=None):
-        if tp is None:
+    def row_parallel(y, w, b=None, group=None):
+        if group is None:
             return _project(y, w, b)
-        y = tp.reduce(_project(y, w))
+        y = group.reduce(_project(y, w))
         return y if b is None else y + b.to(y.dtype)
 
-    a = row_parallel(a.reshape(B, T, H * hd), attn["wo"], attn.get("bo"))
+    a = row_parallel(a.reshape(B, T, H * hd), attn["wo"], attn.get("bo"),
+                     tp_attn)
 
     def mlp(mlp_in):
         mp = p["mlp"]
-        if tp is not None:
-            mlp_in = tp.enter(mlp_in)
+        if tp_mlp is not None:
+            mlp_in = tp_mlp.enter(mlp_in)
         if flags.swiglu:
             gate = F.silu(_project(mlp_in, mp["w_gate"]))
             return row_parallel(gate * _project(mlp_in, mp["w_in"]),
-                                mp["w_out"])
+                                mp["w_out"], group=tp_mlp)
         return row_parallel(
             gelu_new(_project(mlp_in, mp["w_in"], mp["b_in"])),
             mp["w_out"],
             mp["b_out"],
+            tp_mlp,
         )
 
     if flags.parallel_block:
@@ -494,9 +503,12 @@ def apply_blocks(blocks, spec, h, mask_bias, positions,
 
 
 def init_kv_cache(spec: ModelSpec, n_layers: int, batch: int,
-                  buffer_len: int, dtype=torch.bfloat16, device=None):
-    """(k, v) buffers [L, B, buffer_len, Hkv, hd] (compact KV heads)."""
-    shape = (n_layers, batch, buffer_len, spec.kv_heads, spec.head_dim)
+                  buffer_len: int, dtype=torch.bfloat16, device=None,
+                  kv_heads: Optional[int] = None):
+    """(k, v) buffers [L, B, buffer_len, Hkv, hd] (compact KV heads;
+    ``kv_heads`` the heads one process of a tp mesh holds)."""
+    shape = (n_layers, batch, buffer_len, kv_heads or spec.kv_heads,
+             spec.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -522,16 +534,18 @@ def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype):
 
 
 def init_paged_kv_cache(spec: ModelSpec, n_layers: int, num_pages: int,
-                        page_size: int, dtype=torch.bfloat16, device=None):
+                        page_size: int, dtype=torch.bfloat16, device=None,
+                        kv_heads: Optional[int] = None):
     """(k, v) page pools [L, num_pages + 1, page_size, Hkv, hd]: the global
     pool of fixed-size KV pages shared by every slot, plus one trailing
-    DROP page that absorbs sentinel writes (module docstring).
+    DROP page that absorbs sentinel writes (module docstring). Under tp
+    each process's pool holds its ``kv_heads``.
 
     ``dtype=torch.int8`` selects the quantized tier: each of k/v becomes
     a ``(codes int8 [...], scales f32 [L, num_pages + 1, page_size,
     Hkv])`` pair.
     """
-    shape = (n_layers, num_pages + 1, page_size, spec.kv_heads,
+    shape = (n_layers, num_pages + 1, page_size, kv_heads or spec.kv_heads,
              spec.head_dim)
 
     def zeros(s, dt):
@@ -546,32 +560,43 @@ def init_paged_kv_cache(spec: ModelSpec, n_layers: int, num_pages: int,
 
 def apply_blocks_with_cache(blocks, cache, spec, h, mask_bias, positions,
                             cache_offset: int = 0,
-                            attention_fn=attention_scores):
+                            attention_fn=attention_scores, tp=None,
+                            segment: int = 0):
     """Run stacked blocks writing/reading a dense KV cache (prefill):
-    cache = ([L, B, S, Hkv, hd], ...), updated in place."""
+    cache = ([L, B, S, Hkv, hd], ...), updated in place. ``tp``: a serve
+    mesh's ``DecodeParallel`` (trlx_tpu_torch.serve.layouts), whose
+    ``layer`` gathers block segment ``segment``'s layers on use."""
     flags = ArchFlags.for_spec(spec)
     k_all, v_all = cache
     for i in range(num_layers(blocks)):
+        p_i = layer_params(blocks, i)
+        if tp is not None:
+            p_i = tp.layer(segment, p_i)
         h, _ = block_apply(
-            spec, flags, layer_params(blocks, i), h, mask_bias, positions,
+            spec, flags, p_i, h, mask_bias, positions,
             kv_cache=(k_all[i], v_all[i]), cache_offset=cache_offset,
-            attention_fn=attention_fn,
+            attention_fn=attention_fn, tp=tp,
         )
     return h, cache
 
 
 def embed_tokens(embed: Params, spec: ModelSpec, tokens: torch.Tensor,
                  positions: torch.Tensor,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16, tp=None) -> torch.Tensor:
     """Token (+ learned position) embeddings. Indices are clamped into
-    range, as JAX's gathers clamp."""
+    range, as JAX's gathers clamp. ``tp`` (a serve mesh's
+    ``DecodeParallel``): ``wte`` may be this process's vocabulary shard,
+    looked up masked and summed over the tp group."""
     if tokens.shape[-1] > spec.n_positions:
         raise ValueError(
             f"sequence length {tokens.shape[-1]} exceeds n_positions "
             f"{spec.n_positions}"
         )
     wte = embed["wte"]
-    h = wte[tokens.long().clamp(0, wte.shape[0] - 1)].to(compute_dtype)
+    if tp is not None:
+        h = tp.embed_rows(wte, tokens).to(compute_dtype)
+    else:
+        h = wte[tokens.long().clamp(0, wte.shape[0] - 1)].to(compute_dtype)
     if "wpe" in embed:
         wpe = embed["wpe"]
         h = h + wpe[positions.long().clamp(0, wpe.shape[0] - 1)].to(
@@ -581,14 +606,18 @@ def embed_tokens(embed: Params, spec: ModelSpec, tokens: torch.Tensor,
 
 
 def project_logits(embed: Params, spec: ModelSpec,
-                   h_normed: torch.Tensor) -> torch.Tensor:
-    """(Tied or untied) LM head on layernormed hidden; float32 logits."""
+                   h_normed: torch.Tensor, tp=None) -> torch.Tensor:
+    """(Tied or untied) LM head on layernormed hidden; float32 logits.
+    ``tp`` (a serve mesh's ``DecodeParallel``): the head may be this
+    process's vocabulary shard, whose logits are gathered whole."""
     if spec.tie_lm_head:
         logits = h_normed @ embed["wte"].t().to(h_normed.dtype)
     else:
         head = embed["lm_head"]
         logits = h_normed @ head["w"].to(h_normed.dtype) \
             + head["b"].to(h_normed.dtype)
+    if tp is not None:
+        logits = tp.whole_vocab(logits)
     return logits.float()
 
 

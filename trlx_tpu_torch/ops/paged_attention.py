@@ -227,6 +227,13 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, bias):
 
 def make_paged_decode_fn():
     """The ``block_apply(paged_decode_fn=...)`` seam: ``fn(q1, k_pages,
-    v_pages, page_table, bias_row)``. Single device only (tensor-parallel
-    serving is a later slice)."""
+    v_pages, page_table, bias_row)``.
+
+    On a tp serve mesh each process calls it with its own heads: q [S,
+    H/tp, hd] against its pool's Hkv/tp heads when tp divides both, the
+    whole width otherwise (trlx_tpu_torch.serve.layouts, the placements
+    of trlx_tpu's ``shard_map`` in_specs), with the page table and the
+    bias row the same on every process. The tensors a process holds are
+    already its shard, so the seam is the kernel itself, with no mesh
+    argument: nothing here gathers or splits."""
     return paged_decode_attention

@@ -440,7 +440,15 @@ class TensorParallel:
     ``enter`` is the identity whose backward sums the gradient over the
     group (each process's column shard sees only its part of it);
     ``reduce`` sums the row-parallel partial products over the group,
-    and its backward is the identity."""
+    and its backward is the identity.
+
+    ``attn`` / ``mlp``: whether the attention and the MLP run on this
+    process's shards (always here; the serve mesh's subclass,
+    trlx_tpu_torch.serve.layouts ``DecodeParallel``, runs a sublayer tp
+    does not divide whole width)."""
+
+    attn = True
+    mlp = True
 
     def __init__(self, mesh):
         self.group = mesh.get_group(AXES.index("tp"))

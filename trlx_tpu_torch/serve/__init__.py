@@ -1,7 +1,8 @@
 """Inference serving on the card (port of trlx_tpu.serve).
 
 - :class:`InferenceEngine` (serve.engine) — a policy's decode views on
-  one device + the bucket lattice and paged-pool geometry; weights
+  one device (or a process's slices on the serve mesh) + the bucket
+  lattice and paged-pool geometry; weights
   hot-swap in place;
 - :class:`SlotScheduler` (serve.slots) — continuous batching over a
   paged KV pool with radix-tree prefix caching (serve.paged), or a
@@ -14,7 +15,10 @@
 - :class:`InferenceServer` (serve.server) — stdlib JSON API
   (``POST /generate``, ``/admin/drain``, ``/admin/reload``; ``GET
   /healthz``, ``/readyz``, ``/metrics``, ``/debug/state``,
-  ``/debug/slo``) and the serve watchdog.
+  ``/debug/slo``) and the serve watchdog;
+- the tp serve mesh (``serve.mesh``): the decode placements and their
+  operators (serve.layouts) and the follower processes that mirror
+  process 0's device calls (serve.follower).
 """
 
 from trlx_tpu_torch.serve.batcher import (  # noqa: F401

@@ -25,10 +25,16 @@ Examples::
     python -m trlx_tpu_torch.serve --checkpoint ckpts --stall-timeout 60 \
         --watch-checkpoints 30 --drain-timeout 30
 
+    torchrun --nproc_per_node 2 -m trlx_tpu_torch.serve \
+        --config configs/test_config.yml --mesh tp=2 --port 8080
+
 The serve watchdog is armed by ``serve.stall_timeout`` (the flag, or
 the config's ``serve:`` section, as ``configs/ppo_config.yml`` sets
-it); SIGTERM drains and exits 0. The tp serve mesh (``serve.mesh``) is
-not ported, so there are no mesh flags.
+it); SIGTERM drains and exits 0. ``--mesh tp=N[,fsdp=M]`` serves one
+model over the tp x fsdp processes of a ``torchrun`` launch (one card
+each; with ``--device cpu`` gloo processes): process 0 answers HTTP and
+the others follow its device calls (trlx_tpu_torch.serve.follower),
+each arming the watchdog and exiting 0 after the drain.
 """
 
 import argparse
@@ -54,6 +60,22 @@ def parse_buckets(spec: str):
                 f"bucket '{part}' is not BATCHxPROMPTxGEN (e.g. 8x32x16)"
             )
         out.append([int(d) for d in dims])
+    return out
+
+
+def parse_mesh(spec: str):
+    """"tp=2,fsdp=2" -> {"tp": 2, "fsdp": 2} ("" -> single-device)."""
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"mesh axis '{part}' is not AXIS=SIZE (e.g. tp=2,fsdp=2)"
+            )
+        axis, _, size = part.partition("=")
+        out[axis.strip()] = int(size)
     return out
 
 
@@ -147,6 +169,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="poll the run dir's LATEST every N seconds and "
                         "hot-swap new checkpoints (0 = off; POST "
                         "/admin/reload works either way)")
+    p.add_argument("--mesh", default=None,
+                   help="serve mesh as AXIS=SIZE pairs over tp/fsdp, "
+                        "e.g. 'tp=2,fsdp=2': weights shard Megatron-style "
+                        "and KV pages shard on the head dim over the "
+                        "processes of a torchrun launch (default: single "
+                        "device; '' forces single-device over a config's "
+                        "serve.mesh)")
+    p.add_argument("--mesh-weights", choices=("fsdp", "replicated"),
+                   default=None,
+                   help="weight placement under --mesh: 'fsdp' shards "
+                        "the second matrix axis (gathered on use), "
+                        "'replicated' keeps weights whole per process")
     p.add_argument("--degrade-step-ms", type=float, default=None,
                    help="halve the queue bound while a decode step takes "
                         "longer than this (0 = off)")
@@ -175,6 +209,10 @@ def serve_config_from_args(args, raw: dict) -> ServeConfig:
     cfg = ServeConfig.from_dict(raw.get("serve") or {})
     if args.buckets is not None:
         cfg.buckets = parse_buckets(args.buckets)
+    if args.mesh is not None:
+        cfg.mesh = parse_mesh(args.mesh) or None
+    if args.mesh_weights is not None:
+        cfg.mesh_weights = args.mesh_weights
     for flag in ("seed", "max_wait_ms", "max_queue", "request_timeout",
                  "stall_timeout", "scheduler", "slots", "kv_layout",
                  "page_size", "pages", "attention", "kv_dtype",
@@ -215,6 +253,10 @@ def build_engine(args) -> InferenceEngine:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     engine = build_engine(args)
+    if engine.channel is not None and not engine.channel.leader:
+        from trlx_tpu_torch.serve.follower import serve_follower
+
+        return serve_follower(engine)
     server = InferenceServer(engine).start(warmup=not args.no_warmup)
     server.serve_forever()
     return 0

@@ -2,9 +2,11 @@
 trlx_tpu.serve.engine).
 
 :class:`InferenceEngine` holds what decode reads — the (trunk,
-trainable-top) block segments, embed (+ lm_head), ln_f — on one device,
-plus the bucket lattice and the paged-pool geometry the slot scheduler
-(trlx_tpu_torch.serve.slots) sizes itself from. Weights come in as
+trainable-top) block segments, embed (+ lm_head), ln_f — on one device
+or, under ``serve.mesh``, as this process's slices on a tp x fsdp serve
+mesh (trlx_tpu_torch.serve.layouts), plus the bucket lattice and the
+paged-pool geometry the slot scheduler (trlx_tpu_torch.serve.slots)
+sizes itself from. Weights come in as
 :class:`~trlx_tpu_torch.models.params.DecodeViews` (carried across from
 a trlx_tpu tree, loaded from a ``torch.save`` file, or a seeded random
 init), as a hydra param tree (``params``: a trainer's own tensors serve
@@ -30,9 +32,15 @@ per-output-channel int8 block weights (:func:`quantize_serve_weights`);
 ``priority_aging_rounds`` / ``degrade_step_ms`` overload containment,
 ``request_tracing`` / ``slo_*`` / ``flight_recorder_steps`` tracing,
 ``stall_timeout`` the serve watchdog, ``max_replays`` / ``drain_timeout``
-/ ``watch_checkpoints`` the crash-only lifecycle. The tp serve mesh
-(``mesh``, ``mesh_weights``) is not ported yet: a config may carry it at
-its defaults, any other value is refused (:data:`DEFERRED_KNOBS`).
+/ ``watch_checkpoints`` the crash-only lifecycle, ``mesh`` /
+``mesh_weights`` the tp serve mesh.
+
+The serve mesh is the world of a ``torchrun`` launch, one process per
+card. Every process builds the engine from the same config and keeps
+its slices of each leaf; process 0 runs the host side (scheduler,
+radix cache, HTTP) and every other process mirrors its device calls
+(trlx_tpu_torch.serve.follower, over :attr:`InferenceEngine.channel`).
+With ``mesh`` unset there is no process group and no collective.
 
 Hot-swap (:meth:`InferenceEngine.install_views`) writes the candidate
 INTO the engine's own tensors: the decode graphs captured those tensors,
@@ -70,19 +78,10 @@ Bucket = Tuple[int, int, int]  # (batch, prompt_len, gen_len)
 
 _DEFAULT_BUCKETS = ((4, 32, 32), (8, 64, 64))
 
-#: trlx_tpu serve knobs whose features a later slice ports (tp serve
-#: meshes, with parallelism): a config may carry them at trlx_tpu's
-#: defaults; any other value is refused rather than silently ignored
-DEFERRED_KNOBS: Dict[str, Any] = {
-    "mesh": None,
-    "mesh_weights": "fsdp",
-}
-
-
 @dataclass
 class ServeConfig:
     """The ``serve:`` YAML section / CLI knobs (trlx_tpu's names and
-    defaults; every field of trlx_tpu's but the deferred tp mesh).
+    defaults, every field of trlx_tpu's).
 
     :param buckets: the (batch, prompt_len, gen_len) lattice; requests
         round UP to the smallest (prompt_len, gen_len) class that fits,
@@ -162,6 +161,12 @@ class ServeConfig:
         directory for ``speculation: draft``.
     :param spec_index_max_keys: per-slot LRU bound on the lookup tier's
         n-gram keys.
+    :param mesh: the tp serve mesh ``{"tp": n, "fsdp": m}`` (None = one
+        device, no process group); the world must hold tp x fsdp
+        processes.
+    :param mesh_weights: the second matrix axis under ``mesh``:
+        ``"fsdp"`` shards it (gathered on use), ``"replicated"`` keeps it
+        whole on every process.
     """
 
     buckets: List[List[int]] = field(
@@ -200,17 +205,12 @@ class ServeConfig:
     spec_ngram_max: int = 3
     spec_draft_checkpoint: Optional[str] = None
     spec_index_max_keys: int = 512
+    mesh: Optional[Dict[str, int]] = None
+    mesh_weights: str = "fsdp"
 
     @classmethod
     def from_dict(cls, config: Optional[Dict[str, Any]]) -> "ServeConfig":
-        config = dict(config or {})
-        for knob, default in DEFERRED_KNOBS.items():
-            if knob in config and config[knob] != default:
-                raise NotImplementedError(
-                    f"serve.{knob}={config[knob]!r} is not ported to "
-                    f"trlx_tpu_torch yet (only {default!r}); see ROADMAP.md"
-                )
-        return cls(**filter_known_fields(cls, config))
+        return cls(**filter_known_fields(cls, dict(config or {})))
 
 
 #: block matmul leaves serve.weights_dtype: int8 quantizes — the stacked
@@ -219,7 +219,7 @@ _QUANT_WEIGHT_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out", "w_gate")
 
 
 @torch.no_grad()
-def quantize_serve_weights(blocks, device=None):
+def quantize_serve_weights(blocks, device=None, tp=None):
     """Serve-only int8 weight views: each stacked block matrix
     [L, in, out] becomes a ``(codes int8 [L, in, out], scale float32
     [L, 1, out])`` pair — symmetric per-output-channel quantization,
@@ -227,35 +227,48 @@ def quantize_serve_weights(blocks, device=None):
     leaf's own) is where the pair lands. One layer at a time, so the
     float32 temporary is one [in, out] matrix (the scales are per
     output channel: the result is the stacked computation's). A pair
-    already quantized passes through."""
+    already quantized passes through.
 
-    def quantize(x):
+    ``tp`` (a serve mesh's ``DecodeParallel``): ``blocks`` are this
+    process's slices; a channel's max over an input dim that the mesh
+    shards is taken over the shards' group, so the codes are the
+    single-device ones cut to the slice."""
+
+    def quantize(x, spec):
         dev = x.device if device is None else torch.device(device)
         L, n_in, n_out = x.shape
         codes = torch.empty((L, n_in, n_out), dtype=torch.int8, device=dev)
         scale = torch.empty((L, 1, n_out), dtype=torch.float32, device=dev)
+        in_axis = spec[0][1] if spec is not None else None
         for i in range(L):
             x32 = x[i].to(device=dev, dtype=torch.float32)
-            s = x32.abs().amax(dim=0, keepdim=True) / 127.0 + 1e-8
+            amax = x32.abs().amax(dim=0, keepdim=True)
+            if in_axis is not None:
+                tp.all_reduce_max(amax, in_axis)
+            s = amax / 127.0 + 1e-8
             codes[i] = torch.clamp(torch.round(x32 / s), -127, 127).to(
                 torch.int8)
             scale[i] = s
             del x32
         return codes, scale
 
-    def walk(tree):
+    def walk(tree, specs):
+        def sub(key):
+            return None if specs is None else specs[key]
+
         if isinstance(tree, dict):
-            return {k: quantize(v) if k in _QUANT_WEIGHT_LEAVES
-                    and torch.is_tensor(v) and v.dim() == 3 else walk(v)
+            return {k: quantize(v, sub(k)) if k in _QUANT_WEIGHT_LEAVES
+                    and torch.is_tensor(v) and v.dim() == 3
+                    else walk(v, sub(k))
                     for k, v in tree.items()}
         if isinstance(tree, list):
-            return [walk(v) for v in tree]
+            return [walk(v, sub(i)) for i, v in enumerate(tree)]
         if isinstance(tree, tuple) and not (
                 len(tree) == 2 and all(torch.is_tensor(m) for m in tree)):
-            return tuple(walk(v) for v in tree)
+            return tuple(walk(v, sub(i)) for i, v in enumerate(tree))
         return tree
 
-    return walk(blocks)
+    return walk(blocks, None if tp is None else tp.block_specs)
 
 
 def _normalize_buckets(buckets) -> Tuple[Bucket, ...]:
@@ -274,7 +287,8 @@ def _normalize_buckets(buckets) -> Tuple[Bucket, ...]:
 
 
 class InferenceEngine:
-    """A policy's decode views on one device + its serving lattice.
+    """A policy's decode views on one device (or this process's slices
+    of them on the serve mesh) + its serving lattice.
 
     :meth:`decode` serialises its dispatches under a lock (the static
     micro-batcher is its one caller; the lock makes direct use from
@@ -308,6 +322,22 @@ class InferenceEngine:
         self.serve = serve or ServeConfig()
         self._validate()
         self.device = resolve_device(device)
+        from trlx_tpu_torch.serve import layouts
+        from trlx_tpu_torch.serve.follower import HostChannel
+
+        #: the serve mesh (None: one device, no process group) and the
+        #: host channel its process 0 mirrors device calls over
+        self.mesh = layouts.build_serve_mesh(self.serve.mesh,
+                                             self.device.type)
+        self.channel = HostChannel() if self.mesh is not None else None
+        if self.serve.scheduler == "static" and self.channel is not None \
+                and self.channel.world > 1:
+            raise NotImplementedError(
+                f"serve.scheduler 'static' on a serve mesh of "
+                f"{self.channel.world} processes is not ported to "
+                f"trlx_tpu_torch yet (its batches would have to be "
+                f"mirrored on every process); use scheduler: slots, or "
+                f"see ROADMAP.md")
         self.buckets = _normalize_buckets(self.serve.buckets)
         self.tokenizer = load_tokenizer(config.model.tokenizer_path)
         spec, trunk = self._resolve_spec_and_trunk(config)
@@ -355,11 +385,20 @@ class InferenceEngine:
         elif views is None:
             views = init_decode_views(spec, self.serve.seed, k)
         del params, trunk
+        #: the decode step's operators on the mesh (None without one)
+        self.tp = None
+        if self.mesh is not None:
+            self.tp = layouts.DecodeParallel(
+                self.mesh, spec, self._template(views),
+                self.serve.mesh_weights)
+            # each process keeps its slices, as copies of its own
+            views = DecodeViews(*layouts.shard_views(
+                self.mesh, views, self.serve.mesh_weights))
         if self.serve.weights_dtype == "int8":
             # quantized from the weights as given (float32 for a numpy
             # tree), on the serving device, a layer at a time
             views = views._replace(blocks=quantize_serve_weights(
-                views.blocks, self.device))
+                views.blocks, self.device, self.tp))
         views = views_to(views, self.device, self.compute_dtype)
         self.blocks, self.embed, self.ln_f = views
         self._borrowed = _tensor_ptrs(views) & given
@@ -369,6 +408,10 @@ class InferenceEngine:
             for t in _leaves(part)
         )
         telemetry.set_gauge("serve/model_gb", n_bytes / 2**30)
+        telemetry.set_gauge("serve/mesh_devices",
+                            self.mesh_info()["devices"])
+        telemetry.set_gauge("serve/params_gb_per_device",
+                            self._params_bytes() / 2**30)
         #: the static path: one rollout decoder per bucket (its own
         #: graph cache), one sampling stream re-seeded per batch
         self._decoders: Dict[Bucket, Any] = {}
@@ -377,6 +420,36 @@ class InferenceEngine:
         #: swap's probe decodes while holding it)
         self._lock = threading.RLock()
         self.warmed = False
+
+    def _template(self, views) -> DecodeViews:
+        """The serving views' leaves as meta tensors of their whole
+        shapes, quantized as ``weights_dtype`` says: what the mesh
+        placements are fitted to."""
+        meta = DecodeViews(*tree_map(
+            lambda t: torch.empty(tuple(t.shape), device="meta"),
+            tuple(views)))
+        if self.serve.weights_dtype == "int8":
+            meta = meta._replace(blocks=quantize_serve_weights(
+                meta.blocks, "meta"))
+        return meta
+
+    def _params_bytes(self) -> int:
+        from trlx_tpu_torch.serve import layouts
+
+        return layouts.tree_bytes_per_device(
+            (self.blocks, self.embed, self.ln_f))
+
+    def mesh_info(self) -> Dict[str, Any]:
+        """The serve-mesh block /healthz and /debug/state report: axis
+        names and sizes, device count, weight placement, and the params
+        GB each process holds (what capacity planning sizes against)."""
+        from trlx_tpu_torch.serve import layouts
+
+        info = layouts.mesh_info(self.mesh, self.serve.mesh_weights)
+        if getattr(self, "blocks", None) is not None:
+            info["params_gb_per_device"] = round(
+                self._params_bytes() / 2**30, 6)
+        return info
 
     @staticmethod
     def _resolve_spec_and_trunk(config: TRLConfig):
@@ -416,8 +489,8 @@ class InferenceEngine:
         given. The decode views are built from the restored params."""
         from trlx_tpu_torch.utils.checkpoint import restore_tensor_component
 
-        params, meta, resolved = restore_tensor_component("params",
-                                                          checkpoint)
+        params, meta, resolved = restore_tensor_component(
+            "params", checkpoint, mmap=bool(serve is not None and serve.mesh))
         if config is None:
             if "config" not in meta:
                 raise ValueError(
@@ -515,6 +588,11 @@ class InferenceEngine:
             # parsed eagerly, so a bad tenants block fails at boot with a
             # config-shaped error, not at first admission
             TenantTable(s.tenants, s.max_queue)
+        if s.mesh_weights not in ("fsdp", "replicated"):
+            raise ValueError(
+                f"serve.mesh_weights '{s.mesh_weights}' is not "
+                f"one of: fsdp, replicated"
+            )
         if s.attention not in ("jnp", "pallas"):
             raise ValueError(
                 f"serve.attention '{s.attention}' is not one of: jnp, pallas"
@@ -578,8 +656,9 @@ class InferenceEngine:
 
     def strip_for_serve(self, params: Dict) -> DecodeViews:
         """A hydra param tree (numpy or torch leaves; a checkpoint's
-        decode subset from :meth:`load_params`) reduced to decode views
-        the way construction does it — int8-quantized under
+        decode subset from :meth:`load_params`, on the serve mesh this
+        process's slices of it) reduced to decode views the way
+        construction does it — int8-quantized under
         ``weights_dtype: int8``, on the serving device in the compute
         dtype — WITHOUT installing them: the candidate must pass
         :meth:`validate_swap` and a smoke probe first. Installing
@@ -593,7 +672,7 @@ class InferenceEngine:
                                         self.config.model.num_layers_unfrozen)
         if self.serve.weights_dtype == "int8":
             views = views._replace(blocks=quantize_serve_weights(
-                views.blocks, self.device))
+                views.blocks, self.device, self.tp))
         views = views_to(views, self.device, self.compute_dtype)
         return type(views)(*tree_map(
             lambda t: t.clone() if _ptr(t) in given else t, tuple(views)))
@@ -680,7 +759,10 @@ class InferenceEngine:
         ``/admin/reload`` answers 409. The file is memory-mapped and
         only the decode subset (the trunk, the trainable blocks, ln_f
         and an untied lm_head; no reference branch, no value head) is
-        returned, so the rest is never read from disk."""
+        returned, so the rest is never read from disk. On the serve mesh
+        each leaf is this process's slice under the decode placements
+        (trlx_tpu_torch.serve.layouts), copied out of the mapping, so a
+        process reads its slices only."""
         import os
 
         from trlx_tpu_torch.utils.checkpoint import (
@@ -705,8 +787,14 @@ class InferenceEngine:
         trainable = {k: v for k, v in tree["trainable"].items()
                      if k != "v_head"}
         telemetry.inc("checkpoint/restores")
-        return {"frozen_base": tree["frozen_base"],
-                "trainable": trainable}, resolved
+        subset = {"frozen_base": tree["frozen_base"], "trainable": trainable}
+        if self.mesh is not None:
+            from trlx_tpu_torch.serve import layouts
+            from trlx_tpu_torch.utils.checkpoint import slice_tree
+
+            subset = slice_tree(subset, layouts.decode_slicer(
+                self.mesh, self.serve.mesh_weights))
+        return subset, resolved
 
     # -- bucket lattice ------------------------------------------------- #
 
@@ -825,7 +913,7 @@ class InferenceEngine:
                 torch.as_tensor(np.ascontiguousarray(mask, np.int32),
                                 device=self.device),
                 self._generator, cfg, compute_dtype=self.compute_dtype,
-                decoder=self._decoder(bucket),
+                decoder=self._decoder(bucket), tp=self.tp,
             )
             return type(out)(*(x.cpu().numpy() for x in out))
 

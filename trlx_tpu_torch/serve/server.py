@@ -24,8 +24,9 @@ submit / wait / drain / swap surface.
   over :data:`MAX_HOPS`: a proxy loop), 500 (decode failure).
 - ``GET /healthz`` — liveness, the scheduler, lattice, queue depth and,
   under the slot scheduler, its slots, free slots and the pool's ``kv``
-  block; ``recompiles`` (the ``compile/recompiles`` counter: 0 once
-  warmed, the serving invariant).
+  block; the ``mesh`` block (devices, axes, weight placement, params GB
+  per device); ``recompiles`` (the ``compile/recompiles`` counter: 0
+  once warmed, the serving invariant).
 - ``GET /readyz`` — readiness: 200 only while warmed and admitting (503
   once a drain began), with ``model_version`` and the scheduler's
   ``pressure`` block.
@@ -58,6 +59,13 @@ CUDA error poisons the context, so that process exits 70 as well
 chaos seam fires at its entry. SIGTERM only sets an event; the
 ``serve_forever`` loop starts the drain and returns, so the process
 exits 0.
+
+On a serve mesh (``serve.mesh``) the server runs on process 0 only: its
+scheduler publishes every device call to the other processes
+(trlx_tpu_torch.serve.follower), ``/admin/reload`` has each of them
+restore its own slices of the checkpoint, and the stop at the end of a
+drain ends their loops, so they exit 0 too. ``/metrics`` carries
+``serve/mesh_devices`` and ``serve/params_gb_per_device``.
 """
 
 import json
@@ -292,6 +300,7 @@ class InferenceServer:
             body["slots"] = sched.runtime.num_slots
             body["free_slots"] = sched.free_slots()
             body["kv"] = sched.pool_stats()
+        body["mesh"] = self.engine.mesh_info()
         body["recompiles"] = telemetry.summary().get(
             "counters", {}).get("compile/recompiles", 0.0)
         return 200, body
@@ -318,6 +327,7 @@ class InferenceServer:
             "model_version": self.engine.model_version,
             "slots": {},
             "flight_recorder": [],
+            "mesh": self.engine.mesh_info(),
         }
 
     @staticmethod
@@ -574,6 +584,11 @@ class InferenceServer:
             telemetry.set_gauge("serve/pages_free", cache.free_pages())
             telemetry.set_gauge("serve/prefix_hit_rate", 0.0)
         telemetry.set_gauge("serve/model_version", self.engine.model_version)
+        # the serve-mesh capacity gauges (also set at construction)
+        mesh = self.engine.mesh_info()
+        telemetry.set_gauge("serve/mesh_devices", mesh["devices"])
+        telemetry.set_gauge("serve/params_gb_per_device",
+                            mesh["params_gb_per_device"])
         if warmup and not self.warmed:
             for name, secs in self.scheduler.warmup().items():
                 print(f"[trlx_tpu_torch.serve] warmed {name}: {secs:.3f}s "

@@ -15,7 +15,10 @@
   Pool and lanes are static buffers updated in place. ``serve.attention:
   pallas`` hands decode the hand-written paged-decode kernel, which then
   runs inside the step's graph at either KV tier; prefill and the verify
-  pass are plain torch.
+  pass are plain torch. On the serve mesh (``serve.mesh``) the pool holds
+  this process's KV heads, the calls run on its shards with the tp sums
+  and fsdp gathers captured in the graphs, and process 0 mirrors every
+  call to the other processes (trlx_tpu_torch.serve.follower).
 - :class:`SlotScheduler` runs the host loop on one worker thread: at
   every step boundary it harvests finished rows (EOS, or the request's
   own ``max_new_tokens``), frees their slots (and pages), and admits
@@ -105,7 +108,7 @@ from trlx_tpu_torch.utils.aotjit import aot_jit
 
 
 def _prefill(spec, blocks, embed, ln_f, pool, state, inputs, compute_dtype,
-             page_size, suffix) -> None:
+             page_size, suffix, tp) -> None:
     """One admission bucket, in place on pool and lanes (a graph per
     bucket and variant on the card); ``page_tables`` and ``start`` are
     None under the contiguous layout."""
@@ -113,50 +116,73 @@ def _prefill(spec, blocks, embed, ln_f, pool, state, inputs, compute_dtype,
     prefill_into_slots(
         spec, blocks, embed, ln_f, pool, state, tokens, mask, slot_ids,
         max_new, compute_dtype=compute_dtype, page_tables=page_tables,
-        page_size=page_size, start=start, prefix_context=suffix,
+        page_size=page_size, start=start, prefix_context=suffix, tp=tp,
     )
 
 
 def _step(spec, blocks, embed, ln_f, pool, state, generator, config,
-          compute_dtype, paged_decode_fn) -> torch.Tensor:
+          compute_dtype, paged_decode_fn, tp) -> torch.Tensor:
     """One decode step for every slot; tokens, emitted and finished
     packed into one int32 [3, S] tensor, so the host reads them in one
     copy."""
     _, _, tok, emitted, finished = decode_step(
         spec, blocks, embed, ln_f, pool, state, generator, config,
-        compute_dtype=compute_dtype, paged_decode_fn=paged_decode_fn,
+        compute_dtype=compute_dtype, paged_decode_fn=paged_decode_fn, tp=tp,
     )
     return torch.stack([tok, emitted.int(), finished.int()])
 
 
 def _verify(spec, blocks, embed, ln_f, pool, state, generator, proposals,
-            n_proposed, config, compute_dtype) -> torch.Tensor:
+            n_proposed, config, compute_dtype, tp) -> torch.Tensor:
     """One speculative verify pass for every slot; candidates [S, K+1],
     counts and finished packed into one int32 [S, K+3] tensor."""
     _, _, cand, counts, finished = verify_step(
         spec, blocks, embed, ln_f, pool, state, generator, proposals,
-        n_proposed, config, compute_dtype=compute_dtype,
+        n_proposed, config, compute_dtype=compute_dtype, tp=tp,
     )
     return torch.cat([cand, counts[:, None], finished.int()[:, None]], 1)
 
 
 class SlotPoolRuntime:
     """Device half of the slot scheduler: the pool, per-slot lanes, and
-    the prefill / step / verify calls."""
+    the prefill / step / verify calls.
+
+    On a serve mesh of several processes, process 0's runtime publishes
+    each call (:meth:`prefill`, :meth:`step`, :meth:`verify`,
+    :meth:`reset_lanes`, :meth:`install`, :meth:`end_swap`) on the
+    engine's host channel before it runs it, and the followers' runtimes
+    run the same calls (trlx_tpu_torch.serve.follower ``follow``);
+    :meth:`close` ends them."""
 
     STEP_SPAN = "serve/slot_step"
     VERIFY_SPAN = "serve/spec_verify"
 
     def __init__(self, engine, num_slots: Optional[int] = None):
+        import hashlib
+
+        import torch.distributed as dist
+
         from trlx_tpu_torch.ops.paged_attention import make_paged_decode_fn
+        from trlx_tpu_torch.utils import aotjit
 
         self.engine = engine
         self.device = engine.device
+        self.tp = engine.tp
+        if self.tp is not None and self.device.type == "cuda" \
+                and aotjit.CUDA_GRAPHS and dist.get_backend() != "nccl":
+            raise RuntimeError(
+                "the serve mesh's collectives run over gloo here, which a "
+                "CUDA graph cannot capture: serve on the card with an NCCL "
+                "process group (one process per card), or turn the decode "
+                "graphs off (trlx_tpu_torch.utils.aotjit.CUDA_GRAPHS = "
+                "False)")
         self.num_slots = engine.slot_count() if num_slots is None \
             else int(num_slots)
         self.kv_layout = engine.serve.kv_layout
         self._segments, self._seg_sizes = _segments_of(engine.blocks)
         self._vocab = engine.spec.vocab_size
+        kv_heads = engine.spec.kv_heads if self.tp is None \
+            else self.tp.kv_heads(engine.spec)
         if self.kv_layout == "paged":
             self.page_size = engine.page_size_tokens()
             self.max_pages = engine.pages_per_slot()
@@ -169,14 +195,14 @@ class SlotPoolRuntime:
                 else torch.bfloat16
             self.pool = init_page_pool(
                 engine.spec, self._seg_sizes, self.num_pages,
-                self.page_size, cache_dtype, self.device,
+                self.page_size, cache_dtype, self.device, kv_heads,
             )
         else:
             self.page_size = self.max_pages = self.num_pages = 0
             self.buffer_len = engine.slot_buffer_len()
             self.pool = init_slot_pool(
                 engine.spec, self._seg_sizes, self.num_slots,
-                self.buffer_len, torch.bfloat16, self.device,
+                self.buffer_len, torch.bfloat16, self.device, kv_heads,
             )
         self.state = self._fresh_state()
         #: one sampling stream, re-seeded per step from serve.seed + step
@@ -197,6 +223,27 @@ class SlotPoolRuntime:
         self._step_fn = aot_jit(_step)
         self._verify_fn = aot_jit(_verify)
         self._prefill_fns = {}  # (Bp, P[, suffix]) -> its own aot_jit
+        #: sha-256 of every step's and verify pass's host results on this
+        #: process: equal on every process of a mesh that kept in step
+        self.digest = hashlib.sha256()
+        #: during a hot-swap, the candidate's tensors (holding the
+        #: previous weights once installed): the rollback copy
+        self._held = None
+        self._closed = False
+
+    def _mirror(self, op: str, *args) -> None:
+        """Process 0 of a serve mesh publishes the call to the followers
+        before running it (a no-op elsewhere)."""
+        channel = self.engine.channel
+        if channel is not None and channel.leader:
+            channel.send(op, *args)
+
+    def close(self) -> None:
+        """End the followers' loops (process 0 of a serve mesh; once).
+        The runtime makes no device call afterwards."""
+        if not self._closed:
+            self._closed = True
+            self._mirror("stop")
 
     def _fresh_state(self):
         return init_slot_state(self.num_slots, self.buffer_len, self._vocab,
@@ -217,6 +264,8 @@ class SlotPoolRuntime:
         prefix, tokens are right-padded. Contiguous: tokens left-padded,
         no tables. The host arrays become device tensors before the
         bucket's graph."""
+        self._mirror("prefill", tuple(bucket), tokens, mask, slot_ids,
+                     max_new, page_tables, start, bool(suffix))
         e = self.engine
         paged = self.kv_layout == "paged"
         key = (*bucket, bool(suffix)) if paged else tuple(bucket)
@@ -232,7 +281,7 @@ class SlotPoolRuntime:
                 for x in arrays)
             fn(e.spec, e.blocks, e.embed, e.ln_f, self.pool, self.state,
                inputs, e.compute_dtype, self.page_size or None,
-               bool(suffix))
+               bool(suffix), self.tp)
 
     @torch.no_grad()
     def step(self, seed: int):
@@ -241,16 +290,19 @@ class SlotPoolRuntime:
         step's stream is re-seeded with ``seed`` first, which the graph's
         replay reads. The span closes after the results reach the host,
         so it times the device work too."""
+        self._mirror("step", int(seed))
         e = self.engine
         self.generator.manual_seed(int(seed))
         with telemetry.span(self.STEP_SPAN):
             out = self._step_fn(
                 e.spec, e.blocks, e.embed, e.ln_f, self.pool, self.state,
                 self.generator, e.gen_config, e.compute_dtype,
-                self.paged_decode_fn,
+                self.paged_decode_fn, self.tp,
             )
             self.steps += 1
-            tok, emitted, finished = out.cpu().numpy()
+            out = out.cpu().numpy()
+            self.digest.update(out.tobytes())
+            tok, emitted, finished = out
             return tok, emitted.astype(bool), finished.astype(bool)
 
     @torch.no_grad()
@@ -260,6 +312,7 @@ class SlotPoolRuntime:
         and the free token scored together. Returns host numpy (cand
         [S, K+1], counts [S], finished [S]); slot s emits
         ``cand[s, :counts[s]]``."""
+        self._mirror("verify", int(seed), proposals, n_proposed)
         e = self.engine
         self.generator.manual_seed(int(seed))
         with telemetry.span(self.VERIFY_SPAN):
@@ -270,10 +323,11 @@ class SlotPoolRuntime:
                                 device=self.device),
                 torch.as_tensor(np.ascontiguousarray(n_proposed, np.int32),
                                 device=self.device),
-                e.gen_config, e.compute_dtype,
+                e.gen_config, e.compute_dtype, self.tp,
             )
             self.verify_steps += 1
             out = out.cpu().numpy()
+            self.digest.update(out.tobytes())
             K1 = out.shape[1] - 2
             return out[:, :K1], out[:, K1], out[:, K1 + 1].astype(bool)
 
@@ -287,9 +341,41 @@ class SlotPoolRuntime:
         """All-free lanes, refilled in place (the graphs read these
         buffers), reusing the pool (zeroed lanes gate every read of
         it)."""
+        self._mirror("reset_lanes")
         for lane, fresh in zip(self.state, self._fresh_state()):
             if lane is not None:
                 lane.copy_(fresh)
+
+    def install(self, checkpoint: str, views=None) -> None:
+        """A hot-swap's install (trlx_tpu_torch.serve.engine
+        ``install_views``), in place; ``views`` is kept as the rollback
+        copy until :meth:`end_swap`. On a mesh of several processes each
+        follower restores its own slices of ``checkpoint`` (process 0
+        passes the candidate it restored and validated the same way)."""
+        e = self.engine
+        if views is None:
+            params, _ = e.load_params(checkpoint)
+            views = e.strip_for_serve(params)
+            del params
+            e.validate_swap(views)
+        elif e.channel is not None and e.channel.world > 1:
+            if not checkpoint:
+                raise ValueError(
+                    "a hot-swap on a serve mesh of several processes needs "
+                    "the checkpoint directory the candidate came from "
+                    "(each process restores its own slices of it)")
+            self._mirror("install", checkpoint)
+        e.install_views(views)
+        self._held = views
+
+    def end_swap(self, rollback: bool) -> None:
+        """End a hot-swap: with ``rollback`` the previous weights go back
+        in (the held candidate holds them); either way the rollback copy
+        is dropped."""
+        self._mirror("end_swap", bool(rollback))
+        held, self._held = self._held, None
+        if rollback and held is not None:
+            self.engine.install_views(held)
 
     def warmup(self) -> Dict[str, float]:
         """Run every admission bucket (paged: both variants) against the
@@ -476,12 +562,15 @@ class SlotScheduler:
         return self
 
     def stop(self) -> None:
+        """Stop the worker and fail what is still queued or in flight; on
+        a serve mesh, then end the followers' loops."""
         self._stop.set()
         with self._cond:
             self._cond.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             self._thread = None
+        self.runtime.close()
         with self._cond:
             pending = list(self._queue)
             self._queue.clear()
@@ -900,21 +989,26 @@ class SlotScheduler:
         return self._prefix_tokens_saved / max(self._prompt_tokens_total, 1)
 
     def pool_stats(self) -> Dict:
-        """Host view of the KV pool — the /healthz ``kv`` block."""
+        """Host view of the KV pool — the /healthz ``kv`` block. Under a
+        tp mesh every process holds a head slice of EVERY page (the page
+        tables are the same host data everywhere), so page counts stay
+        global while ``pool_gb_per_device`` is this process's bytes;
+        ``pool_gb`` is the whole pool's."""
+        from trlx_tpu_torch.serve.layouts import tree_bytes_per_device
+
         rt = self.runtime
         kv_dtype = self.engine.serve.kv_dtype
-        pool_bytes = 0
-        for seg in rt.pool:
-            for side in seg:
-                for t in (side if isinstance(side, tuple) else (side,)):
-                    pool_bytes += t.numel() * t.element_size()
+        local = tree_bytes_per_device(rt.pool)
+        tp = rt.tp
+        shards = tp.size if tp is not None and tp.attn else 1
         stats = {
             "kv_layout": rt.kv_layout,
             "kv_dtype": kv_dtype,
             "kv_bytes_per_token": kv_bytes_per_token(self.engine.spec,
                                                      kv_dtype),
             "slots": rt.num_slots,
-            "pool_gb": round(pool_bytes / 2**30, 6),
+            "pool_gb": round(local * shards / 2**30, 6),
+            "pool_gb_per_device": round(local / 2**30, 6),
             "decode_steps": rt.steps,
         }
         if self.cache is not None:
@@ -1365,7 +1459,7 @@ class SlotScheduler:
             return
         e = self.engine
         old_version = e.model_version
-        installed = None
+        installed = False
         try:
             chaos.maybe_inject("serve_reload")
             views = e.strip_for_serve(box["params"])
@@ -1374,12 +1468,14 @@ class SlotScheduler:
             # weights; the lanes are already empty (step boundary)
             self.runtime.reset_lanes()
             self._reset_cache()
-            e.install_views(views)
-            installed = views  # now holds the previous weights
+            # the candidate's tensors now hold the previous weights
+            self.runtime.install(box["label"], views)
+            installed = True
+            del views
             self._probe_swap()
         except Exception as err:
-            if installed is not None:
-                e.install_views(installed)  # rollback
+            if installed:
+                self.runtime.end_swap(rollback=True)
             self.runtime.reset_lanes()
             self._reset_cache()
             telemetry.inc("serve/reload_failures")
@@ -1388,13 +1484,13 @@ class SlotScheduler:
                 "reason": f"{type(err).__name__}: {err}",
             }
         else:
+            self.runtime.end_swap(rollback=False)
             version = e.commit_version(box["label"] or None)
             telemetry.inc("serve/reloads")
             box["result"] = {
                 "reloaded": True, "model_version": version,
                 "previous_version": old_version,
             }
-        del installed
         with self._cond:
             self._pending_swap = None
         box["done"].set()
@@ -1505,6 +1601,7 @@ class SlotScheduler:
                                 if self.flight is not None else []),
             "flight_dumps": self.flight.dumps if self.flight else 0,
             "kv": self.pool_stats(),
+            "mesh": self.engine.mesh_info(),
             "speculation": {
                 "mode": self._spec_mode,
                 "k": self.spec_k,

@@ -134,10 +134,15 @@ class DraftProposer:
     length the whole ``generate`` (prefill and k steps) keeps the graph
     contract, so it runs behind one ``aot_jit``: one CUDA graph on the
     card. Rows without a live slot carry one pad token and are ignored.
+
+    On a serve mesh the draft is sharded on the same mesh (its engine
+    built from the serving engine's serve config); process 0 publishes
+    each proposal batch on ``channel`` (the serving engine's host
+    channel) and the followers run it on their shards (:meth:`run`).
     """
 
     def __init__(self, engine, spec_k: int, batch: int,
-                 window: Optional[int] = None):
+                 window: Optional[int] = None, channel=None):
         from trlx_tpu_torch.models.generation import (
             RolloutDecoder,
             _decode_token,
@@ -149,6 +154,7 @@ class DraftProposer:
         self.engine = engine
         self.spec_k = int(spec_k)
         self.batch = int(batch)
+        self.channel = channel
         n_pos = engine.spec.n_positions
         self.window = int(window) if window is not None \
             else max(1, min(32, n_pos - self.spec_k))
@@ -164,7 +170,7 @@ class DraftProposer:
             sampling=SamplingParams(temperature=1.0, top_k=0, top_p=1.0,
                                     do_sample=False),
         )
-        spec, compute = engine.spec, engine.compute_dtype
+        spec, compute, tp = engine.spec, engine.compute_dtype, engine.tp
         # the steps run inside this graph, not as graphs of their own
         decoder = RolloutDecoder()
         decoder.step = _decode_token
@@ -172,7 +178,7 @@ class DraftProposer:
         def run(blocks, embed, ln_f, tokens, mask):
             return generate(spec, blocks, embed, ln_f, tokens, mask, None,
                             cfg, compute_dtype=compute,
-                            decoder=decoder).gen_tokens
+                            decoder=decoder, tp=tp).gen_tokens
 
         self._run = aot_jit(run)
 
@@ -188,11 +194,26 @@ class DraftProposer:
                                     spec_draft_checkpoint=None)
         draft = InferenceEngine.from_checkpoint(
             path, serve=serve, device=str(serve_engine.device))
-        return cls(draft, spec_k, serve_engine.slot_count())
+        return cls(draft, spec_k, serve_engine.slot_count(),
+                   channel=serve_engine.channel)
 
     def graphs(self):
         """The draft's captured graph (capture seconds, pool bytes)."""
         return self._run.graphs()
+
+    @torch.no_grad()
+    def run(self, tokens: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """The draft's device call on one left-padded batch: [B, spec_k]
+        tokens on the host (on a serve mesh, published to the followers
+        first)."""
+        if self.channel is not None and self.channel.leader:
+            self.channel.send("draft", tokens, mask)
+        e = self.engine
+        return self._run(
+            e.blocks, e.embed, e.ln_f,
+            torch.as_tensor(tokens, device=e.device),
+            torch.as_tensor(mask, device=e.device),
+        ).cpu().numpy()
 
     @torch.no_grad()
     def propose(self, histories: Sequence[Optional[Sequence[int]]]
@@ -213,11 +234,7 @@ class DraftProposer:
             else:
                 tokens[i, -1] = 0
                 mask[i, -1] = 1  # filler row: one real token
-        gen = self._run(
-            e.blocks, e.embed, e.ln_f,
-            torch.as_tensor(tokens, device=e.device),
-            torch.as_tensor(mask, device=e.device),
-        ).cpu().numpy()
+        gen = self.run(tokens, mask)
         out: List[List[int]] = []
         for i in range(self.batch):
             h = histories[i] if i < len(histories) else None

@@ -49,19 +49,35 @@ device-wide ``torch.cuda.synchronize()`` from another thread during a
 capture is what CUDA forbids: it invalidates the capture. Such a capture
 is taken again, up to :data:`CAPTURE_ATTEMPTS` times, each retry
 counted in ``compile/capture_retries``; any other capture error raises.
+Python's cycle collector is paused while a capture runs
+(:func:`collector_paused`): a collection there could free a dead
+reference cycle that holds another CUDA graph (an engine dropped
+earlier), and CUDA refuses to destroy a graph on a capturing thread.
 
 On a device mesh the signature of a DTensor leaf also holds its
 placements and its mesh, and a card call with a DTensor argument raises
-instead of capturing: a captured collective would replay on one process
-whether or not its peers replay theirs, so the decode step of a mesh
-takes whole plain parameters and the process's own rows, and runs no
-collective.
+instead of capturing: a DTensor op may run a collective that its peers
+do not, so the training mesh's decode step takes whole plain parameters
+and the process's own rows, and runs no collective.
+
+A ``fn`` whose collectives every process of its group runs in the same
+order may hold them (the serve mesh's step: trlx_tpu_torch.serve.slots,
+whose process 0 mirrors every call to the others). Over NCCL they are
+captured into the graph like any launch: the eager first call runs each
+communicator's first collective before the capture, the capture takes
+them on its own stream, and each replay launches them again on every
+process. A gloo collective cannot be captured (it stages CUDA tensors
+through the host): the serve runtime refuses graphs over gloo at
+construction, with a message, instead of replaying eager in silence.
 
 The module switch :data:`CUDA_GRAPHS` set to False runs ``fn`` eagerly
 on the card too (still keyed and counted): the A/B of
 ``chip_smoke.py``. Nothing else selects the eager path.
 """
 
+import contextlib
+import gc
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -69,13 +85,37 @@ import torch
 
 from trlx_tpu_torch import ops, telemetry
 
-__all__ = ["aot_jit", "CUDA_GRAPHS", "tree_flatten"]
+__all__ = ["aot_jit", "CUDA_GRAPHS", "collector_paused", "tree_flatten"]
 
 #: capture and replay CUDA graphs for card arguments (chip_smoke A/Bs it)
 CUDA_GRAPHS = True
 
 #: captures of one signature before an invalidated capture raises
 CAPTURE_ATTEMPTS = 3
+
+
+_PAUSED, _WAS_ENABLED = 0, True
+_PAUSED_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cycle collector off for the block, for captures on any
+    number of threads at once: the last to leave turns it back on if it
+    was on. Garbage made meanwhile is collected after."""
+    global _PAUSED, _WAS_ENABLED
+    with _PAUSED_LOCK:
+        if _PAUSED == 0:
+            _WAS_ENABLED = gc.isenabled()
+            gc.disable()
+        _PAUSED += 1
+    try:
+        yield
+    finally:
+        with _PAUSED_LOCK:
+            _PAUSED -= 1
+            if _PAUSED == 0 and _WAS_ENABLED:
+                gc.enable()
 
 
 def _capture_invalidated(err: BaseException) -> bool:
@@ -178,8 +218,7 @@ class _AotJit:
         if device is None or not CUDA_GRAPHS:
             return self._fn(*args)
         if any(_is_dtensor(x) for x in leaves):
-            # a DTensor op may run a collective: captured, it would
-            # replay on this process whether or not its peers replay
+            # a DTensor op may run a collective its peers do not run
             raise ValueError(
                 "aot_jit captures no DTensor argument: pass each "
                 "process's local tensors (the mesh's decode path hands "
@@ -218,7 +257,7 @@ class _AotJit:
         torch.cuda.empty_cache()  # what the graph's pool reserves shows
         reserved = torch.cuda.memory_reserved(device)
         start = time.perf_counter()
-        with ops.recording_launches() as launches:
+        with ops.recording_launches() as launches, collector_paused():
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = self._fn(*args)
         torch.cuda.synchronize(device)

@@ -557,10 +557,13 @@ def _restore_components(template, directory):
     return out
 
 
-def restore_tensor_component(name: str, directory: str) -> Any:
+def restore_tensor_component(name: str, directory: str,
+                             mmap: bool = False) -> Any:
     """ONE tensor component of a checkpoint or run directory (verified
     first, falling back like :func:`restore_components`), on the CPU as
-    stored; returns ``(tree, meta, resolved directory)``."""
+    stored; returns ``(tree, meta, resolved directory)``. ``mmap`` maps
+    the file instead of reading it, so only the bytes a caller then
+    touches (:func:`slice_tree`) are read."""
     resolved = resolve_verified_dir(os.path.abspath(directory), [name],
                                     component=name)
     path = os.path.join(resolved, name + TENSOR_SUFFIX)
@@ -570,6 +573,27 @@ def restore_tensor_component(name: str, directory: str) -> Any:
             f"(found on disk: {sorted(os.listdir(resolved))})")
     with open(os.path.join(resolved, META_NAME)) as f:
         meta = json.load(f)
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    tree = torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=mmap)
     telemetry.inc("checkpoint/restores")
     return tree, meta, resolved
+
+
+def slice_tree(tree: Any, slicer) -> Any:
+    """The slice-wise partial restore: every tensor leaf of ``tree`` (a
+    component as :func:`restore_tensor_component` loads it, memory-mapped)
+    cut by ``slicer(path, tensor)`` — the key path as a tuple of names and
+    the whole tensor, returning a view of it — and copied out, so only the
+    slice's bytes are read from the file. The format is the plain one of
+    every save: a checkpoint written by one process restores sliced on a
+    serve mesh."""
+    def walk(x, path):
+        if isinstance(x, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v, path + (str(i),)) for i, v in enumerate(x))
+        if torch.is_tensor(x):
+            return slicer(path, x).clone()
+        return x
+
+    return walk(tree, ())
