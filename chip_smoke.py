@@ -188,6 +188,25 @@ Phases, each printing its own line; any failure exits non-zero:
      children started with phase 7: a chaos hang under ``stall_timeout:
      2`` exits 70 with the flight recorder in its stall dump, a SIGTERM
      exits 0 after a clean drain.
+   - the fleet (``[fleet]``, bench.py's bench_fleet on the port): a
+     hard-linked copy of the run directory's newest step, bf16, greedy,
+     16 slots, pages of 16, one bucket 8 x (64 + 32), the kernel path;
+     96 requests (4 system prompts of 48 tokens + tails of 2-8,
+     ``max_new_tokens`` 4 / 8 / 16, seed 17) through one engine (the
+     direct leg, whose TTFT p95 is the fleet's SLO), then from 16 HTTP
+     clients through ``trlx_tpu_torch.router`` over two in-process
+     replicas with ``POST /admin/rollout`` once a quarter has landed:
+     the rollout ok, ``model_version`` 2 on both, 0 lost, 0 recompiles,
+     every request's tokens equal to the direct leg's, paged decode
+     launches == layers x the replicas' steps; a replica stopped in the
+     middle of a burst (every request 200 through failover, the replica
+     revived and re-admitted); a rollout under ``checkpoint_verify:
+     exc@1`` (409, the version kept, one replica admitting throughout,
+     the copy quarantined); ``python -m trlx_tpu_torch.obs summarize
+     --json`` on the router's access log counts ``router/requests``.
+     Then ``[native]``: the host C++ library built, the byte tokenizer
+     on 4096 texts and the ILQL loader on 320 rows through it, equal to
+     the Python loops, both timed.
    - escalation, in child processes beside phases 8 and 10 (2 layers, T
      576): a hung ``ppo_update`` under ``stall_action: checkpoint_exit``
      exits 75 with a rescue checkpoint at step 4, which a third child
@@ -313,7 +332,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from trlx_tpu_torch import ops, supervisor, telemetry
+from trlx_tpu_torch import native, ops, supervisor, telemetry
 from trlx_tpu_torch.data.configs import ModelSpec, TRLConfig
 from trlx_tpu_torch.examples import ilql_sentiments, ppo_tldr
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
@@ -363,6 +382,7 @@ from trlx_tpu_torch.serve import (
     SlotScheduler,
 )
 from trlx_tpu_torch.serve.slots import SlotPoolRuntime
+from trlx_tpu_torch.router import FleetRouter, RouterConfig
 from trlx_tpu_torch.serve import __main__ as serve_cli
 from trlx_tpu_torch.parallel import build_mesh, initialize_runtime
 from trlx_tpu_torch.parallel.sharding import is_dtensor
@@ -3160,6 +3180,484 @@ def log_lifecycle(lc, card):
 
 
 # --------------------------------------------------------------------- #
+# 7c. the fleet: the router in front of two replicas on the PPO run's
+# newest step, the obs CLI on its access log; the host C++ data path
+# --------------------------------------------------------------------- #
+
+#: bench.py's bench_fleet lattice: one class of 8 x (64 + 32)
+FLEET_BUCKETS = [[8, 64, 32]]
+FLEET_REQUESTS, FLEET_CLIENTS = 96, 16
+
+
+def fleet_trace(n=FLEET_REQUESTS, seed=17):
+    """bench.py's bench_fleet trace: 4 system prompts of 48 tokens, each
+    request one of them (in turn) plus a tail of 2-8 tokens, with
+    ``max_new_tokens`` drawn from {4, 8, 16}; [(tokens, max_new)]."""
+    rng = np.random.default_rng(seed)
+    system = [[int(t) for t in rng.integers(1, 250, size=48)]
+              for _ in range(4)]
+    return [(system[i % 4] + [int(t) for t in rng.integers(
+        1, 250, size=rng.integers(2, 9))], int(rng.choice([4, 8, 16])))
+        for i in range(n)]
+
+
+def fleet_engine(checkpoint, config, device):
+    """A replica of the fleet: the checkpoint at bench_fleet's lattice,
+    16 slots, pages of 16, the kernel path, greedy."""
+    cfg = ServeConfig(buckets=[list(b) for b in FLEET_BUCKETS], slots=16,
+                      page_size=16, attention="pallas", max_wait_ms=8.0,
+                      max_queue=256, request_timeout=600.0)
+    return InferenceEngine.from_checkpoint(
+        checkpoint, config=TRLConfig.from_dict(config), serve=cfg,
+        device=device)
+
+
+def link_tree(src, dst):
+    """``src`` copied to ``dst`` as hard links where the file system
+    allows (the drills rename ``dst`` aside; ``src`` stays)."""
+    def link(a, b):
+        try:
+            os.link(a, b)
+        except OSError:
+            shutil.copy2(a, b)
+
+    shutil.copytree(src, dst, copy_function=link)
+
+
+def pct_ms(values, q):
+    """bench.py's percentile rule, in ms."""
+    if not values:
+        return 0.0
+    values = sorted(values)
+    return values[min(int(q * (len(values) - 1)), len(values) - 1)] * 1e3
+
+
+def fleet_clients(port, items, on_done=None, clients=FLEET_CLIENTS):
+    """``items`` [(index, tokens, max_new)] through ``clients`` HTTP
+    client threads against the router; [(status, body)] by index, and the
+    threads (started)."""
+    import queue
+
+    work = queue.Queue()
+    for item in items:
+        work.put(item)
+    results = {}
+
+    def client():
+        while True:
+            try:
+                i, tokens, max_new = work.get_nowait()
+            except queue.Empty:
+                return
+            status, _, body = http(f"http://127.0.0.1:{port}/generate",
+                                   {"tokens": tokens,
+                                    "max_new_tokens": max_new,
+                                    "trace": True})
+            results[i] = (status, body)
+            if on_done is not None:
+                on_done()
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    return results, threads
+
+
+def watch_admitting(router, stop):
+    """The fewest admitting replicas seen until ``stop`` is set (a
+    thread polling every 2 ms); a one-element list."""
+    low = [len(router.backends)]
+
+    def poll():
+        while not stop.wait(0.002):
+            low[0] = min(low[0], router.admitting_count())
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    return low, thread
+
+
+def fleet_phase(device, run_dir):
+    """bench.py's bench_fleet on the port, on a hard-linked copy of the
+    PPO run's newest step (its bf16 config made greedy, 16 slots, pages
+    of 16, bucket 8 x (64 + 32), the kernel path):
+
+    - direct leg: the 96-request trace (:func:`fleet_trace`) through one
+      engine's slot scheduler; its TTFT p95 becomes the fleet's SLO;
+    - fleet leg: two in-process ``InferenceServer`` replicas behind the
+      router (``trlx_tpu_torch.router``, ``access_log_sample`` 1), the
+      same trace from 16 HTTP clients, and ``POST /admin/rollout`` to the
+      same step once a quarter of it has landed: the rollout ok and
+      ``model_version`` 2 on both, 0 requests lost, 0 recompiles, every
+      request's greedy tokens equal to the direct leg's, paged decode
+      launches == layers x the two replicas' decode steps;
+    - kill drill: one replica's server stopped in the middle of a burst
+      of 16: every request 200 with the direct leg's tokens, through
+      failover; the replica revived on its port and re-admitted;
+    - corrupt-rollout drill: a rollout under ``checkpoint_verify:exc@1``
+      answers 409 (the first replica's reload refused), the fleet keeps
+      version 2, at least one replica admits throughout, the copy is
+      quarantined, and the fleet still serves the same tokens;
+    - ``python -m trlx_tpu_torch.obs summarize --json`` as a child on the
+      router's access log: its request total == ``router/requests``.
+
+    Paged-decode launches are counted from 0 at the phase's start: ==
+    layers x every scheduler's decode steps (direct leg, replicas, the
+    revived one)."""
+    t_phase = time.perf_counter()
+    latest, _, greedy = greedy_run_config(run_dir)
+    root = os.path.join(CKPT_ROOT, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    step = os.path.join(root, "run", os.path.basename(latest))
+    link_tree(latest, step)
+    trace = fleet_trace()
+    out = {"dtype": greedy["model"]["compute_dtype"]}
+    ops.reset_launches()
+
+    # -- direct leg: one engine, its slot scheduler, no HTTP ------------- #
+    telemetry.start()
+    engine = fleet_engine(step, greedy, device)
+    L = engine.spec.n_layer
+    sched = SlotScheduler(engine)
+    sched.warmup()
+    sched.start()
+    try:
+        t0 = time.perf_counter()
+        reqs = [sched.submit(list(t), max_new_tokens=n) for t, n in trace]
+        for r in reqs:
+            r.wait(timeout=600)
+        direct_s = time.perf_counter() - t0
+    finally:
+        sched.stop()
+    for r in reqs:
+        assert r.error is None, r.error
+    direct = [list(r.result) for r in reqs]
+    ttfts = [r.trace.ttft() for r in reqs
+             if r.trace is not None and r.trace.first_token]
+    slo_ms = max(pct_ms(ttfts, 0.95), 1.0)
+    steps = sched.runtime.steps
+    direct_launches = ops.LAUNCHES["paged_decode"]
+    if device == "cuda":
+        assert direct_launches == L * steps > 0, (direct_launches, L, steps)
+    direct_retries = telemetry.current().registry.counters.get(
+        "compile/capture_retries", 0.0)
+    out["direct"] = {"tok_per_s": sum(map(len, direct)) / direct_s,
+                     "s": direct_s, "ttft_p95_ms": slo_ms,
+                     "tokens": sum(map(len, direct))}
+    del engine, sched, reqs
+    release(device)
+
+    # -- fleet leg: two replicas behind the router, a rollout mid-trace - #
+    telemetry.start()
+    registry = telemetry.current().registry
+    everyone = [InferenceServer(fleet_engine(step, greedy, device),
+                                host="127.0.0.1", port=0).start()
+                for _ in range(2)]
+    servers = list(everyone)
+    access = os.path.join(root, "access.jsonl")
+    router = FleetRouter(RouterConfig(
+        backends=[f"127.0.0.1:{s.port}" for s in servers], port=0,
+        page_size=16, probe_interval=0.2, failover_retries=1,
+        slo_ttft_ms=slo_ms, rollout_timeout=600.0, request_timeout=600.0,
+        access_log=access, access_log_sample=1)).start()
+    base = f"http://127.0.0.1:{router.port}"
+    try:
+        assert router.admitting_count() == 2, router.fleet_state()
+        landed = [0]
+        lock = threading.Lock()
+
+        def count():
+            with lock:
+                landed[0] += 1
+
+        t0 = time.perf_counter()
+        results, threads = fleet_clients(
+            router.port, [(i, t, n) for i, (t, n) in enumerate(trace)],
+            on_done=count)
+        while landed[0] < FLEET_REQUESTS // 4:
+            time.sleep(0.005)
+        stop = threading.Event()
+        low, watcher = watch_admitting(router, stop)
+        t_roll = time.perf_counter()
+        status, _, rollout = http(f"{base}/admin/rollout",
+                                  {"checkpoint": step})
+        rollout_s = time.perf_counter() - t_roll
+        stop.set()
+        watcher.join(10)
+        for t in threads:
+            t.join(900)
+        fleet_s = time.perf_counter() - t0
+        assert status == 200 and rollout["ok"] is True, rollout
+        assert [s["model_version"] for s in rollout["steps"]] == [2, 2], \
+            rollout
+        assert low[0] >= 1, "the rollout left no replica admitting"
+        lost = [i for i in range(FLEET_REQUESTS)
+                if results.get(i, (None,))[0] != 200]
+        assert not lost, [results.get(i) for i in lost[:3]]
+        assert recompiles() == 0, f"the fleet recompiled {recompiles()}"
+        router.probe_fleet()
+        assert registry.gauges["router/fleet_model_version"] == 2.0
+        assert [s.engine.model_version for s in servers] == [2, 2]
+        fleet = [results[i][1]["tokens"] for i in range(FLEET_REQUESTS)]
+        diverged = [i for i in range(FLEET_REQUESTS)
+                    if fleet[i] != direct[i]]
+        assert not diverged, [(i, fleet[i], direct[i])
+                              for i in diverged[:3]]
+        leg_steps = sum(s.scheduler.runtime.steps for s in servers)
+        leg_launches = ops.LAUNCHES["paged_decode"] - direct_launches
+        if device == "cuda":
+            assert leg_launches == L * leg_steps > 0, (leg_launches, L,
+                                                       leg_steps)
+        ttft_fleet = [results[i][1]["trace"]["ttft_ms"]
+                      for i in range(FLEET_REQUESTS)]
+        out["fleet"] = {
+            "tok_per_s": sum(map(len, fleet)) / fleet_s, "s": fleet_s,
+            "goodput": sum(1 for t in ttft_fleet if t <= slo_ms)
+            / len(ttft_fleet),
+            "ttft_p95_ms": pct_ms([t / 1e3 for t in ttft_fleet], 0.95),
+            "affinity_hit_rate": registry.gauges[
+                "router/affinity_hit_rate"],
+            "rollout_s": rollout_s, "min_admitting": low[0],
+            "failovers": registry.counters["router/failovers"],
+            "launches": leg_launches, "steps": leg_steps,
+            "prefix_tokens_saved": registry.counters[
+                "serve/prefix_tokens_saved"]}
+        out["fleet"]["ratio"] = out["fleet"]["tok_per_s"] \
+            / out["direct"]["tok_per_s"]
+
+        # -- kill drill: one replica stopped in the middle of a burst -- #
+        failovers0 = registry.counters["router/failovers"]
+        burst = [(i, trace[i][0], trace[i][1]) for i in range(16)]
+        results, threads = fleet_clients(router.port, burst)
+
+        def in_flight(server):
+            return len(server.scheduler._live) \
+                + server.scheduler.queue_depth()
+
+        deadline = time.monotonic() + 60
+        while max(map(in_flight, servers)) == 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        # the replica holding the most of the burst right now
+        victim = max(servers, key=in_flight)
+        victim.stop()
+        for t in threads:
+            t.join(900)
+        for i, _, _ in burst:
+            status, body = results[i]
+            assert status == 200, f"request {i} lost in the kill: {body}"
+            assert body["tokens"] == direct[i], (i, body["tokens"],
+                                                 direct[i])
+        revived = InferenceServer(victim.engine, host="127.0.0.1",
+                                  port=victim.port).start()
+        everyone.append(revived)
+        servers[servers.index(victim)] = revived
+        deadline = time.monotonic() + 120
+        while router.admitting_count() < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert router.admitting_count() == 2, router.fleet_state()
+        out["kill"] = {
+            "failovers": registry.counters["router/failovers"] - failovers0,
+            "ejections": registry.counters["router/ejections"],
+            "readmissions": registry.counters["router/readmissions"]}
+        assert out["kill"]["failovers"] >= 1, out["kill"]
+        assert out["kill"]["readmissions"] >= 1, out["kill"]
+
+        # -- corrupt-rollout drill: checkpoint_verify:exc@1 --------------- #
+        stop = threading.Event()
+        low, watcher = watch_admitting(router, stop)
+        chaos.configure("checkpoint_verify:exc@1")
+        try:
+            status, _, aborted = http(f"{base}/admin/rollout",
+                                      {"checkpoint": step})
+        finally:
+            chaos.reset()
+            stop.set()
+            watcher.join(10)
+        assert status == 409 and aborted["ok"] is False, aborted
+        assert "chaos-injected" in aborted["steps"][0]["reason"], aborted
+        assert low[0] >= 1, "the aborted rollout left no replica admitting"
+        assert registry.counters["checkpoint/quarantined"] == 1.0
+        assert not os.path.isdir(step), "the drill's step not quarantined"
+        router.probe_fleet()
+        assert registry.gauges["router/fleet_model_version"] == 2.0
+        assert [s.engine.model_version for s in servers] == [2, 2]
+        after, threads = fleet_clients(
+            router.port, [(i, trace[i][0], trace[i][1]) for i in range(8)])
+        for t in threads:
+            t.join(900)
+        assert all(after[i][0] == 200 and after[i][1]["tokens"] == direct[i]
+                   for i in range(8)), after
+        out["corrupt"] = {"reason": aborted["steps"][0]["reason"][:120],
+                          "min_admitting": low[0]}
+        assert recompiles() == 0, f"the drills recompiled {recompiles()}"
+
+        # -- the obs CLI as a child on the access log --------------------- #
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-m", "trlx_tpu_torch.obs", "summarize",
+             "--json", access], capture_output=True, text=True, timeout=120,
+            cwd=here, env=dict(os.environ, PYTHONPATH=here + os.pathsep
+                               + os.environ.get("PYTHONPATH", "")))
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        summary = json.loads(proc.stdout)["totals"]
+        assert summary["requests"] == registry.counters["router/requests"], \
+            (summary, registry.counters["router/requests"])
+        out["obs"] = {"requests": summary["requests"],
+                      "errors": summary["errors"],
+                      "failovers": summary["failovers"]}
+        out["capture_retries"] = direct_retries + registry.counters.get(
+            "compile/capture_retries", 0.0)
+    finally:
+        chaos.reset()
+        router.stop()
+        for s in servers:
+            s.stop()
+    steps += sum(s.scheduler.runtime.steps for s in everyone)
+    launches = ops.LAUNCHES["paged_decode"]
+    if device == "cuda":
+        assert launches == L * steps > 0, (launches, L, steps)
+    out.update(launches=launches, steps=steps, layers=L,
+               wall_s=time.perf_counter() - t_phase)
+    del everyone, servers, router
+    release(device)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def log_fleet(f, card):
+    d, fl = f["direct"], f["fleet"]
+    log("fleet", f"{FLEET_REQUESTS} requests (4 system prompts of 48 "
+                 f"tokens + 2-8, max_new_tokens 4/8/16, {f['dtype']}, "
+                 f"greedy): the direct leg {d['tok_per_s']:.1f} tok/s "
+                 f"({d['tokens']} tokens in {d['s']:.3f}s), TTFT p95 "
+                 f"{d['ttft_p95_ms']:.1f} ms = the SLO; through the router "
+                 f"over 2 replicas {fl['tok_per_s']:.1f} tok/s (ratio "
+                 f"{fl['ratio']:.3f}, the rollout window included), "
+                 f"goodput {fl['goodput']:.3f} at that SLO, TTFT p95 "
+                 f"{fl['ttft_p95_ms']:.1f} ms, router/affinity_hit_rate "
+                 f"{fl['affinity_hit_rate']:.3f}, prefix tokens saved "
+                 f"{fl['prefix_tokens_saved']:.0f}, failovers "
+                 f"{fl['failovers']:.0f}; rollout to model_version 2 on "
+                 f"both in {fl['rollout_s']:.3f}s, >= {fl['min_admitting']} "
+                 f"admitting; 0 lost, 0 recompiles, tokens == the direct "
+                 f"leg's; capture retries {f['capture_retries']:.0f} "
+                 f"({card}; for information, not a metric)")
+    k, c = f["kill"], f["corrupt"]
+    log("fleet", f"kill drill: a replica stopped mid-burst, 16/16 "
+                 f"answered 200 with the direct leg's tokens "
+                 f"({k['failovers']:.0f} failovers), ejections "
+                 f"{k['ejections']:.0f}, re-admitted after its revival "
+                 f"(readmissions {k['readmissions']:.0f}); corrupt "
+                 f"rollout (checkpoint_verify:exc@1): 409, the copy "
+                 f"quarantined, version 2 kept, >= {c['min_admitting']} "
+                 f"admitting; obs summarize: {f['obs']['requests']} "
+                 f"requests == router/requests ({f['obs']['errors']} "
+                 f"errors); paged decode launches {f['launches']} == "
+                 f"{f['layers']} layers x {f['steps']} steps (fleet leg "
+                 f"{fl['launches']} = {f['layers']} x {fl['steps']}); the "
+                 f"phase took {f['wall_s']:.1f}s")
+
+
+#: the native phase's tokenizer batch: 4096 texts of up to 600 bytes
+NATIVE_TEXTS, NATIVE_MAX_LEN = 4096, 512
+
+
+def native_phase(seed=0):
+    """The host C++ library (``trlx_tpu_torch/csrc/hostdata.cpp``) built
+    (a missing compiler fails the run) and used by the port's entry
+    points: the byte tokenizer on 4096 texts and the ILQL store's loader
+    over 320 rows of 130-500 tokens (4 batches of 80), each equal to its
+    Python loop, both timed (best of 3)."""
+    from trlx_tpu_torch.pipeline.offline_pipeline import \
+        OfflineRolloutStorage
+    from trlx_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    assert native.available(), (
+        f"the host library did not build (compiler {native.compiler()}, "
+        f"source {native.SOURCE})")
+    # the first use may have been in a child (the gpt-j child tokenizes
+    # first), so the build is timed here once more, as native builds it
+    built = os.path.join(CKPT_ROOT, "hostdata-timing.so")
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([native.compiler(), *native.CXX_FLAGS, str(native.SOURCE),
+                    "-o", built], check=True, capture_output=True,
+                   timeout=120)
+    out = {"build_s": time.perf_counter() - t0,
+           "first_use_build_s": float(native.BUILD_INFO["seconds"]),
+           "library": os.path.basename(str(native.BUILD_INFO["path"]))}
+    os.remove(built)
+    rng = np.random.default_rng(seed)
+    alphabet = list("abcdefghij KLMNOP,.") + ["é", "ü", "☃", "\n"]
+    texts = ["".join(rng.choice(alphabet, int(rng.integers(0, 600))))
+             for _ in range(NATIVE_TEXTS)]
+    rows = ilql_rows(seed=seed)
+    masks = [[1] * (len(r) - 1) + [0] for r in rows]
+    rewards = [rng.normal(size=len(r) - 1).astype(np.float32).tolist()
+               for r in rows]
+    store = OfflineRolloutStorage(rows, masks, rewards)
+    tok = ByteTokenizer()
+
+    def best(fn):
+        times, result = [], None
+        for _ in range(3):
+            t = time.perf_counter()
+            result = fn()
+            times.append(time.perf_counter() - t)
+        return min(times), result
+
+    def tokenize():
+        return tok(texts, max_length=NATIVE_MAX_LEN)
+
+    def collate():
+        return list(store.create_loader(80, eos_token_id=256))
+
+    calls = dict(native.CALLS)
+    tok_native, enc = best(tokenize)
+    col_native, batches = best(collate)
+    assert native.CALLS["byte_tokenize_pad"] - \
+        calls["byte_tokenize_pad"] == 3
+    assert native.CALLS["pad_collate"] - calls["pad_collate"] == 12
+    available = native.available
+    native.available = lambda: False
+    try:
+        tok_python, enc_py = best(tokenize)
+        col_python, batches_py = best(collate)
+    finally:
+        native.available = available
+    for key in ("input_ids", "attention_mask"):
+        assert np.array_equal(enc[key], enc_py[key]), key
+    assert len(batches) == len(batches_py) == 4
+    for a, b in zip(batches, batches_py):
+        for field in ("input_ids", "attention_mask", "rewards"):
+            assert np.array_equal(getattr(a, field), getattr(b, field)), \
+                field
+    out.update(tokenize_ms={"native": tok_native * 1e3,
+                            "python": tok_python * 1e3},
+               collate_ms={"native": col_native * 1e3,
+                           "python": col_python * 1e3},
+               shape=list(enc["input_ids"].shape),
+               T=int(batches[0].input_ids.shape[1]))
+    return out
+
+
+def log_native(n, card):
+    log("native", f"host library {n['library']}: g++ -O3 builds it in "
+                  f"{n['build_s']:.2f}s (this process's first use "
+                  f"{n['first_use_build_s']:.2f}s, 0 = built by an "
+                  f"earlier process); the byte "
+                  f"tokenizer on {NATIVE_TEXTS} texts to "
+                  f"{n['shape']}: {n['tokenize_ms']['native']:.2f} ms "
+                  f"native, {n['tokenize_ms']['python']:.2f} ms Python; "
+                  f"the ILQL loader (320 rows, 4 batches of 80 x "
+                  f"T{n['T']}): {n['collate_ms']['native']:.2f} ms native, "
+                  f"{n['collate_ms']['python']:.2f} ms Python; equal "
+                  f"arrays (best of 3; host clock; {card})")
+
+
+# --------------------------------------------------------------------- #
 # 8. train parity: kernel path vs dense path at fp32
 # --------------------------------------------------------------------- #
 
@@ -4426,6 +4924,10 @@ def durability_phases(card, watchdog, device="cuda"):
                       f"({card})")
     lifecycle = serve_lifecycle_phase(device, run_dir, watchdog)
     log_lifecycle(lifecycle, card)
+    fleet = fleet_phase(device, run_dir)
+    log_fleet(fleet, card)
+    host = native_phase()
+    log_native(host, card)
     resume = resume_phase(trainer, batch, device, run_dir)
     restore_ms = telemetry.current().registry.hists[
         "time/checkpoint_restore"].total * 1e3
@@ -4619,6 +5121,7 @@ def durability_phases(card, watchdog, device="cuda"):
             "ilql_parity": ilql_parity, "ilql_errs": ilql_errs,
             "flash_ilql": flash_ilql, "serve_checkpoint": serve_ckpt,
             "spec_draft": draft, "serve_lifecycle": lifecycle,
+            "fleet": fleet, "native": host,
             "durability": durability, "mesh": mesh}
 
 
@@ -5370,6 +5873,7 @@ def main() -> int:
     flash_ilql = durable["flash_ilql"]
     serve_ckpt = durable["serve_checkpoint"]
     lifecycle = durable["serve_lifecycle"]
+    fleet = durable["fleet"]
 
     print(json.dumps({"timing": {
         "serving_shape": serving, "ctx1024": long_ctx,
@@ -5403,6 +5907,8 @@ def main() -> int:
                         if k != "trace"}},
         "paged_int8_serving": int8_serving,
         "serve_mesh": serve_mesh, "paged_shards": shard_times,
+        "fleet": fleet, "native": {**durable["native"],
+                                   "calls": dict(native.CALLS)},
     }}))
     resume, gate = (durable["durability"][k]["launches"]
                     for k in ("resume", "gate"))
@@ -5410,12 +5916,13 @@ def main() -> int:
         "paged_decode", "trlx_tpu_torch/csrc/paged_decode.cu",
         "trlx_tpu/ops/paged_attention.py:58",
         run["launches"] + serve_ckpt["launches"] + lifecycle["launches"]
-        + serve_mesh["launches"],
+        + serve_mesh["launches"] + fleet["launches"],
         err, serving,
         {"serve": run["launches"],
          "serve_checkpoint": serve_ckpt["launches"],
          "serve_lifecycle": lifecycle["launches"],
          "serve_mesh": serve_mesh["launches"],
+         "fleet": fleet["launches"],
          "ppo": train["all_launches"]["paged_decode"],
          "ilql": ilql["all_launches"]["paged_decode"]})]
     mesh = durable["mesh"]["launches"]

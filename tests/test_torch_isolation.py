@@ -3,7 +3,7 @@
 ``trlx_tpu`` module and ``transformers`` out of ``sys.modules``
 (``trlx_tpu_torch`` itself shares that prefix, so the check compares
 package names, not string prefixes), starts no thread and builds no
-kernel."""
+kernel and no host library."""
 
 import json
 import os
@@ -24,12 +24,13 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from trlx_tpu_torch import native
 from trlx_tpu_torch.ops import _build
 print(json.dumps({
     "imported": names,
     "modules": sorted(sys.modules),
     "threads": threading.active_count(),
-    "built": sorted(_build.BUILD_INFO),
+    "built": sorted(_build.BUILD_INFO) + sorted(native.BUILD_INFO),
 }))
 """
 
@@ -61,7 +62,9 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "parallel", "parallel.mesh", "parallel.runtime",
                  "parallel.sharding", "parallel.exchange",
                  "ops.ring_attention", "ops.pipeline_parallel",
-                 "serve.layouts", "serve.follower"):
+                 "serve.layouts", "serve.follower", "router",
+                 "router.resilience", "router.obs", "router.__main__", "obs",
+                 "obs.__main__", "native"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

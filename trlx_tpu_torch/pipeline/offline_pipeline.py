@@ -5,8 +5,9 @@ trlx_tpu.pipeline.offline_pipeline).
 pre-tokenized id rows); :class:`OfflineRolloutStorage` holds
 (input_ids, attention_mask, rewards) triples and yields right-padded
 :class:`ILQLBatch` es of numpy arrays, padded with the eos id. Collation
-is the JAX package's numpy path; its threaded C++ collator waits for the
-host-C++ slice.
+goes through the threaded C++ ``pad_collate`` of
+:mod:`trlx_tpu_torch.native` when it is available, else the numpy loop,
+with the same result.
 """
 
 from typing import Iterator, List
@@ -73,6 +74,17 @@ class OfflineRolloutStorage(BaseRolloutStore):
         maxlen = -(-maxlen // pad_to_multiple) * pad_to_multiple
 
         def fetch(idx):
+            from trlx_tpu_torch import native
+
+            if native.available():
+                # threaded C++ collation (trlx_tpu_torch/csrc/hostdata.cpp)
+                ids, mask, rewards = native.pad_collate(
+                    [self.input_ids[i] for i in idx],
+                    [self.attention_mask[i] for i in idx],
+                    [self.rewards[i] for i in idx],
+                    maxlen, eos_token_id,
+                )
+                return ILQLBatch(ids, mask, rewards)
             ids = np.full((len(idx), maxlen), eos_token_id, np.int32)
             mask = np.zeros((len(idx), maxlen), np.int32)
             rewards = np.zeros((len(idx), maxlen - 1), np.float32)

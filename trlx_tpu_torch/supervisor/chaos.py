@@ -19,9 +19,13 @@ A schedule is a ``;``-separated list of rules::
   ``checkpoint_save`` once at phase entry. The serve schedulers fire
   ``serve_decode`` (each static batch or slot step), ``serve_admit``
   (each slot admission) and ``serve_speculate`` (each proposal
-  gathering). The other serving, router and checkpoint-verify seams are
-  the reference's names, kept so a schedule written for trlx_tpu parses
-  here; the port fires them once those subsystems are ported.
+  gathering), with the other serving seams where trlx_tpu fires them.
+  The fleet router (trlx_tpu_torch.router) fires ``router_route`` (once
+  per request, before a replica is picked), ``router_probe`` (each
+  prober sweep), ``router_rollout`` (each replica step of a rollout) and
+  ``router_hedge`` (each hedge launch); ``verify_checkpoint`` fires
+  ``checkpoint_verify`` first thing, an injected exc standing for a
+  corrupt checkpoint.
 - ``action``: ``hang`` (block ``param`` seconds, default 3600: a bounded
   seam times out, the watchdog sees everything else), ``exc`` (raise
   :class:`ChaosError`), ``slow`` (sleep ``param`` seconds, default 1,
@@ -58,8 +62,7 @@ ENV_VAR = "TRLX_TPU_CHAOS"
 
 #: the closed seam namespace, the reference's: every injection point
 #: (``maybe_inject(<seam>)``, ``retry_call(seam=...)``) names one of
-#: these. The port fires the training seams and every serving seam; the
-#: router and checkpoint-verify names wait for those subsystems.
+#: these, and the port fires every one.
 KNOWN_SEAMS = (
     # retry_call seams (fired per attempt, inside the bounded worker)
     "reward_fn",
@@ -79,12 +82,12 @@ KNOWN_SEAMS = (
     "serve_replay",
     "serve_reload",
     "serve_speculate",
-    # fleet-router seams (trlx_tpu.router; not ported)
+    # fleet-router seams (trlx_tpu_torch.router)
     "router_route",
     "router_probe",
     "router_rollout",
     "router_hedge",
-    # checkpoint-integrity seam (trlx_tpu.utils.checkpoint; not fired yet)
+    # checkpoint-integrity seam (trlx_tpu_torch.utils.checkpoint)
     "checkpoint_verify",
 )
 

@@ -176,8 +176,9 @@ def verify_checkpoint(directory: str, component: Optional[str] = None) -> bool:
     marker: True when verified, False when the checkpoint carries no
     manifest (``checkpoint/verify_skipped``). Raises
     :class:`CheckpointCorrupt` naming the first damaged file, and for a
-    torn or unreadable meta.json. ``component`` limits the check to that
-    component's file."""
+    torn or unreadable meta.json, and for an injected
+    ``checkpoint_verify`` chaos fault (the drill seam, fired first).
+    ``component`` limits the check to that component's file."""
     directory = os.path.abspath(directory)
 
     def corrupt(detail: str) -> CheckpointCorrupt:
@@ -188,6 +189,14 @@ def verify_checkpoint(directory: str, component: Optional[str] = None) -> bool:
             f"saved — do not install them; quarantine and fall back to the "
             f"previous step.")
 
+    from trlx_tpu_torch.supervisor import chaos
+
+    try:
+        # the drill seam: an injected exc IS a verification failure,
+        # driving quarantine exactly as real bit-rot would
+        chaos.maybe_inject("checkpoint_verify")
+    except chaos.ChaosError as e:
+        raise corrupt(f"chaos-injected ({e})") from e
     try:
         with open(os.path.join(directory, META_NAME)) as f:
             meta = json.load(f)

@@ -1,8 +1,9 @@
 """Tokenizer loading and the dependency-free byte tokenizer.
 
-Copy of trlx_tpu.utils.tokenizer without its native C++ batch path
-(that waits for the host-C++ slice). ``transformers`` is imported only
-when a tokenizer other than ``"byte"`` is asked for.
+Copy of trlx_tpu.utils.tokenizer: 64 or more texts go through the
+threaded C++ tokenize-and-pad of :mod:`trlx_tpu_torch.native` when it is
+available, with the same layout as the Python loop. ``transformers`` is
+imported only when a tokenizer other than ``"byte"`` is asked for.
 """
 
 import os
@@ -34,10 +35,25 @@ class ByteTokenizer:
 
     def __call__(self, texts, max_length: Optional[int] = None,
                  padding="max_length", truncation=True, **kw):
+        # padding/truncation accepted for HF-signature compatibility; this
+        # tokenizer always left-pads/truncates to max_length.
         import numpy as np
 
         if isinstance(texts, str):
             texts = [texts]
+
+        from trlx_tpu_torch import native
+
+        if native.available() and len(texts) >= 64:
+            # threaded C++ tokenize+pad (trlx_tpu_torch/csrc/hostdata.cpp)
+            # for large prompt sets; identical layout to the loop below
+            if max_length is None:
+                max_length = max(len(t.encode("utf-8")) for t in texts)
+            ids, mask = native.byte_tokenize_pad(
+                texts, max_length, self.pad_token_id, pad_left=True
+            )
+            return {"input_ids": ids, "attention_mask": mask}
+
         enc = [self.encode(t) for t in texts]
         if max_length is None:
             max_length = max(len(e) for e in enc)
