@@ -109,7 +109,17 @@ Phases, each printing its own line; any failure exits non-zero:
    tokens identical to (a)'s, every rank's token digest equal, paged
    decode on each rank's 6- and 3-head shards (launches == layers x
    steps a rank), 0 recompiles. The kernels line counts the phase under
-   ``serve_mesh`` and gains a ``paged_decode (tp shards)`` entry.
+   ``serve_mesh`` and gains a ``paged_decode (tp shards)`` entry. Then
+   the static leg, ``scheduler: static`` (the micro-batcher, one
+   ``generate`` per bucket, dense attention: no kernel) at fp32, greedy,
+   on the serve buckets: (a-static) ``{tp: 1}`` over NCCL through HTTP
+   with graphs on (one captured decode step per bucket), then the plain
+   static engine on the same requests; (b-static) ``{tp: 2}`` as two
+   gloo ranks on this card, graphs off (refused over gloo at the
+   micro-batcher's construction, checked), rank 0 flushing and rank 1
+   following each ``decode``: tokens equal to the plain static engine's,
+   0 recompiles, the ranks' static digests equal, the follower exiting
+   0 after the stop; each with its wall time and a flush's p50.
 7. train — the PPO main path at gpt2-124M width with
    examples/ppo_tldr.py's wiring (configs/ppo_tldr.yml's geometry: 12
    layers, 2 unfrozen, synthetic TL;DR documents left-padded to 512
@@ -2032,12 +2042,13 @@ def check_shards(dev):
     return worst
 
 
-def mesh_serve_engine(views, device, mesh):
+def mesh_serve_engine(views, device, mesh, scheduler="slots"):
     """Phase 5's lattice (16 slots, pages of 16, the kernel path) at
-    fp32, greedy, on ``serve.mesh``."""
+    fp32, greedy, on ``serve.mesh``, under ``scheduler``."""
     serve = ServeConfig(buckets=[list(b) for b in SERVE_BUCKETS],
                         slots=16, page_size=16, attention="pallas",
-                        max_queue=256, request_timeout=600.0, mesh=mesh)
+                        max_queue=256, request_timeout=600.0, mesh=mesh,
+                        scheduler=scheduler)
     return InferenceEngine(TRLConfig.from_dict(config_dict("float32")),
                            serve=serve, views=views, device=device)
 
@@ -2126,12 +2137,13 @@ def _serve_mesh_one(views, device, fp32):
             "http_tokens_equal": [b["tokens"] for b in bodies] == fp32}
 
 
-def serve_mesh_child(world, rank, port, out_path, device="cuda"):
+def serve_mesh_child(world, rank, port, out_path, device="cuda",
+                     scheduler="slots"):
     """(b): one rank of a ``{tp: world}`` serve mesh, every rank on this
     card (NCCL refuses two ranks on one card, so the group is gloo, which
     moves CUDA tensors through the host): graphs off, since a gloo
     collective cannot be captured. Rank 0 serves the 10 requests through
-    the slot scheduler; the others follow. Writes what it saw as JSON."""
+    ``scheduler``; the others follow. Writes what it saw as JSON."""
     from trlx_tpu_torch.serve.follower import follow
 
     world, rank = int(world), int(rank)
@@ -2141,7 +2153,9 @@ def serve_mesh_child(world, rank, port, out_path, device="cuda"):
     spec = TRLConfig.from_dict(config_dict()).model.resolve_spec()
     engine = mesh_serve_engine(init_decode_views(spec, seed=0,
                                                  num_layers_unfrozen=2),
-                               device, {"tp": world})
+                               device, {"tp": world}, scheduler)
+    if scheduler == "static":
+        return static_mesh_child(engine, rank, out_path, device)
     out = {"rank": rank, "refused": None}
     if device == "cuda":
         # graphs over gloo are refused at construction, never replayed
@@ -2181,16 +2195,157 @@ def serve_mesh_child(world, rank, port, out_path, device="cuda"):
     return 0
 
 
-def serve_mesh_world(world, device, timeout=600):
+def flush_p50_ms(engine):
+    """Steady-state p50 (ms) of the static path's flushes: every bucket's
+    decode span past its first call (warmup's), or None."""
+    hists = telemetry.current().registry.hists
+    times = [x for b in engine.buckets
+             for x in getattr(hists.get(f"time/{engine.span_name(b)}"),
+                              "window", ())]
+    return float(np.median(times)) * 1e3 if times else None
+
+
+def static_mesh_child(engine, rank, out_path, device):
+    """(b-static): one rank of the static leg. Rank 0 builds the
+    micro-batcher (refused with graphs on over gloo, then built with them
+    off), warms every bucket and flushes the 10 requests queued at once;
+    rank 1 follows each ``decode`` until the batcher's stop. Writes its
+    tokens (rank 0), static digest, recompiles, follower exit code and
+    times as JSON."""
+    from trlx_tpu_torch.serve.follower import follow
+
+    out = {"rank": rank, "refused": None}
+    if device == "cuda":
+        try:
+            engine.check_graph_transport()
+        except RuntimeError as e:
+            out["refused"] = str(e)
+        assert out["refused"], "graphs over gloo were not refused"
+    aotjit.CUDA_GRAPHS = False
+    ops.reset_launches()
+    start = time.perf_counter()
+    if engine.channel.leader:
+        tokens, _ = run_static(engine, USER_PROMPTS)
+        out["tokens"] = tokens
+        out["flush_p50_ms"] = flush_p50_ms(engine)
+    else:
+        out["rc"] = follow(engine)
+    sync(device)
+    out.update(wall_s=time.perf_counter() - start,
+               digest=engine.digest.hexdigest(), recompiles=recompiles(),
+               launches=dict(ops.LAUNCHES))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def serve_mesh_static_one(views, device):
+    """(a-static): ``serve.mesh {tp: 1}``, ``scheduler: static``, a world
+    of one process over NCCL through HTTP, graphs on (a decode step
+    captured per bucket, the mesh's all-reduces inside); then the plain
+    static engine on the same requests."""
+    import torch.distributed as dist
+
+    start = time.perf_counter()
+    initialize_runtime(f"tcp://127.0.0.1:{free_port()}", 1, 0, device)
+    try:
+        telemetry.start()
+        engine = mesh_serve_engine(views, device, {"tp": 1}, "static")
+        assert engine.tp is not None
+        server = InferenceServer(engine, host="127.0.0.1", port=0).start()
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            health = http(f"{base}/healthz")[2]
+            tokens = serve_ordered(server.scheduler, engine)
+            with ThreadPoolExecutor(len(USER_PROMPTS)) as pool:
+                bodies = list(pool.map(
+                    lambda r: post(f"{base}/generate",
+                                   {"prompt": r[0], "max_new_tokens": r[1]}),
+                    USER_PROMPTS))
+            flush = flush_p50_ms(engine)
+        finally:
+            server.stop()
+        out = {"tokens": tokens, "flush_p50_ms": flush,
+               "graphs": graph_stats(engine.graphs()),
+               "recompiles": recompiles(), "mesh": health["mesh"],
+               "scheduler": health["scheduler"],
+               "http_tokens_equal": [b["tokens"] for b in bodies] == tokens}
+        check_counts([(r, b["tokens"]) for r, b in zip(USER_PROMPTS,
+                                                         bodies)],
+                     engine.tokenizer.eos_token_id)
+        del server, engine
+    finally:
+        release(device)
+        dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - start
+    telemetry.start()
+    plain = mesh_serve_engine(views, device, None, "static")
+    out["plain_tokens"], _ = run_static(plain, USER_PROMPTS)
+    out["plain_flush_p50_ms"] = flush_p50_ms(plain)
+    del plain
+    release(device)
+    return out
+
+
+def serve_mesh_static_phase(views, device, card):
+    """The static leg of ``[serve-mesh]``: (a-static) and (b-static) at
+    ``{tp: 2}``, each checked against the plain static engine's tokens.
+    Returns the leg's numbers."""
+    one = serve_mesh_static_one(views, device)
+    plain = one["plain_tokens"]
+    assert one["tokens"] == plain, \
+        "static serve.mesh {tp: 1} tokens != the plain static engine's"
+    assert one["recompiles"] == 0, f"recompiled {one['recompiles']} times"
+    assert one["scheduler"] == "static" and one["mesh"]["devices"] == 1
+    if device == "cuda":
+        assert one["graphs"]["graphs"] == len(SERVE_BUCKETS), one["graphs"]
+    log("serve-mesh", f"(a-static) scheduler: static on serve.mesh "
+                      f"{{tp: 1}}, a world of one over NCCL through HTTP: "
+                      f"fp32 greedy tokens == the plain static engine's on "
+                      f"the 10 requests (the HTTP burst's equal too: "
+                      f"{one['http_tokens_equal']}); "
+                      f"{one['graphs']['graphs']} CUDA graphs (a decode "
+                      f"step a bucket, the mesh's all-reduces inside), 0 "
+                      f"recompiles; leg wall {one['wall_s']:.2f} s; flush "
+                      f"p50 {one['flush_p50_ms']:.2f} ms on the mesh, "
+                      f"{one['plain_flush_p50_ms']:.2f} ms plain ({card})")
+    ranks = serve_mesh_world(2, device, scheduler="static")
+    lead = ranks[0]
+    assert lead["tokens"] == plain, "static tp 2 tokens != the plain engine's"
+    for r in ranks:
+        assert r["digest"] == lead["digest"], \
+            f"static tp 2 rank {r['rank']}'s tokens diverged"
+        assert r["recompiles"] == 0, r
+        assert r.get("rc", 0) == 0, r
+        assert device != "cuda" or "gloo" in r["refused"], r
+    wall = max(r["wall_s"] for r in ranks)
+    log("serve-mesh", f"(b-static) scheduler: static on serve.mesh "
+                      f"{{tp: 2}}, 2 gloo ranks on this card (graphs "
+                      f"refused over gloo at construction; run with graphs "
+                      f"off): fp32 greedy tokens == the plain static "
+                      f"engine's, the ranks' static digests equal, the "
+                      f"follower exited 0 after the stop, 0 recompiles; "
+                      f"leg wall {wall:.2f} s (warmup of "
+                      f"{len(SERVE_BUCKETS)} buckets included); flush p50 "
+                      f"{lead['flush_p50_ms']:.2f} ms (host-staged "
+                      f"all-reduces) ({card})")
+    return {"one": {k: v for k, v in one.items()
+                    if k not in ("tokens", "plain_tokens")},
+            "tp2": {"wall_s": wall, "flush_p50_ms": lead["flush_p50_ms"],
+                    "digest_equal": True}}
+
+
+def serve_mesh_world(world, device, timeout=600, scheduler="slots"):
     """(b) at ``{tp: world}``: the ranks as child processes on this card;
     their reports."""
     port = free_port()
-    outs = [os.path.join(CKPT_ROOT, f"serve_mesh_{world}_{r}.json")
+    outs = [os.path.join(CKPT_ROOT, f"serve_mesh_{scheduler}_{world}_{r}"
+                                    f".json")
             for r in range(world)]
     os.makedirs(CKPT_ROOT, exist_ok=True)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--serve-mesh-child",
-         str(world), str(r), str(port), outs[r], device],
+         str(world), str(r), str(port), outs[r], device, scheduler],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     logs = []
@@ -2261,7 +2416,8 @@ def serve_mesh_phase(views, device, fp32, card):
                           f" GB a rank of {lead['kv']['pool_gb']} GB; step "
                           f"p50 {lead['step_p50_ms']:.2f} ms (host-staged "
                           f"all-reduces) ({card})")
-    return {"one": one, "worlds": worlds,
+    static = serve_mesh_static_phase(views, device, card)
+    return {"one": one, "worlds": worlds, "static": static,
             "launches": one["launches"] + sum(w["launches"]
                                               for w in worlds.values())}
 
@@ -5745,7 +5901,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--gptj-child"]:
         return gptj_child(*sys.argv[2:3])
     if sys.argv[1:2] == ["--serve-mesh-child"]:
-        return serve_mesh_child(*sys.argv[2:7])
+        return serve_mesh_child(*sys.argv[2:8])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on "
               "the card", file=sys.stderr)

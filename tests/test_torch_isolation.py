@@ -1,5 +1,6 @@
-"""The port stands alone: importing every ``trlx_tpu_torch`` module, and
-``chip_smoke.py``, in a fresh interpreter leaves ``jax``, every
+"""The port stands alone: importing every ``trlx_tpu_torch`` module (its
+graftlint, ``trlx_tpu_torch.analysis``, too), and ``chip_smoke.py``, in a
+fresh interpreter leaves ``jax``, every
 ``trlx_tpu`` module and ``transformers`` out of ``sys.modules``
 (``trlx_tpu_torch`` itself shares that prefix, so the check compares
 package names, not string prefixes), starts no thread and builds no
@@ -64,7 +65,12 @@ def test_port_imports_no_jax_and_no_trlx_tpu():
                  "ops.ring_attention", "ops.pipeline_parallel",
                  "serve.layouts", "serve.follower", "router",
                  "router.resilience", "router.obs", "router.__main__", "obs",
-                 "obs.__main__", "native"):
+                 "obs.__main__", "native", "analysis", "analysis.model",
+                 "analysis.concurrency", "analysis.__main__",
+                 "analysis.rules", "analysis.rules.style",
+                 "analysis.rules.locks", "analysis.rules.concurrency",
+                 "analysis.rules.contracts",
+                 "analysis.rules.torch_hazards"):
         assert f"trlx_tpu_torch.{name}" in report["imported"]
     leaked = [
         m for m in report["modules"]

@@ -184,3 +184,31 @@ def test_no_native_switch_keeps_the_python_path():
     assert available is False and info == {}
     assert calls == {"byte_tokenize_pad": 0, "pad_collate": 0}
     assert shape == [100, 8]
+
+
+def test_native_cache_variable_decides_the_build_directory(tmp_path,
+                                                           monkeypatch):
+    """``$TRLX_TPU_NATIVE_CACHE`` (trlx_tpu.native's variable) names the
+    build directory, so a read-only checkout still gets the library; unset,
+    the library builds under ``build/host/``."""
+    monkeypatch.delenv(native.CACHE_ENV, raising=False)
+    assert native.build_dir() == REPO / "build" / "host"
+    cache = tmp_path / "native cache"
+    monkeypatch.setenv(native.CACHE_ENV, str(cache))
+    assert native.library_path().parent == cache
+    probe = ("import json; from trlx_tpu_torch import native; "
+             "ids, _ = native.byte_tokenize_pad(['ab'], 4, 256); "
+             "print(json.dumps([native.available(), native.BUILD_INFO, "
+             "ids.tolist()]))")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True, text=True,
+        timeout=120, cwd=str(REPO),
+        env={**os.environ, "PYTHONPATH": str(REPO),
+             native.CACHE_ENV: str(cache)})
+    assert out.returncode == 0, out.stderr
+    available, info, ids = json.loads(out.stdout.strip().splitlines()[-1])
+    assert available is True
+    built = pathlib.Path(info["path"])
+    assert built.parent == cache and built.exists()
+    assert built.name == native.library_path().name
+    assert ids == [[256, 256, 97, 98]]

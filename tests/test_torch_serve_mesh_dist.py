@@ -13,11 +13,17 @@ weights at float32 — the oracle of tests/test_serve_mesh.py:
   attention), against the port's single-process engine;
 - replay after a poisoned step, and a hot-swap under load through
   ``POST /admin/reload`` (each follower restores its own slices);
+- ``scheduler: static`` on {tp: 2}, {tp: 2, fsdp: 2} and {tp: 4}: the
+  micro-batcher's greedy tokens equal trlx_tpu's single-device static
+  engine's (its per-bucket ``decode``); a poisoned flush fails its
+  requests before any follower enters that ``generate``, and the rows
+  sent again decode right; a hot-swap by ``request_swap`` and one by
+  ``POST /admin/reload``, each follower restoring its own slices;
 - the streaming reload restores the decode subset only, each rank its
   slices; the /healthz, /debug/state and /metrics mesh surface;
-- every scenario: 0 recompiles on every rank, no leaked pages, the
-  ranks' token digests equal, every follower's loop returning 0 after
-  the stop.
+- every scenario: 0 recompiles on every rank, no leaked pages (slots),
+  the ranks' token digests equal, every follower's loop returning 0
+  after the stop.
 
 Each child writes its log to a file (a failing rank must not fill a
 pipe and wedge its peers in a collective) and has its own timeout."""
@@ -69,6 +75,22 @@ def _jax_tokens(tree, rows, config=None):
         pair = rows[i:i + 2]
         gen = direct_generate(engine, pair, (2, 8, 8), gen_size=MAX_NEW)
         out += [engine.depad_row(gen, j, MAX_NEW) for j in range(len(pair))]
+    return out
+
+
+def _jax_static_tokens(tree, batches, config=None):
+    """trlx_tpu's single-device static engine holding ``tree``: each
+    batch of rows through ``decode`` on the smallest bucket that holds it
+    (a one-row batch repeats its row, as the micro-batcher pads), cut to
+    MAX_NEW tokens a row."""
+    engine = JaxEngine(JaxConfig.from_dict(config or tiny_config_dict()),
+                       serve=JaxServe(buckets=BUCKETS, scheduler="static"),
+                       params=tree)
+    out = []
+    for rows in batches:
+        bucket = next(tuple(b) for b in BUCKETS if b[0] >= len(rows))
+        gen = engine.decode(bucket, *engine.pad_batch(rows, bucket), seed=0)
+        out += [engine.depad_row(gen, j, MAX_NEW) for j in range(len(rows))]
     return out
 
 
@@ -161,6 +183,14 @@ def run(tmp_path_factory):
             "int8": _port_tokens(tree1, weights_dtype="int8",
                                  kv_dtype="int8"),
             "gqa": _port_tokens(tree_gqa, config_gqa),
+            # the micro-batcher's flushes: rows 0-3, then rows 4-5
+            "static_rows": _jax_static_tokens(tree1, [ROWS[:4], ROWS[4:]]),
+            "static_pair": _jax_static_tokens(tree1, [ROWS[:2]]),
+            "static_step2": _jax_static_tokens(tree2, [ROWS[:2]]),
+            # one /generate at a time: each row alone in a batch-2 bucket
+            "static_single": _jax_static_tokens(tree1, [ROWS[:1], ROWS[1:2]]),
+            "static_single_step2": _jax_static_tokens(
+                tree2, [ROWS[:1], ROWS[1:2]]),
         }
         torch.save({"config": config, "tree1": tree1, "config256": config256,
                     "tree256": tree256, "config_gqa": config_gqa,
@@ -177,8 +207,15 @@ def run(tmp_path_factory):
 def _check_invariants(ranks, name):
     """0 recompiles on every rank, no leaked pages, equal digests, every
     follower's loop ended by the stop with 0."""
-    lead = ranks[0][name]
+    lead = _check_ranks(ranks, name)
     assert lead["no_leaks"], f"{name}: leaked pages or slots"
+    return lead
+
+
+def _check_ranks(ranks, name):
+    """0 recompiles on every rank, equal digests, every follower's loop
+    ended by the stop with 0."""
+    lead = ranks[0][name]
     for r, res in enumerate(ranks):
         got = res[name]
         assert got["recompiles"] == 0.0, (name, r)
@@ -302,7 +339,43 @@ def test_streaming_reload_is_partial_and_sharded(run):
         assert got["wq_equal"] and got["ln_f_equal"]
 
 
-def test_static_scheduler_refused_on_a_mesh(run):
-    for res in run[2]:
-        assert "static" in res["refusals"]["static"]
-        assert "not ported" in res["refusals"]["static"]
+@pytest.mark.parametrize("world,name", [(2, "tp2_static"),
+                                        (4, "tp2_fsdp2_static"),
+                                        (4, "tp4_static")])
+def test_static_scheduler_greedy_parity_mesh(run, world, name):
+    """``scheduler: static`` on the mesh: the micro-batcher's flushes are
+    mirrored to every rank, whose greedy tokens equal trlx_tpu's static
+    engine's; a poisoned flush fails its two requests (its seam fires
+    before the publish, so no follower enters that ``generate``) and the
+    rows sent again decode right, with every rank still in step."""
+    lead = _check_ranks(run[world], name)
+    want = run["want"]
+    assert lead["tokens"] == want["static_rows"]
+    assert lead["poisoned"] == ["ChaosError", "ChaosError"]
+    assert lead["request_errors"] == 2.0
+    assert lead["resent"] == want["static_pair"]
+
+
+def test_static_hot_swap_mesh(run):
+    """``MicroBatcher.request_swap`` on rank 0 with the run's newest step:
+    every follower restores its own slices, the probe runs on every
+    rank, and later flushes decode step_2's tokens."""
+    lead = _check_ranks(run[2], "tp2_static")
+    assert lead["swap"]["reloaded"] is True, lead["swap"]
+    assert lead["model_version"] == 2
+    assert lead["swapped"] == run["want"]["static_step2"]
+
+
+def test_static_server_reload_and_stop_mesh(run):
+    """The static scheduler behind HTTP on {tp: 2}: /generate, ``POST
+    /admin/reload`` (200; each rank restores its slices), /generate on
+    step_2, and the server's stop ending the follower's loop."""
+    lead = _check_ranks(run[2], "tp2_static_http")
+    want = run["want"]
+    assert lead["healthz"]["scheduler"] == "static"
+    assert lead["healthz"]["mesh"]["devices"] == 2
+    assert lead["reload_code"] == 200, lead["reload"]
+    assert lead["reload"]["checkpoint"].endswith("step_2")
+    assert lead["before"] == want["static_single"]
+    assert lead["after"] == want["static_single_step2"]
+    assert lead["versions"] == [1, 1, 2, 2]

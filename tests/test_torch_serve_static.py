@@ -240,6 +240,42 @@ def test_chaos_hang_surfaces_as_watchdog_stall(engine, fresh_registry):
         b.stop()
 
 
+def test_watchdog_abort_stops_the_followers_first(engine, monkeypatch):
+    """The serve watchdog's abort on process 0 of a serve mesh: the
+    server's exit hook sends the followers' ``stop`` first, bounded by
+    ``ABORT_STOP_TIMEOUT`` (a follower stuck in the hung step never takes
+    it), then exits with the watchdog's code."""
+    import threading
+
+    from trlx_tpu_torch.serve import server as server_mod
+
+    events = []
+    release = threading.Event()
+
+    class Channel:
+        leader = True
+        hang = False
+
+        def close(self):
+            if self.hang:
+                release.wait(30.0)
+            events.append("stop")
+
+    channel = Channel()
+    monkeypatch.setattr(engine, "channel", channel)
+    monkeypatch.setattr(engine.serve, "stall_timeout", 5.0)
+    monkeypatch.setattr(server_mod, "_exit", events.append)
+    monkeypatch.setattr(server_mod, "ABORT_STOP_TIMEOUT", 0.2)
+    srv = InferenceServer(engine, host="127.0.0.1", port=0)
+    assert srv.supervisor.stall_action == "abort"
+    srv.supervisor.exit_fn(70)
+    assert events == ["stop", 70]
+    channel.hang = True
+    srv.supervisor.exit_fn(70)  # the stop hangs: the exit comes anyway
+    assert events == ["stop", 70, 70]
+    release.set()
+
+
 # --------------------------------------------------------------------- #
 # the contiguous layout
 # --------------------------------------------------------------------- #

@@ -6,13 +6,15 @@
 reads ``<dir>/inputs.pt`` (the configs, the numpy weights and the run
 directory the test wrote), runs every serve-mesh scenario of its world
 size (2: ``{tp: 2}``; 4: ``{tp: 2, fsdp: 2}`` and ``{tp: 4}``, also at
-grouped-query heads that tp 4 does not divide) and writes
-``<dir>/rank<r>.pt`` with what it saw, printing ``WORKER OK <rank>``
-last. In every scenario each process builds the engine from the same
-config; process 0 drives the slot scheduler (or the HTTP server) and the
+grouped-query heads that tp 4 does not divide), under the slot scheduler
+and under ``scheduler: static``, and writes ``<dir>/rank<r>.pt`` with
+what it saw, printing ``WORKER OK <rank>`` last. In every scenario each
+process builds the engine from the same config; process 0 drives the
+slot scheduler, the static micro-batcher or the HTTP server, and the
 others follow its device calls (trlx_tpu_torch.serve.follower) until the
-scheduler's stop ends their loops. Each process reports its runtime's
-token digest, its ``compile/recompiles`` and its follower's exit code.
+scheduler's stop ends their loops. Each process reports its token digest
+(the slot runtime's or, under ``static``, the engine's), its
+``compile/recompiles`` and its follower's exit code.
 """
 
 import json
@@ -87,6 +89,7 @@ def serve(inputs, drive, tree=None, config=None, checkpoint=None, **knobs):
     from trlx_tpu_torch.serve.slots import SlotPoolRuntime
 
     telemetry.start()
+    static = knobs.get("scheduler") == "static"
     cfg = serve_cfg(**knobs)
     if checkpoint is not None:
         engine = InferenceEngine.from_checkpoint(checkpoint, serve=cfg,
@@ -98,6 +101,8 @@ def serve(inputs, drive, tree=None, config=None, checkpoint=None, **knobs):
             device="cpu")
     if engine.channel.leader:
         out = drive(engine)
+    elif static:
+        out = {"rc": follow(engine), "digest": engine.digest.hexdigest()}
     else:
         runtime = SlotPoolRuntime(engine)
         draft = None
@@ -235,19 +240,84 @@ def _leaves(tree):
     return [x for x in tree_flatten(tree)[0] if torch.is_tensor(x)]
 
 
-def refusals(inputs):
-    """Every process: the static scheduler is refused on a mesh of
-    several processes."""
-    from trlx_tpu_torch.data.configs import TRLConfig
-    from trlx_tpu_torch.serve.engine import InferenceEngine
+def submit_all(sched, rows, max_new=MAX_NEW):
+    """Queue every row at once (under the batcher's lock, so its worker
+    sees them together): the flushes then take rows 0-3 as one batch-4
+    bucket and the rest as a batch-2 one, whatever the timing. Waits for
+    each without raising a failed batch's error (``Request.error``)."""
+    with sched._cond:
+        reqs = [sched.submit(list(r), max_new_tokens=max_new) for r in rows]
+    for r in reqs:
+        assert r.done.wait(timeout=60.0), "request not decoded in 60 s"
+    return reqs
 
-    try:
-        InferenceEngine(TRLConfig.from_dict(inputs["config"]),
-                        serve=serve_cfg(mesh={"tp": 2}, scheduler="static"),
-                        params=inputs["tree1"], device="cpu")
-    except NotImplementedError as e:
-        return {"static": str(e)}
-    return {"static": None}
+
+def static_burst(rows, swap_run=None):
+    """process 0's drive under ``scheduler: static``: warmup (every
+    bucket, mirrored), the rows through the micro-batcher, then a
+    poisoned flush (the ``serve_decode`` seam fires before the publish,
+    so no follower enters that generate) whose rows are sent again; with
+    ``swap_run``, a hot-swap to its newest step (each follower restores
+    its own slices) and the first two rows again."""
+    def drive(engine):
+        from trlx_tpu_torch.serve.batcher import MicroBatcher
+        from trlx_tpu_torch.supervisor import chaos
+
+        b = MicroBatcher(engine)
+        b.warmup()
+        b.start()
+        try:
+            out = {"tokens": [r.result for r in submit_all(b, rows)]}
+            chaos.configure("serve_decode:exc@1")
+            failed = submit_all(b, rows[:2])
+            chaos.reset()
+            out["poisoned"] = [type(r.error).__name__ for r in failed]
+            out["resent"] = [r.result for r in submit_all(b, rows[:2])]
+            out["request_errors"] = counters().get("serve/request_errors",
+                                                   0.0)
+            if swap_run is not None:
+                params, resolved = engine.load_params(swap_run)
+                out["swap"] = b.request_swap(params, label=resolved)
+                del params
+                out["swapped"] = [r.result for r in submit_all(b, rows[:2])]
+                out["model_version"] = engine.model_version
+        finally:
+            chaos.reset()
+            b.stop()
+        out["digest"] = engine.digest.hexdigest()
+        return out
+
+    return drive
+
+
+def static_http(rows):
+    """process 0 serves ``scheduler: static`` over HTTP from a run's
+    step_1: /generate, ``POST /admin/reload`` of the run (its newest
+    step, restored by every process from its own slices), /generate
+    again; the server's stop ends the followers."""
+    def drive(engine):
+        from trlx_tpu_torch.serve.server import InferenceServer
+
+        srv = InferenceServer(engine, port=0).start()
+        try:
+            before = [http(srv.port, "/generate",
+                           {"tokens": list(r), "max_new_tokens": MAX_NEW})[1]
+                      for r in rows[:2]]
+            code, body = http(srv.port, "/admin/reload", {})
+            after = [http(srv.port, "/generate",
+                          {"tokens": list(r), "max_new_tokens": MAX_NEW})[1]
+                     for r in rows[:2]]
+            out = {"healthz": http(srv.port, "/healthz")[1],
+                   "before": [b["tokens"] for b in before],
+                   "after": [b["tokens"] for b in after],
+                   "versions": [b["model_version"] for b in before + after],
+                   "reload_code": code, "reload": body}
+        finally:
+            srv.stop()
+        out["digest"] = engine.digest.hexdigest()
+        return out
+
+    return drive
 
 
 def scenarios(world, inputs):
@@ -272,6 +342,12 @@ def scenarios(world, inputs):
             "tp2_replay": (replay(inputs["replay_rows"]), tp2),
             "tp2_hot_swap": (hot_swap(rows, run), {
                 **tp2, "_checkpoint": os.path.join(run, "step_1")}),
+            "tp2_static": (static_burst(rows, run), {
+                **tp2, "scheduler": "static",
+                "_checkpoint": os.path.join(run, "step_1")}),
+            "tp2_static_http": (static_http(rows), {
+                **tp2, "scheduler": "static",
+                "_checkpoint": os.path.join(run, "step_1")}),
         })
         return out
     return {
@@ -282,6 +358,10 @@ def scenarios(world, inputs):
         "tp4": (staggered(rows), {"mesh": {"tp": 4}, "attention": "pallas"}),
         "tp4_gqa_whole_width": (staggered(rows), {
             "mesh": {"tp": 4}, "attention": "pallas", "_gqa": True}),
+        "tp2_fsdp2_static": (static_burst(rows), {
+            "mesh": {"tp": 2, "fsdp": 2}, "scheduler": "static"}),
+        "tp4_static": (static_burst(rows), {
+            "mesh": {"tp": 4}, "scheduler": "static"}),
     }
 
 
@@ -308,7 +388,6 @@ def main():
                               **knobs)
     if world == 2:
         results["streaming_reload"] = streaming_reload(inputs)
-        results["refusals"] = refusals(inputs)
     torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
     print(f"WORKER OK {rank}", flush=True)
 

@@ -13,9 +13,11 @@ stack (SURVEY §2.9):
 
 ``trlx_tpu_torch/csrc/hostdata.cpp`` is compiled at first use with the
 system C++ compiler (``g++ -O3 -std=c++17 -shared -fPIC -pthread``) into
-``build/host/`` at the repository root (git-ignored, beside
-``ops._build``'s ``build/kernels/``); the library's file name carries a
-hash of its source and flags, and it is published by an atomic rename.
+``$TRLX_TPU_NATIVE_CACHE`` when that is set (trlx_tpu's variable, so a
+read-only checkout can build elsewhere), else into ``build/host/`` at
+the repository root (git-ignored, beside ``ops._build``'s
+``build/kernels/``); the library's file name carries a hash of its
+source and flags, and it is published by an atomic rename.
 No pybind11: plain ``extern "C"`` + ctypes. Everything degrades to the
 pure-Python implementations when no compiler is available or
 ``$TRLX_TPU_NO_NATIVE`` is set: :func:`available` gates every call site,
@@ -28,14 +30,18 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
+from trlx_tpu_torch.supervisor import monotonic
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "hostdata.cpp"
+#: where the library builds when ``$TRLX_TPU_NATIVE_CACHE`` is unset
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
+#: names the build directory when set (trlx_tpu.native's variable)
+CACHE_ENV = "TRLX_TPU_NATIVE_CACHE"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 #: calls that ran in the library, per function (the card smoke test reads
@@ -54,18 +60,24 @@ def compiler() -> Optional[str]:
         or shutil.which("c++")
 
 
+def build_dir() -> Path:
+    """``$TRLX_TPU_NATIVE_CACHE`` when set, else :data:`BUILD_DIR`."""
+    cache = os.environ.get(CACHE_ENV)
+    return Path(cache) if cache else BUILD_DIR
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"libhostdata-{digest}.so"
+    return build_dir() / f"libhostdata-{digest}.so"
 
 
 def _compile(cxx: str, path: Path) -> bool:
     # a unique tmp per process: concurrent first-use builds (pytest
     # workers) must not interleave writes into one file
     tmp = path.with_name(f"{path.name}.tmp-{os.getpid()}")
-    start = time.perf_counter()
+    start = monotonic()
     try:
         subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=120)
@@ -73,7 +85,7 @@ def _compile(cxx: str, path: Path) -> bool:
     except (subprocess.SubprocessError, OSError):
         tmp.unlink(missing_ok=True)
         return False
-    BUILD_INFO.update(seconds=time.perf_counter() - start, path=str(path))
+    BUILD_INFO.update(seconds=monotonic() - start, path=str(path))
     return True
 
 
@@ -81,8 +93,11 @@ def _build() -> Optional[ctypes.CDLL]:
     cxx = compiler()
     if cxx is None or not SOURCE.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = library_path()
+    try:
+        so.parent.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return None
     if so.exists():
         BUILD_INFO.update(seconds=0.0, path=str(so))
     elif not _compile(cxx, so):

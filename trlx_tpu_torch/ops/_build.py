@@ -15,9 +15,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+from trlx_tpu_torch.supervisor import monotonic
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -75,14 +76,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Dict[str, object]]:
         tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        start = time.perf_counter()
+        start = monotonic()
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         procs.append((name, out, tmp, proc, start))
     failures = []
     for name, out, tmp, proc, start in procs:
         log, _ = proc.communicate()
-        seconds = time.perf_counter() - start
+        seconds = monotonic() - start
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue

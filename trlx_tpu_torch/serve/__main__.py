@@ -27,14 +27,18 @@ Examples::
 
     torchrun --nproc_per_node 2 -m trlx_tpu_torch.serve \
         --config configs/test_config.yml --mesh tp=2 --port 8080
+    torchrun --nproc_per_node 2 -m trlx_tpu_torch.serve \
+        --config configs/test_config.yml --mesh tp=2 --scheduler static \
+        --buckets 4x16x16,8x16x16
 
 The serve watchdog is armed by ``serve.stall_timeout`` (the flag, or
 the config's ``serve:`` section, as ``configs/ppo_config.yml`` sets
 it); SIGTERM drains and exits 0. ``--mesh tp=N[,fsdp=M]`` serves one
 model over the tp x fsdp processes of a ``torchrun`` launch (one card
 each; with ``--device cpu`` gloo processes): process 0 answers HTTP and
-the others follow its device calls (trlx_tpu_torch.serve.follower),
-each arming the watchdog and exiting 0 after the drain.
+the others follow its device calls under either scheduler
+(trlx_tpu_torch.serve.follower), each arming the watchdog and exiting 0
+after the drain.
 """
 
 import argparse

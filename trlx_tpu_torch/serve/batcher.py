@@ -388,6 +388,7 @@ class MicroBatcher:
 
     def __init__(self, engine, max_wait_ms: Optional[float] = None,
                  max_queue: Optional[int] = None, run_supervisor=None):
+        engine.check_graph_transport()
         self.engine = engine
         cfg = engine.serve
         self.max_wait_s = (
@@ -428,12 +429,15 @@ class MicroBatcher:
         return self
 
     def stop(self) -> None:
+        """Stop the worker and fail what is still queued; on a serve
+        mesh, then end the followers' loops (once)."""
         self._stop.set()
         with self._cond:
             self._cond.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             self._thread = None
+        self.engine.close()
         # fail pending requests loudly rather than stranding waiters
         with self._cond:
             pending = list(self._queue)
@@ -695,7 +699,13 @@ class MicroBatcher:
         graphs read the engine's own tensors — and probe the smallest
         bucket through its existing graph; non-finite logprobs (or a
         probe that raises) swap the previous weights back. Zero
-        recompiles either way. Returns the reload verdict dict."""
+        recompiles either way. Returns the reload verdict dict.
+
+        On a serve mesh of several processes ``label`` is the checkpoint
+        directory ``params`` came from: the install, the probe and the
+        commit or rollback reach every follower, which restores its own
+        slices of it (:meth:`InferenceEngine.install`). The
+        ``serve_reload`` seam fires before anything is published."""
         chaos.maybe_inject("serve_reload")
         e = self.engine
         views = e.strip_for_serve(params)
@@ -708,7 +718,8 @@ class MicroBatcher:
         mask[:, -1] = 1
         detail = ""
         with e._lock:  # no decode mid-dispatch sees a torn weight set
-            e.install_views(views)  # views now hold the previous weights
+            e.install(label, views)  # views now hold the previous weights
+            del views
             try:
                 out = e.decode((B, P, G), tokens, mask, seed=0)
                 ok = bool(np.all(np.isfinite(out.gen_logprobs)))
@@ -717,8 +728,7 @@ class MicroBatcher:
             except Exception as exc:
                 ok = False
                 detail = f"smoke probe failed: {exc!r}"
-            if not ok:
-                e.install_views(views)  # rollback: the previous weights
+            e.end_swap(rollback=not ok)  # a rollback: the previous weights
         if not ok:
             telemetry.inc("serve/reload_failures")
             return {"reloaded": False, "model_version": old_version,

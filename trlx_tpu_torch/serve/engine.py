@@ -39,8 +39,12 @@ The serve mesh is the world of a ``torchrun`` launch, one process per
 card. Every process builds the engine from the same config and keeps
 its slices of each leaf; process 0 runs the host side (scheduler,
 radix cache, HTTP) and every other process mirrors its device calls
-(trlx_tpu_torch.serve.follower, over :attr:`InferenceEngine.channel`).
-With ``mesh`` unset there is no process group and no collective.
+(trlx_tpu_torch.serve.follower, over :attr:`InferenceEngine.channel`):
+under ``scheduler: slots`` the slot runtime's, under ``scheduler:
+static`` the engine's own :meth:`~InferenceEngine.decode` and a
+hot-swap's :meth:`~InferenceEngine.install` and
+:meth:`~InferenceEngine.end_swap`. With ``mesh`` unset there is no
+process group and no collective.
 
 Hot-swap (:meth:`InferenceEngine.install_views`) writes the candidate
 INTO the engine's own tensors: the decode graphs captured those tensors,
@@ -49,6 +53,7 @@ whole model into the captured ones. The candidate's tensors get the
 previous weights in exchange, which is the rollback copy.
 """
 
+import hashlib
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -330,14 +335,6 @@ class InferenceEngine:
         self.mesh = layouts.build_serve_mesh(self.serve.mesh,
                                              self.device.type)
         self.channel = HostChannel() if self.mesh is not None else None
-        if self.serve.scheduler == "static" and self.channel is not None \
-                and self.channel.world > 1:
-            raise NotImplementedError(
-                f"serve.scheduler 'static' on a serve mesh of "
-                f"{self.channel.world} processes is not ported to "
-                f"trlx_tpu_torch yet (its batches would have to be "
-                f"mirrored on every process); use scheduler: slots, or "
-                f"see ROADMAP.md")
         self.buckets = _normalize_buckets(self.serve.buckets)
         self.tokenizer = load_tokenizer(config.model.tokenizer_path)
         spec, trunk = self._resolve_spec_and_trunk(config)
@@ -417,9 +414,16 @@ class InferenceEngine:
         self._decoders: Dict[Bucket, Any] = {}
         self._generator = torch.Generator(device=self.device)
         #: serialises the static path's decodes and its weight swaps (a
-        #: swap's probe decodes while holding it)
+        #: swap's probe decodes while holding it), and so their order on
+        #: the serve mesh's host channel
         self._lock = threading.RLock()
         self.warmed = False
+        #: sha-256 of every static decode's tokens and mask on this
+        #: process: equal on every process of a mesh that kept in step
+        self.digest = hashlib.sha256()
+        #: during a hot-swap, the candidate's tensors (holding the
+        #: previous weights once installed): the rollback copy
+        self._held = None
 
     def _template(self, views) -> DecodeViews:
         """The serving views' leaves as meta tensors of their whole
@@ -738,6 +742,69 @@ class InferenceEngine:
             new.copy_(held)
             del held
 
+    def check_graph_transport(self) -> None:
+        """Refuse decode graphs on a serve mesh whose collectives run over
+        gloo with CUDA tensors: a gloo collective cannot be captured.
+        Called where a decode driver is built (the slot runtime, the
+        static micro-batcher, a static follower), so it is refused
+        before serving, never replayed eager in silence."""
+        import torch.distributed as dist
+
+        from trlx_tpu_torch.utils import aotjit
+
+        if self.tp is not None and self.device.type == "cuda" \
+                and aotjit.CUDA_GRAPHS and dist.get_backend() != "nccl":
+            raise RuntimeError(
+                "the serve mesh's collectives run over gloo here, which a "
+                "CUDA graph cannot capture: serve on the card with an NCCL "
+                "process group (one process per card), or turn the decode "
+                "graphs off (trlx_tpu_torch.utils.aotjit.CUDA_GRAPHS = "
+                "False)")
+
+    def _mirror(self, op: str, *args) -> None:
+        """Process 0 of a serve mesh publishes a device call to the
+        followers before running it (a no-op elsewhere)."""
+        if self.channel is not None and self.channel.leader:
+            self.channel.send(op, *args)
+
+    def close(self) -> None:
+        """End the followers' loops (process 0 of a serve mesh; the first
+        call only). No device call may follow it on a mesh of several
+        processes."""
+        if self.channel is not None and self.channel.leader:
+            self.channel.close()
+
+    def install(self, checkpoint: str, views=None) -> None:
+        """A hot-swap's install (:meth:`install_views`), in place;
+        ``views`` is kept as the rollback copy until :meth:`end_swap`.
+        Without ``views`` (a follower) this process restores, strips and
+        validates its own slices of ``checkpoint``; on a mesh of several
+        processes, process 0 publishes the checkpoint it took the
+        candidate from, so each follower restores its slices of it."""
+        if views is None:
+            params, _ = self.load_params(checkpoint)
+            views = self.strip_for_serve(params)
+            del params
+            self.validate_swap(views)
+        elif self.channel is not None and self.channel.world > 1:
+            if not checkpoint:
+                raise ValueError(
+                    "a hot-swap on a serve mesh of several processes needs "
+                    "the checkpoint directory the candidate came from "
+                    "(each process restores its own slices of it)")
+            self._mirror("install", checkpoint)
+        self.install_views(views)
+        self._held = views
+
+    def end_swap(self, rollback: bool) -> None:
+        """End a hot-swap: with ``rollback`` the previous weights go back
+        in (the held candidate holds them); either way the rollback copy
+        is dropped."""
+        self._mirror("end_swap", bool(rollback))
+        held, self._held = self._held, None
+        if rollback and held is not None:
+            self.install_views(held)
+
     def commit_version(self, checkpoint: Optional[str] = None) -> int:
         """Bump the model version AFTER a successful swap and probe; a
         rolled-back swap never commits, so the gauge always names the
@@ -894,7 +961,10 @@ class InferenceEngine:
         micro-batcher's flush): tokens / mask are left-padded [B, P]
         int32; returns the GenerationOutput as host numpy. The span
         closes after the copy to the host, so it times the device work
-        too. Dispatches are serialised by a lock."""
+        too. Dispatches are serialised by a lock, under which process 0
+        of a serve mesh publishes the call first, so the followers run
+        every decode in process 0's order; every process then draws from
+        the same seed and ends its loop at the same step."""
         from trlx_tpu_torch.models.generation import generate
 
         B, P, G = bucket
@@ -903,19 +973,23 @@ class InferenceEngine:
                 f"decode batch shape {tokens.shape} does not match "
                 f"bucket (batch={B}, prompt={P})"
             )
+        tokens = np.ascontiguousarray(tokens, np.int32)
+        mask = np.ascontiguousarray(mask, np.int32)
         cfg = self.gen_config._replace(gen_size=G)
         with self._lock, telemetry.span(self.span_name(bucket)):
+            self._mirror("decode", (B, P, G), tokens, mask, int(seed))
             self._generator.manual_seed(int(seed))
             out = generate(
                 self.spec, self.blocks, self.embed, self.ln_f,
-                torch.as_tensor(np.ascontiguousarray(tokens, np.int32),
-                                device=self.device),
-                torch.as_tensor(np.ascontiguousarray(mask, np.int32),
-                                device=self.device),
+                torch.as_tensor(tokens, device=self.device),
+                torch.as_tensor(mask, device=self.device),
                 self._generator, cfg, compute_dtype=self.compute_dtype,
                 decoder=self._decoder(bucket), tp=self.tp,
             )
-            return type(out)(*(x.cpu().numpy() for x in out))
+            out = type(out)(*(x.cpu().numpy() for x in out))
+            self.digest.update(out.gen_tokens.tobytes())
+            self.digest.update(out.gen_mask.tobytes())
+            return out
 
     def warmup(self) -> Dict[str, float]:
         """Run every lattice bucket once, so no live request pays the

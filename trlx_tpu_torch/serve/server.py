@@ -61,10 +61,13 @@ chaos seam fires at its entry. SIGTERM only sets an event; the
 exits 0.
 
 On a serve mesh (``serve.mesh``) the server runs on process 0 only: its
-scheduler publishes every device call to the other processes
-(trlx_tpu_torch.serve.follower), ``/admin/reload`` has each of them
-restore its own slices of the checkpoint, and the stop at the end of a
-drain ends their loops, so they exit 0 too. ``/metrics`` carries
+scheduler (either one) publishes every device call to the other
+processes (trlx_tpu_torch.serve.follower), ``/admin/reload`` has each of
+them restore its own slices of the checkpoint, and the scheduler's stop
+ends their loops, so they exit 0 too: at the end of a drain (``POST
+/admin/drain`` or SIGTERM), at :meth:`InferenceServer.stop`, and when
+the serve watchdog aborts, which sends the stop (bounded by
+:data:`ABORT_STOP_TIMEOUT`) before it exits 70. ``/metrics`` carries
 ``serve/mesh_devices`` and ``serve/params_gb_per_device``.
 """
 
@@ -95,6 +98,12 @@ from trlx_tpu_torch.supervisor import (
     monotonic,
 )
 from trlx_tpu_torch.utils.checkpoint import CheckpointCorrupt
+
+#: seconds the watchdog's abort waits for the serve mesh's stop to go out
+ABORT_STOP_TIMEOUT = 5.0
+
+#: how the watchdog's abort ends the process (tests replace it)
+_exit = os._exit
 
 #: counters registered when a server starts, so the ``serve/*`` series
 #: exist in /metrics from the first scrape, not the first event
@@ -244,7 +253,7 @@ class InferenceServer:
             # serving has no checkpoint to rescue: a stalled decode
             # escalates to exit 70 so a supervisor restarts the replica
             sup = RunSupervisor(stall_timeout=cfg.stall_timeout,
-                                stall_action="abort")
+                                stall_action="abort", exit_fn=self._abort)
         self.supervisor = sup
         self.scheduler = (
             SlotScheduler(engine, run_supervisor=sup)
@@ -641,6 +650,20 @@ class InferenceServer:
         if http_thread is not None:
             http_thread.join(timeout=5.0)
         self.scheduler.stop()
+
+    def _abort(self, code: int) -> None:
+        """The serve watchdog's escalation: end the followers' loops on a
+        serve mesh (a stall before a publish leaves them waiting for the
+        next call), bounded, since a follower stuck in the hung step
+        never receives it; then exit with ``code``."""
+        try:
+            bounded_call(self.engine.close, ABORT_STOP_TIMEOUT,
+                         label="serve_mesh_stop")
+        except Exception as e:
+            print(f"[trlx_tpu_torch.serve] could not stop the serve mesh's "
+                  f"followers before the abort: {e!r}", file=sys.stderr,
+                  flush=True)
+        _exit(code)
 
     def _on_sigterm(self, signum, frame) -> None:
         # runs between bytecodes of whatever frame the signal

@@ -160,22 +160,12 @@ class SlotPoolRuntime:
     def __init__(self, engine, num_slots: Optional[int] = None):
         import hashlib
 
-        import torch.distributed as dist
-
         from trlx_tpu_torch.ops.paged_attention import make_paged_decode_fn
-        from trlx_tpu_torch.utils import aotjit
 
+        engine.check_graph_transport()
         self.engine = engine
         self.device = engine.device
         self.tp = engine.tp
-        if self.tp is not None and self.device.type == "cuda" \
-                and aotjit.CUDA_GRAPHS and dist.get_backend() != "nccl":
-            raise RuntimeError(
-                "the serve mesh's collectives run over gloo here, which a "
-                "CUDA graph cannot capture: serve on the card with an NCCL "
-                "process group (one process per card), or turn the decode "
-                "graphs off (trlx_tpu_torch.utils.aotjit.CUDA_GRAPHS = "
-                "False)")
         self.num_slots = engine.slot_count() if num_slots is None \
             else int(num_slots)
         self.kv_layout = engine.serve.kv_layout
@@ -226,24 +216,17 @@ class SlotPoolRuntime:
         #: sha-256 of every step's and verify pass's host results on this
         #: process: equal on every process of a mesh that kept in step
         self.digest = hashlib.sha256()
-        #: during a hot-swap, the candidate's tensors (holding the
-        #: previous weights once installed): the rollback copy
-        self._held = None
-        self._closed = False
 
     def _mirror(self, op: str, *args) -> None:
         """Process 0 of a serve mesh publishes the call to the followers
         before running it (a no-op elsewhere)."""
-        channel = self.engine.channel
-        if channel is not None and channel.leader:
-            channel.send(op, *args)
+        self.engine._mirror(op, *args)
 
     def close(self) -> None:
-        """End the followers' loops (process 0 of a serve mesh; once).
-        The runtime makes no device call afterwards."""
-        if not self._closed:
-            self._closed = True
-            self._mirror("stop")
+        """End the followers' loops (process 0 of a serve mesh; once:
+        :meth:`InferenceEngine.close`). The runtime makes no device call
+        afterwards."""
+        self.engine.close()
 
     def _fresh_state(self):
         return init_slot_state(self.num_slots, self.buffer_len, self._vocab,
@@ -347,35 +330,13 @@ class SlotPoolRuntime:
                 lane.copy_(fresh)
 
     def install(self, checkpoint: str, views=None) -> None:
-        """A hot-swap's install (trlx_tpu_torch.serve.engine
-        ``install_views``), in place; ``views`` is kept as the rollback
-        copy until :meth:`end_swap`. On a mesh of several processes each
-        follower restores its own slices of ``checkpoint`` (process 0
-        passes the candidate it restored and validated the same way)."""
-        e = self.engine
-        if views is None:
-            params, _ = e.load_params(checkpoint)
-            views = e.strip_for_serve(params)
-            del params
-            e.validate_swap(views)
-        elif e.channel is not None and e.channel.world > 1:
-            if not checkpoint:
-                raise ValueError(
-                    "a hot-swap on a serve mesh of several processes needs "
-                    "the checkpoint directory the candidate came from "
-                    "(each process restores its own slices of it)")
-            self._mirror("install", checkpoint)
-        e.install_views(views)
-        self._held = views
+        """A hot-swap's install: :meth:`InferenceEngine.install`, whose
+        publish the followers' runtimes receive as their own call."""
+        self.engine.install(checkpoint, views)
 
     def end_swap(self, rollback: bool) -> None:
-        """End a hot-swap: with ``rollback`` the previous weights go back
-        in (the held candidate holds them); either way the rollback copy
-        is dropped."""
-        self._mirror("end_swap", bool(rollback))
-        held, self._held = self._held, None
-        if rollback and held is not None:
-            self.engine.install_views(held)
+        """End a hot-swap: :meth:`InferenceEngine.end_swap`."""
+        self.engine.end_swap(rollback)
 
     def warmup(self) -> Dict[str, float]:
         """Run every admission bucket (paged: both variants) against the

@@ -73,7 +73,6 @@ from trlx_tpu_torch.parallel.sharding import (
     on_placements,
     replication,
     sum_over_shards,
-    whole,
     zeros_on,
 )
 from trlx_tpu_torch.utils import (

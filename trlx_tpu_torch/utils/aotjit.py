@@ -78,12 +78,12 @@ on the card too (still keyed and counted): the A/B of
 import contextlib
 import gc
 import threading
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from trlx_tpu_torch import ops, telemetry
+from trlx_tpu_torch.supervisor import monotonic
 
 __all__ = ["aot_jit", "CUDA_GRAPHS", "collector_paused", "tree_flatten"]
 
@@ -92,6 +92,9 @@ CUDA_GRAPHS = True
 
 #: captures of one signature before an invalidated capture raises
 CAPTURE_ATTEMPTS = 3
+
+#: the counters a capture may bump, predeclared at the first capture
+CAPTURE_COUNTERS = ("compile/capture_retries",)
 
 
 _PAUSED, _WAS_ENABLED = 0, True
@@ -234,6 +237,9 @@ class _AotJit:
         """The first call: ``fn`` eagerly on a side stream (the result),
         then one capture over the same arguments, taken again when CUDA
         invalidated it (module docstring)."""
+        # a capture is where a retry can happen: from the first one on,
+        # the counter reads 0 until one does
+        telemetry.predeclare(CAPTURE_COUNTERS)
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
@@ -256,12 +262,12 @@ class _AotJit:
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()  # what the graph's pool reserves shows
         reserved = torch.cuda.memory_reserved(device)
-        start = time.perf_counter()
+        start = monotonic()
         with ops.recording_launches() as launches, collector_paused():
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = self._fn(*args)
         torch.cuda.synchronize(device)
-        seconds = time.perf_counter() - start
+        seconds = monotonic() - start
         inputs = [x if torch.is_tensor(x) else None for x in leaves]
         return _Graph(graph, inputs, outputs, launches, seconds,
                       torch.cuda.memory_reserved(device) - reserved)
