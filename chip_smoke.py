@@ -41,7 +41,10 @@ Phases, each printing its own line; any failure exits non-zero:
    kernel, plain-version and SDPA-yardstick times (CUDA-graph replay and
    eager) at the training shape (B 32, T 576, H 12, hd 64, bf16, causal)
    and at B 8, T 2048, each beside its bound, and the whole backward seam
-   (D + dq + dk/dv in one graph) beside SDPA's backward.
+   (dq, which computes D, then dk/dv in one graph) beside SDPA's backward.
+   The build first shows the bf16 backward's SASS holds HGMMA (wgmma)
+   and UTMALDG (TMA) and no HMMA (mma.sync), and that its shared memory
+   is the wrappers' plan.
 4b. sp and pp — sequence and pipeline parallelism with every rank in
    this process (the loopback exchange: NCCL refuses two ranks on one
    card). [sp]: ring attention (trlx_tpu_torch.ops.ring_attention) at
@@ -511,6 +514,29 @@ def ptxas_summary(text):
     return out
 
 
+def backward_sass():
+    """Each bf16 backward kernel instance of the built library (symbol ->
+    counts of its SASS opcodes, from ``cuobjdump -sass``): HGMMA (wgmma),
+    UTMALDG (a TMA tile load) and HMMA (mma.sync, which it must not
+    hold)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run(
+        [tool, "-sass", str(_build.library_path("flash_backward"))],
+        capture_output=True, text=True, check=True).stdout
+    out, counts = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : \S*?(flash_bwd_\w+?_kernel)ILi(\d+)E", ln)
+        if m:
+            counts = out[f"{m.group(1)}<{m.group(2)}>"] = dict.fromkeys(
+                ("HGMMA", "UTMALDG", "HMMA"), 0)
+        elif "Function :" in ln:
+            counts = None
+        elif counts is not None:
+            for op in counts:
+                counts[op] += bool(re.search(rf"\b{op}\b", ln))
+    return out
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -874,8 +900,15 @@ def sweep_partitions(dev, iters=200, counts=(1, 2, 3, 4, 6, 8, 16), H=12,
 # --------------------------------------------------------------------- #
 
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-#: the whole backward seam (D, dq, dk/dv) timed beside SDPA's backward
+#: the whole backward seam (dq, which computes D, then dk/dv) timed
+#: beside SDPA's backward
 SEAM = "flash_bwd (seam)"
+#: the source of each flash kernel on the bf16 training path
+FLASH_SOURCES = {
+    "flash_fwd": "trlx_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "trlx_tpu_torch/csrc/flash_backward.cu",
+    "flash_bwd_dkv": "trlx_tpu_torch/csrc/flash_backward.cu",
+}
 FLASH_REPLACES = {
     "flash_fwd": "trlx_tpu/ops/pallas_attention.py:42",
     "flash_bwd_dq": "trlx_tpu/ops/pallas_attention.py:204",
@@ -950,22 +983,26 @@ def ratio(a, b):
 
 def bf16_backward_check(q, k, v, g, mask, causal):
     """The bf16 backward kernels against their plain versions on the same
-    bf16 q, k, v, dO and the same lse and D (from the forward kernel's
-    O): ({dq, dk, dv: ratio}, {kernel: max abs error}). Every output must
-    be finite and in q's dtype."""
+    bf16 q, k, v, dO, O and lse (the forward kernel's): ({dq, dk, dv:
+    ratio}, {kernel: max abs error}). Every output must be finite and in
+    q's dtype, and the dq kernel's D must equal softmax_jacobian_diag at
+    atol 1e-5 (its error counts as dq's when larger)."""
     out, lse = fa.flash_fwd(q, k, v, mask, causal)
-    dD = fa.softmax_jacobian_diag(g, out)
+    dq, dD = fa.flash_bwd_dq(q, k, v, g, out, lse, mask, causal)
     got = dict(zip(("dq", "dk", "dv"), (
-        fa.flash_bwd_dq(q, k, v, g, lse, dD, mask, causal),
-        *fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal))))
+        dq, *fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal))))
+    dq_ref, d_ref = fa.flash_bwd_dq_reference(q, k, v, g, out, lse, mask,
+                                              causal)
     want = dict(zip(("dq", "dk", "dv"), (
-        fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal),
-        *fa.flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal))))
+        dq_ref,
+        *fa.flash_bwd_dkv_reference(q, k, v, g, lse, d_ref, mask, causal))))
     torch.cuda.synchronize()
     for n, x in got.items():
         assert x.dtype == q.dtype, f"{n} in {x.dtype}, not {q.dtype}"
         assert torch.isfinite(x.float()).all(), f"non-finite bf16 {n}"
-    errs = {"flash_bwd_dq": max_err(got["dq"], want["dq"]),
+    d_err = max_err(dD, d_ref)
+    assert d_err <= 1e-5, f"the dq kernel's D disagrees: {d_err:.3e}"
+    errs = {"flash_bwd_dq": max(max_err(got["dq"], want["dq"]), d_err),
             "flash_bwd_dkv": max(max_err(got[n], want[n])
                                  for n in ("dk", "dv"))}
     return {n: ratio(got[n], want[n]) for n in got}, errs
@@ -1229,15 +1266,16 @@ def check_paged_gptj(dev):
 def flash_bounds(B, T, H, hd, elem, causal=True, key_mask=None):
     """Least time (ms) and what bounds it, per kernel: the bytes the
     function must move (its inputs q, k, v, dO once each in ``elem``
-    bytes, the int32 mask and the float32 lse / D rows; its outputs once
-    in the inputs' dtype, as the seam returns them: O, dq, or dk and dv)
-    over HBM bandwidth, vs the multiply-adds of the (query, key) pairs
-    causality leaves — T (T + 1) / 2 per head for full-length rows; with
-    ``key_mask``, per row the real keys at or before each query — over
-    the bf16 peak: QK^T and PV in the forward, QK^T, dO V^T and dS K for
-    dq, and those two plus P^T dO and dS^T Q for dk/dv; for the whole
-    backward seam (D, dq and dk/dv) the five products once each and D
-    kept out of memory."""
+    bytes, and O for dq, which computes D; the int32 mask and the
+    float32 lse / D rows, D written by dq and read by dk/dv; its outputs
+    once in the inputs' dtype, as the seam returns them: O, dq, or dk
+    and dv) over HBM bandwidth, vs the multiply-adds of the (query, key)
+    pairs causality leaves — T (T + 1) / 2 per head for full-length
+    rows; with ``key_mask``, per row the real keys at or before each
+    query — over the bf16 peak: QK^T and PV in the forward, QK^T, dO V^T
+    and dS K for dq, and those two plus P^T dO and dS^T Q for dk/dv; for
+    the whole backward seam (dq and dk/dv) the five products once each
+    and D kept out of memory."""
     n = B * T * H * hd
     row, mask = 4 * B * H * T, 4 * B * T
     if key_mask is not None:  # causal pairs with a real key
@@ -1247,7 +1285,8 @@ def flash_bounds(B, T, H, hd, elem, causal=True, key_mask=None):
         macs = B * H * pairs * hd
     work = {
         "flash_fwd": (4 * n * elem + mask + row, 2 * 2 * macs),
-        "flash_bwd_dq": (5 * n * elem + mask + 2 * row, 2 * 3 * macs),
+        # q, k, v, dO and O in, dq out; lse in, D out
+        "flash_bwd_dq": (6 * n * elem + mask + 2 * row, 2 * 3 * macs),
         "flash_bwd_dkv": (6 * n * elem + mask + 2 * row, 2 * 4 * macs),
         # the whole backward: q, k, v, dO, O and lse in, dq, dk, dv out;
         # QK^T, dO V^T, dS K, P^T dO and dS^T Q once each
@@ -1272,18 +1311,19 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10, lengths=None):
     Autograd's backward alone cannot be captured (its graph was recorded
     outside the capture), so the backward's time is SDPA forward +
     backward captured together less the forward's, both measured here.
-    The seam line times what ``FlashAttention.backward`` launches, D =
-    rowsum(dO * O) then dq then dk/dv, in one graph beside the same SDPA
-    backward. ``lengths`` gives ILQL's layout (see flash_case), and the
-    bound counts the (query, key) pairs with a real key."""
+    The seam line times what ``FlashAttention.backward`` launches, dq
+    (which computes D = rowsum(dO * O)) then dk/dv, in one graph beside
+    the same SDPA backward. ``lengths`` gives ILQL's layout (see
+    flash_case), and the bound counts the (query, key) pairs with a real
+    key."""
     q, k, v, g, mask = flash_case(dev, B, T, H, hd, (), torch.bfloat16,
                                   seed=T + 1, lengths=lengths)
     o, lse = fa.flash_fwd(q, k, v, mask)
     dD = fa.softmax_jacobian_diag(g, o)
 
     def seam(dq, dkv):
-        d = fa.softmax_jacobian_diag(g, o)
-        return dq(q, k, v, g, lse, d, mask), dkv(q, k, v, g, lse, d, mask)
+        grad_q, d = dq(q, k, v, g, o, lse, mask)
+        return grad_q, dkv(q, k, v, g, lse, d, mask)
     bias = causal_mask_bias(mask).to(torch.bfloat16)
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -1296,8 +1336,8 @@ def time_flash(dev, label, B, T, H=12, hd=64, iters=10, lengths=None):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=bias)),
         "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, g, lse, dD, mask),
-            lambda: fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask),
+            lambda: fa.flash_bwd_dq(q, k, v, g, o, lse, mask),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, g, o, lse, mask),
             None),
         "flash_bwd_dkv": (
             lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask),
@@ -4819,8 +4859,8 @@ def seam_capture_drill(trainer, batch, device):
 
 
 #: the CUDA symbols of the bf16 flash kernels on the training path
-FLASH_SYMBOLS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkv_mma_kernel")
+FLASH_SYMBOLS = ("flash_fwd_mma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel")
 
 
 def profile_phase(trainer, orch, device, trace_dir):
@@ -5918,6 +5958,17 @@ def main() -> int:
         log("build", f"{name}: {entry['seconds']:.2f}s nvcc")
         for ln in ptxas_summary(str(entry["log"])):
             log("build", f"  {ln}")
+    sass = backward_sass()
+    log("build", "bf16 backward SASS (cuobjdump -sass; HGMMA = wgmma, "
+                 "UTMALDG = TMA load, HMMA = mma.sync): " + "; ".join(
+                     f"{k} {c['HGMMA']} / {c['UTMALDG']} / {c['HMMA']}"
+                     for k, c in sorted(sass.items())))
+    assert len(sass) == 2 * len(fa.HEAD_DIMS), sorted(sass)
+    for k, c in sass.items():
+        assert c["HGMMA"] and c["UTMALDG"] and not c["HMMA"], (k, c)
+    for hd in fa.HEAD_DIMS:
+        built, plan = fa.backward_smem_bytes(hd), fa.shared_memory_bytes(hd)
+        assert all(built[n] == plan[n] for n in built), (hd, built, plan)
     per_1024 = decode_partitions(16, 12, 64, 16)[1]
     gptj_per = decode_partitions(16, 16, 64, 16)[1]
     log("build", "paged_decode dynamic shared memory per block: "
@@ -6085,8 +6136,7 @@ def main() -> int:
     one = durable["mesh"]["sp_pp_one"]["launches"]
     for name in FLASH_NAMES:
         kernels.append(kernel_entry(
-            name, "trlx_tpu_torch/csrc/flash_attention.cu",
-            FLASH_REPLACES[name],
+            name, FLASH_SOURCES[name], FLASH_REPLACES[name],
             train["launches"][name] + ilql["launches"][name] + mesh[name]
             + sp["launches"][name] + pp["launches"][name] + one[name],
             flash_err[name], flash_slice[name],
@@ -6120,7 +6170,7 @@ def main() -> int:
         {f"serve_mesh_tp{n}": w["launches"] for n, w in worlds.items()}))
     for name in FLASH_NAMES:
         kernels.append(kernel_entry(
-            f"{name} (hd 256)", "trlx_tpu_torch/csrc/flash_attention.cu",
+            f"{name} (hd 256)", FLASH_SOURCES[name],
             FLASH_REPLACES[name], gptj["flash"]["launches"][name],
             gptj_flash_err[name], flash_gptj[name],
             {"gptj_tldr": gptj["flash"]["launches"][name]}))

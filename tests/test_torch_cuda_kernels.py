@@ -289,13 +289,14 @@ def test_cuda_float32_flash_kernels_head_dim_256(T, causal, pads):
     (96, False, (0, 9)),
 ])
 def test_cuda_bf16_backward_kernels_match_plain_version(hd, T, causal, pads):
-    """The bf16 backward kernels (tensor cores) against their plain
-    versions on the same bf16 q, k, v, dO and the same lse and D, at
-    atol 1e-2 + rtol 1e-2: the kernels split P and dS into bf16 hi + lo
-    pairs before the second product (2^-17 relative each) and round each
-    output once to bf16, as the plain version does from its float32
-    sums. dO is 0 on pad
-    rows, as the trainer's losses make it."""
+    """The bf16 backward kernels (wgmma, TMA) against their plain
+    versions on the same bf16 q, k, v, dO, O and lse, at atol 1e-2 +
+    rtol 1e-2: the kernels split P and dS into bf16 hi + lo pairs before
+    the second product (2^-17 relative each) and round each output once
+    to bf16, as the plain version does from its float32 sums. The dq
+    kernel's D equals softmax_jacobian_diag at atol 1e-5 (float32 sums
+    in another order). dO is 0 on pad rows, as the trainer's losses
+    make it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -306,15 +307,19 @@ def test_cuda_bf16_backward_kernels_match_plain_version(hd, T, causal, pads):
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     g = (g * mask[:, :, None, None]).to(torch.bfloat16)
     out, lse = fa.flash_fwd(q, k, v, mask, causal)
-    dD = fa.softmax_jacobian_diag(g, out)
     before = {n: ops.LAUNCHES[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
-    got = (fa.flash_bwd_dq(q, k, v, g, lse, dD, mask, causal),
-           *fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal))
+    dq, dD = fa.flash_bwd_dq(q, k, v, g, out, lse, mask, causal)
+    got = (dq, *fa.flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal))
     torch.cuda.synchronize()
     for n in before:
         assert ops.LAUNCHES[n] == before[n] + 1, n
-    want = (fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal),
-            *fa.flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal))
+    torch.testing.assert_close(dD, fa.softmax_jacobian_diag(g, out),
+                               atol=1e-5, rtol=0)
+    dq_ref, d_ref = fa.flash_bwd_dq_reference(q, k, v, g, out, lse, mask,
+                                              causal)
+    want = (dq_ref,
+            *fa.flash_bwd_dkv_reference(q, k, v, g, lse, d_ref, mask,
+                                        causal))
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == torch.bfloat16
         assert torch.isfinite(a.float()).all()
@@ -377,6 +382,7 @@ def test_cuda_bf16_backward_refuses_misaligned_rows():
             fa.flash_fwd(*args, mask)
     out, lse = fa.flash_fwd(q, k, v, mask)
     dD = fa.softmax_jacobian_diag(g, out)
-    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            fn(shifted, k, v, g, lse, dD, mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dq(shifted, k, v, g, out, lse, mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dkv(shifted, k, v, g, lse, dD, mask)

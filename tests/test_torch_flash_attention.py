@@ -127,15 +127,16 @@ def test_plain_versions_return_q_dtype(dtype):
     tq, tk, tv, tg = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
     tm = torch.from_numpy(mask)
     out, lse = fa.flash_fwd(tq, tk, tv, tm)
-    dD = fa.softmax_jacobian_diag(tg, out)
-    dq = fa.flash_bwd_dq(tq, tk, tv, tg, lse, dD, tm)
+    dq, dD = fa.flash_bwd_dq(tq, tk, tv, tg, out, lse, tm)
     dk, dv = fa.flash_bwd_dkv(tq, tk, tv, tg, lse, dD, tm)
     assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
     assert lse.dtype == dD.dtype == torch.float32
+    torch.testing.assert_close(dD, fa.softmax_jacobian_diag(tg, out),
+                               atol=0, rtol=0)
     for x in (out, dq, dk, dv):
         assert x.shape == tq.shape and torch.isfinite(x.float()).all()
-    dq32 = fa.flash_bwd_dq_reference(*(x.float() for x in (tq, tk, tv, tg)),
-                                     lse, dD, tm)
+    dq32, _ = fa.flash_bwd_dq_reference(
+        *(x.float() for x in (tq, tk, tv, tg)), out, lse, tm)
     torch.testing.assert_close(dq.float(), dq32.to(dtype).float(), atol=0,
                                rtol=0)
 
@@ -173,7 +174,8 @@ def test_shared_memory_fits_one_block_at_every_head_dim():
     """Every kernel instance, both dtypes, hd 16-256, asks for at most one
     Hopper block's 232,448 bytes of shared memory; at hd 256 the float32
     kernels own 32 rows a block (four 64-row tiles of 257 floats would
-    not fit) and the bf16 ones keep their 64-row tiles."""
+    not fit), the bf16 forward keeps its 64-row tiles and the bf16
+    backward its one 64-row slice."""
     for hd in fa.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             sm = fa.shared_memory_bytes(hd, dtype)
@@ -181,10 +183,10 @@ def test_shared_memory_fits_one_block_at_every_head_dim():
     assert fa.fma_rows(256) == 32 and fa.fma_rows(128) == 64
     sm = fa.shared_memory_bytes(256, torch.bfloat16)
     assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
-        (169472, 203264, 203776)
+        (169472, 198440, 198696)
     sm = fa.shared_memory_bytes(256, torch.float32)
     assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
-        (173056, 205952, 214528)
+        (173056, 206080, 214528)
 
 
 def test_non_causal_matches_jax_flash():
@@ -246,12 +248,13 @@ def test_wrappers_refuse_bad_inputs():
     for dtype in (torch.float32, torch.bfloat16):
         sm = fa.shared_memory_bytes(128, dtype)
         assert max(sm.values()) <= 232448  # one Hopper block's ceiling
-    # bf16: five [64][hd + 8] bf16 tiles in the forward, six in the
-    # backward, plus two stages of the key mask (forward, dq) or of the
-    # lse and D rows (dk/dv)
+    # bf16: five [64][hd + 8] bf16 tiles and two stages of the key mask in
+    # the forward; in the backward 1 KB of alignment, the block's own 64
+    # rows (Q, dO; K, V) and four stages of the streamed 64-row tiles and
+    # rows, dq's D, the barriers
     sm = fa.shared_memory_bytes(64, torch.bfloat16)
     assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
-        (46592, 55808, 56320)
+        (46592, 84296, 85064)
     # float32: [64][65] float tiles, score tiles and row vectors
     sm = fa.shared_memory_bytes(64, torch.float32)
     assert (sm["flash_fwd"], sm["flash_bwd_dkv"]) == (66816, 100352)
@@ -361,7 +364,7 @@ def test_bf16_backward_rounding_model_within_tolerance():
         g[i, n:] = 0
     out, lse = fa.flash_fwd_reference(q, k, v, mask)
     dD = fa.softmax_jacobian_diag(g, out)
-    ref = (fa.flash_bwd_dq_reference(q, k, v, g, lse, dD, mask),
+    ref = (fa.flash_bwd_dq_reference(q, k, v, g, out, lse, mask)[0],
            *fa.flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask))
 
     def ratios(split):

@@ -1,10 +1,12 @@
-// Flash attention for training on Hopper (sm_90a): the forward and the
-// two backward kernels.
+// Flash attention for training on Hopper (sm_90a): the forward, and the
+// float32 backward. The bfloat16 backward (the training path's) is
+// flash_backward.cu: wgmma tiles fed by TMA.
 //
 // Replaces: trlx_tpu/ops/pallas_attention.py
 //   - flash_fwd      <- _flash_fwd_kernel (launched by _flash_forward)
-//   - flash_bwd_dq   <- _flash_bwd_dq_kernel (launched by _flash_backward)
-//   - flash_bwd_dkv  <- _flash_bwd_dkv_kernel (launched by _flash_backward)
+//   - flash_bwd_dq_f32   <- _flash_bwd_dq_kernel and the jnp line for D
+//     before it (launched by _flash_backward), for float32 inputs
+//   - flash_bwd_dkv_f32  <- _flash_bwd_dkv_kernel, for float32 inputs
 // They compute softmax(q k^T / sqrt(hd) + bias) v with the bias built
 // from the raw [B, T] key mask (0 or -1e9) plus, when causal, -1e9 above
 // the diagonal, and its gradients, recomputing the probabilities from
@@ -13,14 +15,13 @@
 // Layout. q, k, v, dO and O are read and written in the trunk's own
 // [B, T, H, hd] layout (one head's row is hd contiguous elements), so
 // the wrapper makes no transposed copy; lse and D = rowsum(dO * O) are
-// float32 [B, H, T]; dq, dk, dv come out in the inputs' dtype, rounded
-// once from float32 sums. Inputs are float32 or bfloat16.
+// float32 [B, H, T]; outputs come out in the inputs' dtype, rounded once
+// from float32 sums. The forward takes float32 or bfloat16.
 //
-// What bounds them: bytes at the training slice (B 32, T 576, H 12,
-// hd 64, bf16): the forward must move about 114 MB (~34 us at 3.35 TB/s)
-// against about 18 GFLOP of live causal tiles (~18 us at 989 TF/s); dq
-// about 143 MB against 24 GFLOP, dk/dv about 172 MB against 33 GFLOP.
-// At T 2048 operations bound all three.
+// What bounds the forward: bytes at the training slice (B 32, T 576,
+// H 12, hd 64, bf16): it must move about 114 MB (~34 us at 3.35 TB/s)
+// against about 18 GFLOP of live causal tiles (~18 us at 989 TF/s). At
+// T 2048 operations bound it.
 //
 // Common to all kernels:
 //   - forward and dq: one block per (batch * head, 64-row query tile),
@@ -41,57 +42,46 @@
 // each owning 4 x 4 scores, [64][hd + 1] float tiles). They stay there
 // on purpose: the tensor cores would round their operands to TF32, which
 // misses the float32 parity (1e-5 on O and lse, 2e-4 on the gradients
-// against the dense oracle, and the fp32 train step).
-//
-// For bfloat16 inputs (the training path) all three run on the tensor
-// cores:
-//   - 128 threads, 4 warps; each warp owns 16 rows of the block's tile
-//     (query rows in the forward and dq, key rows in dk/dv);
-//   - every product is mma.sync m16n8k16 with bf16 operands fetched by
-//     ldmatrix (.trans for an operand stored [k][n]) and float32
-//     accumulators in registers: S = Q K^T, O += P V in the forward;
-//     S = Q K^T, dP = dO V^T, dq += dS K in dq; S^T = K Q^T,
-//     dP^T = V dO^T, dV += P^T dO, dK += dS^T Q in dk/dv. P, dS, P^T and
-//     dS^T never touch shared memory: the accumulator pair of n-tiles
-//     2 j, 2 j + 1 is the A fragment of k-step j once rounded to bf16
-//     (2^-9 relative) in the forward; the backward splits dS, P^T and
-//     dS^T into a bf16 pair hi + lo (2^-17 relative) and runs each of
-//     its second products twice, hi B + lo B: rounded once, dS put dq
-//     past the plain version's atol 1e-2 + rtol 1e-2 on unit-variance
-//     inputs at B 80, T 500, H 12;
-//   - bf16 tiles [64][hd + 8] (the pad keeps ldmatrix free of bank
-//     conflicts) filled by 16-byte cp.async; the block's own tiles (Q;
-//     Q, dO; or K, V) are loaded once, the streamed tiles (K, V and the
-//     key mask, or Q, dO, lse and D) are double-buffered: tile n + 1
-//     loads while tile n is computed; the forward keeps Q's A fragments
-//     in registers for the whole key loop;
-//   - scale multiplies S in float32 (and dq, dk at the end), so q is
-//     rounded once; the key-mask bias sits in shared memory, lse and D
-//     in registers, and the causal test runs on the diagonal tile only;
-//   - the forward's online softmax runs on the S accumulators: a row
-//     lives in the 4 lanes of a quad (max by two shuffles, the sum a
-//     per-lane partial reduced once at the end), exponentials are exp2f
-//     with log2(e), and the running max starts finite so a fully
-//     left-padded row stays a finite near-uniform average;
-//   - O (divided once by the row sum), dq, dk, dv are rounded once to
-//     bf16, staged in the warp's own rows of a finished tile and written
-//     with 16-byte stores; lse = m + log(l) is float32.
-//   - at hd 256 (gpt-j-6B) a warp holding all 256 columns of a float32
-//     accumulator would need 128 (O, dq) to 256 (dk and dv) registers a
-//     lane for it alone, so the block runs 8 warps: a pair of warps per
-//     16-row strip, both forming the strip's whole S (and dP) over the
-//     full head dim, so both hold the same softmax statistics, each
-//     keeping the accumulators of its own 128 output columns (the first
-//     products run twice: 1.5x the forward's mma, ~1.3x the backward's);
-//     the tiles, 5 or 6 x 33.8 KB, leave one block an SM.
+// against the dense oracle, and the fp32 train step). The float32 dq
+// first computes D for its rows (a warp a row over the staged dO tile
+// and O's rows), writes it for dk/dv and keeps it in registers.
 // For float32 at hd 256 the block owns 32 query (or key) rows instead of
 // 64 (fma_rows): four 64-row [257]-float tiles would not fit one block.
-// What bounds them on this card: shared-memory reads and the mma.sync
-// issue rate, not device memory. Per warp and 64 x 64 tile pair the
-// forward issues about 32 ldmatrix.x4 (16 for K, 16 for V at hd 64)
-// against 64 mma; dq about 48 against 128, dk/dv about 72 against 192
-// (the hi / lo second products are a third of each). Not done yet:
-// wgmma, TMA and warp-specialised producers.
+//
+// For bfloat16 inputs the forward runs on the tensor cores:
+//   - 128 threads, 4 warps; each warp owns 16 query rows of the tile;
+//   - every product is mma.sync m16n8k16 with bf16 operands fetched by
+//     ldmatrix (.trans for an operand stored [k][n]) and float32
+//     accumulators in registers: S = Q K^T, O += P V. P never touches
+//     shared memory: the accumulator pair of n-tiles 2 j, 2 j + 1 is the
+//     A fragment of k-step j once rounded to bf16 (2^-9 relative);
+//   - bf16 tiles [64][hd + 8] (the pad keeps ldmatrix free of bank
+//     conflicts) filled by 16-byte cp.async; Q is loaded once and kept
+//     as A fragments in registers for the whole key loop, K, V and the
+//     key mask are double-buffered: tile n + 1 loads while tile n is
+//     computed;
+//   - scale multiplies S in float32, so q is rounded once; the key-mask
+//     bias sits in shared memory and the causal test runs on the
+//     diagonal tile only;
+//   - the online softmax runs on the S accumulators: a row lives in the
+//     4 lanes of a quad (max by two shuffles, the sum a per-lane partial
+//     reduced once at the end), exponentials are exp2f with log2(e), and
+//     the running max starts finite so a fully left-padded row stays a
+//     finite near-uniform average;
+//   - O (divided once by the row sum) is rounded once to bf16, staged in
+//     the warp's own rows of the finished Q tile and written with 16-byte
+//     stores; lse = m + log(l) is float32;
+//   - at hd 256 (gpt-j-6B) a warp holding all 256 columns of O's float32
+//     accumulator would need 128 registers a lane for it alone, so the
+//     block runs 8 warps: a pair of warps per 16-row strip, both forming
+//     the strip's whole S over the full head dim, so both hold the same
+//     softmax statistics, each keeping the accumulators of its own 128
+//     output columns (1.5x the forward's mma); the tiles, 5 x 33.8 KB,
+//     leave one block an SM.
+// What bounds the bf16 forward on this card: shared-memory reads and the
+// mma.sync issue rate, not device memory (about 32 ldmatrix.x4 against
+// 64 mma per warp and 64 x 64 tile pair at hd 64). Its move to wgmma and
+// TMA, as flash_backward.cu made for the backward, is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -310,19 +300,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ //
-// backward, float32 inputs: dq on the CUDA cores
+// backward, float32 inputs: dq (and D) on the CUDA cores
 // ------------------------------------------------------------------ //
 
+// Also computes D = rowsum(dO * O) of its rows first, writes it to `dD`
+// for dk/dv and uses it from registers.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_fma_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ g,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dD,
-                    const int32_t* __restrict__ mask, float* __restrict__ dq,
-                    int Tlen, int H, int causal, float scale) {
+                        const float* __restrict__ o,
+                        const float* __restrict__ lse,
+                        const int32_t* __restrict__ mask,
+                        float* __restrict__ dq, float* __restrict__ dD,
+                        int Tlen, int H, int causal, float scale) {
   constexpr int LD = HD + 1;
   constexpr int PLD = kBK + 1;
   constexpr int NJ = HD / 16;
@@ -335,6 +328,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
   float* v_s = k_s + kBK * LD;     // [BK][HD + 1]
   float* ds_s = v_s + kBK * LD;    // [BQ][BK + 1]
   float* kb_s = ds_s + BQ * PLD;   // [BK]
+  float* d_s = kb_s + kBK;         // [BQ] D
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -345,13 +339,33 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
 
   load_tile<float, HD, BQ>(q_s, q, b, q0, Tlen, H, h, scale);
   load_tile<float, HD, BQ>(g_s, g, b, q0, Tlen, H, h, 1.f);
+  __syncthreads();
+  // D = rowsum(dO * O), a warp a row
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < BQ; r += kThreads / 32) {
+    const int row = q0 + r;
+    float d = 0.f;
+    if (row < Tlen) {
+      const float* orow = o + row_at<HD>(b, row, Tlen, H, h);
+      for (int c = lane; c < HD; c += 32)
+        d = fmaf(g_s[r * LD + c], orow[c], d);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (lane == 0) {
+      d_s[r] = d;
+      if (row < Tlen) dD[static_cast<size_t>(bh) * Tlen + row] = d;
+    }
+  }
+  __syncthreads();
   float lse_r[RI], d_r[RI], acc[RI][NJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     const bool in = row < Tlen;
     lse_r[i] = in ? lse[static_cast<size_t>(bh) * Tlen + row] : 0.f;
-    d_r[i] = in ? dD[static_cast<size_t>(bh) * Tlen + row] : 0.f;
+    d_r[i] = d_s[ty + 16 * i];
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
   }
@@ -574,7 +588,8 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------------------------------ //
-// backward, bfloat16 inputs: tensor-core tiles
+// bfloat16 inputs: tensor-core tiles (the forward; the bf16 backward is
+// flash_backward.cu)
 // ------------------------------------------------------------------ //
 
 constexpr int kTcThreads = 128;  // 4 warps; each owns 16 rows of a tile
@@ -591,11 +606,11 @@ template <int HD>
 __host__ __device__ constexpr int tc_tile() { return kBQ * tc_ld<HD>(); }
 
 // warps that share one 16-row strip of the tile: 1, or 2 at HD 256, where
-// a warp holding all HD columns of a float32 accumulator (O, dq, or dk
-// and dv) would need 128 to 256 registers a lane for it alone. The warps
-// of a pair both form the strip's whole S (and dP) over the full head
-// dim, so both hold the same softmax statistics, and each keeps the
-// accumulators of its own HD / 2 output columns.
+// a warp holding all HD columns of O's float32 accumulator would need 128
+// registers a lane for it alone. The warps of a pair both form the
+// strip's whole S over the full head dim, so both hold the same softmax
+// statistics, and each keeps the accumulators of its own HD / 2 output
+// columns.
 template <int HD>
 __host__ __device__ constexpr int tc_split() { return HD > 128 ? 2 : 1; }
 
@@ -666,19 +681,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two floats as the bf16 pair nearest them (hi) and the bf16 pair of
-// what hi leaves (lo), packed as pack_bf16 packs: hi + lo is within
-// 2^-17 of each value, so a product run as hi B + lo B rounds its A
-// operand 256x more finely than hi B alone
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
 // Fragment offsets (elements) into a [64][HD + 8] tile, for lane l:
@@ -757,312 +759,6 @@ __device__ __forceinline__ void store_rows(bf16* out, bf16* stage,
                                 c) =
           *reinterpret_cast<const uint4*>(stage + r * LD + c);
   }
-}
-
-// dq: one block per (batch * head, 64-row query tile), heaviest tiles
-// first; warp w owns query rows 16 (w % 4) .. + 15 and, at HD 256, output
-// columns (w / 4) HD / 2 .. + HD / 2. Q and dO are loaded once; K, V and
-// the key mask stream through two stages.
-template <int HD>
-__global__ void __launch_bounds__(tc_threads<HD>())
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ g,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dD,
-                        const int32_t* __restrict__ mask,
-                        bf16* __restrict__ dq, int Tlen, int H, int causal,
-                        float scale) {
-  constexpr int TILE = tc_tile<HD>();
-  constexpr int SPLIT = tc_split<HD>();
-  constexpr int NT = HD / 8 / SPLIT;  // accumulator n-tiles a warp keeps
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);      // [64][HD + 8]
-  bf16* g_s = q_s + TILE;                              // [64][HD + 8]
-  bf16* k_s = g_s + TILE;                              // [2][64][HD + 8]
-  bf16* v_s = k_s + 2 * TILE;                          // [2][64][HD + 8]
-  int32_t* m_s = reinterpret_cast<int32_t*>(v_s + 2 * TILE);  // [2][64]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int iq = gridDim.y - 1 - blockIdx.y;
-  const int q0 = iq * kBQ;
-  const int lane = threadIdx.x & 31;
-  const int r0 = ((threadIdx.x >> 5) & 3) * 16;
-  const int c0 = (threadIdx.x >> 7) * (HD / SPLIT);
-  const int gq = lane >> 2, tq = lane & 3;
-  const size_t mrow = static_cast<size_t>(b) * Tlen;
-
-  const int n_k = (Tlen + kBK - 1) / kBK;
-  const int n_live = causal ? min(n_k, iq + 1) : n_k;
-
-  load_tile_async<HD>(q_s, q, b, q0, Tlen, H, h);
-  load_tile_async<HD>(g_s, g, b, q0, Tlen, H, h);
-  load_tile_async<HD>(k_s, k, b, 0, Tlen, H, h);
-  load_tile_async<HD>(v_s, v, b, 0, Tlen, H, h);
-  load_row_async(m_s, mask + mrow, 0, Tlen, 0);
-  cp_async_commit();
-
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + gq + 8 * i;
-    const bool in = row < Tlen;
-    lse_r[i] = in ? lse[static_cast<size_t>(bh) * Tlen + row] : 0.f;
-    d_r[i] = in ? dD[static_cast<size_t>(bh) * Tlen + row] : 0.f;
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int jt = 0; jt < n_live; ++jt) {
-    const int st = jt & 1;
-    if (jt + 1 < n_live) {
-      const int k1 = (jt + 1) * kBK;
-      load_tile_async<HD>(k_s + (st ^ 1) * TILE, k, b, k1, Tlen, H, h);
-      load_tile_async<HD>(v_s + (st ^ 1) * TILE, v, b, k1, Tlen, H, h);
-      load_row_async(m_s + (st ^ 1) * kBK, mask + mrow, k1, Tlen, 0);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = k_s + st * TILE;
-    const bf16* vs = v_s + st * TILE;
-    const int32_t* ms = m_s + st * kBK;
-
-    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys per warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], ga[4];
-      ldsm_x4(smem_u32(q_s + frag_a<HD>(lane, r0, kk * 16)), qa);
-      ldsm_x4(smem_u32(g_s + frag_a<HD>(lane, r0, kk * 16)), ga);
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        uint32_t kb[4], vb[4];
-        const int off = frag_b<HD>(lane, nn * 16, kk * 16);
-        ldsm_x4(smem_u32(ks + off), kb);
-        ldsm_x4(smem_u32(vs + off), vb);
-        mma_bf16(s[2 * nn], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * nn + 1], qa, kb[2], kb[3]);
-        mma_bf16(dp[2 * nn], ga, vb[0], vb[1]);
-        mma_bf16(dp[2 * nn + 1], ga, vb[2], vb[3]);
-      }
-    }
-
-    // dS = P (dP - D) in registers, split into bf16 A fragments hi + lo:
-    // the accumulators of n-tiles 2 kk, 2 kk + 1 are A's k-step kk
-    const bool diag = causal && jt == iq;  // q0 == k0 on the diagonal
-    uint32_t dsa[4][4], dsl[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + tq * 2 + (e & 1);
-        const int i = e >> 1;
-        float bias = ms[c] > 0 ? 0.f : kNegInf;
-        if (diag && r0 + gq + 8 * i < c) bias += kNegInf;
-        const float p = exp2f(fmaf(s[j][e], scale, bias - lse_r[i]) * kLog2e);
-        ds[e] = p * (dp[j][e] - d_r[i]);
-      }
-      const int f = (j & 1) * 2;
-      split_bf16(ds[0], ds[1], dsa[j >> 1][f], dsl[j >> 1][f]);
-      split_bf16(ds[2], ds[3], dsa[j >> 1][f + 1], dsl[j >> 1][f + 1]);
-    }
-
-    // dq += dS K (hi, then lo) for the warp's output columns: K is
-    // stored [key][d], so B comes by ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int nd = 0; nd < NT / 2; ++nd) {
-        uint32_t kb[4];
-        ldsm_x4_t(smem_u32(ks + frag_a<HD>(lane, kk * 16, c0 + nd * 16)),
-                  kb);
-        mma_bf16(acc[2 * nd], dsa[kk], kb[0], kb[1]);
-        mma_bf16(acc[2 * nd + 1], dsa[kk], kb[2], kb[3]);
-        mma_bf16(acc[2 * nd], dsl[kk], kb[0], kb[1]);
-        mma_bf16(acc[2 * nd + 1], dsl[kk], kb[2], kb[3]);
-      }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // the warp's own rows and columns of the Q tile are free now: stage dq
-  // there
-  store_rows<HD, NT>(dq, q_s + r0 * tc_ld<HD>(), acc, scale, lane, b,
-                     q0 + r0, Tlen, H, h, c0);
-}
-
-// dk, dv: one block per (batch * head, 64-key tile); warp w owns key rows
-// 16 (w % 4) .. + 15 and, at HD 256, output columns (w / 4) HD / 2 ..
-// + HD / 2. K and V are loaded once; Q, dO, lse and D stream through two
-// stages. The transposed scores S^T = K Q^T and
-// dP^T = V dO^T come out as accumulators whose rows are keys, so P^T and
-// dS^T become the A operands of dV += P^T dO and dK += dS^T Q in
-// registers.
-template <int HD>
-__global__ void __launch_bounds__(tc_threads<HD>())
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ g,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dD,
-                         const int32_t* __restrict__ mask,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         int Tlen, int H, int causal, float scale) {
-  constexpr int TILE = tc_tile<HD>();
-  constexpr int SPLIT = tc_split<HD>();
-  constexpr int NT = HD / 8 / SPLIT;  // accumulator n-tiles a warp keeps
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // [64][HD + 8]
-  bf16* v_s = k_s + TILE;                             // [64][HD + 8]
-  bf16* q_s = v_s + TILE;                             // [2][64][HD + 8]
-  bf16* g_s = q_s + 2 * TILE;                         // [2][64][HD + 8]
-  float* l_s = reinterpret_cast<float*>(g_s + 2 * TILE);  // [2][64] lse
-  float* d_s = l_s + 2 * kBQ;                              // [2][64] D
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int jk = blockIdx.y;
-  const int k0 = jk * kBK;
-  const int lane = threadIdx.x & 31;
-  const int r0 = ((threadIdx.x >> 5) & 3) * 16;
-  const int c0 = (threadIdx.x >> 7) * (HD / SPLIT);
-  const int gq = lane >> 2, tq = lane & 3;
-  const float* lse_row = lse + static_cast<size_t>(bh) * Tlen;
-  const float* d_row = dD + static_cast<size_t>(bh) * Tlen;
-
-  const int n_q = (Tlen + kBQ - 1) / kBQ;
-  const int first = causal ? jk : 0;
-
-  load_tile_async<HD>(k_s, k, b, k0, Tlen, H, h);
-  load_tile_async<HD>(v_s, v, b, k0, Tlen, H, h);
-  load_tile_async<HD>(q_s, q, b, first * kBQ, Tlen, H, h);
-  load_tile_async<HD>(g_s, g, b, first * kBQ, Tlen, H, h);
-  load_row_async(l_s, lse_row, first * kBQ, Tlen, 0);
-  load_row_async(d_s, d_row, first * kBQ, Tlen, kBQ);
-  cp_async_commit();
-
-  float kbias[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = k0 + r0 + gq + 8 * i;
-    kbias[i] = (t < Tlen && mask[static_cast<size_t>(b) * Tlen + t] > 0)
-                   ? 0.f
-                   : kNegInf;
-  }
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
-
-  for (int it = first; it < n_q; ++it) {
-    const int st = (it - first) & 1;
-    if (it + 1 < n_q) {
-      const int q1 = (it + 1) * kBQ;
-      load_tile_async<HD>(q_s + (st ^ 1) * TILE, q, b, q1, Tlen, H, h);
-      load_tile_async<HD>(g_s + (st ^ 1) * TILE, g, b, q1, Tlen, H, h);
-      load_row_async(l_s + (st ^ 1) * kBQ, lse_row, q1, Tlen, 0);
-      load_row_async(d_s + (st ^ 1) * kBQ, d_row, q1, Tlen, kBQ);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qs = q_s + st * TILE;
-    const bf16* gs = g_s + st * TILE;
-    const float* ls = l_s + st * kBQ;
-    const float* dsr = d_s + st * kBQ;
-
-    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 64 queries per warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(smem_u32(k_s + frag_a<HD>(lane, r0, kk * 16)), ka);
-      ldsm_x4(smem_u32(v_s + frag_a<HD>(lane, r0, kk * 16)), va);
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        uint32_t qb[4], gb[4];
-        const int off = frag_b<HD>(lane, nn * 16, kk * 16);
-        ldsm_x4(smem_u32(qs + off), qb);
-        ldsm_x4(smem_u32(gs + off), gb);
-        mma_bf16(s[2 * nn], ka, qb[0], qb[1]);
-        mma_bf16(s[2 * nn + 1], ka, qb[2], qb[3]);
-        mma_bf16(dp[2 * nn], va, gb[0], gb[1]);
-        mma_bf16(dp[2 * nn + 1], va, gb[2], gb[3]);
-      }
-    }
-
-    // P^T and dS^T in registers, split into bf16 A fragments hi + lo
-    // (k = queries)
-    const bool diag = causal && it == jk;  // q0 == k0 on the diagonal
-    uint32_t pa[4][4], pl[4][4], dsa[4][4], dsl[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + tq * 2 + (e & 1);  // query of the tile
-        const int i = e >> 1;
-        float bias = kbias[i];
-        if (diag && c < r0 + gq + 8 * i) bias += kNegInf;
-        p[e] = exp2f(fmaf(s[j][e], scale, bias - ls[c]) * kLog2e);
-        ds[e] = p[e] * (dp[j][e] - dsr[c]);
-      }
-      const int f = (j & 1) * 2;
-      split_bf16(p[0], p[1], pa[j >> 1][f], pl[j >> 1][f]);
-      split_bf16(p[2], p[3], pa[j >> 1][f + 1], pl[j >> 1][f + 1]);
-      split_bf16(ds[0], ds[1], dsa[j >> 1][f], dsl[j >> 1][f]);
-      split_bf16(ds[2], ds[3], dsa[j >> 1][f + 1], dsl[j >> 1][f + 1]);
-    }
-
-    // dV += P^T dO and dK += dS^T Q (hi, then lo) for the warp's output
-    // columns: dO and Q are stored [query][d], so B comes by
-    // ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int nd = 0; nd < NT / 2; ++nd) {
-        uint32_t gb[4], qb[4];
-        const int off = frag_a<HD>(lane, kk * 16, c0 + nd * 16);
-        ldsm_x4_t(smem_u32(gs + off), gb);
-        ldsm_x4_t(smem_u32(qs + off), qb);
-        mma_bf16(dv_acc[2 * nd], pa[kk], gb[0], gb[1]);
-        mma_bf16(dv_acc[2 * nd + 1], pa[kk], gb[2], gb[3]);
-        mma_bf16(dk_acc[2 * nd], dsa[kk], qb[0], qb[1]);
-        mma_bf16(dk_acc[2 * nd + 1], dsa[kk], qb[2], qb[3]);
-        mma_bf16(dv_acc[2 * nd], pl[kk], gb[0], gb[1]);
-        mma_bf16(dv_acc[2 * nd + 1], pl[kk], gb[2], gb[3]);
-        mma_bf16(dk_acc[2 * nd], dsl[kk], qb[0], qb[1]);
-        mma_bf16(dk_acc[2 * nd + 1], dsl[kk], qb[2], qb[3]);
-      }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // the warp's own rows and columns of the K and V tiles are free now:
-  // stage there
-  store_rows<HD, NT>(dk, k_s + r0 * tc_ld<HD>(), dk_acc, scale, lane, b,
-                     k0 + r0, Tlen, H, h, c0);
-  store_rows<HD, NT>(dv, v_s + r0 * tc_ld<HD>(), dv_acc, 1.f, lane, b,
-                     k0 + r0, Tlen, H, h, c0);
 }
 
 // ------------------------------------------------------------------ //
@@ -1278,7 +974,7 @@ template <int HD>
 constexpr size_t dq_fma_smem() {
   constexpr size_t R = fma_rows<HD>();
   return sizeof(float) *
-         ((2 * R + 2 * kBK) * (HD + 1) + R * (kBK + 1) + kBK);
+         ((2 * R + 2 * kBK) * (HD + 1) + R * (kBK + 1) + kBK + R);
 }
 
 template <int HD>
@@ -1286,21 +982,6 @@ constexpr size_t dkv_fma_smem() {
   constexpr size_t R = fma_rows<HD>();
   return sizeof(float) *
          ((2 * R + 2 * kBQ) * (HD + 1) + 2 * R * (kBQ + 1) + 2 * kBQ);
-}
-
-// bf16 backward: six [64][HD + 8] bf16 tiles (the block's own two, two
-// streamed tiles x two stages), plus two stages of the key mask (dq) or
-// of the lse and D rows (dk/dv)
-template <int HD>
-constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * 6 * static_cast<size_t>(tc_tile<HD>()) +
-         sizeof(int32_t) * 2 * kBK;
-}
-
-template <int HD>
-constexpr size_t dkv_mma_smem() {
-  return sizeof(bf16) * 6 * static_cast<size_t>(tc_tile<HD>()) +
-         sizeof(float) * 4 * kBQ;
 }
 
 // raise a kernel's dynamic shared-memory ceiling once (not on every
@@ -1340,55 +1021,44 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+// the float32 backward (the bf16 one is flash_backward.cu)
+template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* g, const void* lse, const void* dD,
-                      const void* mask, void* dq, int B, int Tlen, int H,
-                      int causal, float scale, cudaStream_t st) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  auto kernel = [] {
-    if constexpr (std::is_same<T, float>::value)
-      return flash_bwd_dq_fma_kernel<HD>;
-    else return flash_bwd_dq_mma_kernel<HD>;
-  }();
-  const size_t smem = f32 ? dq_fma_smem<HD>() : dq_mma_smem<HD>();
+                      const void* g, const void* o, const void* lse,
+                      const void* mask, void* dq, void* dD, int B, int Tlen,
+                      int H, int causal, float scale, cudaStream_t st) {
+  auto kernel = flash_bwd_dq_fma_kernel<HD>;
+  const size_t smem = dq_fma_smem<HD>();
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  const int rows = f32 ? fma_rows<HD>() : kBQ;
-  dim3 grid(B * H, (Tlen + rows - 1) / rows);
-  kernel<<<grid, f32 ? kThreads : tc_threads<HD>(), smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(dD),
-      static_cast<const int32_t*>(mask), static_cast<T*>(dq), Tlen, H,
-      causal, scale);
+  dim3 grid(B * H, (Tlen + fma_rows<HD>() - 1) / fma_rows<HD>());
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g),
+      static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<const int32_t*>(mask), static_cast<float*>(dq),
+      static_cast<float*>(dD), Tlen, H, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* dD,
                        const void* mask, void* dk, void* dv, int B, int Tlen,
                        int H, int causal, float scale, cudaStream_t st) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  auto kernel = [] {
-    if constexpr (std::is_same<T, float>::value)
-      return flash_bwd_dkv_fma_kernel<HD>;
-    else return flash_bwd_dkv_mma_kernel<HD>;
-  }();
-  const size_t smem = f32 ? dkv_fma_smem<HD>() : dkv_mma_smem<HD>();
+  auto kernel = flash_bwd_dkv_fma_kernel<HD>;
+  const size_t smem = dkv_fma_smem<HD>();
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  const int rows = f32 ? fma_rows<HD>() : kBK;
-  dim3 grid(B * H, (Tlen + rows - 1) / rows);
-  kernel<<<grid, f32 ? kThreads : tc_threads<HD>(), smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
+  dim3 grid(B * H, (Tlen + fma_rows<HD>() - 1) / fma_rows<HD>());
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(dD),
-      static_cast<const int32_t*>(mask), static_cast<T*>(dk),
-      static_cast<T*>(dv), Tlen, H, causal, scale);
+      static_cast<const int32_t*>(mask), static_cast<float*>(dk),
+      static_cast<float*>(dv), Tlen, H, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1418,14 +1088,28 @@ bool shape_ok(int B, int T, int H, int hd, int dtype) {
     }                                                                     \
   } while (0)
 
+// dispatch on hd to F<HD>(args...)
+#define F32_DISPATCH(LAUNCH, ...)                                  \
+  do {                                                             \
+    switch (hd) {                                                  \
+      case 16: return static_cast<int>(LAUNCH<16>(__VA_ARGS__));   \
+      case 32: return static_cast<int>(LAUNCH<32>(__VA_ARGS__));   \
+      case 64: return static_cast<int>(LAUNCH<64>(__VA_ARGS__));   \
+      case 128: return static_cast<int>(LAUNCH<128>(__VA_ARGS__)); \
+      default: return static_cast<int>(LAUNCH<256>(__VA_ARGS__));  \
+    }                                                              \
+  } while (0)
+
 }  // namespace
 
-// Plain C entry points (bound with ctypes). dtype: 0 float32, 1 bfloat16
-// (q, k, v, dO, O, dq, dk and dv share it); hd one of 16, 32, 64, 128,
-// 256;
-// mask int32 [B, T]; lse and D float32 [B, H, T]; the bf16 kernels read
-// and write 16-byte rows, so their tensors start 16-byte aligned.
-// Each returns cudaGetLastError() after its launch (0 = launched).
+// Plain C entry points (bound with ctypes). flash_fwd: dtype 0 float32,
+// 1 bfloat16 (q, k, v and O share it); the backward here takes float32
+// only (flash_bwd_dq_f32 writes dq and D = rowsum(dO * O), which
+// flash_bwd_dkv_f32 reads; the bf16 backward is flash_backward.cu). hd
+// one of 16, 32, 64, 128, 256; mask int32 [B, T]; lse and D float32
+// [B, H, T]; the bf16 forward reads and writes 16-byte rows, so its
+// tensors start 16-byte aligned. Each returns cudaGetLastError() after
+// its launch (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* mask, void* out, void* lse, int B, int T,
                          int H, int hd, int causal, int dtype, float scale,
@@ -1437,26 +1121,26 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                  st);
 }
 
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* g, const void* lse, const void* dD,
-                            const void* mask, void* dq, int B, int T, int H,
-                            int hd, int causal, int dtype, float scale,
-                            void* stream) {
-  if (!shape_ok(B, T, H, hd, dtype))
+extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                const void* g, const void* o, const void* lse,
+                                const void* mask, void* dq, void* dD, int B,
+                                int T, int H, int hd, int causal, float scale,
+                                void* stream) {
+  if (!shape_ok(B, T, H, hd, kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dq, q, k, v, g, lse, dD, mask, dq, B, T, H, causal,
-                 scale, st);
+  F32_DISPATCH(launch_dq, q, k, v, g, o, lse, mask, dq, dD, B, T, H, causal,
+               scale, st);
 }
 
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                             const void* g, const void* lse, const void* dD,
-                             const void* mask, void* dk, void* dv, int B,
-                             int T, int H, int hd, int causal, int dtype,
-                             float scale, void* stream) {
-  if (!shape_ok(B, T, H, hd, dtype))
+extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                 const void* g, const void* lse,
+                                 const void* dD, const void* mask, void* dk,
+                                 void* dv, int B, int T, int H, int hd,
+                                 int causal, float scale, void* stream) {
+  if (!shape_ok(B, T, H, hd, kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dkv, q, k, v, g, lse, dD, mask, dk, dv, B, T, H,
-                 causal, scale, st);
+  F32_DISPATCH(launch_dkv, q, k, v, g, lse, dD, mask, dk, dv, B, T, H,
+               causal, scale, st);
 }

@@ -24,7 +24,8 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: every kernel source of the port (csrc/<name>.cu)
-KERNELS: Tuple[str, ...] = ("paged_decode", "flash_attention")
+KERNELS: Tuple[str, ...] = ("paged_decode", "flash_attention",
+                            "flash_backward")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -2,42 +2,45 @@
 plain versions and the autograd seam (port of
 trlx_tpu.ops.pallas_attention).
 
-Three kernels live in ``csrc/flash_attention.cu`` (built at first use):
+Three kernels, built at first use:
 
 - :func:`flash_fwd` — O and the float32 logsumexp; replaces
   ``_flash_fwd_kernel`` (launched by ``_flash_forward``);
-- :func:`flash_bwd_dq` — dq from the saved logsumexp; replaces
-  ``_flash_bwd_dq_kernel``;
-- :func:`flash_bwd_dkv` — dk and dv; replaces ``_flash_bwd_dkv_kernel``
-  (both launched by ``_flash_backward``).
+  ``csrc/flash_attention.cu``;
+- :func:`flash_bwd_dq` — dq and D = rowsum(dO * O) from O, dO and the
+  saved logsumexp; replaces ``_flash_bwd_dq_kernel`` and the jnp line
+  that computes D before it;
+- :func:`flash_bwd_dkv` — dk and dv, reading that D; replaces
+  ``_flash_bwd_dkv_kernel`` (both launched by ``_flash_backward``).
+  For bfloat16 both are ``csrc/flash_backward.cu`` (wgmma tiles fed by
+  TMA); for float32 ``csrc/flash_attention.cu`` (CUDA-core FMA).
 
-Each takes q, k, v (and dO) as [B, T, H, hd] in float32 or bfloat16, the
-raw key mask [B, T] int32 (1 = real), ``causal``; lse and
-D = rowsum(dO * O) are float32 [B, H, T]; O and the gradients come back
-in q's dtype, rounded once from float32 sums. The bias is the TPU
-kernels': 0 / ``NEG_INF`` from the mask plus ``NEG_INF`` above the
-diagonal, scale 1 / sqrt(hd).
+Each takes q, k, v (and dO, O) as [B, T, H, hd] in float32 or bfloat16,
+the raw key mask [B, T] int32 (1 = real), ``causal``; lse and D are
+float32 [B, H, T]; O and the gradients come back in q's dtype, rounded
+once from float32 sums. The bias is the TPU kernels': 0 / ``NEG_INF``
+from the mask plus ``NEG_INF`` above the diagonal, scale 1 / sqrt(hd).
 
 What bounds them on an H100: at the training shape (B 32, T 576, H 12,
 hd 64, bf16) device memory would allow each about 34-51 µs, but a
 kernel that stages 64 x 64 tiles and multiplies them is held by how fast
-it feeds its products. For bfloat16 all three therefore run on the
-tensor cores (``mma.sync`` m16n8k16, bf16 operands by ``ldmatrix``,
-float32 sums in registers), with tiles filled by double-buffered 16-byte
-``cp.async`` and P and dS kept in registers as the second product's A
-operand; the forward also runs its online softmax in registers and keeps
-Q's fragments there for the whole key loop. Their tensors must start
-16-byte aligned, which the wrappers check. For float32 the kernels stay
-on the CUDA cores in full float32: the tensor cores would round to TF32
-and miss the float32 parity.
+it feeds its products. The bf16 forward runs ``mma.sync`` m16n8k16 with
+operands by ``ldmatrix`` and tiles by double-buffered ``cp.async``; the
+bf16 backward runs ``wgmma`` with both first products' operands in
+shared memory and P and dS from registers (a bf16 hi + lo pair each),
+its tiles brought by TMA from a producer warpgroup through a ring of
+mbarrier-guarded stages (:func:`tma_maps`, :func:`backward_geometry`).
+Their tensors must start 16-byte aligned, which the wrappers check. For
+float32 the kernels stay on the CUDA cores in full float32: the tensor
+cores would round to TF32 and miss the float32 parity.
 
-At hd 256 (gpt-j-6B's heads) two changes keep each kernel on one block
-of the card's 227 KB of shared memory and under its 255 registers a
-thread: the bf16 kernels run 8 warps, a pair of warps per 16 query (or
-key) rows, each of the pair keeping the float32 accumulators of half the
-head dim (both form the rows' whole scores, so both hold the same
-softmax statistics); the float32 kernels own 32 rows a block instead of
-64 (:func:`fma_rows`).
+At hd 256 (gpt-j-6B's heads) each kernel stays on one block of the
+card's 227 KB of shared memory and under its 255 registers a thread:
+the bf16 forward runs 8 warps, a pair of warps per 16 query rows, each
+of the pair keeping the float32 accumulators of half the head dim; the
+bf16 backward's two consumer warpgroups share one 64-row slice and
+split the output columns the same way (dk/dv from hd 128); the float32
+kernels own 32 rows a block instead of 64 (:func:`fma_rows`).
 
 A CUDA tensor goes to the kernel, or the call raises; only a CPU tensor
 goes to the plain version beside it (``*_reference``), which repeats the
@@ -48,7 +51,8 @@ different finite average than the dense math gives; real rows agree.
 (``causal_mask_bias`` + ``attention_scores``) the tests and the chip
 smoke hold the kernels against.
 
-:class:`FlashAttention` wires the three into autograd; under
+:class:`FlashAttention` wires the kernels into autograd: its backward
+launches exactly two, dq (which computes D) then dk/dv. Under
 ``torch.no_grad`` (the frozen trunk, the reference branch, rollout
 scoring) :func:`flash_attention` calls the forward alone and saves
 nothing. :func:`make_flash_attention_fn` is the trunk's ``attention_fn``
@@ -89,17 +93,58 @@ def fma_rows(hd: int) -> int:
     return 64 if hd <= 128 else 32
 
 
+def backward_stages(hd: int) -> int:
+    """Stages of the bf16 backward kernels' ring of streamed tiles
+    (``stages`` in csrc/flash_backward.cu): four while the tiles are
+    small, two from hd 128."""
+    return 4 if hd <= 64 else 2
+
+
+def backward_geometry(hd: int) -> dict:
+    """The bf16 backward kernels' tiles at head dim ``hd`` (``Box`` and
+    ``Plan`` in csrc/flash_backward.cu): a block owns one 64-row slice
+    (query rows in dq, key rows in dk/dv), whose tile is ``boxes`` TMA
+    boxes of ``box_cols`` columns, each 64 rows of ``row_bytes`` (the
+    swizzle width). Each kernel's ``split`` is its consumer warpgroups:
+    1 while one warpgroup's float32 accumulators fit (dq to hd 128, dk/dv
+    to hd 64), else 2 sharing the slice, half the output columns each."""
+    box_cols = min(hd, 64)
+    return {"box_cols": box_cols, "boxes": hd // box_cols,
+            "row_bytes": 2 * box_cols, "tile_bytes": TILE * 2 * hd,
+            "split": {"flash_bwd_dq": 2 if hd > 128 else 1,
+                      "flash_bwd_dkv": 2 if hd > 64 else 1}}
+
+
+def tma_maps(B: int, T: int, H: int, hd: int) -> dict:
+    """The tensor maps the bf16 backward's host code encodes per call
+    (``map_rows`` in csrc/flash_backward.cu): name -> element bytes, dims
+    (innermost first), byte strides of dims 1.., box and swizzle bytes.
+    q, k, v, dO and O are 4-D over [B, T, H, hd]. The key mask, lse and
+    D rows have none: a row of T 4-byte values starts 16-byte aligned
+    only when T is a multiple of 4, so the producer warp copies them
+    by 4-byte ``cp.async``."""
+    box_cols = min(hd, 64)
+    return {"q/k/v/dO/O": {"elem": 2, "dims": (hd, H, T, B),
+                           "strides": (2 * hd, 2 * hd * H, 2 * hd * H * T),
+                           "box": (box_cols, 1, TILE, 1),
+                           "swizzle": 2 * box_cols}}
+
+
 def shared_memory_bytes(hd: int, dtype=torch.bfloat16) -> dict:
     """Dynamic shared memory per block of each kernel for inputs of
-    ``dtype`` (``*_smem`` in csrc/flash_attention.cu). For float32 each
-    kernel holds [hd + 1]-float rows of its own tiles (:func:`fma_rows`
-    rows: Q in the forward, Q and dO in dq, K and V in dk/dv) and of the
-    streamed 64-row tiles (K and V, or Q and dO), a [rows][65] score
-    tile (two in dk/dv) and the row vectors. For bfloat16 the forward
-    holds five [64][hd + 8] bf16 tiles (Q, then K and V x two stages) and
-    two stages of the key mask; the backward six (its own two, two
-    streamed tiles x two stages) and two stages of the key mask (dq) or
-    of the lse and D rows (dk/dv)."""
+    ``dtype``. For float32 each kernel holds [hd + 1]-float rows of its
+    own tiles (:func:`fma_rows` rows: Q in the forward, Q and dO in dq,
+    K and V in dk/dv) and of the streamed 64-row tiles (K and V, or Q
+    and dO), a [rows][65] score tile (two in dk/dv) and the row vectors
+    (dq's D among them). For bfloat16 the forward (``*_smem`` in
+    csrc/flash_attention.cu) holds five [64][hd + 8] bf16 tiles (Q, then
+    K and V x two stages) and two stages of the key mask; the backward
+    (``dq_smem`` / ``dkv_smem`` in csrc/flash_backward.cu, which
+    ``flash_bwd_smem_bytes`` reports) 1 KB to align the swizzled tiles,
+    the block's own swizzled tiles (Q and dO; K and V), the stages
+    (:func:`backward_stages`) of the streamed ones (K and V; Q and dO)
+    and of their rows (the key mask; lse and D), dq's D and the
+    mbarriers."""
     if dtype == torch.float32:
         own, row = fma_rows(hd), hd + 1
         streamed = 2 * TILE * row
@@ -107,14 +152,17 @@ def shared_memory_bytes(hd: int, dtype=torch.bfloat16) -> dict:
             "flash_fwd": 4 * (own * row + streamed + own * (TILE + 1)
                               + TILE),
             "flash_bwd_dq": 4 * (2 * own * row + streamed
-                                 + own * (TILE + 1) + TILE),
+                                 + own * (TILE + 1) + TILE + own),
             "flash_bwd_dkv": 4 * (2 * own * row + streamed
                                   + 2 * own * (TILE + 1) + 2 * TILE),
         }
-    bf16_tile = 2 * TILE * (hd + 8)
-    return {"flash_fwd": 5 * bf16_tile + 4 * 2 * TILE,
-            "flash_bwd_dq": 6 * bf16_tile + 4 * 2 * TILE,
-            "flash_bwd_dkv": 6 * bf16_tile + 4 * 4 * TILE}
+    tile, stages = backward_geometry(hd)["tile_bytes"], backward_stages(hd)
+    bars = 8 * (2 * stages + 1)
+    return {"flash_fwd": 5 * 2 * TILE * (hd + 8) + 4 * 2 * TILE,
+            "flash_bwd_dq": 1024 + 2 * tile + 2 * stages * tile
+            + stages * TILE * 4 + TILE * 4 + bars,
+            "flash_bwd_dkv": 1024 + 2 * tile + 2 * stages * tile
+            + 2 * stages * TILE * 4 + bars}
 
 
 # --------------------------------------------------------------------- #
@@ -152,15 +200,24 @@ def flash_fwd_reference(q, k, v, mask, causal=True):
     return out.to(q.dtype), lse
 
 
-def flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal=True):
-    """Plain version of the dq kernel: float32 math, [B, T, H, hd] in q's
-    dtype."""
+def softmax_jacobian_diag(g, out):
+    """D = rowsum(dO * O) in float32, [B, H, T]: the plain form of what
+    the dq kernel computes in its prologue (the TPU wrapper computes it
+    outside its kernels)."""
+    return (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def flash_bwd_dq_reference(q, k, v, g, out, lse, mask, causal=True):
+    """Plain version of the dq kernel: float32 math; (dq [B, T, H, hd] in
+    q's dtype, D = rowsum(dO * O) float32 [B, H, T], as
+    :func:`softmax_jacobian_diag` gives it)."""
+    dD = softmax_jacobian_diag(g, out)
     p, _ = _probs(q.float(), k.float(), mask, causal, lse)
     dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
     ds = p * (dp - dD[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) \
         * flash_scale(q.shape[-1])
-    return dq.to(q.dtype)
+    return dq.to(q.dtype), dD
 
 
 def flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal=True):
@@ -189,21 +246,36 @@ def flash_attention_reference(q, k, v, mask, causal=True):
 # --------------------------------------------------------------------- #
 
 _fns = {}
+#: pointer arguments of each C entry point (ints, a float scale and the
+#: stream follow)
+_POINTERS = {"flash_fwd": 6, "flash_bwd_dq_f32": 9, "flash_bwd_dkv_f32": 9,
+             "flash_bwd_dq_bf16": 9, "flash_bwd_dkv_bf16": 9}
 
 
-def _kernel(name: str):
+def _kernel(source: str, name: str):
+    """C entry point ``name`` of csrc/``source``.cu, bound once."""
     fn = _fns.get(name)
     if fn is None:
         from trlx_tpu_torch.ops._build import library
 
-        fn = getattr(library("flash_attention"), name)
-        n_ptr = {"flash_fwd": 6, "flash_bwd_dq": 8, "flash_bwd_dkv": 9}[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
+        fn = getattr(library(source), name)
+        n_int = 6 if name == "flash_fwd" else 5  # flash_fwd takes dtype
+        fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + \
+            [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def backward_smem_bytes(hd: int) -> dict:
+    """The dynamic shared memory the built bf16 backward kernels ask for
+    at head dim ``hd`` (``flash_bwd_smem_bytes``), to hold
+    :func:`shared_memory_bytes` to on the card."""
+    from trlx_tpu_torch.ops._build import library
+
+    fn = library("flash_backward").flash_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return {"flash_bwd_dq": fn(hd, 0), "flash_bwd_dkv": fn(hd, 1)}
 
 
 def _check(name, t, shape, dtype, device):
@@ -218,10 +290,10 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None):
+def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None, out=None):
     """Shapes, dtypes, device and contiguity the kernels take, and in
-    bfloat16 the 16-byte alignment the kernels' row copies need; returns
-    (B, T, H, hd)."""
+    bfloat16 the 16-byte alignment the kernels' row copies (``cp.async``
+    in the forward, TMA in the backward) need; returns (B, T, H, hd)."""
     if q.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, hd]")
     B, T, H, hd = q.shape
@@ -235,7 +307,8 @@ def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None):
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"q is on {dev} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("dO", g)):
+    rows = (("q", q), ("k", k), ("v", v), ("dO", g), ("O", out))
+    for name, t in rows:
         if t is not None:
             _check(name, t, (B, T, H, hd), q.dtype, dev)
     _check("mask", mask, (B, T), torch.int32, dev)
@@ -243,7 +316,7 @@ def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None):
         if t is not None:
             _check(name, t, (B, H, T), torch.float32, dev)
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v), ("dO", g)):
+        for name, t in rows:
             if t is not None and t.data_ptr() % 16:
                 raise ValueError(f"{name} must start 16-byte aligned")
     return B, T, H, hd
@@ -269,7 +342,7 @@ def flash_fwd(q, k, v, mask, causal=True):
     B, T, H, hd = _check_inputs(q, k, v, mask)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    rc = _kernel("flash_fwd")(
+    rc = _kernel("flash_attention", "flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, T, H, hd, int(causal),
         _DTYPE_CODE[q.dtype], flash_scale(hd), _stream(q),
@@ -278,53 +351,61 @@ def flash_fwd(q, k, v, mask, causal=True):
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, g, lse, dD, mask, causal=True):
-    """dq ([B, T, H, hd] in q's dtype) from dO ``g``, the forward's lse
-    and D = rowsum(dO * O). CUDA -> kernel; CPU -> plain version."""
+def _backward_entry(kind, dtype):
+    """(source, C entry point) of a backward kernel for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return "flash_backward", f"flash_bwd_{kind}_bf16"
+    return "flash_attention", f"flash_bwd_{kind}_f32"
+
+
+def flash_bwd_dq(q, k, v, g, out, lse, mask, causal=True):
+    """(dq [B, T, H, hd] in q's dtype, D = rowsum(dO * O) float32
+    [B, H, T]) from dO ``g``, the forward's O ``out`` and lse: the
+    kernel computes D for its own rows first and writes it for
+    :func:`flash_bwd_dkv`. CUDA -> kernel; CPU -> plain version."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, g, lse, dD, mask, causal)
+        return flash_bwd_dq_reference(q, k, v, g, out, lse, mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
-    B, T, H, hd = _check_inputs(q, k, v, mask, g, lse, dD)
+    B, T, H, hd = _check_inputs(q, k, v, mask, g, lse, out=out)
     dq = torch.empty_like(q)
-    rc = _kernel("flash_bwd_dq")(
+    dD = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    rc = _kernel(*_backward_entry("dq", q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), dD.data_ptr(), mask.data_ptr(), dq.data_ptr(),
-        B, T, H, hd, int(causal), _DTYPE_CODE[q.dtype], flash_scale(hd),
+        out.data_ptr(), lse.data_ptr(), mask.data_ptr(), dq.data_ptr(),
+        dD.data_ptr(), B, T, H, hd, int(causal), flash_scale(hd),
         _stream(q),
     )
     _launched("flash_bwd_dq", rc)
-    return dq
+    return dq, dD
 
 
 def flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal=True):
-    """(dk, dv), [B, T, H, hd] each in q's dtype. CUDA -> kernel; CPU ->
-    plain version."""
+    """(dk, dv), [B, T, H, hd] each in q's dtype, from the D that
+    :func:`flash_bwd_dq` returned. CUDA -> kernel; CPU -> plain
+    version."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, g, lse, dD, mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
     B, T, H, hd = _check_inputs(q, k, v, mask, g, lse, dD)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    rc = _kernel("flash_bwd_dkv")(
+    rc = _kernel(*_backward_entry("dkv", q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dD.data_ptr(), mask.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, H, hd, int(causal), _DTYPE_CODE[q.dtype],
-        flash_scale(hd), _stream(q),
+        dv.data_ptr(), B, T, H, hd, int(causal), flash_scale(hd),
+        _stream(q),
     )
     _launched("flash_bwd_dkv", rc)
     return dk, dv
 
 
-def softmax_jacobian_diag(g, out):
-    """D = rowsum(dO * O) in float32, [B, H, T] (outside the kernels, as
-    the TPU wrapper computes it)."""
-    return (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-
-
 class FlashAttention(torch.autograd.Function):
-    """Autograd over the three kernels: saves q, k, v, O, lse and the
-    mask; the backward recomputes the probabilities from lse."""
+    """Autograd over the kernels: saves q, k, v, O, lse and the mask; the
+    backward launches dq (which computes D from dO and O) then dk/dv,
+    recomputing the probabilities from lse, and runs no torch
+    arithmetic of its own (the conversion below returns dO itself when
+    it is already q's dtype and contiguous)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal):
@@ -337,8 +418,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse, mask = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
-        dD = softmax_jacobian_diag(g, out)
-        dq = flash_bwd_dq(q, k, v, g, lse, dD, mask, ctx.causal)
+        dq, dD = flash_bwd_dq(q, k, v, g, out, lse, mask, ctx.causal)
         dk, dv = flash_bwd_dkv(q, k, v, g, lse, dD, mask, ctx.causal)
         return dq, dk, dv, None, None
 

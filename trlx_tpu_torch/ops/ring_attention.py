@@ -18,7 +18,9 @@ kernel). The backward (:class:`_RingAttention`) sends the K/V chunks
 around the ring again with float32 dK/dV accumulators riding beside
 them, which come home after one more hop; dq accumulates where it is.
 Every backward pair runs on the MERGED lse and D = rowsum(dO * O) of the
-merged O, so each block's probabilities are the whole row's.
+merged O, so each block's probabilities are the whole row's; D comes
+from each rank's first dq call (its diagonal pair), which computes it
+from dO and the merged O.
 
 On CUDA tensors the pairs launch the kernels (chunks shorter than the
 flash seam's ``_MIN_FUSED_T`` floor take their plain versions, as the
@@ -129,12 +131,12 @@ def _ring_forward(ex, qs, ks, vs, masks, causal, ops):
 
 
 def _ring_backward(ex, qs, ks, vs, masks, outs, lses, gs, causal, ops):
-    """(dq, dk, dv) of every local rank, each in its input's dtype."""
-    from trlx_tpu_torch.ops.flash_attention import softmax_jacobian_diag
-
+    """(dq, dk, dv) of every local rank, each in its input's dtype. D =
+    rowsum(dO * O) comes from each rank's step-0 dq call: step 0 is the
+    rank's diagonal pair, which is never skipped."""
     _, bwd_dq, bwd_dkv = ops
     n, H, Hkv = ex.n, qs[0].shape[2], ks[0].shape[2]
-    dD = [softmax_jacobian_diag(g, o) for g, o in zip(gs, outs)]
+    dD = [None] * len(qs)
     dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
           for q in qs]
     travel = [[k, v, m,
@@ -148,9 +150,13 @@ def _ring_backward(ex, qs, ks, vs, masks, outs, lses, gs, causal, ops):
                 continue
             k, v, m, dk, dv = travel[i]
             kh, vh = _heads(k, H), _heads(v, H)
-            args = (qs[i], kh, vh, gs[i], lses[i], dD[i], m, flag)
-            dq[i] += bwd_dq(*args).float()
-            dk_p, dv_p = bwd_dkv(*args)
+            dq_p, d_p = bwd_dq(qs[i], kh, vh, gs[i], outs[i], lses[i], m,
+                               flag)
+            if step == 0:
+                dD[i] = d_p
+            dq[i] += dq_p.float()
+            dk_p, dv_p = bwd_dkv(qs[i], kh, vh, gs[i], lses[i], dD[i], m,
+                                 flag)
             dk += _group_sum(dk_p, Hkv)
             dv += _group_sum(dv_p, Hkv)
         if n == 1:
