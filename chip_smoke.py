@@ -9,7 +9,7 @@ Phases, each printing its own line; any failure exits non-zero:
    card's name and power limit as nvidia-smi reports them.
 2. build — compiles every kernel source under trlx_tpu_torch/csrc with
    nvcc for sm_90a, all at once (ptxas registers / shared memory /
-   spills printed).
+   spills printed, and ptxas's note where it serialized wgmma).
 3. kernel — the paged-decode kernel against its plain PyTorch version on
    the card: fp32 (GQA + sentinel pages, atol 1e-5), the int8 tier (atol
    1e-5), and the serving shape in bf16 with a fully masked free row that
@@ -31,7 +31,7 @@ Phases, each printing its own line; any failure exits non-zero:
 4. flash —the three flash-attention kernels against the dense oracle
    and its autograd: fp32 causal with left padding at T 52 and 576 and
    the non-causal form (O and lse on real rows atol 1e-5, dq / dk / dv
-   atol 2e-4); the bf16 kernels (tensor cores) at hd 16, 32, 64 and 128,
+   atol 2e-4); the bf16 kernels (wgmma) at hd 16, 32, 64, 128 and 256,
    T 130 causal with a fully left-padded row and T 96 non-causal: the
    forward against its plain version (O on real rows at atol 1e-2 +
    rtol 1e-2, lse on real rows at atol 1e-3, every row finite), the
@@ -42,9 +42,11 @@ Phases, each printing its own line; any failure exits non-zero:
    eager) at the training shape (B 32, T 576, H 12, hd 64, bf16, causal)
    and at B 8, T 2048, each beside its bound, and the whole backward seam
    (dq, which computes D, then dk/dv in one graph) beside SDPA's backward.
-   The build first shows the bf16 backward's SASS holds HGMMA (wgmma)
-   and UTMALDG (TMA) and no HMMA (mma.sync), and that its shared memory
-   is the wrappers' plan.
+   The build first shows every bf16 flash kernel's SASS (the forward
+   and both backward kernels, hd 16-256) holds HGMMA (wgmma) and
+   UTMALDG (TMA) and no HMMA (mma.sync), and that their shared memory
+   (and the forward's consumers, stages and register split) is the
+   wrappers' plan.
 4b. sp and pp — sequence and pipeline parallelism with every rank in
    this process (the loopback exchange: NCCL refuses two ranks on one
    card). [sp]: ring attention (trlx_tpu_torch.ops.ring_attention) at
@@ -494,9 +496,12 @@ def config_dict(compute_dtype="bfloat16", sample=False):
 def ptxas_summary(text):
     """One line per compiled kernel from ``nvcc -Xptxas -v`` output: its
     short name (kernel and template arguments, from the mangled symbol),
-    registers and, where not zero, spill bytes."""
+    registers and, where not zero, spill bytes; and a line for each of
+    ptxas's notes that it serialized a kernel's wgmma instructions."""
     out, name, spill = [], "?", ""
     for ln in text.splitlines():
+        if "serialized" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
         m = re.search(r"Compiling entry function '_Z\w*?\d+([a-z_]+_kernel)"
                       r"I(\w*?)EEv", ln)
         if m:
@@ -514,18 +519,20 @@ def ptxas_summary(text):
     return out
 
 
-def backward_sass():
-    """Each bf16 backward kernel instance of the built library (symbol ->
-    counts of its SASS opcodes, from ``cuobjdump -sass``): HGMMA (wgmma),
-    UTMALDG (a TMA tile load) and HMMA (mma.sync, which it must not
-    hold)."""
+def flash_sass():
+    """Each bf16 flash kernel instance of the built libraries, the forward
+    and both backward kernels (symbol -> counts of its SASS opcodes, from
+    ``cuobjdump -sass``): HGMMA (wgmma), UTMALDG (a TMA tile load) and
+    HMMA (mma.sync, which none may hold)."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    text = subprocess.run(
-        [tool, "-sass", str(_build.library_path("flash_backward"))],
+    text = "".join(subprocess.run(
+        [tool, "-sass", str(_build.library_path(name))],
         capture_output=True, text=True, check=True).stdout
+        for name in ("flash_forward", "flash_backward"))
     out, counts = {}, None
     for ln in text.splitlines():
-        m = re.search(r"Function : \S*?(flash_bwd_\w+?_kernel)ILi(\d+)E", ln)
+        m = re.search(r"Function : \S*?(flash_(?:fwd|bwd)_\w+?_kernel)"
+                      r"ILi(\d+)E", ln)
         if m:
             counts = out[f"{m.group(1)}<{m.group(2)}>"] = dict.fromkeys(
                 ("HGMMA", "UTMALDG", "HMMA"), 0)
@@ -905,7 +912,7 @@ FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SEAM = "flash_bwd (seam)"
 #: the source of each flash kernel on the bf16 training path
 FLASH_SOURCES = {
-    "flash_fwd": "trlx_tpu_torch/csrc/flash_attention.cu",
+    "flash_fwd": "trlx_tpu_torch/csrc/flash_forward.cu",
     "flash_bwd_dq": "trlx_tpu_torch/csrc/flash_backward.cu",
     "flash_bwd_dkv": "trlx_tpu_torch/csrc/flash_backward.cu",
 }
@@ -4859,7 +4866,7 @@ def seam_capture_drill(trainer, batch, device):
 
 
 #: the CUDA symbols of the bf16 flash kernels on the training path
-FLASH_SYMBOLS = ("flash_fwd_mma_kernel", "flash_bwd_dq_wgmma_kernel",
+FLASH_SYMBOLS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv_wgmma_kernel")
 
 
@@ -5958,17 +5965,22 @@ def main() -> int:
         log("build", f"{name}: {entry['seconds']:.2f}s nvcc")
         for ln in ptxas_summary(str(entry["log"])):
             log("build", f"  {ln}")
-    sass = backward_sass()
-    log("build", "bf16 backward SASS (cuobjdump -sass; HGMMA = wgmma, "
+    sass = flash_sass()
+    log("build", "bf16 flash SASS (cuobjdump -sass; HGMMA = wgmma, "
                  "UTMALDG = TMA load, HMMA = mma.sync): " + "; ".join(
                      f"{k} {c['HGMMA']} / {c['UTMALDG']} / {c['HMMA']}"
                      for k, c in sorted(sass.items())))
-    assert len(sass) == 2 * len(fa.HEAD_DIMS), sorted(sass)
+    assert len(sass) == 3 * len(fa.HEAD_DIMS), sorted(sass)
     for k, c in sass.items():
         assert c["HGMMA"] and c["UTMALDG"] and not c["HMMA"], (k, c)
     for hd in fa.HEAD_DIMS:
         built, plan = fa.backward_smem_bytes(hd), fa.shared_memory_bytes(hd)
         assert all(built[n] == plan[n] for n in built), (hd, built, plan)
+        fwd, geo = fa.forward_plan(hd), fa.forward_geometry(hd)
+        assert fwd == {"consumers": geo["consumers"],
+                       "blocks": geo["blocks"], "stages": geo["stages"],
+                       "registers": geo["registers"],
+                       "smem": plan["flash_fwd"]}, (hd, fwd, geo)
     per_1024 = decode_partitions(16, 12, 64, 16)[1]
     gptj_per = decode_partitions(16, 16, 64, 16)[1]
     log("build", "paged_decode dynamic shared memory per block: "

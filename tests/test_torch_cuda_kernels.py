@@ -334,7 +334,7 @@ def test_cuda_bf16_backward_kernels_match_plain_version(hd, T, causal, pads):
     (96, False, (0, 9)),
 ])
 def test_cuda_bf16_forward_kernel_matches_plain_version(hd, T, causal, pads):
-    """The bf16 forward kernel (tensor cores) against its plain version on
+    """The bf16 forward kernel (wgmma, TMA) against its plain version on
     the same bf16 q, k, v: O on real rows at atol 1e-2 + rtol 1e-2 (the
     kernel rounds P to bf16 before P V, 2^-9 relative, and O once), lse
     on real rows at atol 1e-3 (float32 sums in another order), every row
@@ -366,7 +366,8 @@ def test_cuda_bf16_forward_kernel_matches_plain_version(hd, T, causal, pads):
 def test_cuda_bf16_backward_refuses_misaligned_rows():
     """The bf16 kernels copy 16-byte rows, so the wrappers of the forward
     and of both backward kernels raise on a tensor that does not start
-    16-byte aligned rather than launch."""
+    16-byte aligned rather than launch: a forward input 2 bytes off
+    raises and no forward launch is counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -377,9 +378,11 @@ def test_cuda_bf16_backward_refuses_misaligned_rows():
     q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:]
     shifted = shifted.view(q.shape).copy_(q)  # contiguous, 2 bytes off
+    before = ops.LAUNCHES["flash_fwd"]
     for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
         with pytest.raises(ValueError, match="16-byte aligned"):
             fa.flash_fwd(*args, mask)
+    assert ops.LAUNCHES["flash_fwd"] == before
     out, lse = fa.flash_fwd(q, k, v, mask)
     dD = fa.softmax_jacobian_diag(g, out)
     with pytest.raises(ValueError, match="16-byte aligned"):

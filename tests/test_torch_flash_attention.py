@@ -174,8 +174,9 @@ def test_shared_memory_fits_one_block_at_every_head_dim():
     """Every kernel instance, both dtypes, hd 16-256, asks for at most one
     Hopper block's 232,448 bytes of shared memory; at hd 256 the float32
     kernels own 32 rows a block (four 64-row tiles of 257 floats would
-    not fit), the bf16 forward keeps its 64-row tiles and the bf16
-    backward its one 64-row slice."""
+    not fit), the bf16 forward keeps its two consumers' 64-row Q tiles
+    and two stages of K and V, and the bf16 backward its one 64-row
+    slice."""
     for hd in fa.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             sm = fa.shared_memory_bytes(hd, dtype)
@@ -183,7 +184,7 @@ def test_shared_memory_fits_one_block_at_every_head_dim():
     assert fa.fma_rows(256) == 32 and fa.fma_rows(128) == 64
     sm = fa.shared_memory_bytes(256, torch.bfloat16)
     assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
-        (169472, 198440, 198696)
+        (198216, 198440, 198696)
     sm = fa.shared_memory_bytes(256, torch.float32)
     assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
         (173056, 206080, 214528)
@@ -248,13 +249,13 @@ def test_wrappers_refuse_bad_inputs():
     for dtype in (torch.float32, torch.bfloat16):
         sm = fa.shared_memory_bytes(128, dtype)
         assert max(sm.values()) <= 232448  # one Hopper block's ceiling
-    # bf16: five [64][hd + 8] bf16 tiles and two stages of the key mask in
-    # the forward; in the backward 1 KB of alignment, the block's own 64
-    # rows (Q, dO; K, V) and four stages of the streamed 64-row tiles and
-    # rows, dq's D, the barriers
+    # bf16: 1 KB of alignment in each; in the forward the one consumer's
+    # Q tile, four stages of K, V and the key mask, the barriers; in the
+    # backward the block's own 64 rows (Q, dO; K, V) and four stages of
+    # the streamed 64-row tiles and rows, dq's D, the barriers
     sm = fa.shared_memory_bytes(64, torch.bfloat16)
     assert (sm["flash_fwd"], sm["flash_bwd_dq"], sm["flash_bwd_dkv"]) == \
-        (46592, 84296, 85064)
+        (75912, 84296, 85064)
     # float32: [64][65] float tiles, score tiles and row vectors
     sm = fa.shared_memory_bytes(64, torch.float32)
     assert (sm["flash_fwd"], sm["flash_bwd_dkv"]) == (66816, 100352)

@@ -140,6 +140,31 @@ def test_soak_mixed_lengths_no_recompiles_no_leaks():
     assert cache.free_pages() + cache.cached_pages() == pages
 
 
+def test_submit_after_a_server_stop_raises_instead_of_queueing():
+    """A server's shutdown stops its scheduler for good (``final``): a
+    request that reaches it afterwards (an HTTP handler racing the
+    shutdown) raises at once, as the requests the stop failed do;
+    queued, nothing would ever decode or fail it, and its handler would
+    wait out the whole request timeout. A plain stop() still queues a
+    request for the next start(), which decodes it."""
+    engine = _port_engine(None)
+    s = SlotScheduler(engine)
+    s.start()
+    s.stop()
+    req = s.submit([1, 2, 3], max_new_tokens=2)
+    s.start()
+    try:
+        assert 0 < len(req.wait(timeout=60.0).result) <= 2
+    finally:
+        s.stop()
+    server = InferenceServer(engine, host="127.0.0.1", port=0)
+    server.start(warmup=False)
+    server.stop()
+    with pytest.raises(RuntimeError, match="scheduler stopped"):
+        server.scheduler.submit([1, 2, 3], max_new_tokens=2)
+    assert server.scheduler.queue_depth() == 0
+
+
 @pytest.mark.parametrize("page_size", [3, 64])
 def test_engine_lattice_and_page_geometry_match_trlx_tpu(page_size):
     buckets = [[4, 8, 8], [2, 8, 8], [2, 16, 4]]

@@ -105,7 +105,8 @@ def variant(name, src):
 
 
 def build(directory):
-    """Every variant's library, all nvcc processes at once."""
+    """Every variant's library, all nvcc processes at once (the copies
+    include csrc/hopper.cuh from the source directory)."""
     src = SOURCE.read_text()
     procs = []
     for i, name in enumerate(VARIANTS):
@@ -113,7 +114,8 @@ def build(directory):
         so = os.path.join(directory, f"libv{i}.so")
         with open(cu, "w") as f:
             f.write(variant(name, src))
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu]
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS,
+               "-I", str(_build.CSRC_DIR), "-o", so, cu]
         procs.append((name, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}

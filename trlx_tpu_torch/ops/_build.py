@@ -5,8 +5,10 @@ C entry point, compiled by ``nvcc`` for ``sm_90a`` into a shared library
 and bound with ``ctypes`` (seconds to build; no PyTorch headers). The
 build happens at first use, into ``build/kernels/`` at the repository
 root (git-ignored), from the repository's own sources only. A library's
-file name carries a hash of its source and flags, so an edited source is
-never served by a stale build. Nothing here runs at import time.
+file name carries a hash of its source, of every header beside it
+(``csrc/*.cuh``, which the wgmma kernels share) and of the flags, so an
+edited source or header is never served by a stale build. Nothing here
+runs at import time.
 """
 
 import ctypes
@@ -25,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: every kernel source of the port (csrc/<name>.cu)
 KERNELS: Tuple[str, ...] = ("paged_decode", "flash_attention",
-                            "flash_backward")
+                            "flash_forward", "flash_backward")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,8 +58,10 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    headers = b"".join(h.name.encode() + h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        source + " ".join(NVCC_FLAGS).encode()
+        source + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

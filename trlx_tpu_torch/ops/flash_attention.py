@@ -5,8 +5,9 @@ trlx_tpu.ops.pallas_attention).
 Three kernels, built at first use:
 
 - :func:`flash_fwd` — O and the float32 logsumexp; replaces
-  ``_flash_fwd_kernel`` (launched by ``_flash_forward``);
-  ``csrc/flash_attention.cu``;
+  ``_flash_fwd_kernel`` (launched by ``_flash_forward``). For bfloat16
+  ``csrc/flash_forward.cu`` (wgmma tiles fed by TMA); for float32
+  ``csrc/flash_attention.cu`` (CUDA-core FMA);
 - :func:`flash_bwd_dq` — dq and D = rowsum(dO * O) from O, dO and the
   saved logsumexp; replaces ``_flash_bwd_dq_kernel`` and the jnp line
   that computes D before it;
@@ -24,23 +25,27 @@ from the mask plus ``NEG_INF`` above the diagonal, scale 1 / sqrt(hd).
 What bounds them on an H100: at the training shape (B 32, T 576, H 12,
 hd 64, bf16) device memory would allow each about 34-51 µs, but a
 kernel that stages 64 x 64 tiles and multiplies them is held by how fast
-it feeds its products. The bf16 forward runs ``mma.sync`` m16n8k16 with
-operands by ``ldmatrix`` and tiles by double-buffered ``cp.async``; the
-bf16 backward runs ``wgmma`` with both first products' operands in
-shared memory and P and dS from registers (a bf16 hi + lo pair each),
-its tiles brought by TMA from a producer warpgroup through a ring of
-mbarrier-guarded stages (:func:`tma_maps`, :func:`backward_geometry`).
-Their tensors must start 16-byte aligned, which the wrappers check. For
-float32 the kernels stay on the CUDA cores in full float32: the tensor
-cores would round to TF32 and miss the float32 parity.
+it feeds its products. The bf16 kernels run ``wgmma`` on tiles brought
+by TMA from a producer warpgroup through a ring of mbarrier-guarded
+stages (:func:`tma_maps`). The forward's consumer warpgroups own 64
+query rows each (one a block to hd 64, three blocks an SM; two a block
+from hd 128, sharing every K and V tile); a round takes one key tile:
+its S = Q K^T, then its softmax, then its P V, each waited for before
+the next (:func:`forward_geometry`).
+The backward forms S and dP from shared memory and runs its second
+products on P and dS from registers, a bf16 hi + lo pair each
+(:func:`backward_geometry`). Their tensors must start 16-byte aligned,
+which the wrappers check. For float32 the kernels stay on the CUDA cores
+in full float32: the tensor cores would round to TF32 and miss the
+float32 parity.
 
 At hd 256 (gpt-j-6B's heads) each kernel stays on one block of the
-card's 227 KB of shared memory and under its 255 registers a thread:
-the bf16 forward runs 8 warps, a pair of warps per 16 query rows, each
-of the pair keeping the float32 accumulators of half the head dim; the
-bf16 backward's two consumer warpgroups share one 64-row slice and
-split the output columns the same way (dk/dv from hd 128); the float32
-kernels own 32 rows a block instead of 64 (:func:`fma_rows`).
+card's 227 KB of shared memory and under its 255 registers a thread: a
+forward consumer keeps all 256 output columns of its 64 rows (128
+float32 registers a thread), so S is formed once; the bf16 backward's
+two consumer warpgroups share one 64-row slice and split the output
+columns (dk/dv from hd 128); the float32 kernels own 32 rows a block
+instead of 64 (:func:`fma_rows`).
 
 A CUDA tensor goes to the kernel, or the call raises; only a CPU tensor
 goes to the plain version beside it (``*_reference``), which repeats the
@@ -77,7 +82,7 @@ _MIN_FUSED_T = 128
 #: query rows / keys per tile of the kernels
 TILE = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def flash_scale(hd: int) -> float:
@@ -91,6 +96,36 @@ def fma_rows(hd: int) -> int:
     forward and dq, key rows in dk/dv): 64, or 32 at hd 256, where four
     [64][hd + 1] float tiles would not fit one block."""
     return 64 if hd <= 128 else 32
+
+
+def forward_geometry(hd: int) -> dict:
+    """The bf16 forward kernel's plan at head dim ``hd`` (``Box`` in
+    csrc/hopper.cuh, ``FwdPlan`` in csrc/flash_forward.cu): a block owns
+    ``rows`` query rows, ``consumers`` warpgroups of 64 each (one to hd
+    64, with ``blocks`` 3 an SM; two from hd 128, sharing each K and V
+    tile, one block an SM) and a producer warpgroup that hands them its
+    registers, every consumer keeping all ``out_cols`` output columns of
+    its rows (S formed once), K and V through rings of ``stages`` (four
+    to hd 128, two at 256); a 64-row tile is ``boxes`` TMA boxes of
+    ``box_cols`` columns, each 64 rows of ``row_bytes`` (the swizzle
+    width); ``registers`` a thread at launch (the register file over the
+    SM's threads, rounded down to 8) and the producer's and each
+    consumer's after ``setmaxnreg`` (the consumers take all but 24 of
+    the producer's, in multiples of 8), which ``flash_fwd_plan`` reports
+    from the built kernel."""
+    box_cols = min(hd, 64)
+    consumers, blocks = (1, 3) if hd <= 64 else (2, 1)
+    threads = 128 * (consumers + 1)
+    launch = 65536 // (threads * blocks) // 8 * 8
+    consumer = ((consumers + 1) * launch - 24) // consumers // 8 * 8
+    producer = (consumers + 1) * launch - consumers * consumer
+    return {"box_cols": box_cols, "boxes": hd // box_cols,
+            "row_bytes": 2 * box_cols, "tile_bytes": TILE * 2 * hd,
+            "consumers": consumers, "blocks": blocks,
+            "rows": TILE * consumers, "threads": threads, "out_cols": hd,
+            "stages": 4 if hd <= 128 else 2,
+            "registers": {"launch": launch, "producer": producer,
+                          "consumer": consumer}}
 
 
 def backward_stages(hd: int) -> int:
@@ -116,8 +151,8 @@ def backward_geometry(hd: int) -> dict:
 
 
 def tma_maps(B: int, T: int, H: int, hd: int) -> dict:
-    """The tensor maps the bf16 backward's host code encodes per call
-    (``map_rows`` in csrc/flash_backward.cu): name -> element bytes, dims
+    """The tensor maps the bf16 forward and backward encode per call
+    (``map_rows`` in csrc/hopper.cuh): name -> element bytes, dims
     (innermost first), byte strides of dims 1.., box and swizzle bytes.
     q, k, v, dO and O are 4-D over [B, T, H, hd]. The key mask, lse and
     D rows have none: a row of T 4-byte values starts 16-byte aligned
@@ -136,9 +171,11 @@ def shared_memory_bytes(hd: int, dtype=torch.bfloat16) -> dict:
     own tiles (:func:`fma_rows` rows: Q in the forward, Q and dO in dq,
     K and V in dk/dv) and of the streamed 64-row tiles (K and V, or Q
     and dO), a [rows][65] score tile (two in dk/dv) and the row vectors
-    (dq's D among them). For bfloat16 the forward (``*_smem`` in
-    csrc/flash_attention.cu) holds five [64][hd + 8] bf16 tiles (Q, then
-    K and V x two stages) and two stages of the key mask; the backward
+    (dq's D among them). For bfloat16 the forward (``fwd_smem`` in
+    csrc/flash_forward.cu, which ``flash_fwd_plan`` reports) holds 1 KB
+    to align the swizzled tiles, the consumers' Q tiles, the stages of
+    K, V and the key mask (:func:`forward_geometry`), and the mbarriers
+    (full and empty of K and of V a stage, Q's own); the backward
     (``dq_smem`` / ``dkv_smem`` in csrc/flash_backward.cu, which
     ``flash_bwd_smem_bytes`` reports) 1 KB to align the swizzled tiles,
     the block's own swizzled tiles (Q and dO; K and V), the stages
@@ -156,9 +193,12 @@ def shared_memory_bytes(hd: int, dtype=torch.bfloat16) -> dict:
             "flash_bwd_dkv": 4 * (2 * own * row + streamed
                                   + 2 * own * (TILE + 1) + 2 * TILE),
         }
-    tile, stages = backward_geometry(hd)["tile_bytes"], backward_stages(hd)
+    fwd = forward_geometry(hd)
+    tile, ns = fwd["tile_bytes"], fwd["stages"]
+    stages = backward_stages(hd)
     bars = 8 * (2 * stages + 1)
-    return {"flash_fwd": 5 * 2 * TILE * (hd + 8) + 4 * 2 * TILE,
+    return {"flash_fwd": 1024 + fwd["consumers"] * tile + 2 * ns * tile
+            + ns * TILE * 4 + 8 * (4 * ns + 1),
             "flash_bwd_dq": 1024 + 2 * tile + 2 * stages * tile
             + stages * TILE * 4 + TILE * 4 + bars,
             "flash_bwd_dkv": 1024 + 2 * tile + 2 * stages * tile
@@ -246,10 +286,11 @@ def flash_attention_reference(q, k, v, mask, causal=True):
 # --------------------------------------------------------------------- #
 
 _fns = {}
-#: pointer arguments of each C entry point (ints, a float scale and the
-#: stream follow)
-_POINTERS = {"flash_fwd": 6, "flash_bwd_dq_f32": 9, "flash_bwd_dkv_f32": 9,
-             "flash_bwd_dq_bf16": 9, "flash_bwd_dkv_bf16": 9}
+#: pointer arguments of each C entry point (five ints, a float scale and
+#: the stream follow)
+_POINTERS = {"flash_fwd_f32": 6, "flash_fwd_bf16": 6, "flash_bwd_dq_f32": 9,
+             "flash_bwd_dkv_f32": 9, "flash_bwd_dq_bf16": 9,
+             "flash_bwd_dkv_bf16": 9}
 
 
 def _kernel(source: str, name: str):
@@ -259,12 +300,29 @@ def _kernel(source: str, name: str):
         from trlx_tpu_torch.ops._build import library
 
         fn = getattr(library(source), name)
-        n_int = 6 if name == "flash_fwd" else 5  # flash_fwd takes dtype
         fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + \
-            [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def forward_plan(hd: int) -> dict:
+    """The built bf16 forward kernel's plan at head dim ``hd``
+    (``flash_fwd_plan``), to hold :func:`forward_geometry` and
+    :func:`shared_memory_bytes` to on the card."""
+    from trlx_tpu_torch.ops._build import library
+
+    fn = library("flash_forward").flash_fwd_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    if fn(hd, out) != 0:
+        raise ValueError(f"no bf16 flash forward for head_dim {hd}")
+    return {"consumers": out[0], "blocks": out[1], "stages": out[2],
+            "registers": {"launch": out[3], "producer": out[4],
+                          "consumer": out[5]},
+            "smem": out[6]}
 
 
 def backward_smem_bytes(hd: int) -> dict:
@@ -292,12 +350,12 @@ def _check(name, t, shape, dtype, device):
 
 def _check_inputs(q, k, v, mask, g=None, lse=None, dD=None, out=None):
     """Shapes, dtypes, device and contiguity the kernels take, and in
-    bfloat16 the 16-byte alignment the kernels' row copies (``cp.async``
-    in the forward, TMA in the backward) need; returns (B, T, H, hd)."""
+    bfloat16 the 16-byte alignment the kernels' TMA copies and the
+    forward's 16-byte stores of O need; returns (B, T, H, hd)."""
     if q.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, hd]")
     B, T, H, hd = q.shape
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"no flash kernel for {q.dtype} (float32 or "
                         f"bfloat16)")
     if hd not in HEAD_DIMS:
@@ -339,23 +397,25 @@ def flash_fwd(q, k, v, mask, causal=True):
         return flash_fwd_reference(q, k, v, mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    B, T, H, hd = _check_inputs(q, k, v, mask)
     out = torch.empty_like(q)
+    B, T, H, hd = _check_inputs(q, k, v, mask, out=out)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    rc = _kernel("flash_attention", "flash_fwd")(
+    rc = _kernel(*_entry("fwd", q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, T, H, hd, int(causal),
-        _DTYPE_CODE[q.dtype], flash_scale(hd), _stream(q),
+        flash_scale(hd), _stream(q),
     )
     _launched("flash_fwd", rc)
     return out, lse
 
 
-def _backward_entry(kind, dtype):
-    """(source, C entry point) of a backward kernel for ``dtype``."""
+def _entry(kind, dtype):
+    """(source, C entry point) of kernel ``kind`` (fwd, bwd_dq, bwd_dkv)
+    for ``dtype``: bfloat16 on wgmma, float32 on the CUDA cores."""
     if dtype == torch.bfloat16:
-        return "flash_backward", f"flash_bwd_{kind}_bf16"
-    return "flash_attention", f"flash_bwd_{kind}_f32"
+        source = "flash_forward" if kind == "fwd" else "flash_backward"
+        return source, f"flash_{kind}_bf16"
+    return "flash_attention", f"flash_{kind}_f32"
 
 
 def flash_bwd_dq(q, k, v, g, out, lse, mask, causal=True):
@@ -370,7 +430,7 @@ def flash_bwd_dq(q, k, v, g, out, lse, mask, causal=True):
     B, T, H, hd = _check_inputs(q, k, v, mask, g, lse, out=out)
     dq = torch.empty_like(q)
     dD = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    rc = _kernel(*_backward_entry("dq", q.dtype))(
+    rc = _kernel(*_entry("bwd_dq", q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         out.data_ptr(), lse.data_ptr(), mask.data_ptr(), dq.data_ptr(),
         dD.data_ptr(), B, T, H, hd, int(causal), flash_scale(hd),
@@ -390,7 +450,7 @@ def flash_bwd_dkv(q, k, v, g, lse, dD, mask, causal=True):
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
     B, T, H, hd = _check_inputs(q, k, v, mask, g, lse, dD)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    rc = _kernel(*_backward_entry("dkv", q.dtype))(
+    rc = _kernel(*_entry("bwd_dkv", q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dD.data_ptr(), mask.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, T, H, hd, int(causal), flash_scale(hd),

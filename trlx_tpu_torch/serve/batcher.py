@@ -404,6 +404,7 @@ class MicroBatcher:
         self._queue = deque()  # guarded-by: _cond
         self._cond = threading.Condition()
         self._stop = threading.Event()
+        self._final = False  # guarded-by: _cond
         self._thread: Optional[threading.Thread] = None
         self._batch_counter = 0
         self._draining = False  # guarded-by: _cond
@@ -428,9 +429,14 @@ class MicroBatcher:
             self._thread.start()
         return self
 
-    def stop(self) -> None:
+    def stop(self, final: bool = False) -> None:
         """Stop the worker and fail what is still queued; on a serve
-        mesh, then end the followers' loops (once)."""
+        mesh, then end the followers' loops (once). With ``final`` (a
+        server's shutdown) every later submit raises rather than queue
+        for a start() that never comes."""
+        if final:
+            with self._cond:
+                self._final = True
         self._stop.set()
         with self._cond:
             self._cond.notify_all()
@@ -485,6 +491,8 @@ class MicroBatcher:
         if self._tenants.enabled:
             chaos.maybe_inject("serve_quota")
         with self._cond:
+            if self._final:
+                raise RuntimeError("serve batcher stopped")
             if self._draining:
                 telemetry.inc("serve/rejected")
                 raise Draining(

@@ -649,7 +649,9 @@ class InferenceServer:
             httpd.server_close()
         if http_thread is not None:
             http_thread.join(timeout=5.0)
-        self.scheduler.stop()
+        # final: a handler still running past the listener's shutdown
+        # gets an error, not a queue slot no worker will serve
+        self.scheduler.stop(final=True)
 
     def _abort(self, code: int) -> None:
         """The serve watchdog's escalation: end the followers' loops on a

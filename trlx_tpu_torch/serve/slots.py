@@ -435,6 +435,7 @@ class SlotScheduler:
         self._queue = deque()  # guarded-by: _cond
         self._cond = threading.Condition()
         self._stop = threading.Event()
+        self._final = False  # guarded-by: _cond
         self._thread: Optional[threading.Thread] = None
         self._free = list(range(self.runtime.num_slots))
         self._live: Dict[int, _LiveSlot] = {}
@@ -522,9 +523,16 @@ class SlotScheduler:
             self._thread.start()
         return self
 
-    def stop(self) -> None:
+    def stop(self, final: bool = False) -> None:
         """Stop the worker and fail what is still queued or in flight; on
-        a serve mesh, then end the followers' loops."""
+        a serve mesh, then end the followers' loops. Requests submitted
+        after it wait for the next start(); with ``final`` (a server's
+        shutdown, which no start() follows) they raise instead, so that a
+        handler still running past the shutdown does not wait out its
+        whole timeout."""
+        if final:
+            with self._cond:
+                self._final = True
         self._stop.set()
         with self._cond:
             self._cond.notify_all()
@@ -610,6 +618,8 @@ class SlotScheduler:
         if self.tenants.enabled:
             chaos.maybe_inject("serve_quota")
         with self._cond:
+            if self._final:
+                raise RuntimeError("serve slot scheduler stopped")
             if self._draining:
                 telemetry.inc("serve/rejected")
                 raise Draining(
