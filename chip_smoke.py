@@ -387,7 +387,6 @@ from trlx_tpu_torch.ops.paged_attention import (
     decode_partitions,
     paged_decode_attention,
     paged_decode_attention_reference,
-    shared_memory_bytes,
 )
 from trlx_tpu_torch.serve import (
     InferenceEngine,
@@ -542,6 +541,52 @@ def flash_sass():
             for op in counts:
                 counts[op] += bool(re.search(rf"\b{op}\b", ln))
     return out
+
+
+def paged_sass():
+    """Each function of the paged-decode library (symbol -> counts of its
+    SASS opcodes, from ``cuobjdump -sass``): UTMALDG (a TMA box load),
+    UBLKCP (a bulk copy) and SYNCS (an mbarrier arrive or wait)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run(
+        [tool, "-sass", str(_build.library_path("paged_decode"))],
+        capture_output=True, text=True, check=True).stdout
+    out, counts = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            counts = out[m.group(1)] = dict.fromkeys(
+                ("UTMALDG", "UBLKCP", "SYNCS"), 0)
+        elif counts is not None:
+            for op in counts:
+                counts[op] += bool(re.search(rf"\b{op}\b", ln))
+    return out
+
+
+def check_paged_build():
+    """The paged-decode library holds one kernel per instance (5 dtype
+    pairs x 5 head dims x 3 head groups) and no other function (no
+    combine kernel), each loading K/V by TMA (UTMALDG) or bulk copies
+    (UBLKCP) and waiting on mbarriers (SYNCS); and the partition plan and
+    least shared memory of each timed shape."""
+    sass = paged_sass()
+    per = {k: f"{c['UTMALDG']} / {c['UBLKCP']} / {c['SYNCS']}"
+           for k, c in sass.items()}
+    log("build", f"paged_decode SASS (cuobjdump -sass; UTMALDG / UBLKCP / "
+                 f"SYNCS): {len(sass)} functions; e.g. " + "; ".join(
+                     f"{k}: {v}" for k, v in sorted(per.items())[:3]))
+    assert len(sass) == 75, sorted(sass)
+    for k, c in sass.items():
+        assert "paged_decode_kernel" in k and "combine" not in k, k
+        assert (c["UTMALDG"] or c["UBLKCP"]) and c["SYNCS"], (k, c)
+    for label, S, H, hd, max_pages, int8, _ in PAGED_SHAPES.values():
+        P, per_p = decode_partitions(S, H, max_pages, 16)
+        least = pa.shared_memory_bytes(
+            H, H, hd, 16, per_p, torch.int8 if int8 else torch.bfloat16)
+        log("build", f"paged_decode {label} (S {S}, H {H}, hd {hd}"
+                     f"{', int8' if int8 else ''}): P={P} x {per_p} pages, "
+                     f"{least} B of shared memory a block with a ring of "
+                     f"one stage (the kernel deepens it)")
 
 
 def card_line():
@@ -846,14 +891,15 @@ def bound(q, k_pages, pt, bias):
                                    else "operations"), kv + io
 
 
-def time_kernel(dev, label, max_pages, iters, H=12, hd=64, int8=False):
+def time_kernel(dev, label, max_pages, iters, H=12, hd=64, int8=False,
+                S=16):
     """Kernel / plain / yardstick times at a full-length bf16 geometry
-    (16 slots, H heads of ``hd``, MHA; ``int8``: bf16 q over an int8
+    (``S`` slots, H heads of ``hd``, MHA; ``int8``: bf16 q over an int8
     pool), cycling enough pool copies to exceed the 50 MB L2."""
-    pool_bytes = 2 * 16 * max_pages * 16 * H * (hd + 4 if int8 else 2 * hd)
+    pool_bytes = 2 * S * max_pages * 16 * H * (hd + 4 if int8 else 2 * hd)
     copies = max(1, math.ceil(120e6 / pool_bytes))
     q, pools, pt, bias = serving_case(
-        dev, seed=3, max_pages=max_pages, lengths=[max_pages * 16] * 16,
+        dev, seed=3, S=S, max_pages=max_pages, lengths=[max_pages * 16] * S,
         copies=copies, H=H, Hkv=H, hd=hd,
     )
     if int8:
@@ -865,7 +911,7 @@ def time_kernel(dev, label, max_pages, iters, H=12, hd=64, int8=False):
     eager = [time_ms(fn, args, iters) for fn in fns]
     ms, plain, lib = graph_ms(fns, args, iters)
     b_ms, b_by, nbytes = bound(q, pools[0][0], pt, bias)
-    log("kernel", f"{label}: S=16 H=Hkv={H} hd={hd} ps=16 max_pages="
+    log("kernel", f"{label}: S={S} H=Hkv={H} hd={hd} ps=16 max_pages="
                   f"{max_pages} bf16, {nbytes / 1e6:.2f} MB, {copies} pool "
                   f"copies cycled; device (CUDA graph): kernel "
                   f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
@@ -878,7 +924,7 @@ def time_kernel(dev, label, max_pages, iters, H=12, hd=64, int8=False):
             "eager_plain_ms": eager[1], "eager_library_ms": eager[2]}
 
 
-def sweep_partitions(dev, iters=200, counts=(1, 2, 3, 4, 6, 8, 16), H=12,
+def sweep_partitions(dev, iters=200, counts=(1, 2, 3, 4, 6, 8), H=12,
                      hd=64, max_pages=64):
     """Device time of paged decode at a full context of ``max_pages``
     pages of 16 (the time_kernel geometry) for each partition count, in
@@ -900,6 +946,152 @@ def sweep_partitions(dev, iters=200, counts=(1, 2, 3, 4, 6, 8, 16), H=12,
                       for P, t in zip(counts, times))
         + f"; the planner picks P={chosen}")
     return dict(zip(counts, times))
+
+
+#: paged decode's timed shapes, bf16 q, full-length rows, pages of 16:
+#: key -> (label, slots, H = Hkv, hd, max_pages, int8 pool, iterations);
+#: the tp shards (SHARD_SHAPES) are added at the serving context
+PAGED_SHAPES = {
+    "serving": ("serving shape", 16, 12, 64, 4, False, 500),
+    "ctx1024": ("1024-token context", 16, 12, 64, 64, False, 200),
+    "gptj_serving": ("gpt-j serving shape", 16, 16, 256, 4, False, 500),
+    "gptj_ctx1024": ("gpt-j 1024-token context", 16, 16, 256, 64, False,
+                     200),
+    "int8_serving": ("serving shape", 16, 12, 64, 4, True, 500),
+    "gptj_int8_serving": ("gpt-j serving shape", 16, 16, 256, 4, True, 500),
+    "stream4096": ("one 4096-token stream", 1, 12, 64, 256, False, 200),
+}
+
+
+def check_partitions(dev):
+    """Every partition count P = 1 to 8 (the cluster's blocks) at a
+    1024-token context (16 slots, SPLIT_LENGTHS[16], row 14 free) and
+    one slot's 4096-token stream beside a free slot (H = Hkv 12, hd 64),
+    bf16, against the plain version in float32 math (atol 2e-3 + rtol
+    1e-2: these rows average hundreds to thousands of values, so most
+    outputs are a few hundredths, and one bf16 rounding of such a value
+    is about 1e-4; every row finite); the stream also at the planner's P.
+    Returns the largest error."""
+    worst = 0.0
+    long = serving_case(dev, seed=40, max_pages=64, lengths=SPLIT_LENGTHS[16],
+                        free_row=FREE_ROW[16])
+    stream = serving_case(dev, seed=41, S=2, max_pages=256,
+                          lengths=[4096, 0], free_row=1)
+    for label, (q, ((k, v),), pt, bias) in (("1024-token", long),
+                                            ("4096-token stream", stream)):
+        ref = paged_decode_attention_reference(q.float(), k, v, pt, bias)
+        errs = {}
+        for P in (None, 1, 2, 3, 4, 5, 6, 7, 8):
+            out = pa._launch(q, k, v, pt, bias, partitions=P)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), (label, P)
+            errs[P or "planner"] = max_err(out, ref)
+            bad = (out.float() - ref).abs() > 2e-3 + 1e-2 * ref.abs()
+            assert not bad.any(), f"paged decode {label} P={P} disagrees"
+        worst = max(worst, *errs.values())
+        log("kernel", f"partition sweep, {label} context, bf16: max_abs_err "
+                      + ", ".join(f"P={P} {e:.3e}" for P, e in errs.items())
+                      + " (atol 2e-3 + rtol 1e-2 against float32 math; "
+                        "every row finite)")
+    return worst
+
+
+def check_graph_replay(dev):
+    """The kernel captured in a CUDA graph after a scatter into the pool
+    (the serve step's order; a cluster launch through cudaLaunchKernelEx
+    with its tensor maps passed by value): a replay equals the eager call
+    bit for bit, and after the scatter's source changes a second replay
+    reads the new pool."""
+    q, ((k, v),), pt, bias = serving_case(dev, seed=43, free_row=5)
+    rows = torch.arange(0, k.shape[0], 2, device=dev)
+    src = torch.randn((rows.numel(),) + tuple(k.shape[1:]), device=dev,
+                      dtype=k.dtype)
+
+    def step():
+        k.index_copy_(0, rows, src)
+        return paged_decode_attention(q, k, v, pt, bias)
+
+    eager = step().clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with aotjit.collector_paused(), torch.cuda.graph(graph):
+        out = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(out, eager)
+    src.copy_(torch.randn_like(src))
+    graph.replay()
+    fresh = step()
+    torch.cuda.synchronize()
+    moved = not torch.equal(fresh, eager)
+    log("kernel", f"CUDA graph (scatter, then the kernel): replay == eager "
+                  f"bit for bit {same}; after the pool changed, the replay "
+                  f"== eager on the new pool {torch.equal(out, fresh)} "
+                  f"(output moved {moved})")
+    assert same and moved and torch.equal(out, fresh), "graph replay"
+    del graph
+
+
+def time_paged_shapes(dev):
+    """time_kernel at every timed shape: PAGED_SHAPES and the tp shards
+    at the serving context."""
+    shapes = dict(PAGED_SHAPES)
+    for H, hd in SHARD_SHAPES:
+        shapes[f"H{H}_hd{hd}"] = ("tp shard serving shape", 16, H, hd, 4,
+                                  False, 500)
+    return {key: time_kernel(dev, label, max_pages, iters, H=H, hd=hd,
+                             int8=int8, S=S)
+            for key, (label, S, H, hd, max_pages, int8, iters)
+            in shapes.items()}
+
+
+def paged_phase(dev):
+    """Phase 3: every paged-decode check against the plain version (the
+    partition sweep and a graph replay included), then every timed shape
+    (PAGED_SHAPES and the tp shards) and the partition sweeps' times.
+    Returns (largest errors, times by shape key, sweeps)."""
+    errs = {"kernel": check_kernel(dev), "gptj": check_paged_gptj(dev),
+            "int8": check_bf16_int8(dev), "shards": check_shards(dev),
+            "partitions": check_partitions(dev)}
+    check_graph_replay(dev)
+    times = time_paged_shapes(dev)
+    sweeps = {"ctx1024": sweep_partitions(dev),
+              "gptj_serving": sweep_partitions(dev, H=16, hd=256,
+                                               max_pages=4),
+              "gptj_ctx1024": sweep_partitions(dev, H=16, hd=256,
+                                               max_pages=64)}
+    return errs, times, sweeps
+
+
+def paged_decode_only(times_only=False):
+    """``chip_smoke.py --paged-decode``: phases 1-3 for paged decode
+    alone (its build, checks and times), then one JSON line of the times;
+    the quick card run while the kernel changes. ``--paged-times``
+    (``times_only``): the build and the timed shapes alone, through the
+    public wrapper only, so this script times an earlier tree's kernel
+    too (run from that tree's root) beside the current one in one call."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    log("device", f"{card}; torch {torch.__version__} cuda "
+                  f"{torch.version.cuda}")
+    for name, entry in _build.build(("paged_decode",)).items():
+        log("build", f"{name}: {entry['seconds']:.2f}s nvcc")
+        for ln in ptxas_summary(str(entry["log"])):
+            log("build", f"  {ln}")
+    if times_only:
+        print(json.dumps({"card": card, "times": time_paged_shapes("cuda")}))
+        return 0
+    check_paged_build()
+    errs, times, sweeps = paged_phase("cuda")
+    print(json.dumps({"card": card, "errs": errs, "times": times,
+                      "sweeps": sweeps}))
+    return 0
 
 
 # --------------------------------------------------------------------- #
@@ -5949,6 +6141,10 @@ def main() -> int:
         return gptj_child(*sys.argv[2:3])
     if sys.argv[1:2] == ["--serve-mesh-child"]:
         return serve_mesh_child(*sys.argv[2:8])
+    if sys.argv[1:2] == ["--paged-decode"]:
+        return paged_decode_only()
+    if sys.argv[1:2] == ["--paged-times"]:
+        return paged_decode_only(times_only=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on "
               "the card", file=sys.stderr)
@@ -5981,44 +6177,29 @@ def main() -> int:
                        "blocks": geo["blocks"], "stages": geo["stages"],
                        "registers": geo["registers"],
                        "smem": plan["flash_fwd"]}, (hd, fwd, geo)
-    per_1024 = decode_partitions(16, 12, 64, 16)[1]
-    gptj_per = decode_partitions(16, 16, 64, 16)[1]
-    log("build", "paged_decode dynamic shared memory per block: "
-                 f"{shared_memory_bytes(12, 12, 64, 4)} B at the serving "
-                 f"shape, {shared_memory_bytes(12, 12, 64, per_1024)} B at "
-                 f"a 1024-token context; flash kernels at hd 64: bf16 "
+    log("build", f"flash kernels' dynamic shared memory at hd 64: bf16 "
                  f"{fa.shared_memory_bytes(64)} B, fp32 "
                  f"{fa.shared_memory_bytes(64, torch.float32)} B; at hd "
                  f"256: bf16 {fa.shared_memory_bytes(256)} B, fp32 "
-                 f"{fa.shared_memory_bytes(256, torch.float32)} B; paged "
-                 f"decode at gpt-j's heads (H 16, hd 256): "
-                 f"{shared_memory_bytes(16, 16, 256, 4)} B serving, "
-                 f"{shared_memory_bytes(16, 16, 256, gptj_per)} B at 1024 "
-                 f"tokens")
+                 f"{fa.shared_memory_bytes(256, torch.float32)} B")
+    check_paged_build()
 
     # gpt-j-6B first, while this process holds next to nothing on the card
     gptj = run_gptj_child("cuda")
     log_gptj(gptj, card)
 
-    err = check_kernel("cuda")
-    serving = time_kernel("cuda", "serving shape", max_pages=4, iters=500)
-    long_ctx = time_kernel("cuda", "1024-token context", max_pages=64,
-                           iters=200)
-    by_partitions = sweep_partitions("cuda")
-    gptj_paged_err = check_paged_gptj("cuda")
-    gptj_serving = time_kernel("cuda", "gpt-j serving shape", max_pages=4,
-                               iters=500, H=16, hd=256)
-    gptj_long = time_kernel("cuda", "gpt-j 1024-token context",
-                            max_pages=64, iters=200, H=16, hd=256)
-    gptj_by_partitions = {
-        ctx: sweep_partitions("cuda", H=16, hd=256, max_pages=mp)
-        for ctx, mp in (("serving", 4), ("ctx1024", 64))}
-    int8_err = check_bf16_int8("cuda")
-    int8_serving = time_kernel("cuda", "serving shape", max_pages=4,
-                               iters=500, int8=True)
-    gptj_int8_serving = time_kernel("cuda", "gpt-j serving shape",
-                                    max_pages=4, iters=500, H=16, hd=256,
-                                    int8=True)
+    paged_errs, paged, sweeps = paged_phase("cuda")
+    err, gptj_paged_err = paged_errs["kernel"], paged_errs["gptj"]
+    int8_err, shard_err = paged_errs["int8"], paged_errs["shards"]
+    serving, long_ctx = paged["serving"], paged["ctx1024"]
+    gptj_serving, gptj_long = paged["gptj_serving"], paged["gptj_ctx1024"]
+    int8_serving = paged["int8_serving"]
+    gptj_int8_serving = paged["gptj_int8_serving"]
+    shard_times = {f"H{H}_hd{hd}": paged[f"H{H}_hd{hd}"]
+                   for H, hd in SHARD_SHAPES}
+    by_partitions = sweeps["ctx1024"]
+    gptj_by_partitions = {"serving": sweeps["gptj_serving"],
+                          "ctx1024": sweeps["gptj_ctx1024"]}
 
     flash_err = check_flash("cuda")
     flash_slice = time_flash("cuda", "training shape", 32, 576, iters=10)
@@ -6066,10 +6247,6 @@ def main() -> int:
                             f"({card})")
     tiers = serve_tiers_phase(views, "cuda", parity["jnp"])
     log_tiers(tiers, card)
-    shard_err = check_shards("cuda")
-    shard_times = {f"H{H}_hd{hd}": time_kernel(
-        "cuda", "tp shard serving shape", max_pages=4, iters=500, H=H,
-        hd=hd) for H, hd in SHARD_SHAPES}
     serve_mesh = serve_mesh_phase(views, "cuda", parity["jnp"], card)
     del views
 
@@ -6096,6 +6273,7 @@ def main() -> int:
 
     print(json.dumps({"timing": {
         "serving_shape": serving, "ctx1024": long_ctx,
+        "paged_stream4096": paged["stream4096"],
         "ctx1024_by_partitions": by_partitions,
         "flash_training_shape": flash_slice, "flash_2048": flash_long,
         "train": {k: train[k] for k in ("wall_s", "rollout_s", "update_s",

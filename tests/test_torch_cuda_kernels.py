@@ -17,6 +17,7 @@ import torch
 from trlx_tpu_torch import ops
 from trlx_tpu_torch.models.generation import PAGE_SENTINEL as SENT
 from trlx_tpu_torch.models.transformer import NEG_INF, quantize_kv
+from trlx_tpu_torch.ops import paged_attention as pa
 from trlx_tpu_torch.ops.paged_attention import (
     decode_partitions,
     paged_decode_attention,
@@ -108,8 +109,9 @@ def test_cuda_kernel_matches_plain_version():
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
 def test_cuda_split_paged_decode_matches_plain_version(pool):
-    """Split-K paged decode (P > 1 partitions and the combine kernel)
-    against the plain version on the card, for each pool dtype: a float32
+    """Split-K paged decode (P > 1 partitions, one cluster, merged through
+    its shared memory) against the plain version on the card, for each
+    pool dtype: a float32
     pool and the int8 tier with float32 q at atol 1e-5; a bf16 pool with
     bf16 q at atol 1e-2 + rtol 1e-2 against float32 math on the same
     inputs. GQA, lengths at partition edges, a dead partition and a free
@@ -168,6 +170,105 @@ def test_cuda_paged_decode_head_dim_256(pool, H, Hkv, lengths):
         tol = dict(atol=1e-2, rtol=1e-2) if pool == "bfloat16" else \
             dict(atol=1e-5, rtol=0)
         torch.testing.assert_close(out.float(), ref, **tol)
+
+
+#: (q dtype, pool dtype) pairs the kernel is built for
+PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+         (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+         (torch.float32, torch.int8)]
+
+
+def _on_card(case, q_dtype, kv_dtype):
+    """A numpy case on the card: q in ``q_dtype``, the pool in
+    ``kv_dtype`` (int8: the (codes, scales) pair)."""
+    q, k, v, pt, bias = (_t(x).cuda() for x in case)
+    if kv_dtype == torch.int8:
+        k, v = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v = k.to(kv_dtype), v.to(kv_dtype)
+    return q.to(q_dtype), k, v, pt, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAIRS,
+                         ids=["bf16-bf16", "bf16-int8", "f32-f32",
+                              "f32-bf16", "f32-int8"])
+def test_cuda_paged_decode_every_partition_count(q_dtype, kv_dtype, hd):
+    """Every partition count P = 1 to 8 (the blocks of one cluster) at a
+    64-page context (GQA H 8 / Hkv 2, lengths at partition edges, a dead
+    partition, a free row), and one slot's 4096-token stream beside a
+    free slot at the planner's P (8), against the plain version on the
+    same inputs: float32 q at atol 1e-5, bf16 q at atol 1e-2 + rtol 1e-2
+    against float32 math; every row finite; one launch counted per call.
+    The short partitions (P >= 4: 16 pages or fewer) take the direct
+    ring, the long ones the compact ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tol = dict(atol=1e-2, rtol=1e-2) if q_dtype == torch.bfloat16 else \
+        dict(atol=1e-5, rtol=0)
+    split = _on_card(_split_case(seed=7, hd=hd), q_dtype, kv_dtype)
+    stream = _on_card(_split_case(seed=8, S=2, H=4, Hkv=4, hd=hd,
+                                  max_pages=256, lengths=(4096, 0),
+                                  free_row=1), q_dtype, kv_dtype)
+    assert decode_partitions(2, 4, 256, 16)[0] == 8
+    for case, counts in ((split, range(1, 9)), (stream, (None,))):
+        q, k, v, pt, bias = case
+        ref = paged_decode_attention_reference(q.float(), k, v, pt, bias)
+        for P in counts:
+            before = ops.LAUNCHES["paged_decode"]
+            out = pa._launch(q, k, v, pt, bias, partitions=P)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["paged_decode"] == before + 1
+            assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
+            torch.testing.assert_close(out.float(), ref, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAIRS[:2],
+                         ids=["bf16-bf16", "bf16-int8"])
+def test_cuda_paged_decode_graph_replay(q_dtype, kv_dtype):
+    """The serve step's order captured in a CUDA graph: a scatter into the
+    pool, then the kernel (a cluster launch through cudaLaunchKernelEx,
+    its tensor maps passed by value). A replay equals the eager calls bit
+    for bit; after the scatter's source changes, a second replay reads
+    the new pool: it equals the eager calls on it, and differs from the
+    first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, pt, bias = _on_card(
+        _split_case(seed=9, S=16, H=12, Hkv=12, max_pages=4,
+                    lengths=tuple(range(4, 68, 4)), free_row=5),
+        q_dtype, kv_dtype)
+    codes = k[0] if kv_dtype == torch.int8 else k
+    rows = torch.arange(0, codes.shape[0], 2, device="cuda")
+    src = torch.zeros_like(codes[rows])
+
+    def step():
+        codes.index_copy_(0, rows, src)
+        return paged_decode_attention(q, k, v, pt, bias)
+
+    src.copy_(codes[rows])
+    eager = step().clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    src.copy_(codes[rows.flip(0)])
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = out.clone()
+    fresh = step()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, fresh)
+    assert not torch.equal(fresh, eager)
 
 
 @pytest.mark.cuda

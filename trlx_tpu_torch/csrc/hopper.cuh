@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_forward.cu, flash_backward.cu): 64-row tile geometry under a TMA
-// swizzle, mbarriers, TMA box copies, setmaxnreg, wgmma descriptors and
-// instructions, and the host side of tensor maps and launch preparation.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_forward.cu, flash_backward.cu, paged_decode.cu): 64-row tile
+// geometry under a TMA swizzle, mbarriers, TMA box copies,
+// thread-block clusters and their distributed shared memory, setmaxnreg,
+// wgmma descriptors and instructions, and the host side of tensor maps
+// and launch preparation.
 // ops/_build.py hashes this header into every kernel library's name, so an
-// edit here rebuilds both.
+// edit here rebuilds them all.
 
 #pragma once
 
@@ -90,6 +92,18 @@ __device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory (128-byte aligned); its bytes complete a transaction on `bar`
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // one 4-byte value from global to shared memory, asynchronously; zeros
 // when !valid
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -104,6 +118,45 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar)
                : "memory");
+}
+
+// arrive on `bar` once this thread's cp.async copies so far have landed,
+// as one of the arrivals its count was initialised with (no increment)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+      : "memory");
+}
+
+// ------------------------------------------------------------------ //
+// thread-block clusters
+// ------------------------------------------------------------------ //
+
+// every thread of every block of the cluster arrives once a phase, then
+// waits for the phase: what a thread wrote to shared memory before its
+// arrive is visible to every block's threads after their wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the float at `p` in the shared memory of the cluster's block `rank`
+// (distributed shared memory: p is this block's address of the same
+// variable)
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // hand registers back to the block's pool / take them from it (the

@@ -13,14 +13,16 @@ dtype. Query heads [h*G, (h+1)*G) share kv-head h (GQA).
 
 It replaces ``trlx_tpu/ops/paged_attention.py::_decode_kernel``, which
 walks a slot's pages as a sequential grid axis. On an H100 the step is
-bound by the bytes of K/V it must read, and reaching that bound takes
-loads in flight on every SM. So the CUDA kernel (``csrc/paged_decode.cu``,
-built at first use) is split-K flash-decoding: the context is cut into
-:func:`decode_partitions` parts of whole pages, one block per (slot,
-kv-head, part), warps splitting a part's tokens and lanes reading K/V
-rows as 16-byte vectors; the parts' float32 (max, sum, accumulator)
-partials merge in a second small kernel in a fixed order. At the serving
-shape there is one part and one launch.
+bound by the bytes of K/V it must read and, at serving contexts, by the
+latency of the first ones. So the CUDA kernel (``csrc/paged_decode.cu``,
+built at first use) cuts the context into :func:`decode_partitions`
+parts of whole pages (at most 8), one block per (slot, kv-head, part),
+the parts of one slot and head a thread-block cluster: a producer warp
+streams the pages by TMA through an mbarrier ring in shared memory
+(its depth the kernel's own choice, every page of a serving context at
+once), four consumer warps fold each page into float32 running (max,
+sum, accumulator) as it lands, and the parts merge through the
+cluster's shared memory in a fixed order: one launch at every shape.
 
 A CUDA tensor goes to the kernel, or the call raises; only a CPU tensor
 goes to the plain version :func:`paged_decode_attention_reference` — the
@@ -42,6 +44,7 @@ from trlx_tpu_torch.ops import count_launch
 #: one Hopper block's shared-memory ceiling (bytes)
 _SMEM_LIMIT = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 #: (q dtype, pool dtype) pairs the kernel is compiled for
 _SUPPORTED = {
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
@@ -52,35 +55,63 @@ _SUPPORTED = {
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: streaming multiprocessors of an H100 SXM
 _SMS = 132
-#: blocks per SM the partition count aims for once the context is long
+#: blocks an SM holds at once (80-odd registers a thread of 160), which
+#: the partition count keeps the grid within once the context is long
 _BLOCKS_PER_SM = 4
 #: fewest tokens a partition holds (below, one block reads the context)
 _MIN_PART_TOKENS = 128
+#: most partitions: the blocks of one cluster (the portable cluster size)
+_MAX_PARTITIONS = 8
+#: largest page the kernel streams (a TMA box side)
+_MAX_PAGE_SIZE = 256
 
 
 def decode_partitions(S: int, Hkv: int, max_pages: int,
                       page_size: int) -> tuple:
     """(P, pages per partition) of the split-K grid (slot, kv-head,
-    partition): enough partitions for about ``_BLOCKS_PER_SM`` blocks on
-    each of the card's SMs, none shorter than ``_MIN_PART_TOKENS`` tokens
-    and each a whole number of pages, with no empty one. P is 1 when the
-    slots and heads alone fill the card or the context is short."""
-    want = -(-_BLOCKS_PER_SM * _SMS // (S * Hkv))
+    partition): as many partitions as keep the grid within
+    ``_BLOCKS_PER_SM`` blocks on each of the card's SMs (one wave), none
+    shorter than ``_MIN_PART_TOKENS`` tokens, at most ``_MAX_PARTITIONS``
+    (longer partitions instead), each a whole number of pages, with no
+    empty one. P is 1 when the slots and heads alone fill the card or
+    the context is short."""
+    want = _BLOCKS_PER_SM * _SMS // (S * Hkv)
     longest = max(1, max_pages * page_size // _MIN_PART_TOKENS)
-    P = max(1, min(want, longest, max_pages))
+    P = max(1, min(want, longest, max_pages, _MAX_PARTITIONS))
     per = -(-max_pages // P)
     return -(-max_pages // per), per
 
 
-def shared_memory_bytes(H: int, Hkv: int, hd: int, pages_per: int) -> int:
-    """Dynamic shared memory one kernel block takes (``launch`` in
-    csrc/paged_decode.cu): q rows of its head group (4, 2 or 1 of the
-    G = H / Hkv query heads of a kv-head) in float32, each of the 4
-    warps' (max, sum, accumulator) per head for the merge, and a clamped
-    page id and a live flag for each of the partition's pages."""
+def _head_group(H: int, Hkv: int) -> int:
+    """Query heads of a kv-head one block serves (4, 2 or 1)."""
     G = H // Hkv
-    gt = 4 if G % 4 == 0 else (2 if G % 2 == 0 else 1)
-    return 4 * (gt * hd + 4 * gt * (hd + 2)) + 4 * 2 * pages_per
+    return 4 if G % 4 == 0 else (2 if G % 2 == 0 else 1)
+
+
+def _up(x: int, n: int) -> int:
+    return -(-x // n) * n
+
+
+def shared_memory_bytes(H: int, Hkv: int, hd: int, page_size: int,
+                        pages_per: int, kv_dtype=torch.bfloat16) -> int:
+    """The least dynamic shared memory one kernel block takes, with a
+    ring of one stage (``layout`` in csrc/paged_decode.cu, which deepens
+    the ring as far as the card's shared memory allows): a full and an
+    empty mbarrier, the partition's live flag and used-page count, two
+    words a page, the partition's bias words (the compact ring keeps
+    them there), each of the 4 consumer warps' (max, sum, accumulator)
+    per head of the block's head group and the block's merged row per
+    head, then from the next 128-byte boundary (128 bytes left for it)
+    one stage: a page's K rows and V rows of one kv-head, each a 128-byte
+    aligned TMA box, its bias words (the direct ring carries them there)
+    and, for the int8 tier, its rows' float32 scales. The wrapper refuses a shape above one block's
+    ceiling before it launches."""
+    gt = _head_group(H, Hkv)
+    red = _up(16 + 16 + 8 * pages_per + 4 * pages_per * page_size, 16)
+    ring = _up(red + 16 * gt * (hd + 2) + 4 * gt * (hd + 2), 16)
+    rows = _up(page_size * hd * _ELEM_BYTES[kv_dtype], 128)
+    words = 4 * page_size * (3 if kv_dtype == torch.int8 else 1)
+    return ring + _up(2 * rows + words, 128) + 128
 
 
 def _split(pages):
@@ -116,7 +147,7 @@ def paged_decode_attention_reference(q, k_pages, v_pages, page_table, bias):
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -149,7 +180,7 @@ def _check(name, t, shape, dtype, device):
 
 def _launch(q, k_pages, v_pages, page_table, bias, partitions=None):
     """Checks and launches; ``partitions`` overrides
-    :func:`decode_partitions` (the chip smoke's sweep)."""
+    :func:`decode_partitions` (the chip smoke's sweep, 1 to 8)."""
     k_codes, k_scales = _split(k_pages)
     v_codes, v_scales = _split(v_pages)
     if q.dim() != 3 or k_codes.dim() != 4:
@@ -164,6 +195,9 @@ def _launch(q, k_pages, v_pages, page_table, bias, partitions=None):
     if hd not in HEAD_DIMS:
         raise ValueError(f"no paged-decode kernel for head_dim {hd} (one "
                          f"of {HEAD_DIMS})")
+    if not 1 <= page_size <= _MAX_PAGE_SIZE:
+        raise ValueError(f"page_size {page_size} is not 1 to "
+                         f"{_MAX_PAGE_SIZE} (a TMA box side)")
     if (q.dtype, k_codes.dtype) not in _SUPPORTED:
         raise TypeError(f"no kernel for q {q.dtype} with a {k_codes.dtype} "
                         f"pool")
@@ -190,19 +224,19 @@ def _launch(q, k_pages, v_pages, page_table, bias, partitions=None):
         partitions, per = decode_partitions(S, Hkv, max_pages, page_size)
     else:
         per = -(-max_pages // partitions)
-    smem = shared_memory_bytes(H, Hkv, hd, per)
+        if not 1 <= partitions <= _MAX_PARTITIONS or \
+                (partitions - 1) * per >= max_pages:
+            raise ValueError(f"{partitions} partitions of {max_pages} pages")
+    smem = shared_memory_bytes(H, Hkv, hd, page_size, per, k_codes.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"shape needs {smem} B of shared memory per block "
-                         f"(limit {_SMEM_LIMIT})")
+                         f"with a ring of one page (limit {_SMEM_LIMIT})")
     out = torch.empty_like(q)
-    partials = (torch.empty((S, H, partitions, hd + 2), dtype=torch.float32,
-                            device=dev) if partitions > 1 else None)
     rc = _kernel()(
         q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
         k_scales.data_ptr() if k_scales is not None else None,
         v_scales.data_ptr() if v_scales is not None else None,
         page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        partials.data_ptr() if partials is not None else None,
         S, H, Hkv, hd, num_pages, page_size, max_pages, partitions,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_codes.dtype],
         _rsqrt_scale(hd), torch.cuda.current_stream(dev).cuda_stream,
