@@ -101,27 +101,36 @@ def _scripted_clock(times):
 
 
 def test_tracer_writes_identical_jsonl(tmp_path):
+    """The same calls give the reference's trace, but for what the port
+    adds: the clock anchor first, each live span's parent, and
+    ``add_span``'s stamps read on the tracer's own clock (the reference
+    anchors them apart, at ``t0_monotonic``)."""
     times = [0.0] + [0.001 * i for i in range(1, 40)]
     ours = SpanTracer(registry=MetricsRegistry(), max_events=9,
                       clock=_scripted_clock(times))
     theirs = JaxTracer(registry=JaxRegistry(), max_events=9,
                        clock=_scripted_clock(times))
-    for tracer in (ours, theirs):
-        tracer.t0_monotonic = 100.0
+    theirs.t0_monotonic = 100.0
+    for tracer, base in ((ours, 0.0), (theirs, 100.0)):
         with tracer.span("rollout"):
             with tracer.span("reward_fn"):
                 pass
         tracer.name_track(7, "req 7")
         tracer.name_track(7, "again")  # once per tid
         for i in range(8):  # overflows the 9-event ring
-            tracer.add_span("decode", 100.5 + i, 100.25 + 2 * i, tid=7,
-                            args={"i": i})
+            tracer.add_span("decode", base + 0.5 + i, base + 0.25 + 2 * i,
+                            tid=7, args={"i": i})
     paths = [t.write_jsonl(str(tmp_path / f"{n}.jsonl"))
              for n, t in (("ours", ours), ("theirs", theirs))]
-    texts = [open(p).read() for p in paths]
-    assert texts[0] == texts[1]
-    lines = [json.loads(x) for x in texts[0].splitlines()]
-    assert "dropped" in lines[-1]["name"]
+    mine, ref = ([json.loads(x) for x in open(p)] for p in paths)
+    anchor = mine.pop(0)
+    assert anchor == {"name": "clock_anchor", "ph": "M",
+                      "pid": os.getpid(), "tid": 0,
+                      "args": {"epoch_ns": ours.anchor_ns}}
+    assert mine[0]["name"] == "reward_fn"
+    assert mine[0]["args"].pop("parent") == "rollout"
+    assert mine == ref
+    assert "dropped" in mine[-1]["name"]
     assert ours.registry.counters["telemetry/trace_events_dropped"] == 1
     assert ours.registry.summary() == theirs.registry.summary()
 
@@ -268,11 +277,22 @@ def tiny_runs(tmp_path_factory):
     return runs
 
 
+#: the keys the port's rollout phases add to an emission (the reward
+#: here is a host ``reward_fn``: no ``rollout/reward_model``)
+ROLLOUT_PHASE_KEYS = {
+    key for phase in ("prefill", "decode", "score", "harvest")
+    for key in (f"time/rollout/{phase}",
+                f"compile/rollout/{phase}_first_s")}
+
+
 def test_f1_per_iteration_keys_match_reference(tiny_runs):
     ours, theirs = tiny_runs["torch"]["records"], tiny_runs["jax"]["records"]
     assert len(ours) == len(theirs) == 5  # 4 iterations + one refresh
     for a, b in zip(ours, theirs):
-        assert set(a) == set(b)
+        # the port adds its rollout phases (``time/rollout/*`` and their
+        # first-call gauges); every key of the reference's is there
+        assert set(b) <= set(a)
+        assert set(a) - set(b) <= ROLLOUT_PHASE_KEYS, set(a) - set(b)
     iters = [r for r in ours if "loss" in r]
     assert [r["iter"] for r in iters] == [1, 2, 3, 4]
     for key in ("throughput/samples_per_sec", "throughput/tokens_per_sec",
@@ -303,6 +323,8 @@ def test_f3_run_dir_holds_summary_and_trace(tiny_runs):
             summaries[name] = json.load(f)
         with open(os.path.join(run, "trace.jsonl")) as f:
             events = [json.loads(line) for line in f]
+        if name == "torch":  # the port's clock anchor opens the file
+            assert events.pop(0)["name"] == "clock_anchor"
         names = {e["name"] for e in events}
         assert {"rollout", "reward_fn", "ppo_update",
                 "rollout_refresh"} <= names, (name, names)
@@ -312,5 +334,7 @@ def test_f3_run_dir_holds_summary_and_trace(tiny_runs):
     assert ours["unit"] == "samples/s" and ours["value"] > 0
     assert set(ours["counters"]) == set(theirs["counters"])
     assert ours["counters"] == theirs["counters"]  # all zero here
-    assert set(ours["timings"]) == set(theirs["timings"])
+    extra = set(ours["timings"]) - set(theirs["timings"])
+    assert set(theirs["timings"]) <= set(ours["timings"])
+    assert extra == {k for k in ROLLOUT_PHASE_KEYS if k.startswith("time/")}
     assert ours["timings"]["time/ppo_update"]["count"] == 4

@@ -46,8 +46,10 @@ EXCLUDE_PARTS = ("lint_fixtures", "__pycache__", "_scratch")
 TEST_GLOBS = ("tests/test_torch_*.py", "tests/torch_*_worker.py")
 TESTS = "tests/"
 
-#: the metric catalog the contract-sync rules check names against
+#: the metric catalog the contract-sync rules check names against: the
+#: reference's, and the port's own page for the names the port adds
 OBSERVABILITY_DOC = "docs/source/observability.rst"
+PORT_OBSERVABILITY_DOC = "docs/source/torch_observability.rst"
 
 _SUPPRESS_RE = re.compile(
     r"#\s*lint:\s*disable=(?P<rules>[A-Za-z0-9_,\- ]+?)"
@@ -333,7 +335,8 @@ class ProjectModel:
         return self._tests_text
 
     def observability_doc(self) -> str:
-        return self.docs.get(OBSERVABILITY_DOC, "")
+        return "\n".join(self.docs.get(doc, "") for doc in (
+            OBSERVABILITY_DOC, PORT_OBSERVABILITY_DOC))
 
 
 def _const_strings(expr) -> List[str]:

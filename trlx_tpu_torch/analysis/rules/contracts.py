@@ -108,14 +108,16 @@ class MetricDocumentedRule(LibraryRule):
     id = "metric-documented"
     family = "contracts"
     rationale = (
-        "docs/source/observability.rst is the catalog operators build "
+        "docs/source/observability.rst (with the port's own page, "
+        "torch_observability.rst) is the catalog operators build "
         "dashboards and alerts from; a serve/* or fault/* name emitted "
         "but not catalogued is telemetry nobody will ever look at, and "
         "the doc silently rots into a partial list"
     )
     hint = (
         "add the metric (name, type, meaning) to the matching table "
-        "in docs/source/observability.rst"
+        "in docs/source/observability.rst, or for a name only the port "
+        "emits, in docs/source/torch_observability.rst"
     )
 
     def check(self, ctx, project):

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.configs import ModelSpec
 from trlx_tpu_torch.models.transformer import (
     NEG_INF,
@@ -280,6 +281,14 @@ def _all_finished(buf: DecodeBuffers, mesh=None) -> bool:
     return bool(buf.all_finished[0])
 
 
+def _phase(name: str, args: Optional[dict]):
+    """The telemetry device phase ``name`` with ``args``; none without
+    them."""
+    if args is None:
+        return telemetry.NULL_SPAN
+    return telemetry.device_phase(name, **args)
+
+
 @torch.no_grad()
 def generate(
     spec: ModelSpec,
@@ -298,6 +307,7 @@ def generate(
     decoder: Optional[RolloutDecoder] = None,
     mesh=None,
     tp=None,
+    phase_args: Optional[dict] = None,
 ) -> GenerationOutput:
     """Decode ``config.gen_size`` tokens per row from LEFT-padded prompts
     (the rollout decoder; port of trlx_tpu.models.generation.generate).
@@ -329,6 +339,11 @@ def generate(
     ``tp`` (a serve mesh's ``DecodeParallel``, trlx_tpu_torch.serve.
     layouts) runs the parameters as each process's shards instead: every
     process decodes every row with its heads, the same tokens.
+
+    With ``phase_args`` (a PPO rollout chunk's ``chunk`` and ``rows``)
+    the prefill and the decode loop, early-exit reads included, run as
+    the telemetry phases ``rollout/prefill`` and ``rollout/decode`` with
+    those arguments; without, as no phase.
     """
     rows = None
     if mesh is not None:
@@ -357,48 +372,51 @@ def generate(
     prompt_mask = prompt_mask.to(torch.int32)
     buf = decoder.buffers(spec, seg_sizes, B, P, G, compute_dtype,
                           cache_dtype, dev, _kv_heads(tp, spec))
-    real_len = prompt_mask.long().sum(-1)  # [B]
-
-    positions = positions_from_mask(prompt_mask)
-    embed_g, ln_f_g = _head(tp, embed, ln_f)
-    h = embed_tokens(embed_g, spec, prompt_tokens, positions, compute_dtype,
-                     tp)
-    prefill_bias = torch.cat([
-        causal_mask_bias(prompt_mask),
-        torch.full((B, 1, P, G), NEG_INF, dtype=torch.float32, device=dev),
-    ], dim=-1)
-    for s, (seg, cache) in enumerate(zip(segments, buf.caches)):
-        for c in cache:
-            c.zero_()
-        h, _ = apply_blocks_with_cache(seg, cache, spec, h, prefill_bias,
-                                       positions, 0, attention_fn, tp, s)
-    h_normed = layer_norm(ln_f_g, h[:, -1], spec.layer_norm_epsilon)
-    buf.h_normed.copy_(h_normed)
-    buf.logits.copy_(project_logits(embed_g, spec, h_normed, tp))
-    last = (real_len - 1).clamp(min=0)[:, None]
-    buf.prev_tok.copy_(torch.gather(prompt_tokens, 1, last)[:, 0])
-    buf.buffer_mask[:, :P].copy_(prompt_mask)
-    buf.buffer_mask[:, P:].fill_(1)
-    buf.real_len.copy_(real_len)
-    buf.step.zero_()
-    buf.finished.zero_()
-    buf.gen_tokens.fill_(config.pad_token_id)
-    buf.gen_logprobs.zero_()
-    buf.gen_mask.zero_()
+    with _phase("rollout/prefill", phase_args):
+        real_len = prompt_mask.long().sum(-1)  # [B]
+        positions = positions_from_mask(prompt_mask)
+        embed_g, ln_f_g = _head(tp, embed, ln_f)
+        h = embed_tokens(embed_g, spec, prompt_tokens, positions,
+                         compute_dtype, tp)
+        prefill_bias = torch.cat([
+            causal_mask_bias(prompt_mask),
+            torch.full((B, 1, P, G), NEG_INF, dtype=torch.float32,
+                       device=dev),
+        ], dim=-1)
+        for s, (seg, cache) in enumerate(zip(segments, buf.caches)):
+            for c in cache:
+                c.zero_()
+            h, _ = apply_blocks_with_cache(seg, cache, spec, h,
+                                           prefill_bias, positions, 0,
+                                           attention_fn, tp, s)
+        h_normed = layer_norm(ln_f_g, h[:, -1], spec.layer_norm_epsilon)
+        buf.h_normed.copy_(h_normed)
+        buf.logits.copy_(project_logits(embed_g, spec, h_normed, tp))
+        last = (real_len - 1).clamp(min=0)[:, None]
+        buf.prev_tok.copy_(torch.gather(prompt_tokens, 1, last)[:, 0])
+        buf.buffer_mask[:, :P].copy_(prompt_mask)
+        buf.buffer_mask[:, P:].fill_(1)
+        buf.real_len.copy_(real_len)
+        buf.step.zero_()
+        buf.finished.zero_()
+        buf.gen_tokens.fill_(config.pad_token_id)
+        buf.gen_logprobs.zero_()
+        buf.gen_mask.zero_()
 
     early_exit = (_EOS_EARLY_EXIT and config.eos_token_id >= 0
                   and config.min_new_tokens < G)
-    done = 0
-    while done < G:
-        chunk = min(_EXIT_CHECK_EVERY, G - done)
-        for _ in range(chunk):
-            decoder.step(spec, segments, embed, ln_f, buf, generator, config,
-                         compute_dtype, attention_fn, logit_mask, extras_fn,
-                         rows, tp)
-        done += chunk
-        if early_exit and done < G and done > config.min_new_tokens \
-                and _all_finished(buf, mesh):
-            break  # every later step emits pads only
+    with _phase("rollout/decode", phase_args):
+        done = 0
+        while done < G:
+            chunk = min(_EXIT_CHECK_EVERY, G - done)
+            for _ in range(chunk):
+                decoder.step(spec, segments, embed, ln_f, buf, generator,
+                             config, compute_dtype, attention_fn, logit_mask,
+                             extras_fn, rows, tp)
+            done += chunk
+            if early_exit and done < G and done > config.min_new_tokens \
+                    and _all_finished(buf, mesh):
+                break  # every later step emits pads only
 
     gen_tokens = buf.gen_tokens.clone()
     out = GenerationOutput(

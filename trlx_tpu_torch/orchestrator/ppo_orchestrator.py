@@ -31,6 +31,14 @@ goes through ``retry_call`` (``train.host_retries``, a bounded worker
 under ``train.host_call_timeout``, the ``reward_fn`` chaos seam) in a
 nested ``reward_fn`` phase; a device reward model's scores stay on the
 card for the rewards and reach the host only for the statistics.
+
+Each chunk's work is split into telemetry phases, each with the chunk's
+index and row count (``chunk``, ``rows``): the device phases
+``rollout/prefill`` and ``rollout/decode`` (``generate``),
+``rollout/score`` (the trainer's ``rollout``) and
+``rollout/reward_model`` (:meth:`PPOOrchestrator.device_scores`), and
+the host phase ``rollout/harvest`` (waiting on the chunk's copies, the
+decode and ``reward_fn`` or the device scores, ``push_to_store``).
 """
 
 from typing import Callable, List, Sequence
@@ -38,7 +46,7 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
-from trlx_tpu_torch import supervisor
+from trlx_tpu_torch import supervisor, telemetry
 from trlx_tpu_torch.data.ppo_types import PPORLBatch
 from trlx_tpu_torch.orchestrator import Orchestrator, register_orchestrator
 from trlx_tpu_torch.parallel import broadcast_host_floats
@@ -172,13 +180,16 @@ class PPOOrchestrator(Orchestrator):
         bank_tokens, bank_mask = self._prompt_bank()
         device_reward = getattr(self.reward_fn, "is_device_reward", False)
         pendings, scores = [], []
-        for _ in range(n_chunks):
+        for i in range(n_chunks):
             pending = self.rl_model.rollout(bank_tokens, bank_mask,
-                                            self._next_idx())
+                                            self._next_idx(), chunk=i)
             pendings.append(pending)
             if device_reward:
                 out, query = pending[0], pending[1]
-                scores.append(self.device_scores(out, query.shape[1]))
+                with telemetry.device_phase("rollout/reward_model",
+                                            chunk=i,
+                                            rows=int(query.shape[0])):
+                    scores.append(self.device_scores(out, query.shape[1]))
         return {"pendings": pendings, "device_scores": scores,
                 "n_chunks": n_chunks}
 
@@ -213,33 +224,35 @@ class PPOOrchestrator(Orchestrator):
         all_kls, all_scores = [], []
         for i, pending in enumerate(pendings):
             out, query, qmask, logprobs, values, kl_rewards, seq_kl = pending
-            host = harvest.wait(i)
-            # chunk i + 1's copies run while the host decodes and scores
-            # chunk i (chunk i - 1's buffers are free by now)
-            if i + 1 < n_chunks:
-                harvest.start(i + 1)
-            sequences, seq_kl_host = host[0], host[1]
-            if device_scores:
-                scores = device_scores[i]
-                all_scores.append(np.array(host[2], np.float32))
-            else:
-                texts = trainer.tokenizer.batch_decode(
-                    sequences, skip_special_tokens=True)
-                with annotate("reward_fn"):
-                    scores = self.score(texts)
-                all_scores.append(scores)
-            rewards = trainer.finalize_rewards(kl_rewards, out.gen_mask,
-                                               scores)
-            all_kls.append(float(seq_kl_host.mean()))
-            trainer.push_to_store(PPORLBatch(
-                query_tensors=query,
-                response_tensors=out.gen_tokens,
-                logprobs=logprobs,
-                values=values,
-                rewards=rewards,
-                response_masks=out.gen_mask,
-                query_masks=qmask,
-            ))
+            with telemetry.span("rollout/harvest", chunk=i,
+                                rows=int(query.shape[0])):
+                host = harvest.wait(i)
+                # chunk i + 1's copies run while the host decodes and
+                # scores chunk i (chunk i - 1's buffers are free by now)
+                if i + 1 < n_chunks:
+                    harvest.start(i + 1)
+                sequences, seq_kl_host = host[0], host[1]
+                if device_scores:
+                    scores = device_scores[i]
+                    all_scores.append(np.array(host[2], np.float32))
+                else:
+                    texts = trainer.tokenizer.batch_decode(
+                        sequences, skip_special_tokens=True)
+                    with annotate("reward_fn"):
+                        scores = self.score(texts)
+                    all_scores.append(scores)
+                rewards = trainer.finalize_rewards(kl_rewards, out.gen_mask,
+                                                   scores)
+                all_kls.append(float(seq_kl_host.mean()))
+                trainer.push_to_store(PPORLBatch(
+                    query_tensors=query,
+                    response_tensors=out.gen_tokens,
+                    logprobs=logprobs,
+                    values=values,
+                    rewards=rewards,
+                    response_masks=out.gen_mask,
+                    query_masks=qmask,
+                ))
             self.clock.tick(out.sequences.shape[0])
             # chunk-to-chunk progress resets the watchdog's timer
             supervisor.beat()

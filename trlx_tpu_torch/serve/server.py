@@ -119,6 +119,9 @@ _SERVE_COUNTERS = (
     "serve/preempted_steps",
     "serve/prefix_tokens_saved",
     "serve/evicted_pages",
+    # the slot scheduler's prefill padding: positions run vs needed
+    "serve/prefill_positions",
+    "serve/prefill_tokens_needed",
     # the crash-only lifecycle: replays, deadline sheds, drains, swaps
     "serve/replays",
     "serve/shed_expired",

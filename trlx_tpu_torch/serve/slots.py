@@ -60,13 +60,24 @@ Overload: ``serve.tenants`` quotas at :meth:`SlotScheduler.submit`
 admission with aging, deadline shedding at every admission scan
 (``DeadlineExceeded``), a halved queue bound while degraded, and a
 hysteretic brownout that clamps best-effort tenants' ``max_new_tokens``.
-Tracing: every request's :class:`~trlx_tpu_torch.serve.trace.RequestTrace`
-is stamped at admission, at each harvested token and at completion,
-from host clocks the step already has; the flight recorder keeps one
-record per step. The stall dump, ``debug_state`` and ``pressure`` read
-host state only and never a CUDA tensor, so they are safe off the
-worker thread (a device-wide synchronise from another thread would
-invalidate a graph capture in progress).
+Tracing: every request's
+:class:`~trlx_tpu_torch.serve.trace.RequestTrace` is stamped at
+admission, at each harvested token and at completion, from host clocks
+the step already has; the flight recorder keeps one record per step. The
+loop's host time is spanned: each turn that admits or steps is one
+``serve/iteration``, holding ``serve/admit`` (an admission scan that
+took a batch off the queue; its arguments: ``requests`` admitted,
+``positions`` prefilled, Bp x P over its batches with the filler rows,
+``needed``, the uncached suffix tokens of the real rows, and ``hit``,
+the prefix tokens the radix cache served), the ``serve/prefill*`` device
+phases, the device phase ``serve/slot_step`` (its device part ends at
+the replay, the span after the step's results reach the host) and
+``serve/harvest`` (the bookkeeping on those results). The counters
+``serve/prefill_positions`` and ``serve/prefill_tokens_needed`` carry
+the admission's padding on ``/metrics``. The stall dump, ``debug_state``
+and ``pressure`` read host state only and never a CUDA tensor, so they
+are safe off the worker thread (a device-wide synchronise from another
+thread would invalidate a graph capture in progress).
 """
 
 import contextlib
@@ -257,7 +268,7 @@ class SlotPoolRuntime:
             fn = self._prefill_fns[key] = aot_jit(_prefill)
         arrays = (tokens, mask, slot_ids, max_new) + (
             (page_tables, start) if paged else (None, None))
-        with telemetry.span(self.prefill_span(bucket, suffix)):
+        with telemetry.device_phase(self.prefill_span(bucket, suffix)):
             inputs = tuple(
                 None if x is None else torch.as_tensor(
                     np.ascontiguousarray(x, np.int32), device=self.device)
@@ -272,17 +283,19 @@ class SlotPoolRuntime:
         emitted [S], finished [S]), read in one device-to-host copy. The
         step's stream is re-seeded with ``seed`` first, which the graph's
         replay reads. The span closes after the results reach the host,
-        so it times the device work too."""
+        so it times the device work too; as a device phase its device part
+        ends before the read."""
         self._mirror("step", int(seed))
         e = self.engine
         self.generator.manual_seed(int(seed))
-        with telemetry.span(self.STEP_SPAN):
+        with telemetry.device_phase(self.STEP_SPAN) as phase:
             out = self._step_fn(
                 e.spec, e.blocks, e.embed, e.ln_f, self.pool, self.state,
                 self.generator, e.gen_config, e.compute_dtype,
                 self.paged_decode_fn, self.tp,
             )
             self.steps += 1
+            phase.end_device()
             out = out.cpu().numpy()
             self.digest.update(out.tobytes())
             tok, emitted, finished = out
@@ -416,6 +429,11 @@ class SlotScheduler:
     ``draft`` injects the draft tier's proposer (otherwise built from
     ``serve.spec_draft_checkpoint`` under ``speculation: draft``)."""
 
+    #: the loop's host spans (module docstring)
+    ITERATION_SPAN = "serve/iteration"
+    ADMIT_SPAN = "serve/admit"
+    HARVEST_SPAN = "serve/harvest"
+
     def __init__(self, engine, max_queue: Optional[int] = None,
                  slots: Optional[int] = None, run_supervisor=None,
                  draft=None):
@@ -432,6 +450,9 @@ class SlotScheduler:
                                     self.runtime.page_size)
         self._prompt_tokens_total = 0
         self._prefix_tokens_saved = 0
+        #: the current admission scan's [requests, positions, needed,
+        #: hit] (the ``serve/admit`` span's arguments)
+        self._tally = [0, 0, 0, 0]
         self._queue = deque()  # guarded-by: _cond
         self._cond = threading.Condition()
         self._stop = threading.Event()
@@ -739,15 +760,31 @@ class SlotScheduler:
     def _occupancy(self) -> float:
         return len(self._live) / max(self.runtime.num_slots, 1)
 
-    def _admit(self) -> None:
+    def _admit(self) -> bool:
         """Move queued requests into free slots, one prompt-class bucket
         at a time (the highest-priority request's class first, ties FIFO
         by ``seq``). Requests past their ``deadline_ms`` are shed here
         first (:class:`DeadlineExceeded`). Priority ages: the effective
         priority is ``priority + age // serve.priority_aging_rounds``,
         ``age`` counting the scans a request waited. A poisoned
-        admission re-queues its batch for replay."""
+        admission re-queues its batch for replay. Returns whether the
+        scan took a batch off the queue; such a scan is one
+        ``serve/admit`` span with the admission's tally, any other
+        records none."""
+        with telemetry.span(self.ADMIT_SPAN) as span:
+            self._tally = [0, 0, 0, 0]
+            took = self._admit_batches()
+            requests, positions, needed, hit = self._tally
+            span.set(requests=requests, positions=positions, needed=needed,
+                     hit=hit)
+            if not took:
+                span.drop()
+        return took
+
+    def _admit_batches(self) -> bool:
+        """:meth:`_admit`'s scan; returns whether it took a batch."""
         aging = self._aging_rounds
+        took = False
 
         def by_prio(r):
             boost = r.age // aging if aging > 0 else 0
@@ -768,7 +805,7 @@ class SlotScheduler:
                                             len(self._queue))
                 self._starved = bool(self._queue) and not self._free
                 if not self._queue or not self._free:
-                    return
+                    return took
                 P = min(self._queue, key=by_prio).shape[0]
                 extents = self.engine.prefill_batch_sizes(P)
                 same = sorted((r for r in self._queue if r.shape[0] == P),
@@ -776,6 +813,7 @@ class SlotScheduler:
                 batch = same[:min(len(same), len(self._free), extents[-1])]
                 for r in batch:
                     self._queue.remove(r)
+                took = True
                 telemetry.set_gauge("serve/queue_depth", len(self._queue))
             admitted_all = True
             with supervisor.phase("serve_admit"):
@@ -794,7 +832,7 @@ class SlotScheduler:
                 # page pool exhausted: the rest stay QUEUED until
                 # harvests return pages — keep stepping the live slots
                 self._starved = True
-                return
+                return took
 
     def _spawn_speculator(self, slot: int, history: List[int]) -> None:
         """The lookup tier's per-slot state: an n-gram index over the
@@ -842,6 +880,8 @@ class SlotScheduler:
             self._free.extend(slots)  # nothing was admitted
             raise
         prefill_end = monotonic()
+        self._note_prefill(len(batch), Bp * P, sum(
+            min(len(r.tokens) + len(r.committed), P) for r in batch), 0)
         for r, s in zip(batch, slots):
             if r.trace is not None:
                 r.trace.prefill_end = prefill_end
@@ -933,6 +973,9 @@ class SlotScheduler:
                 self.cache.release_all(pages)
             raise
         prefill_end = monotonic()
+        hit = sum(len(p[2]) for p in plans) * ps
+        self._note_prefill(len(plans), Bp * P,
+                           sum(len(p[1]) for p in plans) - hit, hit)
         saved = 0
         for (r, toks, matched, pages, committed), s in zip(plans, slots):
             if r.trace is not None:
@@ -955,6 +998,16 @@ class SlotScheduler:
         telemetry.set_gauge("serve/pages_free", self.cache.free_pages())
         telemetry.set_gauge("serve/prefix_hit_rate", self._hit_rate())
         return not deferred
+
+    def _note_prefill(self, requests: int, positions: int, needed: int,
+                      hit: int) -> None:
+        """One admitted batch's prefill: ``positions`` it ran (Bp x P,
+        filler rows included), ``needed`` of them the real rows' uncached
+        tokens, ``hit`` tokens served from the radix cache."""
+        for i, n in enumerate((requests, positions, needed, hit)):
+            self._tally[i] += n
+        telemetry.inc("serve/prefill_positions", positions)
+        telemetry.inc("serve/prefill_tokens_needed", needed)
 
     def _hit_rate(self) -> float:
         return self._prefix_tokens_saved / max(self._prompt_tokens_total, 1)
@@ -1090,6 +1143,16 @@ class SlotScheduler:
                 proposed = accepted = 0
                 span = self.runtime.STEP_SPAN
             supervisor.beat()
+        with telemetry.span(self.HARVEST_SPAN):
+            self._harvest(plan, cand, counts, finished, proposed, accepted,
+                          span)
+
+    def _harvest(self, plan, cand, counts, finished, proposed: int,
+                 accepted: int, span: str) -> None:
+        """The bookkeeping on one step's results, on the host: the
+        speculation tallies, each slot's tokens (and its trace's), the
+        finished requests completed, their slots and pages freed, the
+        gauges."""
         if self._starved:
             telemetry.inc("serve/preempted_steps")
         if plan is not None:
@@ -1593,31 +1656,43 @@ class SlotScheduler:
                     draining = self._draining
                     queue_empty = not self._queue
                 self._update_brownout(monotonic())
-                if swap_pending:
+                if swap_pending and not self._live:
                     # admission pauses so _live can empty; queued and
                     # in-flight requests finish on the ADMITTED version
-                    if not self._live:
-                        self._apply_pending_swap()
-                        continue
-                else:
-                    self._admit()
-                if draining:
-                    if not self._live and queue_empty:
-                        self._drained.set()
-                    elif monotonic() >= self._drain_deadline:
-                        self._drain_expire()
-                if not self._live:
+                    self._apply_pending_swap()
+                    continue
+                stepped = self._turn(swap_pending, draining, queue_empty)
+                if not stepped:
                     with self._cond:
                         if not self._queue and not self._stop.is_set() \
                                 and self._pending_swap is None:
                             self._cond.wait(timeout=0.1)
-                    continue
-                step_start = monotonic()
-                try:
-                    self._step()
-                except Exception as e:
-                    self._recover_step(e)
-                else:
-                    end = monotonic()
-                    self._last_step_ms = (end - step_start) * 1000.0
-                    self._record_step(step_start, end)
+
+    def _turn(self, swap_pending: bool, draining: bool,
+              queue_empty: bool) -> bool:
+        """One turn of the loop after its snapshot: admit (unless a swap
+        is pending), the drain's checks, then a step when a slot is live.
+        A turn that took an admission batch or stepped is one
+        ``serve/iteration``; any other records no span. Returns whether
+        it stepped."""
+        with telemetry.span(self.ITERATION_SPAN) as turn:
+            admitted = not swap_pending and self._admit()
+            if draining:
+                if not self._live and queue_empty:
+                    self._drained.set()
+                elif monotonic() >= self._drain_deadline:
+                    self._drain_expire()
+            if not self._live:
+                if not admitted:
+                    turn.drop()
+                return False
+            step_start = monotonic()
+            try:
+                self._step()
+            except Exception as e:
+                self._recover_step(e)
+            else:
+                end = monotonic()
+                self._last_step_ms = (end - step_start) * 1000.0
+                self._record_step(step_start, end)
+            return True

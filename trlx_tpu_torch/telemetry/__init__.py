@@ -5,10 +5,10 @@ One process-local session owns a :class:`MetricsRegistry` and a
 :class:`SpanTracer`. The trainers start it at construction (knob
 ``train.telemetry``, default on; :func:`start_from_config`), the serving
 engine when it starts, and every subsystem reports through the
-module-level functions below: ``span()``, ``inc()``, ``set_gauge()``,
-``observe()``, ``predeclare()``, ``summary()``. Each is a strict no-op
-while no session is active, so a ``telemetry: false`` run records
-nothing and pays one ``is None`` check per call site.
+module-level functions below: ``span()``, ``device_phase()``, ``inc()``,
+``set_gauge()``, ``observe()``, ``predeclare()``, ``summary()``. Each is
+a strict no-op while no session is active, so a ``telemetry: false``
+run records nothing and pays one ``is None`` check per call site.
 
 What flows where:
 
@@ -29,16 +29,21 @@ checkpoint has been committed) so ad-hoc constructions scatter no
 files; an explicit ``telemetry_dir`` is always created and written.
 Spans time the HOST: on the card a span around an asynchronous launch
 measures the enqueue, so each phase the loops time closes after its
-results reach the host (tracer module docstring).
+results reach the host (tracer module docstring). A ``device_phase()``
+also times the device, but only while a ``torch.profiler`` records: the
+trace's events are on the profiler's clock (``SpanTracer.epoch_ns``), so
+a reader sets them against the profiler's device timeline.
 """
 
-import contextlib
 import json
 import os
 import sys
 from typing import Any, Dict, Optional
 
-from trlx_tpu_torch.telemetry.device import sample_device_stats
+from trlx_tpu_torch.telemetry.device import (
+    profiler_recording,
+    sample_device_stats,
+)
 from trlx_tpu_torch.telemetry.flops import (  # noqa: F401  (re-exports)
     PEAK_FLOPS,
     decode_flops_per_token,
@@ -167,7 +172,6 @@ class TelemetrySession:
 # --------------------------------------------------------------------- #
 
 _session: Optional[TelemetrySession] = None
-_NULL_CM = contextlib.nullcontext()  # reusable and reentrant
 
 
 def start(run_dir: str = "", force_dir: bool = False) -> TelemetrySession:
@@ -198,11 +202,70 @@ def current() -> Optional[TelemetrySession]:
     return _session
 
 
-def span(name: str):
-    """Context manager timing one named phase; no-op without a session."""
+class _NullSpan:
+    """What :func:`span` and :func:`device_phase` give without a session:
+    enters to itself and records nothing (reusable and reentrant)."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+    def end_device(self) -> None:
+        pass
+
+    def drop(self) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Range(_NullSpan):
+    """A device phase without a session while a profiler records: its
+    ``record_function`` range alone."""
+
+    def __init__(self, name: str):
+        from torch.autograd.profiler import record_function
+
+        self.range = record_function(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, **args):
+    """Context manager timing one named host phase (``args`` land in its
+    trace event; the body may add more with ``.set(**args)``, or record
+    nothing with ``.drop()``); no-op without a session."""
     if _session is None:
-        return _NULL_CM
-    return _session.tracer.span(name)
+        return NULL_SPAN
+    return _session.tracer.span(name, args)
+
+
+def device_phase(name: str, **args):
+    """A device phase: :func:`span`, and while a ``torch.profiler``
+    records, whoever started it, a ``record_function`` range and a pair
+    of timing CUDA events whose interval becomes the span's
+    ``device_ms`` (tracer module docstring). With no profiler recording
+    it is exactly :func:`span`: no CUDA event, no range. The body may
+    end the device part early with ``.end_device()``, before a host read
+    that waits for the device. Without a session only the range remains
+    (for a profiler's own timeline)."""
+    if _session is not None:
+        return _session.tracer.span(name, args, device=True)
+    if profiler_recording():
+        return _Range(name)
+    return NULL_SPAN
 
 
 def inc(name: str, n: float = 1.0, labels=None) -> None:

@@ -22,8 +22,15 @@ Without a card (no CUDA in the process) the first sample latches the
 monitor silent for the rest of the process, as the reference latches
 when its runtime exposes no memory stats; before anything has
 initialised CUDA a sample sets nothing (it must not initialise it).
+
+The module also holds the one way the port times device work:
+:func:`timing_event`, a CUDA event recorded on the current stream, which
+the tracer's device phases pair up while a profiler records
+(:func:`profiler_recording`) and the ILQL trainer's ``step_events``
+record around the parts of an update.
 """
 
+import sys
 from typing import Optional
 
 from trlx_tpu_torch.telemetry.registry import MetricsRegistry
@@ -56,3 +63,34 @@ def sample_device_stats(registry: MetricsRegistry) -> None:
     registry.set_gauge("device/hbm_limit_gb", _limit_bytes / 2**30)
     if _limit_bytes:
         registry.set_gauge("device/hbm_utilization", in_use / _limit_bytes)
+
+
+# --------------------------------------------------------------------- #
+# device time of a phase: one timing path (the tracer's device phases
+# and the ILQL trainer's ``step_events`` both record through it)
+# --------------------------------------------------------------------- #
+
+
+def profiler_recording() -> bool:
+    """True while a ``torch.profiler`` records on this thread, whoever
+    started it (``maybe_trace``, a benchmark, a notebook)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    return bool(getattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        False)) or torch._C._autograd._profiler_enabled()
+
+
+def timing_event():
+    """A timing CUDA event recorded now on the current stream, or None
+    where there is nothing to time: no card, CUDA not initialised yet
+    (this must not initialise it), or the stream being captured into a
+    graph (the record would become part of the graph)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_available() or \
+            not torch.cuda.is_initialized() or \
+            torch.cuda.is_current_stream_capturing():
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event

@@ -66,6 +66,7 @@ from trlx_tpu_torch.parallel.sharding import (
 from trlx_tpu_torch.models.policy import resolve_num_unfrozen
 from trlx_tpu_torch.pipeline import batch_iterator
 from trlx_tpu_torch.supervisor import StallError, chaos, seam_timeout
+from trlx_tpu_torch.telemetry.device import timing_event
 from trlx_tpu_torch.trainers import (
     BaseRLTrainer,
     _leaves,
@@ -91,10 +92,11 @@ STEP_PARTS = ("trunk_fwd", "heads_loss_fwd", "backward", "optimizer")
 
 
 def _mark(events) -> None:
-    """Record a timing CUDA event onto ``events`` (None: nothing)."""
+    """Record a timing CUDA event onto ``events`` (None: nothing), through
+    the telemetry's one device-timing path
+    (trlx_tpu_torch.telemetry.device ``timing_event``)."""
     if events is not None:
-        events.append(torch.cuda.Event(enable_timing=True))
-        events[-1].record()
+        events.append(timing_event())
 
 
 @register_trainer("JaxILQLTrainer")

@@ -179,10 +179,11 @@ class JaxPPOTrainer(BaseRLTrainer):
 
     # -- rollout ---------------------------------------------------------- #
 
-    def generate(self, query_tokens, query_mask):
+    def generate(self, query_tokens, query_mask, phase_args=None):
         """Decode ``gen_size`` tokens for a prompt batch; on a mesh each
         process decodes its rows (a batch that dp * fsdp does not divide
-        is padded with its last row, and the outputs sliced back)."""
+        is padded with its last row, and the outputs sliced back).
+        ``phase_args``: a rollout chunk's, for generate's phases."""
         (query, mask), n = self._pad_rows((query_tokens, query_mask))
         query, mask = self._put((query, mask))
         params = self._whole_params()
@@ -191,7 +192,7 @@ class JaxPPOTrainer(BaseRLTrainer):
             self.policy.spec, all_blocks(params), embed, ln_f, query,
             mask, self.generator, self.gen_config,
             compute_dtype=self.policy.compute_dtype, decoder=self.decoder,
-            mesh=self.mesh,
+            mesh=self.mesh, phase_args=phase_args,
         )
         if out.sequences.shape[0] != n:
             out = type(out)(*(x[:n] for x in out))
@@ -265,16 +266,21 @@ class JaxPPOTrainer(BaseRLTrainer):
             values = self.sp.gather(values)
         return values[:, P - 1:T - 1]
 
-    def rollout(self, bank_tokens, bank_mask, idx):
-        """One rollout chunk: prompts ``idx`` of the bank -> generation ->
-        scoring. Returns (out, query, query_mask, logprobs, values,
-        kl_rewards, seq_kl) on the device."""
+    def rollout(self, bank_tokens, bank_mask, idx, chunk: int = 0):
+        """Rollout chunk ``chunk``: prompts ``idx`` of the bank ->
+        generation -> scoring, as the telemetry phases
+        ``rollout/prefill``, ``rollout/decode`` and ``rollout/score``
+        (each with the chunk's index and row count). Returns (out, query,
+        query_mask, logprobs, values, kl_rewards, seq_kl) on the
+        device."""
         idx = torch.as_tensor(np.asarray(idx), device=bank_tokens.device)
         query, query_mask = bank_tokens[idx], bank_mask[idx]
-        out = self.generate(query, query_mask)
-        logprobs, values, kl_rewards, seq_kl = self.score(
-            out.sequences, out.attention_mask, out.gen_mask,
-            float(self.kl_ctl.value), query.shape[1])
+        args = {"chunk": chunk, "rows": int(idx.shape[0])}
+        out = self.generate(query, query_mask, phase_args=args)
+        with telemetry.device_phase("rollout/score", **args):
+            logprobs, values, kl_rewards, seq_kl = self.score(
+                out.sequences, out.attention_mask, out.gen_mask,
+                float(self.kl_ctl.value), query.shape[1])
         return out, query, query_mask, logprobs, values, kl_rewards, seq_kl
 
     def finalize_rewards(self, kl_rewards, gen_mask, scores):

@@ -9,10 +9,12 @@ annotations (port of trlx_tpu.utils.profiling).
   profiler holds every event of the region in host memory until the
   export, so a whole long run's trace grows with the run;
 - :func:`annotate` marks host phases (``rollout``, ``reward_fn``,
-  ``ppo_update``...): a telemetry span (trlx_tpu_torch.telemetry), a run
-  supervisor phase (trlx_tpu_torch.supervisor) and, inside a profiled
-  region, a ``torch.profiler.record_function`` range, so the phase is
-  attributable on the trace's timeline.
+  ``ppo_update``...): a telemetry device phase
+  (trlx_tpu_torch.telemetry ``device_phase``) and a run supervisor phase
+  (trlx_tpu_torch.supervisor). While any ``torch.profiler`` records,
+  this module's or another's, the device phase also opens a
+  ``torch.profiler.record_function`` range and times its device work,
+  so the phase is attributable on the trace's timeline.
 
 With no profile dir, no telemetry session and no supervisor, both
 collapse to no-op context managers.
@@ -25,7 +27,6 @@ from typing import Optional
 
 _ENV_VAR = "TRLX_TPU_PROFILE_DIR"
 
-_tracing_active = False  # set while a maybe_trace() region is open
 _traces = itertools.count()
 
 
@@ -38,7 +39,6 @@ def maybe_trace(trace_dir: Optional[str] = None):
     """``torch.profiler.profile`` (CPU + CUDA activities) when a
     directory is configured (argument or ``$TRLX_TPU_PROFILE_DIR``),
     exporting its Chrome trace there on exit; a no-op otherwise."""
-    global _tracing_active
     trace_dir = trace_dir or trace_dir_from_env()
     if not trace_dir:
         yield
@@ -51,12 +51,8 @@ def maybe_trace(trace_dir: Optional[str] = None):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     prof = profile(activities=activities)
-    _tracing_active = True
-    try:
-        with prof:
-            yield
-    finally:
-        _tracing_active = False
+    with prof:
+        yield
     prof.export_chrome_trace(os.path.join(
         trace_dir, f"trace_{os.getpid()}_{next(_traces)}.json"))
 
@@ -83,18 +79,14 @@ class _Stacked:
 
 
 def annotate(name: str):
-    """A named host phase: a telemetry span (no-op without a session), a
-    supervisor phase heartbeat (no-op without an armed supervisor) and,
-    inside a :func:`maybe_trace` region, a
-    ``torch.profiler.record_function`` range."""
+    """A named phase: a telemetry device phase (a span; while a profiler
+    records, also a ``record_function`` range and the phase's device
+    time) and a supervisor phase heartbeat (no-op without an armed
+    supervisor)."""
     from trlx_tpu_torch import supervisor, telemetry
 
-    span = telemetry.span(name)
+    span = telemetry.device_phase(name)
     heartbeat = supervisor.phase(name)
-    if not _tracing_active:
-        if heartbeat is supervisor.NULL_CM:
-            return span
-        return _Stacked(span, heartbeat)
-    from torch.profiler import record_function
-
-    return _Stacked(span, heartbeat, record_function(name))
+    if heartbeat is supervisor.NULL_CM:
+        return span
+    return _Stacked(span, heartbeat)
