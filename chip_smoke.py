@@ -28,6 +28,10 @@ Phases, each printing its own line; any failure exits non-zero:
    launches at bf16) against its plain version in float32 math at hd 64
    and hd 256, at the serving context and at 1024 tokens (atol 1e-2 +
    rtol 1e-2, every row finite), and timed at both serving shapes.
+   Then the rollout decoder's step attention at the PPO TL;DR shape (B
+   32, 576 keys, 16 heads of 256, bf16): the kernel over the dense cache
+   viewed as pages of 16, 32 and 64, and the plain einsum attention with
+   its copies, checked and timed beside the bound.
 4. flash —the three flash-attention kernels against the dense oracle
    and its autograd: fp32 causal with left padding at T 52 and 576 and
    the non-causal form (O and lse on real rows atol 1e-5, dq / dk / dv
@@ -365,6 +369,7 @@ from trlx_tpu_torch.models.params import (
 from trlx_tpu_torch.models.transformer import (
     NEG_INF,
     apply_blocks,
+    attention_scores,
     causal_mask_bias,
     embed_tokens,
     layer_params,
@@ -1049,16 +1054,111 @@ def time_paged_shapes(dev):
             in shapes.items()}
 
 
+#: the PPO TL;DR rollout's decode attention at gpt-j width: B rows of a
+#: dense cache of S = P + 64 keys, H = Hkv heads of hd, bf16, timed at
+#: the step that writes key P + 32
+ROLLOUT_SHAPE = dict(B=32, S=576, H=16, hd=256, P=512)
+#: the page sizes the rollout decoder may view its cache in
+ROLLOUT_PAGES = (16, 32, 64)
+
+
+def rollout_case(dev, seed, full, copies=2):
+    """(q [B, H, hd], ``copies`` dense (K, V) caches [B, S, H, hd], the
+    step's bias [B, 1, 1, S]) at ROLLOUT_SHAPE, bf16, as the rollout
+    decoder holds them: every key live (``full``) or the cell's prompts
+    (192-512 tokens left-padded to P), keys past the step masked."""
+    B, S, H, hd, P = (ROLLOUT_SHAPE[k] for k in ("B", "S", "H", "hd", "P"))
+    rng = np.random.default_rng(seed)
+    lengths = np.full(B, P) if full else rng.integers(192, P + 1, B)
+    keys = np.arange(S)[None, :]
+    last = S - 1 if full else P + 32
+    live = (keys >= P - lengths[:, None]) & (keys <= last)
+    bias = torch.tensor(np.where(live, 0.0, NEG_INF), dtype=torch.float32,
+                        device=dev)[:, None, None, :]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q = randn(B, H, hd)
+    caches = [(randn(B, S, H, hd), randn(B, S, H, hd))
+              for _ in range(copies)]
+    return q, caches, bias
+
+
+def time_rollout_decode(dev, iters=50):
+    """The rollout decoder's step attention at ROLLOUT_SHAPE: the kernel
+    over the dense cache viewed as pages of each of ROLLOUT_PAGES (the
+    decoder's page table), and the plain ``attention_scores`` the step
+    ran before (its einsums, and the head-major copies of K and V they
+    make, included); each against the plain version in float32 math on
+    the same inputs (atol 1e-2 + rtol 1e-2, every row finite), timed by
+    CUDA-graph replay over two caches (604 MB, past the L2) beside the
+    bound of the pages with a live key, with every key live and with
+    the cell's left-padded prompts. Returns {case: {ps or "plain":
+    {"us", "bound_us"}}}."""
+    B, S, H, hd = (ROLLOUT_SHAPE[k] for k in ("B", "S", "H", "hd"))
+    out = {}
+    for case, full in (("full", True), ("padded", False)):
+        q, caches, bias = rollout_case(dev, seed=7, full=full)
+        bias_row = bias.reshape(B, S).contiguous()
+        k0, v0 = caches[0]
+        ref = attention_scores(q.float()[:, None], k0.float(), v0.float(),
+                               bias)[:, 0]
+        fns, keys, bounds = [], [], []
+        for ps in ROLLOUT_PAGES:
+            pt = torch.arange(B * (S // ps), dtype=torch.int32,
+                              device=dev).view(B, S // ps)
+
+            def kernel(q, k, v, pt=pt, ps=ps):
+                pages = (-1, ps, H, hd)
+                return paged_decode_attention(q, k.view(pages),
+                                              v.view(pages), pt, bias_row)
+
+            got = kernel(q, k0, v0)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), ps
+            bad = (got.float() - ref).abs() > 1e-2 + 1e-2 * ref.abs()
+            assert not bad.any(), f"rollout decode, pages of {ps}, {case}"
+            fns.append(kernel)
+            keys.append(ps)
+            bounds.append(bound(q, k0.view(-1, ps, H, hd), pt, bias_row)[0])
+
+        def plain(q, k, v):
+            return attention_scores(q[:, None], k, v, bias)[:, 0]
+
+        err = max_err(plain(q, k0, v0), ref)
+        assert err < 5e-2, f"rollout plain attention, {case}: {err}"
+        fns.append(plain)
+        keys.append("plain")
+        bounds.append(bounds[0])
+        times = graph_ms(fns, [(q, k, v) for k, v in caches], iters)
+        out[case] = {key: {"us": t * 1e3, "bound_us": b * 1e3}
+                     for key, t, b in zip(keys, times, bounds)}
+        log("kernel", f"rollout decode, {case} rows (B {B}, {S} keys, H = "
+                      f"Hkv {H}, hd {hd}, bf16; device, CUDA graph): "
+                      + ", ".join(f"pages of {key} {t * 1e3:.2f} us "
+                                  f"(bound {b * 1e3:.2f})"
+                                  for key, t, b in zip(keys[:-1], times,
+                                                       bounds))
+                      + f"; plain attention_scores with its copies "
+                        f"{times[-1] * 1e3:.2f} us")
+    return out
+
+
 def paged_phase(dev):
     """Phase 3: every paged-decode check against the plain version (the
     partition sweep and a graph replay included), then every timed shape
-    (PAGED_SHAPES and the tp shards) and the partition sweeps' times.
-    Returns (largest errors, times by shape key, sweeps)."""
+    (PAGED_SHAPES and the tp shards), the rollout decoder's attention
+    (time_rollout_decode) and the partition sweeps' times. Returns
+    (largest errors, times by shape key, sweeps)."""
     errs = {"kernel": check_kernel(dev), "gptj": check_paged_gptj(dev),
             "int8": check_bf16_int8(dev), "shards": check_shards(dev),
             "partitions": check_partitions(dev)}
     check_graph_replay(dev)
     times = time_paged_shapes(dev)
+    times["rollout"] = time_rollout_decode(dev)
     sweeps = {"ctx1024": sweep_partitions(dev),
               "gptj_serving": sweep_partitions(dev, H=16, hd=256,
                                                max_pages=4),
@@ -1073,7 +1173,9 @@ def paged_decode_only(times_only=False):
     the quick card run while the kernel changes. ``--paged-times``
     (``times_only``): the build and the timed shapes alone, through the
     public wrapper only, so this script times an earlier tree's kernel
-    too (run from that tree's root) beside the current one in one call."""
+    too (run from that tree's root) beside the current one in one call.
+    ``--rollout-decode`` (``times_only="rollout"``): the build and the
+    rollout decoder's attention alone (time_rollout_decode)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1084,6 +1186,10 @@ def paged_decode_only(times_only=False):
         log("build", f"{name}: {entry['seconds']:.2f}s nvcc")
         for ln in ptxas_summary(str(entry["log"])):
             log("build", f"  {ln}")
+    if times_only == "rollout":
+        print(json.dumps({"card": card,
+                          "rollout": time_rollout_decode("cuda")}))
+        return 0
     if times_only:
         print(json.dumps({"card": card, "times": time_paged_shapes("cuda")}))
         return 0
@@ -6145,6 +6251,8 @@ def main() -> int:
         return paged_decode_only()
     if sys.argv[1:2] == ["--paged-times"]:
         return paged_decode_only(times_only=True)
+    if sys.argv[1:2] == ["--rollout-decode"]:
+        return paged_decode_only(times_only="rollout")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on "
               "the card", file=sys.stderr)

@@ -289,6 +289,115 @@ def test_cuda_paged_decode_refuses_misaligned_rows():
             paged_decode_attention(*args, pt, bias)
 
 
+#: generate at gpt-j widths, 2 layers, as the PPO TL;DR rollout runs it:
+#: B prompts of 192-512 tokens left-padded to P, G tokens, greedy
+ROLLOUT = dict(B=32, P=512, G=64)
+
+
+def _rollout(dtype, kernel, monkeypatch, seed=0):
+    """(generate's output, paged-decode launches of each call, telemetry
+    counters) for two calls of one decoder with CUDA graphs on, its step
+    attending through the kernel (``kernel``) or the plain path."""
+    from trlx_tpu_torch import telemetry
+    from trlx_tpu_torch.data.configs import ModelSpec
+    from trlx_tpu_torch.models import generation as tg
+    from trlx_tpu_torch.models.params import (
+        decode_views_from_numpy,
+        init_hydra_numpy,
+    )
+    from trlx_tpu_torch.models.transformer import tree_map
+
+    if not kernel:
+        monkeypatch.setattr(tg, "rollout_page_size", lambda *a: None)
+    spec = ModelSpec(arch="gptj", vocab_size=4096, n_layer=2, n_head=16,
+                     d_model=4096, rotary_dim=64, n_positions=2048,
+                     tie_lm_head=False)
+    views = decode_views_from_numpy(
+        init_hydra_numpy(spec, num_layers_unfrozen=1, seed=seed), spec, 1)
+    blocks, embed, ln_f = tree_map(
+        lambda x: x.to("cuda", dtype),
+        (views.blocks, views.embed, views.ln_f))
+    B, P, G = ROLLOUT["B"], ROLLOUT["P"], ROLLOUT["G"]
+    rng = np.random.default_rng(seed + 1)
+    tokens = rng.integers(0, spec.vocab_size, (B, P))
+    mask = np.ones((B, P), np.int32)
+    for b, n in enumerate(rng.integers(192, P + 1, B)):
+        mask[b, :P - n] = 0
+        tokens[b, :P - n] = 0
+    cfg = tg.GenerationConfig.from_gen_kwargs(
+        G, {"max_length": G, "min_length": G, "do_sample": False}, -1, 0, P)
+    decoder = tg.RolloutDecoder()
+    session = telemetry.start()
+    launches = []
+    try:
+        for _ in range(2):
+            before = ops.LAUNCHES["paged_decode"]
+            out = tg.generate(
+                spec, blocks, embed, ln_f, _t(tokens).to("cuda"),
+                _t(mask).to("cuda"), None, cfg, compute_dtype=dtype,
+                cache_dtype=dtype, decoder=decoder,
+                phase_args={"chunk": 0, "rows": B})
+            torch.cuda.synchronize()
+            launches.append(ops.LAUNCHES["paged_decode"] - before)
+        counters = dict(session.registry.counters)
+    finally:
+        telemetry.stop()
+    assert decoder.step.signatures() == 1
+    return out, launches, counters
+
+
+def _agreeing(a, b, steps):
+    """[B, steps] bool: the steps before each row's first token where the
+    two outputs differ (their distributions follow the same prefix)."""
+    same = a.gen_tokens == b.gen_tokens
+    first = torch.where(same.all(1), steps, (~same).int().argmax(1))
+    return torch.arange(steps, device="cuda")[None, :] < first[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_rollout_decode_through_paged_kernel(dtype, monkeypatch):
+    """``generate`` at gpt-j widths (16 heads of 256), 2 layers, B 32,
+    512 + 64 keys, each step a CUDA-graph replay: its attention runs the
+    paged-decode kernel over the dense cache viewed as pages, one launch
+    a layer a step (counted through the graph's replays too), and
+    ``rollout/decode_plain_steps`` reads 0. In float32 the greedy tokens
+    equal the plain path's and the logprobs lie within 2e-2 nats. In
+    bf16 the plain path rounds its scores to bf16 where the kernel
+    accumulates in float32, so near-ties turn greedy choices and the
+    logprobs differ by a few hundredths: there both are held against
+    the float32 run, and over the steps where each agrees with it the
+    kernel's logprobs lie no farther from it than the plain path's (a
+    tenth of the gap and 1e-3 of room)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    steps = ROLLOUT["G"]
+    out, launches, counters = _rollout(dtype, True, monkeypatch)
+    plain, plain_launches, plain_counters = _rollout(dtype, False,
+                                                     monkeypatch)
+    assert launches == [steps * 2] * 2
+    assert counters["rollout/decode_kernel_steps"] == 2 * steps
+    assert counters["rollout/decode_plain_steps"] == 0
+    assert plain_launches == [0, 0]
+    assert plain_counters["rollout/decode_plain_steps"] == 2 * steps
+    if dtype == torch.float32:
+        assert torch.equal(out.gen_tokens, plain.gen_tokens)
+        torch.testing.assert_close(out.gen_logprobs, plain.gen_logprobs,
+                                   atol=2e-2, rtol=0)
+        return
+    monkeypatch.undo()
+    ref = _rollout(torch.float32, True, monkeypatch)[0]
+    gaps = {}
+    for name, o in (("kernel", out), ("plain", plain)):
+        live = _agreeing(o, ref, steps)
+        gaps[name] = float((o.gen_logprobs - ref.gen_logprobs)[live]
+                           .abs().max())
+        print(f"bf16 {name} path against float32: {int(live.sum())} "
+              f"steps agree, largest logprob gap {gaps[name]:.4f}")
+    assert gaps["kernel"] <= 1.1 * gaps["plain"] + 1e-3, gaps
+
+
 def _flash_case(B, T, H, hd, pads, seed=0):
     rng = np.random.default_rng(seed)
     q, k, v, g = (rng.standard_normal((B, T, H, hd)).astype(np.float32)

@@ -8,6 +8,15 @@ token (Philox vs threefry); its warped logits are held equal in
 tests/test_torch_sampling.py, and here a sampled run keeps the output
 contract. ``GenerationConfig.from_gen_kwargs`` translates like JAX's.
 
+The decode step's attention: a layer's dense cache viewed as pages with
+the decoder's page table, through the paged-decode kernel's plain
+version, equals ``attention_scores`` over the cache (hd 64 and 256,
+pages of 16 and 64, MHA and GQA, left-padded rows); the page-size rule
+takes the kernel path at the PPO TL;DR rollout's shape and keeps the
+plain one where no page size divides the keys or the kernel has no
+build for the head dim or dtypes; at shapes it routes, greedy decode
+still equals trlx_tpu's, and a rollout chunk counts its steps by path.
+
 The trainer's rollouts: with ``train.continuous_rollouts`` the next
 epoch's experience is dispatched before the epoch's updates, and equals
 what trlx_tpu's continuous loop produces from the same pre-update
@@ -27,6 +36,10 @@ from trlx_tpu.models import generation as jg
 from trlx_tpu_torch.data.configs import ModelSpec
 from trlx_tpu_torch.models import generation as tg
 from trlx_tpu_torch.models.params import init_hydra_numpy
+from trlx_tpu_torch.models.transformer import NEG_INF, attention_scores
+from trlx_tpu_torch.ops.paged_attention import (
+    paged_decode_attention_reference,
+)
 
 # an untied head: with gpt2's tied head a random model's greedy decode
 # just repeats each row's last prompt token
@@ -35,12 +48,12 @@ SPEC = dict(arch="gpt2", vocab_size=257, n_layer=3, n_head=4, d_model=32,
 P, G = 7, 12
 
 
-def _inputs(seed=0):
-    spec = ModelSpec(**SPEC)
+def _inputs(seed=0, spec=SPEC, p=P):
+    spec = ModelSpec(**spec)
     tree = init_hydra_numpy(spec, num_layers_unfrozen=1, seed=seed)
     rng = np.random.default_rng(seed + 1)
-    tokens = rng.integers(0, 256, (4, P)).astype(np.int32)
-    mask = np.ones((4, P), np.int32)
+    tokens = rng.integers(0, 256, (4, p)).astype(np.int32)
+    mask = np.ones((4, p), np.int32)
     for i, pad in enumerate((0, 2, 5, 6)):
         mask[i, :pad] = 0
         tokens[i, :pad] = 256
@@ -56,10 +69,10 @@ def _views(tree, to):
 
 
 def _run_both(gen_kwargs, eos, early_exit=True, monkeypatch=None,
-              decoder=None):
-    tree, tokens, mask = _inputs()
-    jcfg = jg.GenerationConfig.from_gen_kwargs(G, gen_kwargs, eos, 256, P)
-    tcfg = tg.GenerationConfig.from_gen_kwargs(G, gen_kwargs, eos, 256, P)
+              decoder=None, spec=SPEC, p=P, g=G):
+    tree, tokens, mask = _inputs(spec=spec, p=p)
+    jcfg = jg.GenerationConfig.from_gen_kwargs(g, gen_kwargs, eos, 256, p)
+    tcfg = tg.GenerationConfig.from_gen_kwargs(g, gen_kwargs, eos, 256, p)
     assert tuple(tcfg.sampling) == tuple(jcfg.sampling)
     assert (tcfg.gen_size, tcfg.eos_token_id, tcfg.pad_token_id,
             tcfg.min_new_tokens) == (jcfg.gen_size, jcfg.eos_token_id,
@@ -67,11 +80,11 @@ def _run_both(gen_kwargs, eos, early_exit=True, monkeypatch=None,
     if monkeypatch is not None:
         monkeypatch.setattr(tg, "_EOS_EARLY_EXIT", early_exit)
         monkeypatch.setattr(jg, "_EOS_EARLY_EXIT", early_exit)
-    jout = jg.generate(JaxSpec(**SPEC), *_views(tree, jnp.asarray),
+    jout = jg.generate(JaxSpec(**spec), *_views(tree, jnp.asarray),
                        jnp.asarray(tokens), jnp.asarray(mask),
                        jax.random.PRNGKey(0), jcfg,
                        compute_dtype=jnp.float32, cache_dtype=jnp.float32)
-    tout = tg.generate(ModelSpec(**SPEC),
+    tout = tg.generate(ModelSpec(**spec),
                        *_views(tree, lambda x: torch.from_numpy(x.copy())),
                        torch.from_numpy(tokens), torch.from_numpy(mask),
                        None, tcfg, compute_dtype=torch.float32,
@@ -313,3 +326,167 @@ def test_double_buffered_harvest_matches_chunk_by_chunk():
         assert torch.equal(got.response_tensors, gen_tokens)
         assert torch.equal(got.logprobs, logprobs)
         assert torch.equal(got.values, values)
+
+
+# --------------------------------------------------------------------- #
+# the decode step's attention through the paged-decode kernel
+# --------------------------------------------------------------------- #
+
+
+def _step_bias(buffer_mask, offset):
+    """The additive [B, 1, 1, S] bias a decode step at buffer position
+    ``offset`` attends with: keys up to ``offset`` of each row's mask."""
+    S = buffer_mask.shape[1]
+    valid = (torch.arange(S)[None, :] <= offset) & (buffer_mask > 0)
+    return torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
+
+
+def _decoder_buffers(B, S, H, Hkv, hd, dtype=torch.float32, G=64):
+    spec = ModelSpec(arch="llama", vocab_size=8, n_layer=1, n_head=H,
+                     n_kv_heads=Hkv, d_model=H * hd, n_positions=1024)
+    return tg.RolloutDecoder().buffers(spec, [1], B, S - G, G, dtype, dtype,
+                                       torch.device("cpu"))
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_dense_cache_as_pages_matches_attention_scores(hd, ps, H, Hkv,
+                                                       monkeypatch):
+    """A layer's dense cache [B, 576, Hkv, hd] viewed as pages of ``ps``
+    with the decoder's page table, through the kernel's plain version,
+    equals ``attention_scores`` over the dense cache with the decoder's
+    bias: rows left-padded by 0, 37 and 200, keys past the step masked."""
+    monkeypatch.setattr(tg, "ROLLOUT_PAGE_SIZE", ps)
+    B, S = 3, 576
+    buf = _decoder_buffers(B, S, H, Hkv, hd)
+    n = S // ps
+    assert buf.page_table.dtype == torch.int32
+    assert torch.equal(buf.page_table,
+                       torch.arange(B * n, dtype=torch.int32).view(B, n))
+    gen = torch.Generator().manual_seed(hd + ps + H)
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen) for _ in range(2))
+    q = torch.randn(B, H, hd, generator=gen)
+    mask = torch.ones(B, S, dtype=torch.int32)
+    for b, pad in enumerate((0, 37, 200)):
+        mask[b, :pad] = 0
+    bias = _step_bias(mask, S - 64 + 5)
+    want = attention_scores(q[:, None], k, v, bias)[:, 0]
+    pages = (-1, ps, Hkv, hd)
+    got = paged_decode_attention_reference(
+        q, k.view(pages), v.view(pages), buf.page_table, bias.reshape(B, S))
+    assert torch.equal(got, want)
+
+
+#: the PPO TL;DR rollout at gpt-j width: B 32, 512 + 64 keys, 16 heads
+#: of 256, bf16
+CELL = dict(B=32, S=576, H=16, Hkv=16, hd=256, q_dtype=torch.bfloat16,
+            cache_dtype=torch.bfloat16, device="cuda")
+
+
+@pytest.mark.parametrize("change,takes", [
+    ({}, True),
+    ({"device": "cpu"}, True),
+    ({"H": 16, "Hkv": 4, "hd": 64, "q_dtype": torch.float32,
+      "cache_dtype": torch.float32}, True),
+    ({"S": 19}, False),
+    ({"S": 600}, False),
+    ({"hd": 8}, False),
+    ({"q_dtype": torch.bfloat16, "cache_dtype": torch.float32}, False),
+    ({"q_dtype": torch.float16, "cache_dtype": torch.float16}, False),
+    ({"device": "meta"}, False),
+    ({"B": 1024, "S": 65536}, False),
+], ids=["cell", "cell-cpu", "gqa-f32", "S19", "S600", "hd8", "bf16-f32",
+        "f16", "meta", "smem"])
+def test_rollout_page_size_picks_the_path(change, takes):
+    """The kernel path for the cell's shape (on the card and on the CPU)
+    and a GQA float32 one; the plain path where the page size does not
+    divide the keys, the kernel has no build for the head dim or the
+    dtype pair, the device is neither, or one partition's bias row
+    (4096 pages in one) overflows a block's shared memory."""
+    ps = tg.rollout_page_size(**dict(CELL, **change))
+    assert ps == (tg.ROLLOUT_PAGE_SIZE if takes else None)
+
+
+#: shapes the decode step routes through the kernel's plain version:
+#: (spec, prompt length, tokens), one or two pages of 16 a row
+ROUTED = {
+    "gpt2-hd16": (dict(SPEC, d_model=64), 7, 9),
+    "gptj-hd32": (dict(arch="gptj", vocab_size=257, n_layer=2, n_head=4,
+                       d_model=128, rotary_dim=16, n_positions=64,
+                       tie_lm_head=False), 20, 12),
+    "llama-gqa": (dict(arch="llama", vocab_size=257, n_layer=2, n_head=4,
+                       n_kv_heads=2, d_model=64, n_positions=64,
+                       tie_lm_head=False), 9, 7),
+}
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("shape", sorted(ROUTED))
+def test_routed_decode_matches_jax(shape, early_exit, monkeypatch):
+    """Where the step attends through the kernel's plain version (the
+    dense cache viewed as pages), greedy decode equals trlx_tpu's:
+    fixed-length, and with eos ending rows early behind 2 steps of
+    ``min_new_tokens``."""
+    spec, p, g = ROUTED[shape]
+    greedy = dict(GREEDY, max_length=g, min_length=g)
+    decoder = tg.RolloutDecoder()
+    jout, tout = _run_both(greedy, eos=256, decoder=decoder, spec=spec,
+                           p=p, g=g)
+    _assert_same(jout, tout)
+    (buf,) = decoder._buffers.values()
+    assert buf.page_table is not None
+    assert buf.page_table.shape == (4, (p + g) // tg.ROLLOUT_PAGE_SIZE)
+    for eos in sorted(set(tout.gen_tokens.numpy().ravel().tolist())):
+        jout, tout = _run_both(dict(greedy, max_length=p + g,
+                                    min_length=p + 2), eos,
+                               early_exit, monkeypatch, spec=spec, p=p, g=g)
+        if not tout.gen_mask.numpy().all():
+            break
+    _assert_same(jout, tout)
+    assert not tout.gen_mask.numpy().all()
+
+
+@pytest.mark.parametrize("path", ["kernel", "plain"])
+def test_decode_counters_read_the_path_taken(path, monkeypatch):
+    """A rollout chunk's ``generate`` (``phase_args`` given) counts its
+    steps into ``rollout/decode_kernel_steps`` or
+    ``rollout/decode_plain_steps`` by the path the step's attention
+    took, the other at 0; the tokens are the same either way; a call
+    without ``phase_args`` counts nothing."""
+    from trlx_tpu_torch import telemetry
+
+    spec, p, g = ROUTED["gpt2-hd16"]
+    tree, tokens, mask = _inputs(spec=spec, p=p)
+    cfg = tg.GenerationConfig.from_gen_kwargs(
+        g, dict(GREEDY, max_length=g, min_length=g), 256, 256, p)
+    rule = tg.rollout_page_size
+
+    def run(kernel, decoder=None, **kw):
+        monkeypatch.setattr(tg, "rollout_page_size",
+                            rule if kernel else lambda *a: None)
+        return tg.generate(
+            ModelSpec(**spec),
+            *_views(tree, lambda x: torch.from_numpy(x.copy())),
+            torch.from_numpy(tokens), torch.from_numpy(mask), None, cfg,
+            compute_dtype=torch.float32, cache_dtype=torch.float32,
+            decoder=decoder, **kw)
+
+    kernel = path == "kernel"
+    decoder = tg.RolloutDecoder()
+    session = telemetry.start()
+    try:
+        out = run(kernel, decoder, phase_args={"chunk": 0, "rows": 4})
+        counters = dict(session.registry.counters)
+        run(kernel, decoder)
+        again = dict(session.registry.counters)
+    finally:
+        telemetry.stop()
+    (buf,) = decoder._buffers.values()
+    assert (buf.page_table is not None) == kernel
+    other = "plain" if path == "kernel" else "kernel"
+    assert counters[f"rollout/decode_{path}_steps"] == g
+    assert counters[f"rollout/decode_{other}_steps"] == 0
+    assert again == counters
+    np.testing.assert_array_equal(out.gen_tokens.numpy(),
+                                  run(not kernel).gen_tokens.numpy())

@@ -277,12 +277,17 @@ def tiny_runs(tmp_path_factory):
     return runs
 
 
+#: the counters the port's rollout decode adds: its steps by the path
+#: their attention took
+ROLLOUT_COUNTERS = {"rollout/decode_kernel_steps",
+                    "rollout/decode_plain_steps"}
+
 #: the keys the port's rollout phases add to an emission (the reward
 #: here is a host ``reward_fn``: no ``rollout/reward_model``)
 ROLLOUT_PHASE_KEYS = {
     key for phase in ("prefill", "decode", "score", "harvest")
     for key in (f"time/rollout/{phase}",
-                f"compile/rollout/{phase}_first_s")}
+                f"compile/rollout/{phase}_first_s")} | ROLLOUT_COUNTERS
 
 
 def test_f1_per_iteration_keys_match_reference(tiny_runs):
@@ -332,8 +337,13 @@ def test_f3_run_dir_holds_summary_and_trace(tiny_runs):
     ours, theirs = summaries["torch"], summaries["jax"]
     assert ours["metric"] == theirs["metric"] == "ppo_learn_samples_per_sec"
     assert ours["unit"] == "samples/s" and ours["value"] > 0
-    assert set(ours["counters"]) == set(theirs["counters"])
-    assert ours["counters"] == theirs["counters"]  # all zero here
+    counters = {k: v for k, v in ours["counters"].items()
+                if k not in ROLLOUT_COUNTERS}
+    assert set(ours["counters"]) - set(counters) == ROLLOUT_COUNTERS
+    assert counters == theirs["counters"]  # all zero here
+    # 4 + 8 keys: no page size divides them, so the plain path
+    assert ours["counters"]["rollout/decode_kernel_steps"] == 0
+    assert ours["counters"]["rollout/decode_plain_steps"] > 0
     extra = set(ours["timings"]) - set(theirs["timings"])
     assert set(theirs["timings"]) <= set(ours["timings"])
     assert extra == {k for k in ROLLOUT_PHASE_KEYS if k.startswith("time/")}

@@ -18,7 +18,10 @@ masked positions contribute exactly zero probability.
 
 :func:`generate` is the trainer's rollout decoder (``:196-587``): a
 static-shape dense KV cache over left-padded prompts, request to
-completion, one captured step per token (:class:`RolloutDecoder`).
+completion, one captured step per token (:class:`RolloutDecoder`),
+whose attention reads the dense cache in place as pages through the
+paged-decode kernel wherever :func:`rollout_page_size` finds a page
+size for the shape.
 
 All of them keep the CUDA-graph contract of trlx_tpu_torch.utils.aotjit
 (static shapes, no host read), and the serve runtime and the trainers
@@ -55,6 +58,14 @@ from trlx_tpu_torch.models.transformer import (
     project_logits,
     quantize_kv,
     tree_map,
+)
+from trlx_tpu_torch.ops.paged_attention import (
+    _SMEM_LIMIT,
+    _SUPPORTED,
+    HEAD_DIMS,
+    decode_partitions,
+    paged_decode_attention,
+    shared_memory_bytes,
 )
 from trlx_tpu_torch.ops.sampling import SamplingParams, sample_token
 from trlx_tpu_torch.utils.aotjit import aot_jit
@@ -128,6 +139,33 @@ _EOS_EARLY_EXIT = True
 #: A/B it
 _EXIT_CHECK_EVERY = 8
 
+#: the page the rollout decoder views its dense cache in. At B 32, 576
+#: keys, 16 heads of 256, bf16 (the PPO TL;DR rollout; chip_smoke.py's
+#: rollout row on an H100) pages of 16, 32 and 64 took 102.8, 103.2 and
+#: 113.2 us a layer with every key live and 78.0, 83.6 and 93.3 us over
+#: left-padded prompts; 16 also divides whatever 32 or 64 does
+ROLLOUT_PAGE_SIZE = 16
+
+
+def rollout_page_size(B: int, S: int, H: int, Hkv: int, hd: int, q_dtype,
+                      cache_dtype, device) -> Optional[int]:
+    """The page size at which the rollout decoder's step reads its dense
+    [B, S, Hkv, hd] cache through the paged-decode kernel
+    (trlx_tpu_torch.ops.paged_attention), or None for the plain
+    ``attention_scores`` path: :data:`ROLLOUT_PAGE_SIZE` where it
+    divides S, the kernel is built for ``hd`` and for the (query, cache)
+    dtype pair, and its block fits the card's shared memory. The same
+    rule on the CPU, where the kernel's plain version runs."""
+    ps = ROLLOUT_PAGE_SIZE
+    if torch.device(device).type not in ("cuda", "cpu") or S % ps \
+            or hd not in HEAD_DIMS \
+            or (q_dtype, cache_dtype) not in _SUPPORTED:
+        return None
+    per = decode_partitions(B, Hkv, S // ps, ps)[1]
+    if shared_memory_bytes(H, Hkv, hd, ps, per, cache_dtype) > _SMEM_LIMIT:
+        return None
+    return ps
+
 
 class DecodeBuffers(NamedTuple):
     """The rollout decoder's state between steps, updated in place so a
@@ -145,11 +183,21 @@ class DecodeBuffers(NamedTuple):
     gen_logprobs: torch.Tensor  # [B, G] float32
     gen_mask: torch.Tensor  # [B, G] int32
     all_finished: torch.Tensor  # [1] bool on the host (pinned on the card)
+    # [B, S / ps] int32: row b's pages b * S / ps .. (b + 1) * S / ps - 1
+    # of a layer's cache viewed as [B * S / ps, ps, Hkv, hd]; None where
+    # the step attends through the plain path (rollout_page_size)
+    page_table: Optional[torch.Tensor] = None
 
 
 def _new_buffers(spec, seg_sizes, B, P, G, compute_dtype, cache_dtype,
                  dev, kv_heads=None) -> DecodeBuffers:
     S = P + G
+    kv_heads = kv_heads or spec.kv_heads
+    heads = spec.n_head // spec.kv_heads * kv_heads  # this process's
+    ps = rollout_page_size(B, S, heads, kv_heads, spec.head_dim,
+                           compute_dtype, cache_dtype, dev)
+    page_table = None if ps is None else torch.arange(
+        B * (S // ps), dtype=torch.int32, device=dev).reshape(B, S // ps)
 
     def empty(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -170,6 +218,7 @@ def _new_buffers(spec, seg_sizes, B, P, G, compute_dtype, cache_dtype,
         gen_mask=empty(B, G, dtype=torch.int32),
         all_finished=torch.empty(1, dtype=torch.bool,
                                  pin_memory=dev.type == "cuda"),
+        page_table=page_table,
     )
 
 
@@ -252,7 +301,9 @@ def _decode_token(spec, segments, embed, ln_f, buf: DecodeBuffers,
             h, _ = block_apply(
                 spec, flags, _layer(tp, s, seg, i), h, bias, pos,
                 kv_cache=(k_c[i], v_c[i]), cache_offset=offset,
-                attention_fn=attention_fn, tp=tp,
+                attention_fn=attention_fn,
+                paged_decode_fn=paged_decode_attention,
+                cache_page_table=buf.page_table, tp=tp,
             )
     h_normed = layer_norm(ln_f, h[:, 0], spec.layer_norm_epsilon)
     buf.h_normed.copy_(h_normed)
@@ -330,6 +381,13 @@ def generate(
     only pads). The CPU runs the same chunked loop, so the generator
     ends in the same state with graphs on or off.
 
+    The prefill attends with ``attention_fn``. A step's attention (one
+    query row a sequence against its cache) runs the paged-decode
+    kernel (trlx_tpu_torch.ops.paged_attention, its plain version on the
+    CPU) over the dense cache read in place as pages, where
+    :func:`rollout_page_size` takes the shape and dtypes; elsewhere
+    ``attention_fn`` over the whole cache, as the prefill.
+
     With a ``mesh`` (trlx_tpu_torch.parallel) the prompts are DTensors
     whose rows shard over (dp, fsdp) and the parameters whole plain
     tensors: each process decodes its rows, draws as one process would
@@ -343,7 +401,9 @@ def generate(
     With ``phase_args`` (a PPO rollout chunk's ``chunk`` and ``rows``)
     the prefill and the decode loop, early-exit reads included, run as
     the telemetry phases ``rollout/prefill`` and ``rollout/decode`` with
-    those arguments; without, as no phase.
+    those arguments, and the steps count into the telemetry counters
+    ``rollout/decode_kernel_steps`` or ``rollout/decode_plain_steps``
+    by the path their attention took; without, as no phase.
     """
     rows = None
     if mesh is not None:
@@ -414,6 +474,12 @@ def generate(
                              config, compute_dtype, attention_fn, logit_mask,
                              extras_fn, rows, tp)
             done += chunk
+            if phase_args is not None:
+                kernel = buf.page_table is not None
+                telemetry.inc("rollout/decode_kernel_steps",
+                              chunk if kernel else 0)
+                telemetry.inc("rollout/decode_plain_steps",
+                              0 if kernel else chunk)
             if early_exit and done < G and done > config.min_new_tokens \
                     and _all_finished(buf, mesh):
                 break  # every later step emits pads only

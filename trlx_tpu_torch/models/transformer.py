@@ -253,6 +253,7 @@ def block_apply(
     page_table: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
     paged_decode_fn=None,
+    cache_page_table: Optional[torch.Tensor] = None,
     tp=None,
 ):
     """One transformer block on hidden states `h` [B, T, D].
@@ -285,7 +286,12 @@ def block_apply(
     ``paged_decode_fn`` (trlx_tpu_torch.ops.paged_attention
     ``make_paged_decode_fn``) replaces the paged gather + attention when
     T == 1 with ``fn(q[:, 0], k_pages, v_pages, page_table, bias_row)``
-    over the post-scatter pool without its drop page.
+    over the post-scatter pool without its drop page. In the
+    dense-with-cache mode, given ``cache_page_table`` [B, Tbuf / ps]
+    int32 too, it replaces ``attention_fn`` when T == 1: the cache, after
+    the fresh K/V's write, is read in place as a pool [B * Tbuf / ps,
+    ps, Hkv, hd] whose pages the table hands each row, with
+    ``mask_bias`` [B, 1, 1, Tbuf] as the bias row.
 
     ``tp`` (trlx_tpu_torch.parallel.sharding ``TensorParallel``, in
     every mode): Megatron's tensor parallelism. ``p`` then holds this
@@ -407,8 +413,18 @@ def block_apply(
             k_cache[:, off:off + T] = k.to(k_cache.dtype)
             v_cache[:, off:off + T] = v.to(v_cache.dtype)
         new_cache = (k_cache, v_cache)
-        a = attention_fn(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                         mask_bias)
+        if paged_decode_fn is not None and cache_page_table is not None \
+                and T == 1:
+            ps = tbuf // cache_page_table.shape[1]
+            pages = (-1, ps) + tuple(k_cache.shape[2:])
+            a = paged_decode_fn(
+                q[:, 0].contiguous(), k_cache.view(pages),
+                v_cache.view(pages), cache_page_table,
+                mask_bias.reshape(B, -1).float().contiguous(),
+            )[:, None]
+        else:
+            a = attention_fn(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                             mask_bias)
     else:
         a = attention_fn(q, k, v, mask_bias)
 

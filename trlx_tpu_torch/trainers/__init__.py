@@ -621,8 +621,10 @@ class BaseRLTrainer:
         turns the kernel on by itself at T >= 1024 on a TPU — a threshold
         measured on a TPU; the port sets its own from H100 measurements
         in a later change, and until then only an explicit
-        ``fused_attention: true`` selects the kernels. Generation keeps
-        the dense KV-cache decode either way."""
+        ``fused_attention: true`` selects the kernels. Generation takes
+        neither: its prefill attends densely, and each decode step
+        through the paged-decode kernel over the dense cache read as
+        pages (trlx_tpu_torch.models.generation ``generate``)."""
         if self.sp is not None:
             from trlx_tpu_torch.ops.ring_attention import make_sp_attention_fn
 
