@@ -181,8 +181,8 @@ class ILQL:
         lengths = [int(x) for x in self.lengths[idx]]
         heads = yardstick.lm_head_flops(spec) + 2 * yardstick.head_flops(
             d, V) + yardstick.head_flops(d, 1)
-        fwd = yardstick.forward_flops(spec, lengths, spec["n_layer"]) \
-            + sum(lengths) * heads
+        fwd = yardstick.forward_flops(spec, range(spec["n_layer"]),
+                                      lengths) + sum(lengths) * heads
         return 3 * fwd + sum(lengths) * 2 * yardstick.head_flops(d, V)
 
     # -- check ---------------------------------------------------------- #
@@ -220,8 +220,8 @@ class ILQL:
                                cfg["method"], cfg["train"], ctx.device, prec,
                                rows_per_block=cell["reference_rows"])
         return {"losses": out["losses"],
-                "grad": leaf_norms(out["grad_tensors"], ctx.spec["arch"]),
-                "change": leaf_norms(out["change"], ctx.spec["arch"])}
+                "grad": leaf_norms(out["grad_tensors"], ctx.spec),
+                "change": leaf_norms(out["change"], ctx.spec)}
 
     def half_fault(self):
         """The reference with half of each batch left out (a fault)."""

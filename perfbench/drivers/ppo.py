@@ -173,26 +173,27 @@ class PPO:
         policy trunk, the reference branch and the reward model per
         sample, and per pass the trainable branch's forward and backward
         over the sample (the frozen trunk's forward in each pass is
-        recomputed work and is not counted)."""
+        recomputed work and is not counted). The trainable branch and the
+        reference branch are the top ``k`` layers by index."""
         spec, trainer = self.ctx.spec, self.trainer
         data = trainer.store._stacked()
         prompt = data.query_masks.sum(1).tolist()
         gen = data.response_masks.sum(1).tolist()
         L = spec["n_layer"]
-        k = trainer.policy.k
+        every, top = range(L), range(L - trainer.policy.k, L)
         d = spec["d_model"]
         lm, vh = yardstick.lm_head_flops(spec), yardstick.head_flops(d, 1)
         epochs = trainer.config.method.ppo_epochs
         total = 0
         for p, g in zip(prompt, gen):
             p, g = int(p), int(g)
-            total += yardstick.prefill_flops(spec, p)
-            total += yardstick.decode_flops(spec, p, max(g - 1, 0))
+            total += yardstick.prefill_flops(spec, every, p)
+            total += yardstick.decode_flops(spec, every, p, max(g - 1, 0))
             n = p + g
-            total += yardstick.forward_flops(spec, [n], L) \
-                + yardstick.forward_flops(spec, [n], k) + g * (2 * lm + vh)
-            total += yardstick.forward_flops(spec, [n], L) + vh
-            total += epochs * 3 * (yardstick.forward_flops(spec, [n], k)
+            total += yardstick.forward_flops(spec, every, [n]) \
+                + yardstick.forward_flops(spec, top, [n]) + g * (2 * lm + vh)
+            total += yardstick.forward_flops(spec, every, [n]) + vh
+            total += epochs * 3 * (yardstick.forward_flops(spec, top, [n])
                                    + g * (lm + vh))
         return total
 
@@ -242,10 +243,8 @@ class PPO:
                  **{key: out[key][idx] for key in
                     ("logprobs", "values", "rewards", "gen_mask")}}
         del out["h_split"]
-        top = [f"transformer.h.{i}." for i in range(spec["n_layer"] - k,
-                                                     spec["n_layer"])]
-        sd = {n: w for n, w in sd.items() if n.startswith(
-            tuple(top) + ("transformer.ln_f.", "lm_head."))}
+        top = ref_ppo.top_prefixes(spec, k)
+        sd = {n: w for n, w in sd.items() if n.startswith(top)}
         up = ref_ppo.updates(sd, spec, v_head, batch, self.cfg_dict["method"],
                              self.cfg_dict["train"], k, 3, prec,
                              self.ctx.cell["reference_rows"])
@@ -253,8 +252,8 @@ class PPO:
                             ("logprobs", "values", "rewards", "gen_mask",
                              "scores")},
                 "losses": up["losses"],
-                "grad": leaf_norms(up["grad_tensors"], spec["arch"]),
-                "change": leaf_norms(up["change"], spec["arch"])}
+                "grad": leaf_norms(up["grad_tensors"], spec),
+                "change": leaf_norms(up["change"], spec)}
 
     def half_fault(self):
         """The reference with half of the minibatch left out (a fault)."""

@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import traffic, weights, yardstick
+from perfbench import harness, traffic, weights, yardstick
 from perfbench.probe import port_spec
 from perfbench.reference import gpt
 from perfbench.reference import serve as ref_serve
@@ -67,6 +67,17 @@ def stamps_class():
             self.on_token()
 
     return Stamps
+
+
+def paged_geometry(spec, slots: int, page_size: int, max_pages: int):
+    """(S, H, Hkv, hd, page size, pages a slot, paged-decode calls a step)
+    of the slot pool: one call a step on each layer that attends."""
+    model = harness.arch(spec)
+    widths = [w for w in (model.attention_width(spec, i)
+                          for i in range(spec["n_layer"])) if w]
+    H = spec["n_head"]
+    return (slots, H, model.kv_heads(spec), widths[0] // H, page_size,
+            max_pages, len(widths))
 
 
 class Serve:
@@ -349,6 +360,7 @@ class Serve:
         m0, m1 = traced[2], traced[3]
         steps, flops = {}, 0
         spec = self.ctx.spec
+        every = range(spec["n_layer"])
         for sent in self.sent:
             if sent is None or isinstance(sent[2], Exception):
                 continue
@@ -359,17 +371,16 @@ class Serve:
             for j, at in enumerate(tr.steps):
                 if m0 <= at <= m1:
                     steps.setdefault(at, []).append(prompt_len + j + 1)
-                    flops += yardstick.decode_flops(spec, prompt_len + j, 1)
+                    flops += yardstick.decode_flops(spec, every,
+                                                    prompt_len + j, 1)
             if tr.admitted and m0 <= tr.prefill_start <= m1:
                 flops += yardstick.prefill_flops(
-                    spec, prompt_len, prompt_len - tr.suffix_len)
+                    spec, every, prompt_len, prompt_len - tr.suffix_len)
         out["paged_steps"] = list(steps.values())
         out["traced_flops"] = flops
-        out["paged_geometry"] = (self.sched.runtime.num_slots,
-                                 spec["n_head"], spec["n_head"],
-                                 spec["d_model"] // spec["n_head"], ps,
-                                 self.sched.runtime.max_pages,
-                                 spec["n_layer"])
+        runtime = self.sched.runtime
+        out["paged_geometry"] = paged_geometry(spec, runtime.num_slots, ps,
+                                               runtime.max_pages)
         return out
 
     # -- check ---------------------------------------------------------- #

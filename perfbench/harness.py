@@ -8,6 +8,7 @@ and print one JSON line.
 Everything a cell is made of is found by name: ``workloads/<cell>.json``
 names its ``config`` (``configs/<config>.json``), its ``traffic``
 (``traffic/<traffic>.json``) and its ``driver`` (``drivers/<driver>.py``);
+the configuration's ``spec`` names its architecture (``arch/<arch>.py``);
 ``BENCHMARK.json`` at the root of the checkout says which end-to-end
 and per-layer metrics the cell reports, and each per-layer metric is read
 by ``metrics/<metric>.py``. Adding any of these adds files and edits
@@ -16,6 +17,7 @@ none.
 
 import argparse
 import contextlib
+import functools
 import gc
 import importlib.util
 import json
@@ -38,13 +40,26 @@ def load_json(*parts) -> Dict:
 
 
 def load_module(kind: str, name: str):
-    """``perfbench/<kind>/<name>.py`` as a module (names may hold dots)."""
-    path = os.path.join(HERE, kind, f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"perfbench.{kind}.{name.replace('.', '_').replace('-', '_')}", path)
+    """``perfbench/<kind>/<name>.py`` as a module (names may hold dots),
+    loaded once per file."""
+    module = name.replace(".", "_").replace("-", "_")
+    return _load(os.path.join(HERE, kind, f"{name}.py"),
+                 f"perfbench.{kind}.{module}")
+
+
+@functools.cache
+def _load(path: str, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def arch(spec: Dict):
+    """The module of a configuration's architecture, ``arch/<arch>.py``
+    by its ``spec``'s ``arch``: checkpoint layout, reference math, names,
+    the program's leaves and the FLOP count."""
+    return load_module("arch", spec["arch"])
 
 
 def benchmark(path: Optional[str] = None) -> Dict:

@@ -1,13 +1,15 @@
-"""GPT-2 and GPT-J written out in plain PyTorch from a checkpoint in
-Hugging Face's layout (``perfbench/weights.py``).
+"""What the plain reference of every architecture shares: how products
+are computed (:class:`Precision`), softmax attention, rotary embeddings,
+the layer norm and the tanh GELU, positions and the causal key mask, the
+trunk over an architecture's blocks, and the MLP heads the algorithms
+train beside it. Each architecture's own math (embedding, block, final
+norm, LM head) is its module ``perfbench/arch/<arch>.py``, found through
+``harness.arch``; it reads a checkpoint in Hugging Face's layout
+(``perfbench/weights.py``).
 
-It follows the published models: GPT-2's sequential block with two
-layer norms and Conv1D weights stored [in, out]; GPT-J's parallel block
-(attention and MLP both read one ``ln_1``) with rotary embeddings on the
-first ``rotary_dim`` dimensions of each head, rotated every two, and an
-untied LM head with a bias; the tanh GELU in both. Positions count real
-tokens from 0 under left padding, and padded keys are masked, as
-Hugging Face does with a position-id and attention-mask input.
+Positions count real tokens from 0 under left padding, and padded keys
+are masked, as Hugging Face does with a position-id and attention-mask
+input.
 
 Every matrix product goes through :class:`Precision`: float32 with TF32
 off (the reference), or the inputs of each product rounded to float8
@@ -17,9 +19,11 @@ the configurations state).
 
 import contextlib
 import math
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
+
+from perfbench import harness
 
 NEG = -1e9  # finite additive mask: a fully masked row stays finite
 
@@ -118,80 +122,24 @@ def attend(q, k, v, bias, prec: Precision):
     return o.transpose(1, 2)
 
 
-def block(get: Callable[[str], torch.Tensor], cfg: Dict, i: int,
-          h: torch.Tensor, bias: torch.Tensor, positions: torch.Tensor,
-          prec: Precision) -> torch.Tensor:
-    """Block ``i`` on h [B, T, d] (float32); ``get(name)`` returns the
-    checkpoint tensor of that Hugging Face name."""
-    B, T, d = h.shape
-    H = cfg["n_head"]
-    hd = d // H
-    eps = cfg["layer_norm_epsilon"]
-    n = f"transformer.h.{i}."
-    x = layer_norm(h, get(n + "ln_1.weight"), get(n + "ln_1.bias"), eps)
-    if cfg["arch"] == "gpt2":
-        qkv = prec.mm(x, get(n + "attn.c_attn.weight")) \
-            + get(n + "attn.c_attn.bias").float()
-        q, k, v = (t.reshape(B, T, H, hd) for t in qkv.split(d, dim=-1))
-        a = attend(q, k, v, bias, prec).reshape(B, T, d)
-        h = h + prec.mm(a, get(n + "attn.c_proj.weight")) \
-            + get(n + "attn.c_proj.bias").float()
-        x2 = layer_norm(h, get(n + "ln_2.weight"), get(n + "ln_2.bias"), eps)
-        m = gelu(prec.mm(x2, get(n + "mlp.c_fc.weight"))
-                 + get(n + "mlp.c_fc.bias").float())
-        return h + prec.mm(m, get(n + "mlp.c_proj.weight")) \
-            + get(n + "mlp.c_proj.bias").float()
-    q, k, v = (prec.linear(x, get(n + f"attn.{p}_proj.weight")).reshape(
-        B, T, H, hd) for p in "qkv")
-    rot = cfg["rotary_dim"]
-    q, k = rotary(q, positions, rot), rotary(k, positions, rot)
-    a = attend(q, k, v, bias, prec).reshape(B, T, d)
-    a = prec.linear(a, get(n + "attn.out_proj.weight"))
-    m = gelu(prec.linear(x, get(n + "mlp.fc_in.weight"),
-                         get(n + "mlp.fc_in.bias")))
-    m = prec.linear(m, get(n + "mlp.fc_out.weight"),
-                    get(n + "mlp.fc_out.bias"))
-    return h + a + m
-
-
-def embed(get, cfg: Dict, tokens: torch.Tensor,
-          positions: torch.Tensor) -> torch.Tensor:
-    V = cfg["vocab_size"]
-    h = get("transformer.wte.weight")[tokens.long().clamp(0, V - 1)].float()
-    if cfg["arch"] == "gpt2":
-        h = h + get("transformer.wpe.weight")[positions].float()
-    return h
-
-
-def final_norm(get, cfg: Dict, h: torch.Tensor) -> torch.Tensor:
-    return layer_norm(h, get("transformer.ln_f.weight"),
-                      get("transformer.ln_f.bias"), cfg["layer_norm_epsilon"])
-
-
-def lm_logits(get, cfg: Dict, hn: torch.Tensor,
-              prec: Precision) -> torch.Tensor:
-    """Float32 logits of the normed hidden ``hn``: the untied head with
-    its bias (GPT-J) or the tied embedding (GPT-2)."""
-    if cfg["arch"] == "gpt2":
-        return prec.linear(hn, get("transformer.wte.weight"))
-    return prec.linear(hn, get("lm_head.weight"), get("lm_head.bias"))
-
-
 def trunk(get, cfg: Dict, tokens: torch.Tensor, mask: torch.Tensor,
           prec: Precision, layers=None, h: Optional[torch.Tensor] = None,
           positions: Optional[torch.Tensor] = None,
           key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The blocks ``layers`` (default all) over tokens [B, T] (float32
-    hidden out, before the final norm). ``h``: start from this hidden
-    instead of the embeddings. ``positions`` default to the mask's real
-    token count, ``key_mask`` to ``mask``."""
+    """The architecture's blocks ``layers`` (default all) over tokens
+    [B, T] (float32 hidden out, before the final norm). ``h``: start from
+    this hidden instead of the embeddings. ``positions`` default to the
+    mask's real token count, ``key_mask`` to ``mask``; each block gets
+    the key mask as its row mask too."""
+    model = harness.arch(cfg)
     if positions is None:
         positions = positions_of(mask)
-    bias = causal_bias(mask if key_mask is None else key_mask)
+    keys = mask if key_mask is None else key_mask
+    bias = causal_bias(keys)
     if h is None:
-        h = embed(get, cfg, tokens, positions)
+        h = model.embed(get, cfg, tokens, positions)
     for i in (range(cfg["n_layer"]) if layers is None else layers):
-        h = block(get, cfg, i, h, bias, positions, prec)
+        h = model.block(get, cfg, i, h, bias, positions, prec, keys)
     return h
 
 

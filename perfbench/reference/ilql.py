@@ -1,5 +1,5 @@
 """ILQL's first updates written out (plain PyTorch, float32): the trunk,
-the LM head tied to the embeddings, the V head and two Q heads with
+the architecture's LM head, the V head and two Q heads with
 their frozen target copies, the composite loss and AdamW.
 
 The loss is the one the configuration's method names, term by term:
@@ -21,6 +21,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from perfbench import harness
 from perfbench.reference import gpt
 from perfbench.reference.optim import AdamW, ramp_lr
 
@@ -69,7 +70,8 @@ def block_loss(params, targets, cfg, ids, mask, rewards, n_total: float,
     positions = torch.arange(T, device=ids.device).expand(B, T)
     h = gpt.trunk(get, cfg, ids, mask, prec, positions=positions,
                   key_mask=mask)
-    hn = gpt.final_norm(get, cfg, h)
+    model = harness.arch(cfg)
+    hn = model.final_norm(get, cfg, h)
     labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
     V = cfg["vocab_size"]
     labels = labels.clamp(0, V - 1)
@@ -103,7 +105,7 @@ def block_loss(params, targets, cfg, ids, mask, rewards, n_total: float,
 
     loss_cql = sum(ce(q) for q in qs)
     del qs
-    loss_awac = ce(gpt.lm_logits(get, cfg, hn, prec))
+    loss_awac = ce(model.lm_logits(get, cfg, hn, prec))
     loss = loss_q + loss_v + method["cql_scale"] * loss_cql \
         + method["awac_scale"] * loss_awac
     return loss

@@ -22,6 +22,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from perfbench import harness
 from perfbench.reference import gpt
 from perfbench.reference.optim import AdamW
 
@@ -34,7 +35,7 @@ def gen_mask_of(response: torch.Tensor, eos: int) -> torch.Tensor:
 
 
 def layer_weights(sd, cfg, i: int) -> Dict[str, torch.Tensor]:
-    prefix = f"transformer.h.{i}."
+    prefix = harness.arch(cfg).layer_prefix(cfg, i)
     return {k: v.float() for k, v in sd.items() if k.startswith(prefix)}
 
 
@@ -48,13 +49,14 @@ def rollout(sd, cfg: Dict, query, qmask, response, v_head, r_head,
     N, P = query.shape
     G = response.shape[1]
     L = cfg["n_layer"]
+    model = harness.arch(cfg)
     tokens = torch.cat([query, response], dim=1)
     mask = torch.cat([qmask, torch.ones_like(response)], dim=1)
     positions = gpt.positions_of(mask)
     gen_mask = gen_mask_of(response, eos)
     out = {"gen_mask": gen_mask}
     with gpt.exact_float32():
-        h = gpt.embed(sd.__getitem__, cfg, tokens, positions)
+        h = model.embed(sd.__getitem__, cfg, tokens, positions)
         blocks = [slice(s, s + rows_per_block)
                   for s in range(0, N, rows_per_block)]
         biases = [gpt.causal_bias(mask[b]) for b in blocks]
@@ -63,14 +65,15 @@ def rollout(sd, cfg: Dict, query, qmask, response, v_head, r_head,
                 out["h_split"] = h.clone()
             w = layer_weights(sd, cfg, i)
             for b, bias in zip(blocks, biases):
-                h[b] = gpt.block(w.__getitem__, cfg, i, h[b], bias,
-                                 positions[b], prec)
+                h[b] = model.block(w.__getitem__, cfg, i, h[b], bias,
+                                   positions[b], prec, mask[b])
             del w
-        hn = gpt.final_norm(sd.__getitem__, cfg, h)
+        hn = model.final_norm(sd.__getitem__, cfg, h)
         del h
         logprobs = []
         for b in blocks:
-            logits = gpt.lm_logits(sd.__getitem__, cfg, hn[b, P - 1:-1], prec)
+            logits = model.lm_logits(sd.__getitem__, cfg, hn[b, P - 1:-1],
+                                     prec)
             logprobs.append(torch.gather(torch.log_softmax(logits, -1), -1,
                                          response[b, :, None].long())[..., 0])
         out["logprobs"] = torch.cat(logprobs)
@@ -112,15 +115,20 @@ def masked_mean(x, mask):
     return (x * m).sum() / m.sum().clamp(min=1)
 
 
+def top_prefixes(cfg: Dict, k_top: int):
+    """Name prefixes of the top ``k_top`` blocks and of the parameters
+    after them."""
+    model, L = harness.arch(cfg), cfg["n_layer"]
+    return tuple(model.layer_prefix(cfg, i) for i in range(L - k_top, L)) \
+        + tuple(model.final_prefixes(cfg))
+
+
 def top_params(sd, cfg: Dict, v_head, k_top: int) -> Dict[str, torch.Tensor]:
-    """The trainable float32 leaves: the top blocks, ln_f, the LM head
-    and the value head (``v_head.<w1|b1|w2|b2>``)."""
-    L = cfg["n_layer"]
-    keep = [f"transformer.h.{i}." for i in range(L - k_top, L)]
+    """The trainable float32 leaves: the top blocks, the parameters after
+    them (the final norm, an untied LM head) and the value head
+    (``v_head.<w1|b1|w2|b2>``)."""
     out = {k: v.detach().float().clone().requires_grad_(True)
-           for k, v in sd.items()
-           if any(k.startswith(p) for p in keep) or k.startswith(
-               ("transformer.ln_f.", "lm_head."))}
+           for k, v in sd.items() if k.startswith(top_prefixes(cfg, k_top))}
     for k, v in v_head.items():
         out[f"v_head.{k}"] = v.detach().float().clone().requires_grad_(True)
     return out
@@ -141,6 +149,7 @@ def updates(sd, cfg: Dict, v_head, batch: Dict[str, torch.Tensor],
     opt = AdamW([params[n] for n in names], train["grad_clip"],
                 train["weight_decay"])
     L = cfg["n_layer"]
+    model = harness.arch(cfg)
     query, response = batch["query"], batch["response"]
     P = query.shape[1]
     mask = torch.cat([batch["qmask"], torch.ones_like(response)], dim=1)
@@ -156,12 +165,11 @@ def updates(sd, cfg: Dict, v_head, batch: Dict[str, torch.Tensor],
     out = {"losses": []}
 
     def block_loss(b):
-        h = batch["h_split"][b]
-        bias = gpt.causal_bias(mask[b])
-        for i in range(L - k_top, L):
-            h = gpt.block(get, cfg, i, h, bias, positions[b], prec)
-        hn = gpt.final_norm(get, cfg, h)[:, P - 1:-1]
-        logits = gpt.lm_logits(get, cfg, hn, prec)
+        h = gpt.trunk(get, cfg, None, mask[b], prec,
+                      layers=range(L - k_top, L), h=batch["h_split"][b],
+                      positions=positions[b])
+        hn = model.final_norm(get, cfg, h)[:, P - 1:-1]
+        logits = model.lm_logits(get, cfg, hn, prec)
         lp = torch.gather(torch.log_softmax(logits, -1), -1,
                           response[b, :, None].long())[..., 0]
         v = gpt.head(head, hn, prec)[..., 0]

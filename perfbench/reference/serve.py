@@ -8,6 +8,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from perfbench import harness
 from perfbench.reference import gpt
 from perfbench.reference.ppo import layer_weights
 
@@ -17,27 +18,28 @@ def logits(sd, cfg: Dict, rows: Sequence[Tuple[List[int], List[int]]],
            prec: gpt.Precision, device) -> List[torch.Tensor]:
     """Per (prompt, served) row: float32 logits [n_served, V] at the
     positions that predict each served token."""
-    hs, biases, positions, seqs = [], [], [], []
+    model = harness.arch(cfg)
+    hs, biases, positions, masks = [], [], [], []
     with gpt.exact_float32():
         for prompt, served in rows:
             tokens = torch.as_tensor([list(prompt) + list(served[:-1])],
                                      device=device)
             mask = torch.ones_like(tokens)
             pos = gpt.positions_of(mask)
-            seqs.append(tokens)
+            masks.append(mask)
             positions.append(pos)
             biases.append(gpt.causal_bias(mask))
-            hs.append(gpt.embed(sd.__getitem__, cfg, tokens, pos))
+            hs.append(model.embed(sd.__getitem__, cfg, tokens, pos))
         for i in range(cfg["n_layer"]):
             w = layer_weights(sd, cfg, i)
             for j in range(len(hs)):
-                hs[j] = gpt.block(w.__getitem__, cfg, i, hs[j], biases[j],
-                                  positions[j], prec)
+                hs[j] = model.block(w.__getitem__, cfg, i, hs[j], biases[j],
+                                    positions[j], prec, masks[j])
             del w
         out = []
         for (prompt, served), h in zip(rows, hs):
-            hn = gpt.final_norm(sd.__getitem__, cfg, h[0, len(prompt) - 1:])
-            out.append(gpt.lm_logits(sd.__getitem__, cfg, hn, prec))
+            hn = model.final_norm(sd.__getitem__, cfg, h[0, len(prompt) - 1:])
+            out.append(model.lm_logits(sd.__getitem__, cfg, hn, prec))
     return out
 
 

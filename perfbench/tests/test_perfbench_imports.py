@@ -1,6 +1,7 @@
 """What the benchmark may import: nothing of the JAX side on the chip
 path (compared by whole top-level names: trlx_tpu_torch starts with
-trlx_tpu), and nothing of the program in the plain reference."""
+trlx_tpu), and nothing of the program in the plain reference, the
+architectures' modules included."""
 
 import ast
 import os
@@ -37,7 +38,8 @@ def test_no_jax_side_on_the_chip_path(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    modules(os.path.join(harness.HERE, "reference"))))
+    [*modules(os.path.join(harness.HERE, "reference")),
+     *modules(os.path.join(harness.HERE, "arch"))]))
 def test_reference_imports_nothing_of_the_program(path):
     assert "trlx_tpu_torch" not in set(top_level_imports(path)), path
 

@@ -41,17 +41,20 @@ def test_paged_bound_by_hand():
 
 @pytest.mark.parametrize("n", [1, 3])
 def test_model_flops_by_hand(n):
-    spec = {"d_model": 2, "d_ff": 8, "n_layer": 1, "vocab_size": 5}
+    spec = {"arch": "gptj", "d_model": 2, "d_ff": 8, "n_layer": 1,
+            "n_head": 1, "vocab_size": 5}
     per_token = 2 * (4 * 2 * 2 + 2 * 2 * 8)
     attention = 4 * 2 * (n * (n + 1) // 2)
-    assert yardstick.forward_flops(spec, [n], 1) == per_token * n + attention
-    assert yardstick.prefill_flops(spec, n) == per_token * n + attention \
-        + 2 * 2 * 5
+    layers = range(1)
+    assert yardstick.forward_flops(spec, layers, [n]) == \
+        per_token * n + attention
+    assert yardstick.prefill_flops(spec, layers, n) == \
+        per_token * n + attention + 2 * 2 * 5
     # decoding one token after n: every block once, n + 1 keys, the head
-    assert yardstick.decode_flops(spec, n, 1) == per_token + 4 * 2 * (n + 1) \
-        + 2 * 2 * 5
+    assert yardstick.decode_flops(spec, layers, n, 1) == \
+        per_token + 4 * 2 * (n + 1) + 2 * 2 * 5
     assert yardstick.head_flops(2, 5) == 2 * (2 * 4 + 4 * 5)
     # n more tokens after 4 cached: n tokens through the block, each
     # attending to the 4 cached keys and causally among themselves
-    assert yardstick.prefill_flops(spec, 4 + n, cached=4) == \
+    assert yardstick.prefill_flops(spec, layers, 4 + n, cached=4) == \
         per_token * n + 4 * 2 * (4 * n + n * (n + 1) // 2) + 2 * 2 * 5

@@ -1,4 +1,7 @@
 """Seeded checkpoints in Hugging Face's layout, made on the device.
+The layout (each matrix's name and shape of any rank, each bias and norm
+vector) is the architecture's: ``matrices`` and ``vectors`` of its
+module, ``arch/<arch>.py``.
 
 Both sides of a run read these: the program through its own converter,
 and the plain reference (``perfbench/reference``) directly. Every matrix
@@ -11,68 +14,19 @@ out) scaled by 1 / sqrt(2 n_layer), zero biases, unit norm scales.
 """
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict
 
 import torch
 
-
-def _matrices(cfg: Dict) -> List[Tuple[str, tuple, bool]]:
-    """(name, shape, residual) of every matrix of the checkpoint."""
-    d, f, V, L = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"], \
-        cfg["n_layer"]
-    out = [("transformer.wte.weight", (V, d), False)]
-    if cfg["arch"] == "gpt2":
-        out.append(("transformer.wpe.weight", (cfg["n_positions"], d),
-                    False))
-        for i in range(L):
-            h = f"transformer.h.{i}."
-            out += [(h + "attn.c_attn.weight", (d, 3 * d), False),
-                    (h + "attn.c_proj.weight", (d, d), True),
-                    (h + "mlp.c_fc.weight", (d, f), False),
-                    (h + "mlp.c_proj.weight", (f, d), True)]
-        return out
-    if cfg["arch"] != "gptj":
-        raise ValueError(f"no checkpoint layout for arch {cfg['arch']!r}")
-    for i in range(L):
-        h = f"transformer.h.{i}."
-        out += [(h + "attn.q_proj.weight", (d, d), False),
-                (h + "attn.k_proj.weight", (d, d), False),
-                (h + "attn.v_proj.weight", (d, d), False),
-                (h + "attn.out_proj.weight", (d, d), True),
-                (h + "mlp.fc_in.weight", (f, d), False),
-                (h + "mlp.fc_out.weight", (d, f), True)]
-    out.append(("lm_head.weight", (V, d), False))
-    return out
-
-
-def _vectors(cfg: Dict) -> List[Tuple[str, int, float]]:
-    """(name, size, value) of every bias and norm parameter."""
-    d, f, V, L = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"], \
-        cfg["n_layer"]
-    out = [("transformer.ln_f.weight", d, 1.0),
-           ("transformer.ln_f.bias", d, 0.0)]
-    for i in range(L):
-        h = f"transformer.h.{i}."
-        out += [(h + "ln_1.weight", d, 1.0), (h + "ln_1.bias", d, 0.0)]
-        if cfg["arch"] == "gpt2":
-            out += [(h + "ln_2.weight", d, 1.0), (h + "ln_2.bias", d, 0.0),
-                    (h + "attn.c_attn.bias", 3 * d, 0.0),
-                    (h + "attn.c_proj.bias", d, 0.0),
-                    (h + "mlp.c_fc.bias", f, 0.0),
-                    (h + "mlp.c_proj.bias", d, 0.0)]
-        else:
-            out += [(h + "mlp.fc_in.bias", f, 0.0),
-                    (h + "mlp.fc_out.bias", d, 0.0)]
-    if cfg["arch"] == "gptj":
-        out.append(("lm_head.bias", V, 0.0))
-    return out
+from perfbench import harness
 
 
 @torch.no_grad()
 def state_dict(cfg: Dict, seed: int, device, dtype) -> Dict[str, torch.Tensor]:
     """The seeded checkpoint of model config ``cfg`` (perfbench/configs'
     ``spec`` block) on ``device`` in ``dtype``."""
-    mats = _matrices(cfg)
+    model = harness.arch(cfg)
+    mats = model.matrices(cfg)
     total = sum(math.prod(shape) for _, shape, _ in mats)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
@@ -87,7 +41,7 @@ def state_dict(cfg: Dict, seed: int, device, dtype) -> Dict[str, torch.Tensor]:
             view.mul_(resid)
         sd[name] = view
         at += n
-    vecs = _vectors(cfg)
+    vecs = model.vectors(cfg)
     ones = torch.ones(sum(n for _, n, v in vecs if v == 1.0), dtype=dtype,
                       device=device)
     zeros = torch.zeros(sum(n for _, n, v in vecs if v == 0.0), dtype=dtype,

@@ -10,6 +10,8 @@ against.
 
 from typing import Dict, Optional
 
+from perfbench import harness
+
 #: published dense peaks of a card, by ``torch.cuda.get_device_name()``:
 #: bf16 tensor-core FLOP/s and HBM bytes/s (NVIDIA's data sheet, SXM part,
 #: at its 700 W limit)
@@ -107,21 +109,26 @@ def paged_bound(S: int, H: int, Hkv: int, hd: int, page_size: int,
 
 
 # --------------------------------------------------------------------- #
-# model FLOPs (matmuls and attention; norms, softmax and biases left out)
+# model FLOPs (matmuls and attention; norms, softmax and biases left out),
+# summed over layer indices from each layer's count in its architecture's
+# module (``arch/<arch>.py``)
 # --------------------------------------------------------------------- #
 
 
-def layer_flops_per_token(spec: dict) -> int:
-    """Forward FLOPs of one block's projections for one token: q, k, v, o
-    and the two MLP matrices."""
-    d, f = spec["d_model"], spec["d_ff"]
-    return 2 * (4 * d * d + 2 * d * f)
+def _layer_sums(spec: dict, layers) -> tuple:
+    """Over the layers with these indices: the projections' forward FLOPs
+    for one token, and the attention width (H x hd) of those that
+    attend; each layer's numbers from its architecture's module."""
+    model = harness.arch(spec)
+    return (sum(model.layer_flops_per_token(spec, i) for i in layers),
+            sum(model.attention_width(spec, i) for i in layers))
 
 
-def attention_flops(spec: dict, pairs: int) -> int:
-    """Forward FLOPs of one block's attention over ``pairs`` (query, key)
-    pairs: QK^T and PV, H x hd = d_model wide."""
-    return 4 * spec["d_model"] * pairs
+def attention_flops(width: int, pairs: int) -> int:
+    """Forward FLOPs of attention ``width`` (H x hd, summed over the
+    layers that attend) wide over ``pairs`` (query, key) pairs: QK^T and
+    PV."""
+    return 2 * 2 * width * pairs
 
 
 def causal_pairs(n: int) -> int:
@@ -129,15 +136,13 @@ def causal_pairs(n: int) -> int:
     return n * (n + 1) // 2
 
 
-def forward_flops(spec: dict, lengths, layers: int) -> int:
-    """Forward FLOPs of ``layers`` blocks over rows of the given real
-    lengths, each row attending causally within itself."""
-    per_token = layer_flops_per_token(spec)
-    total = 0
-    for n in lengths:
-        total += layers * (per_token * n
-                           + attention_flops(spec, causal_pairs(n)))
-    return total
+def forward_flops(spec: dict, layers, lengths) -> int:
+    """Forward FLOPs of the layers with these indices (a ``range``) over
+    rows of the given real lengths, each row attending causally within
+    itself."""
+    per_token, width = _layer_sums(spec, layers)
+    return sum(per_token * n + attention_flops(width, causal_pairs(n))
+               for n in lengths)
 
 
 def head_flops(d_in: int, d_out: int) -> int:
@@ -150,27 +155,30 @@ def lm_head_flops(spec: dict) -> int:
     return 2 * spec["d_model"] * spec["vocab_size"]
 
 
-def decode_flops(spec: dict, prompt_len: int, new_tokens: int) -> int:
+def decode_flops(spec: dict, layers, prompt_len: int,
+                 new_tokens: int) -> int:
     """Forward FLOPs of decoding ``new_tokens`` after a prompt of
-    ``prompt_len`` real tokens: every block and the LM head per token,
-    each token attending to the context before it and itself."""
-    L = spec["n_layer"]
+    ``prompt_len`` real tokens: the layers with these indices and the LM
+    head per token, each token attending to the context before it and
+    itself."""
+    per_token, width = _layer_sums(spec, layers)
     total = 0
     for i in range(new_tokens):
         ctx = prompt_len + i + 1
-        total += L * (layer_flops_per_token(spec)
-                      + attention_flops(spec, ctx)) + lm_head_flops(spec)
+        total += per_token + attention_flops(width, ctx) \
+            + lm_head_flops(spec)
     return total
 
 
-def prefill_flops(spec: dict, prompt_len: int, cached: int = 0) -> int:
-    """A prompt's forward through every block, and the LM head at its
-    last position. ``cached``: the first tokens already held (a prefix
-    cache's hit), whose forward is not needed: only the other tokens run
-    through the blocks, each attending to the cached tokens and causally
-    to those before it."""
+def prefill_flops(spec: dict, layers, prompt_len: int,
+                  cached: int = 0) -> int:
+    """A prompt's forward through the layers with these indices, and the
+    LM head at its last position. ``cached``: the first tokens already
+    held (a prefix cache's hit), whose forward is not needed: only the
+    other tokens run through the layers, each attending to the cached
+    tokens and causally to those before it."""
     n = prompt_len - cached
     pairs = n * cached + causal_pairs(n)
-    return spec["n_layer"] * (layer_flops_per_token(spec) * n
-                              + attention_flops(spec, pairs)) \
+    per_token, width = _layer_sums(spec, layers)
+    return per_token * n + attention_flops(width, pairs) \
         + lm_head_flops(spec)
